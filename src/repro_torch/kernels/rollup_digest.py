@@ -1,0 +1,156 @@
+"""Rollup validity digest: the xor-mix fold of a whole buffer or its chunks.
+
+``rollup_digest`` folds a buffer to one u32 word (the per-seal update
+digest); ``rollup_chunk_digests`` gives one word per ``chunk``-word chunk
+(the state commitment).  A digest is ``SEED ^ xor_j mix(w_j)`` with
+``mix(w) = (w ^ (w >> 16)) * 0x85EBCA6B mod 2^32``.
+
+Words cross every boundary of the port as ``int32`` tensors that carry the
+u32 bits; float32 input is bitcast.  Each op has two forms:
+
+* the plain PyTorch version (``*_torch``): the mix in int64 masked to 32
+  bits, the multiply split into the constant's 16-bit halves so that no
+  product passes 2^48, and the xor reduction by pairwise halving over zero
+  padding (zero words mix to zero);
+* the wrapper, which runs the plain version for a CPU tensor and launches
+  the CUDA kernel in ``csrc/fold.cu`` for a CUDA tensor, counting each
+  launch in its ``launches`` attribute.
+
+``rollup_digest`` kernel: replaces the Pallas ``_kernel`` of
+``src/repro/kernels/rollup_digest.py:16``.  Bound: 4·P bytes read over the
+card's memory rate.  Design: a grid-stride loop of 16-byte loads, a warp
+then block xor-reduce, one ``atomicXor`` per block into an output word
+that starts at the seed (xor is associative, so the result does not depend
+on the order the blocks land in).
+
+``rollup_chunk_digests`` kernel: replaces ``_chunk_kernel``
+(``src/repro/kernels/rollup_digest.py:76``).  Bound: 4·P bytes read plus
+one word written per chunk.  Design: one block per chunk; the ragged tail
+chunk is masked in the kernel, so no padded copy of the buffer is made.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+MIX_MULT = 0x85EBCA6B
+MIX_SEED = 0x9E3779B9
+MASK = 0xFFFFFFFF
+SEED_I32 = MIX_SEED - (1 << 32)           # the seed's bits as an int32
+_MULT_HI, _MULT_LO = MIX_MULT >> 16, MIX_MULT & 0xFFFF
+
+
+# -- plain helpers shared by every fold of the port --------------------------
+
+def as_words(buf: torch.Tensor) -> torch.Tensor:
+    """A 1-D buffer as contiguous int32 words carrying u32 bits: int32 and
+    uint32 pass through, anything else is cast to float32 and bitcast."""
+    buf = buf.reshape(-1)
+    if buf.dtype == torch.int32:
+        return buf.contiguous()
+    if buf.dtype == torch.uint32:
+        return buf.contiguous().view(torch.int32)
+    return buf.to(torch.float32).contiguous().view(torch.int32)
+
+
+def to_u32(words: torch.Tensor) -> torch.Tensor:
+    """int32 bits -> int64 values in [0, 2^32)."""
+    return words.to(torch.int64) & MASK
+
+
+def to_i32(values: torch.Tensor) -> torch.Tensor:
+    """int64 values (any range) -> int32 carrying their low 32 bits."""
+    v = values & MASK
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def mix_u32(v: torch.Tensor) -> torch.Tensor:
+    """THE xor-mix on int64 values in [0, 2^32): ``(v ^ (v >> 16)) *
+    MIX_MULT mod 2^32``, multiplying by the constant's 16-bit halves."""
+    x = v ^ (v >> 16)
+    return (x * _MULT_LO + (((x * _MULT_HI) & 0xFFFF) << 16)) & MASK
+
+
+def xor_reduce(x: torch.Tensor) -> torch.Tensor:
+    """Xor over the last axis by pairwise halving (zero padding to a power
+    of two; an empty axis reduces to 0)."""
+    n = x.shape[-1]
+    width = 1 << max(0, n - 1).bit_length()
+    if width != n:
+        pad = x.new_zeros(*x.shape[:-1], width - n)
+        x = torch.cat([x, pad], dim=-1)
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] ^ x[..., h:]
+    return x[..., 0]
+
+
+def check_cuda(*tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+    return dev
+
+
+# -- rollup_digest: whole buffer -> one word ---------------------------------
+
+def rollup_digest_torch(buf: torch.Tensor) -> torch.Tensor:
+    """Plain version: 0-d int32 digest of the whole buffer."""
+    mixed = mix_u32(to_u32(as_words(buf)))
+    return to_i32(MIX_SEED ^ xor_reduce(mixed))
+
+
+def rollup_digest(buf: torch.Tensor) -> torch.Tensor:
+    """0-d int32 digest of ``buf`` (int32 words, or float32 bitcast)."""
+    words = as_words(buf)
+    if words.device.type == "cpu":
+        return rollup_digest_torch(words)
+    dev = check_cuda(words)
+    out = torch.full((), SEED_I32, dtype=torch.int32, device=dev)
+    if words.numel():
+        _build.launch("fold_rollup_digest", dev, words.data_ptr(),
+                      words.numel(), out.data_ptr())
+        rollup_digest.launches += 1
+    return out
+
+
+rollup_digest.launches = 0
+
+
+# -- rollup_chunk_digests: one word per chunk --------------------------------
+
+def rollup_chunk_digests_torch(buf: torch.Tensor,
+                               chunk: int = 2048) -> torch.Tensor:
+    """Plain version: (ceil(P/chunk),) int32 digests, zero-padded tail; an
+    empty buffer gives the one digest of an empty chunk (the seed)."""
+    v = to_u32(as_words(buf))
+    pad = (-v.numel()) % chunk if v.numel() else chunk
+    if pad:
+        v = torch.cat([v, v.new_zeros(pad)])
+    return to_i32(MIX_SEED ^ xor_reduce(mix_u32(v).reshape(-1, chunk)))
+
+
+def rollup_chunk_digests(buf: torch.Tensor, chunk: int = 2048
+                         ) -> torch.Tensor:
+    """(ceil(P/chunk),) int32 digests, one per ``chunk``-word chunk."""
+    if chunk < 1:
+        raise ValueError("chunk must be >= 1")
+    words = as_words(buf)
+    if words.device.type == "cpu":
+        return rollup_chunk_digests_torch(words, chunk)
+    dev = check_cuda(words)
+    if not words.numel():
+        return torch.full((1,), SEED_I32, dtype=torch.int32, device=dev)
+    n_chunks = -(-words.numel() // chunk)
+    out = torch.empty(n_chunks, dtype=torch.int32, device=dev)
+    _build.launch("fold_chunk_digests", dev, words.data_ptr(),
+                  words.numel(), chunk, out.data_ptr())
+    rollup_chunk_digests.launches += 1
+    return out
+
+
+rollup_chunk_digests.launches = 0

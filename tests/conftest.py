@@ -9,6 +9,13 @@ skipped there.
 """
 import pytest
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (skips in its fixture "
+        "where none is present)")
+
+
 try:
     import hypothesis  # noqa: F401
     HAVE_HYPOTHESIS = True
