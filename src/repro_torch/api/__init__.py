@@ -13,8 +13,9 @@ from repro_torch.api.client import (RECEIPT_STATUSES, AccountView,
                                     NodeClient, TxReceipt)
 from repro_torch.api.factory import (build_chain, build_ledger, build_stack,
                                      l1_of)
-from repro_torch.api.specs import (ChainSpec, NodeSpec, ProverSpec,
-                                   RollupSpec, WorkloadSpec)
+from repro_torch.api.specs import (ChainSpec, DONSpec, FLTaskSpec,
+                                   NodeSpec, ProverSpec, ReputationSpec,
+                                   RollupSpec, WorkloadSpec, as_task_spec)
 from repro_torch.core.events import (AggregateVerified, BatchSealed,
                                      BlockPacked, EventsDropped, LedgerEvent,
                                      ProofGenerated, WindowSettled)
@@ -22,7 +23,8 @@ from repro_torch.core.events import (AggregateVerified, BatchSealed,
 __all__ = [
     "AccountView", "NodeClient", "TxReceipt", "RECEIPT_STATUSES",
     "build_chain", "build_ledger", "build_stack", "l1_of",
-    "ChainSpec", "NodeSpec", "ProverSpec", "RollupSpec", "WorkloadSpec",
+    "ChainSpec", "DONSpec", "FLTaskSpec", "NodeSpec", "ProverSpec",
+    "ReputationSpec", "RollupSpec", "WorkloadSpec", "as_task_spec",
     "AggregateVerified", "BatchSealed", "BlockPacked", "EventsDropped",
     "LedgerEvent", "ProofGenerated", "WindowSettled",
 ]

@@ -1,13 +1,15 @@
-"""Typed node-construction specs of the port: the ledger part of
-``src/repro/api/specs.py``.
+"""Typed node-construction specs of the port (``src/repro/api/specs.py``).
 
 Specs are data: frozen, comparable, serializable (``asdict``).  A node is
 a ``NodeSpec`` of a ``ChainSpec`` (the L1), an optional ``RollupSpec``
 (the L2 sequencer) and an optional ``ProverSpec`` (the proof pipeline),
-handed to ``repro_torch.api.build_ledger`` or ``NodeClient.from_spec``.
+with the FL protocol's constants (``ReputationSpec``, ``DONSpec``, funds,
+trainer count), handed to ``repro_torch.api.build_ledger``,
+``NodeClient.from_spec`` or ``repro_torch.fl.server.AutoDFL``.
+``FLTaskSpec`` describes one FL task.
 
-``ShardSpec``, ``ReputationSpec``, ``DONSpec``, ``FLTaskSpec``,
-``AdmissionSpec`` and ``ServeSpec`` are not ported yet (ROADMAP.md).
+``ShardSpec``, ``AdmissionSpec``, ``ServeSpec`` and
+``NodeSpec.from_legacy`` are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.core.gas import DEFAULT_GAS, ROLLUP_BATCH, GasTable
+from repro_torch.core.oracle import DONConfig
 from repro_torch.core.prover import FINALIZE_MODES
+from repro_torch.core.reputation import ReputationParams
 from repro_torch.core.state import DIGEST_BACKENDS
 
 #: engine paths a ChainSpec can select
@@ -122,15 +126,77 @@ class WorkloadSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class ReputationSpec(ReputationParams):
+    """Paper Eq. 2-10 constants, as a spec (field docs on
+    core/reputation.ReputationParams)."""
+
+    def to_params(self) -> ReputationParams:
+        return ReputationParams(**dataclasses.asdict(self))
+
+
+@dataclasses.dataclass(frozen=True)
+class DONSpec(DONConfig):
+    """Decentralized oracle network quorum config (core/oracle.DONConfig)."""
+
+    def to_config(self) -> DONConfig:
+        return DONConfig(**dataclasses.asdict(self))
+
+
+@dataclasses.dataclass(frozen=True)
+class FLTaskSpec:
+    """One FL task's lifecycle parameters (paper Fig. 1 steps 1-16),
+    consumed by ``AutoDFL.run_task`` and ``Scheduler.add_task``."""
+
+    task_id: str
+    rounds: int = 5
+    reward: float = 10.0
+    n_select: Optional[int] = None
+    start_window: int = 0
+    init_seed: int = 0
+
+
+def as_task_spec(task, **kw) -> FLTaskSpec:
+    """A task-id string plus loose kwargs becomes an FLTaskSpec (defaults
+    live on FLTaskSpec alone); an FLTaskSpec passes through, rejecting
+    extra kwargs it would otherwise shadow."""
+    if isinstance(task, str):
+        return FLTaskSpec(task, **{k: v for k, v in kw.items()
+                                   if v is not None})
+    if not isinstance(task, FLTaskSpec):
+        raise TypeError(f"expected task id or FLTaskSpec, got {task!r}")
+    extra = {k for k, v in kw.items() if v is not None}
+    if extra:
+        raise ValueError(f"kwargs {sorted(extra)} conflict with the "
+                         f"FLTaskSpec; set them on the spec")
+    return task
+
+
+@dataclasses.dataclass(frozen=True)
 class NodeSpec:
-    """A ledger node: L1 + optional L2 + optional proof pipeline, and the
-    background traffic it is driven with."""
+    """A node: L1 + optional L2 + optional proof pipeline, the FL
+    protocol's constants, and the background traffic it is driven with.
+
+    ``n_trainers=None`` defers the cohort size to ``AutoDFL``'s positional
+    argument.  ``use_pallas_agg`` is kept so that specs and ``describe()``
+    match the JAX package's, but it chooses no code in the port: Eq. 1
+    always runs through the kernel factory's ``weighted_agg`` op (the CUDA
+    kernel on the card).
+    """
 
     chain: ChainSpec = dataclasses.field(default_factory=ChainSpec)
     rollup: Optional[RollupSpec] = dataclasses.field(
         default_factory=RollupSpec)
     prover: Optional[ProverSpec] = None     # None = default proof pipeline
+    reputation: ReputationSpec = dataclasses.field(
+        default_factory=ReputationSpec)
+    don: DONSpec = dataclasses.field(default_factory=DONSpec)
+    n_trainers: Optional[int] = None
+    trainer_funds: float = 10.0
+    publisher_funds: float = 1000.0
+    seed: int = 0
+    use_pallas_agg: bool = False
     workload: Optional[WorkloadSpec] = None     # background traffic
+    tasks: Tuple[FLTaskSpec, ...] = ()          # declarative task set
 
     def __post_init__(self):
         if self.prover is not None and self.rollup is None:

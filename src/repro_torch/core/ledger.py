@@ -1,9 +1,10 @@
 """Ledger surface shared by the port's faces: the ``LedgerBackend``
-protocol, the legacy ``EventHooks`` callbacks and the object ``Tx``.
+protocol, the legacy ``EventHooks`` callbacks, the object ``Tx`` and the
+role contract ``AccessControl`` that the FL task contracts check.
 
-The object ``Chain``, ``AccessControl``, ``simulate_load`` and
-``simulate_workload`` of ``src/repro/core/ledger.py`` are not ported yet
-(ROADMAP.md, queue 1 item 7).
+The object ``Chain``, ``simulate_load`` and ``simulate_workload`` of
+``src/repro/core/ledger.py`` are not ported yet (ROADMAP.md, queue 1
+item 7).
 """
 from __future__ import annotations
 
@@ -12,6 +13,9 @@ import hashlib
 import json
 from typing import (Any, Callable, Dict, List, Optional, Protocol,
                     runtime_checkable)
+
+ROLES = ("admin", "task_publisher", "trainer", "evaluator", "aggregator",
+         "validator", "oracle")
 
 
 @runtime_checkable
@@ -84,3 +88,48 @@ class Tx:
                             sorted(self.payload.items(), key=str)],
                            default=str).encode()).hexdigest()
             self.tx_id = h[:16]
+
+
+class AccessControl:
+    """ASC: role-based permissioning with admin majority voting (Sybil /
+    whitewashing mitigation: only the consortium can add or re-add
+    users)."""
+
+    def __init__(self, admins: List[str]):
+        self.admins = set(admins)
+        self.roles: Dict[str, set] = {a: {"admin"} for a in admins}
+        self.banned: set = set()
+        self._votes: Dict[str, set] = {}
+
+    def _check_admin(self, admin: str) -> None:
+        if admin not in self.admins:
+            raise PermissionError(f"{admin!r} is not an admin")
+
+    def grant(self, admin: str, user: str, role: str):
+        self._check_admin(admin)
+        if role not in ROLES:
+            raise ValueError(f"unknown role {role!r}; choose from {ROLES}")
+        if user in self.banned:
+            raise PermissionError("banned identity: consortium vote required")
+        self.roles.setdefault(user, set()).add(role)
+
+    def has_role(self, user: str, role: str) -> bool:
+        return role in self.roles.get(user, ())
+
+    def ban(self, admin: str, user: str):
+        self._check_admin(admin)
+        self.banned.add(user)
+        self.roles.pop(user, None)
+
+    def vote_readmit(self, admin: str, user: str) -> bool:
+        """Whitewashing guard: a strict majority of admins (self-votes
+        rejected, double votes idempotent) re-admits a banned user."""
+        self._check_admin(admin)
+        if admin == user:
+            raise PermissionError("self-readmission vote rejected")
+        self._votes.setdefault(user, set()).add(admin)
+        if len(self._votes[user]) * 2 > len(self.admins):
+            self.banned.discard(user)
+            del self._votes[user]
+            return True
+        return False

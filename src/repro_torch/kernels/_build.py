@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA kernels (``csrc/fold.cu``).
+"""Build and load the port's CUDA kernels (every ``csrc/*.cu``).
 
-The source has a plain C interface, so it builds with ``nvcc`` alone into a
-shared library (seconds, against minutes for a source that includes
-PyTorch's headers) and loads with ``ctypes``.  The library goes to
-``build/repro_torch/libfold.so`` at the root of the checkout, at the first
-launch, and is rebuilt when the source is newer.  Nothing here runs at
+The sources have a plain C interface, so they build with ``nvcc`` alone
+(seconds, against minutes for a source that includes PyTorch's headers)
+and load with ``ctypes``.  Each source compiles to an object file, all of
+them at once in parallel ``nvcc`` processes; one more ``nvcc`` links the
+objects into the one shared library ``build/repro_torch/librepro_torch.so``
+at the root of the checkout.  That happens at the first launch, and again
+whenever any source is newer than the library.  Nothing here runs at
 import time: the CPU tests import every module of the port.
 """
 from __future__ import annotations
@@ -16,22 +18,28 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import List
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "fold.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-LIBRARY = BUILD_DIR / "libfold.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+LIBRARY = BUILD_DIR / "librepro_torch.so"
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                 "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-c")
 
-# (launcher, argument types) of every function csrc/fold.cu exports
-_D, _P, _I = ctypes.c_int, ctypes.c_void_p, ctypes.c_int64
+# (launcher, argument types) of every function the sources export; the
+# stream is appended to each
+_D, _P, _I, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
+    # csrc/fold.cu
     "fold_rollup_digest": (_D, _P, _I, _P, _P),
     "fold_chunk_digests": (_D, _P, _I, _I, _P, _P),
     "fold_dirty_chunks": (_D, _P, _I, _I, _P, _I, _P, _P),
     "fold_batch_seal": (_D, _P, _I, _P, _I, _P, _P),
+    # csrc/fl.cu: (device, in, in, n, P, dtype flag, out, stream)
+    "fl_weighted_agg": (_D, _P, _P, _I, _I, _F, _P, _P),
+    "fl_model_distance": (_D, _P, _P, _I, _I, _F, _P, _P),
 }
 
 _LIB = None
@@ -42,6 +50,10 @@ class BuildResult:
     path: Path
     seconds: float
     log: str                      # nvcc's output (register and smem use)
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
 
 
 def nvcc_path() -> str:
@@ -56,23 +68,48 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _up_to_date() -> bool:
+    if not LIBRARY.is_file():
+        return False
+    built = LIBRARY.stat().st_mtime
+    return all(src.stat().st_mtime <= built for src in sources())
+
+
 def build(force: bool = False) -> BuildResult:
-    """Compile ``fold.cu`` into ``LIBRARY`` unless it is up to date."""
-    if (not force and LIBRARY.is_file()
-            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
+    """Compile every ``csrc/*.cu`` (in parallel) and link them into
+    ``LIBRARY``, unless the library is newer than every source."""
+    if not force and _up_to_date():
         return BuildResult(LIBRARY, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f"libfold.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    nvcc, tag = nvcc_path(), f"{os.getpid()}.tmp"
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    tmp = LIBRARY.with_name(f"{LIBRARY.stem}.{tag}.so")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    try:
+        procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources(), objects)]
+        logs = [f"== {src.name}\n{proc.communicate()[0]}"
+                for src, proc in zip(sources(), procs)]
+        failed = [(log, proc.returncode) for log, proc in zip(logs, procs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"({rc}) {log}" for log, rc in failed))
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objects)], capture_output=True,
+                              text=True, check=False)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{logs[-1]}")
+        os.replace(tmp, LIBRARY)      # atomic: no reader sees half a file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, LIBRARY)          # atomic: no reader sees half a file
-    return BuildResult(LIBRARY, seconds, log)
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    return BuildResult(LIBRARY, time.perf_counter() - t0, "\n".join(logs))
 
 
 def library() -> ctypes.CDLL:

@@ -1,4 +1,4 @@
-"""Swappable kernel factory for the port's ledger ops.
+"""Swappable kernel factory for the port's ledger and FL ops.
 
 Call sites ask the factory for an op instead of hard-wiring one form:
 
@@ -12,9 +12,12 @@ Impl keys:
   * ``"torch"`` — the plain PyTorch version, on any device.
 
 Selection: an explicit ``impl=`` wins; else the ``REPRO_TORCH_KERNEL_IMPL``
-environment variable; else ``"auto"``, the op's default.  Every impl of an
-op takes and returns int32 tensors carrying u32 bits, on the input's
-device, with identical bits.
+environment variable; else ``"auto"``, the op's default.  The ledger ops
+(``batch_seal``, ``rollup_digest``, ``rollup_chunk_digests``,
+``dirty_fold``) take and return int32 tensors carrying u32 bits, with
+identical bits from every impl.  The FL ops (``weighted_agg``, Eq. 1, and
+``model_distance``, Eq. 4) take float32 or bfloat16 and agree to float32
+rounding.  Every impl returns its result on the input's device.
 """
 from __future__ import annotations
 
@@ -42,13 +45,18 @@ def _load() -> None:
     _LOADED = True
     from repro_torch.kernels import batch_seal as bs
     from repro_torch.kernels import dirty_fold as df
+    from repro_torch.kernels import model_distance as md
     from repro_torch.kernels import rollup_digest as rd
+    from repro_torch.kernels import weighted_agg as wa
     for op, plain, wrapper in (
             ("batch_seal", bs.batch_seal_torch, bs.batch_seal),
             ("rollup_digest", rd.rollup_digest_torch, rd.rollup_digest),
             ("rollup_chunk_digests", rd.rollup_chunk_digests_torch,
              rd.rollup_chunk_digests),
-            ("dirty_fold", df.dirty_fold_torch, df.dirty_fold)):
+            ("dirty_fold", df.dirty_fold_torch, df.dirty_fold),
+            ("weighted_agg", wa.weighted_agg_torch, wa.weighted_agg),
+            ("model_distance", md.model_distance_torch,
+             md.model_distance)):
         register_kernel(op, "torch", plain)
         register_kernel(op, "cuda", wrapper, default=True)
 

@@ -1,4 +1,7 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+fold kernels bit for bit, the FL kernels (Eq. 1 and Eq. 4, float32
+accumulation in another order) at rtol 1e-5 / atol 1e-6 in float32 and
+2e-2 in bfloat16.
 
 Marked ``gpu``: they skip where no CUDA device is present (the skip is
 decided in the fixture, so every worker collects the same tests).  This
@@ -12,7 +15,9 @@ import torch
 
 from repro_torch.kernels import batch_seal as bs
 from repro_torch.kernels import dirty_fold as df
+from repro_torch.kernels import model_distance as md
 from repro_torch.kernels import rollup_digest as rd
+from repro_torch.kernels import weighted_agg as wa
 
 CHUNK = 2048
 
@@ -78,3 +83,48 @@ def test_batch_seal_kernel(cuda, n, n_segs):
     torch.testing.assert_close(bs.batch_seal(w, starts),
                                bs.batch_seal_torch(w, starts),
                                rtol=0, atol=0)
+
+
+def _fl_tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p,dtype", [
+    (2, 256, torch.float32), (4, 1000, torch.float32),
+    (16, 8192, torch.bfloat16), (64, 4096, torch.bfloat16),
+    (3, 130, torch.float32), (64, 2410, torch.float32),
+    (0, 7, torch.float32), (1, 1, torch.float32), (5, 0, torch.float32)])
+def test_fl_kernels(cuda, n, p, dtype):
+    g = torch.Generator().manual_seed(n * 1000 + p)
+    w = torch.randn(n, p, generator=g).to(cuda, dtype)
+    s = (torch.rand(n, generator=g) * 0.95 + 0.05).to(cuda)
+    glob = torch.randn(p, generator=g).to(cuda, dtype)
+    before = wa.weighted_agg.launches
+    got = wa.weighted_agg(w, s)
+    assert wa.weighted_agg.launches == before + (p > 0)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), wa.weighted_agg_torch(w, s)
+                               .float(), **_fl_tol(dtype))
+    for rows, ref in ((w, glob), (w[:, 1:], glob[1:])):   # unaligned rows
+        d = md.model_distance(rows, ref)
+        torch.testing.assert_close(d, md.model_distance_torch(rows, ref),
+                                   **_fl_tol(dtype))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_fl_kernels_zero_scores_and_large_rows(cuda):
+    w = torch.stack([torch.ones(256), 100.0 * torch.ones(256)]).to(cuda)
+    s = torch.tensor([1.0, 0.0], device=cuda)
+    torch.testing.assert_close(wa.weighted_agg(w, s),
+                               torch.ones(256, device=cuda))
+    torch.testing.assert_close(wa.weighted_agg(w, torch.zeros(2,
+                                                              device=cuda)),
+                               torch.zeros(256, device=cuda))
+    big = torch.randn(8, 1 << 20, device=cuda)
+    glob = torch.randn(1 << 20, device=cuda)
+    torch.testing.assert_close(md.model_distance(big, glob),
+                               md.model_distance_torch(big, glob),
+                               rtol=1e-5, atol=1e-6)

@@ -217,8 +217,17 @@ def test_workload_spec_builds_the_same_batch():
     node_t = pt.NodeSpec(workload=spec_t)
     node_j = jx.NodeSpec(workload=spec_j)
     want = node_j.describe()
-    for key in ("shards", "reputation", "don", "n_trainers",
-                "trainer_funds", "publisher_funds", "seed",
-                "use_pallas_agg", "tasks"):
-        want.pop(key)
+    want.pop("shards")                  # the sharded fabric is not ported
     assert node_t.describe() == want
+    tasks = (pt.FLTaskSpec("t0", rounds=2), pt.FLTaskSpec("t1", reward=3.0))
+    full_t = pt.NodeSpec(n_trainers=8, trainer_funds=7.0, seed=3,
+                         reputation=pt.ReputationSpec(theta=0.3),
+                         don=pt.DONSpec(n_oracles=3), tasks=tasks)
+    full_j = jx.NodeSpec(n_trainers=8, trainer_funds=7.0, seed=3,
+                         reputation=jx.ReputationSpec(theta=0.3),
+                         don=jx.DONSpec(n_oracles=3),
+                         tasks=tuple(jx.FLTaskSpec(**dataclasses.asdict(t))
+                                     for t in tasks))
+    want = full_j.describe()
+    want.pop("shards")
+    assert full_t.describe() == want
