@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two paths on one CUDA card: the rollup
-node path and the reputation-aware FL protocol run.
+"""Drive the PyTorch/CUDA port's paths on one CUDA card: the rollup node
+path (stepped, and through the fused window loop) and the reputation-aware
+FL protocol run (the default Scheduler: fused loop + cross-task megastep,
+and the stepped per-task path).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -11,36 +13,57 @@ Phases, each printing its result on a line of its own:
                matrix products must run in full float32 (no TF32).
   2. build   — compiles every src/repro_torch/kernels/csrc/*.cu with nvcc
                (in parallel) into one library; prints ptxas's register use.
-  3. kernels — the four fold kernels against their plain PyTorch versions
-               on the card, bit for bit, and the two FL kernels (Eq. 1
-               ``weighted_agg``, Eq. 4 ``model_distance``) within rtol
-               1e-5 / atol 1e-6 in float32 and 2e-2 in bfloat16, at the
-               grids of the CPU tests and at the shapes of the main paths
-               (plus a 1M-wide FL shape); times each (CUDA events, L2
-               flushed before every launch) beside its bound, the plain
-               version's time and, where one exists, one PyTorch call's.
+  3. kernels — the four fold kernels and ``block_pack`` against their
+               plain PyTorch versions on the card, bit for bit, and the two
+               FL kernels (Eq. 1 ``weighted_agg``, also with its task axis
+               at (32, 64, 2,410), row t bit-equal to the unbatched launch;
+               Eq. 4 ``model_distance``) within rtol 1e-5 / atol 1e-6 in
+               float32 and 2e-2 in bfloat16, at the grids of the CPU tests
+               and at the shapes of the main paths (plus a 1M-wide FL
+               shape); times each (CUDA events, L2 flushed before every
+               launch) beside its bound, the plain version's time and,
+               where one exists, one PyTorch call's.
   4. node    — NodeClient on the card: 1M transactions of the Table-I mix
                over 262,144 accounts, 20 one-second windows of
                submit_arrays / seal / run_until, then flush and drain;
                launch counts of the fold kernels read just after.
+     fused   — the same 1M transactions through the raw-ledger window loop
+               of benchmarks/bench_protocol.py (per window submit / seal /
+               pump / run_until, then flush and run_until the end), once
+               stepped and once through FusedWindowLoop: blocks, gas log,
+               batch digests, WindowSettled roots and event kinds equal,
+               ONE block_pack launch.  block_pack is checked and timed at
+               this run's shape, beside its bytes bound, its latency chain
+               and the stepped per-block path on the same blocks.
   5. agree   — the node path at a tenth of the size three ways (card with
                kernels, card with the plain versions forced, CPU): the
                gas log, blocks, digests and per-window state roots must
-               be equal.
-  6. fl agree — the FL protocol run at 4 tasks x 16 trainers, 2 rounds,
-               the same three ways: protocol calls, gas log, blocks,
-               selections, event kinds and DON scores equal; reputations
-               and payouts within rtol 1e-5 / atol 1e-6, parameters within
-               rtol 1e-5 / atol 1e-5 of each leaf's largest value; each
-               card run's final state root equal to the root of its fields
-               recomputed on the CPU.
+               be equal; the same for the fused twin, which must also
+               equal the stepped twin on the CPU.
+  6. fl agree — the default FL protocol run (fused + megastep) at 4 tasks
+               x 16 trainers, 2 rounds, the same three ways: protocol
+               calls, gas log, blocks, selections, event kinds and DON
+               scores equal; reputations and payouts within rtol 1e-5 /
+               atol 1e-6, parameters within rtol 1e-5 / atol 1e-5 of each
+               leaf's largest value plus 2^-7 of its largest movement in
+               training (one bfloat16 step of sgdm's momentum, see
+               fl_hold); each card run's final state root equal to the
+               root of its fields recomputed on the CPU.  The
+               megastep must run, and both Eq. 1 branches with it (one
+               task has no lazy trainer, so its rounds are full).
   7. fl      — the FL protocol run on the card at the largest point of
                benchmarks/bench_protocol.py: 32 concurrent tasks x 64
                trainers on NodeSpec() with seal_every=2, TinyMLP(64, 32,
                10), 3 rounds of 2 local sgdm steps on batches of 8 under
-               DP; launch counts of the FL kernels read just after.  Then
-               the same run under torch.profiler: the device's busy time
-               and the kernels that take it.
+               DP, through the default Scheduler; launch counts read just
+               after (weighted_agg 3, model_distance 32, block_pack 1).
+               Then the stepped per-task path (fused=False,
+               megabatch=False) on the same world, held to it as in
+               phase 6, and the stepped path on the CPU for scale; where
+               the megastep and the per-task round part ways on the card
+               (one forward pass, one round).  Then the default run under
+               torch.profiler: the device's busy time and the kernels
+               that take it.
 
 Then one JSON line lists every kernel with its launches on its path, the
 card's name and power limit follow on a line of their own, and the last
@@ -50,6 +73,7 @@ a CUDA card, or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -65,6 +89,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 INT_OPS_PER_S = 67e12            # H100 SXM 32-bit rate outside tensor cores
 F32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
 OPS_PER_WORD = 4                 # shift, xor, multiply, xor-reduce
+# assumed latency of one dependent device-memory load on the card (an
+# estimate, not a measurement): block_pack's latency-chain estimate
+LOAD_LATENCY_S = 0.6e-6
 FULL = dict(rate=50_000.0, duration=20.0, seed=0, n_senders=262_144)
 TENTH = dict(rate=5_000.0, duration=20.0, seed=0, n_senders=26_214)
 # the FL protocol run: benchmarks/bench_protocol.py:95-96 and its largest
@@ -291,9 +318,14 @@ def check_main_path(client, workload, rcpts) -> dict:
 
 def agree(dev) -> None:
     """The tenth-size path on the card with kernels, on the card with the
-    plain versions forced, and on the CPU: identical outputs."""
+    plain versions forced, and on the CPU: identical outputs; the same
+    for the fused twin, which equals the stepped twin on the CPU."""
     from repro_torch.core.workloads import make_workload
-    outs = {}
+    cpu = torch.device("cpu")
+    _, stepped_cpu, _ = run_twin(make_workload("mixed", device=cpu,
+                                               **TENTH), cpu, fused=False)
+    until = stepped_cpu["blocks"][-1][1]
+    outs, twins = {}, {}
     for label, device, impl in (("card, kernels", dev, None),
                                 ("card, plain", dev, "torch"),
                                 ("cpu", torch.device("cpu"), None)):
@@ -303,6 +335,8 @@ def agree(dev) -> None:
         try:
             wl = make_workload("mixed", device=device, **TENTH)
             client, _, windows, _ = run_node(wl, device, receipts=False)
+            _, twins[label], _ = run_twin(wl, device, fused=True,
+                                          until=until)
         finally:
             os.environ.pop("REPRO_TORCH_KERNEL_IMPL", None)
             if old is not None:
@@ -325,15 +359,249 @@ def agree(dev) -> None:
                                      f"{key}")
     log(f"agree: card (kernels), card (plain) and CPU equal over "
         f"{len(ref['windows'])} windows")
+    twins_equal(stepped_cpu, twins["cpu"], "agree: fused twin on the CPU "
+                "against the stepped twin")
+    for label, out in twins.items():
+        twins_equal(twins["cpu"], out, f"agree: fused twin, {label} "
+                    f"against the CPU")
+    log(f"agree: the fused twin equal three ways and to the stepped twin "
+        f"({len(stepped_cpu['blocks']) - 1} blocks, "
+        f"{len(stepped_cpu['window_roots'])} window roots)")
+
+
+# -- phase 4, fused: the node path through the fused window loop ---------------
+
+def run_twin(workload, dev, *, fused: bool, until=None):
+    """benchmarks/bench_protocol.py's raw-ledger window loop (:269-292)
+    over ``workload`` on a NodeClient's chain and rollup: per window
+    submit / seal / pump / run_until, then flush and run the L1 to
+    ``until``; the stepped twin drains the mempool in 100 s steps when
+    ``until`` is None.  Returns (client, outputs, wall seconds ending in a
+    synchronize)."""
+    from repro_torch.api import NodeClient
+    from repro_torch.core.fused import FusedWindowLoop
+    client = NodeClient.from_spec(node_spec(), device=dev)
+    chain, rollup = client.chain, client.target
+    loop = FusedWindowLoop(chain, rollup) if fused else None
+    face, blocks = (loop, loop) if fused else (rollup, chain)
+    txs = workload.txs
+    times = txs.submit_time.cpu().numpy()
+    n_windows = int(workload.duration)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for w in range(n_windows):
+        lo, hi = (int(i) for i in np.searchsorted(times, [w, w + 1.0]))
+        batch = txs.select(slice(lo, hi))
+        if fused:
+            loop.submit(rollup, batch)
+        else:
+            rollup.submit_arrays(batch)
+        face.seal()
+        face.pump(w + 1.0)
+        blocks.run_until(w + 1.0)
+    face.flush()
+    if until is None:
+        t = float(n_windows)
+        while chain.n_confirmed < chain.n_submitted:
+            if t > n_windows + 1e5:
+                raise AssertionError("the L1 mempool does not drain")
+            t += 100.0
+            chain.run_until(t)
+    else:
+        blocks.run_until(until)
+    if fused:
+        loop.execute()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = client.events(cursor=0)
+    out = {"blocks": [(b.height, b.time, b.n_txs, b.gas_used, b.start,
+                       b.stop, b.block_hash) for b in chain.blocks],
+           "gas_log": rollup.gas_log, "batch_digests": rollup.batch_digests,
+           "window_roots": [e.state_root for e in events
+                            if e.kind == "window_settled"],
+           "event_kinds": [e.kind for e in events],
+           "root": client.state_root()}
+    return client, out, wall
+
+
+def twins_equal(a: dict, b: dict, what: str) -> None:
+    for key in a:
+        if a[key] != b[key]:
+            raise AssertionError(f"{what}: {key} differ")
+
+
+def fused_node(dev, workload, smi: str):
+    """The node workload stepped, then through FusedWindowLoop (block_pack
+    launch count from 0): equal outputs, one launch; host seconds by step
+    of each, and of the work both do inside a seal.  Returns the
+    block_pack arguments of the fused run, its client and the launch
+    count."""
+    from repro_torch.core import fused as fused_mod
+    from repro_torch.core.engine import VectorChain, VectorRollup
+    from repro_torch.core.prover import ProverPipeline
+    from repro_torch.kernels import block_pack as bp
+    loop = fused_mod.FusedWindowLoop
+    # inside a stepped seal and a fused apply_seal alike
+    shared = ((ProverPipeline, "enqueue", "prover_enqueue"),
+              (VectorRollup, "_apply_state", "state_handlers"),
+              (VectorRollup, "_emit_window", "window_root"))
+    wraps = {"stepped": ((VectorRollup, "seal", "seal"),
+                         (VectorRollup, "pump", "pump"),
+                         (VectorChain, "run_until", "run_until")),
+             "fused": ((loop, "_prepare_seals", "prepare_seals"),
+                       (loop, "_apply_seal", "apply_seal"),
+                       (VectorRollup, "pump", "pump"),
+                       (loop, "_pack_blocks", "pack_blocks"))}
+    steps = {label: PhaseClock() for label in wraps}
+    inside = {label: PhaseClock() for label in wraps}
+
+    def wrap(label):
+        for owner, attr, phase in wraps[label]:
+            steps[label].wrap(owner, attr, phase)
+        for owner, attr, phase in shared:
+            inside[label].wrap(owner, attr, phase)
+
+    def restore(label):
+        inside[label].restore()
+        steps[label].restore()
+    wrap("stepped")
+    try:
+        _, stepped, stepped_wall = run_twin(workload, dev, fused=False)
+    finally:
+        restore("stepped")
+    captured = {}
+    real = fused_mod.get_kernel
+
+    def spy(op, impl=None):
+        fn = real(op, impl)
+        if op != "block_pack":
+            return fn
+
+        def recorded(*args):
+            captured["args"] = args
+            return fn(*args)
+        return recorded
+    wrap("fused")
+    fused_mod.get_kernel = spy
+    bp.block_pack.launches = 0
+    try:
+        client, fused, fused_wall = run_twin(workload, dev, fused=True,
+                                             until=stepped["blocks"][-1][1])
+    finally:
+        fused_mod.get_kernel = real
+        restore("fused")
+    launches = bp.block_pack.launches
+    twins_equal(stepped, fused, "fused node against stepped")
+    if launches != 1:
+        raise AssertionError(f"the fused node run launched block_pack "
+                             f"{launches} times, not once")
+    spans = {}
+    for label, wall in (("stepped", stepped_wall), ("fused", fused_wall)):
+        spans[label] = dict(steps[label].seconds)
+        spans[label]["rest"] = wall - sum(spans[label].values())
+    log(f"fused node: {len(workload)} txs, {len(fused['blocks']) - 1} L1 "
+        f"blocks, {len(fused['gas_log'])} batches, "
+        f"{len(fused['window_roots'])} window roots: blocks, gas log, "
+        f"digests, roots and event kinds equal to the stepped twin; wall "
+        f"stepped {stepped_wall:.6f} s, fused {fused_wall:.6f} s on {smi}; "
+        f"block_pack launches {launches}")
+    log(f"fused node: host seconds by step (each ends in a synchronize) "
+        f"{json.dumps(spans)}; of which inside seal / apply_seal "
+        f"{json.dumps({k: c.seconds for k, c in inside.items()})}")
+    return captured["args"], client, launches
+
+
+def pack_stream(n_txs, n_blocks, seed, gas_limit, dev):
+    """tests/test_kernels.py's random mempool + block grid, on ``dev``."""
+    g = np.random.default_rng(seed)
+    tmax = np.maximum.accumulate(np.cumsum(g.exponential(0.02, n_txs)))
+    gcum = np.cumsum(g.integers(21_000, 120_000, n_txs).astype(np.int64))
+    times = np.cumsum(g.uniform(0.05, 1.5, n_blocks))
+    n_vis = np.sort(g.integers(0, n_txs + 1, n_blocks)).astype(np.int64)
+    return (*(torch.from_numpy(a).to(dev) for a in (tmax, gcum, times,
+                                                     n_vis)), gas_limit)
+
+
+def check_block_pack(dev, args, client) -> dict:
+    """block_pack against its plain version, bit for bit: on the CPU tests'
+    grid (ptr0 = 0 and the first stop), on an empty mempool and on the
+    fused node run's own arguments.  Timed at the last (CUDA events, L2
+    flushed) beside its bytes bound, its latency chain, the plain version
+    and the stepped path (``VectorChain.run_until``, one host sync per
+    block) on the same mempool and blocks."""
+    import math
+
+    from repro_torch.core.engine import TxArrays, VectorChain
+    from repro_torch.kernels import block_pack as bp
+    grid = []
+    for case in ((1, 1, 0, 9_000_000), (100, 7, 1, 9_000_000),
+                 (1000, 33, 2, 300_000), (513, 16, 3, 2**40),
+                 (64, 5, 4, 21_000)):
+        stream = pack_stream(*case, dev)
+        first = int(bp.block_pack_torch(*stream, 0)[0])
+        grid += [(*stream, 0), (*stream, first)]
+    grid.append((*pack_stream(0, 4, 5, 9_000_000, dev), 0))
+    for a in grid + [args]:
+        if not torch.equal(bp.block_pack(*a), bp.block_pack_torch(*a)):
+            raise AssertionError("block_pack differs from its plain version")
+    torch.cuda.synchronize()
+    tmax, gcum, times, n_vis, limit, ptr0 = args
+    n, b = tmax.numel(), times.numel()
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
+    mem_ms = 8 * (2 * n + 3 * b) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * b * (math.ceil(math.log2(max(n, 2))) + 1) \
+        / INT_OPS_PER_S * 1e3
+    loads = b * (1 + math.ceil(math.log(max(n, 2), 32)))
+    row = {"name": "block_pack", "max_abs_err": 0,
+           "ms": timed_ms(lambda: bp.block_pack(*args), 20, flush),
+           "plain_ms": timed_ms(lambda: bp.block_pack_torch(*args), 3, flush),
+           "bound_ms": max(mem_ms, ops_ms),
+           "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+           "library_ms": None, "chain_loads": loads,
+           "chain_ms": loads * LOAD_LATENCY_S * 1e3}
+    # the stepped path on the same mempool, every tx visible from the
+    # start: B produce_block calls against one block_pack launch
+    src = client.chain
+    full = torch.full_like(n_vis, n)
+    want = bp.block_pack(tmax, gcum, times, full, limit, 0)
+    stepped_s = []
+    for _ in range(3):
+        chain = VectorChain(block_gas_limit=limit, device=dev)
+        chain.submit_arrays(TxArrays(src._t[:n], src._g[:n], src._f[:n],
+                                     src._s[:n], src.fns))
+        chain._consolidate()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chain.run_until(float(times[-1]))
+        torch.cuda.synchronize()
+        stepped_s.append(time.perf_counter() - t0)
+        if [blk.stop for blk in chain.blocks[1:]] != want.tolist():
+            raise AssertionError("block_pack differs from the stepped "
+                                 "produce_block on the same blocks")
+    row["stepped_ms"] = 1e3 * sum(stepped_s) / len(stepped_s)
+    log(f"kernel block_pack: bit-equal to plain on {len(grid) + 1} inputs "
+        f"and to {b} stepped produce_block calls; {row['ms']:.6f} ms (bound "
+        f"{row['bound_ms']:.6f} ms, {row['bound_by']}; latency chain "
+        f"{loads} dependent loads, about {row['chain_ms']:.6f} ms at an "
+        f"assumed {LOAD_LATENCY_S * 1e6:.1f} us each), plain "
+        f"{row['plain_ms']:.6f} ms, stepped path (VectorChain.run_until, "
+        f"one host sync per block) {row['stepped_ms']:.6f} ms for the same "
+        f"{b} blocks, library call: none, at N={n}, B={b}")
+    return row
 
 
 # -- phase 3: FL kernels against their plain versions --------------------------
 
-def check_fl_kernels(dev, path_n: int, path_p: int, wide_p: int) -> dict:
+def check_fl_kernels(dev, path_n: int, path_p: int, wide_p: int,
+                     n_tasks: int) -> dict:
     """weighted_agg and model_distance against their plain versions at
     the grids of tests/test_kernels.py, at the FL path's shape and at a
-    1M-wide shape; times at the last two.  Returns {name: row} with the
-    path shape's numbers, and the wide shape's under ``"wide"``."""
+    1M-wide shape, and weighted_agg with its task axis at the megastep's
+    (n_tasks, path_n, path_p); times at the last three.  Returns {name:
+    row} with the path shape's numbers, the wide shape's under ``"wide"``
+    and the task-axis shape's under ``"task"``."""
     from repro_torch.kernels import model_distance as md
     from repro_torch.kernels import weighted_agg as wa
     g = torch.Generator().manual_seed(0)
@@ -410,7 +678,45 @@ def check_fl_kernels(dev, path_n: int, path_p: int, wide_p: int) -> dict:
             f"float32 |kernel - plain| {err}")
         out[name] = {"name": name, "max_abs_err": err, **timed["path"],
                      "wide": timed["wide"]}
+    out["weighted_agg"]["task"] = check_task_axis_agg(
+        dev, g, n_tasks, path_n, path_p, flush, out["weighted_agg"])
     return out
+
+
+def check_task_axis_agg(dev, g, n_tasks, n, p, flush, row) -> dict:
+    """The megastep's Eq. 1 launch, (T, n, P) -> (T, P): row t bit-equal
+    to the unbatched launch on task t, all rows within float32 tolerance
+    of the plain version; timed beside its bound, the plain version and
+    one batched matrix product."""
+    from repro_torch.kernels import weighted_agg as wa
+    w = torch.randn(n_tasks, n, p, generator=g).to(dev)
+    s = (torch.rand(n_tasks, n, generator=g) * 0.95 + 0.05).to(dev)
+    got, want = wa.weighted_agg(w, s), wa.weighted_agg_torch(w, s)
+    for t in range(n_tasks):
+        if not torch.equal(got[t], wa.weighted_agg(w[t], s[t])):
+            raise AssertionError(f"weighted_agg: task-axis row {t} differs "
+                                 f"from the unbatched launch")
+    torch.testing.assert_close(got, want, **F32_TOL)
+    torch.cuda.synchronize()
+    row["max_abs_err"] = max(row["max_abs_err"],
+                             float((got - want).abs().max()))
+    mem_ms = ((w.numel() + n_tasks * p) * 4 + 4 * s.numel()) \
+        / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * w.numel() / F32_OPS_PER_S * 1e3
+    t = {"ms": timed_ms(lambda: wa.weighted_agg(w, s), 50, flush),
+         "plain_ms": timed_ms(lambda: wa.weighted_agg_torch(w, s), 20, flush),
+         "library_ms": timed_ms(
+             lambda: torch.matmul(s[:, None], w)[:, 0]
+             / s.sum(1, keepdim=True).clamp(min=1e-12), 20, flush),
+         "bound_ms": max(mem_ms, ops_ms),
+         "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+         "shape": [list(w.shape), list(s.shape)]}
+    log(f"kernel weighted_agg at {t['shape']} (float32, task axis): rows "
+        f"bit-equal to the {n_tasks} unbatched launches; {t['ms']:.6f} ms "
+        f"(bound {t['bound_ms']:.6f} ms, {t['bound_by']}), plain "
+        f"{t['plain_ms']:.6f} ms, library call (batched matmul) "
+        f"{t['library_ms']:.6f} ms")
+    return t
 
 
 # -- phases 6 and 7: the FL protocol run ---------------------------------------
@@ -440,9 +746,11 @@ def fl_world(dev, n_trainers: int, local_steps: int, batch: int):
     return model, opt, val, batch_fn, DPConfig(noise_multiplier=0.05)
 
 
-def run_fl(dev, cfg, behaviors=None, phases=None):
+def run_fl(dev, cfg, behaviors=None, **knobs):
     """One Scheduler run of ``cfg['tasks']`` concurrent tasks on
-    ``NodeSpec()`` (the protocol-scheduler preset) with seal_every=2.
+    ``NodeSpec()`` (the protocol-scheduler preset) with seal_every=2 and
+    the Scheduler's ``knobs`` (its defaults: the fused loop and the
+    megastep).  ``behaviors``: one list per task, or None (all good).
     Returns (node, scheduler, results, wall seconds ending in a
     synchronize)."""
     from repro_torch.api import FLTaskSpec, NodeSpec
@@ -457,11 +765,12 @@ def run_fl(dev, cfg, behaviors=None, phases=None):
     node = AutoDFL(model, opt, n, model.accuracy_fn(), val, spec=spec,
                    device=dev)
     kernels = CohortKernels(model, opt, dp)
-    sch = Scheduler(node, seal_every=2)
+    sch = Scheduler(node, seal_every=2, **knobs)
     for t in range(tasks):
         sch.add_task(FLTaskSpec(f"task{t}", rounds=cfg["rounds"]),
                      VectorCohort(model, opt, batch_fn, node.store,
-                                  behaviors=behaviors, n_trainers=n,
+                                  behaviors=behaviors and behaviors[t],
+                                  n_trainers=n,
                                   local_steps=cfg["local_steps"], dp=dp,
                                   seed=t, kernels=kernels, device=dev))
     if dev.type == "cuda":
@@ -489,16 +798,58 @@ def fl_outputs(node, sch, out) -> dict:
                        r.global_params.items()} for t, r in out.items()},
         "reputation": node.book.reputation.cpu().numpy(),
         "payouts": {t: r.payouts for t, r in out.items()},
+        # every task starts from init_params(0) (FLTaskSpec's init_seed)
+        "init": {k: v.cpu().numpy()
+                 for k, v in node.model.init_params(0).items()},
         "root": node.rollup.state_root(),
         "cpu_root": StateArrays.from_numpy(fields, "cpu").root(),
     }
 
 
+def fl_hold(ref: dict, o: dict, what: str) -> None:
+    """Hold one FL run's outputs to another's: ledger, selections and DON
+    scores exactly; reputations and payouts within rtol 1e-5 / atol 1e-6;
+    parameters within rtol 1e-5 and, per leaf, an absolute term for each
+    of the two ways the same training can differ (see below)."""
+    worst = max(float(np.abs(o["params"][t][k] - v).max())
+                for t in ref["params"] for k, v in ref["params"][t].items())
+    log(f"{what}: largest |param difference| {worst}, largest |reputation "
+        f"difference| {float(np.abs(o['reputation'] - ref['reputation']).max())}")
+    for key in ("protocol_calls", "gas_log", "blocks", "selected",
+                "event_kinds", "scores"):
+        if o[key] != ref[key]:
+            raise AssertionError(f"{what}: {key} differ")
+    for t in ref["params"]:
+        for k, v in ref["params"][t].items():
+            # (1) float32 products summed in another order (the card
+            # against the CPU, a batched product against one per task):
+            # an element near zero carries a difference on the scale of
+            # its leaf, 1e-5 of the leaf's largest value; (2) sgdm keeps
+            # its momentum in bfloat16, so a last-bit difference can round
+            # a momentum element one bfloat16 step (2^-8 to 2^-7 of it)
+            # the other way, moving the parameter by up to 2^-7 of a
+            # step: 2^-7 of the leaf's largest net movement in training
+            moved = float(np.abs(v - ref["init"][k]).max())
+            np.testing.assert_allclose(
+                o["params"][t][k], v, rtol=F32_TOL["rtol"],
+                atol=F32_TOL["rtol"] * float(np.abs(v).max()) + moved / 128,
+                err_msg=f"{what}: {t} {k}")
+        for who, pay in ref["payouts"][t].items():
+            np.testing.assert_allclose(o["payouts"][t][who], pay,
+                                       **F32_TOL, err_msg=what)
+    np.testing.assert_allclose(o["reputation"], ref["reputation"],
+                               **F32_TOL, err_msg=what)
+
+
 def fl_agree(dev) -> None:
-    """The FL run at 4 tasks x 16 trainers, 2 rounds, on the card with
-    kernels, on the card with the plain versions forced, and on the CPU."""
-    behaviors = ["good", "good", "malicious", "lazy"] * (
-        FL_AGREE["trainers"] // 4)
+    """The default FL run (fused + megastep) at 4 tasks x 16 trainers, 2
+    rounds, on the card with kernels, on the card with the plain versions
+    forced, and on the CPU.  The lazy trainers make tasks ragged; the last
+    task has none, so its rounds are full and both Eq. 1 branches run."""
+    from repro_torch.fl import scheduler as fl_sched
+    lazy = ["good", "good", "malicious", "lazy"] * (FL_AGREE["trainers"] // 4)
+    behaviors = [lazy] * (FL_AGREE["tasks"] - 1) + [
+        ["good", "good", "malicious", "good"] * (FL_AGREE["trainers"] // 4)]
     outs = {}
     for label, device, impl in (("card, kernels", dev, None),
                                 ("card, plain", dev, "torch"),
@@ -506,13 +857,28 @@ def fl_agree(dev) -> None:
         old = os.environ.pop("REPRO_TORCH_KERNEL_IMPL", None)
         if impl:
             os.environ["REPRO_TORCH_KERNEL_IMPL"] = impl
+        branches = PhaseClock()
+        for attr in ("weighted_average_tree_mega", "weighted_average_tree"):
+            branches.wrap(fl_sched, attr, attr)
         try:
             node, sch, out, wall = run_fl(device, FL_AGREE, behaviors)
         finally:
+            branches.restore()
             os.environ.pop("REPRO_TORCH_KERNEL_IMPL", None)
             if old is not None:
                 os.environ["REPRO_TORCH_KERNEL_IMPL"] = old
+        if sch.mega_windows == 0 or 0 in branches.calls.values():
+            raise AssertionError(f"fl agree {label}: megastep windows "
+                                 f"{sch.mega_windows}, Eq. 1 calls "
+                                 f"{branches.calls}")
+        log(f"fl agree {label}: {sch.mega_windows} megastep windows, Eq. 1 "
+            f"calls {json.dumps(branches.calls)}")
         outs[label] = o = fl_outputs(node, sch, out)
+        digest = hashlib.sha256(b"".join(
+            o["params"][t][k].tobytes() for t in sorted(o["params"])
+            for k in sorted(o["params"][t]))).hexdigest()[:16]
+        log(f"fl agree {label}: parameters' sha256 {digest} (compare "
+            f"between calls)")
         if o["root"] != o["cpu_root"]:
             raise AssertionError(f"fl agree {label}: root {o['root']} != "
                                  f"the CPU root of its fields {o['cpu_root']}")
@@ -522,32 +888,7 @@ def fl_agree(dev) -> None:
             f"{wall:.3f} s")
     ref = outs["cpu"]
     for label, o in outs.items():
-        worst = max(float(np.abs(o["params"][t][k] - v).max())
-                    for t in ref["params"] for k, v in ref["params"][t].items())
-        log(f"fl agree {label}: largest |param - CPU param| {worst}, "
-            f"largest |reputation - CPU| "
-            f"{float(np.abs(o['reputation'] - ref['reputation']).max())}")
-    for label, o in outs.items():
-        for key in ("protocol_calls", "gas_log", "blocks", "selected",
-                    "event_kinds", "scores"):
-            if o[key] != ref[key]:
-                raise AssertionError(f"fl agree: {label} differs from the "
-                                     f"CPU in {key}")
-        for t in ref["params"]:
-            for k, v in ref["params"][t].items():
-                # float32 products sum in another order on the card than
-                # on the CPU, through four SGD steps: an element near zero
-                # carries an absolute difference on the scale of its leaf,
-                # so the absolute term is 1e-5 of the leaf's largest value
-                np.testing.assert_allclose(
-                    o["params"][t][k], v, rtol=F32_TOL["rtol"],
-                    atol=F32_TOL["rtol"] * float(np.abs(v).max()),
-                    err_msg=f"{label}: {t} {k}")
-            for who, pay in ref["payouts"][t].items():
-                np.testing.assert_allclose(o["payouts"][t][who], pay,
-                                           **F32_TOL, err_msg=label)
-        np.testing.assert_allclose(o["reputation"], ref["reputation"],
-                                   **F32_TOL, err_msg=label)
+        fl_hold(ref, o, f"fl agree {label} against the CPU")
     log(f"fl agree: card (kernels), card (plain) and CPU agree over "
         f"{FL_AGREE['tasks']} tasks x {FL_AGREE['trainers']} trainers, "
         f"{FL_AGREE['rounds']} rounds (ledger, selections, scores exact; "
@@ -557,18 +898,21 @@ def fl_agree(dev) -> None:
 
 class PhaseClock:
     """Host seconds spent in named methods, each ending in a synchronize
-    so that a phase holds its own device work."""
+    so that a phase holds its own device work; and their calls."""
 
     def __init__(self):
         self.seconds = {}
+        self.calls = {}
         self._undo = []
 
     def wrap(self, owner, attr: str, phase: str) -> None:
         fn = getattr(owner, attr)
         self.seconds.setdefault(phase, 0.0)
+        self.calls.setdefault(phase, 0)
 
         def timed(*args, **kw):
             t0 = time.perf_counter()
+            self.calls[phase] += 1
             try:
                 return fn(*args, **kw)
             finally:
@@ -583,43 +927,57 @@ class PhaseClock:
         self._undo.clear()
 
 
-def fl_main(dev, smi: str) -> dict:
-    """The FL protocol run at 32 tasks x 64 trainers, launch counts from 0;
-    returns the launches of the FL kernels and the wall seconds."""
+def fl_measured(dev, smi: str, label: str, **knobs) -> dict:
+    """The FL protocol run at 32 tasks x 64 trainers with the Scheduler's
+    ``knobs``, launch counts from 0, host seconds by phase; checks the
+    repo's invariants on the result and returns what it measured."""
     from repro_torch.core import oracle
+    from repro_torch.core.fused import FusedWindowLoop
     from repro_torch.core.gas import DEFAULT_GAS, L1_DEFAULT_GAS
     from repro_torch.fl import scheduler as fl_sched
-    from repro_torch.fl.cohort import VectorCohort
+    from repro_torch.fl.cohort import MegaCohort, VectorCohort
     from repro_torch.fl.server import AutoDFL
+    from repro_torch.kernels import block_pack as bp
     from repro_torch.kernels import model_distance as md
     from repro_torch.kernels import weighted_agg as wa
     clock = PhaseClock()
-    clock.wrap(VectorCohort, "train", "train")
-    clock.wrap(fl_sched, "evaluate_quorum", "quorum")
-    clock.wrap(fl_sched, "weighted_average_tree", "eq1")
-    clock.wrap(fl_sched.TaskRuntime, "_finalize", "settle")
-    clock.wrap(AutoDFL, "settle_window", "settle")
+    for owner, attr, phase in (
+            (VectorCohort, "train", "train"), (MegaCohort, "train", "train"),
+            (fl_sched, "evaluate_quorum", "quorum"),
+            (fl_sched, "mega_score_tables", "quorum"),
+            (fl_sched, "quorum_from_table", "quorum"),
+            (fl_sched, "weighted_average_tree", "eq1"),
+            (fl_sched, "weighted_average_tree_mega", "eq1"),
+            (fl_sched.TaskRuntime, "_finalize", "settle"),
+            (AutoDFL, "settle_window", "settle"),
+            (FusedWindowLoop, "execute", "fused_execute")):
+        clock.wrap(owner, attr, phase)
     wrappers = {"weighted_agg": wa.weighted_agg,
-                "model_distance": md.model_distance}
+                "model_distance": md.model_distance,
+                "block_pack": bp.block_pack}
     for fn in wrappers.values():
         fn.launches = 0
-    oracle._score_table_batched.calls = oracle._score_table_loop.calls = 0
+    tables = (oracle._score_table_batched, oracle._score_table_loop,
+              oracle.mega_score_tables)
+    for fn in tables:
+        fn.calls = 0
     torch.cuda.reset_peak_memory_stats()
     try:
-        node, sch, out, wall = run_fl(dev, FL_RUN)
+        node, sch, out, wall = run_fl(dev, FL_RUN, **knobs)
     finally:
         clock.restore()
     launches = {name: fn.launches for name, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated() / 2**20
-    batched = oracle._score_table_batched.calls
-    looped = oracle._score_table_loop.calls
-    # the repo's own invariants on the result
+    batched, looped, mega = (fn.calls for fn in tables)
+    # the repo's own invariants on the result (every trainer is good, so
+    # a megastep scores every task)
     n_rounds = FL_RUN["tasks"] * FL_RUN["rounds"]
-    if batched != n_rounds or looped:
-        raise AssertionError(f"DON scoring: {batched} batched and {looped} "
-                             f"looped tables for {n_rounds} task-rounds")
+    if batched + FL_RUN["tasks"] * mega != n_rounds or looped:
+        raise AssertionError(f"{label}: DON scoring: {batched} batched, "
+                             f"{mega} megastep and {looped} looped tables "
+                             f"for {n_rounds} task-rounds")
     if sorted(out) != sorted(f"task{t}" for t in range(FL_RUN["tasks"])):
-        raise AssertionError("not every task finished")
+        raise AssertionError(f"{label}: not every task finished")
     for tid, res in out.items():
         for k, v in res.global_params.items():
             if not bool(torch.isfinite(v).all()):
@@ -645,10 +1003,11 @@ def fl_main(dev, smi: str) -> dict:
     n_txs = sum(node.protocol_calls.values())
     spans = dict(clock.seconds)
     spans["ledger_and_rest"] = wall - sum(spans.values())
-    stats = {"tasks": FL_RUN["tasks"], "trainers": FL_RUN["trainers"],
-             "rounds": FL_RUN["rounds"],
+    stats = {"path": label, "tasks": FL_RUN["tasks"],
+             "trainers": FL_RUN["trainers"], "rounds": FL_RUN["rounds"],
              "protocol_calls": node.protocol_calls,
              "scheduler_windows": sch.n_windows,
+             "megastep_windows": sch.mega_windows,
              "sealed_windows": len(sch.window_records),
              "batches": ru.n_batches,
              "l1_blocks": len(chain.blocks) - 1,
@@ -656,19 +1015,99 @@ def fl_main(dev, smi: str) -> dict:
              "state_root": ru.state_root(), "task0_val_acc": acc,
              "l1_equivalent_gas": int(l1_equiv), "l2_gas": int(l2),
              "gas_reduction": l1_equiv / l2,
-             "batched_don_tables": batched, "looped_don_tables": looped}
-    log(f"fl: {json.dumps(stats)}")
-    log(f"fl: wall {wall:.6f} s for {n_txs} protocol txs over "
+             "batched_don_tables": batched, "megastep_don_tables": mega,
+             "looped_don_tables": looped, "launches": launches}
+    log(f"fl {label}: {json.dumps(stats)}")
+    log(f"fl {label}: wall {wall:.6f} s for {n_txs} protocol txs over "
         f"{sch.n_windows} scheduling windows ({wall / sch.n_windows:.6f} s "
         f"per window, {n_txs / wall:.1f} tx/s, "
         f"{n_txs / wall / FL_RUN['tasks']:.1f} per task) on {smi}; peak "
         f"device memory {peak:.1f} MiB")
-    log(f"fl: host seconds by phase (each ends in a synchronize) "
+    log(f"fl {label}: host seconds by phase (each ends in a synchronize) "
         f"{json.dumps(spans)}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"the FL path never launched {missing}")
-    return launches, wall
+    return {"launches": launches, "wall": wall,
+            "outputs": fl_outputs(node, sch, out)}
+
+
+def fl_main(dev, smi: str):
+    """The default FL run (fused loop + megastep) at 32 tasks x 64
+    trainers, then the stepped per-task path on the same world, held to
+    it.  Returns the default run's kernel launches and wall seconds."""
+    default = fl_measured(dev, smi, "default")
+    stepped = fl_measured(dev, smi, "stepped", fused=False, megabatch=False)
+    # on the card the megastep's batched products go through another
+    # cuBLAS kernel (2,048 matrices at once, not 64): fl_divergence below
+    # shows where the two part ways
+    fl_hold(stepped["outputs"], default["outputs"],
+            "fl default against stepped")
+    windows = FL_RUN["rounds"]          # every task steps its rounds at once
+    expect = {
+        "default": {"weighted_agg": windows,
+                    "model_distance": FL_RUN["tasks"], "block_pack": 1},
+        "stepped": {"weighted_agg": FL_RUN["tasks"] * FL_RUN["rounds"],
+                    "model_distance": FL_RUN["tasks"], "block_pack": 0}}
+    for label, run in (("default", default), ("stepped", stepped)):
+        if run["launches"] != expect[label]:
+            raise AssertionError(f"fl {label}: launches {run['launches']}, "
+                                 f"expected {expect[label]}")
+    log(f"fl: default path {default['wall']:.6f} s, stepped path "
+        f"{stepped['wall']:.6f} s on {smi}; launches default "
+        f"{json.dumps(default['launches'])}, stepped "
+        f"{json.dumps(stepped['launches'])}")
+    node, sch, out, _ = run_fl(torch.device("cpu"), FL_RUN, fused=False,
+                               megabatch=False)
+    cpu, card = fl_outputs(node, sch, out)["params"], \
+        stepped["outputs"]["params"]
+    gap = max(float(np.abs(card[t][k] - v).max())
+              for t in cpu for k, v in cpu[t].items())
+    log(f"fl: the stepped path on the card against the CPU: largest |param "
+        f"difference| {gap} (the card's own float32 order, for scale)")
+    fl_divergence(dev)
+    return default["launches"], default["wall"]
+
+
+def fl_divergence(dev) -> None:
+    """Where the megastep and the per-task path part ways on the card: one
+    forward pass and one cohort round of all 32 tasks at 64 trainers,
+    batched over tasks against task by task, counting the elements whose
+    bits differ; the round with sgdm's bfloat16 momentum and with float32
+    momentum."""
+    from torch.func import vmap
+
+    from repro_torch.fl import cohort as tc
+    from repro_torch.optim.optimizers import OptimizerSpec, make_optimizer
+    t_n, k_n = FL_RUN["tasks"], FL_RUN["trainers"]
+    model, _, _, batch_fn, dp = fl_world(dev, k_n, FL_RUN["local_steps"],
+                                         FL_RUN["batch"])
+    params = [model.init_params(t) for t in range(t_n)]
+    batches = [batch_fn(np.arange(k_n), r) for r in range(t_n)]
+    rows = [{k: v[None].expand((k_n,) + v.shape) for k, v in p.items()}
+            for p in params]
+    first = [{k: v[:, 0] for k, v in b.items()} for b in batches]
+    one = torch.stack([vmap(model.logits)(r, b) for r, b in zip(rows, first)])
+    batched = vmap(vmap(model.logits))(tc._tree_stack(rows),
+                                       tc._tree_stack(first))
+    found = {"logits": int((one != batched).sum()), "logits_of": one.numel()}
+    keep = torch.ones(k_n, dtype=torch.bool, device=dev)
+    for moment in ("bfloat16", "float32"):
+        opt = make_optimizer(OptimizerSpec(name="sgdm", lr=0.1, grad_clip=5.0,
+                                           moment_dtype=moment))
+        kern = tc.CohortKernels(model, opt, dp)
+        opts = [tc._tree_expand(opt.init(p), k_n) for p in params]
+        per = [kern.round_step(params[t], opts[t], batches[t], t, 0, ~keep,
+                               keep, False) for t in range(t_n)]
+        mega = kern.mega_round_step(
+            tc._tree_stack(params), tc._tree_stack(opts),
+            tc._tree_stack(batches), list(range(t_n)), [0] * t_n,
+            ~keep[None].expand(t_n, k_n), keep[None].expand(t_n, k_n), False)
+        sub = max(float((mega[0][k][t] - per[t][0][k]).abs().max())
+                  for t in range(t_n) for k in params[0])
+        flips = sum(int((mega[1]["m"][k][t] != per[t][1]["m"][k]).sum())
+                    for t in range(t_n) for k in params[0])
+        found[moment] = {"momentum_elements_differ": flips,
+                         "largest_update_difference": sub}
+    log(f"fl divergence (megastep against per task, one round, {t_n} x "
+        f"{k_n}): {json.dumps(found)}")
 
 
 def fl_profile(dev, wall: float) -> None:
@@ -708,7 +1147,8 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = nvidia_smi()
     log(f"device: {smi}; torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
+        f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s), "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.get_float32_matmul_precision() != "highest":
         raise AssertionError("float32 matrix products must not use TF32")
@@ -744,7 +1184,8 @@ def main() -> int:
     d = FL_MODEL
     n_params = d["d_in"] * d["d_h"] + d["d_h"] + d["d_h"] * d["n_classes"] \
         + d["n_classes"]
-    fl_rows = check_fl_kernels(dev, FL_RUN["trainers"], n_params, 1 << 20)
+    fl_rows = check_fl_kernels(dev, FL_RUN["trainers"], n_params, 1 << 20,
+                               FL_RUN["tasks"])
 
     # 4. node path, launch counts from 0
     wrappers = {"rollup_digest": rd.rollup_digest,
@@ -772,7 +1213,13 @@ def main() -> int:
     missing = [name for name, k in launches.items() if k == 0]
     if missing:
         raise AssertionError(f"the node path never launched {missing}")
-    del client, rcpts, wl
+    del client, rcpts
+
+    # 4, fused: the same workload through the fused window loop, against
+    # the stepped twin; block_pack checked and timed at its shape
+    pack_args, fused_client, _ = fused_node(dev, wl, smi)
+    pack_row = check_block_pack(dev, pack_args, fused_client)
+    del fused_client, pack_args, wl
 
     # 5. node path: card against CPU at a tenth of the size
     agree(dev)
@@ -791,15 +1238,21 @@ def main() -> int:
                 "dirty_fold": "src/repro/kernels/dirty_fold.py:107",
                 "batch_seal": "src/repro/kernels/batch_seal.py:59",
                 "weighted_agg": "src/repro/kernels/weighted_agg.py:22",
-                "model_distance": "src/repro/kernels/model_distance.py:18"}
+                "model_distance": "src/repro/kernels/model_distance.py:18",
+                "block_pack": "src/repro/kernels/block_pack.py:179"}
+    sources = {"weighted_agg": "fl.cu", "model_distance": "fl.cu",
+               "block_pack": "pack.cu"}
+    # the default FL path merges Eq. 1 with the task axis: its row is
+    # timed at (32, 64, 2,410); the per-task (64, 2,410) is logged below
+    agg = fl_rows["weighted_agg"]
     kernels = []
-    for row in rows + list(fl_rows.values()):
+    for row in rows + [dict(agg, **agg["task"]), fl_rows["model_distance"],
+                       pack_row]:
         name = row["name"]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": ("src/repro_torch/kernels/csrc/fl.cu"
-                       if name in fl_rows else
-                       "src/repro_torch/kernels/csrc/fold.cu"),
+            "source": ("src/repro_torch/kernels/csrc/"
+                       + sources.get(name, "fold.cu")),
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -810,6 +1263,9 @@ def main() -> int:
         raise AssertionError(f"a main path never launched {missing}")
     for name, row in fl_rows.items():
         log(f"wide {name}: {json.dumps(row['wide'])}")
+    per_task = {k: agg[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "shape")}
+    log(f"per-task weighted_agg: {json.dumps(per_task)}")
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

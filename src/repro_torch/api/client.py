@@ -29,6 +29,7 @@ from repro_torch.api.factory import build_ledger, l1_of
 from repro_torch.api.specs import NodeSpec
 from repro_torch.core.engine import TxArrays
 from repro_torch.core.events import LedgerEvent
+from repro_torch.core.fused import supports_fused
 from repro_torch.core.gas import DEFAULT_GAS, L1_DEFAULT_GAS, GasTable
 from repro_torch.core.state import STATE_SCHEMA, default_state_handlers
 
@@ -228,14 +229,18 @@ class NodeClient:
         return log if log is not None else self.chain.events
 
     def capabilities(self) -> frozenset:
-        """Typed-event kinds this backend emits through ``events()``.
-        Every node emits ``block_packed``; rollup nodes add the proof
-        lifecycle.  (The JAX package also reports ``"fused_window_loop"``;
-        the fused loop is not ported yet.)"""
+        """Typed-event kinds this backend emits through ``events()``, plus
+        the execution-path marker ``"fused_window_loop"`` when the stack
+        can run the core/fused.py plan-then-execute loop (what
+        ``Scheduler(fused="auto")`` picks).  Every node emits
+        ``block_packed``; rollup nodes add the proof lifecycle."""
         caps = {"block_packed"}
         if getattr(self.target, "prover", None) is not None:
             caps |= {"batch_sealed", "proof_generated",
                      "aggregate_verified", "window_settled"}
+        rollup = None if self.target is self.chain else self.target
+        if supports_fused(self.chain, rollup):
+            caps.add("fused_window_loop")
         return frozenset(caps)
 
     def events(self, kinds=None,

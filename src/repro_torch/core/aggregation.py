@@ -7,8 +7,10 @@ version on the CPU), on the whole tree flattened to one ``(n, P)`` float32
 tensor: one launch per round.  Leaves are taken in sorted key order, the
 order the JAX package's pytrees flatten them in.
 
-``weighted_average_tree_mega`` (the cross-task megastep) and
-``weighted_psum_tree`` (the mesh path) are not ported yet (ROADMAP.md).
+``weighted_average_tree_mega`` is the cross-task megastep's form: T
+stacked trees merged in one task-axis ``weighted_agg`` launch, row t equal
+to ``weighted_average_tree`` on task t alone.  ``weighted_psum_tree`` (the
+mesh path) is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -34,15 +36,17 @@ def tree_flat_stacked(tree: Tree) -> torch.Tensor:
                       for k in sorted(tree)], dim=1)
 
 
-def tree_unflat(flat: torch.Tensor, like: Tree) -> Tree:
-    """Inverse of ``tree_flat``: cut ``flat`` into ``like``'s leaf shapes
-    and dtypes (``like``'s leaves may carry a leading axis; its shape
-    after that axis is the leaf's)."""
+def tree_unflat(flat: torch.Tensor, like: Tree, lead: int = 1) -> Tree:
+    """Inverse of ``tree_flat``: cut the last axis of ``flat`` into
+    ``like``'s leaf shapes and dtypes, where ``like``'s leaves carry
+    ``lead`` leading axes before the leaf's own shape.  ``flat`` may carry
+    leading axes of its own (a ``(T, P)`` flat gives ``(T, ...)`` leaves)."""
     out, at = {}, 0
     for k in sorted(like):
-        shape = like[k].shape[1:]
+        shape = like[k].shape[lead:]
         size = shape.numel()
-        out[k] = flat[at: at + size].reshape(shape).to(like[k].dtype)
+        out[k] = flat[..., at: at + size].reshape(
+            flat.shape[:-1] + shape).to(like[k].dtype)
         at += size
     return out
 
@@ -62,3 +66,16 @@ def weighted_average_tree(stacked_tree: Tree, scores: torch.Tensor) -> Tree:
 
 
 weighted_average_tree_jit = weighted_average_tree
+
+
+def weighted_average_tree_mega(stacked_trees: Tree,
+                               scores: torch.Tensor) -> Tree:
+    """T Eq. 1 merges in one ``weighted_agg`` launch: leaves carry
+    ``(T, n, ...)`` and ``scores`` is ``(T, n)``; returns leaves
+    ``(T, ...)``.  Row t is bit-identical to ``weighted_average_tree`` on
+    task t alone (each task's sums keep the unbatched order)."""
+    flat = torch.cat([stacked_trees[k].reshape(
+        stacked_trees[k].shape[:2] + (-1,)).to(torch.float32)
+        for k in sorted(stacked_trees)], dim=2)
+    return tree_unflat(weighted_average_flat(flat, scores), stacked_trees,
+                       lead=2)

@@ -9,6 +9,9 @@ as tensors on the stack's device.
     submit time is <= now, cut to the longest prefix of that whose gas
     fits the block limit.  Two ``searchsorted`` calls on the device answer
     both; one copy of the result to the host per block is the only sync.
+    This stepped ``produce_block`` is the reference semantics; the fused
+    window loop (core/fused.py) packs a whole run's blocks in one
+    ``block_pack`` launch instead.
   * ``VectorRollup`` stripes transactions round-robin over ``n_lanes``
     lanes, cuts FIFO batches of ``batch_size`` and seals them in one
     vectorized pass: commit gas, per-batch L1 commit time, per-batch roots
@@ -177,6 +180,8 @@ class VectorChain(EventHooks):
 
     # SoA is this face's native path (the client dispatches on it)
     soa_native = True
+    # the SoA L1 can run under the core/fused.py plan-then-execute loop
+    fused_capable = True
 
     def __init__(self, n_validators: int = 4, block_time: float = 1.0,
                  block_gas_limit: int = 9_000_000,
@@ -423,6 +428,7 @@ class VectorRollup(ProverFace, EventHooks):
     """
 
     soa_native = True
+    fused_capable = True
 
     def __init__(self, l1, batch_size: int = ROLLUP_BATCH,
                  gas_table: GasTable = DEFAULT_GAS,
@@ -520,6 +526,12 @@ class VectorRollup(ProverFace, EventHooks):
         c = bisect.bisect_right(self._prov_starts, seq) - 1
         return int(self._prov_batches[c][seq - self._prov_starts[c]])
 
+    def _commit_gas_vectors(self):
+        """(commit_base, commit_per_call) int64 tensors on the device,
+        indexable by fn id."""
+        return tuple(torch.from_numpy(v).to(self.device) for v in
+                     commit_gas_vectors(self.fns.names, self.gas_table))
+
     def seal(self) -> int:
         """Seal every pending tx into lane batches; returns #batches sealed.
 
@@ -561,8 +573,7 @@ class VectorRollup(ProverFace, EventHooks):
         n_fns = len(self.fns)
         counts = torch.bincount(batch_id * n_fns + fn_o.long(),
                                 minlength=nb * n_fns).reshape(nb, n_fns)
-        base, percall = (torch.from_numpy(v).to(dev) for v in
-                         commit_gas_vectors(self.fns.names, self.gas_table))
+        base, percall = self._commit_gas_vectors()
         # CUDA has no int64 matmul: multiply and sum instead
         commit = ((counts > 0).long() * base).sum(1) + (counts * percall).sum(1)
         n_txs = counts.sum(1)

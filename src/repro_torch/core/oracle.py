@@ -13,14 +13,19 @@ when the slices are equal-sized (one vmap per slice otherwise).  The
 table comes to the host once per call, and the median quorum is numpy
 there.  ``mode="loop"`` keeps the per-(oracle, trainer) calls for an
 ``eval_fn`` that cannot be vmapped; ``mode="auto"`` (the default) falls
-back to it when the vmapped call raises.
+back to it when the vmapped call raises, and remembers that verdict per
+``eval_fn`` so later rounds go straight to the loop (``mode="batched"``
+clears it).
 
-``mega_score_tables`` (the cross-task megastep) and
-``cross_verify_aggregate`` are not ported yet (ROADMAP.md).
+``mega_score_tables`` scores a whole stack of tasks (the cross-task
+megastep) with a third vmap, over tasks, around the same oracle x trainer
+vmap: one call, one host copy.  ``cross_verify_aggregate`` is not ported
+yet (ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -82,6 +87,41 @@ def stack_trainer_params(trainer_params):
     return trainer_params, int(next(iter(trainer_params.values())).shape[0])
 
 
+# eval_fns found not to vmap ("not batchable" verdicts), oldest first
+_UNBATCHABLE: OrderedDict = OrderedDict()
+_UNBATCHABLE_SIZE = 32
+
+
+def _verdict_key(eval_fn: Callable):
+    """Bound methods are fresh objects at every attribute access: key on
+    (instance, function).  None for an unhashable callable."""
+    key = eval_fn
+    if hasattr(eval_fn, "__func__") and hasattr(eval_fn, "__self__"):
+        key = (eval_fn.__self__, eval_fn.__func__)
+    try:
+        hash(key)
+    except TypeError:
+        return None
+    return key
+
+
+def is_unbatchable(eval_fn: Callable) -> bool:
+    """True when ``eval_fn`` was found not to vmap (cached verdict)."""
+    key = _verdict_key(eval_fn)
+    return key is not None and key in _UNBATCHABLE
+
+
+def _mark_unbatchable(eval_fn: Callable, value: bool) -> None:
+    key = _verdict_key(eval_fn)
+    if key is None:
+        return
+    _UNBATCHABLE.pop(key, None)
+    if value:
+        _UNBATCHABLE[key] = True
+        while len(_UNBATCHABLE) > _UNBATCHABLE_SIZE:
+            _UNBATCHABLE.popitem(last=False)
+
+
 def _score_table_batched(eval_fn: Callable, stacked,
                          val: ValidationSlices) -> torch.Tensor:
     """(n_oracles, n_trainers) score table, on the device, from vmapped
@@ -98,6 +138,25 @@ def _score_table_batched(eval_fn: Callable, stacked,
 
 
 _score_table_batched.calls = 0
+
+
+def mega_score_tables(eval_fn: Callable, mega_stacked,
+                      val: ValidationSlices) -> np.ndarray:
+    """(n_tasks, n_oracles, n_trainers) score tables for a stack of tasks
+    (leaves ``(T, K, ...)``) in one triple-vmapped call and one host copy.
+    Needs equal-sized oracle slices (``val.stacked``).  Every cell equals
+    the per-task table's cell: the vmaps only batch independent calls.
+    Counts its calls in ``mega_score_tables.calls``."""
+    if val.stacked is None:
+        raise ValueError("mega scoring needs equal-sized oracle slices")
+    per_trainer = vmap(eval_fn, in_dims=(0, None))
+    per_oracle = vmap(per_trainer, in_dims=(None, 0))
+    table = vmap(per_oracle, in_dims=(0, None))(mega_stacked, val.stacked)
+    mega_score_tables.calls += 1
+    return table.cpu().numpy().astype(np.float64)
+
+
+mega_score_tables.calls = 0
 
 
 def _score_table_loop(eval_fn: Callable, stacked, n_trainers: int,
@@ -163,7 +222,9 @@ def evaluate_quorum(eval_fn: Callable, trainer_params,
         raise ValueError(f"{len(val)} validation slices for "
                          f"{cfg.n_oracles} oracles")
     table = None
-    if mode != "loop":
+    if mode == "batched":
+        _mark_unbatchable(eval_fn, False)     # a forced retry clears it
+    if mode == "batched" or (mode == "auto" and not is_unbatchable(eval_fn)):
         try:
             batched = _score_table_batched(eval_fn, stacked, val)
         except RuntimeError:
@@ -171,6 +232,8 @@ def evaluate_quorum(eval_fn: Callable, trainer_params,
             # ``.item()``) with a RuntimeError while it runs the batch
             if mode == "batched":
                 raise
+            # remember it: "auto" must not pay a failed vmap every round
+            _mark_unbatchable(eval_fn, True)
         else:
             table = batched.cpu().numpy().astype(np.float64)
     if table is None:

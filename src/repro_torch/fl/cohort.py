@@ -11,13 +11,20 @@ It returns a ``CohortSubmissions`` whose params are STACKED (leading
 trainer axis), so the DON scoring pass (core/oracle.py) and the Eq. 1
 merge (core/aggregation.py) take them without restacking.
 
+``MegaCohort`` is the cross-task megastep: T same-kernel cohorts' rounds
+stacked on a leading task axis and advanced by one ``vmap`` over tasks of
+the cohort round, with each cohort's noise drawn through the same
+``round_noise`` seam from its own (seed, round counter).  The stacked
+optimizer state stays with the MegaCohort between consecutive megasteps;
+a cohort that steps on its own takes it back first (``_opt_holder``).
+
 ``AgentCohort`` (needs ``fl/client.TrainingAgent``, ROADMAP.md queue 1
-item 7) and the cross-task ``MegaCohort`` are not ported yet.
+item 7) is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -110,6 +117,41 @@ class CohortKernels:
         weights, and opt-state rows kept only where ``keep_mask`` is set.
         Returns (submitted stacked params, new opt state, mean loss per
         trainer)."""
+        dp_noise, fake_noise = round_noise(
+            seed, rnd, int(mal_mask.shape[0]),
+            {k: tuple(v.shape) for k, v in params.items()}, mal_mask.device)
+        return self._round_core(params, opt_state, batches, dp_noise,
+                                fake_noise, mal_mask, keep_mask, use_fake)
+
+    def mega_round_step(self, params: Tree, opt_state, batches: Dict,
+                        seeds: Sequence[int], rnds: Sequence[int],
+                        mal_masks: torch.Tensor, keep_masks: torch.Tensor,
+                        use_fake: bool):
+        """T cohort rounds at once: ``torch.func.vmap`` over tasks of the
+        round.  Every input carries a leading task axis (params ``(T,
+        ...)``, opt state and masks ``(T, K, ...)``, batches ``(T, K, H,
+        ...)``).  Task t's noise is ``round_noise(seeds[t], rnds[t], ...)``
+        as on the per-task path, drawn on the host for all tasks and
+        copied to the device once.  Row t of every output is what
+        ``round_step`` gives on task t's inputs alone."""
+        n = int(mal_masks.shape[1])
+        shapes = {k: tuple(v.shape[1:]) for k, v in params.items()}
+        cpu = torch.device("cpu")
+        draws = [round_noise(sd, r, n, shapes, cpu)
+                 for sd, r in zip(seeds, rnds)]
+        dev = mal_masks.device
+        dp_noise, fake_noise = ({k: torch.stack([d[j][k] for d in draws]
+                                                 ).to(dev) for k in shapes}
+                                for j in (0, 1))
+        return vmap(lambda *a: self._round_core(*a, use_fake))(
+            params, opt_state, batches, dp_noise, fake_noise, mal_masks,
+            keep_masks)
+
+    def _round_core(self, params: Tree, opt_state, batches: Dict,
+                    dp_noise: Tree, fake_noise: Tree, mal_mask: torch.Tensor,
+                    keep_mask: torch.Tensor, use_fake: bool):
+        """The round's tensor work, given its noise (vmappable over a task
+        axis)."""
         n = int(mal_mask.shape[0])
         steps = int(next(iter(batches.values())).shape[1])
         p = {k: v.expand((n,) + v.shape) for k, v in params.items()}
@@ -119,9 +161,6 @@ class CohortKernels:
             p, o, loss = self._step(p, o, {k: v[:, h]
                                            for k, v in batches.items()})
             losses.append(loss)
-        dp_noise, fake_noise = round_noise(
-            seed, rnd, n, {k: tuple(v.shape) for k, v in params.items()},
-            mal_mask.device)
         update = {k: p[k] - params[k][None] for k in params}
         noised = self._privatize(update, dp_noise)
         submitted = {k: params[k][None] + noised[k] for k in params}
@@ -180,12 +219,15 @@ class VectorCohort:
             [b == "malicious" for b in self.behaviors])
         self.kernels = kernels or CohortKernels(model, opt, dp)
         self._opt = None           # stacked opt state over selected trainers
+        self._opt_holder = None    # MegaCohort currently holding _opt
         self._round_counter = 0
 
     def __len__(self) -> int:
         return len(self.behaviors)
 
     def start_task(self, global_params: Tree, opt, sel_idx: Sequence[int]):
+        if self._opt_holder is not None:
+            self._opt_holder.flush_opt()
         k = len(sel_idx)
         o = opt.init(global_params)
         self._opt = _tree_expand(o, k)
@@ -199,6 +241,10 @@ class VectorCohort:
 
     def train(self, global_params: Tree, rnd: int,
               sel_idx: Sequence[int]) -> Optional[CohortSubmissions]:
+        if self._opt_holder is not None:
+            # a megastep holds this cohort's opt state stacked on its task
+            # axis: take it back before stepping alone
+            self._opt_holder.flush_opt()
         sel = np.asarray(sel_idx)
         part = self._participation(sel)
         if not part.any():
@@ -230,18 +276,18 @@ class VectorCohort:
         return CohortSubmissions(idxs, stacked, {i: cid for i in idxs})
 
 
-def _host_tree(stacked: Tree) -> Dict[str, np.ndarray]:
-    """A stacked float tree as numpy arrays (sorted keys), in one copy
-    from the device."""
+def _host_tree(stacked: Tree, lead: int = 1) -> Dict[str, np.ndarray]:
+    """A stacked float tree (``lead`` leading axes on every leaf) as numpy
+    arrays (sorted keys), in one copy from the device."""
     keys = sorted(stacked)
-    k = stacked[keys[0]].shape[0]
-    flat = torch.cat([stacked[name].reshape(k, -1) for name in keys],
-                     dim=1).cpu().numpy()
+    front = tuple(stacked[keys[0]].shape[:lead])
+    flat = torch.cat([stacked[name].reshape(front + (-1,)) for name in keys],
+                     dim=-1).cpu().numpy()
     out, at = {}, 0
     for name in keys:
         shape = tuple(stacked[name].shape)
-        size = int(np.prod(shape[1:], dtype=np.int64))
-        out[name] = np.ascontiguousarray(flat[:, at: at + size]).reshape(
+        size = int(np.prod(shape[lead:], dtype=np.int64))
+        out[name] = np.ascontiguousarray(flat[..., at: at + size]).reshape(
             shape)
         at += size
     return out
@@ -252,3 +298,145 @@ def _tree_expand(tree, k: int):
     if isinstance(tree, dict):
         return {name: _tree_expand(v, k) for name, v in tree.items()}
     return tree.expand((k,) + tree.shape)
+
+
+def _tree_stack(trees: Sequence[Any]):
+    """Stack same-structure trees (dicts of tensors, nested) on a new
+    leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(list(trees))
+
+
+def _tree_index(tree, i):
+    """Row ``i`` of every leaf of a stacked tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _tree_index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+@dataclasses.dataclass
+class MegaRound:
+    """One megastep's outputs and the row bookkeeping the scheduler needs
+    to score and merge across tasks in the stacked layout."""
+
+    subs: List[Optional[CohortSubmissions]]  # per task; None: nobody came
+    raw: Optional[Tree]          # (A, K, ...) submitted, selection order,
+                                 # one row per active task (the DON input)
+    sorted_full: Optional[Tree]  # (F, K, ...) the full-participation tasks'
+                                 # submissions in CohortSubmissions order
+    active: List[int]            # task index of raw row a
+    full_rows: List[int]         # task index of sorted_full row f
+    pos: List[np.ndarray]        # per active row: sub_pos into selection
+
+
+class MegaCohort:
+    """Cross-task megastep over T ``VectorCohort``s that share one
+    ``CohortKernels``: their round inputs stacked on a leading task axis
+    (exactly the active tasks, no padding) and advanced by ONE
+    ``mega_round_step`` call instead of T ``round_step`` calls.
+
+    Stepping each ``VectorCohort.train`` alone gives the same outputs:
+    participation draws come from each cohort's own rng in the same
+    order, noise from each cohort's (seed, round counter), opt state and
+    round counters advance per task, and blob cids are content-identical.
+    Ragged participation changes only the gather: the step trains all K
+    selected trainers under per-task keep masks, as the per-task path
+    does.
+    """
+
+    def __init__(self, cohorts: Sequence[VectorCohort]):
+        if not cohorts:
+            raise ValueError("empty mega group")
+        k0 = cohorts[0].kernels
+        if any(c.kernels is not k0 for c in cohorts):
+            raise ValueError("a mega group shares ONE CohortKernels")
+        self.cohorts = list(cohorts)
+        self.kernels = k0
+        # opt-state residency: between consecutive megasteps over the same
+        # active tasks the stacked opt tree stays here; each active
+        # cohort's ``_opt_holder`` points back, so a per-task step or a
+        # new task takes it back first
+        self._opt_stacked = None
+        self._opt_active: Optional[List[int]] = None
+
+    def flush_opt(self) -> None:
+        """Hand the stacked opt state back to its cohorts."""
+        if self._opt_stacked is None:
+            return
+        for a, t in enumerate(self._opt_active):
+            self.cohorts[t]._opt = _tree_index(self._opt_stacked, a)
+            self.cohorts[t]._opt_holder = None
+        self._opt_stacked = self._opt_active = None
+
+    def _stacked_opt(self, active: List[int]):
+        if self._opt_active == active and all(
+                self.cohorts[t]._opt_holder is self for t in active):
+            return self._opt_stacked
+        self.flush_opt()
+        for t in active:
+            holder = self.cohorts[t]._opt_holder
+            if holder is not None:
+                holder.flush_opt()
+        return _tree_stack([self.cohorts[t]._opt for t in active])
+
+    def train(self, params_list: Sequence[Tree], rnds: Sequence[int],
+              sel_list: Sequence[Sequence[int]]) -> MegaRound:
+        cohorts = self.cohorts
+        sels = [np.asarray(s) for s in sel_list]
+        if len({s.size for s in sels}) != 1:
+            raise ValueError("a mega group needs one cohort size")
+        parts = [c._participation(s) for c, s in zip(cohorts, sels)]
+        active = [t for t in range(len(cohorts)) if parts[t].any()]
+        subs: List[Optional[CohortSubmissions]] = [None] * len(cohorts)
+        if not active:
+            return MegaRound(subs, None, None, [], [], [])
+        dev = cohorts[active[0]].device
+        mal = np.stack([cohorts[t].is_malicious[sels[t]] for t in active])
+        keep = np.stack([parts[t] for t in active]) & ~mal
+        masks = torch.from_numpy(np.stack([mal, keep])).to(dev)
+        submitted, new_opt, _loss = self.kernels.mega_round_step(
+            _tree_stack([params_list[t] for t in active]),
+            self._stacked_opt(active),
+            _tree_stack([cohorts[t].batch_fn(sels[t], rnds[t])
+                         for t in active]),
+            [cohorts[t].seed for t in active],
+            [cohorts[t]._round_counter for t in active],
+            masks[0], masks[1], use_fake=bool(mal.any()))
+        self._opt_stacked, self._opt_active = new_opt, active
+        for t in active:
+            cohorts[t]._opt_holder = self
+            cohorts[t]._round_counter += 1
+        # per-task submission order (the VectorCohort.train sub_pos)
+        pos, full_rows = [], []
+        for t in active:
+            if parts[t].all():
+                pos.append(np.argsort(sels[t]))
+                full_rows.append(t)
+            else:
+                p = np.flatnonzero(parts[t])
+                pos.append(p[np.argsort(sels[t][p])])
+        sorted_full = None
+        if full_rows:
+            # full tasks: one gather, one host copy for all their blobs
+            fa = [active.index(t) for t in full_rows]
+            rows = torch.tensor(fa, device=dev)[:, None]
+            cols = torch.from_numpy(np.stack([pos[a] for a in fa])).to(dev)
+            sorted_full = {k: v[rows, cols] for k, v in submitted.items()}
+            host = _host_tree(sorted_full, lead=2)
+            for f, t in enumerate(full_rows):
+                cid = cohorts[t].store.put({k: host[k][f] for k in host})
+                idxs = [int(i) for i in sels[t][pos[fa[f]]]]
+                subs[t] = CohortSubmissions(
+                    idxs, _tree_index(sorted_full, f),
+                    {i: cid for i in idxs})
+        for a, t in enumerate(active):
+            if subs[t] is not None:
+                continue
+            p = torch.from_numpy(pos[a]).to(dev)
+            stacked = {k: v[a][p] for k, v in submitted.items()}
+            cid = cohorts[t].store.put(_host_tree(stacked))
+            idxs = [int(i) for i in sels[t][pos[a]]]
+            subs[t] = CohortSubmissions(idxs, stacked, {i: cid for i in idxs})
+        return MegaRound(subs, submitted, sorted_full, active, full_rows,
+                         pos)

@@ -19,15 +19,23 @@ submissions with the DON (one vmapped score table, one host copy), and
 merges them by Eq. 1 (kernel ``weighted_agg``); at settlement the Eq. 4
 distances (kernel ``model_distance``) feed the Eq. 2-10 update.
 
-Only the stepped per-task path is ported.  The cross-task megastep
-(``megabatch``, with ``MegaCohort``) and the fused plan-then-execute
-window loop (``fused``, with ``core/fused.py`` and ``block_pack``) are the
-next slice (ROADMAP.md, queue 1 item 3): ``"auto"`` resolves to the
-stepped path and says so once in the log, ``True`` raises.
+By default (``fused="auto"``, ``megabatch="auto"``) a run takes the JAX
+package's default path:
+
+  * the ledger side runs through the plan-then-execute window loop
+    (core/fused.py): the whole run's seals in one pass and its blocks in
+    one ``block_pack`` launch at the end;
+  * a window in which every stepping task is mid-round runs as ONE
+    cross-task megastep: ``MegaCohort`` trains all tasks in one call,
+    ``mega_score_tables`` scores them in one call, the full-participation
+    tasks merge in one task-axis ``weighted_agg`` launch (ragged tasks
+    keep one launch each), and the window's txs go out as one batch.
+
+Both give the stepped per-task path's outputs, which stay the reference
+semantics (``fused=False, megabatch=False``).
 """
 from __future__ import annotations
 
-import logging
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -35,16 +43,15 @@ import torch
 
 from repro_torch.api.specs import as_task_spec
 from repro_torch.core.aggregation import (tree_flat, tree_flat_stacked,
-                                          weighted_average_tree)
+                                          weighted_average_tree,
+                                          weighted_average_tree_mega)
 from repro_torch.core.engine import TxArrays
-from repro_torch.core.oracle import evaluate_quorum
+from repro_torch.core.fused import FusedWindowLoop, supports_fused
+from repro_torch.core.oracle import (evaluate_quorum, is_unbatchable,
+                                     mega_score_tables, quorum_from_table)
 from repro_torch.core.reputation import model_distances
-from repro_torch.fl.cohort import CohortSubmissions, VectorCohort
-
-_log = logging.getLogger(__name__)
-# stack shapes already told that "auto" resolved to the stepped path: the
-# log fires once per stack shape per process, not once per run
-_STEPPED_FALLBACK_LOGGED: set = set()
+from repro_torch.fl.cohort import (CohortSubmissions, MegaCohort,
+                                   VectorCohort)
 
 
 def _settle_distances(stacked_tree, global_tree) -> torch.Tensor:
@@ -179,19 +186,21 @@ class Scheduler:
     window edge.  ``background`` (a core/workloads.py Workload) is injected
     into the shared L1 in time order, racing protocol traffic for block
     gas.  ``seal_every``: seal rollup lane batches every k windows (0 =
-    only the final flush).  ``fused`` and ``megabatch``: ``"auto"`` and
-    ``False`` run the stepped per-task path, the only one ported;
-    ``True`` raises ``NotImplementedError``.
+    only the final flush).
+    ``fused``: drive the ledger through the core/fused.py plan-then-
+    execute loop: "auto" (when the stack supports it), True (it must), or
+    False (always stepped).
+    ``megabatch``: run a window in which every stepping task is mid-round
+    on one shared ``CohortKernels`` as one cross-task megastep: "auto"
+    (when eligible), True (raise on a window that is all-round but not
+    eligible), or False (always per task).  A run with background traffic
+    steps per task.
     """
 
     def __init__(self, node, *, window: float = 1.0, seal_every: int = 0,
                  background=None, fused="auto", megabatch="auto"):
         for name, value in (("fused", fused), ("megabatch", megabatch)):
-            if value is True:
-                raise NotImplementedError(
-                    f"Scheduler({name}=True): the {name} path is not ported "
-                    "yet (ROADMAP.md, queue 1 item 3)")
-            if value not in ("auto", False):
+            if not any(value is v for v in ("auto", True, False)):
                 raise ValueError(f"{name} must be 'auto', True or False")
         self.node = node
         self.window = window
@@ -199,8 +208,10 @@ class Scheduler:
         self.background = background
         self.fused = fused
         self.megabatch = megabatch
-        self.mega_windows = 0       # the megastep is not ported: stays 0
+        self.mega_windows = 0       # windows driven by the megastep
         self.n_windows = 0          # scheduling windows the last run took
+        self._mega = None           # (cohorts, cached MegaCohort)
+        self._loop: Optional[FusedWindowLoop] = None   # during run()
         self.runtimes: List[TaskRuntime] = []
         self._bg_pos = 0
         # the background's submit times and sender ids, on the host once:
@@ -243,10 +254,123 @@ class Scheduler:
                        np.int32)
         remapped = torch.from_numpy(lut[np.searchsorted(uniq, sid)]).to(
             txs.device)
-        chain.submit_arrays(TxArrays(
-            txs.submit_time[i:j], txs.gas[i:j], txs.fn_id[i:j], remapped,
-            txs.fns))
+        batch = TxArrays(txs.submit_time[i:j], txs.gas[i:j], txs.fn_id[i:j],
+                         remapped, txs.fns)
+        if self._loop is not None:
+            self._loop.submit(chain, batch)
+        else:
+            chain.submit_arrays(batch)
         self._bg_pos = j
+
+    def _seal_rollup(self):
+        """The window-boundary seal: planned under the fused loop."""
+        if self._loop is not None:
+            self._loop.seal()
+        else:
+            self.node.rollup.seal()
+
+    # -- cross-task megastep ---------------------------------------------------
+    def _mega_eligible(self, rts: List[TaskRuntime]) -> bool:
+        """One megastep can replace this window's per-task loop when every
+        stepping task is mid-round, the cohorts share one CohortKernels
+        and one cohort size, the oracle slices are equal-sized and the
+        eval_fn vmaps.  Mixed-phase windows step per task silently; under
+        ``megabatch=True`` an all-round window that is not eligible
+        raises."""
+        if not self.megabatch or self.background is not None:
+            return False
+        if any(rt.phase != "round" for rt in rts):
+            return False
+        node = self.node
+        kernels = rts[0].cohort.kernels
+        ok = (getattr(node._target(), "soa_native", False)
+              and node.val_slices.stacked is not None
+              and all(rt.cohort.kernels is kernels for rt in rts)
+              and len({len(rt.sel_idx) for rt in rts}) == 1
+              and not is_unbatchable(node.eval_fn))
+        if not ok and self.megabatch is True:
+            raise RuntimeError(
+                "Scheduler(megabatch=True): window is not megabatchable "
+                "(needs a SoA-native target, equal-sized oracle slices, "
+                "VectorCohorts sharing one CohortKernels, one cohort size "
+                "and a vmappable eval_fn)")
+        return ok
+
+    def _mega_window(self, rts: List[TaskRuntime]) -> List[TaskRuntime]:
+        """One round of EVERY task in ``rts`` as a single megastep; gives
+        what stepping each ``TaskRuntime._round`` in order gives."""
+        node = self.node
+        self.mega_windows += 1
+        # cached across windows so the stacked opt state stays resident
+        # between consecutive megasteps of the same group
+        key = tuple(rt.cohort for rt in rts)     # cohorts compare by identity
+        if self._mega is None or self._mega[0] != key:
+            self._mega = (key, MegaCohort(list(key)))
+        mega = self._mega[1].train([rt.params for rt in rts],
+                                   [rt.rnd for rt in rts],
+                                   [rt.sel_idx for rt in rts])
+        for rt in rts:
+            rt.rnd += 1
+        groups = []
+        for rt, subs in zip(rts, mega.subs):
+            if subs is None:
+                continue
+            senders = []
+            for i in subs.idxs:
+                tid = node.trainer_ids[i]
+                node.tsc.submit_local_model(tid, rt.task_id, rt.rnd - 1,
+                                            subs.cids[i])
+                senders.append(tid)
+            groups += [("submitLocalModel", senders),
+                       ("calculateObjectiveRep", senders)]
+            rt.completed[subs.idxs] += 1.0
+        node._tx_batch_many(groups)
+        scores: Dict[int, torch.Tensor] = {}
+        if mega.active:
+            try:
+                tables = mega_score_tables(node.eval_fn, mega.raw,
+                                           node.val_slices)
+            except RuntimeError:
+                # eval_fn does not vmap: score per task; evaluate_quorum
+                # caches the verdict, so later windows step per task
+                tables = None
+            for a, t in enumerate(mega.active):
+                if tables is not None:
+                    s, report = quorum_from_table(tables[a][:, mega.pos[a]],
+                                                  node.don)
+                else:
+                    s, report = evaluate_quorum(
+                        node.eval_fn, mega.subs[t].stacked, None, node.don,
+                        slices=node.val_slices)
+                scores[t] = s
+                rts[t].last_scores = np.asarray(report["median"], np.float32)
+        # full-participation tasks merge in ONE task-axis Eq. 1 launch;
+        # ragged tasks (fewer submitters) keep one launch each
+        full = mega.full_rows
+        if full:
+            dev = next(iter(mega.sorted_full.values())).device
+            merged = weighted_average_tree_mega(
+                mega.sorted_full, torch.stack([scores[t] for t in full]).to(
+                    dev))
+            for f, t in enumerate(full):
+                rts[t].params = {k: v[f] for k, v in merged.items()}
+        for t in mega.active:
+            if t not in full:
+                subs = mega.subs[t]
+                rts[t].params = weighted_average_tree(
+                    subs.stacked, scores[t].to(
+                        next(iter(subs.stacked.values())).device))
+            node.tsc.advance_round(rts[t].task_id)
+            rts[t].last_subs = mega.subs[t]
+        for rt, subs in zip(rts, mega.subs):
+            if subs is None:
+                node.tsc.advance_round(rt.task_id)
+        ready = []
+        for rt in rts:
+            if rt.rnd >= rt.rounds:
+                rt._finalize()
+                ready.append(rt)
+        return ready
 
     def run(self) -> Dict[str, object]:
         """Drive every task to completion; returns {task_id: FLTaskResult}.
@@ -259,15 +383,12 @@ class Scheduler:
         client = node.client()
         client.events()              # this run's provenance only
         self.window_records, self.settlement_records = [], []
-        key = (type(node.chain).__name__,
-               type(node.rollup).__name__ if node.rollup is not None
-               else None)
-        if "auto" in (self.fused, self.megabatch) and \
-                key not in _STEPPED_FALLBACK_LOGGED:
-            _STEPPED_FALLBACK_LOGGED.add(key)
-            _log.info("Scheduler(fused='auto', megabatch='auto') on %s/%s: "
-                      "the fused loop and the megastep are not ported; "
-                      "using the stepped per-task window loop", *key)
+        use_fused = (supports_fused(node.chain, node.rollup)
+                     if self.fused == "auto" else self.fused)
+        if use_fused:
+            self._loop = FusedWindowLoop(node.chain, node.rollup)
+            node._fused = self._loop
+        ledger = self._loop if use_fused else None
         node.pre_tx_hook = self._submit_background
         w = 0
         t = 0.0
@@ -276,27 +397,30 @@ class Scheduler:
                 # the window END tracks the protocol clock: a window edge
                 # behind the clock would strand late-stamped protocol txs
                 node._clock = max(node._clock, t)
-                ready = []
-                for rt in self.runtimes:
-                    if rt.phase in ("settle_ready", "done") or \
-                            rt.start_window > w:
-                        continue
-                    rt.step()
-                    if rt.phase == "settle_ready":
-                        ready.append(rt)
+                stepping = [rt for rt in self.runtimes
+                            if rt.phase not in ("settle_ready", "done")
+                            and rt.start_window <= w]
+                if stepping and self._mega_eligible(stepping):
+                    ready = self._mega_window(stepping)
+                else:
+                    ready = []
+                    for rt in stepping:
+                        rt.step()
+                        if rt.phase == "settle_ready":
+                            ready.append(rt)
                 if ready:
                     node.settle_window(ready)
                 if self.seal_every and node.rollup is not None and \
                         (w + 1) % self.seal_every == 0:
-                    node.rollup.seal()
+                    self._seal_rollup()
                 t_end = max(t + self.window, node._clock)
                 self._submit_background(t_end)
                 if node.rollup is not None:
                     # proof jobs drain on the window clock: pump BEFORE
                     # block production so window-finalized settlements
                     # land in the blocks that pack this window
-                    node.rollup.pump(t_end)
-                node.chain.run_until(t_end)
+                    (ledger or node.rollup).pump(t_end)
+                (ledger or node.chain).run_until(t_end)
                 t = t_end
                 w += 1
                 self.n_windows = w
@@ -304,13 +428,19 @@ class Scheduler:
                     raise RuntimeError("scheduler failed to make progress")
             self._submit_background(float("inf"))
             if node.rollup is not None:
-                node.rollup.flush()
+                (ledger or node.rollup).flush()
             t_end = node._clock + 5.0
             if self.background is not None:
                 t_end = max(t_end, self.background.duration + 5.0)
-            node.chain.run_until(t_end)
+            (ledger or node.chain).run_until(t_end)
+            if ledger is not None:
+                # replay the recorded window loop in one pass: the run's
+                # seals at once, its blocks in one block_pack launch
+                ledger.execute()
         finally:
             node.pre_tx_hook = None
+            node._fused = None
+            self._loop = None
         for ev in client.events():
             if ev.kind == "window_settled":
                 self.window_records.append(ev)

@@ -11,10 +11,15 @@ The reputation book, the account state and the models live on the node's
 device (the card unless the caller names another); the escrow, the task
 contracts and the clock are host state.
 
+While a ``Scheduler`` runs the fused window loop (core/fused.py), the
+node's protocol emissions and its end-of-window account scatter are
+journaled into the loop's plan (``_fused``) instead of reaching the
+ledger at once; ``_tx_batch_many`` is the cross-task megastep's one
+concatenated emission.
+
 Not ported yet (ROADMAP.md): the legacy flag kwargs and
 ``NodeSpec.from_legacy`` (a missing ``spec`` means ``NodeSpec()``), the
-sharded-fabric branches and the fused window loop's journaling,
-``_tx_batch_many`` (with ``MegaCohort``) and the object-path payloads.
+sharded-fabric branches and the object-path payloads.
 """
 from __future__ import annotations
 
@@ -103,6 +108,9 @@ class AutoDFL:
         # the Scheduler drains background traffic in time order through it
         # (the engines pack FIFO and stall on out-of-order future stamps)
         self.pre_tx_hook: Optional[Callable[[float], None]] = None
+        # the active core/fused.py plan while a Scheduler runs fused:
+        # emissions and the end-of-window state scatter journal into it
+        self._fused = None
 
     def trainer_index(self, trainer_id: str) -> int:
         return self._trainer_idx[trainer_id]
@@ -144,6 +152,16 @@ class AutoDFL:
         balances = [self.escrow.balances.get(t, 0.0)
                     for t in self.trainer_ids]
         stake = [locked.get(t, 0.0) for t in self.trainer_ids]
+        if self._fused is not None:
+            # the per-seal roots commit this scatter: journal it so the
+            # fused replay writes it between the same seal points
+            dev = state.device
+            host = torch.tensor([balances, stake], dtype=torch.float64)
+            self._fused.sync_state(
+                state, torch.from_numpy(ids).to(dev),
+                self.book.reputation.to(dev, torch.float32).clone(),
+                host[0].to(dev), host[1].to(dev))
+            return
         sync_book_to_state(self.book, state, ids)
         rows = torch.from_numpy(ids).to(state.device)
         host = torch.tensor([balances, stake], dtype=torch.float64)
@@ -169,11 +187,51 @@ class AutoDFL:
         self._clock += 0.01 * n
         # ids MUST come from the target's own namespace
         sender_ids = [target.sender_id(s) for s in senders]
-        target.submit_arrays(TxArrays.from_numpy(
+        self._submit(target, TxArrays.from_numpy(
             times, np.full(n, gas, np.int64),
             np.full(n, target.fns.id(fn), np.int32), sender_ids,
             target.fns, self.device))
         self.protocol_calls[fn] = self.protocol_calls.get(fn, 0) + n
+
+    def _submit(self, target, batch: TxArrays) -> None:
+        """Stage on the ledger, or journal into the fused plan."""
+        if self._fused is not None and self._fused.covers(target):
+            self._fused.submit(target, batch)
+        else:
+            target.submit_arrays(batch)
+
+    def _tx_batch_many(self, groups) -> None:
+        """The megastep's emission: ``groups`` is ``[(fn, senders)]`` in
+        the order sequential ``_tx_batch`` calls would run.  Times are
+        stamped group by group with ``_tx_batch``'s arithmetic (clock +
+        0.01 per tx), and the whole window's protocol traffic lands in ONE
+        SoA batch: the target's tx stream is the one the per-task calls
+        give (submitting only stages; batches and blocks form later)."""
+        groups = [(fn, senders) for fn, senders in groups if senders]
+        total = sum(len(senders) for _, senders in groups)
+        if total == 0:
+            return
+        if self.pre_tx_hook is not None:
+            self.pre_tx_hook(self._clock)
+        target = self._target()
+        times = np.empty(total, np.float64)
+        gas = np.empty(total, np.int64)
+        fn_id = np.empty(total, np.int32)
+        sender_id = np.empty(total, np.int32)
+        o = 0
+        for fn, senders in groups:
+            n = len(senders)
+            # advance the clock group by group, as _tx_batch does: one
+            # arange over the concatenation drifts by ulps
+            times[o: o + n] = self._clock + 0.01 * np.arange(1, n + 1)
+            self._clock += 0.01 * n
+            gas[o: o + n] = DEFAULT_GAS.l1_per_call.get(fn, L1_DEFAULT_GAS)
+            fn_id[o: o + n] = target.fns.id(fn)
+            sender_id[o: o + n] = [target.sender_id(s) for s in senders]
+            self.protocol_calls[fn] = self.protocol_calls.get(fn, 0) + n
+            o += n
+        self._submit(target, TxArrays.from_numpy(
+            times, gas, fn_id, sender_id, target.fns, self.device))
 
     # -- end-of-task settlement (step 16, Eq. 2-10) -------------------------------
     def settle_window(self, runtimes) -> None:

@@ -37,9 +37,12 @@ _SIGNATURES = {
     "fold_chunk_digests": (_D, _P, _I, _I, _P, _P),
     "fold_dirty_chunks": (_D, _P, _I, _I, _P, _I, _P, _P),
     "fold_batch_seal": (_D, _P, _I, _P, _I, _P, _P),
-    # csrc/fl.cu: (device, in, in, n, P, dtype flag, out, stream)
-    "fl_weighted_agg": (_D, _P, _P, _I, _I, _F, _P, _P),
+    # csrc/fl.cu: (device, in, in, [T,] n, P, dtype flag, out, stream)
+    "fl_weighted_agg": (_D, _P, _P, _I, _I, _I, _F, _P, _P),
     "fl_model_distance": (_D, _P, _P, _I, _I, _F, _P, _P),
+    # csrc/pack.cu: (device, tmax, gcum, N, times, n_vis, B, gas_limit,
+    # ptr0, stops, stream)
+    "pack_block_pack": (_D, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P),
 }
 
 _LIB = None

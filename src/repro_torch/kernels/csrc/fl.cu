@@ -2,13 +2,16 @@
 // merge (paper Eq. 1) and the per-trainer model distance (paper Eq. 4).
 //
 // Both read a stacked (n, P) tensor of trainer models, row-major, in
-// float32 or bfloat16 (dtype flag 0 or 1), and accumulate in float32.
+// float32 or bfloat16 (dtype flag 0 or 1), and accumulate in float32;
+// weighted_agg also takes T such stacks at once, (T, n, P) with (T, n)
+// scores, one task per grid row (the cross-task megastep).
 // Two launchers with a plain C interface (loaded with ctypes by
 // src/repro_torch/kernels/_build.py).  Each takes the device index, raw
 // device pointers, the sizes, the dtype flag and a cudaStream_t, allocates
 // nothing and returns cudaGetLastError():
 //
-//   fl_weighted_agg    out[p] = sum_i s[i] * w[i, p] / max(sum_i s[i], 1e-12)
+//   fl_weighted_agg    out[t, p] = sum_i s[t, i] * w[t, i, p]
+//                                  / max(sum_i s[t, i], 1e-12)
 //   fl_model_distance  out[i] = || l[i, :] - g[:] ||_2
 //
 // Both are bound by the bytes they read: two or three float operations per
@@ -48,11 +51,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 // walks the n rows in order, accumulating s[i] * w[i, p] in float32.  A
 // grid-stride loop covers any P; the tail needs no padding, because a
 // thread past P does nothing.  Each block sums the scores itself (n is
-// small) before the column loop.
+// small) before the column loop.  Grid row blockIdx.y is task t: its
+// stack, scores and output start t stacks in, and every task's sums run
+// in the same order as a launch on that task alone, so row t of a
+// batched launch is bit-identical to it.
 template <typename T>
 __global__ void __launch_bounds__(kAggBlock)
 weighted_agg_kernel(const T* __restrict__ w, const float* __restrict__ s,
                     int64_t n, int64_t P, T* __restrict__ out) {
+  const int64_t task = blockIdx.y;
+  w += task * n * P;
+  s += task * n;
+  out += task * P;
   __shared__ float denom;
   if (threadIdx.x < 32) {
     float acc = 0.f;
@@ -157,22 +167,25 @@ int64_t blocks_for(int64_t items, int64_t per_block) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (w and out); s is float32.
-int fl_weighted_agg(int device, const void* w, const void* s, int64_t n,
-                    int64_t P, int dtype, void* out, void* stream) {
+// T stacks of (n, P); dtype: 0 = float32, 1 = bfloat16 (w and out); s is
+// float32 (T, n).
+int fl_weighted_agg(int device, const void* w, const void* s, int64_t T,
+                    int64_t n, int64_t P, int dtype, void* out,
+                    void* stream) {
   if (cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  if (T < 1 || T > 65535) return static_cast<int>(cudaErrorInvalidValue);
   int64_t grid = blocks_for(P, kAggBlock);
   if (grid < 1) grid = 1;
   if (grid > 132 * 8) grid = 132 * 8;  // grid-stride beyond 8 blocks per SM
+  const dim3 blocks(static_cast<unsigned>(grid), static_cast<unsigned>(T));
   const auto st = static_cast<cudaStream_t>(stream);
   const auto sf = static_cast<const float*>(s);
   if (dtype == 0) {
-    weighted_agg_kernel<float><<<static_cast<unsigned>(grid), kAggBlock, 0,
-                                 st>>>(static_cast<const float*>(w), sf, n, P,
-                                       static_cast<float*>(out));
+    weighted_agg_kernel<float><<<blocks, kAggBlock, 0, st>>>(
+        static_cast<const float*>(w), sf, n, P, static_cast<float*>(out));
   } else if (dtype == 1) {
     weighted_agg_kernel<__nv_bfloat16>
-        <<<static_cast<unsigned>(grid), kAggBlock, 0, st>>>(
+        <<<blocks, kAggBlock, 0, st>>>(
             static_cast<const __nv_bfloat16*>(w), sf, n, P,
             static_cast<__nv_bfloat16*>(out));
   } else {

@@ -15,7 +15,9 @@ Selection: an explicit ``impl=`` wins; else the ``REPRO_TORCH_KERNEL_IMPL``
 environment variable; else ``"auto"``, the op's default.  The ledger ops
 (``batch_seal``, ``rollup_digest``, ``rollup_chunk_digests``,
 ``dirty_fold``) take and return int32 tensors carrying u32 bits, with
-identical bits from every impl.  The FL ops (``weighted_agg``, Eq. 1, and
+identical bits from every impl; ``block_pack`` (the fused loop's block
+packing) takes float64 times and int64 gas cumsums and returns int64 stop
+pointers, identical from every impl.  The FL ops (``weighted_agg``, Eq. 1, and
 ``model_distance``, Eq. 4) take float32 or bfloat16 and agree to float32
 rounding.  Every impl returns its result on the input's device.
 """
@@ -44,6 +46,7 @@ def _load() -> None:
         return
     _LOADED = True
     from repro_torch.kernels import batch_seal as bs
+    from repro_torch.kernels import block_pack as bp
     from repro_torch.kernels import dirty_fold as df
     from repro_torch.kernels import model_distance as md
     from repro_torch.kernels import rollup_digest as rd
@@ -56,7 +59,8 @@ def _load() -> None:
             ("dirty_fold", df.dirty_fold_torch, df.dirty_fold),
             ("weighted_agg", wa.weighted_agg_torch, wa.weighted_agg),
             ("model_distance", md.model_distance_torch,
-             md.model_distance)):
+             md.model_distance),
+            ("block_pack", bp.block_pack_torch, bp.block_pack)):
         register_kernel(op, "torch", plain)
         register_kernel(op, "cuda", wrapper, default=True)
 

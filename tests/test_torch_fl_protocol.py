@@ -1,5 +1,8 @@
 """The FL protocol slice as a whole: the port's Scheduler and run_task (on
-the CPU) against the JAX package's, on the same world.
+the CPU) against the JAX package's, on the same world.  Both schedulers
+run their stepped per-task path (``fused=False, megabatch=False``); the
+default fused + megastep path is held to it in tests/test_torch_fused.py
+and tests/test_torch_mega.py.
 
 Both packages train TinyMLP(32, 16, 10) with sgdm on the same gaussian
 clusters and batch indices (numpy streams); the port is handed the JAX
@@ -176,7 +179,8 @@ def _run_torch(w, mode, n_tasks, background, monkeypatch):
         bg = (torch_workload("poisson", 20.0, duration=10.0, seed=3,
                              fn="bgPing", device="cpu") if background
               else None)
-        sch = Scheduler(node, seal_every=2, background=bg)
+        sch = Scheduler(node, seal_every=2, background=bg, fused=False,
+                        megabatch=False)
         for spec, c in zip(_tasks(pt, n_tasks), cohorts):
             sch.add_task(spec, c)
         out = sch.run()

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-fold kernels bit for bit, the FL kernels (Eq. 1 and Eq. 4, float32
-accumulation in another order) at rtol 1e-5 / atol 1e-6 in float32 and
-2e-2 in bfloat16.
+fold kernels and ``block_pack`` bit for bit, the FL kernels (Eq. 1 and
+Eq. 4, float32 accumulation in another order) at rtol 1e-5 / atol 1e-6 in
+float32 and 2e-2 in bfloat16, a task-axis Eq. 1 launch row for row equal
+to the unbatched launches; and the default ``Scheduler`` (fused loop and
+megastep) on the card against the stepped per-task path.
 
 Marked ``gpu``: they skip where no CUDA device is present (the skip is
 decided in the fixture, so every worker collects the same tests).  This
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import batch_seal as bs
+from repro_torch.kernels import block_pack as bp
 from repro_torch.kernels import dirty_fold as df
 from repro_torch.kernels import model_distance as md
 from repro_torch.kernels import rollup_digest as rd
@@ -128,3 +131,107 @@ def test_fl_kernels_zero_scores_and_large_rows(cuda):
     torch.testing.assert_close(md.model_distance(big, glob),
                                md.model_distance_torch(big, glob),
                                rtol=1e-5, atol=1e-6)
+
+
+def _pack_stream(n_txs, n_blocks, seed, gas_limit, device):
+    g = np.random.default_rng(seed)
+    tmax = np.maximum.accumulate(np.cumsum(g.exponential(0.02, n_txs)))
+    gcum = np.cumsum(g.integers(21_000, 120_000, n_txs).astype(np.int64))
+    times = np.cumsum(g.uniform(0.05, 1.5, n_blocks))
+    n_vis = np.sort(g.integers(0, n_txs + 1, n_blocks)).astype(np.int64)
+    return (*(torch.from_numpy(a).to(device)
+              for a in (tmax, gcum, times, n_vis)), gas_limit)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_txs,n_blocks,seed,gas_limit", [
+    (1, 1, 0, 9_000_000), (100, 7, 1, 9_000_000), (1000, 33, 2, 300_000),
+    (513, 16, 3, 2**40), (64, 5, 4, 21_000), (0, 4, 5, 9_000_000),
+    (60_000, 900, 6, 9_000_000),
+    (200_000, 30_000, 7, 400_000)])    # more blocks than shared memory
+def test_block_pack_kernel(cuda, n_txs, n_blocks, seed, gas_limit):
+    args = _pack_stream(n_txs, n_blocks, seed, gas_limit, cuda)
+    want0 = bp.block_pack_torch(*args, 0)
+    starts = [0] + ([int(want0[0])] if n_txs else [])
+    for ptr0 in starts:
+        before = bp.block_pack.launches
+        got = bp.block_pack(*args, ptr0)
+        assert bp.block_pack.launches == before + 1
+        torch.testing.assert_close(got, bp.block_pack_torch(*args, ptr0),
+                                   rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,n,P", [(1, 4, 1000), (3, 64, 2410),
+                                   (32, 64, 2410), (5, 1, 7)])
+def test_weighted_agg_task_axis_kernel(cuda, T, n, P):
+    """Row t of the (T, n, P) launch is bit-equal to the (n, P) launch on
+    task t, and within float32 tolerance of the plain version."""
+    g = torch.Generator().manual_seed(T * 100 + n)
+    w = torch.randn(T, n, P, generator=g).to(cuda)
+    s = (torch.rand(T, n, generator=g) * 0.95 + 0.05).to(cuda)
+    before = wa.weighted_agg.launches
+    got = wa.weighted_agg(w, s)
+    assert wa.weighted_agg.launches == before + 1
+    for t in range(T):
+        assert torch.equal(got[t], wa.weighted_agg(w[t], s[t]))
+    torch.testing.assert_close(got, wa.weighted_agg_torch(w, s),
+                               **_fl_tol(torch.float32))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_default_scheduler_on_card_matches_stepped(cuda):
+    """Scheduler() on the card takes the fused loop and the megastep
+    (one block_pack launch, megastep windows) and gives the stepped
+    per-task path's ledger exactly."""
+    from repro_torch.api import FLTaskSpec, NodeSpec
+    from repro_torch.data.synthetic import gaussian_clusters
+    from repro_torch.fl.cohort import CohortKernels, VectorCohort
+    from repro_torch.fl.dp import DPConfig
+    from repro_torch.fl.scheduler import Scheduler
+    from repro_torch.fl.server import AutoDFL
+    from repro_torch.models.mlp import TinyMLP
+    from repro_torch.optim.optimizers import OptimizerSpec, make_optimizer
+    x, y = gaussian_clusters(512, 16, 10, seed=1)
+    vx, vy = gaussian_clusters(50, 16, 10, seed=2)
+    tx, ty = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+
+    def bf(sel, rnd):
+        i = np.random.default_rng(int(rnd)).integers(0, 512,
+                                                     (len(sel), 2, 8))
+        i = torch.from_numpy(i).to(cuda)
+        return {"x": tx[i], "labels": ty[i]}
+    model = TinyMLP(16, 8, 10, device=cuda)
+    opt = make_optimizer(OptimizerSpec(name="sgdm", lr=0.1, grad_clip=5.0))
+    kern = CohortKernels(model, opt, DPConfig(noise_multiplier=0.05))
+
+    def run(**knobs):
+        node = AutoDFL(model, opt, 8, model.accuracy_fn(),
+                       {"x": vx, "labels": vy},
+                       spec=NodeSpec(trainer_funds=50.0), device=cuda)
+        sch = Scheduler(node, seal_every=2, **knobs)
+        for t in range(3):
+            sch.add_task(FLTaskSpec(f"t{t}", rounds=2), VectorCohort(
+                model, opt, bf, node.store, n_trainers=8, local_steps=2,
+                seed=t, kernels=kern, device=cuda))
+        out = sch.run()
+        return node, sch, out
+
+    packs = bp.block_pack.launches
+    nd, sd, od = run()
+    assert bp.block_pack.launches == packs + 1 and sd.mega_windows > 0
+    ns, ss, os_ = run(fused=False, megabatch=False)
+    assert ss.mega_windows == 0
+    assert nd.protocol_calls == ns.protocol_calls
+    assert nd.rollup.gas_log == ns.rollup.gas_log
+    assert nd.chain.blocks == ns.chain.blocks
+    assert [e.kind for e in nd.client().events(cursor=0)] == \
+        [e.kind for e in ns.client().events(cursor=0)]
+    for t in od:
+        np.testing.assert_array_equal(od[t].scores, os_[t].scores)
+        for k, v in od[t].global_params.items():
+            torch.testing.assert_close(v, os_[t].global_params[k],
+                                       rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()

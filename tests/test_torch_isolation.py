@@ -52,7 +52,7 @@ import torch
 from repro_torch.api import FLTaskSpec, NodeSpec
 from repro_torch.core.workloads import make_workload
 from repro_torch.data.synthetic import gaussian_clusters
-from repro_torch.fl.cohort import VectorCohort
+from repro_torch.fl.cohort import CohortKernels, VectorCohort
 from repro_torch.fl.scheduler import Scheduler
 from repro_torch.fl.server import AutoDFL
 from repro_torch.models.mlp import TinyMLP
@@ -75,6 +75,17 @@ for t in range(2):
 out = sch.run()
 assert sorted(out) == ["t0", "t1"] and node.rollup.n_batches > 0
 assert len(node.rollup.state_root()) == 32
+# no background, one shared CohortKernels: the default Scheduler takes
+# the megastep too
+node = AutoDFL(model, opt, 3, model.accuracy_fn(), {"x": vx, "labels": vy},
+               spec=NodeSpec(), device="cpu")
+sch = Scheduler(node, seal_every=1)
+kernels = CohortKernels(model, opt)
+for t in range(2):
+    sch.add_task(FLTaskSpec(f"t{t}", rounds=2), VectorCohort(
+        model, opt, bf, node.store, n_trainers=3, local_steps=2, seed=t,
+        kernels=kernels, device="cpu"))
+assert sorted(sch.run()) == ["t0", "t1"] and sch.mega_windows == 2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -145,7 +156,8 @@ def test_unported_backends_raise():
            "labels": np.zeros(10, np.int32)}
     node = AutoDFL(model, make_optimizer(OptimizerSpec(name="sgdm")), 2,
                    model.accuracy_fn(), val, device="cpu")
+    # the fused loop and the megastep are ported: both knobs construct
     for kw in ({"fused": True}, {"megabatch": True}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            Scheduler(node, **kw)
-    assert Scheduler(node, fused=False, megabatch=False).mega_windows == 0
+        assert Scheduler(node, **kw).mega_windows == 0
+    sch = Scheduler(node, fused=False, megabatch=False)
+    assert sch.run() == {} and sch.mega_windows == 0

@@ -210,7 +210,7 @@ def test_factory_impls_and_selection(op, monkeypatch):
 
 def test_factory_errors():
     with pytest.raises(KeyError, match="unknown kernel op"):
-        factory.get_kernel("block_pack")
+        factory.get_kernel("shard_seal")
     with pytest.raises(KeyError, match="no impl"):
         factory.get_kernel("batch_seal", "pallas")
 

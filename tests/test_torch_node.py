@@ -82,7 +82,7 @@ def test_node_path_matches_jax(scenario, n_lanes, agg_width, finalize):
     spec_j, spec_t = _specs(n_lanes, agg_width, finalize)
     cj = jx.NodeClient.from_spec(spec_j)
     ct = pt.NodeClient.from_spec(spec_t, device="cpu")
-    assert ct.capabilities() == cj.capabilities() - {"fused_window_loop"}
+    assert ct.capabilities() == cj.capabilities()
     rj, rt = [], []
     for w, (lo, hi) in enumerate(_windows(a.submit_time, WINDOWS)):
         rj += cj.submit_arrays(JaxTxArrays(
