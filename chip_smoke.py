@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one CUDA card: the rollup node
-path (stepped, and through the fused window loop) and the reputation-aware
+path (stepped, and through the fused window loop), the reputation-aware
 FL protocol run (the default Scheduler: fused loop + cross-task megastep,
-and the stepped per-task path).
+and the stepped per-task path) and the dense-transformer serving path
+(prefill and KV-cache decode of yi-6b at full width).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -64,6 +65,29 @@ Phases, each printing its result on a line of its own:
                (one forward pass, one round).  Then the default run under
                torch.profiler: the device's busy time and the kernels
                that take it.
+
+  8. attention — the flash_attention kernel against its plain version on
+               the grid of tests/test_kernels.py:60-64, causal and not,
+               plus head width 80, S = 4,097 and ragged tails, in float32
+               (rtol 1e-4 / atol 1e-5) and bfloat16 (one bfloat16 step:
+               rtol 2^-7 / atol 1e-4); at yi-6b's prefill layer (8, 4,096,
+               32 heads, 4 kv heads, 128) in bfloat16, held on one batch
+               row and timed beside its bound, the plain version (row by
+               row) and SDPA; at prefill_32k's sequence (1, 32,768), held
+               to the plain version on three slices of 256 query rows and
+               timed beside SDPA.
+  9. lm agree — the reduced yi-6b, qwen2-0.5b, qwen1.5-0.5b and qwen3-32b
+               in float32 and bfloat16 three ways (card with the kernel,
+               card with the plain version forced, CPU): prefill logits
+               and caches and three decode steps, within LM_TOL.
+ 10. lm      — yi-6b at full width and depth (32 layers, bfloat16, weights
+               drawn on the card): a 64-token prompt through prefill and
+               through 64 decode steps, held to each other; Model.prefill
+               on 8 x 4,096 tokens (32 flash_attention launches, counted
+               from 0); its caches in an 8 x 4,128 decode state and 32
+               decode steps; the kernel's share of the prefill's device
+               time (torch.profiler); then launch/serve_model.py's loop at
+               its defaults (batch 4, prompt 8, 8 tokens).
 
 Then one JSON line lists every kernel with its launches on its path, the
 card's name and power limit follow on a line of their own, and the last
@@ -1110,16 +1134,10 @@ def fl_divergence(dev) -> None:
         f"{k_n}): {json.dumps(found)}")
 
 
-def fl_profile(dev, wall: float) -> None:
-    """Device time of the FL path: the same run again under
-    ``torch.profiler``; the union of its device intervals (kernels,
-    copies, fills) over the traced wall and over the untraced ``wall``,
-    and the kernels that take the most device time."""
+def device_time(prof):
+    """(number of device intervals, their union in µs, µs by name) of a
+    torch.profiler trace."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, _, traced_wall = run_fl(dev, FL_RUN)
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
@@ -1129,14 +1147,404 @@ def fl_profile(dev, wall: float) -> None:
         if end > reach:
             busy_us += end - max(start, reach)
             reach = end
+    return len(spans), busy_us, by_name
+
+
+def fl_profile(dev, wall: float) -> None:
+    """Device time of the FL path: the same run again under
+    ``torch.profiler``; the union of its device intervals (kernels,
+    copies, fills) over the traced wall and over the untraced ``wall``,
+    and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, _, traced_wall = run_fl(dev, FL_RUN)
+    n_spans, busy_us, by_name = device_time(prof)
     busy = busy_us / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"fl profile: {len(spans)} device intervals, device busy "
+    log(f"fl profile: {n_spans} device intervals, device busy "
         f"{busy:.6f} s = {busy / traced_wall:.6f} of the traced wall "
         f"{traced_wall:.6f} s and {busy / wall:.6f} of the untraced wall "
         f"{wall:.6f} s")
     log("fl profile: device seconds by name " + json.dumps(
         {name[:80]: us / 1e6 for name, us in top}))
+
+
+# -- phases 8-10: the dense-transformer serving path ------------------------------
+
+# yi-6b's attention at the prefill of phase 10 (B=8 of 4,096 tokens), and
+# prefill_32k's sequence at one row
+YI_LAYER = dict(B=8, S=4096, H=32, Hkv=4, dh=128)
+LONG_LAYER = dict(B=1, S=32_768, H=32, Hkv=4, dh=128)
+# phase 10's cuts of the assigned shapes (configs/base.py SHAPES): prefill
+# 32 x 32,768 -> 8 x 4,096 (the simple kernel's time on the chip); decode
+# 128 x 32,768 -> 8 x 4,128 (decode_32k's cache at batch 128 is 256 GiB)
+PREFILL = dict(batch=8, seq=4096)
+DECODE = dict(batch=8, max_len=4128, steps=32)
+BF16_TENSOR_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
+# query rows held to the plain version at prefill_32k's sequence (its
+# full scores would take 137 GB): the first, a middle and the last 256
+LONG_ROWS = 256
+# card against CPU on the reduced LMs: float32 sums in another order;
+# bfloat16 a few bfloat16 steps on logits of order 3, as the CPU parity
+# tests hold the port to the JAX package (tests/test_torch_transformer.py)
+LM_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+          "bfloat16": dict(rtol=2e-2, atol=6e-2)}
+# prefill against decode at full width: tests/test_arch_smoke.py:85's
+# tolerance, over 32 bfloat16 layers
+PREFILL_DECODE_TOL = dict(rtol=0.15, atol=0.15)
+
+
+def attn_bound(B, S, H, Hkv, dh, causal=True, itemsize=2):
+    """(bound ms, "operations" or "bytes"): 4 B H S^2 dh FLOPs (halved
+    when causal) over the bf16 tensor peak, q + k + v + o over HBM."""
+    flops = 4 * B * H * S * S * dh / (2 if causal else 1)
+    n_bytes = itemsize * (2 * B * S * H * dh + 2 * B * S * Hkv * dh)
+    ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
+    mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, mem_ms), "operations" if ops_ms >= mem_ms else "bytes"
+
+
+def sdpa(q, k, v):
+    """One PyTorch call for the same function (the yardstick; the port
+    never calls it): flash or memory-efficient backends only, so that it
+    never materialises the scores."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+
+def plain_rows(q, k, v, r0: int, r1: int) -> torch.Tensor:
+    """The plain version's steps (kv repeated, float32 scores, -1e30 mask,
+    softmax, cast) for the causal query rows [r0, r1) against keys
+    [0, r1): the plain version on a slice of rows, where the whole (S, S)
+    of scores would not fit."""
+    dh, n_rep = q.shape[3], q.shape[2] // k.shape[2]
+    k = k[:, :r1].repeat_interleave(n_rep, dim=2).to(torch.float32)
+    v = v[:, :r1].repeat_interleave(n_rep, dim=2).to(torch.float32)
+    s = torch.einsum("bqhd,bkhd->bhqk", q[:, r0:r1].to(torch.float32),
+                     k) * dh ** -0.5
+    mask = (torch.arange(r0, r1, device=q.device)[:, None]
+            >= torch.arange(r1, device=q.device)[None])
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
+
+
+def held(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
+    """got within the kernel's tolerance (flash_attention.KERNEL_TOL) of
+    want; the largest error, its share of the bound, and the median |want|
+    it stands against."""
+    from repro_torch.kernels.flash_attention import KERNEL_TOL
+    tol = KERNEL_TOL[want.dtype]
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, **tol,
+                               msg=lambda m: f"flash_attention {what}: {m}")
+    err = (got - want).abs()
+    return {"max_abs_err": float(err.max()),
+            "of_bound": float((err / (tol["atol"] + tol["rtol"]
+                                      * want.abs())).max()),
+            "median_abs": float(want.abs().median())}
+
+
+def check_attention(dev) -> dict:
+    """flash_attention against its plain version on the card: the grid of
+    tests/test_kernels.py:60-64 causal and not, head width 80, S = 4,097
+    and ragged tails, float32 and bfloat16; then yi-6b's layer at the
+    prefill of phase 10, (8, 4,096, 32, 4, 128) bfloat16, held on one
+    batch row (the plain scores for all 8 are 17 GB) and timed beside its
+    bound, the plain version (row by row) and SDPA; and prefill_32k's
+    sequence at one row, held to the plain version on three slices of
+    query rows and timed beside SDPA.  bfloat16 is held to one bfloat16
+    step (flash_attention.KERNEL_TOL)."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator().manual_seed(0)
+
+    def qkv(B, S, H, Hkv, dh, dtype):
+        return [torch.randn(B, S, n, dh, generator=g).to(dev, dtype)
+                for n in (H, Hkv, Hkv)]
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    grid = [(2, 256, 4, 2, 64), (1, 512, 8, 8, 32), (2, 256, 8, 2, 64),
+            (1, 128, 4, 1, 128), (1, 256, 2, 2, 32), (2, 7, 4, 2, 16),
+            (1, 4097, 4, 1, 128), (2, 33, 4, 1, 80), (1, 300, 8, 2, 80),
+            (3, 65, 6, 3, 40), (1, 1, 2, 1, 128)]
+    err = {f32: 0.0, bf16: 0.0}
+    n = 0
+    for shape in grid:
+        for dtype in (f32, bf16):
+            q, k, v = qkv(*shape, dtype)
+            for causal in (True, False):
+                got = fa.flash_attention(q, k, v, causal=causal)
+                want = fa.flash_attention_torch(q, k, v, causal)
+                h = held(got, want, f"at {shape}")
+                err[dtype] = max(err[dtype], h["max_abs_err"])
+                n += 1
+    torch.cuda.synchronize()
+    log(f"attention: flash_attention within tolerance of plain on {n} "
+        f"inputs (float32 rtol 1e-4 atol 1e-5, bfloat16 {fa.KERNEL_TOL[bf16]}); "
+        f"largest |kernel - plain| float32 {err[f32]}, bfloat16 {err[bf16]}")
+
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
+    L = YI_LAYER
+    q, k, v = qkv(L["B"], L["S"], L["H"], L["Hkv"], L["dh"], bf16)
+    out = fa.flash_attention(q, k, v)
+    want = fa.flash_attention_torch(q[:1], k[:1], v[:1])
+    h0 = held(out[:1], want, f"at {list(L.values())}, row 0")
+    row_err = h0["max_abs_err"]
+    # the row-slice reference against the plain version on the same rows
+    S = L["S"]
+    h_ref = held(plain_rows(q[:1], k[:1], v[:1], S - LONG_ROWS, S),
+                 want[:, S - LONG_ROWS:], "plain_rows against plain")
+    lib_err = float((sdpa(q, k, v).float() - out.float()).abs().max())
+    del out, want
+    bound, bound_by = attn_bound(**L)
+    row = {"name": "flash_attention", "max_abs_err": row_err,
+           "ms": timed_ms(lambda: fa.flash_attention(q, k, v), 5, flush),
+           "plain_ms": timed_ms(lambda: [fa.flash_attention_torch(
+               q[b:b + 1], k[b:b + 1], v[b:b + 1]) for b in range(L["B"])],
+               2, flush),
+           "library_ms": timed_ms(lambda: sdpa(q, k, v), 5, flush),
+           "bound_ms": bound, "bound_by": bound_by,
+           "shape": [L["B"], L["S"], L["H"], L["Hkv"], L["dh"]]}
+    log(f"kernel flash_attention at {row['shape']} (bfloat16, causal): "
+        f"{row['ms']:.6f} ms (bound {bound:.6f} ms, {bound_by}), plain "
+        f"{row['plain_ms']:.6f} ms (row by row), SDPA {row['library_ms']:.6f}"
+        f" ms; row 0 against plain {json.dumps(h0)} (bound "
+        f"{fa.KERNEL_TOL[bf16]}), its last {LONG_ROWS} rows' slice reference "
+        f"against plain {json.dumps(h_ref)}; |kernel - SDPA| {lib_err} "
+        f"(not held)")
+    del q, k, v
+    L = LONG_LAYER
+    q, k, v = qkv(L["B"], L["S"], L["H"], L["Hkv"], L["dh"], bf16)
+    out = fa.flash_attention(q, k, v)
+    S = L["S"]
+    mid = S // 2 - LONG_ROWS // 2
+    spans = [(0, LONG_ROWS), (mid, mid + LONG_ROWS), (S - LONG_ROWS, S)]
+    h_long = {f"{r0}:{r1}": held(out[:, r0:r1], plain_rows(q, k, v, r0, r1),
+                                 f"at {list(L.values())}, rows {r0}:{r1}")
+              for r0, r1 in spans}
+    long_err = float((out.float() - sdpa(q, k, v).float()).abs().max())
+    del out
+    bound, bound_by = attn_bound(**L)
+    row["long"] = {
+        "ms": timed_ms(lambda: fa.flash_attention(q, k, v), 2, flush),
+        "plain_ms": None, "library_ms": timed_ms(lambda: sdpa(q, k, v), 2,
+                                                 flush),
+        "bound_ms": bound, "bound_by": bound_by,
+        "shape": [L["B"], L["S"], L["H"], L["Hkv"], L["dh"]]}
+    t = row["long"]
+    log(f"kernel flash_attention at {t['shape']} (bfloat16, causal): "
+        f"{t['ms']:.6f} ms (bound {bound:.6f} ms, {bound_by}), SDPA "
+        f"{t['library_ms']:.6f} ms; against plain on query rows "
+        f"{json.dumps(h_long)}; |kernel - SDPA| {long_err} (not held); plain "
+        f"ms: not measured (its scores would take 137 GB)")
+    return row
+
+
+def lm_agree(dev) -> None:
+    """The reduced dense LMs three ways (card with the kernel, card with
+    the plain version forced, CPU) on one set of weights: prefill logits
+    and caches, then three decode steps' logits, within LM_TOL."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.model import build_model
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(1)
+    for arch in ("yi-6b", "qwen2-0.5b", "qwen1.5-0.5b", "qwen3-32b"):
+        for dt in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                                      dtype=dt)
+            host = tt.params_to_numpy(build_model(cfg, cpu).init_params(0))
+            toks = torch.randint(0, cfg.vocab_size, (2, 73), generator=g)
+            outs = {}
+            for label, device, impl in (("card, kernel", dev, None),
+                                        ("card, plain", dev, "torch"),
+                                        ("cpu", cpu, None)):
+                old = os.environ.pop("REPRO_TORCH_KERNEL_IMPL", None)
+                if impl:
+                    os.environ["REPRO_TORCH_KERNEL_IMPL"] = impl
+                try:
+                    model = build_model(cfg, device)
+                    params = tt.params_from_numpy(cfg, host, device=device,
+                                                  dtype=dt)
+                    logits, caches = model.prefill(
+                        params, {"tokens": toks[:, :70]})
+                    state = model.init_decode_state(2, 73)
+                    for kv in ("k", "v"):
+                        state["b0"][kv][:, :, :70] = caches["b0"][kv]
+                    steps = []
+                    for t in range(70, 73):
+                        step, state = model.decode(params, state, {
+                            "tokens": toks[:, t:t + 1], "pos": t})
+                        steps.append(step)
+                finally:
+                    os.environ.pop("REPRO_TORCH_KERNEL_IMPL", None)
+                    if old is not None:
+                        os.environ["REPRO_TORCH_KERNEL_IMPL"] = old
+                outs[label] = [logits, caches["b0"]["k"], caches["b0"]["v"],
+                               *steps]
+            gaps = {}
+            for label in ("card, kernel", "card, plain"):
+                for got, want in zip(outs[label], outs["cpu"]):
+                    torch.testing.assert_close(
+                        got.cpu().float(), want.float(), **LM_TOL[dt],
+                        msg=lambda m, a=arch, d=dt, lb=label:
+                        f"lm agree {a} {d} {lb}: {m}")
+                gaps[label] = max(float((a.cpu().float() - b.float()).abs()
+                                        .max()) for a, b in
+                                  zip(outs[label], outs["cpu"]))
+            log(f"lm agree {arch} ({cfg.head_dim}-wide heads, {dt}): "
+                f"largest |card - CPU| {json.dumps(gaps)} (tolerance "
+                f"{json.dumps(LM_TOL[dt])})")
+
+
+def profile_share(fn) -> dict:
+    """``fn`` under torch.profiler: the union of its device intervals over
+    the traced wall, the part of it in the attention kernel, and the
+    kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _, busy_us, by_name = device_time(prof)
+    attn_us = sum(us for name, us in by_name.items()
+                  if "flash_attention_kernel" in name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"traced_wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "attention_s": attn_us / 1e6,
+            "attention_share": attn_us / busy_us if busy_us else None,
+            "top_s": {name[:60]: us / 1e6 for name, us in top}}
+
+
+def lm_main(dev, smi: str) -> dict:
+    """yi-6b at full width and depth, bfloat16, weights drawn on the card:
+    a 64-token prompt through prefill and through 64 decode steps (held
+    to each other); the prefill of 8 x 4,096 tokens (flash_attention
+    launches counted from 0); its caches in a decode state of 8 x 4,128
+    and 32 decode steps; the prefill's kernel share under the profiler;
+    then the serve loop of launch/serve_model.py at its defaults.
+    Returns the prefill's launch count."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve_model
+    from repro_torch.models.model import build_model
+    cfg = get_config("yi-6b")
+    g = torch.Generator().manual_seed(2)
+    model = build_model(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init_params(0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"lm: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads (kv {cfg.n_kv_heads}, head_dim "
+        f"{cfg.head_dim}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
+        f"{n_params} parameters ({cfg.param_count()} without norm scales), "
+        f"{2 * n_params / 1e9:.3f} GB in bfloat16, drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    log(f"lm: cuts from the assigned shapes: prefill_32k 32 x 32,768 -> "
+        f"{PREFILL['batch']} x {PREFILL['seq']}; decode_32k 128 x 32,768 -> "
+        f"{DECODE['batch']} x {DECODE['max_len']}")
+
+    # 10a. prefill against decode at full width (also the warm-up)
+    toks = torch.randint(0, cfg.vocab_size, (1, 64), generator=g).to(dev)
+    last, caches = model.prefill(params, {"tokens": toks})
+    state = model.init_decode_state(1, 64)
+    for t in range(64):
+        step, state = model.decode(params, state,
+                                   {"tokens": toks[:, t:t + 1], "pos": t})
+    torch.cuda.synchronize()
+    gap = float((step.float() - last.float()).abs().max())
+    agree = bool((step.argmax(-1) == last.argmax(-1)).all())
+    torch.testing.assert_close(step.float(), last.float(),
+                               **PREFILL_DECODE_TOL)
+    torch.testing.assert_close(state["b0"]["k"].float(),
+                               caches["b0"]["k"].float(),
+                               **PREFILL_DECODE_TOL)
+    log(f"lm: prefill against 64 decode steps at full width: largest "
+        f"|logit gap| {gap} (tolerance rtol 0.15 atol 0.15, "
+        f"tests/test_arch_smoke.py:85's), argmax agrees: {agree}, logits "
+        f"up to {float(last.float().abs().max())}")
+    del last, caches, state, step
+
+    # 10b. prefill, flash_attention launches from 0
+    B, S = PREFILL["batch"], PREFILL["seq"]
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g).to(dev)
+    fa.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"the prefill launched flash_attention "
+                             f"{launches} times, not {cfg.n_layers}")
+    kv_shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+    if tuple(logits.shape) != (B, cfg.vocab_size) or \
+            tuple(caches["b0"]["k"].shape) != kv_shape or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill gave logits {tuple(logits.shape)}, "
+                             f"caches {tuple(caches['b0']['k'].shape)}")
+
+    # 10c. decode against the prefill's caches
+    state = model.init_decode_state(DECODE["batch"], DECODE["max_len"])
+    for kv in ("k", "v"):
+        state["b0"][kv][:, :, :S] = caches["b0"][kv]
+    del caches
+    tok = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(S, S + DECODE["steps"]):
+        logits, state = model.decode(params, state, {"tokens": tok,
+                                                     "pos": t})
+        tok = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("decode gave non-finite logits")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    def decode_steps(n=8):
+        nonlocal logits, state, tok
+        for t in range(S, S + n):          # rewrites the first steps
+            logits, state = model.decode(params, state, {"tokens": tok,
+                                                         "pos": t})
+            tok = logits.argmax(-1)[:, None]
+    n_steps = DECODE["steps"]
+    traced_decode = profile_share(decode_steps)
+    del state, logits, tok
+    traced_prefill = profile_share(
+        lambda: model.prefill(params, {"tokens": tokens}))
+    stats = {
+        "prefill_s": prefill_s, "prefill_tokens_per_s": B * S / prefill_s,
+        "decode_ms_per_step": decode_s / n_steps * 1e3,
+        "decode_tokens_per_s": B * n_steps / decode_s,
+        "peak_device_memory_GiB": peak, "flash_attention_launches": launches}
+    log(f"lm: prefill {B} x {S} (its wall is the time to first token) and "
+        f"{n_steps} decode steps at {B} x {DECODE['max_len']} on {smi}: "
+        f"{json.dumps(stats)}")
+    log(f"lm profile: prefill {json.dumps(traced_prefill)}")
+    log(f"lm profile: 8 more decode steps {json.dumps(traced_decode)}")
+    del params, tokens
+    torch.cuda.empty_cache()
+
+    # 10d. the serve loop at its defaults (batch 4, prompt 8, 8 tokens)
+    served = serve_model.main([])
+    log(f"lm: serve_model at its defaults (yi-6b, batch 4, prompt 8, 8 "
+        f"tokens): {served['tokens_per_s']} tokens/s over "
+        f"{served['seconds']} s, first row {served['tokens'][0].tolist()}")
+    return {"flash_attention": launches}
 
 
 def main() -> int:
@@ -1232,6 +1640,16 @@ def main() -> int:
     launches.update(fl_launches)
     fl_profile(dev, fl_wall)
 
+    # 8. the attention kernel against its plain version and SDPA
+    attn_row = check_attention(dev)
+
+    # 9. the reduced dense LMs: card against CPU
+    lm_agree(dev)
+
+    # 10. yi-6b at full width and depth: prefill (launch counts from 0),
+    # decode, the serve loop
+    launches.update(lm_main(dev, smi))
+
     replaces = {"rollup_digest": "src/repro/kernels/rollup_digest.py:16",
                 "rollup_chunk_digests":
                     "src/repro/kernels/rollup_digest.py:76",
@@ -1239,15 +1657,16 @@ def main() -> int:
                 "batch_seal": "src/repro/kernels/batch_seal.py:59",
                 "weighted_agg": "src/repro/kernels/weighted_agg.py:22",
                 "model_distance": "src/repro/kernels/model_distance.py:18",
-                "block_pack": "src/repro/kernels/block_pack.py:179"}
+                "block_pack": "src/repro/kernels/block_pack.py:179",
+                "flash_attention": "src/repro/kernels/flash_attention.py:25"}
     sources = {"weighted_agg": "fl.cu", "model_distance": "fl.cu",
-               "block_pack": "pack.cu"}
+               "block_pack": "pack.cu", "flash_attention": "attn.cu"}
     # the default FL path merges Eq. 1 with the task axis: its row is
     # timed at (32, 64, 2,410); the per-task (64, 2,410) is logged below
     agg = fl_rows["weighted_agg"]
     kernels = []
     for row in rows + [dict(agg, **agg["task"]), fl_rows["model_distance"],
-                       pack_row]:
+                       pack_row, attn_row]:
         name = row["name"]
         kernels.append({
             "name": name, "route": "cuda",
@@ -1266,6 +1685,8 @@ def main() -> int:
     per_task = {k: agg[k] for k in ("ms", "plain_ms", "library_ms",
                                      "bound_ms", "shape")}
     log(f"per-task weighted_agg: {json.dumps(per_task)}")
+    log(f"flash_attention at prefill_32k's sequence: "
+        f"{json.dumps(attn_row['long'])}")
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

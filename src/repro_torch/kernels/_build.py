@@ -31,6 +31,7 @@ COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # (launcher, argument types) of every function the sources export; the
 # stream is appended to each
 _D, _P, _I, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_R = ctypes.c_float
 _SIGNATURES = {
     # csrc/fold.cu
     "fold_rollup_digest": (_D, _P, _I, _P, _P),
@@ -43,6 +44,10 @@ _SIGNATURES = {
     # csrc/pack.cu: (device, tmax, gcum, N, times, n_vis, B, gas_limit,
     # ptr0, stops, stream)
     "pack_block_pack": (_D, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P),
+    # csrc/attn.cu: (device, q, k, v, B, S, H, Hkv, dh, scale, causal,
+    # dtype flag, out, stream)
+    "attn_flash_attention": (_D, _P, _P, _P, _I, _I, _I, _I, _I, _R, _F, _F,
+                             _P, _P),
 }
 
 _LIB = None

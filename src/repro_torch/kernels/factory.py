@@ -1,4 +1,4 @@
-"""Swappable kernel factory for the port's ledger and FL ops.
+"""Swappable kernel factory for the port's ledger, FL and attention ops.
 
 Call sites ask the factory for an op instead of hard-wiring one form:
 
@@ -19,7 +19,9 @@ identical bits from every impl; ``block_pack`` (the fused loop's block
 packing) takes float64 times and int64 gas cumsums and returns int64 stop
 pointers, identical from every impl.  The FL ops (``weighted_agg``, Eq. 1, and
 ``model_distance``, Eq. 4) take float32 or bfloat16 and agree to float32
-rounding.  Every impl returns its result on the input's device.
+rounding; so does ``flash_attention`` (the prefill's causal GQA attention,
+``(q, k, v, causal=True)``).  Every impl returns its result on the input's
+device.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ def _load() -> None:
     from repro_torch.kernels import batch_seal as bs
     from repro_torch.kernels import block_pack as bp
     from repro_torch.kernels import dirty_fold as df
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import model_distance as md
     from repro_torch.kernels import rollup_digest as rd
     from repro_torch.kernels import weighted_agg as wa
@@ -60,7 +63,9 @@ def _load() -> None:
             ("weighted_agg", wa.weighted_agg_torch, wa.weighted_agg),
             ("model_distance", md.model_distance_torch,
              md.model_distance),
-            ("block_pack", bp.block_pack_torch, bp.block_pack)):
+            ("block_pack", bp.block_pack_torch, bp.block_pack),
+            ("flash_attention", fa.flash_attention_torch,
+             fa.flash_attention)):
         register_kernel(op, "torch", plain)
         register_kernel(op, "cuda", wrapper, default=True)
 

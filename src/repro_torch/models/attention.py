@@ -1,0 +1,112 @@
+"""Grouped-query attention of the token LMs: the prefill path and the
+KV-cache decode path, with the JAX package's layouts and casts.
+
+  * Prefill (``attention_block``): projections, optional QKV bias and QK
+    norm, RoPE, then the factory's ``flash_attention`` op (the CUDA kernel
+    on the card) for every sequence length, and the output projection.
+    The JAX package takes a dense path up to ``2 * chunk`` tokens and a
+    blocked one beyond; both compute this same function.
+  * Decode (``decode_attention_block``): one new token against a
+    ``(B, S_max, Hkv, dh)`` cache, in float32, with the query heads grouped
+    by kv head, so the cache is not broadcast over the group.  The cache is
+    updated in place (the JAX serve loop donates it).
+
+The per-layer parameters ``p`` are a mapping of tensors (``wq``, ``wk``,
+``wv``, ``wo``; ``bq``, ``bk``, ``bv`` with ``qkv_bias``; ``q_norm``,
+``k_norm`` with ``qk_norm``).  Cross and bidirectional attention come
+with whisper (ROADMAP.md queue 1 item 10(e)).
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import torch
+
+from repro_torch.kernels.factory import get_kernel
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+
+NEG_INF = -1e30
+
+
+def init_attn_params(cfg, dtype: torch.dtype,
+                     generator: torch.Generator | None,
+                     device) -> Dict[str, torch.Tensor]:
+    """Projections from ``dense_init`` (uninitialised with no generator),
+    biases zeros, QK norm scales ones."""
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    p = {name: dense_init(shape, dtype, generator, device)
+         for name, shape in (("wq", (d, qd)), ("wk", (d, kvd)),
+                             ("wv", (d, kvd)), ("wo", (qd, d)))}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(qd, dtype=dtype, device=device)
+        p["bk"] = torch.zeros(kvd, dtype=dtype, device=device)
+        p["bv"] = torch.zeros(kvd, dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(cfg.head_dim, dtype=dtype, device=device)
+        p["k_norm"] = torch.ones(cfg.head_dim, dtype=dtype, device=device)
+    return p
+
+
+def _project_qkv(cfg, p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                 positions: torch.Tensor):
+    B, S, _ = x.shape
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, dh)
+    k = k.reshape(B, S, Hkv, dh)
+    v = v.reshape(B, S, Hkv, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    if cfg.rope_variant == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope_variant == "mrope":
+        raise NotImplementedError("M-RoPE comes with the VLM slice "
+                                  "(ROADMAP.md queue 1 item 10(e))")
+    return q, k, v
+
+
+def attention_block(cfg, p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                    positions: torch.Tensor, return_cache: bool = False):
+    """Causal self-attention sub-block: (B, S, d) -> (B, S, d), or
+    ``(out, (k, v))`` with ``return_cache`` (the prefill keeps the
+    projected K/V as its cache)."""
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    o = get_kernel("flash_attention")(q, k, v, causal=True)
+    B, S, _ = x.shape
+    out = (o.reshape(B * S, cfg.q_dim) @ p["wo"]).reshape(B, S, cfg.d_model)
+    if return_cache:
+        return out, (k, v)
+    return out
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, n_layers: int,
+                  dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention_block(cfg, p: Mapping[str, torch.Tensor],
+                           x: torch.Tensor, cache_k: torch.Tensor,
+                           cache_v: torch.Tensor, pos: int) -> torch.Tensor:
+    """One-token decode: x (B, 1, d); cache_{k,v} (B, S_max, Hkv, dh),
+    written at ``pos`` in place.  Returns out (B, 1, d)."""
+    B = x.shape[0]
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    cache_k[:, pos] = k[:, 0]
+    cache_v[:, pos] = v[:, 0]
+    S = cache_k.shape[1]
+    qg = q.reshape(B, Hkv, H // Hkv, dh).to(torch.float32)
+    s = torch.einsum("bkrd,bskd->bkrs", qg,
+                     cache_k.to(torch.float32)) * dh ** -0.5
+    valid = torch.arange(S, device=x.device) <= pos
+    s = torch.where(valid, s, NEG_INF)
+    attn = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkrs,bskd->bkrd", attn, cache_v.to(torch.float32))
+    return o.reshape(B, 1, cfg.q_dim).to(x.dtype) @ p["wo"]

@@ -1,0 +1,104 @@
+"""Common layers of the token LMs: initializers, norms, the SwiGLU MLP and
+rotary embeddings, with the JAX package's layouts and casts.
+
+Norms and RoPE compute in float32 and cast back to the input's dtype;
+matrices are stored ``(in, out)``, so a projection is ``x @ w``.
+(``apply_mrope`` comes with the VLM slice, ROADMAP.md queue 1 item 10(e).)
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def truncated_normal_init(shape, scale: float, dtype: torch.dtype,
+                          generator: torch.Generator,
+                          device) -> torch.Tensor:
+    """A standard normal cut at +-2, times ``scale``: drawn in float32 on
+    ``device`` from ``generator``, then cast to ``dtype``.  ``trunc_normal_``
+    takes its bounds in absolute units, so they are +-2 * scale."""
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(out, mean=0.0, std=scale, a=-2.0 * scale,
+                                b=2.0 * scale, generator=generator)
+    return out.to(dtype)
+
+
+def dense_init(shape, dtype: torch.dtype, generator: torch.Generator | None,
+               device) -> torch.Tensor:
+    """Fan-in scaled init for ``(in, out)`` matrices: fan_in is
+    ``shape[-2]`` (for the embedding table, the vocabulary).  With no
+    ``generator`` the matrix is left uninitialised, to be loaded."""
+    if generator is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    return truncated_normal_init(shape, shape[-2] ** -0.5, dtype, generator,
+                                 device)
+
+
+# -- norms ---------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias=None,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps) * scale.to(torch.float32)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def apply_norm(cfg, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layer_norm(x, scale)
+    return rms_norm(x, scale)
+
+
+# -- SwiGLU MLP ----------------------------------------------------------------
+def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+           wd: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ wg) * (x @ wu)) @ wd
+
+
+# -- rotary embeddings -----------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+@functools.lru_cache(maxsize=32)
+def _rope_inv(head_dim: int, theta: float, device: torch.device):
+    """``rope_freqs`` on ``device``, copied there once: a copy from host
+    memory waits for the device, and RoPE runs twice in every layer."""
+    return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, dh); positions: (B, S) int."""
+    inv = _rope_inv(x.shape[-1], theta, x.device)
+    ang = positions.to(torch.float32)[..., None] * inv       # (B, S, dh/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def positions_for(cfg, batch: int, seq: int, offset: int = 0,
+                  device=None) -> torch.Tensor:
+    """(batch, seq) int32 positions ``offset .. offset + seq - 1`` (the
+    token LMs' branch; M-RoPE's three streams wait for the VLM slice)."""
+    if cfg.rope_variant == "mrope":
+        raise NotImplementedError("M-RoPE positions come with the VLM slice "
+                                  "(ROADMAP.md queue 1 item 10(e))")
+    pos = torch.arange(seq, dtype=torch.int32, device=device) + offset
+    return pos[None, :].expand(batch, seq)

@@ -1,0 +1,58 @@
+"""Model facade over the token-LM family, in the JAX package's interface:
+
+    model = build_model(cfg)                  # on the card; device="cpu"
+    params = model.init_params(0)             # a TransformerLM module
+    logits = model.forward(params, {"tokens": tokens})
+    logits, caches = model.prefill(params, {"tokens": tokens})
+    state = model.init_decode_state(batch_size, max_len)
+    logits, state = model.decode(params, state, {"tokens": tok, "pos": t})
+
+The port runs one card with no mesh: the JAX facade's ``ctx is None``
+branch.  Meshes and sharding are ROADMAP.md queue 1 item 10(f); training
+(``loss``) is item 10(d); LeNet, whisper and the VLM's embeds input are
+item 10(e), and their configs raise ``NotImplementedError`` here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig, device=None):
+        transformer.check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    def init_params(self, seed=0, dtype=None) -> transformer.TransformerLM:
+        """Weights drawn on the model's device from ``seed`` (an int, or a
+        ``torch.Generator`` on that device), in ``dtype`` (default: the
+        config's)."""
+        g = seed if isinstance(seed, torch.Generator) else \
+            torch.Generator(device=self.device).manual_seed(int(seed))
+        return transformer.init_params(self.cfg, g, dtype, self.device)
+
+    def _tokens(self, batch):
+        return dict(batch, tokens=torch.as_tensor(batch["tokens"],
+                                                  device=self.device))
+
+    def forward(self, params, batch) -> torch.Tensor:
+        return transformer.forward(self.cfg, params, self._tokens(batch))
+
+    def prefill(self, params, batch):
+        return transformer.prefill(self.cfg, params, self._tokens(batch))
+
+    def decode(self, params, state, batch):
+        return transformer.decode_step(self.cfg, params, state,
+                                       self._tokens(batch))
+
+    def init_decode_state(self, batch_size: int, max_len: int):
+        return transformer.init_decode_state(self.cfg, batch_size, max_len,
+                                             device=self.device)
+
+
+def build_model(cfg: ModelConfig, device=None) -> Model:
+    return Model(cfg, device)

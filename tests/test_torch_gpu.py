@@ -2,8 +2,11 @@
 fold kernels and ``block_pack`` bit for bit, the FL kernels (Eq. 1 and
 Eq. 4, float32 accumulation in another order) at rtol 1e-5 / atol 1e-6 in
 float32 and 2e-2 in bfloat16, a task-axis Eq. 1 launch row for row equal
-to the unbatched launches; and the default ``Scheduler`` (fused loop and
-megastep) on the card against the stepped per-task path.
+to the unbatched launches; the default ``Scheduler`` (fused loop and
+megastep) on the card against the stepped per-task path; the attention
+kernel against its plain version (rtol 1e-4 / atol 1e-5 in float32; in
+bfloat16 one bfloat16 step, rtol 2^-7 / atol 1e-4: both sum in float32 and
+round once), and the reduced dense LMs on the card against the CPU.
 
 Marked ``gpu``: they skip where no CUDA device is present (the skip is
 decided in the fixture, so every worker collects the same tests).  This
@@ -18,6 +21,7 @@ import torch
 from repro_torch.kernels import batch_seal as bs
 from repro_torch.kernels import block_pack as bp
 from repro_torch.kernels import dirty_fold as df
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import model_distance as md
 from repro_torch.kernels import rollup_digest as rd
 from repro_torch.kernels import weighted_agg as wa
@@ -234,4 +238,80 @@ def test_default_scheduler_on_card_matches_stepped(cuda):
         for k, v in od[t].global_params.items():
             torch.testing.assert_close(v, os_[t].global_params[k],
                                        rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+
+
+def _qkv(B, S, H, Hkv, dh, dtype, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(B, S, n, dh, generator=g).to(device, dtype)
+            for n in (H, Hkv, Hkv)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,Hkv,dh,dtype", [
+    (2, 256, 4, 2, 64, torch.float32), (1, 512, 8, 8, 32, torch.float32),
+    (2, 256, 8, 2, 64, torch.bfloat16), (1, 128, 4, 1, 128, torch.float32),
+    (2, 7, 4, 2, 16, torch.float32), (1, 4097, 4, 1, 128, torch.bfloat16),
+    (2, 33, 4, 1, 80, torch.float32), (1, 200, 8, 2, 80, torch.bfloat16),
+    (1, 1, 2, 1, 128, torch.float32), (3, 65, 6, 3, 40, torch.bfloat16)])
+def test_flash_attention_kernel(cuda, B, S, H, Hkv, dh, dtype, causal):
+    q, k, v = _qkv(B, S, H, Hkv, dh, dtype, S * dh + H, cuda)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), fa.flash_attention_torch(
+        q, k, v, causal).float(), **fa.KERNEL_TOL[dtype])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_refuses(cuda):
+    q, k, v = _qkv(1, 16, 2, 1, 32, torch.float32, 0, cuda)
+    for t in (q, k, v):
+        t.requires_grad_()
+    out = fa.flash_attention(q, k, v)
+    with pytest.raises(NotImplementedError, match="10\\(d\\)"):
+        out.sum().backward()
+    for dh in (136, 12):
+        q, k, v = _qkv(1, 16, 2, 1, dh, torch.float32, 0, cuda)
+        with pytest.raises(ValueError, match="head widths"):
+            fa.flash_attention(q, k, v)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen2-0.5b", "qwen3-32b"])
+def test_dense_lm_on_card_matches_cpu(cuda, arch):
+    """Prefill (with the kernel) and decode on the card against the CPU,
+    float32, one set of weights: rtol 1e-4 / atol 1e-4 (sums in another
+    order, the kernel's exp against torch's)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              dtype="float32")
+    cpu_model, card_model = build_model(cfg, "cpu"), build_model(cfg, cuda)
+    cpu_params = cpu_model.init_params(0)
+    card_params = tt.params_from_numpy(cfg, tt.params_to_numpy(cpu_params),
+                                       device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 70),
+                         generator=torch.Generator().manual_seed(1))
+    before = fa.flash_attention.launches
+    outs = []
+    for model, params in ((cpu_model, cpu_params), (card_model, card_params)):
+        logits, caches = model.prefill(params, {"tokens": toks})
+        state = model.init_decode_state(2, 72)
+        for kv in ("k", "v"):
+            state["b0"][kv][:, :, :70] = caches["b0"][kv]
+        step, state = model.decode(params, state,
+                                   {"tokens": toks[:, :1], "pos": 70})
+        outs.append([logits, caches["b0"]["k"], caches["b0"]["v"], step,
+                     state["b0"]["k"]])
+    assert fa.flash_attention.launches == before + cfg.n_layers
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
     torch.cuda.synchronize()

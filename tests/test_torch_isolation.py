@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (the
-rollup node path and the FL protocol path both run without them), and its
-entry points run on the CUDA card unless the caller names the CPU."""
+rollup node path, the FL protocol path and the token-LM serving path all
+run without them), and its entry points run on the CUDA card unless the
+caller names the CPU."""
 import re
 import subprocess
 import sys
@@ -15,12 +16,16 @@ from repro_torch.core.oracle import ValidationSlices
 from repro_torch.core.reputation import init_book
 from repro_torch.core.state import StateArrays
 from repro_torch.core.storage import BlobStore
+from repro_torch.configs.registry import get_config, reduced_config
 from repro_torch.core.workloads import make_workload
 from repro_torch.device import resolve_device
 from repro_torch.fl.cohort import VectorCohort
 from repro_torch.fl.scheduler import Scheduler
 from repro_torch.fl.server import AutoDFL
+from repro_torch.launch import serve_model
+from repro_torch.models import transformer
 from repro_torch.models.mlp import TinyMLP
+from repro_torch.models.model import Model, build_model
 from repro_torch.optim.optimizers import OptimizerSpec, make_optimizer
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -55,7 +60,10 @@ from repro_torch.data.synthetic import gaussian_clusters
 from repro_torch.fl.cohort import CohortKernels, VectorCohort
 from repro_torch.fl.scheduler import Scheduler
 from repro_torch.fl.server import AutoDFL
+from repro_torch.launch import serve_model
+from repro_torch.models import transformer
 from repro_torch.models.mlp import TinyMLP
+from repro_torch.models.model import Model, build_model
 from repro_torch.optim.optimizers import OptimizerSpec, make_optimizer
 x, y = gaussian_clusters(256, 16, 10, seed=1)
 vx, vy = gaussian_clusters(50, 16, 10, seed=2)
@@ -93,6 +101,33 @@ print("FOREIGN", bad)
 """
 
 
+_SERVE = """
+import sys
+import torch
+from repro_torch.configs.registry import get_config, reduced_config
+from repro_torch.launch import serve_model
+from repro_torch.models.model import build_model
+cfg = reduced_config(get_config("qwen2-0.5b"))
+model = build_model(cfg, "cpu")
+params = model.init_params(0)
+tokens = torch.randint(0, cfg.vocab_size, (2, 9))
+logits, caches = model.prefill(params, {"tokens": tokens})
+assert logits.shape == (2, cfg.vocab_size) and torch.isfinite(logits).all()
+state = model.init_decode_state(2, 12)
+for kv in ("k", "v"):
+    state["b0"][kv][:, :, :9] = caches["b0"][kv]
+logits, state = model.decode(params, state, {"tokens": tokens[:, :1],
+                                             "pos": 9})
+assert torch.isfinite(logits).all()
+out = serve_model.main(["--reduced", "--device", "cpu", "--tokens", "3"])
+assert out["tokens"].shape == (4, 3)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print("FOREIGN", bad)
+"""
+
+
 def _run_alone(code: str) -> None:
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
            "OMP_NUM_THREADS": "1"}
@@ -108,6 +143,10 @@ def test_node_runs_without_jax_or_repro():
 
 def test_fl_protocol_runs_without_jax_or_repro():
     _run_alone(_FL)
+
+
+def test_serving_path_runs_without_jax_or_repro():
+    _run_alone(_SERVE)
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -140,7 +179,16 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
                  lambda: AutoDFL(model, opt, 2, model.accuracy_fn(), val)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    cfg = reduced_config(get_config("yi-6b"))
+    for call in (lambda: Model(cfg),
+                 lambda: build_model(cfg),
+                 lambda: transformer.init_params(cfg, torch.Generator()),
+                 lambda: transformer.init_decode_state(cfg, 2, 8),
+                 lambda: serve_model.main(["--reduced"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     # the CPU is there when asked for
+    assert build_model(cfg, "cpu").init_params(0).device.type == "cpu"
     assert pt.build_ledger(spec, device="cpu").device == torch.device("cpu")
     node = AutoDFL(model, opt, 2, model.accuracy_fn(), val, device="cpu")
     assert node.book.reputation.device == torch.device("cpu")
