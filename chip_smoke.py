@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's paths on one CUDA card: the rollup node
 path (stepped, and through the fused window loop), the reputation-aware
 FL protocol run (the default Scheduler: fused loop + cross-task megastep,
-and the stepped per-task path) and the dense-transformer serving path
-(prefill and KV-cache decode of yi-6b at full width).
+and the stepped per-task path) and the token-LM serving paths (prefill
+and decode of yi-6b, moonshot-v1-16b-a3b and xlstm-1.3b at full width).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -88,6 +88,32 @@ Phases, each printing its result on a line of its own:
                decode steps; the kernel's share of the prefill's device
                time (torch.profiler); then launch/serve_model.py's loop at
                its defaults (batch 4, prompt 8, 8 tokens).
+ 11. moe/xlstm kernels — gmm and slstm_scan against their plain versions
+               on the grids of the CPU tests plus ragged shapes, float32
+               and bfloat16; gmm at moonshot's prefill and decode products
+               timed beside its bound, the plain version and torch.bmm;
+               slstm_scan at xlstm-1.3b's prefill (8, 4,096, 2,048, 4
+               heads) timed beside its bound and the plain version.
+ 12. moe/xlstm agree — the reduced moonshot, kimi and xlstm, float32 and
+               bfloat16, three ways (card with the kernels, card with the
+               plain versions forced, CPU), layer by layer on the CPU's
+               activations (mixer, caches or state, FFN norm, FFN with
+               its routing compared first, head; prefill and two decode
+               steps) within LM_TOL.
+ 13. moe     — phase 10 for moonshot-v1-16b-a3b at full width and depth
+               (48 layers, 64 experts top-6, 56 GB of bfloat16 weights):
+               the 64-token check with a capacity that drops nothing
+               (K caches held on the first layer: deeper ones sit behind
+               routing that prefill and decode may break apart at a
+               near-tie); prefill 4 x 4,096 (144 gmm and 48
+               flash_attention launches); 32 decode steps at 4 x 4,128;
+               the serve loop.
+ 14. xlstm   — phase 10 for xlstm-1.3b at full width and depth (42 mLSTM
+               and 6 sLSTM layers; the 64-token check in float32, held at
+               1e-2, and its bfloat16 gap logged): prefill 8 x 4,096 (6
+               slstm_scan launches; it emits no recurrent state, so
+               decode starts from the initial one, as in the JAX
+               package); 32 decode steps at batch 8; the serve loop.
 
 Then one JSON line lists every kernel with its launches on its path, the
 card's name and power limit follow on a line of their own, and the last
@@ -97,6 +123,7 @@ a CUDA card, or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -1191,8 +1218,11 @@ LONG_ROWS = 256
 LM_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
           "bfloat16": dict(rtol=2e-2, atol=6e-2)}
 # prefill against decode at full width: tests/test_arch_smoke.py:85's
-# tolerance, over 32 bfloat16 layers
+# tolerance, over 32 (yi-6b) or 48 (moonshot) bfloat16 layers; xlstm-1.3b
+# in float32 (its 48 exponential-gated layers amplify one bfloat16
+# rounding a layer: the bfloat16 gap is logged beside the held one)
 PREFILL_DECODE_TOL = dict(rtol=0.15, atol=0.15)
+PREFILL_DECODE_TOL_F32 = dict(rtol=1e-2, atol=1e-2)
 
 
 def attn_bound(B, S, H, Hkv, dh, causal=True, itemsize=2):
@@ -1345,6 +1375,21 @@ def check_attention(dev) -> dict:
     return row
 
 
+@contextlib.contextmanager
+def kernel_impl(impl):
+    """Force the factory's impl (``REPRO_TORCH_KERNEL_IMPL``) inside the
+    block; ``None`` leaves the default (the kernels on the card)."""
+    old = os.environ.pop("REPRO_TORCH_KERNEL_IMPL", None)
+    if impl:
+        os.environ["REPRO_TORCH_KERNEL_IMPL"] = impl
+    try:
+        yield
+    finally:
+        os.environ.pop("REPRO_TORCH_KERNEL_IMPL", None)
+        if old is not None:
+            os.environ["REPRO_TORCH_KERNEL_IMPL"] = old
+
+
 def lm_agree(dev) -> None:
     """The reduced dense LMs three ways (card with the kernel, card with
     the plain version forced, CPU) on one set of weights: prefill logits
@@ -1365,10 +1410,7 @@ def lm_agree(dev) -> None:
             for label, device, impl in (("card, kernel", dev, None),
                                         ("card, plain", dev, "torch"),
                                         ("cpu", cpu, None)):
-                old = os.environ.pop("REPRO_TORCH_KERNEL_IMPL", None)
-                if impl:
-                    os.environ["REPRO_TORCH_KERNEL_IMPL"] = impl
-                try:
+                with kernel_impl(impl):
                     model = build_model(cfg, device)
                     params = tt.params_from_numpy(cfg, host, device=device,
                                                   dtype=dt)
@@ -1382,10 +1424,6 @@ def lm_agree(dev) -> None:
                         step, state = model.decode(params, state, {
                             "tokens": toks[:, t:t + 1], "pos": t})
                         steps.append(step)
-                finally:
-                    os.environ.pop("REPRO_TORCH_KERNEL_IMPL", None)
-                    if old is not None:
-                        os.environ["REPRO_TORCH_KERNEL_IMPL"] = old
                 outs[label] = [logits, caches["b0"]["k"], caches["b0"]["v"],
                                *steps]
             gaps = {}
@@ -1403,10 +1441,11 @@ def lm_agree(dev) -> None:
                 f"{json.dumps(LM_TOL[dt])})")
 
 
-def profile_share(fn) -> dict:
+def profile_share(fn, kernels=(("attention", "flash_attention_kernel"),)
+                  ) -> dict:
     """``fn`` under torch.profiler: the union of its device intervals over
-    the traced wall, the part of it in the attention kernel, and the
-    kernels that take the most device time."""
+    the traced wall, the part of it in each of ``kernels`` ((label, name
+    fragment) pairs), and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1415,29 +1454,60 @@ def profile_share(fn) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _, busy_us, by_name = device_time(prof)
-    attn_us = sum(us for name, us in by_name.items()
-                  if "flash_attention_kernel" in name)
+    out = {"traced_wall_s": wall, "device_busy_s": busy_us / 1e6,
+           "device_busy_share": busy_us / 1e6 / wall}
+    for label, fragment in kernels:
+        us = sum(t for name, t in by_name.items() if fragment in name)
+        out[f"{label}_s"] = us / 1e6
+        out[f"{label}_share"] = us / busy_us if busy_us else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"traced_wall_s": wall, "device_busy_s": busy_us / 1e6,
-            "device_busy_share": busy_us / 1e6 / wall,
-            "attention_s": attn_us / 1e6,
-            "attention_share": attn_us / busy_us if busy_us else None,
-            "top_s": {name[:60]: us / 1e6 for name, us in top}}
+    out["top_s"] = {name[:60]: us / 1e6 for name, us in top}
+    return out
 
 
-def lm_main(dev, smi: str) -> dict:
-    """yi-6b at full width and depth, bfloat16, weights drawn on the card:
-    a 64-token prompt through prefill and through 64 decode steps (held
-    to each other); the prefill of 8 x 4,096 tokens (flash_attention
-    launches counted from 0); its caches in a decode state of 8 x 4,128
-    and 32 decode steps; the prefill's kernel share under the profiler;
-    then the serve loop of launch/serve_model.py at its defaults.
-    Returns the prefill's launch count."""
+# the kernels of the serving paths, by the fragment of their names in a
+# profiler trace
+LM_KERNELS = {"flash_attention": "flash_attention_kernel", "gmm": "::gmm_",
+              "slstm_scan": "slstm_scan_kernel"}
+
+
+def lm_launches_expected(cfg) -> dict:
+    """Launches of each serving kernel in one prefill (and one decode
+    step, but for flash_attention, which decode bypasses)."""
+    from repro_torch.models import transformer as tt
+    specs = tt.block_specs(cfg) * cfg.n_periods
+    return {"flash_attention": sum(m == "attn" for m, _ in specs),
+            "gmm": 3 * sum(f == "moe" for _, f in specs),
+            "slstm_scan": sum(m == "slstm" for m, _ in specs)}
+
+
+def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
+            decode=DECODE, check_dtype=None) -> dict:
+    """``arch`` at full width and depth, bfloat16, weights drawn on the
+    card: a 64-token prompt through prefill and through 64 decode steps
+    (held to each other, in ``check_dtype`` if given, with weights of that
+    dtype drawn from the same seed, and then the gap in bfloat16 is
+    logged, not held; an MoE model with a capacity that drops nothing,
+    since the prefill's queues overflow where a decode step's never do);
+    the prefill of ``prefill`` tokens, each serving kernel's launches
+    counted from 0; the prefill's caches in a decode state (an xLSTM
+    prefill emits none: its decode starts from the initial state, as in
+    the JAX package) and ``decode["steps"]`` decode steps; the device
+    shares under the profiler; then the serve loop of
+    launch/serve_model.py at its defaults for ``arch``.  Returns the
+    launch counts of the prefill."""
+    import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import slstm_scan as ss
     from repro_torch.launch import serve_model
     from repro_torch.models.model import build_model
-    cfg = get_config("yi-6b")
+    cfg = get_config(arch)
+    wrappers = {"flash_attention": fa.flash_attention, "gmm": gm.gmm,
+                "slstm_scan": ss.slstm_scan}
+    expected = lm_launches_expected(cfg)
+    tag = {"dense": "lm", "moe": "moe", "ssm": "xlstm"}[cfg.family]
     g = torch.Generator().manual_seed(2)
     model = build_model(cfg, dev)
     torch.cuda.synchronize()
@@ -1445,72 +1515,115 @@ def lm_main(dev, smi: str) -> dict:
     params = model.init_params(0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"lm: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads (kv {cfg.n_kv_heads}, head_dim "
-        f"{cfg.head_dim}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
-        f"{n_params} parameters ({cfg.param_count()} without norm scales), "
-        f"{2 * n_params / 1e9:.3f} GB in bfloat16, drawn on the card in "
-        f"{time.perf_counter() - t0:.3f} s")
-    log(f"lm: cuts from the assigned shapes: prefill_32k 32 x 32,768 -> "
-        f"{PREFILL['batch']} x {PREFILL['seq']}; decode_32k 128 x 32,768 -> "
-        f"{DECODE['batch']} x {DECODE['max_len']}")
+    log(f"{tag}: {cfg.name} {cfg.n_layers} layers {cfg.pattern}, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv_heads}, head_dim "
+        f"{cfg.head_dim}), d_ff {cfg.d_ff}, moe {cfg.moe}, vocab "
+        f"{cfg.vocab_size}: {n_params} parameters ({cfg.param_count()} "
+        f"without norm scales), {2 * n_params / 1e9:.3f} GB in bfloat16, "
+        f"drawn on the card in {time.perf_counter() - t0:.3f} s")
+    log(f"{tag}: cuts from the assigned shapes: prefill_32k 32 x 32,768 -> "
+        f"{prefill['batch']} x {prefill['seq']}; decode_32k 128 x 32,768 -> "
+        f"{decode['batch']} x {decode['max_len']}")
 
-    # 10a. prefill against decode at full width (also the warm-up)
+    # a. prefill against decode at full width (also the warm-up)
+    check, check_params, tol = model, params, PREFILL_DECODE_TOL
+    if cfg.moe is not None:
+        check = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)),
+            dev)
+    if check_dtype is not None:
+        check = build_model(dataclasses.replace(cfg, dtype=check_dtype), dev)
+        check_params, tol = check.init_params(0), PREFILL_DECODE_TOL_F32
     toks = torch.randint(0, cfg.vocab_size, (1, 64), generator=g).to(dev)
-    last, caches = model.prefill(params, {"tokens": toks})
-    state = model.init_decode_state(1, 64)
-    for t in range(64):
-        step, state = model.decode(params, state,
+
+    def prefill_and_decode(m, p):
+        last, caches = m.prefill(p, {"tokens": toks})
+        state = m.init_decode_state(1, 64)
+        for t in range(64):
+            step, state = m.decode(p, state,
                                    {"tokens": toks[:, t:t + 1], "pos": t})
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        return last, caches, state, step
+
+    last, caches, state, step = prefill_and_decode(check, check_params)
     gap = float((step.float() - last.float()).abs().max())
     agree = bool((step.argmax(-1) == last.argmax(-1)).all())
-    torch.testing.assert_close(step.float(), last.float(),
-                               **PREFILL_DECODE_TOL)
-    torch.testing.assert_close(state["b0"]["k"].float(),
-                               caches["b0"]["k"].float(),
-                               **PREFILL_DECODE_TOL)
-    log(f"lm: prefill against 64 decode steps at full width: largest "
-        f"|logit gap| {gap} (tolerance rtol 0.15 atol 0.15, "
-        f"tests/test_arch_smoke.py:85's), argmax agrees: {agree}, logits "
-        f"up to {float(last.float().abs().max())}")
-    del last, caches, state, step
+    torch.testing.assert_close(step.float(), last.float(), **tol)
+    # the K caches: all of them for a dense stack; for an MoE stack the
+    # first layer's (the rest sit behind routing decisions that one
+    # bfloat16 rounding of prefill against decode may flip at a near-tie:
+    # their gap is logged, not held)
+    held_periods = 1 if cfg.moe is not None else cfg.n_periods
+    deeper = 0.0
+    for b, kv in caches.items():
+        got, want = state[b]["k"].float(), kv["k"].float()
+        torch.testing.assert_close(got[:held_periods], want[:held_periods],
+                                   **tol)
+        if held_periods < cfg.n_periods:
+            deeper = max(deeper, float((got[held_periods:]
+                                        - want[held_periods:]).abs().max()))
+    note = ""
+    if cfg.moe is not None:
+        note = (f"; K caches held on the first layer, the deeper layers' "
+                f"largest gap {deeper} (not held)")
+        capped, _ = model.prefill(params, {"tokens": toks})
+        note += (f"; with capacity factor {cfg.moe.capacity_factor} (expert "
+                f"queues of 8 for 64 x {cfg.moe.top_k} picks, which overflow)"
+                f" the prefill's gap is "
+                f"{float((capped.float() - step.float()).abs().max())} "
+                f"(not held)")
+    if check_dtype is not None:
+        b_last, _, _, b_step = prefill_and_decode(model, params)
+        note += (f"; in bfloat16 the gap is "
+                 f"{float((b_step.float() - b_last.float()).abs().max())} "
+                 f"(not held: the stack amplifies one rounding a layer)")
+    log(f"{tag}: prefill against 64 decode steps at full width "
+        f"({check_dtype or cfg.dtype}): largest |logit gap| {gap} "
+        f"(tolerance {json.dumps(tol)}), argmax agrees: {agree}, logits "
+        f"up to {float(last.float().abs().max())}{note}")
+    del last, caches, state, step, check, check_params
 
-    # 10b. prefill, flash_attention launches from 0
-    B, S = PREFILL["batch"], PREFILL["seq"]
+    # b. prefill, every serving kernel's launches from 0
+    B, S = prefill["batch"], prefill["seq"]
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g).to(dev)
-    fa.flash_attention.launches = 0
+    for fn in wrappers.values():
+        fn.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     logits, caches = model.prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    launches = fa.flash_attention.launches
-    if launches != cfg.n_layers:
-        raise AssertionError(f"the prefill launched flash_attention "
-                             f"{launches} times, not {cfg.n_layers}")
-    kv_shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    if launches != expected:
+        raise AssertionError(f"the {arch} prefill launched {launches}, not "
+                             f"{expected}")
+    kv_shape = (cfg.n_periods, B, S, cfg.n_kv_heads, cfg.head_dim)
+    kv_shapes = [tuple(kv["k"].shape) for kv in caches.values()]
     if tuple(logits.shape) != (B, cfg.vocab_size) or \
-            tuple(caches["b0"]["k"].shape) != kv_shape or \
-            not bool(torch.isfinite(logits).all()):
+            any(shape != kv_shape for shape in kv_shapes) \
+            or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill gave logits {tuple(logits.shape)}, "
-                             f"caches {tuple(caches['b0']['k'].shape)}")
+                             f"caches {kv_shapes}")
 
-    # 10c. decode against the prefill's caches
-    state = model.init_decode_state(DECODE["batch"], DECODE["max_len"])
-    for kv in ("k", "v"):
-        state["b0"][kv][:, :, :S] = caches["b0"][kv]
+    # c. decode against the prefill's caches
+    state = model.init_decode_state(decode["batch"], decode["max_len"])
+    for b, kv in caches.items():
+        for name in ("k", "v"):
+            state[b][name][:, :, :S] = kv[name]
     del caches
     tok = logits.argmax(-1)[:, None]
+    for fn in wrappers.values():
+        fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for t in range(S, S + DECODE["steps"]):
+    for t in range(S, S + decode["steps"]):
         logits, state = model.decode(params, state, {"tokens": tok,
                                                      "pos": t})
         tok = logits.argmax(-1)[:, None]
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
+    decode_launches = {name: fn.launches for name, fn in wrappers.items()}
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("decode gave non-finite logits")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1521,30 +1634,365 @@ def lm_main(dev, smi: str) -> dict:
             logits, state = model.decode(params, state, {"tokens": tok,
                                                          "pos": t})
             tok = logits.argmax(-1)[:, None]
-    n_steps = DECODE["steps"]
-    traced_decode = profile_share(decode_steps)
+    n_steps = decode["steps"]
+    shares = tuple((name, fragment) for name, fragment in LM_KERNELS.items()
+                   if expected[name])
+    traced_decode = profile_share(decode_steps, shares)
     del state, logits, tok
     traced_prefill = profile_share(
-        lambda: model.prefill(params, {"tokens": tokens}))
+        lambda: model.prefill(params, {"tokens": tokens}), shares)
     stats = {
         "prefill_s": prefill_s, "prefill_tokens_per_s": B * S / prefill_s,
         "decode_ms_per_step": decode_s / n_steps * 1e3,
-        "decode_tokens_per_s": B * n_steps / decode_s,
-        "peak_device_memory_GiB": peak, "flash_attention_launches": launches}
-    log(f"lm: prefill {B} x {S} (its wall is the time to first token) and "
-        f"{n_steps} decode steps at {B} x {DECODE['max_len']} on {smi}: "
-        f"{json.dumps(stats)}")
-    log(f"lm profile: prefill {json.dumps(traced_prefill)}")
-    log(f"lm profile: 8 more decode steps {json.dumps(traced_decode)}")
+        "decode_tokens_per_s": decode["batch"] * n_steps / decode_s,
+        "peak_device_memory_GiB": peak, "prefill_launches": launches,
+        "decode_launches": decode_launches}
+    log(f"{tag}: prefill {B} x {S} (its wall is the time to first token) and "
+        f"{n_steps} decode steps at {decode['batch']} x {decode['max_len']} "
+        f"on {smi}: {json.dumps(stats)}")
+    log(f"{tag} profile: prefill {json.dumps(traced_prefill)}")
+    log(f"{tag} profile: 8 more decode steps {json.dumps(traced_decode)}")
     del params, tokens
     torch.cuda.empty_cache()
 
-    # 10d. the serve loop at its defaults (batch 4, prompt 8, 8 tokens)
-    served = serve_model.main([])
-    log(f"lm: serve_model at its defaults (yi-6b, batch 4, prompt 8, 8 "
+    # d. the serve loop at its defaults (batch 4, prompt 8, 8 tokens)
+    served = serve_model.main(["--arch", arch])
+    torch.cuda.empty_cache()
+    log(f"{tag}: serve_model at its defaults ({arch}, batch 4, prompt 8, 8 "
         f"tokens): {served['tokens_per_s']} tokens/s over "
         f"{served['seconds']} s, first row {served['tokens'][0].tolist()}")
-    return {"flash_attention": launches}
+    return {name: n for name, n in launches.items() if expected[name]}
+
+
+# -- phases 11-14: the MoE and xLSTM serving paths ---------------------------
+
+# moonshot-v1-16b-a3b's expert products (E, C, d, f) at phase 13's prefill
+# (4 x 4,096 tokens: capacity 480 a row, the batch folded into C) and at
+# its decode (the batch of 4 is one row: capacity 8); the gate and up
+# products first, then the down product
+MOONSHOT_GMM = [(64, 1920, 2048, 1408), (64, 1920, 1408, 2048)]
+MOONSHOT_GMM_DECODE = [(64, 8, 2048, 1408), (64, 8, 1408, 2048)]
+# xlstm-1.3b's sLSTM scan at phase 14's prefill
+XLSTM_SCAN = dict(B=8, S=4096, nh=4, dh=512)
+# phase 13's and 14's cuts of the assigned shapes: prefill_32k 32 x 32,768
+# -> 4 x 4,096 (moonshot: its 56 GB of weights, the caches of the prefill
+# and of the decode state must share 80 GB) and 8 x 4,096 (xlstm);
+# decode_32k 128 x 32,768 -> 4 x 4,128 and 8 x 4,128
+MOE_PREFILL = dict(batch=4, seq=4096)
+MOE_DECODE = dict(batch=4, max_len=4128, steps=32)
+XLSTM_PREFILL = dict(batch=8, seq=4096)
+XLSTM_DECODE = dict(batch=8, max_len=4128, steps=32)
+# a routing decision may differ between card and CPU only at a near-tie
+# of the k-th and (k+1)-th gates
+ROUTING_GAP = 1e-6
+
+
+def gmm_bound(E, C, d, f, itemsize=2):
+    """(bound ms, "operations" or "bytes"): 2 E C d f FLOPs over the bf16
+    tensor peak; x, w and the output once over HBM."""
+    ops_ms = 2 * E * C * d * f / BF16_TENSOR_FLOPS * 1e3
+    mem_ms = itemsize * (E * C * d + E * d * f + E * C * f) \
+        / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, mem_ms), "operations" if ops_ms >= mem_ms else "bytes"
+
+
+def slstm_bound(B, S, nh, dh, itemsize=2):
+    """(bound ms, "operations" or "bytes"): the recurrence's 8 B S d dh
+    float32 FLOPs (h @ r, B x d x 4 dh multiply-adds a step) over the
+    float32 peak; wx and r in the model dtype, y and the state (read and
+    written) in float32, once over HBM."""
+    d = nh * dh
+    ops_ms = 8 * B * S * d * dh / F32_OPS_PER_S * 1e3
+    n_bytes = itemsize * (B * S * 4 * d + nh * dh * 4 * dh) \
+        + 4 * (B * S * d + 8 * B * d)
+    mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, mem_ms), "operations" if ops_ms >= mem_ms else "bytes"
+
+
+def check_moe_xlstm_kernels(dev) -> tuple:
+    """gmm and slstm_scan against their plain versions on the card: the
+    grids of the CPU tests (tests/test_kernels.py:84-89 and
+    tests/test_slstm_kernel.py:22, plus ragged and unaligned shapes, S = 1
+    and S = 37) in float32 and bfloat16; then at the main paths' shapes,
+    bfloat16: gmm at moonshot's prefill and decode products, timed beside
+    its bound, the plain version and torch.bmm; slstm_scan at xlstm-1.3b's
+    prefill (8, 4,096, 2,048, 4 heads), timed beside its bound and the
+    plain version.  Returns the two kernels' rows."""
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import slstm_scan as ss
+    g = torch.Generator().manual_seed(3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    err, n = {f32: 0.0, bf16: 0.0}, 0
+    for E, C, d, f in [(8, 96, 64, 200), (4, 128, 128, 512), (1, 8, 32, 64),
+                       (3, 65, 40, 33), (2, 7, 24, 8), (3, 129, 37, 129),
+                       (64, 8, 256, 176), (3, 30, 72, 300), (2, 33, 64, 128),
+                       (2, 32, 1100, 40), (1, 1, 7, 5)]:
+        for dtype in (f32, bf16):
+            xe = torch.randn(E, C, d, generator=g).to(dev, dtype)
+            w = torch.randn(E, d, f, generator=g).to(dev, dtype)
+            got, want = gm.gmm(xe, w), gm.gmm_torch(xe, w)
+            torch.testing.assert_close(
+                got.float(), want.float(), **gm.kernel_tol(want),
+                msg=lambda m, s=(E, C, d, f): f"gmm at {s}: {m}")
+            err[dtype] = max(err[dtype],
+                             float((got.float() - want.float()).abs().max()))
+            n += 1
+    torch.cuda.synchronize()
+    log(f"moe kernels: gmm within gmm.kernel_tol of plain on {n} inputs "
+        f"({json.dumps({str(k): v for k, v in gm.KERNEL_TOL.items()})}); "
+        f"largest |kernel - plain| float32 {err[f32]}, bfloat16 {err[bf16]}")
+
+    gd = torch.Generator(device=dev).manual_seed(5)
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
+    gmm_rows = []
+    for label, shapes in (("prefill", MOONSHOT_GMM),
+                          ("decode", MOONSHOT_GMM_DECODE)):
+        for E, C, d, f in shapes:
+            xe = torch.randn(E, C, d, device=dev, generator=gd).to(bf16)
+            w = (torch.randn(E, d, f, device=dev, generator=gd)
+                 * d ** -0.5).to(bf16)
+            got, want = gm.gmm(xe, w), gm.gmm_torch(xe, w)
+            torch.testing.assert_close(
+                got.float(), want.float(), **gm.kernel_tol(want),
+                msg=lambda m, s=(E, C, d, f): f"gmm at {s}: {m}")
+            bound, bound_by = gmm_bound(E, C, d, f)
+            row = {"name": "gmm", "path": label, "shape": [E, C, d, f],
+                   "max_abs_err": float((got.float() - want.float()).abs()
+                                        .max()),
+                   "median_abs": float(want.float().abs().median()),
+                   "ms": timed_ms(lambda: gm.gmm(xe, w), 5, flush),
+                   "plain_ms": timed_ms(lambda: gm.gmm_torch(xe, w), 3,
+                                        flush),
+                   "library_ms": timed_ms(lambda: torch.bmm(xe, w), 5, flush),
+                   "bound_ms": bound, "bound_by": bound_by}
+            gmm_rows.append(row)
+            log(f"kernel gmm ({label}) at {row['shape']} (bfloat16): "
+                f"{row['ms']:.6f} ms (bound {bound:.6f} ms, {bound_by}), "
+                f"plain {row['plain_ms']:.6f} ms, torch.bmm "
+                f"{row['library_ms']:.6f} ms; |kernel - plain| "
+                f"{row['max_abs_err']} (median |out| {row['median_abs']})")
+            del xe, w, got, want
+
+    err, n = {f32: 0.0, bf16: 0.0}, 0
+    for B, S, nh, dh in [(2, 32, 4, 16), (1, 64, 4, 16), (3, 16, 4, 16),
+                         (2, 1, 4, 16), (2, 37, 4, 16), (4, 20, 2, 12),
+                         (8, 64, 4, 512), (16, 8, 4, 64)]:
+        for dtype in (f32, bf16):
+            d = nh * dh
+            wx = (0.5 * torch.randn(B, S, 4 * d, generator=g)).to(dev, dtype)
+            r = (torch.randn(nh, dh, 4 * dh, generator=g)
+                 * dh ** -0.5).to(dev, dtype)
+            # a live state: the plain scan's after 5 steps of other inputs
+            state = [torch.zeros(B, d, device=dev) for _ in range(3)] + \
+                [torch.full((B, d), -1e30, device=dev)]
+            warm = (0.5 * torch.randn(B, 5, 4 * d, generator=g)).to(dev, dtype)
+            state = list(ss.slstm_scan_torch(warm, r, *state)[1])
+            y, carry = ss.slstm_scan(wx, r, *state)
+            want_y, want_carry = ss.slstm_scan_torch(wx, r, *state)
+            for got, want in zip((y, *carry), (want_y, *want_carry)):
+                torch.testing.assert_close(
+                    got, want, **ss.KERNEL_TOL,
+                    msg=lambda m, sh=(B, S, nh, dh):
+                    f"slstm_scan at {sh}: {m}")
+                err[dtype] = max(err[dtype], float((got - want).abs().max()))
+            n += 1
+    torch.cuda.synchronize()
+    log(f"xlstm kernels: slstm_scan within {ss.KERNEL_TOL} of plain on {n} "
+        f"inputs; largest |kernel - plain| float32 {err[f32]}, bfloat16 "
+        f"{err[bf16]}")
+
+    L = XLSTM_SCAN
+    d = L["nh"] * L["dh"]
+    wx = (0.5 * torch.randn(L["B"], L["S"], 4 * d, device=dev,
+                            generator=gd)).to(bf16)
+    r = (torch.randn(L["nh"], L["dh"], 4 * L["dh"], device=dev, generator=gd)
+         * L["dh"] ** -0.5).to(bf16)
+    state = [torch.zeros(L["B"], d, device=dev) for _ in range(3)] + \
+        [torch.full((L["B"], d), -1e30, device=dev)]
+    y, carry = ss.slstm_scan(wx, r, *state)
+    want_y, want_carry = ss.slstm_scan_torch(wx, r, *state)
+    scan_err = 0.0
+    for got, want in zip((y, *carry), (want_y, *want_carry)):
+        torch.testing.assert_close(got, want, **ss.KERNEL_TOL,
+                                   msg=lambda m: f"slstm_scan at {L}: {m}")
+        scan_err = max(scan_err, float((got - want).abs().max()))
+    bound, bound_by = slstm_bound(**L)
+    scan_row = {"name": "slstm_scan", "shape": list(L.values()),
+                "max_abs_err": scan_err,
+                "ms": timed_ms(lambda: ss.slstm_scan(wx, r, *state), 3, flush),
+                "plain_ms": timed_ms(lambda: ss.slstm_scan_torch(wx, r,
+                                                                 *state),
+                                     1, flush),
+                "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
+    scan_row["us_per_step"] = scan_row["ms"] * 1e3 / L["S"]
+    log(f"kernel slstm_scan at {scan_row['shape']} (bfloat16 wx and r, "
+        f"float32 state): {scan_row['ms']:.6f} ms, "
+        f"{scan_row['us_per_step']:.3f} us a step (bound {bound:.6f} ms, "
+        f"{bound_by}), plain {scan_row['plain_ms']:.6f} ms (a step-by-step "
+        f"loop), no PyTorch call computes it; |kernel - plain| {scan_err} "
+        f"(median |y| {float(want_y.abs().median())})")
+    return gmm_rows, scan_row
+
+
+def mixer_stage(cfg, blk, x, positions=None, state=None, pos=None):
+    """x plus the block's mixer delta, and the attention's (k, v) (prefill)
+    or the layer's new state (decode; an attention layer's caches are the
+    views in ``state``, written in place)."""
+    from repro_torch.models import attention as at
+    from repro_torch.models import xlstm as xl
+    from repro_torch.models.layers import apply_norm
+    mixer = blk.spec[0]
+    if mixer == "attn":
+        h = apply_norm(cfg, x, blk.ln)
+        if state is None:
+            delta, (k, v) = at.attention_block(cfg, blk.attn, h, positions,
+                                               return_cache=True)
+            return x + delta, {"k": k, "v": v}
+        delta = at.decode_attention_block(cfg, blk.attn, h, state["k"],
+                                          state["v"], pos)
+        return x + delta, state
+    fn = xl.mlstm_block if mixer == "mlstm" else xl.slstm_block
+    delta, new = fn(cfg, getattr(blk, mixer), x, state)
+    return x + delta, new
+
+
+def ffn_body(cfg, blk, hf, single):
+    from repro_torch.models import moe as mo
+    from repro_torch.models.layers import swiglu
+    if blk.spec[1] == "moe":
+        p = {k: getattr(blk, k) for k in ("router", "moe_wg", "moe_wu",
+                                          "moe_wo")}
+        return (mo.moe_ffn_single if single else mo.moe_ffn)(cfg, p, hf)
+    return swiglu(hf, blk.wi_gate, blk.wi_up, blk.w_down)
+
+
+def layerwise(cfg, ref, card, toks, dev, what, n_decode=2) -> float:
+    """The card model against the CPU model ``ref`` layer by layer, each
+    stage fed the CPU's activations: the mixer (with its caches or state),
+    the FFN's norm and the FFN (routing compared first: a decision may
+    differ only at a near-tie under ROUTING_GAP, and then its token is
+    left out of that FFN's comparison), then the head; the prefill of
+    ``toks`` and ``n_decode`` decode steps from its caches.  Held at
+    LM_TOL.  Returns the largest |card - CPU|."""
+    from repro_torch.models import moe as mo
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.layers import apply_norm
+    tol = LM_TOL[cfg.dtype]
+    worst = 0.0
+
+    def hold(got, want, stage, rows=None):
+        nonlocal worst
+        got, want = got.cpu().float(), want.float()
+        if rows is not None:
+            got, want = got[rows], want[rows]
+        torch.testing.assert_close(got, want, **tol,
+                                   msg=lambda m: f"{what} {stage}: {m}")
+        if got.numel():
+            worst = max(worst, float((got - want).abs().max()))
+
+    def ffn(rblk, cblk, xm, stage, single):
+        if rblk.spec[1] == "none":
+            return xm
+        hf = apply_norm(cfg, xm, rblk.ln2)
+        hold(apply_norm(cfg, xm.to(dev), cblk.ln2), hf, stage + " ln2")
+        rows = None
+        if rblk.spec[1] == "moe":
+            k = cfg.moe.top_k
+            gates = torch.softmax(hf.float() @ rblk.router, -1)
+            _, want_idx = mo.route_topk(hf.float() @ rblk.router, k)
+            _, got_idx = mo.route_topk(hf.to(dev).float() @ cblk.router, k)
+            rows = (got_idx.cpu().sort(-1).values
+                    == want_idx.sort(-1).values).all(-1)
+            top = gates.sort(-1, descending=True).values
+            gap = top[..., k - 1] - top[..., k]
+            if (~rows).any() and float(gap[~rows].max()) >= ROUTING_GAP:
+                raise AssertionError(f"{what} {stage}: routing differs "
+                                     f"beyond a near-tie")
+            if single:
+                rows = rows.reshape(-1)
+        out = ffn_body(cfg, rblk, hf, single)
+        hold(ffn_body(cfg, cblk, hf.to(dev), single), out, stage + " ffn",
+             rows)
+        return xm + out
+
+    B, S = toks.shape
+    x, positions = tt.embed_inputs(cfg, ref, {"tokens": toks})
+    state = tt.init_decode_state(cfg, B, S + n_decode, device="cpu")
+    for layer, j, i in tt._layer_items(cfg):
+        rblk, cblk, stage = ref.blocks[layer], card.blocks[layer], \
+            f"layer {layer}"
+        xm, extra = mixer_stage(cfg, rblk, x, positions)
+        got, got_extra = mixer_stage(cfg, cblk, x.to(dev), positions.to(dev))
+        hold(got, xm, stage + " mixer")
+        if rblk.spec[0] == "attn":
+            for name in ("k", "v"):
+                hold(got_extra[name], extra[name], f"{stage} {name}")
+                state[f"b{i}"][name][j, :, :S] = extra[name]
+        x = ffn(rblk, cblk, xm, stage, single=False)
+    hold(apply_norm(cfg, x.to(dev), card.final_norm) @ card.head_w,
+         apply_norm(cfg, x, ref.final_norm) @ ref.head_w, "head")
+    nxt = torch.randint(0, cfg.vocab_size, (B, n_decode),
+                        generator=torch.Generator().manual_seed(S))
+    for step in range(n_decode):
+        x = torch.nn.functional.embedding(nxt[:, step:step + 1], ref.embed)
+        for layer, j, i in tt._layer_items(cfg):
+            rblk, cblk = ref.blocks[layer], card.blocks[layer]
+            stage = f"decode {step} layer {layer}"
+            st = {k: v[j] for k, v in state[f"b{i}"].items()}
+            cst = {k: v.to(dev) for k, v in st.items()}
+            xm, new = mixer_stage(cfg, rblk, x, state=st, pos=S + step)
+            got, got_new = mixer_stage(cfg, cblk, x.to(dev), state=cst,
+                                       pos=S + step)
+            hold(got, xm, stage + " mixer")
+            for name in new:
+                hold(got_new[name], new[name], f"{stage} state {name}")
+                st[name].copy_(new[name])
+            x = ffn(rblk, cblk, xm, stage, single=True)
+        hold(apply_norm(cfg, x.to(dev), card.final_norm) @ card.head_w,
+             apply_norm(cfg, x, ref.final_norm) @ ref.head_w,
+             f"decode {step} head")
+    return worst
+
+
+def moe_xlstm_agree(dev) -> None:
+    """The reduced moonshot, kimi and xlstm three ways (card with the
+    kernels, card with the plain versions forced, CPU) on one set of
+    weights, float32 and bfloat16, layer by layer on the CPU's
+    activations (``layerwise``): the deeper stacks amplify one rounding
+    difference into gaps that say nothing of the kernels."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import slstm_scan as ss
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.model import build_model
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(4)
+    for arch in ("moonshot-v1-16b-a3b", "kimi-k2-1t-a32b", "xlstm-1.3b"):
+        for dt in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                                      dtype=dt)
+            host = tt.params_to_numpy(build_model(cfg, cpu).init_params(0))
+            ref = tt.params_from_numpy(cfg, host, device=cpu, dtype=dt)
+            toks = torch.randint(0, cfg.vocab_size, (2, 73), generator=g)
+            gaps, launched = {}, {}
+            for label, impl in (("card, kernel", None),
+                                ("card, plain", "torch")):
+                before = gm.gmm.launches + ss.slstm_scan.launches
+                with kernel_impl(impl):
+                    card = tt.params_from_numpy(cfg, host, device=dev,
+                                                dtype=dt)
+                    gaps[label] = layerwise(cfg, ref, card, toks, dev,
+                                            f"moe/xlstm agree {arch} {dt} "
+                                            f"{label}")
+                launched[label] = gm.gmm.launches + ss.slstm_scan.launches \
+                    - before
+            if not launched["card, kernel"] or launched["card, plain"]:
+                raise AssertionError(f"{arch}: kernel launches {launched}")
+            log(f"moe/xlstm agree {arch} ({dt}, layer by layer on the CPU's "
+                f"activations): largest |card - CPU| {json.dumps(gaps)} "
+                f"(tolerance {json.dumps(LM_TOL[dt])}); kernel launches "
+                f"{json.dumps(launched)}")
 
 
 def main() -> int:
@@ -1649,6 +2097,24 @@ def main() -> int:
     # 10. yi-6b at full width and depth: prefill (launch counts from 0),
     # decode, the serve loop
     launches.update(lm_main(dev, smi))
+    torch.cuda.empty_cache()
+
+    # 11. the MoE and xLSTM kernels against their plain versions and bmm
+    gmm_rows, scan_row = check_moe_xlstm_kernels(dev)
+    torch.cuda.empty_cache()
+
+    # 12. the reduced MoE and xLSTM LMs: card against CPU, layer by layer
+    moe_xlstm_agree(dev)
+
+    # 13. moonshot-v1-16b-a3b at full width and depth: prefill (launch
+    # counts from 0), decode, the serve loop
+    launches["gmm"] = lm_main(dev, smi, "moonshot-v1-16b-a3b", MOE_PREFILL,
+                              MOE_DECODE)["gmm"]
+    torch.cuda.empty_cache()
+
+    # 14. xlstm-1.3b at full width and depth: the same
+    launches["slstm_scan"] = lm_main(dev, smi, "xlstm-1.3b", XLSTM_PREFILL,
+                                     XLSTM_DECODE, "float32")["slstm_scan"]
 
     replaces = {"rollup_digest": "src/repro/kernels/rollup_digest.py:16",
                 "rollup_chunk_digests":
@@ -1658,15 +2124,20 @@ def main() -> int:
                 "weighted_agg": "src/repro/kernels/weighted_agg.py:22",
                 "model_distance": "src/repro/kernels/model_distance.py:18",
                 "block_pack": "src/repro/kernels/block_pack.py:179",
-                "flash_attention": "src/repro/kernels/flash_attention.py:25"}
+                "flash_attention": "src/repro/kernels/flash_attention.py:25",
+                "gmm": "src/repro/kernels/gmm.py:18",
+                "slstm_scan": "src/repro/kernels/slstm_scan.py:25"}
     sources = {"weighted_agg": "fl.cu", "model_distance": "fl.cu",
-               "block_pack": "pack.cu", "flash_attention": "attn.cu"}
+               "block_pack": "pack.cu", "flash_attention": "attn.cu",
+               "gmm": "moe.cu", "slstm_scan": "slstm.cu"}
     # the default FL path merges Eq. 1 with the task axis: its row is
     # timed at (32, 64, 2,410); the per-task (64, 2,410) is logged below
     agg = fl_rows["weighted_agg"]
     kernels = []
+    # gmm's row: moonshot's gate and up products at the prefill (two of
+    # its three launches a layer); the others are logged below
     for row in rows + [dict(agg, **agg["task"]), fl_rows["model_distance"],
-                       pack_row, attn_row]:
+                       pack_row, attn_row, gmm_rows[0], scan_row]:
         name = row["name"]
         kernels.append({
             "name": name, "route": "cuda",
@@ -1687,6 +2158,7 @@ def main() -> int:
     log(f"per-task weighted_agg: {json.dumps(per_task)}")
     log(f"flash_attention at prefill_32k's sequence: "
         f"{json.dumps(attn_row['long'])}")
+    log(f"gmm at moonshot's other products: {json.dumps(gmm_rows[1:])}")
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -48,6 +48,12 @@ _SIGNATURES = {
     # dtype flag, out, stream)
     "attn_flash_attention": (_D, _P, _P, _P, _I, _I, _I, _I, _I, _R, _F, _F,
                              _P, _P),
+    # csrc/moe.cu: (device, x, w, E, C, d, f, dtype flag, out, stream)
+    "moe_gmm": (_D, _P, _P, _I, _I, _I, _I, _F, _P, _P),
+    # csrc/slstm.cu: (device, wx, r, hbuf, c0, n0, m0, B, S, nh, dh, U,
+    # dtype flag, y, hN, cN, nN, mN, stream)
+    "slstm_scan": (_D, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P,
+                   _P, _P, _P, _P),
 }
 
 _LIB = None

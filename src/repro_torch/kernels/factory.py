@@ -19,8 +19,10 @@ identical bits from every impl; ``block_pack`` (the fused loop's block
 packing) takes float64 times and int64 gas cumsums and returns int64 stop
 pointers, identical from every impl.  The FL ops (``weighted_agg``, Eq. 1, and
 ``model_distance``, Eq. 4) take float32 or bfloat16 and agree to float32
-rounding; so does ``flash_attention`` (the prefill's causal GQA attention,
-``(q, k, v, causal=True)``).  Every impl returns its result on the input's
+rounding; so do ``flash_attention`` (the prefill's causal GQA attention,
+``(q, k, v, causal=True)``), ``gmm`` (the MoE FFN's expert products,
+``(xe, w)``) and ``slstm_scan`` (the sLSTM time scan, ``(wx, r_gates, h,
+c, n, m)``).  Every impl returns its result on the input's
 device.
 """
 from __future__ import annotations
@@ -51,8 +53,10 @@ def _load() -> None:
     from repro_torch.kernels import block_pack as bp
     from repro_torch.kernels import dirty_fold as df
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gmm as gm
     from repro_torch.kernels import model_distance as md
     from repro_torch.kernels import rollup_digest as rd
+    from repro_torch.kernels import slstm_scan as ss
     from repro_torch.kernels import weighted_agg as wa
     for op, plain, wrapper in (
             ("batch_seal", bs.batch_seal_torch, bs.batch_seal),
@@ -65,7 +69,9 @@ def _load() -> None:
              md.model_distance),
             ("block_pack", bp.block_pack_torch, bp.block_pack),
             ("flash_attention", fa.flash_attention_torch,
-             fa.flash_attention)):
+             fa.flash_attention),
+            ("gmm", gm.gmm_torch, gm.gmm),
+            ("slstm_scan", ss.slstm_scan_torch, ss.slstm_scan)):
         register_kernel(op, "torch", plain)
         register_kernel(op, "cuda", wrapper, default=True)
 

@@ -1,4 +1,5 @@
-"""Model facade over the token-LM family, in the JAX package's interface:
+"""Model facade over the token-LM family (dense attention, MoE and xLSTM
+stacks), in the JAX package's interface:
 
     model = build_model(cfg)                  # on the card; device="cpu"
     params = model.init_params(0)             # a TransformerLM module
@@ -9,8 +10,9 @@
 
 The port runs one card with no mesh: the JAX facade's ``ctx is None``
 branch.  Meshes and sharding are ROADMAP.md queue 1 item 10(f); training
-(``loss``) is item 10(d); LeNet, whisper and the VLM's embeds input are
-item 10(e), and their configs raise ``NotImplementedError`` here.
+(``loss``) is item 10(d); Mamba (and jamba), LeNet, whisper and the VLM's
+embeds input are item 10(e), and their configs raise
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 

@@ -1,0 +1,123 @@
+"""Mixture-of-Experts FFN: top-k routing and capacity-based dispatch, with
+the expert products through the factory's ``gmm`` op (the CUDA kernel on
+the card), in the JAX package's layouts and casts.
+
+  * Router logits in float32 (the router is float32 in every model
+    dtype), softmax, top-k, the k weights renormalised.
+  * Dispatch per batch row (``build_dispatch``): each (token, expert) pair
+    takes the next slot of its expert's queue, in token order; pairs past
+    the capacity are dropped.  Empty slots point at token 0 with weight 0.
+  * The gathered tokens are laid out ``(E, B·C, d)`` directly, the batch
+    folded into C, so each expert product is ONE ``gmm`` launch: three per
+    MoE layer.
+  * ``silu(h) * u`` and ``ye * slot_w`` in the model dtype; the combine
+    adds in the model dtype (``index_add_``), as the JAX package's
+    scatter-add does.
+
+One card, no mesh: the JAX functions' ``ctx`` (expert-parallel sharding
+constraints) is the ``None`` branch here.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.factory import get_kernel
+from repro_torch.models.layers import dense_init
+
+
+def init_moe_params(cfg, dtype: torch.dtype,
+                    generator: torch.Generator | None,
+                    device) -> Dict[str, torch.Tensor]:
+    """``router`` (d, E) float32; ``moe_wg``, ``moe_wu`` (E, d, ff) and
+    ``moe_wo`` (E, ff, d) in ``dtype`` (uninitialised with no
+    generator)."""
+    m = cfg.moe
+    d, ff, E = cfg.d_model, m.expert_d_ff, m.n_experts
+    return {"router": dense_init((d, E), torch.float32, generator, device),
+            "moe_wg": dense_init((E, d, ff), dtype, generator, device),
+            "moe_wu": dense_init((E, d, ff), dtype, generator, device),
+            "moe_wo": dense_init((E, ff, d), dtype, generator, device)}
+
+
+def capacity(cfg, seq_len: int) -> int:
+    m = cfg.moe
+    c = int(seq_len * m.top_k * m.capacity_factor / m.n_experts)
+    return max(8, ((c + 7) // 8) * 8)
+
+
+def route_topk(router_logits: torch.Tensor, top_k: int):
+    """router_logits (..., E) -> (weights (..., k) float32, idx (..., k)
+    int64)."""
+    gates = torch.softmax(router_logits.to(torch.float32), dim=-1)
+    w, idx = torch.topk(gates, top_k, dim=-1)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    return w, idx
+
+
+def build_dispatch(idx: torch.Tensor, w: torch.Tensor, n_experts: int,
+                   cap: int):
+    """Per-row dispatch tables, every row of the batch at once.
+
+    idx, w: (B, S, k).  Returns (slot_token (B, E, C) int64 token ids,
+    slot_weight (B, E, C) float32): the JAX ``build_dispatch`` on each
+    row.  A pair's slot is its rank in its expert's queue (a stable sort
+    by expert keeps token order); pairs at rank >= cap go to one dummy
+    slot past the table, which is cut off."""
+    B, S, k = idx.shape
+    dev = idx.device
+    flat_expert = idx.reshape(B, S * k)
+    flat_token = torch.arange(S, device=dev).repeat_interleave(k)
+    flat_w = w.reshape(B, S * k).to(torch.float32)
+    order = torch.argsort(flat_expert, dim=1, stable=True)
+    sorted_expert = flat_expert.gather(1, order)
+    sorted_token = flat_token[order]
+    sorted_w = flat_w.gather(1, order)
+    positions = torch.arange(S * k, device=dev).expand(B, S * k)
+    seg_start = torch.full((B, n_experts), S * k, dtype=torch.int64,
+                           device=dev).scatter_reduce(
+        1, sorted_expert, positions, "amin")
+    rank = positions - seg_start.gather(1, sorted_expert)
+    keep = rank < cap
+    dummy = n_experts * cap
+    slot = torch.where(keep, sorted_expert * cap + rank, dummy)
+    slot_token = torch.zeros(B, dummy + 1, dtype=torch.int64,
+                             device=dev).scatter(1, slot, sorted_token)
+    slot_w = torch.zeros(B, dummy + 1, dtype=torch.float32,
+                         device=dev).scatter(
+        1, slot, torch.where(keep, sorted_w, 0.0))
+    return (slot_token[:, :-1].reshape(B, n_experts, cap),
+            slot_w[:, :-1].reshape(B, n_experts, cap))
+
+
+def moe_ffn(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    E, cap = m.n_experts, capacity(cfg, S)
+    logits = x.to(torch.float32) @ p["router"]
+    w, idx = route_topk(logits, m.top_k)                        # (B, S, k)
+    slot_token, slot_w = build_dispatch(idx, w, E, cap)         # (B, E, C)
+
+    # rows of x in (E, B, C) order: xe is (E, B·C, d) with no permute
+    rows = (slot_token + torch.arange(B, device=x.device)[:, None, None] * S
+            ).transpose(0, 1).reshape(-1)
+    xe = x.reshape(B * S, d).index_select(0, rows).reshape(E, B * cap, d)
+    gmm = get_kernel("gmm")
+    h = F.silu(gmm(xe, p["moe_wg"])) * gmm(xe, p["moe_wu"])
+    ye = gmm(h, p["moe_wo"])                                    # (E, B·C, d)
+    ye = ye * slot_w.transpose(0, 1).reshape(E, B * cap, 1).to(ye.dtype)
+
+    # combine: add back to the token rows, in the model dtype
+    y = torch.zeros(B * S, d, dtype=x.dtype, device=x.device)
+    y.index_add_(0, rows, ye.reshape(-1, d).to(x.dtype))
+    return y.reshape(B, S, d)
+
+
+def moe_ffn_single(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    """Decode-time MoE for (B, 1, d): the batch is the token row, (1, B,
+    d), so the weights are read once for the whole decode batch."""
+    B = x.shape[0]
+    return moe_ffn(cfg, p, x.reshape(1, B, -1)).reshape(B, 1, -1)

@@ -1,21 +1,29 @@
-"""Decoder-only token LM: the dense attention stack (``attn`` mixer with a
-SwiGLU ``dense`` FFN), for forward, prefill and KV-cache decode.
+"""Decoder-only token LM: stacks of attention (``attn``), mLSTM and sLSTM
+mixers with a SwiGLU ``dense`` FFN, an MoE FFN or none, per the config's
+block pattern, for forward, prefill and decode.
 
 The weights live in a :class:`TransformerLM` module: the embedding table,
-a ``ModuleList`` of :class:`Block` s (pre-norm attention, then pre-norm
-SwiGLU, each added to the residual stream) and the final norm and LM
-head, all stored ``(in, out)`` as in the JAX package.  Layer ``l`` is
-position ``i`` of period ``j`` of the config's block pattern, with
-``l = j * len(pattern) + i``; the JAX package's parameters stack the
-periods instead (``params["periods"]["b{i}"]``), and
-``params_from_numpy`` / ``params_to_numpy`` carry them across.  Decode
-state keeps the JAX layout: ``{"b{i}": {"k", "v": (n_periods, B, S_max,
-Hkv, dh)}}``, updated in place.
+a ``ModuleList`` of :class:`Block` s and the final norm and LM head, all
+stored ``(in, out)`` as in the JAX package.  A block holds one mixer
+(``ln`` and the ``attn`` ParameterDict; or the ``mlstm`` or ``slstm``
+ParameterDict, which carry their own norms and FFN) and one FFN (``ln2``
+and ``wi_gate``, ``wi_up``, ``w_down``; or ``ln2`` and the MoE's
+``router``, float32 in every model dtype, ``moe_wg``, ``moe_wu``,
+``moe_wo``; or none), as ``block_specs`` gives them.  Layer ``l`` is
+position ``i`` of period ``j`` of the pattern, with ``l = j *
+len(pattern) + i``; the JAX package's parameters stack the periods instead
+(``params["periods"]["b{i}"]``), and ``params_from_numpy`` /
+``params_to_numpy`` carry them across.  Decode state keeps the JAX layout,
+stacked over periods and updated in place: ``{"k", "v": (n_periods, B,
+S_max, Hkv, dh)}`` for attention, ``{"C", "n", "m"}`` for mLSTM and
+``{"h", "c", "nn", "mm"}`` for sLSTM (float32).  Prefill returns the
+attention blocks' caches only, as the JAX prefill does: it emits no
+recurrent state.
 
-Blocks of other kinds raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports them: MoE FFN (queue 1 item 10(b)), xLSTM (10(c)), Mamba,
-whisper, the VLM and LeNet (10(e)).  Weights are serving weights: the
-module does not require gradients (training is item 10(d)).
+Mamba blocks (and with them jamba) raise ``NotImplementedError`` naming
+ROADMAP.md queue 1 item 10(e), as do whisper, the VLM and LeNet.  Weights
+are serving weights: the module does not require gradients (training is
+item 10(d)).
 """
 from __future__ import annotations
 
@@ -26,18 +34,17 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from repro_torch.configs.base import MAMBA, MLSTM, SLSTM
+from repro_torch.configs.base import ATTN, MAMBA, MLSTM, SLSTM
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (apply_norm, dense_init, positions_for,
                                        swiglu)
 
 State = Dict[str, Dict[str, torch.Tensor]]
 
 _UNPORTED = {
-    "moe": "the MoE FFN (ROADMAP.md queue 1 item 10(b))",
-    MLSTM: "the mLSTM block (ROADMAP.md queue 1 item 10(c))",
-    SLSTM: "the sLSTM block (ROADMAP.md queue 1 item 10(c))",
     MAMBA: "the Mamba block (ROADMAP.md queue 1 item 10(e))",
 }
 
@@ -82,29 +89,54 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 
 class Block(nn.Module):
-    """One ``attn`` + ``dense`` layer: ``ln``, ``attn`` (a ParameterDict:
-    see ``models.attention``), ``ln2``, ``wi_gate``, ``wi_up``,
-    ``w_down``."""
+    """One layer: a mixer and an FFN as ``spec`` = (mixer, ffn) names them
+    (see the module docstring for the parameters of each)."""
 
-    def __init__(self, cfg, dtype: torch.dtype, device,
+    def __init__(self, cfg, spec, dtype: torch.dtype, device,
                  generator: Optional[torch.Generator]):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
-        self.ln = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
-        self.attn = nn.ParameterDict(attn.init_attn_params(
-            cfg, dtype, generator, device))
-        self.ln2 = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
-        self.wi_gate = nn.Parameter(dense_init((d, f), dtype, generator,
-                                               device))
-        self.wi_up = nn.Parameter(dense_init((d, f), dtype, generator, device))
-        self.w_down = nn.Parameter(dense_init((f, d), dtype, generator,
-                                              device))
+        self.spec = spec
+        mixer, ffn = spec
+        d = cfg.d_model
+        param = nn.Parameter
+        if mixer == ATTN:
+            self.ln = param(torch.ones(d, dtype=dtype, device=device))
+            self.attn = nn.ParameterDict(attn.init_attn_params(
+                cfg, dtype, generator, device))
+        elif mixer == MLSTM:
+            self.mlstm = nn.ParameterDict(xlstm_mod.init_mlstm_params(
+                cfg, dtype, generator, device))
+        elif mixer == SLSTM:
+            self.slstm = nn.ParameterDict(xlstm_mod.init_slstm_params(
+                cfg, dtype, generator, device))
+        else:
+            raise ValueError(mixer)
+        if ffn == "dense":
+            f = cfg.d_ff
+            self.ln2 = param(torch.ones(d, dtype=dtype, device=device))
+            self.wi_gate = param(dense_init((d, f), dtype, generator, device))
+            self.wi_up = param(dense_init((d, f), dtype, generator, device))
+            self.w_down = param(dense_init((f, d), dtype, generator, device))
+        elif ffn == "moe":
+            self.ln2 = param(torch.ones(d, dtype=dtype, device=device))
+            for name, t in moe_mod.init_moe_params(cfg, dtype, generator,
+                                                   device).items():
+                setattr(self, name, param(t))
+
+    def tree(self) -> Dict[str, object]:
+        """The block's parameters in the JAX package's per-block layout:
+        ``{name: tensor}``, the mixer's ParameterDict as a nested dict."""
+        out: Dict[str, object] = dict(self.named_parameters(recurse=False))
+        for name, child in self.named_children():
+            out[name] = dict(child.items())
+        return out
 
 
 class TransformerLM(nn.Module):
-    """The weights of a dense token LM.  With a ``generator`` they are
-    drawn on ``device`` (truncated normals, fan-in scaled; norms ones,
-    biases zeros); without one they are left uninitialised for loading."""
+    """The weights of a token LM.  With a ``generator`` they are drawn on
+    ``device`` (truncated normals, fan-in scaled; norms ones, biases
+    zeros, the sLSTM's and mLSTM's forget biases 3); without one they are
+    left uninitialised for loading."""
 
     def __init__(self, cfg, dtype=None, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -113,8 +145,10 @@ class TransformerLM(nn.Module):
         self.cfg = cfg
         dtype = _torch_dtype(dtype or cfg.dtype)
         dev = resolve_device(device)
-        self.blocks = nn.ModuleList(Block(cfg, dtype, dev, generator)
-                                    for _ in range(cfg.n_layers))
+        specs = block_specs(cfg)
+        self.blocks = nn.ModuleList(
+            Block(cfg, specs[i], dtype, dev, generator)
+            for _, _, i in _layer_items(cfg))
         d, vocab = cfg.d_model, cfg.vocab_size
         self.embed = nn.Parameter(dense_init((vocab, d), dtype, generator,
                                              dev))
@@ -152,7 +186,9 @@ def _layer_items(cfg):
 def params_from_numpy(cfg, tree, device=None, dtype=None) -> TransformerLM:
     """The JAX package's parameter tree (numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) as a :class:`TransformerLM` on
-    ``device`` (the card unless named), in ``dtype`` (default: the tree's)."""
+    ``device`` (the card unless named), in ``dtype`` (default: the
+    tree's).  Each leaf keeps its module's dtype: the MoE router stays
+    float32."""
     if dtype is None:
         name = np.asarray(tree["head_w"]).dtype.name
         dtype = torch.bfloat16 if name == "bfloat16" else getattr(torch, name)
@@ -160,17 +196,23 @@ def params_from_numpy(cfg, tree, device=None, dtype=None) -> TransformerLM:
     model = TransformerLM(cfg, dtype, device)
 
     def put(dst: torch.Tensor, a) -> None:
-        dst.copy_(_from_host(a).to(dtype))
+        dst.copy_(_from_host(a).to(dst.dtype))
+
+    def keys(t) -> list:
+        return sorted((k, sorted(v) if isinstance(v, dict) else None)
+                      for k, v in t.items())
 
     for layer, j, i in _layer_items(cfg):
-        src, blk = tree["periods"][f"b{i}"], model.blocks[layer]
-        for name in ("ln", "ln2", "wi_gate", "wi_up", "w_down"):
-            put(getattr(blk, name), src[name][j])
-        if set(src["attn"]) != set(blk.attn):
-            raise ValueError(f"attention parameters {sorted(src['attn'])} "
-                             f"do not match {cfg.name}'s {sorted(blk.attn)}")
-        for name, a in src["attn"].items():
-            put(blk.attn[name], a[j])
+        src, dst = tree["periods"][f"b{i}"], model.blocks[layer].tree()
+        if keys(src) != keys(dst):
+            raise ValueError(f"block b{i}'s parameters {keys(src)} do not "
+                             f"match {cfg.name}'s {keys(dst)}")
+        for name, t in dst.items():
+            if isinstance(t, dict):
+                for sub, leaf in t.items():
+                    put(leaf, src[name][sub][j])
+            else:
+                put(t, src[name][j])
     put(model.embed, tree["embed"]["table"])
     put(model.final_norm, tree["final_norm"])
     put(model.head_w, tree["head_w"])
@@ -179,7 +221,8 @@ def params_from_numpy(cfg, tree, device=None, dtype=None) -> TransformerLM:
 
 def params_to_numpy(params: TransformerLM):
     """The module's weights as the JAX package's stacked tree of numpy
-    arrays (bfloat16 weights as float32, which holds them exactly)."""
+    arrays (bfloat16 weights as float32, which holds them exactly; the
+    float32 router as it is)."""
     cfg = params.cfg
 
     def host(t: torch.Tensor) -> np.ndarray:
@@ -187,15 +230,17 @@ def params_to_numpy(params: TransformerLM):
             t = t.to(torch.float32)
         return t.detach().cpu().numpy()
 
+    def stack(leaves: list):
+        if isinstance(leaves[0], dict):
+            return {k: stack([leaf[k] for leaf in leaves])
+                    for k in leaves[0]}
+        return np.stack([host(t) for t in leaves])
+
     periods = {}
     for i in range(len(block_specs(cfg))):
-        layers = [params.blocks[layer] for layer, _, pi in _layer_items(cfg)
-                  if pi == i]
-        leaf = {name: np.stack([host(getattr(b, name)) for b in layers])
-                for name in ("ln", "ln2", "wi_gate", "wi_up", "w_down")}
-        leaf["attn"] = {name: np.stack([host(b.attn[name]) for b in layers])
-                        for name in layers[0].attn}
-        periods[f"b{i}"] = leaf
+        periods[f"b{i}"] = stack([params.blocks[layer].tree()
+                                  for layer, _, pi in _layer_items(cfg)
+                                  if pi == i])
     return {"periods": periods, "final_norm": host(params.final_norm),
             "head_w": host(params.head_w),
             "embed": {"table": host(params.embed)}}
@@ -204,29 +249,58 @@ def params_to_numpy(params: TransformerLM):
 # ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
-def _apply_ffn(cfg, bp: Block, x: torch.Tensor) -> torch.Tensor:
+def _apply_ffn(cfg, bp: Block, x: torch.Tensor,
+               single: bool = False) -> torch.Tensor:
+    ffn = bp.spec[1]
+    if ffn == "none":
+        return x
     h = apply_norm(cfg, x, bp.ln2)
+    if ffn == "moe":
+        p = {"router": bp.router, "moe_wg": bp.moe_wg, "moe_wu": bp.moe_wu,
+             "moe_wo": bp.moe_wo}
+        fn = moe_mod.moe_ffn_single if single else moe_mod.moe_ffn
+        return x + fn(cfg, p, h)
     return x + swiglu(h, bp.wi_gate, bp.wi_up, bp.w_down)
 
 
 def apply_block_train(cfg, bp: Block, x: torch.Tensor,
                       positions: torch.Tensor, return_cache: bool = False):
-    h = apply_norm(cfg, x, bp.ln)
-    delta, (k, v) = attn.attention_block(cfg, bp.attn, h, positions,
-                                         return_cache=True)
+    """One layer over the whole sequence; with ``return_cache`` also the
+    attention's K/V (``None`` for a recurrent mixer)."""
+    mixer = bp.spec[0]
+    cache = None
+    if mixer == ATTN:
+        h = apply_norm(cfg, x, bp.ln)
+        delta, (k, v) = attn.attention_block(cfg, bp.attn, h, positions,
+                                             return_cache=True)
+        cache = {"k": k, "v": v}
+    elif mixer == MLSTM:
+        delta, _ = xlstm_mod.mlstm_block(cfg, bp.mlstm, x)
+    else:
+        delta, _ = xlstm_mod.slstm_block(cfg, bp.slstm, x)
     x = _apply_ffn(cfg, bp, x + delta)
     if return_cache:
-        return x, {"k": k, "v": v}
+        return x, cache
     return x
 
 
 def apply_block_decode(cfg, bp: Block, x: torch.Tensor,
-                       cache_k: torch.Tensor, cache_v: torch.Tensor,
+                       state: Dict[str, torch.Tensor],
                        pos: int) -> torch.Tensor:
-    h = apply_norm(cfg, x, bp.ln)
-    delta = attn.decode_attention_block(cfg, bp.attn, h, cache_k, cache_v,
-                                        pos)
-    return _apply_ffn(cfg, bp, x + delta)
+    """One layer on one token; ``state`` is the layer's slice of the decode
+    state (views), written in place."""
+    mixer = bp.spec[0]
+    if mixer == ATTN:
+        h = apply_norm(cfg, x, bp.ln)
+        delta = attn.decode_attention_block(cfg, bp.attn, h, state["k"],
+                                            state["v"], pos)
+    else:
+        block = xlstm_mod.mlstm_block if mixer == MLSTM \
+            else xlstm_mod.slstm_block
+        delta, new = block(cfg, getattr(bp, mixer), x, state)
+        for name, t in new.items():
+            state[name].copy_(t)
+    return _apply_ffn(cfg, bp, x + delta, single=True)
 
 
 # ---------------------------------------------------------------------------
@@ -249,42 +323,61 @@ def forward(cfg, params: TransformerLM, batch) -> torch.Tensor:
     return x @ params.head_w
 
 
+def _stacked(state: Dict[str, torch.Tensor], n: int):
+    return {k: v.expand(n, *v.shape).clone() for k, v in state.items()}
+
+
 def init_decode_state(cfg, batch: int, max_len: int, dtype=None,
                       device=None) -> State:
-    """Zero KV caches, stacked per period as the JAX package stacks them."""
+    """The initial decode state, stacked per period as the JAX package
+    stacks it: zero KV caches in ``dtype`` (default: the config's) for
+    attention, the initial float32 mLSTM / sLSTM states."""
     dtype = _torch_dtype(dtype or cfg.dtype)
     dev = resolve_device(device)
-    return {f"b{i}": attn.init_kv_cache(cfg, batch, max_len, cfg.n_periods,
-                                        dtype, dev)
-            for i in range(len(block_specs(cfg)))}
+    P = cfg.n_periods
+
+    def one(mixer):
+        if mixer == ATTN:
+            return attn.init_kv_cache(cfg, batch, max_len, P, dtype, dev)
+        if mixer == MLSTM:
+            return _stacked(xlstm_mod.init_mlstm_state(cfg, batch, dev), P)
+        return _stacked(xlstm_mod.init_slstm_state(cfg, batch, dev), P)
+
+    return {f"b{i}": one(mixer)
+            for i, (mixer, _) in enumerate(block_specs(cfg))}
 
 
 def decode_step(cfg, params: TransformerLM, state: State, batch):
     """One-token decode.  batch: ``{"tokens": (B, 1), "pos": int}`` (the
-    write index).  Returns (logits (B, V), state), the state's caches
-    written in place; the state comes back so that ``Model.decode`` keeps
-    the JAX package's signature."""
+    write index).  Returns (logits (B, V), state), the state written in
+    place; the state comes back so that ``Model.decode`` keeps the JAX
+    package's signature."""
     pos = int(batch["pos"])
     x = F.embedding(batch["tokens"], params.embed)
     for layer, j, i in _layer_items(cfg):
-        st = state[f"b{i}"]
-        x = apply_block_decode(cfg, params.blocks[layer], x, st["k"][j],
-                               st["v"][j], pos)
+        layer_state = {k: v[j] for k, v in state[f"b{i}"].items()}
+        x = apply_block_decode(cfg, params.blocks[layer], x, layer_state,
+                               pos)
     x = apply_norm(cfg, x, params.final_norm)
     return (x @ params.head_w)[:, 0], state
 
 
 def prefill(cfg, params: TransformerLM, batch):
-    """Forward over the prompt, keeping every layer's K/V: returns (the
-    last position's logits (B, V), caches in the decode state's layout
-    with S_max = S)."""
+    """Forward over the prompt, keeping the attention blocks' K/V: returns
+    (the last position's logits (B, V), ``{"b{i}": {"k", "v"}}`` for the
+    attention positions of the pattern, in the decode state's layout with
+    S_max = S; empty for a recurrent-only stack)."""
     x, positions = embed_inputs(cfg, params, batch)
     B, S = batch["tokens"].shape
-    caches = init_decode_state(cfg, B, S, x.dtype, x.device)
+    caches = {f"b{i}": attn.init_kv_cache(cfg, B, S, cfg.n_periods, x.dtype,
+                                          x.device)
+              for i, (mixer, _) in enumerate(block_specs(cfg))
+              if mixer == ATTN}
     for layer, j, i in _layer_items(cfg):
         x, kv = apply_block_train(cfg, params.blocks[layer], x, positions,
                                   return_cache=True)
-        caches[f"b{i}"]["k"][j] = kv["k"]
-        caches[f"b{i}"]["v"][j] = kv["v"]
+        if kv is not None:
+            caches[f"b{i}"]["k"][j] = kv["k"]
+            caches[f"b{i}"]["v"][j] = kv["v"]
     x = apply_norm(cfg, x[:, -1:], params.final_norm)
     return (x @ params.head_w)[:, 0], caches

@@ -6,7 +6,11 @@ to the unbatched launches; the default ``Scheduler`` (fused loop and
 megastep) on the card against the stepped per-task path; the attention
 kernel against its plain version (rtol 1e-4 / atol 1e-5 in float32; in
 bfloat16 one bfloat16 step, rtol 2^-7 / atol 1e-4: both sum in float32 and
-round once), and the reduced dense LMs on the card against the CPU.
+round once), and the reduced dense LMs on the card against the CPU; the
+MoE's ``gmm`` kernel against its plain version (``gmm.kernel_tol``: rtol
+1e-5 float32, one bfloat16 step, plus 1e-5 of the largest output), the
+sLSTM scan kernel against its plain version (``slstm_scan.KERNEL_TOL``),
+and the reduced MoE and xLSTM LMs on the card against the CPU.
 
 Marked ``gpu``: they skip where no CUDA device is present (the skip is
 decided in the fixture, so every worker collects the same tests).  This
@@ -22,8 +26,10 @@ from repro_torch.kernels import batch_seal as bs
 from repro_torch.kernels import block_pack as bp
 from repro_torch.kernels import dirty_fold as df
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gmm as gm
 from repro_torch.kernels import model_distance as md
 from repro_torch.kernels import rollup_digest as rd
+from repro_torch.kernels import slstm_scan as ss
 from repro_torch.kernels import weighted_agg as wa
 
 CHUNK = 2048
@@ -314,4 +320,134 @@ def test_dense_lm_on_card_matches_cpu(cuda, arch):
     assert fa.flash_attention.launches == before + cfg.n_layers
     for a, b in zip(*outs):
         torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,d,f,dtype", [
+    (8, 96, 64, 200, torch.float32), (4, 128, 128, 512, torch.bfloat16),
+    (1, 8, 32, 64, torch.float32), (3, 65, 40, 33, torch.float32),
+    (2, 7, 24, 8, torch.bfloat16), (64, 8, 256, 176, torch.bfloat16),
+    (5, 300, 130, 70, torch.bfloat16), (2, 1920, 64, 1408, torch.bfloat16),
+    (3, 129, 37, 129, torch.float32), (3, 30, 72, 300, torch.bfloat16),
+    (2, 33, 64, 128, torch.bfloat16), (2, 32, 1100, 40, torch.float32),
+    (1, 1, 7, 5, torch.float32)])
+def test_gmm_kernel(cuda, E, C, d, f, dtype):
+    g = torch.Generator().manual_seed(E * C + f)
+    xe = torch.randn(E, C, d, generator=g).to(cuda, dtype)
+    w = torch.randn(E, d, f, generator=g).to(cuda, dtype)
+    before = gm.gmm.launches
+    got = gm.gmm(xe, w)
+    assert gm.gmm.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (E, C, f)
+    want = gm.gmm_torch(xe, w)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **gm.kernel_tol(want))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_gmm_kernel_refuses(cuda):
+    xe, w = torch.ones(2, 3, 8, device=cuda), torch.ones(2, 8, 4, device=cuda)
+    with pytest.raises(TypeError):
+        gm.gmm(xe.half(), w.half())
+    with pytest.raises(ValueError):
+        gm.gmm(xe, w.cpu())
+    before = gm.gmm.launches
+    assert float(gm.gmm(xe[:, :0], w).sum()) == 0.0
+    assert gm.gmm.launches == before
+
+
+def _slstm_inputs(B, S, nh, dh, dtype, device, seed=0, live=True):
+    """wx, r_gates and a state: the initial one, or (``live``) the state
+    the plain scan reaches after 5 steps of other inputs."""
+    g = torch.Generator().manual_seed(seed)
+    d = nh * dh
+    wx = (0.5 * torch.randn(B, S, 4 * d, generator=g)).to(device, dtype)
+    r = (torch.randn(nh, dh, 4 * dh, generator=g) * dh ** -0.5).to(device,
+                                                                   dtype)
+    state = [torch.zeros(B, d, device=device) for _ in range(3)] + \
+        [torch.full((B, d), -1e30, device=device)]
+    if live:
+        warm = (0.5 * torch.randn(B, 5, 4 * d, generator=g)).to(device, dtype)
+        state = list(ss.slstm_scan_torch(warm, r, *state)[1])
+    return wx, r, state
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,nh,dh,dtype", [
+    (2, 32, 4, 16, torch.float32), (1, 64, 4, 16, torch.float32),
+    (3, 16, 4, 16, torch.bfloat16), (2, 1, 4, 16, torch.float32),
+    (2, 37, 4, 16, torch.float32), (4, 20, 2, 12, torch.float32),
+    (8, 64, 4, 512, torch.bfloat16), (16, 8, 4, 64, torch.float32),
+    (5, 300, 8, 32, torch.float32), (8, 1, 4, 512, torch.bfloat16)])
+def test_slstm_scan_kernel(cuda, B, S, nh, dh, dtype):
+    for live in (False, True):
+        wx, r, state = _slstm_inputs(B, S, nh, dh, dtype, cuda, S + dh, live)
+        before = ss.slstm_scan.launches
+        y, carry = ss.slstm_scan(wx, r, *state)
+        assert ss.slstm_scan.launches == before + 1
+        want_y, want_carry = ss.slstm_scan_torch(wx, r, *state)
+        assert y.dtype == torch.float32 and y.shape == want_y.shape
+        torch.testing.assert_close(y, want_y, **ss.KERNEL_TOL)
+        for got, want in zip(carry, want_carry):
+            torch.testing.assert_close(got, want, **ss.KERNEL_TOL)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_slstm_scan_kernel_refuses(cuda):
+    wx, r, state = _slstm_inputs(17, 2, 4, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="batch rows"):
+        ss.slstm_scan(wx, r, *state)
+    wx, r, state = _slstm_inputs(16, 2, 1, 1024, torch.float32, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ss.slstm_scan(wx, r, *state)
+    wx, r, state = _slstm_inputs(2, 2, 4, 16, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        ss.slstm_scan(wx.half(), r.half(), *state)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,tol", [("moonshot-v1-16b-a3b", 1e-4),
+                                      ("kimi-k2-1t-a32b", 1e-4),
+                                      ("xlstm-1.3b", 1e-3)])
+def test_moe_xlstm_lm_on_card_matches_cpu(cuda, arch, tol):
+    """Prefill and decode on the card (through the gmm and slstm_scan
+    kernels) against the CPU, float32, one set of weights: the MoE stacks
+    at the dense stacks' 1e-4; xLSTM at 1e-3, since its eight
+    exponential-gated layers amplify float32 rounding about tenfold over
+    the dense stacks (tests/test_torch_xlstm.py)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              dtype="float32")
+    cpu_model, card_model = build_model(cfg, "cpu"), build_model(cfg, cuda)
+    cpu_params = cpu_model.init_params(0)
+    card_params = tt.params_from_numpy(cfg, tt.params_to_numpy(cpu_params),
+                                       device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 70),
+                         generator=torch.Generator().manual_seed(1))
+    specs = tt.block_specs(cfg) * cfg.n_periods
+    n_gmm = 3 * sum(f == "moe" for _, f in specs)
+    n_scan = sum(m == "slstm" for m, _ in specs)
+    outs = []
+    for model, params in ((cpu_model, cpu_params), (card_model, card_params)):
+        before = (gm.gmm.launches, ss.slstm_scan.launches)
+        logits, caches = model.prefill(params, {"tokens": toks})
+        state = model.init_decode_state(2, 72)
+        for b, kv in caches.items():
+            for name in ("k", "v"):
+                state[b][name][:, :, :70] = kv[name]
+        step, state = model.decode(params, state,
+                                   {"tokens": toks[:, :1], "pos": 70})
+        launched = (gm.gmm.launches - before[0],
+                    ss.slstm_scan.launches - before[1])
+        outs.append([logits, step] + [t for b in sorted(state)
+                                      for _, t in sorted(state[b].items())])
+    assert launched == (2 * n_gmm, 2 * n_scan)
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b.cpu(), a, rtol=tol, atol=tol)
     torch.cuda.synchronize()

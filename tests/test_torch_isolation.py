@@ -121,6 +121,21 @@ logits, state = model.decode(params, state, {"tokens": tokens[:, :1],
 assert torch.isfinite(logits).all()
 out = serve_model.main(["--reduced", "--device", "cpu", "--tokens", "3"])
 assert out["tokens"].shape == (4, 3)
+# the MoE and xLSTM stacks: prefill, one decode step, the serve loop
+for arch in ("moonshot-v1-16b-a3b", "xlstm-1.3b"):
+    cfg = reduced_config(get_config(arch))
+    model = build_model(cfg, "cpu")
+    params = model.init_params(0)
+    logits, caches = model.prefill(params, {"tokens": tokens})
+    assert torch.isfinite(logits).all() and sorted(caches) == (
+        ["b0"] if arch.startswith("moonshot") else [])
+    state = model.init_decode_state(2, 12)
+    logits, state = model.decode(params, state, {"tokens": tokens[:, :1],
+                                                 "pos": 0})
+    assert torch.isfinite(logits).all()
+    out = serve_model.main(["--arch", arch, "--reduced", "--device", "cpu",
+                            "--tokens", "3"])
+    assert out["tokens"].shape == (4, 3)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))

@@ -1,0 +1,247 @@
+"""The port's xLSTM (``kernels.slstm_scan``, ``models.xlstm``) and the
+reduced xlstm-1.3b on the CPU against the JAX package.
+
+  * ``slstm_scan``'s plain version against the Pallas kernel in interpret
+    mode (through ``expand_block_diag``) and against the model's
+    ``_slstm_scan``, on tests/test_slstm_kernel.py:22's grid plus S = 1 and
+    S = 37: float32 rtol/atol 1e-5 (sums in another order).
+  * ``mlstm_mix`` chunked (S = 512, two chunks of 256) and whole-sequence
+    (S = 37), its single-token step, ``mlstm_block`` and ``slstm_block``
+    with and without a state (the decode path), on the same inputs:
+    float32 rtol 1e-5, atol 1e-5 of the largest |value|; bfloat16 rtol
+    2e-2, atol 2^-5 of the largest |value| (four bfloat16 steps there: XLA
+    rounds the scaled k projection once where the port rounds twice, and
+    the mLSTM's sums and normaliser err in proportion to their largest
+    terms).
+  * The whole reduced model with the JAX weights carried across: forward,
+    prefill and three decode steps chained in float32 within rtol/atol
+    1e-4, not 1e-5: eight exponential-gated layers amplify float32
+    rounding, so that the JAX model itself moves its logits by more than
+    1e-5 when its embedding table moves by one float32 step
+    (``test_xlstm_chain_tolerance_is_the_models_own``), while every block
+    on the same inputs stays within 1e-5 (above, and the layer-by-layer
+    check); in bfloat16 layer by layer on the JAX model's activations.
+    tests/test_torch_transformer.py runs the serve loop's ids, decoding
+    against the forward and the parameter tree's round trip on it too.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import REGISTRY as JAX_REGISTRY
+from repro.configs.registry import get_config as jax_get_config
+from repro.configs.registry import reduced_config as jax_reduced
+from repro.kernels.slstm_scan import expand_block_diag as jax_expand
+from repro.kernels.slstm_scan import slstm_scan as pallas_slstm
+from repro.models import xlstm as jx
+from repro_torch.configs.registry import get_config, reduced_config
+from repro_torch.kernels import slstm_scan as ts
+from repro_torch.kernels.factory import get_kernel
+from repro_torch.models import xlstm as tx
+from repro_torch.models.transformer import _from_host
+from test_torch_transformer import (BF16, F32, _np, _tokens, _worlds,
+                                    layerwise_matches_jax)
+
+torch.set_num_threads(1)
+
+ARCH = "xlstm-1.3b"
+# (rtol, atol as a share of the largest |want|): the mLSTM's sums and its
+# normaliser err in proportion to their largest terms, not to each output
+BLOCK_TOL = {F32: (1e-5, 1e-5), BF16: (2e-2, 2 ** -5)}
+CHAIN_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _held(got, want, dt):
+    rtol, share = BLOCK_TOL[dt]
+    want = _np(want)
+    np.testing.assert_allclose(_np(got), want, rtol=rtol,
+                               atol=share * float(np.abs(want).max()))
+
+
+def _t(a) -> torch.Tensor:
+    return _from_host(np.asarray(a))
+
+
+def _cfgs(dt=F32):
+    return (dataclasses.replace(jax_reduced(jax_get_config(ARCH)), dtype=dt),
+            dataclasses.replace(reduced_config(get_config(ARCH)), dtype=dt))
+
+
+@pytest.mark.parametrize("B,S,block_t", [(2, 32, 8), (1, 64, 16), (3, 16, 16),
+                                         (2, 1, 1), (2, 37, 37)])
+def test_slstm_scan_plain_matches_jax(B, S, block_t):
+    jcfg, _ = _cfgs()
+    cfg = jax_reduced(JAX_REGISTRY[ARCH])
+    rng = np.random.default_rng(S)
+    nh, d = cfg.n_heads, cfg.d_model
+    dh = d // nh
+    r_gates = rng.normal(0, 0.3, (nh, dh, 4 * dh)).astype(np.float32)
+    wx = rng.normal(0, 0.5, (B, S, 4 * d)).astype(np.float32)
+    state = jx.init_slstm_state(cfg, B)
+    # a live state: the scan continues one that has run
+    state = {k: jnp.asarray(rng.normal(0, 0.5, v.shape), jnp.float32)
+             if k != "mm" else v for k, v in state.items()}
+    want_y, want_state = jx._slstm_scan(jcfg, {"r_gates": r_gates},
+                                        jnp.asarray(wx), state)
+    r_exp = jax_expand(jnp.asarray(r_gates))
+    assert np.array_equal(_np(ts.expand_block_diag(torch.from_numpy(r_gates))),
+                          np.asarray(r_exp))
+    p_y, p_carry = pallas_slstm(jnp.asarray(wx), r_exp, state["h"],
+                                state["c"], state["nn"], state["mm"], nh=nh,
+                                block_t=block_t, interpret=True)
+    args = [torch.from_numpy(wx), torch.from_numpy(r_gates)] + \
+        [_t(state[k]) for k in ("h", "c", "nn", "mm")]
+    before = ts.slstm_scan.launches
+    y, carry = get_kernel("slstm_scan")(*args)      # the wrapper, on the CPU
+    assert ts.slstm_scan.launches == before
+    assert y.dtype == torch.float32 and tuple(y.shape) == (B, S, d)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    for want, wcarry in ((want_y, [want_state[k] for k in
+                                   ("h", "c", "nn", "mm")]), (p_y, p_carry)):
+        np.testing.assert_allclose(_np(y), np.asarray(want), **tol)
+        for got, w in zip(carry, wcarry):
+            np.testing.assert_allclose(_np(got), np.asarray(w), **tol)
+
+
+def test_slstm_scan_bfloat16_and_refusals():
+    """bfloat16 wx and weights enter the float32 recurrence exactly; bad
+    shapes and a batch the kernel cannot hold are refused."""
+    rng = np.random.default_rng(0)
+    wx = torch.from_numpy(rng.normal(0, 0.5, (2, 5, 64)).astype(np.float32))
+    r = torch.from_numpy(rng.normal(0, 0.3, (2, 8, 32)).astype(np.float32))
+    st = [torch.zeros(2, 16) for _ in range(3)] + [torch.full((2, 16), -1e30)]
+    y16, _ = ts.slstm_scan(wx.bfloat16(), r.bfloat16(), *st)
+    y32, _ = ts.slstm_scan(wx.bfloat16().float(), r.bfloat16().float(), *st)
+    assert y16.dtype == torch.float32 and torch.equal(y16, y32)
+    with pytest.raises(ValueError, match=r"\(B, S, 4d\)"):
+        ts.slstm_scan(wx[..., :60], r, *st)
+    with pytest.raises(TypeError, match="float32"):
+        ts.slstm_scan(wx, r, *[s.double() for s in st])
+    with pytest.raises(ValueError, match="batch rows"):
+        ts.plan(ts.MAX_BATCH + 1, 512)
+    with pytest.raises(ValueError, match="shared memory"):
+        ts.plan(16, 1024)
+    assert ts.plan(8, 512) == (16, 4 * (512 * 64 + 8 * 512 + 8 * 8 * 64))
+    assert ts.plan(2, 12)[0] == 4
+
+
+def _mlstm_inputs(S, dt, seed=0):
+    jcfg, tcfg = _cfgs(dt)
+    p = jax.tree.map(np.asarray, jx.init_mlstm_params(
+        jax.random.key(seed), jcfg, jnp.dtype(dt)))
+    rng = np.random.default_rng(seed)
+    for k in ("b_ig", "b_fg", "ln", "gn"):
+        p[k] = (p[k].astype(np.float32) + 0.3 * rng.normal(size=p[k].shape)
+                ).astype(p[k].dtype)
+    x = rng.normal(size=(2, S, jcfg.d_model)).astype(np.float32)
+    return jcfg, tcfg, p, {k: _t(v) for k, v in p.items()}, \
+        jnp.asarray(x, jnp.dtype(dt))
+
+
+@pytest.mark.parametrize("dt", [F32, BF16])
+@pytest.mark.parametrize("S", [512, 37, 1])
+def test_mlstm_mix_matches_jax(S, dt):
+    """Chunked (two chunks of 256), whole-sequence and single-step, from
+    the initial state and from a live one."""
+    jcfg, tcfg, p, tp, x = _mlstm_inputs(S, dt)
+    di = int(jcfg.d_model * jcfg.mlstm_proj_factor)
+    rng = np.random.default_rng(1)
+    xs = jnp.asarray(rng.normal(size=(2, S, di)), jnp.dtype(dt))
+    live = {"C": rng.normal(0, 0.3, (2, 4, di // 4, di // 4)),
+            "n": rng.normal(0, 0.3, (2, 4, di // 4)),
+            "m": rng.normal(0, 1.0, (2, 4))}
+    for state in (jx.init_mlstm_state(jcfg, 2),
+                  {k: jnp.asarray(v, jnp.float32) for k, v in live.items()}):
+        want_y, want_st = jx.mlstm_mix(jax.tree.map(jnp.asarray, p), x, xs,
+                                       state)
+        y, st = tx.mlstm_mix(tp, _t(x), _t(xs),
+                             {k: _t(v) for k, v in state.items()})
+        assert y.dtype == _t(xs).dtype
+        _held(y, want_y, dt)
+        for k in want_st:
+            _held(st[k], want_st[k], dt)
+
+
+@pytest.mark.parametrize("dt", [F32, BF16])
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_xlstm_blocks_match_jax(kind, dt):
+    """The residual blocks on the same inputs: forward (no state) and two
+    decode steps carrying the state."""
+    jcfg, tcfg, p, tp, x = _mlstm_inputs(24, dt, seed=2)
+    if kind == "slstm":
+        p = jax.tree.map(np.asarray, jx.init_slstm_params(
+            jax.random.key(3), jcfg, jnp.dtype(dt)))
+        rng = np.random.default_rng(3)
+        for k in ("ln", "ln2", "b_gates"):
+            p[k] = (p[k].astype(np.float32) + 0.3 * rng.normal(
+                size=p[k].shape)).astype(p[k].dtype)
+        tp = {k: _t(v) for k, v in p.items()}
+    jblock = jx.mlstm_block if kind == "mlstm" else jx.slstm_block
+    tblock = tx.mlstm_block if kind == "mlstm" else tx.slstm_block
+    jinit = jx.init_mlstm_state if kind == "mlstm" else jx.init_slstm_state
+    jp = jax.tree.map(jnp.asarray, p)
+    want, none = jblock(jcfg, jp, x, None, None)
+    got, tnone = tblock(tcfg, tp, _t(x))
+    assert none is None and tnone is None
+    _held(got, want, dt)
+    jst = jinit(jcfg, 2)
+    tst = {k: _t(v) for k, v in jst.items()}
+    for t in range(2):
+        want, jst = jblock(jcfg, jp, x[:, t:t + 1], jst, None)
+        got, tst = tblock(tcfg, tp, _t(x[:, t:t + 1]), tst)
+        _held(got, want, dt)
+        for k in jst:
+            assert tst[k].dtype == torch.float32
+            _held(tst[k], jst[k], dt)
+
+
+def test_xlstm_lm_matches_jax_float32():
+    """Forward, prefill (which emits no recurrent state, as the JAX
+    prefill) and three decode steps of the whole reduced model, chained,
+    in float32 within CHAIN_TOL; the decode state in the JAX layout."""
+    jm, jp, tm, tp = _worlds(ARCH, F32)
+    toks = _tokens(1, 2, 24)
+    np.testing.assert_allclose(
+        _np(tm.forward(tp, {"tokens": torch.from_numpy(toks)})),
+        _np(jm.forward(jp, {"tokens": jnp.asarray(toks)})), **CHAIN_TOL)
+    jl, jcache = jm.prefill(jp, {"tokens": jnp.asarray(toks)})
+    tl, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(_np(tl), _np(jl), **CHAIN_TOL)
+    assert jcache == {} and tcache == {}
+    jstate = jm.init_decode_state(2, 30)
+    tstate = tm.init_decode_state(2, 30)
+    assert jax.tree.structure(jstate) == jax.tree.structure(
+        jax.tree.map(np.asarray, tstate, is_leaf=torch.is_tensor))
+    for t in range(3):
+        jl, jstate = jm.decode(jp, jstate, {
+            "tokens": jnp.asarray(toks[:, t:t + 1]), "pos": jnp.int32(t)})
+        tl, tstate = tm.decode(tp, tstate, {
+            "tokens": torch.from_numpy(toks[:, t:t + 1]), "pos": t})
+        np.testing.assert_allclose(_np(tl), _np(jl), **CHAIN_TOL)
+    for b in jstate:
+        for k in jstate[b]:
+            assert tuple(tstate[b][k].shape) == jstate[b][k].shape
+            np.testing.assert_allclose(_np(tstate[b][k]), _np(jstate[b][k]),
+                                       **CHAIN_TOL)
+
+
+def test_xlstm_chain_tolerance_is_the_models_own():
+    """CHAIN_TOL's reason: the JAX model against itself, its embedding
+    table moved by one float32 step, moves its float32 logits by more than
+    1e-5 (3.6e-5 on these inputs), and less than CHAIN_TOL."""
+    jm, jp, _, _ = _worlds(ARCH, F32)
+    toks = jnp.asarray(_tokens(1, 2, 24))
+    base = _np(jm.forward(jp, {"tokens": toks}))
+    moved = dict(jp, embed={"table": jnp.nextafter(jp["embed"]["table"],
+                                                   jnp.inf)})
+    gap = float(np.abs(_np(jm.forward(moved, {"tokens": toks})) - base).max())
+    assert 1e-5 < gap < CHAIN_TOL["atol"], gap
+
+
+@pytest.mark.parametrize("dt", [F32, BF16])
+def test_xlstm_lm_layerwise_matches_jax(dt):
+    assert layerwise_matches_jax(ARCH, dt, _tokens(4, 2, 24)) == 0.0
