@@ -13,7 +13,9 @@ Phases, each printing its result on a line of its own:
                (nvidia-smi) and the torch and CUDA versions; float32
                matrix products must run in full float32 (no TF32).
   2. build   — compiles every src/repro_torch/kernels/csrc/*.cu with nvcc
-               (in parallel) into one library; prints ptxas's register use.
+               (in parallel; attn.cu and moe.cu include hopper.cuh, the
+               TMA / mbarrier / wgmma header) into one library; prints
+               ptxas's register use.
   3. kernels — the four fold kernels and ``block_pack`` against their
                plain PyTorch versions on the card, bit for bit, and the two
                FL kernels (Eq. 1 ``weighted_agg``, also with its task axis
@@ -68,14 +70,19 @@ Phases, each printing its result on a line of its own:
 
   8. attention — the flash_attention kernel against its plain version on
                the grid of tests/test_kernels.py:60-64, causal and not,
-               plus head width 80, S = 4,097 and ragged tails, in float32
-               (rtol 1e-4 / atol 1e-5) and bfloat16 (one bfloat16 step:
-               rtol 2^-7 / atol 1e-4); at yi-6b's prefill layer (8, 4,096,
-               32 heads, 4 kv heads, 128) in bfloat16, held on one batch
-               row and timed beside its bound, the plain version (row by
-               row) and SDPA; at prefill_32k's sequence (1, 32,768), held
-               to the plain version on three slices of 256 query rows and
-               timed beside SDPA.
+               plus head width 80, S = 4,097 and ragged tails, and where
+               TMA's edges bite (S of 1, 65, 127 and 4,097 at dh 64 and
+               128, GQA 8:1 and 1:1), in float32 (rtol 1e-4 / atol 1e-5)
+               and bfloat16 (one bfloat16 step: rtol 2^-7 / atol 1e-4),
+               each launch in the form flash_attention.form names (the
+               wgmma form for bfloat16 at dh 64 and 128); at yi-6b's
+               prefill layer (8, 4,096, 32 heads, 4 kv heads, 128) in
+               bfloat16, held on one batch row and timed beside its bound,
+               the plain version (row by row) and SDPA; at prefill_32k's
+               sequence (1, 32,768), held to the plain version on three
+               slices of 256 query rows and timed beside SDPA; at
+               moonshot's layer (4, 4,096, 16, 16, 128), timed beside
+               SDPA.
   9. lm agree — the reduced yi-6b, qwen2-0.5b, qwen1.5-0.5b and qwen3-32b
                in float32 and bfloat16 three ways (card with the kernel,
                card with the plain version forced, CPU): prefill logits
@@ -84,30 +91,36 @@ Phases, each printing its result on a line of its own:
                drawn on the card): a 64-token prompt through prefill and
                through 64 decode steps, held to each other; Model.prefill
                on 8 x 4,096 tokens (32 flash_attention launches, counted
-               from 0); its caches in an 8 x 4,128 decode state and 32
+               from 0, every one in the wgmma form); its caches in an 8 x 4,128 decode state and 32
                decode steps; the kernel's share of the prefill's device
                time (torch.profiler); then launch/serve_model.py's loop at
                its defaults (batch 4, prompt 8, 8 tokens).
  11. moe/xlstm kernels — gmm and slstm_scan against their plain versions
-               on the grids of the CPU tests plus ragged shapes, float32
-               and bfloat16; gmm at moonshot's prefill and decode products
-               timed beside its bound, the plain version and torch.bmm;
-               slstm_scan at xlstm-1.3b's prefill (8, 4,096, 2,048, 4
+               on the grids of the CPU tests plus ragged shapes and where
+               TMA's edges bite (C of 33 and 1,921, f = 200), float32 and
+               bfloat16, every gmm form run (gmm.form: wgmma, wmma, simt,
+               stream, skinny); a backward through gmm or slstm_scan
+               raises; gmm at moonshot's prefill and decode products timed
+               beside its bound, the plain version and torch.bmm;
+               slstm_scan also at batches of 17, 32 and 33 rows (launches
+               of 16), and at xlstm-1.3b's prefill (8, 4,096, 2,048, 4
                heads) timed beside its bound and the plain version.
  12. moe/xlstm agree — the reduced moonshot, kimi and xlstm, float32 and
                bfloat16, three ways (card with the kernels, card with the
                plain versions forced, CPU), layer by layer on the CPU's
                activations (mixer, caches or state, FFN norm, FFN with
                its routing compared first, head; prefill and two decode
-               steps) within LM_TOL.
+               steps) within LM_TOL; then the reduced moonshot's MoE FFN
+               twice on the card, prefill and decode: bit-equal.
  13. moe     — phase 10 for moonshot-v1-16b-a3b at full width and depth
                (48 layers, 64 experts top-6, 56 GB of bfloat16 weights):
                the 64-token check with a capacity that drops nothing
                (K caches held on the first layer: deeper ones sit behind
                routing that prefill and decode may break apart at a
-               near-tie); prefill 4 x 4,096 (144 gmm and 48
-               flash_attention launches); 32 decode steps at 4 x 4,128;
-               the serve loop.
+               near-tie); prefill 4 x 4,096 (144 gmm launches in the
+               wgmma form and 48 flash_attention launches in theirs); 32
+               decode steps at 4 x 4,128 (every gmm launch in the stream
+               form); the serve loop.
  14. xlstm   — phase 10 for xlstm-1.3b at full width and depth (42 mLSTM
                and 6 sLSTM layers; the 64-token check in float32, held at
                1e-2, and its bfloat16 gap logged): prefill 8 x 4,096 (6
@@ -1203,6 +1216,8 @@ def fl_profile(dev, wall: float) -> None:
 # prefill_32k's sequence at one row
 YI_LAYER = dict(B=8, S=4096, H=32, Hkv=4, dh=128)
 LONG_LAYER = dict(B=1, S=32_768, H=32, Hkv=4, dh=128)
+# moonshot-v1-16b-a3b's attention at the prefill of phase 13
+MOON_LAYER = dict(B=4, S=4096, H=16, Hkv=16, dh=128)
 # phase 10's cuts of the assigned shapes (configs/base.py SHAPES): prefill
 # 32 x 32,768 -> 8 x 4,096 (the simple kernel's time on the chip); decode
 # 128 x 32,768 -> 8 x 4,128 (decode_32k's cache at batch 128 is 256 GiB)
@@ -1302,7 +1317,12 @@ def check_attention(dev) -> dict:
             (1, 128, 4, 1, 128), (1, 256, 2, 2, 32), (2, 7, 4, 2, 16),
             (1, 4097, 4, 1, 128), (2, 33, 4, 1, 80), (1, 300, 8, 2, 80),
             (3, 65, 6, 3, 40), (1, 1, 2, 1, 128)]
-    err = {f32: 0.0, bf16: 0.0}
+    # where TMA's edges bite: S of 1, 65, 127 and 4,097 (a tail of one
+    # row past a 128-row tile), dh 64 and 128, GQA 8:1 and 1:1
+    grid += [(B, S, 8, hkv, dh) for S, B in ((1, 2), (65, 2), (127, 2),
+                                              (4097, 1))
+             for dh in (64, 128) for hkv in (1, 8)]
+    err = {}
     n = 0
     for shape in grid:
         for dtype in (f32, bf16):
@@ -1311,17 +1331,25 @@ def check_attention(dev) -> dict:
                 got = fa.flash_attention(q, k, v, causal=causal)
                 want = fa.flash_attention_torch(q, k, v, causal)
                 h = held(got, want, f"at {shape}")
-                err[dtype] = max(err[dtype], h["max_abs_err"])
+                chosen = fa.flash_attention.last_form
+                if chosen != fa.form(dtype, shape[4]):
+                    raise AssertionError(f"flash_attention at {shape} "
+                                         f"{dtype} ran form {chosen}")
+                key = f"{chosen} {str(dtype)[6:]}"
+                err[key] = max(err.get(key, 0.0), h["max_abs_err"])
                 n += 1
     torch.cuda.synchronize()
     log(f"attention: flash_attention within tolerance of plain on {n} "
         f"inputs (float32 rtol 1e-4 atol 1e-5, bfloat16 {fa.KERNEL_TOL[bf16]}); "
-        f"largest |kernel - plain| float32 {err[f32]}, bfloat16 {err[bf16]}")
+        f"largest |kernel - plain| by form and dtype {json.dumps(err)}")
 
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
     L = YI_LAYER
     q, k, v = qkv(L["B"], L["S"], L["H"], L["Hkv"], L["dh"], bf16)
     out = fa.flash_attention(q, k, v)
+    if fa.flash_attention.last_form != "wgmma":
+        raise AssertionError(f"flash_attention at {L} ran form "
+                             f"{fa.flash_attention.last_form}")
     want = fa.flash_attention_torch(q[:1], k[:1], v[:1])
     h0 = held(out[:1], want, f"at {list(L.values())}, row 0")
     row_err = h0["max_abs_err"]
@@ -1340,8 +1368,9 @@ def check_attention(dev) -> dict:
            "library_ms": timed_ms(lambda: sdpa(q, k, v), 5, flush),
            "bound_ms": bound, "bound_by": bound_by,
            "shape": [L["B"], L["S"], L["H"], L["Hkv"], L["dh"]]}
-    log(f"kernel flash_attention at {row['shape']} (bfloat16, causal): "
-        f"{row['ms']:.6f} ms (bound {bound:.6f} ms, {bound_by}), plain "
+    log(f"kernel flash_attention at {row['shape']} (bfloat16, causal, form "
+        f"wgmma): {row['ms']:.6f} ms (bound {bound:.6f} ms, {bound_by}), "
+        f"plain "
         f"{row['plain_ms']:.6f} ms (row by row), SDPA {row['library_ms']:.6f}"
         f" ms; row 0 against plain {json.dumps(h0)} (bound "
         f"{fa.KERNEL_TOL[bf16]}), its last {LONG_ROWS} rows' slice reference "
@@ -1372,6 +1401,22 @@ def check_attention(dev) -> dict:
         f"{t['library_ms']:.6f} ms; against plain on query rows "
         f"{json.dumps(h_long)}; |kernel - SDPA| {long_err} (not held); plain "
         f"ms: not measured (its scores would take 137 GB)")
+    del q, k, v
+    L = MOON_LAYER
+    q, k, v = qkv(L["B"], L["S"], L["H"], L["Hkv"], L["dh"], bf16)
+    h_moon = held(fa.flash_attention(q[:1], k[:1], v[:1]),
+                  fa.flash_attention_torch(q[:1], k[:1], v[:1]),
+                  f"at {list(L.values())}, row 0")
+    bound, bound_by = attn_bound(**L)
+    row["moonshot"] = {
+        "ms": timed_ms(lambda: fa.flash_attention(q, k, v), 5, flush),
+        "library_ms": timed_ms(lambda: sdpa(q, k, v), 5, flush),
+        "bound_ms": bound, "bound_by": bound_by,
+        "shape": [L["B"], L["S"], L["H"], L["Hkv"], L["dh"]]}
+    t = row["moonshot"]
+    log(f"kernel flash_attention at {t['shape']} (bfloat16, causal): "
+        f"{t['ms']:.6f} ms (bound {bound:.6f} ms, {bound_by}), SDPA "
+        f"{t['library_ms']:.6f} ms; row 0 against plain {json.dumps(h_moon)}")
     return row
 
 
@@ -1441,7 +1486,7 @@ def lm_agree(dev) -> None:
                 f"{json.dumps(LM_TOL[dt])})")
 
 
-def profile_share(fn, kernels=(("attention", "flash_attention_kernel"),)
+def profile_share(fn, kernels=(("attention", "flash_attention_"),)
                   ) -> dict:
     """``fn`` under torch.profiler: the union of its device intervals over
     the traced wall, the part of it in each of ``kernels`` ((label, name
@@ -1466,9 +1511,14 @@ def profile_share(fn, kernels=(("attention", "flash_attention_kernel"),)
 
 
 # the kernels of the serving paths, by the fragment of their names in a
-# profiler trace
-LM_KERNELS = {"flash_attention": "flash_attention_kernel", "gmm": "::gmm_",
+# profiler trace (flash_attention_kernel and flash_attention_wgmma_kernel;
+# gmm_wgmma_kernel, gmm_stream_kernel and gmm_split_sum_kernel, ...)
+LM_KERNELS = {"flash_attention": "flash_attention_", "gmm": "::gmm_",
               "slstm_scan": "slstm_scan_kernel"}
+# the form each serving kernel must take at full width: the prefill's and
+# the decode's (flash_attention runs in the prefill only)
+LM_FORMS = {"prefill": {"flash_attention": "wgmma", "gmm": "wgmma"},
+            "decode": {"gmm": "stream"}}
 
 
 def lm_launches_expected(cfg) -> dict:
@@ -1506,7 +1556,20 @@ def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
     cfg = get_config(arch)
     wrappers = {"flash_attention": fa.flash_attention, "gmm": gm.gmm,
                 "slstm_scan": ss.slstm_scan}
+    formed = (fa.flash_attention, gm.gmm)      # the wrappers with forms
     expected = lm_launches_expected(cfg)
+
+    def held_forms(stage: str, counts: dict) -> dict:
+        """The forms each kernel's launches took in ``stage``: every
+        launch of a kernel named in LM_FORMS[stage] must take its form."""
+        taken = {name: dict(wrappers[name].form_launches)
+                 for name in LM_FORMS[stage] if counts[name]}
+        for name, got in taken.items():
+            want = {LM_FORMS[stage][name]: counts[name]}
+            if got != want:
+                raise AssertionError(f"the {arch} {stage} ran {name} in the "
+                                     f"forms {got}, not {want}")
+        return taken
     tag = {"dense": "lm", "moe": "moe", "ssm": "xlstm"}[cfg.family]
     g = torch.Generator().manual_seed(2)
     model = build_model(cfg, dev)
@@ -1588,6 +1651,8 @@ def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g).to(dev)
     for fn in wrappers.values():
         fn.launches = 0
+    for fn in formed:
+        fn.form_launches = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1598,6 +1663,7 @@ def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
     if launches != expected:
         raise AssertionError(f"the {arch} prefill launched {launches}, not "
                              f"{expected}")
+    forms = {"prefill": held_forms("prefill", launches)}
     kv_shape = (cfg.n_periods, B, S, cfg.n_kv_heads, cfg.head_dim)
     kv_shapes = [tuple(kv["k"].shape) for kv in caches.values()]
     if tuple(logits.shape) != (B, cfg.vocab_size) or \
@@ -1615,6 +1681,8 @@ def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
     tok = logits.argmax(-1)[:, None]
     for fn in wrappers.values():
         fn.launches = 0
+    for fn in formed:
+        fn.form_launches = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for t in range(S, S + decode["steps"]):
@@ -1624,6 +1692,7 @@ def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     decode_launches = {name: fn.launches for name, fn in wrappers.items()}
+    forms["decode"] = held_forms("decode", decode_launches)
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("decode gave non-finite logits")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1646,7 +1715,7 @@ def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
         "decode_ms_per_step": decode_s / n_steps * 1e3,
         "decode_tokens_per_s": decode["batch"] * n_steps / decode_s,
         "peak_device_memory_GiB": peak, "prefill_launches": launches,
-        "decode_launches": decode_launches}
+        "decode_launches": decode_launches, "forms": forms}
     log(f"{tag}: prefill {B} x {S} (its wall is the time to first token) and "
         f"{n_steps} decode steps at {decode['batch']} x {decode['max_len']} "
         f"on {smi}: {json.dumps(stats)}")
@@ -1722,11 +1791,17 @@ def check_moe_xlstm_kernels(dev) -> tuple:
     from repro_torch.kernels import slstm_scan as ss
     g = torch.Generator().manual_seed(3)
     f32, bf16 = torch.float32, torch.bfloat16
-    err, n = {f32: 0.0, bf16: 0.0}, 0
+    err, n = {}, 0
+    # the CPU tests' grid, ragged and unaligned shapes, and where TMA's
+    # edges bite: C of 33 and 1,921 (one row past a 128-row tile), f =
+    # 200 (a 256-column tile 56 short), d of 72 and 1,100 (a short last
+    # k-slice or split); every form runs
     for E, C, d, f in [(8, 96, 64, 200), (4, 128, 128, 512), (1, 8, 32, 64),
                        (3, 65, 40, 33), (2, 7, 24, 8), (3, 129, 37, 129),
                        (64, 8, 256, 176), (3, 30, 72, 300), (2, 33, 64, 128),
-                       (2, 32, 1100, 40), (1, 1, 7, 5)]:
+                       (2, 32, 1100, 40), (1, 1, 7, 5), (3, 33, 72, 200),
+                       (2, 1921, 136, 200), (2, 1921, 64, 264),
+                       (4, 8, 1104, 200), (3, 33, 1100, 200)]:
         for dtype in (f32, bf16):
             xe = torch.randn(E, C, d, generator=g).to(dev, dtype)
             w = torch.randn(E, d, f, generator=g).to(dev, dtype)
@@ -1734,13 +1809,36 @@ def check_moe_xlstm_kernels(dev) -> tuple:
             torch.testing.assert_close(
                 got.float(), want.float(), **gm.kernel_tol(want),
                 msg=lambda m, s=(E, C, d, f): f"gmm at {s}: {m}")
-            err[dtype] = max(err[dtype],
-                             float((got.float() - want.float()).abs().max()))
+            chosen = gm.gmm.last_form
+            if chosen != gm.form(dtype, C, d, f, True):
+                raise AssertionError(f"gmm at {(E, C, d, f)} {dtype} ran "
+                                     f"form {chosen}")
+            key = f"{chosen} {str(dtype)[6:]}"
+            err[key] = max(err.get(key, 0.0),
+                           float((got.float() - want.float()).abs().max()))
             n += 1
     torch.cuda.synchronize()
+    if {key.split()[0] for key in err} != set(gm.FORMS):
+        raise AssertionError(f"the gmm grid ran the forms {sorted(err)}")
     log(f"moe kernels: gmm within gmm.kernel_tol of plain on {n} inputs "
         f"({json.dumps({str(k): v for k, v in gm.KERNEL_TOL.items()})}); "
-        f"largest |kernel - plain| float32 {err[f32]}, bfloat16 {err[bf16]}")
+        f"largest |kernel - plain| by form and dtype {json.dumps(err)}")
+    # no backward through the kernels: it raises, it does not cut the graph
+    xe = torch.randn(2, 40, 64, device=dev, requires_grad=True)
+    wx = torch.randn(2, 3, 64, device=dev, requires_grad=True)
+    for what, run in (("gmm", lambda: gm.gmm(xe, torch.randn(2, 64, 16,
+                                                             device=dev))),
+                      ("slstm_scan", lambda: ss.slstm_scan(
+                          wx, torch.randn(1, 16, 64, device=dev),
+                          *[torch.zeros(2, 16, device=dev)
+                            for _ in range(4)])[0])):
+        try:
+            run().sum().backward()
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"a backward through {what} did not raise")
+    log("moe/xlstm kernels: a backward through gmm or slstm_scan raises "
+        "NotImplementedError")
 
     gd = torch.Generator(device=dev).manual_seed(5)
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
@@ -1757,6 +1855,7 @@ def check_moe_xlstm_kernels(dev) -> tuple:
                 msg=lambda m, s=(E, C, d, f): f"gmm at {s}: {m}")
             bound, bound_by = gmm_bound(E, C, d, f)
             row = {"name": "gmm", "path": label, "shape": [E, C, d, f],
+                   "form": gm.gmm.last_form,
                    "max_abs_err": float((got.float() - want.float()).abs()
                                         .max()),
                    "median_abs": float(want.float().abs().median()),
@@ -1766,7 +1865,8 @@ def check_moe_xlstm_kernels(dev) -> tuple:
                    "library_ms": timed_ms(lambda: torch.bmm(xe, w), 5, flush),
                    "bound_ms": bound, "bound_by": bound_by}
             gmm_rows.append(row)
-            log(f"kernel gmm ({label}) at {row['shape']} (bfloat16): "
+            log(f"kernel gmm ({label}) at {row['shape']} (bfloat16, form "
+                f"{row['form']}): "
                 f"{row['ms']:.6f} ms (bound {bound:.6f} ms, {bound_by}), "
                 f"plain {row['plain_ms']:.6f} ms, torch.bmm "
                 f"{row['library_ms']:.6f} ms; |kernel - plain| "
@@ -1776,7 +1876,8 @@ def check_moe_xlstm_kernels(dev) -> tuple:
     err, n = {f32: 0.0, bf16: 0.0}, 0
     for B, S, nh, dh in [(2, 32, 4, 16), (1, 64, 4, 16), (3, 16, 4, 16),
                          (2, 1, 4, 16), (2, 37, 4, 16), (4, 20, 2, 12),
-                         (8, 64, 4, 512), (16, 8, 4, 64)]:
+                         (8, 64, 4, 512), (16, 8, 4, 64), (17, 6, 4, 512),
+                         (32, 6, 4, 512), (33, 5, 4, 16)]:
         for dtype in (f32, bf16):
             d = nh * dh
             wx = (0.5 * torch.randn(B, S, 4 * d, generator=g)).to(dev, dtype)
@@ -1787,7 +1888,11 @@ def check_moe_xlstm_kernels(dev) -> tuple:
                 [torch.full((B, d), -1e30, device=dev)]
             warm = (0.5 * torch.randn(B, 5, 4 * d, generator=g)).to(dev, dtype)
             state = list(ss.slstm_scan_torch(warm, r, *state)[1])
+            before = ss.slstm_scan.launches
             y, carry = ss.slstm_scan(wx, r, *state)
+            if ss.slstm_scan.launches - before != -(-B // ss.MAX_BATCH):
+                raise AssertionError(f"slstm_scan at {B} rows launched "
+                                     f"{ss.slstm_scan.launches - before}")
             want_y, want_carry = ss.slstm_scan_torch(wx, r, *state)
             for got, want in zip((y, *carry), (want_y, *want_carry)):
                 torch.testing.assert_close(
@@ -1798,8 +1903,9 @@ def check_moe_xlstm_kernels(dev) -> tuple:
             n += 1
     torch.cuda.synchronize()
     log(f"xlstm kernels: slstm_scan within {ss.KERNEL_TOL} of plain on {n} "
-        f"inputs; largest |kernel - plain| float32 {err[f32]}, bfloat16 "
-        f"{err[bf16]}")
+        f"inputs (batches of 17, 32 and 33 rows in launches of "
+        f"{ss.MAX_BATCH}); largest |kernel - plain| float32 {err[f32]}, "
+        f"bfloat16 {err[bf16]}")
 
     L = XLSTM_SCAN
     d = L["nh"] * L["dh"]
@@ -1993,6 +2099,40 @@ def moe_xlstm_agree(dev) -> None:
                 f"activations): largest |card - CPU| {json.dumps(gaps)} "
                 f"(tolerance {json.dumps(LM_TOL[dt])}); kernel launches "
                 f"{json.dumps(launched)}")
+    moe_deterministic(dev)
+
+
+def moe_deterministic(dev) -> None:
+    """The reduced moonshot's MoE FFN in bfloat16 twice on the card, on
+    the same weights and input: bit-equal (its combine adds each token's
+    expert rows in a fixed order, no atomics), with the prefill's gmm form
+    and the decode's (moe_ffn_single, C = 8)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(reduced_config(get_config(
+        "moonshot-v1-16b-a3b")), dtype="bfloat16")
+    gd = torch.Generator(device=dev).manual_seed(6)
+    p = moe.init_moe_params(cfg, torch.bfloat16, gd, dev)
+    x = torch.randn(4, 512, cfg.d_model, device=dev, generator=gd).to(
+        torch.bfloat16)
+    runs, forms = [], []
+    for fn, arg in ((moe.moe_ffn, x), (moe.moe_ffn_single, x[:, :1])):
+        for _ in range(2):
+            gm.gmm.form_launches = {}
+            runs.append(fn(cfg, p, arg))
+            forms.append(dict(gm.gmm.form_launches))
+    torch.cuda.synchronize()
+    for a, b, what in ((runs[0], runs[1], "prefill"),
+                       (runs[2], runs[3], "decode")):
+        if not torch.equal(a, b):
+            gap = float((a.float() - b.float()).abs().max())
+            raise AssertionError(f"two card runs of moe_ffn ({what}) differ "
+                                 f"by {gap}")
+    log(f"moe agree: the reduced moonshot's moe_ffn bit-equal over two card "
+        f"runs, prefill {tuple(x.shape)} (gmm forms {forms[0]}) and decode "
+        f"{tuple(x[:, :1].shape)} (gmm forms {forms[2]})")
 
 
 def main() -> int:
@@ -2157,7 +2297,8 @@ def main() -> int:
                                      "bound_ms", "shape")}
     log(f"per-task weighted_agg: {json.dumps(per_task)}")
     log(f"flash_attention at prefill_32k's sequence: "
-        f"{json.dumps(attn_row['long'])}")
+        f"{json.dumps(attn_row['long'])}; at moonshot's layer: "
+        f"{json.dumps(attn_row['moonshot'])}")
     log(f"gmm at moonshot's other products: {json.dumps(gmm_rows[1:])}")
 
     log(json.dumps({"kernels": kernels}))

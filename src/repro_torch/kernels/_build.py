@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (every ``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (every ``csrc/*.cu``, with the
+headers ``csrc/*.cuh`` they include).
 
 The sources have a plain C interface, so they build with ``nvcc`` alone
 (seconds, against minutes for a source that includes PyTorch's headers)
@@ -6,7 +7,7 @@ and load with ``ctypes``.  Each source compiles to an object file, all of
 them at once in parallel ``nvcc`` processes; one more ``nvcc`` links the
 objects into the one shared library ``build/repro_torch/librepro_torch.so``
 at the root of the checkout.  That happens at the first launch, and again
-whenever any source is newer than the library.  Nothing here runs at
+whenever any source or header is newer than the library.  Nothing here runs at
 import time: the CPU tests import every module of the port.
 """
 from __future__ import annotations
@@ -45,11 +46,12 @@ _SIGNATURES = {
     # ptr0, stops, stream)
     "pack_block_pack": (_D, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P),
     # csrc/attn.cu: (device, q, k, v, B, S, H, Hkv, dh, scale, causal,
-    # dtype flag, out, stream)
+    # dtype flag, form, out, stream)
     "attn_flash_attention": (_D, _P, _P, _P, _I, _I, _I, _I, _I, _R, _F, _F,
-                             _P, _P),
-    # csrc/moe.cu: (device, x, w, E, C, d, f, dtype flag, out, stream)
-    "moe_gmm": (_D, _P, _P, _I, _I, _I, _I, _F, _P, _P),
+                             _F, _P, _P),
+    # csrc/moe.cu: (device, x, w, E, C, d, f, dtype flag, form, partial
+    # sums, out, stream)
+    "moe_gmm": (_D, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P),
     # csrc/slstm.cu: (device, wx, r, hbuf, c0, n0, m0, B, S, nh, dh, U,
     # dtype flag, y, hN, cN, nN, mN, stream)
     "slstm_scan": (_D, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P,
@@ -70,6 +72,10 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> List[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def nvcc_path() -> str:
     """The CUDA compiler: on PATH, under CUDA_HOME, or /usr/local/cuda."""
     found = shutil.which("nvcc")
@@ -86,12 +92,14 @@ def _up_to_date() -> bool:
     if not LIBRARY.is_file():
         return False
     built = LIBRARY.stat().st_mtime
-    return all(src.stat().st_mtime <= built for src in sources())
+    return all(src.stat().st_mtime <= built
+               for src in sources() + headers())
 
 
 def build(force: bool = False) -> BuildResult:
     """Compile every ``csrc/*.cu`` (in parallel) and link them into
-    ``LIBRARY``, unless the library is newer than every source."""
+    ``LIBRARY``, unless the library is newer than every source and
+    header."""
     if not force and _up_to_date():
         return BuildResult(LIBRARY, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

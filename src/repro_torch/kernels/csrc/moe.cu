@@ -8,40 +8,52 @@
 // multiplied and summed in float32 and rounded once to the output's dtype,
 // as ref.gmm_ref computes it.  One launcher with a plain C interface
 // (loaded with ctypes by src/repro_torch/kernels/_build.py); it takes the
-// device index, raw device pointers, the sizes, the dtype flag and a
-// cudaStream_t, allocates nothing and returns cudaGetLastError().
+// device index, raw device pointers, the sizes, the dtype flag, the form
+// (chosen by kernels/gmm.py's `form`), a float32 scratch for the decode's
+// partial sums and a cudaStream_t, allocates nothing and returns
+// cudaGetLastError().
 //
 // Replaces the Pallas `_kernel` of src/repro/kernels/gmm.py:18
 // (`pallas_call` at :43), which padded C and f up to its blocks; here the
-// tiles' tails are staged as zeros and masked on the write, so any E, C, d
-// and f run with no padded copy.  Bound: operations (2 E C d f) at the
-// prefill's C of thousands of rows, bytes (the weights, E d f elements)
-// at the decode's C of a few tokens.  Three forms, one per regime:
+// tiles' tails are zeros (TMA's fill, or staged) and masked on the write,
+// so any E, C, d and f run with no padded copy.  Bound: operations (2 E C
+// d f) at the prefill's C of thousands of rows, bytes (the weights, E d f
+// elements) at the decode's C of a few tokens.  Five forms:
 //
-//   * C > 32, bfloat16 (the prefill): the tensor cores, WMMA 16 x 16 x 16
-//     bf16 products into float32 fragments (bf16 products are exact in
-//     float32).  A block owns a 128 x 128 output tile, 8 warps of 32 x 64
-//     (2 x 4 fragments); a k-step stages 32 of d as bfloat16 (rows padded
-//     by 8 values so the fragment loads do not conflict); each output is
-//     rounded once from its fragment through a per-warp scratch tile.
-//   * C > 32, float32: the CUDA cores in full float32 (it must not round
-//     through TF32).  128 x 128 tiles, 256 threads as 16 x 16 groups of
-//     8 x 8 outputs (rows and columns in two halves 64 apart, so that the
-//     float4 reads of shared memory do not conflict); a k-step stages 16
-//     of d as float32.
-//   * C <= 32 (the decode): the weights' bytes bound it, and a tile of
-//     rows would reuse each staged weight value for a few rows only.  A
-//     block streams a 256-column slab of w once from device memory into
-//     registers, each warp a slice of d, each lane 8 columns for up to 8
-//     rows of x (staged in shared memory, read as broadcasts); the warps'
-//     partial sums are added in a fixed order at the end.
-//
-// `wgmma`, TMA and a pipeline of tiles are later work.
+//   * kWgmma: C > 32, bfloat16, rows of x and w a multiple of 16 bytes
+//     and both on 16 bytes (the prefill).  A block owns a 128 x 256 output
+//     tile: a producer warpgroup (one thread issues; its registers go to
+//     the consumers by setmaxnreg) keeps TMA loads of 64-deep k-slices of
+//     x (128 x 64) and w (64 x 256, four 64-column boxes) in flight
+//     through a ring of 4 shared-memory stages (mbarriers full / empty);
+//     two consumer warpgroups of 64 rows each run wgmma m64n256k16 from
+//     shared memory into float32 registers (x K-major; w N-major through
+//     the transpose bit, no transposed copy).  The tensor maps are 3-D
+//     over (E, C, d) and (E, d, f), the expert outermost, so a tile never
+//     reads the next expert's rows, and TMA's zero fill covers the C, d
+//     and f tails.  Each output is rounded once from its register.
+//   * kWmma: C > 32, bfloat16, the rows or pointers TMA cannot take:
+//     WMMA 16 x 16 x 16 on 128 x 128 tiles staged by all 256 threads.
+//   * kSimt: C > 32, float32: the CUDA cores in full float32 (it must not
+//     round through TF32), 128 x 128 tiles of 8 x 8 outputs a thread.
+//   * kStream: C <= 32, bfloat16, TMA rows (the decode).  The weights'
+//     bytes bound it, so d is split over blocks too (512 rows each, more
+//     than 1,000 blocks at moonshot's shapes): the same kernel with one
+//     consumer warpgroup on a 64-row tile (C rows live; the tensor cores
+//     have time to spare), a producer warp and a 2-stage ring, two blocks
+//     an SM, streams each block's 512 x 256 slab of w by TMA and writes
+//     its float32 partial sums to a scratch; a second pass adds the
+//     splits in order and rounds once.  No atomics: one answer every run.
+//   * kSkinny: C <= 32, float32 or rows TMA cannot take: a block streams
+//     a 256-column slab of w from device memory into registers for up to
+//     8 rows of x; the warps' partial sums are added in a fixed order.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -342,13 +354,220 @@ gmm_skinny_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// -- kWgmma and kStream: bfloat16, TMA-fed wgmma ----------------------------
+//
+// A block owns a (64 WGS) x 256 output tile of one expert.  One producer
+// (thread 128 WGS) keeps TMA loads of 64-deep k-slices of x (64 WGS x 64)
+// and w (64 x 256, four 64-column boxes) in flight through a ring of
+// STAGES shared-memory stages (mbarriers full / empty); WGS consumer
+// warpgroups of 64 rows each run wgmma m64n256k16 from shared memory into
+// float32 registers.  kWgmma (the prefill): WGS = 2 and a producer
+// warpgroup that gives its registers to the consumers (setmaxnreg); the
+// whole of d; bfloat16 out.  kStream (the decode, C <= 32 rows live of
+// the 64): WGS = 1 and a producer warp, two blocks an SM; a block takes
+// kDSplit rows of d and writes its float32 partial sums to
+// part[split][e][c][n], which gmm_split_sum_kernel adds in split order.
+constexpr int kGN = 256;               // columns a block
+constexpr int kGK = 64;                // depth of a slice (128 swizzled bytes)
+constexpr int kGBox = kGK * 64 * 2;    // one 64-column box of w, 8 KB
+constexpr int kGBBytes = kGK * kGN * 2;          // w slice, 32 KB
+constexpr int kDSplit = 512;           // rows of d a kStream block
+
+template <int WGS>
+constexpr int gmm_threads() { return 128 * WGS + (WGS == 2 ? 128 : 32); }
+
+template <int WGS, int STAGES>
+constexpr size_t gmm_smem() {
+  return 1024 + STAGES * (64 * WGS * 128 + kGBBytes)
+         + 2 * STAGES * sizeof(uint64_t);
+}
+
+template <int WGS, int STAGES, bool SPLIT>
+__global__ void __launch_bounds__(gmm_threads<WGS>(), 3 - WGS)
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap wmap,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ part,
+                 int E, int C, int d, int f) {
+  constexpr int kBM = 64 * WGS;
+  constexpr int kABytes = kBM * 128;                // x slice
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* as = base;                               // [stage][rows][64]
+  uint8_t* bs = base + STAGES * kABytes;            // [stage][4][64][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + STAGES * kGBBytes);
+  uint64_t* empty = full + STAGES;
+
+  const int e = blockIdx.z, n0 = blockIdx.x * kGN;
+  const int m0 = SPLIT ? 0 : blockIdx.y * kBM;
+  const int k_begin = SPLIT ? blockIdx.y * kDSplit : 0;
+  const int k_end = SPLIT ? min(d, k_begin + kDSplit) : d;
+  const int n_k = (k_end - k_begin + kGK - 1) / kGK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 128 * WGS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the role, warp-uniform to the compiler (a shuffle), so that the
+  // roles' branches take setmaxnreg's register counts
+  const int wg = __shfl_sync(~0u, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == WGS) {                     // producer: one thread issues
+    if constexpr (WGS == 2) hopper::regs_dec<40>();
+    if (threadIdx.x == 128 * WGS) {
+      hopper::prefetch_map(&xmap);
+      hopper::prefetch_map(&wmap);
+      for (int kb = 0; kb < n_k; ++kb) {
+        const int s = kb % STAGES;
+        const int k = k_begin + kb * kGK;
+        if (kb >= STAGES) {
+          hopper::mbar_wait(&empty[s], ((kb / STAGES) & 1) ^ 1);
+        }
+        hopper::mbar_expect_tx(&full[s], kABytes + kGBBytes);
+        hopper::tma_load_3d(as + s * kABytes, &xmap, &full[s], k, m0, e);
+#pragma unroll
+        for (int j = 0; j < kGN / 64; ++j) {
+          hopper::tma_load_3d(bs + s * kGBBytes + j * kGBox, &wmap, &full[s],
+                              n0 + 64 * j, k, e);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup `half` takes rows m0 + 64 half ...
+  if constexpr (WGS == 2) hopper::regs_inc<232>();
+  float acc[kGN / 2];
+#pragma unroll
+  for (int i = 0; i < kGN / 2; ++i) acc[i] = 0.f;
+  const int half = wg;
+  // one slice's products stay in flight while the next slice's issue; a
+  // stage is released once the products that read it are done
+  for (int kb = 0; kb < n_k; ++kb) {
+    const int s = kb % STAGES;
+    hopper::mbar_wait(&full[s], (kb / STAGES) & 1);
+    const uint8_t* a = as + s * kABytes + half * 64 * 128;
+    const uint8_t* b = bs + s * kGBBytes;
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kGK / 16; ++kk) {
+      hopper::wgmma_ss_n256<1>(acc,
+                               hopper::desc_sw128(a + 32 * kk, 16, 1024),
+                               hopper::desc_sw128(b + 2048 * kk, kGBox, 1024),
+                               1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(acc);
+    if (kb > 0) hopper::mbar_arrive(&empty[(kb + STAGES - 1) % STAGES]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  // the accumulator's layout (hopper.cuh): rows r and r + 8, columns
+  // 8j + 2(l % 4) + {0, 1}; f is even, so a pair is in or out together
+  const int t = threadIdx.x % 128;
+  const int r = m0 + half * 64 + (t / 32) * 16 + (t % 32) / 4;
+  const int c = n0 + 2 * (t % 4);
+#pragma unroll
+  for (int j = 0; j < kGN / 8; ++j) {
+    const int col = c + 8 * j;
+    if (col >= f) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r + 8 * h;
+      if (row >= C) continue;
+      const int64_t at = (static_cast<int64_t>(e) * C + row) * f + col;
+      if constexpr (SPLIT) {
+        *reinterpret_cast<float2*>(
+            part + static_cast<int64_t>(blockIdx.y) * E * C * f + at) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(o + at) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// o[i] = sum over the splits, in order, of part[split][i], rounded once
+__global__ void gmm_split_sum_kernel(const float* __restrict__ part,
+                                     __nv_bfloat16* __restrict__ o,
+                                     int64_t n, int splits) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x)
+                   + threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float s = 0.f;
+    for (int sp = 0; sp < splits; ++sp) s += part[sp * n + i];
+    o[i] = __float2bfloat16(s);
+  }
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// the forms, as kernels/gmm.py's FORMS numbers them
+enum Form { kSimt = 0, kWmma = 1, kWgmma = 2, kSkinny = 3, kStream = 4 };
+
+// kWgmma (SPLIT false: 2 consumer warpgroups, 4 stages) or kStream
+// (SPLIT true: 1 consumer warpgroup, 2 stages, d split by kDSplit, then
+// the splits added in order)
+template <bool SPLIT>
+int launch_wgmma(const void* x, const void* w, void* o, float* part,
+                 int64_t E, int64_t C, int64_t d, int64_t f,
+                 cudaStream_t st) {
+  constexpr int kWGS = SPLIT ? 1 : 2, kStages = SPLIT ? 2 : 4;
+  CUtensorMap xmap, wmap;
+  const uint64_t xdims[3] = {static_cast<uint64_t>(d),
+                             static_cast<uint64_t>(C),
+                             static_cast<uint64_t>(E)};
+  const uint64_t xstrides[2] = {static_cast<uint64_t>(d) * 2,
+                                static_cast<uint64_t>(C * d) * 2};
+  const uint32_t xbox[3] = {kGK, 64 * kWGS, 1};
+  const uint64_t wdims[3] = {static_cast<uint64_t>(f),
+                             static_cast<uint64_t>(d),
+                             static_cast<uint64_t>(E)};
+  const uint64_t wstrides[2] = {static_cast<uint64_t>(f) * 2,
+                                static_cast<uint64_t>(d * f) * 2};
+  const uint32_t wbox[3] = {64, kGK, 1};
+  if (int rc = hopper::make_map(&xmap, x, 3, xdims, xstrides, xbox, true)) {
+    return rc;
+  }
+  if (int rc = hopper::make_map(&wmap, w, 3, wdims, wstrides, wbox, true)) {
+    return rc;
+  }
+  constexpr size_t smem = gmm_smem<kWGS, kStages>();
+  auto kernel = gmm_wgmma_kernel<kWGS, kStages, SPLIT>;
+  if (cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem))) {
+    return static_cast<int>(e);
+  }
+  const int splits = static_cast<int>((d + kDSplit - 1) / kDSplit);
+  const dim3 grid(static_cast<unsigned>((f + kGN - 1) / kGN),
+                  SPLIT ? static_cast<unsigned>(splits)
+                        : static_cast<unsigned>((C + 127) / 128),
+                  static_cast<unsigned>(E));
+  kernel<<<grid, gmm_threads<kWGS>(), smem, st>>>(
+      xmap, wmap, static_cast<__nv_bfloat16*>(o), part, static_cast<int>(E),
+      static_cast<int>(C), static_cast<int>(d), static_cast<int>(f));
+  if (SPLIT) {
+    const int64_t n = E * C * f;
+    const unsigned blocks = static_cast<unsigned>(
+        n / 256 + 1 < 132 * 8 ? n / 256 + 1 : 132 * 8);
+    gmm_split_sum_kernel<<<blocks, 256, 0, st>>>(
+        part, static_cast<__nv_bfloat16*>(o), n, splits);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
-int dispatch(const void* x, const void* w, void* o, int64_t E, int64_t C,
-             int64_t d, int64_t f, cudaStream_t st) {
+int dispatch(int form, const void* x, const void* w, void* o, int64_t E,
+             int64_t C, int64_t d, int64_t f, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   T* ot = static_cast<T*>(o);
@@ -359,7 +578,7 @@ int dispatch(const void* x, const void* w, void* o, int64_t E, int64_t C,
   const int vec = (d * sizeof(T)) % 16 == 0 && (f * sizeof(T)) % 16 == 0
                   && aligned16(x) && aligned16(w);
   const unsigned ue = static_cast<unsigned>(E);
-  if (C <= kSkinnyC) {
+  if (form == kSkinny) {
     const dim3 grid(static_cast<unsigned>((f + kSN - 1) / kSN),
                     static_cast<unsigned>((C + kSC - 1) / kSC), ue);
     gmm_skinny_kernel<T><<<grid, kThreads, 0, st>>>(xt, wt, ot, Ci, di, fi,
@@ -380,20 +599,35 @@ int dispatch(const void* x, const void* w, void* o, int64_t E, int64_t C,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and o).  Needs contiguous
-// tensors, E, C, d, f >= 1, E <= 65535, C < 2^20 and d, f < 2^31 (the
-// wrapper checks).
+// dtype: 0 = float32, 1 = bfloat16 (x, w and o).  form: a Form, which
+// must suit the dtype, C and (kWgmma, kStream) rows of d and f values a
+// multiple of 16 bytes with x and w on 16 bytes; kStream writes
+// ceil(d / 512) x E x C x f float32 partial sums to `part`.  Needs
+// contiguous tensors, E, C, d, f >= 1, E <= 65535, C < 2^20 and d, f <
+// 2^31 (the wrapper checks).
 int moe_gmm(int device, const void* x, const void* w, int64_t E, int64_t C,
-            int64_t d, int64_t f, int dtype, void* o, void* stream) {
+            int64_t d, int64_t f, int dtype, int form, void* part, void* o,
+            void* stream) {
   if (cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   if (E < 1 || C < 1 || d < 1 || f < 1 || E > 65535 || C >= (1 << 20)
-      || d > 0x7fffffff || f > 0x7fffffff) {
+      || d > 0x7fffffff || f > 0x7fffffff || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool skinny = C <= kSkinnyC;
+  const bool tma = dtype == 1 && d % 8 == 0 && f % 8 == 0 && aligned16(x)
+                   && aligned16(w);
+  const bool fits = form == kSkinny ? skinny
+                    : form == kStream ? skinny && tma && part != nullptr
+                    : form == kWgmma ? !skinny && tma
+                    : form == kWmma ? !skinny && dtype == 1
+                    : form == kSimt && !skinny && dtype == 0;
+  if (!fits) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(x, w, o, E, C, d, f, st);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(x, w, o, E, C, d, f, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  float* p = static_cast<float*>(part);
+  if (form == kWgmma) return launch_wgmma<false>(x, w, o, p, E, C, d, f, st);
+  if (form == kStream) return launch_wgmma<true>(x, w, o, p, E, C, d, f, st);
+  if (dtype == 0) return dispatch<float>(form, x, w, o, E, C, d, f, st);
+  return dispatch<__nv_bfloat16>(form, x, w, o, E, C, d, f, st);
 }
 
 }  // extern "C"

@@ -9,15 +9,25 @@ to -1e30 before the softmax; float32 or bfloat16 in, any S.
 
 Kernel: replaces the Pallas ``_kernel`` of
 ``src/repro/kernels/flash_attention.py:25`` (``pallas_call`` at ``:87``),
-which asserts ``S % block_q == 0``; the CUDA kernel (``csrc/attn.cu``)
-masks the tails of its tiles instead, and takes any dh <= 128 that is a
-multiple of 8.  Bound: operations, 4·B·H·S²·dh (halved when causal),
-against the bytes of q, k, v and the output.  Design: one thread block per
-(64-row query tile, batch × head) walks the kv tiles with an online
-softmax in float32, skips the causal tiles past the diagonal, and reads
-the kv head in place, with no repeat.  It has no backward: training
-through attention is ROADMAP.md queue 1 item 10(d), and a backward through
-the kernel raises.
+which asserts ``S % block_q == 0``; the CUDA kernels (``csrc/attn.cu``)
+mask the tails of their tiles instead.  Bound: operations, 4·B·H·S²·dh
+(halved when causal), against the bytes of q, k, v and the output.  Two
+forms, chosen by ``form`` from the dtype and dh:
+
+  * ``wgmma`` (bfloat16, dh 64 or 128: the serving paths): a block owns
+    128 query rows of one (batch, head); a producer warpgroup streams K
+    and V tiles of 64 keys by TMA through a 4-stage ring, read in place
+    from the kv head; two consumer warpgroups, taking turns, compute S =
+    Q·Kᵀ with ``wgmma`` into float32, the online softmax in registers, and
+    P·V as two bf16 ``wgmma``s on P's high and low bfloat16 halves (P keeps
+    about 16 bits, as the Pallas kernel keeps p in float32).
+  * ``simt`` (float32, other head widths up to 128, multiples of 8): one
+    block per 64-row query tile, float32 on the CUDA cores.
+
+Both skip the causal tiles past the diagonal and read the kv head in
+place, with no repeat.  Neither has a backward: training through attention
+is ROADMAP.md queue 1 item 10(d), and a backward through the kernel
+raises.
 """
 from __future__ import annotations
 
@@ -68,6 +78,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.last_form = None    # the form of the latest launch
+flash_attention.form_launches = {}  # launches by form
+
+# the forms, as csrc/attn.cu's launcher numbers them
+FORMS = {"simt": 0, "wgmma": 1}
+
+
+def form(dtype: torch.dtype, dh: int) -> str:
+    """The kernel's form for a launch: ``wgmma`` for bfloat16 at head
+    width 64 or 128, ``simt`` otherwise."""
+    return "wgmma" if dtype == torch.bfloat16 and dh in (64, 128) else "simt"
 
 
 def _check_shapes(q, k, v) -> None:
@@ -101,11 +122,15 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     q, k, v = _on_16_bytes(q), _on_16_bytes(k), _on_16_bytes(v)
     out = torch.empty_like(q)
     if out.numel():
+        chosen = form(q.dtype, dh)
         _build.launch("attn_flash_attention", dev, q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), B, S, H, k.shape[2], dh,
                       dh ** -0.5, int(causal), DTYPE_FLAG[q.dtype],
-                      out.data_ptr())
+                      FORMS[chosen], out.data_ptr())
         flash_attention.launches += 1
+        flash_attention.last_form = chosen
+        counts = flash_attention.form_launches
+        counts[chosen] = counts.get(chosen, 0) + 1
     return out
 
 

@@ -9,16 +9,28 @@ expert product.
 
 Kernel: replaces the Pallas ``_kernel`` of ``src/repro/kernels/gmm.py:18``
 (``pallas_call`` at ``:43``), which padded C and f to its blocks; the CUDA
-kernel (``csrc/moe.cu``) masks the tails of its tiles instead.  Bound:
-operations, 2·E·C·d·f over the bf16 tensor-core peak, at the prefill's
-C of thousands of rows; bytes, the weights E·d·f once, at the decode's C of
-a few tokens.  Design, three forms that all sum in float32: at C > 32,
-a thread block per (expert, 128 x 128 output tile) stages x and w tiles
-in shared memory and multiplies bfloat16 on the tensor cores (WMMA) and
-float32 on the CUDA cores (in full float32, no TF32); at the decode's C
-<= 32, a block streams a 256-column slab of the weights once from device
-memory into registers for up to 8 rows of x.  ``wgmma``, TMA and a
-pipeline of tiles are later work.
+kernels (``csrc/moe.cu``) read tails as zeros and mask them on the write.
+Bound: operations, 2·E·C·d·f over the bf16 tensor-core peak, at the
+prefill's C of thousands of rows; bytes, the weights E·d·f once, at the
+decode's C of a few tokens.  Five forms, all summing in float32, chosen by
+``form`` from the dtype, C and whether TMA can read the rows (a multiple
+of 16 bytes, on 16-byte boundaries):
+
+  * ``wgmma`` (bfloat16, C > 32, TMA rows; the prefill): 128 x 256 output
+    tiles, a producer warpgroup (one thread issues) streaming TMA loads of
+    x and w through a 4-stage ring, two consumer warpgroups on ``wgmma``;
+  * ``wmma`` (bfloat16, C > 32, rows TMA cannot take): WMMA on 128 x 128
+    tiles staged by all threads;
+  * ``simt`` (float32, C > 32): the CUDA cores in full float32 (no TF32);
+  * ``stream`` (bfloat16, C <= 32, TMA rows; the decode): d split over
+    blocks, each streaming a 512 x 256 slab of w through a TMA ring into
+    ``wgmma`` on a 64-row tile, its float32 partial sums added in order by
+    a second pass (no atomics);
+  * ``skinny`` (C <= 32 otherwise): a block streams a 256-column slab of
+    w into registers for up to 8 rows of x.
+
+The kernels have no backward: training through the expert products is
+ROADMAP.md queue 1 item 10(d), and a backward through them raises.
 """
 from __future__ import annotations
 
@@ -55,14 +67,35 @@ def gmm_torch(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def gmm(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The plain version for a CPU tensor, the CUDA kernel for a CUDA
-    tensor."""
+    tensor (no backward through the kernel)."""
     _check_shapes(xe, w)
     if xe.device.type == "cpu":
         return gmm_torch(xe, w)
-    return _launch(xe, w)
+    return _KernelGmm.apply(xe, w)
 
 
 gmm.launches = 0
+gmm.last_form = None                # the form of the latest launch
+gmm.form_launches = {}              # launches by form
+
+# the forms, as csrc/moe.cu's Form numbers them
+FORMS = {"simt": 0, "wmma": 1, "wgmma": 2, "skinny": 3, "stream": 4}
+SKINNY_C = 32                       # csrc/moe.cu kSkinnyC
+DECODE_SPLIT = 512                  # rows of d a stream block, kDSplit
+
+
+def form(dtype: torch.dtype, C: int, d: int, f: int, aligned: bool) -> str:
+    """The kernel's form for a launch: bfloat16 with TMA rows (d and f
+    multiples of 8 values, ``aligned``: both tensors on 16 bytes) takes
+    ``wgmma`` above ``SKINNY_C`` rows and ``stream`` up to it; otherwise
+    ``wmma`` (bfloat16) or ``simt`` (float32) above it, ``skinny`` up to
+    it."""
+    tma = dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0 and aligned
+    if C <= SKINNY_C:
+        return "stream" if tma else "skinny"
+    if tma:
+        return "wgmma"
+    return "wmma" if dtype == torch.bfloat16 else "simt"
 
 
 def _check_shapes(xe, w) -> None:
@@ -88,7 +121,29 @@ def _launch(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return out
     if d == 0:
         return out.zero_()
+    chosen = form(xe.dtype, C, d, f,
+                  xe.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    part = None
+    if chosen == "stream":
+        splits = -(-d // DECODE_SPLIT)
+        part = torch.empty(splits, E, C, f, dtype=torch.float32, device=dev)
     _build.launch("moe_gmm", dev, xe.data_ptr(), w.data_ptr(), E, C, d, f,
-                  DTYPE_FLAG[xe.dtype], out.data_ptr())
+                  DTYPE_FLAG[xe.dtype], FORMS[chosen],
+                  part.data_ptr() if part is not None else None,
+                  out.data_ptr())
     gmm.launches += 1
+    gmm.last_form = chosen
+    gmm.form_launches[chosen] = gmm.form_launches.get(chosen, 0) + 1
     return out
+
+
+class _KernelGmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xe, w):
+        return _launch(xe, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "the gmm CUDA kernel has no backward: training through the "
+            "expert products is ROADMAP.md queue 1 item 10(d)")

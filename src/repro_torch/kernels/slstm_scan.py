@@ -84,11 +84,12 @@ def slstm_scan_torch(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n, m):
 
 def slstm_scan(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n, m):
     """The plain version for a CPU tensor, the CUDA kernel for a CUDA
-    tensor."""
+    tensor (no backward through the kernel)."""
     _check_shapes(wx, r_gates, h, c, n, m)
     if wx.device.type == "cpu":
         return slstm_scan_torch(wx, r_gates, h, c, n, m)
-    return _launch(wx, r_gates, h, c, n, m)
+    y, *carry = _KernelScan.apply(wx, r_gates, h, c, n, m)
+    return y, tuple(carry)
 
 
 slstm_scan.launches = 0
@@ -126,9 +127,9 @@ def _check_shapes(wx, r_gates, *state) -> None:
 
 
 def plan(B: int, dh: int) -> Tuple[int, int]:
-    """(U, shared-memory bytes) of a launch: U state dimensions a block,
-    the largest power of two up to 16 dividing dh.  Raises ``ValueError``
-    for a batch the kernel cannot hold."""
+    """(U, shared-memory bytes) of one launch of B rows: U state dimensions
+    a block, the largest power of two up to 16 dividing dh.  Raises
+    ``ValueError`` for a batch one launch cannot hold."""
     if not 1 <= B <= MAX_BATCH:
         raise ValueError(f"the slstm_scan kernel takes 1 to {MAX_BATCH} "
                          f"batch rows, got {B}")
@@ -145,6 +146,17 @@ def plan(B: int, dh: int) -> Tuple[int, int]:
 
 
 def _launch(wx, r_gates, h, c, n, m):
+    """The scan of every row, in launches of up to ``MAX_BATCH`` rows."""
+    if wx.shape[0] <= MAX_BATCH:
+        return _launch_rows(wx, r_gates, h, c, n, m)
+    parts = [_launch_rows(wx[i:i + MAX_BATCH], r_gates,
+                          *(t[i:i + MAX_BATCH] for t in (h, c, n, m)))
+             for i in range(0, wx.shape[0], MAX_BATCH)]
+    return (torch.cat([y for y, _ in parts]),
+            tuple(torch.cat(ts) for ts in zip(*(st for _, st in parts))))
+
+
+def _launch_rows(wx, r_gates, h, c, n, m):
     dev = check_cuda(wx, r_gates, h, c, n, m)
     if wx.dtype not in DTYPE_FLAG or r_gates.dtype != wx.dtype:
         raise TypeError(f"slstm_scan takes wx and r_gates in float32 or "
@@ -170,3 +182,16 @@ def _launch(wx, r_gates, h, c, n, m):
                   *(t.data_ptr() for t in out))
     slstm_scan.launches += 1
     return y, tuple(out)
+
+
+class _KernelScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, wx, r_gates, h, c, n, m):
+        y, carry = _launch(wx, r_gates, h, c, n, m)
+        return (y, *carry)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "the slstm_scan CUDA kernel has no backward: training through "
+            "the scan is ROADMAP.md queue 1 item 10(d)")

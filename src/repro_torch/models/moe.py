@@ -11,8 +11,11 @@ the card), in the JAX package's layouts and casts.
     folded into C, so each expert product is ONE ``gmm`` launch: three per
     MoE layer.
   * ``silu(h) * u`` and ``ye * slot_w`` in the model dtype; the combine
-    adds in the model dtype (``index_add_``), as the JAX package's
-    scatter-add does.
+    adds in the model dtype, as the JAX package's scatter-add does, in a
+    fixed order (``combine``): each token's slot rows in ascending expert
+    order, one add per rank from zeros, the order in which a serial
+    scatter-add over the (expert, slot) table meets them.  No atomics, so
+    the card gives one answer every run.
 
 One card, no mesh: the JAX functions' ``ctx`` (expert-parallel sharding
 constraints) is the ``None`` branch here.
@@ -66,6 +69,14 @@ def build_dispatch(idx: torch.Tensor, w: torch.Tensor, n_experts: int,
     row.  A pair's slot is its rank in its expert's queue (a stable sort
     by expert keeps token order); pairs at rank >= cap go to one dummy
     slot past the table, which is cut off."""
+    slot_token, slot_w, _ = _dispatch(idx, w, n_experts, cap)
+    return slot_token, slot_w
+
+
+def _dispatch(idx: torch.Tensor, w: torch.Tensor, n_experts: int, cap: int):
+    """``build_dispatch``'s tables and, per pair (B, S, k), its row in the
+    expert products' (E, B, C) layout, ``(expert * B + b) * cap + rank``,
+    or ``n_experts * B * cap`` (past the rows) where it was dropped."""
     B, S, k = idx.shape
     dev = idx.device
     flat_expert = idx.reshape(B, S * k)
@@ -88,8 +99,31 @@ def build_dispatch(idx: torch.Tensor, w: torch.Tensor, n_experts: int,
     slot_w = torch.zeros(B, dummy + 1, dtype=torch.float32,
                          device=dev).scatter(
         1, slot, torch.where(keep, sorted_w, 0.0))
+    row = torch.where(keep, (sorted_expert * B + torch.arange(
+        B, device=dev)[:, None]) * cap + rank, dummy * B)
+    pair_row = torch.empty_like(row).scatter_(1, order, row)
     return (slot_token[:, :-1].reshape(B, n_experts, cap),
-            slot_w[:, :-1].reshape(B, n_experts, cap))
+            slot_w[:, :-1].reshape(B, n_experts, cap),
+            pair_row.reshape(B, S, k))
+
+
+def combine(table: torch.Tensor, pair_row: torch.Tensor) -> torch.Tensor:
+    """The expert outputs back at their tokens, in a fixed order.
+
+    table: (E·B·C + 1, d), the weighted slot rows in the (E, B, C) layout
+    and a zero row last; pair_row: (B, S, k) from ``_dispatch``.  Returns
+    (B, S, d) in the table's dtype: per token, from zeros, its kept slot
+    rows added one at a time in ascending expert order (dropped pairs read
+    the zero row, last), each add rounded to the dtype.  A serial
+    scatter-add of the (expert, slot) table adds a token's rows in that
+    order, with zero rows for the empty slots, which change no sum."""
+    B, S, k = pair_row.shape
+    rows = pair_row.sort(dim=-1).values                 # by expert, then b
+    picked = table.index_select(0, rows.reshape(-1)).reshape(B, S, k, -1)
+    y = torch.zeros_like(picked[:, :, 0])
+    for r in range(k):
+        y = y + picked[:, :, r]
+    return y
 
 
 def moe_ffn(cfg, p, x: torch.Tensor) -> torch.Tensor:
@@ -99,7 +133,7 @@ def moe_ffn(cfg, p, x: torch.Tensor) -> torch.Tensor:
     E, cap = m.n_experts, capacity(cfg, S)
     logits = x.to(torch.float32) @ p["router"]
     w, idx = route_topk(logits, m.top_k)                        # (B, S, k)
-    slot_token, slot_w = build_dispatch(idx, w, E, cap)         # (B, E, C)
+    slot_token, slot_w, pair_row = _dispatch(idx, w, E, cap)    # (B, E, C)
 
     # rows of x in (E, B, C) order: xe is (E, B·C, d) with no permute
     rows = (slot_token + torch.arange(B, device=x.device)[:, None, None] * S
@@ -109,11 +143,9 @@ def moe_ffn(cfg, p, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(gmm(xe, p["moe_wg"])) * gmm(xe, p["moe_wu"])
     ye = gmm(h, p["moe_wo"])                                    # (E, B·C, d)
     ye = ye * slot_w.transpose(0, 1).reshape(E, B * cap, 1).to(ye.dtype)
-
-    # combine: add back to the token rows, in the model dtype
-    y = torch.zeros(B * S, d, dtype=x.dtype, device=x.device)
-    y.index_add_(0, rows, ye.reshape(-1, d).to(x.dtype))
-    return y.reshape(B, S, d)
+    # the weighted slot rows, and a zero row for the dropped pairs
+    return combine(torch.cat([ye.reshape(-1, d), ye.new_zeros(1, d)]),
+                   pair_row)
 
 
 def moe_ffn_single(cfg, p, x: torch.Tensor) -> torch.Tensor:

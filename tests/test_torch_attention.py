@@ -11,6 +11,7 @@
   dense one at S <= 2 * chunk, the blocked one beyond), and the decode
   block, with nonzero QKV biases and QK-norm scales.
 * ``rms_norm``, ``layer_norm``, ``apply_rope`` and ``swiglu``.
+* The kernel's form selection, case by case.
 
 The CUDA kernel itself is held against the plain version on the card
 (tests/test_torch_gpu.py, chip_smoke.py).
@@ -285,3 +286,15 @@ def test_decode_attention_block_matches_jax(arch, dt):
     # the caches are written in place
     np.testing.assert_allclose(_np(tck), _np(wk), **tol)
     np.testing.assert_allclose(_np(tcv), _np(wv), **tol)
+
+
+@pytest.mark.parametrize("dtype,dh,want", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 80, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 16, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 64, "simt")])
+def test_flash_attention_form(dtype, dh, want):
+    """The kernel's form is a pure function of the dtype and the head
+    width: the wgmma form for bfloat16 at dh 64 or 128."""
+    assert tfa.form(dtype, dh) == want
+    assert set(tfa.FORMS) == {"simt", "wgmma"}

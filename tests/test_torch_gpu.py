@@ -10,7 +10,11 @@ round once), and the reduced dense LMs on the card against the CPU; the
 MoE's ``gmm`` kernel against its plain version (``gmm.kernel_tol``: rtol
 1e-5 float32, one bfloat16 step, plus 1e-5 of the largest output), the
 sLSTM scan kernel against its plain version (``slstm_scan.KERNEL_TOL``),
-and the reduced MoE and xLSTM LMs on the card against the CPU.
+also at batches split into launches of ``MAX_BATCH`` rows, and the reduced
+MoE and xLSTM LMs on the card against the CPU.  The TMA / wgmma forms of
+``flash_attention`` and ``gmm`` where TMA's edges bite (tails of a row
+past a tile, short boxes); a backward through ``gmm`` or ``slstm_scan``
+raises; two card runs of the reduced moonshot's MoE FFN are bit-equal.
 
 Marked ``gpu``: they skip where no CUDA device is present (the skip is
 decided in the fixture, so every worker collects the same tests).  This
@@ -289,6 +293,23 @@ def test_flash_attention_kernel_refuses(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hkv", [1, 8])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("B,S", [(2, 1), (2, 65), (2, 127), (1, 4097)])
+def test_flash_attention_wgmma_edges(cuda, B, S, dh, hkv, causal):
+    """The bfloat16 wgmma form where TMA's edges bite: S of 1, 65, 127
+    and 4,097 (one row past a 128-row tile), dh 64 and 128, GQA 8:1 and
+    1:1."""
+    q, k, v = _qkv(B, S, 8, hkv, dh, torch.bfloat16, S + dh + hkv, cuda)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    assert fa.flash_attention.last_form == "wgmma"
+    torch.testing.assert_close(got.float(), fa.flash_attention_torch(
+        q, k, v, causal).float(), **fa.KERNEL_TOL[torch.bfloat16])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["yi-6b", "qwen2-0.5b", "qwen3-32b"])
 def test_dense_lm_on_card_matches_cpu(cuda, arch):
     """Prefill (with the kernel) and decode on the card against the CPU,
@@ -356,6 +377,31 @@ def test_gmm_kernel_refuses(cuda):
     before = gm.gmm.launches
     assert float(gm.gmm(xe[:, :0], w).sum()) == 0.0
     assert gm.gmm.launches == before
+    xe.requires_grad_()
+    with pytest.raises(NotImplementedError, match="10\\(d\\)"):
+        gm.gmm(xe, w).sum().backward()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,d,f", [
+    (2, 33, 72, 200), (2, 1921, 136, 200), (1, 1921, 64, 264),
+    (3, 127, 1104, 200), (4, 8, 1104, 200), (3, 1, 64, 200),
+    (2, 32, 520, 264), (64, 1920, 2048, 1408), (64, 8, 1408, 2048)])
+def test_gmm_tma_forms(cuda, E, C, d, f):
+    """The TMA forms (wgmma above 32 rows, stream up to it) where TMA's
+    edges bite: C one row past a 128-row tile, f short of a 256-column
+    tile, d short of a 64-deep slice or a 512-row split; and the moonshot
+    products."""
+    g = torch.Generator().manual_seed(E * C + d + f)
+    xe = torch.randn(E, C, d, generator=g).to(cuda, torch.bfloat16)
+    w = (torch.randn(E, d, f, generator=g) * d ** -0.5).to(cuda,
+                                                             torch.bfloat16)
+    got = gm.gmm(xe, w)
+    assert gm.gmm.last_form == ("stream" if C <= gm.SKINNY_C else "wgmma")
+    want = gm.gmm_torch(xe, w)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **gm.kernel_tol(want))
+    torch.cuda.synchronize()
 
 
 def _slstm_inputs(B, S, nh, dh, dtype, device, seed=0, live=True):
@@ -397,9 +443,18 @@ def test_slstm_scan_kernel(cuda, B, S, nh, dh, dtype):
 
 @pytest.mark.gpu
 def test_slstm_scan_kernel_refuses(cuda):
-    wx, r, state = _slstm_inputs(17, 2, 4, 16, torch.float32, cuda)
-    with pytest.raises(ValueError, match="batch rows"):
-        ss.slstm_scan(wx, r, *state)
+    # a batch over MAX_BATCH rows runs in launches of MAX_BATCH rows
+    for B in (17, 32):
+        wx, r, state = _slstm_inputs(B, 6, 4, 16, torch.float32, cuda)
+        before = ss.slstm_scan.launches
+        y, carry = ss.slstm_scan(wx, r, *state)
+        assert ss.slstm_scan.launches == before + -(-B // ss.MAX_BATCH)
+        want_y, want_carry = ss.slstm_scan_torch(wx, r, *state)
+        for got, want in zip((y, *carry), (want_y, *want_carry)):
+            torch.testing.assert_close(got, want, **ss.KERNEL_TOL)
+    wx.requires_grad_()
+    with pytest.raises(NotImplementedError, match="10\\(d\\)"):
+        ss.slstm_scan(wx, r, *state)[0].sum().backward()
     wx, r, state = _slstm_inputs(16, 2, 1, 1024, torch.float32, cuda)
     with pytest.raises(ValueError, match="shared memory"):
         ss.slstm_scan(wx, r, *state)
@@ -451,3 +506,23 @@ def test_moe_xlstm_lm_on_card_matches_cpu(cuda, arch, tol):
     for a, b in zip(*outs):
         torch.testing.assert_close(b.cpu(), a, rtol=tol, atol=tol)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_moe_ffn_on_card_is_deterministic(cuda):
+    """Two card runs of the reduced moonshot's MoE FFN (bfloat16, prefill
+    and decode) on one set of weights and inputs are bit-equal: the
+    combine adds in a fixed order."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(reduced_config(get_config(
+        "moonshot-v1-16b-a3b")), dtype="bfloat16")
+    g = torch.Generator(device=cuda).manual_seed(6)
+    p = moe.init_moe_params(cfg, torch.bfloat16, g, cuda)
+    x = torch.randn(4, 512, cfg.d_model, device=cuda, generator=g).to(
+        torch.bfloat16)
+    assert torch.equal(moe.moe_ffn(cfg, p, x), moe.moe_ffn(cfg, p, x))
+    x1 = x[:, :1]
+    assert torch.equal(moe.moe_ffn_single(cfg, p, x1),
+                       moe.moe_ffn_single(cfg, p, x1))

@@ -8,7 +8,8 @@ package.
     in float32 in another order and round once).
   * ``route_topk`` (weights within 1e-6; indices equal, or a near-tie
     under ``ROUTING_GAP``), ``build_dispatch`` exactly, with and without
-    dropped tokens; ``moe_ffn`` and ``moe_ffn_single`` on the same inputs
+    dropped tokens; the fixed-order combine bit-equal to the JAX
+    combine; ``moe_ffn`` and ``moe_ffn_single`` on the same inputs
     (float32 rtol/atol 1e-5; bfloat16 rtol 2e-2 / atol 6e-2, as the dense
     stacks: the frameworks round the elementwise steps at other places,
     XLA's bfloat16 sigmoid among them, and the largest gap is one or two
@@ -20,6 +21,8 @@ package.
     stacks).  tests/test_torch_transformer.py runs the serve loop's ids
     against the JAX loop's, decoding against the forward and the
     parameter tree's round trip (the router float32) on these archs too.
+  * ``gmm``'s form selection, case by case, and no backward through its
+    launch (the plain version standing in for it on the CPU).
 """
 import dataclasses
 
@@ -206,3 +209,90 @@ def test_moe_lm_matches_jax_float32(arch):
 def test_moe_lm_layerwise_matches_jax(arch, dt):
     gap = layerwise_matches_jax(arch, dt, _tokens(4, 2, 24))
     assert gap < 1e-6
+
+
+@pytest.mark.parametrize("dt", [F32, BF16])
+@pytest.mark.parametrize("arch", MOE)
+def test_combine_is_bit_equal_to_jax_combine(arch, dt):
+    """The fixed-order combine (each token's slot rows in ascending expert
+    order, one add per rank from zeros) against the JAX combine (a
+    scatter-add over the (expert, slot) table, src/repro/models/moe.py:
+    118-127) on the same weighted slot rows and the JAX dispatch, with
+    dropped pairs: bit-equal."""
+    jcfg, tcfg, p, _ = _ffn_world(arch, dt)
+    m = tcfg.moe
+    E, k, d = m.n_experts, m.top_k, tcfg.d_model
+    B, S = 3, 100
+    rng = np.random.default_rng(7)
+    x = (rng.normal(size=(B, S, d)) + 1.5).astype(np.float32)
+    w, idx = jax_moe.route_topk(jnp.einsum("bsd,de->bse", x, p["router"]),
+                                k)
+    cap = t_moe.capacity(tcfg, S)
+    slot_token, slot_w = jax.vmap(
+        lambda i, ww: jax_moe.build_dispatch(i, ww, E, cap))(idx, w)
+    assert int((slot_w > 0).sum()) < B * S * k             # drops happen
+    ye = jnp.asarray(rng.normal(size=(B, E, cap, d)), jnp.dtype(dt))
+    ye = ye * slot_w[..., None].astype(ye.dtype)
+
+    def combine_row(y_row, tok_row):                   # the JAX combine
+        return jnp.zeros((S, d), y_row.dtype).at[tok_row.reshape(E * cap)
+                                                 ].add(y_row.reshape(-1, d))
+    want = jax.vmap(combine_row)(ye, slot_token)
+    _, _, pair_row = t_moe._dispatch(torch.from_numpy(np.array(idx)),
+                                     torch.from_numpy(np.array(w)), E, cap)
+    rows = _torch_of(ye).transpose(0, 1).reshape(E * B * cap, d)
+    got = t_moe.combine(torch.cat([rows, rows.new_zeros(1, d)]), pair_row)
+    assert got.dtype == rows.dtype
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("dtype,C,d,f,aligned,want", [
+    (torch.bfloat16, 1920, 2048, 1408, True, "wgmma"),   # moonshot prefill
+    (torch.bfloat16, 1920, 1408, 2048, True, "wgmma"),
+    (torch.bfloat16, 33, 72, 200, True, "wgmma"),
+    (torch.bfloat16, 8, 2048, 1408, True, "stream"),     # moonshot decode
+    (torch.bfloat16, 32, 1104, 40, True, "stream"),
+    (torch.bfloat16, 1920, 2048, 1408, False, "wmma"),   # TMA cannot read
+    (torch.bfloat16, 1920, 2044, 1408, True, "wmma"),
+    (torch.bfloat16, 65, 40, 33, True, "wmma"),
+    (torch.bfloat16, 8, 2048, 1404, True, "skinny"),
+    (torch.bfloat16, 8, 2048, 1408, False, "skinny"),
+    (torch.float32, 1920, 2048, 1408, True, "simt"),
+    (torch.float32, 8, 2048, 1408, True, "skinny"),
+    (torch.float32, 33, 64, 64, True, "simt"),
+])
+def test_gmm_form(dtype, C, d, f, aligned, want):
+    """The kernel's form is a pure function of the dtype, C, d, f and the
+    tensors' alignment: TMA takes bfloat16 rows of a multiple of 16 bytes
+    on 16-byte boundaries (wgmma above SKINNY_C rows, stream up to it)."""
+    assert tg.form(dtype, C, d, f, aligned) == want
+    assert set(tg.FORMS) == {"simt", "wmma", "wgmma", "skinny", "stream"}
+
+
+def test_gmm_kernel_has_no_backward(monkeypatch):
+    """The launch sits in an autograd.Function whose backward raises (the
+    plain version stands in for the launch on the CPU); the plain version
+    itself differentiates."""
+    monkeypatch.setattr(tg, "_launch", tg.gmm_torch)
+    g = np.random.default_rng(0)
+    xe = torch.from_numpy(g.normal(size=(2, 40, 16)).astype(np.float32))
+    w = torch.from_numpy(g.normal(size=(2, 16, 8)).astype(np.float32))
+    out = tg._KernelGmm.apply(xe.requires_grad_(), w)
+    torch.testing.assert_close(out, tg.gmm_torch(xe, w))
+    with pytest.raises(NotImplementedError, match=r"item 10\(d\)"):
+        out.sum().backward()
+    tg.gmm(xe, w).sum().backward()
+    assert torch.isfinite(xe.grad).all() and xe.grad.abs().sum() > 0
+
+
+def test_moe_ffn_differentiates_on_the_cpu():
+    """The CPU path (plain gmm, fixed-order combine) carries gradients to
+    the input and every weight, as training through the plain versions
+    needs (ROADMAP.md queue 1 item 10(d))."""
+    _, tcfg, _, tp = _ffn_world(MOE[0], F32)
+    tp = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, 20, tcfg.d_model)).astype(np.float32)).requires_grad_()
+    t_moe.moe_ffn(tcfg, tp, x).square().sum().backward()
+    for t in (x, tp["moe_wg"], tp["moe_wu"], tp["moe_wo"]):
+        assert torch.isfinite(t.grad).all() and t.grad.abs().sum() > 0

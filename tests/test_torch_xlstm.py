@@ -23,6 +23,11 @@ reduced xlstm-1.3b on the CPU against the JAX package.
     check); in bfloat16 layer by layer on the JAX model's activations.
     tests/test_torch_transformer.py runs the serve loop's ids, decoding
     against the forward and the parameter tree's round trip on it too.
+  * bfloat16 prefill against decode: the port's gap no wider than the JAX
+    model's own plus one bfloat16 step of the logits.
+  * The kernel's wrapper on the CPU, the launch replaced by the plain
+    version: batches over ``MAX_BATCH`` rows split into launches of
+    ``MAX_BATCH``, and a backward through the launch raises.
 """
 import dataclasses
 
@@ -245,3 +250,85 @@ def test_xlstm_chain_tolerance_is_the_models_own():
 @pytest.mark.parametrize("dt", [F32, BF16])
 def test_xlstm_lm_layerwise_matches_jax(dt):
     assert layerwise_matches_jax(ARCH, dt, _tokens(4, 2, 24)) == 0.0
+
+
+def _scan_inputs(B, S=9, nh=4, dh=16, seed=0):
+    """wx, r and a state the scan can reach (the plain scan's after 5
+    steps from the initial state; see the sLSTM gauge)."""
+    rng = np.random.default_rng(seed)
+    d = nh * dh
+    wx = torch.from_numpy(rng.normal(0, 0.5, (B, S, 4 * d)).astype(np.float32))
+    r = torch.from_numpy((rng.normal(size=(nh, dh, 4 * dh))
+                          * dh ** -0.5).astype(np.float32))
+    st = [torch.zeros(B, d) for _ in range(3)] + [torch.full((B, d), -1e30)]
+    warm = torch.from_numpy(rng.normal(0, 0.5, (B, 5, 4 * d)).astype(
+        np.float32))
+    return wx, r, list(ts.slstm_scan_torch(warm, r, *st)[1])
+
+
+@pytest.mark.parametrize("B", [17, 33])
+def test_slstm_scan_batches_run_in_launches_of_max_batch(B, monkeypatch):
+    """A batch over MAX_BATCH rows runs as launches of MAX_BATCH rows, each
+    on its own slices of wx and the state: with each launch replaced by the
+    plain version, the result equals one plain call over the batch, up to
+    float32 rounding of the recurrent product (the CPU's batched einsum
+    blocks its sums by the batch's size: 6e-8 apart on these inputs)."""
+    calls = []
+
+    def rows(wx, r, h, c, n, m):
+        calls.append(wx.shape[0])
+        return ts.slstm_scan_torch(wx, r, h, c, n, m)
+
+    monkeypatch.setattr(ts, "_launch_rows", rows)
+    wx, r, state = _scan_inputs(B)
+    y, carry = ts._launch(wx, r, *state)
+    want_y, want_carry = ts.slstm_scan_torch(wx, r, *state)
+    assert calls == [ts.MAX_BATCH] * (B // ts.MAX_BATCH) + [B % ts.MAX_BATCH]
+    for got, want in zip((y, *carry), (want_y, *want_carry)):
+        assert got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_slstm_scan_kernel_has_no_backward(monkeypatch):
+    """The kernel's launch sits in an autograd.Function whose backward
+    raises: a backward through the kernel is refused, not cut silently
+    (the plain version on the CPU stands in for the launch)."""
+    monkeypatch.setattr(ts, "_launch_rows", ts.slstm_scan_torch)
+    wx, r, state = _scan_inputs(3)
+    wx.requires_grad_()
+    y, *carry = ts._KernelScan.apply(wx, r, *state)
+    assert y.requires_grad
+    with pytest.raises(NotImplementedError, match=r"item 10\(d\)"):
+        (y.sum() + carry[1].sum()).backward()
+    # the plain version on the CPU differentiates
+    ts.slstm_scan(wx, r, *state)[0].sum().backward()
+    assert torch.isfinite(wx.grad).all() and wx.grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("seed,B,S", [(0, 1, 64), (1, 2, 64), (3, 2, 48)])
+def test_xlstm_bfloat16_prefill_decode_gap_is_the_models_own(seed, B, S):
+    """The reduced xlstm in bfloat16: the last prompt token's logits from
+    the prefill against those of S decode steps from the initial state.
+    The JAX model (jitted) and the port, on the same weights and tokens,
+    sit apart by about as much; the port by no more than the JAX model
+    plus one bfloat16 step of the logits' magnitude (0.0547 and 0.0547,
+    0.0703 and 0.0469, 0.2305 and 0.0859 on these inputs)."""
+    jm, jp, tm, tp = _worlds(ARCH, BF16, seed=seed)
+    toks = _tokens(seed + 10, B, S)
+    jl, _ = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(toks)})
+    tl, _ = tm.prefill(tp, {"tokens": torch.from_numpy(toks)})
+    jstate = jm.init_decode_state(B, S)
+    tstate = tm.init_decode_state(B, S)
+    decode = jax.jit(jm.decode)
+    for t in range(S):
+        jd, jstate = decode(jp, jstate, {
+            "tokens": jnp.asarray(toks[:, t:t + 1]), "pos": jnp.int32(t)})
+        td, tstate = tm.decode(tp, tstate, {
+            "tokens": torch.from_numpy(toks[:, t:t + 1]), "pos": t})
+    jgap = float(np.abs(_np(jd).astype(np.float32)
+                        - _np(jl).astype(np.float32)).max())
+    tgap = float(np.abs(_np(td).astype(np.float32)
+                        - _np(tl).astype(np.float32)).max())
+    top = float(np.abs(_np(jl).astype(np.float32)).max())
+    step = 2.0 ** (np.floor(np.log2(top)) - 7)
+    assert tgap <= jgap + step, (tgap, jgap, step)
