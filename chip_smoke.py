@@ -36,8 +36,10 @@ Phases, each printing its result on a line of its own:
                stepped and once through FusedWindowLoop: blocks, gas log,
                batch digests, WindowSettled roots and event kinds equal,
                ONE block_pack launch.  block_pack is checked and timed at
-               this run's shape, beside its bytes bound, its latency chain
-               and the stepped per-block path on the same blocks.
+               this run's shape, beside its bytes bound, its chain of
+               dependent walk steps and the stepped per-block path on the
+               same blocks; checked also where its jump table is too
+               large for shared memory (N = 300,000).
   5. agree   — the node path at a tenth of the size three ways (card with
                kernels, card with the plain versions forced, CPU): the
                gas log, blocks, digests and per-window state roots must
@@ -102,9 +104,14 @@ Phases, each printing its result on a line of its own:
                stream, skinny); a backward through gmm or slstm_scan
                raises; gmm at moonshot's prefill and decode products timed
                beside its bound, the plain version and torch.bmm;
-               slstm_scan also at batches of 17, 32 and 33 rows (launches
-               of 16), and at xlstm-1.3b's prefill (8, 4,096, 2,048, 4
-               heads) timed beside its bound and the plain version.
+               slstm_scan in the form slstm_scan.form names: the grid form
+               also at batches of 17, 32 and 33 rows (launches of 16), the
+               cluster form (bfloat16) at dh 64 / 128 / 512, 1 to 33 rows
+               in one launch, S of 1, 37 and 4,096, from a live state; at
+               xlstm-1.3b's prefill (8, 4,096, 2,048, 4 heads) in the
+               cluster form, timed against the grid form it replaced in
+               turns (grid, cluster, cluster, grid), there and at a decode
+               step (S = 1), beside its bound and the plain version.
  12. moe/xlstm agree — the reduced moonshot, kimi and xlstm, float32 and
                bfloat16, three ways (card with the kernels, card with the
                plain versions forced, CPU), layer by layer on the CPU's
@@ -124,7 +131,8 @@ Phases, each printing its result on a line of its own:
  14. xlstm   — phase 10 for xlstm-1.3b at full width and depth (42 mLSTM
                and 6 sLSTM layers; the 64-token check in float32, held at
                1e-2, and its bfloat16 gap logged): prefill 8 x 4,096 (6
-               slstm_scan launches; it emits no recurrent state, so
+               slstm_scan launches, in the cluster form as every decode
+               step's; it emits no recurrent state, so
                decode starts from the initial one, as in the JAX
                package); 32 decode steps at batch 8; the serve loop.
 
@@ -153,9 +161,11 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 INT_OPS_PER_S = 67e12            # H100 SXM 32-bit rate outside tensor cores
 F32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
 OPS_PER_WORD = 4                 # shift, xor, multiply, xor-reduce
-# assumed latency of one dependent device-memory load on the card (an
-# estimate, not a measurement): block_pack's latency-chain estimate
-LOAD_LATENCY_S = 0.6e-6
+# assumed time of one step of block_pack's walk (an estimate, not a
+# measurement): a dependent shared-memory load and two min / max, about 40
+# clocks; and a dependent L2 load where the table stays in device memory
+WALK_STEP_S = 20e-9
+L2_STEP_S = 0.3e-6
 FULL = dict(rate=50_000.0, duration=20.0, seed=0, n_senders=262_144)
 TENTH = dict(rate=5_000.0, duration=20.0, seed=0, n_senders=26_214)
 # the FL protocol run: benchmarks/bench_protocol.py:95-96 and its largest
@@ -590,11 +600,12 @@ def pack_stream(n_txs, n_blocks, seed, gas_limit, dev):
 
 def check_block_pack(dev, args, client) -> dict:
     """block_pack against its plain version, bit for bit: on the CPU tests'
-    grid (ptr0 = 0 and the first stop), on an empty mempool and on the
-    fused node run's own arguments.  Timed at the last (CUDA events, L2
-    flushed) beside its bytes bound, its latency chain, the plain version
-    and the stepped path (``VectorChain.run_until``, one host sync per
-    block) on the same mempool and blocks."""
+    grid (ptr0 = 0 and the first stop), on an empty mempool, on a mempool
+    too large for the walk's shared-memory table and on the fused node
+    run's own arguments.  Timed at the last (CUDA events, L2 flushed)
+    beside its bytes bound, its chain of B dependent walk steps, the plain
+    version and the stepped path (``VectorChain.run_until``, one host
+    sync per block) on the same mempool and blocks."""
     import math
 
     from repro_torch.core.engine import TxArrays, VectorChain
@@ -602,11 +613,16 @@ def check_block_pack(dev, args, client) -> dict:
     grid = []
     for case in ((1, 1, 0, 9_000_000), (100, 7, 1, 9_000_000),
                  (1000, 33, 2, 300_000), (513, 16, 3, 2**40),
-                 (64, 5, 4, 21_000)):
+                 (64, 5, 4, 21_000), (300_000, 820, 8, 9_000_000)):
         stream = pack_stream(*case, dev)
         first = int(bp.block_pack_torch(*stream, 0)[0])
         grid += [(*stream, 0), (*stream, first)]
     grid.append((*pack_stream(0, 4, 5, 9_000_000, dev), 0))
+    large = grid[-3]
+    if bp.table_staged(large[0].numel()) or \
+            not bp.table_staged(args[0].numel()):
+        raise AssertionError("the grid must hold a table the walk stages "
+                             "and one it does not")
     for a in grid + [args]:
         if not torch.equal(bp.block_pack(*a), bp.block_pack_torch(*a)):
             raise AssertionError("block_pack differs from its plain version")
@@ -615,16 +631,21 @@ def check_block_pack(dev, args, client) -> dict:
     n, b = tmax.numel(), times.numel()
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
     mem_ms = 8 * (2 * n + 3 * b) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * b * (math.ceil(math.log2(max(n, 2))) + 1) \
+    # the table's and the time bounds' binary searches, a compare and a
+    # move a probe
+    ops_ms = 2 * ((n + 1) * math.ceil(math.log2(max(n, 2)))
+                  + b * math.ceil(math.log2(max(n, 2)))) \
         / INT_OPS_PER_S * 1e3
-    loads = b * (1 + math.ceil(math.log(max(n, 2), 32)))
     row = {"name": "block_pack", "max_abs_err": 0,
            "ms": timed_ms(lambda: bp.block_pack(*args), 20, flush),
            "plain_ms": timed_ms(lambda: bp.block_pack_torch(*args), 3, flush),
            "bound_ms": max(mem_ms, ops_ms),
            "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
-           "library_ms": None, "chain_loads": loads,
-           "chain_ms": loads * LOAD_LATENCY_S * 1e3}
+           "library_ms": None, "chain_steps": b,
+           "chain_ms": b * WALK_STEP_S * 1e3,
+           "large_n": [large[0].numel(), large[2].numel()],
+           "large_n_ms": timed_ms(lambda: bp.block_pack(*large), 5, flush),
+           "large_n_chain_ms": large[2].numel() * L2_STEP_S * 1e3}
     # the stepped path on the same mempool, every tx visible from the
     # start: B produce_block calls against one block_pack launch
     src = client.chain
@@ -646,13 +667,19 @@ def check_block_pack(dev, args, client) -> dict:
                                  "produce_block on the same blocks")
     row["stepped_ms"] = 1e3 * sum(stepped_s) / len(stepped_s)
     log(f"kernel block_pack: bit-equal to plain on {len(grid) + 1} inputs "
-        f"and to {b} stepped produce_block calls; {row['ms']:.6f} ms (bound "
-        f"{row['bound_ms']:.6f} ms, {row['bound_by']}; latency chain "
-        f"{loads} dependent loads, about {row['chain_ms']:.6f} ms at an "
-        f"assumed {LOAD_LATENCY_S * 1e6:.1f} us each), plain "
-        f"{row['plain_ms']:.6f} ms, stepped path (VectorChain.run_until, "
-        f"one host sync per block) {row['stepped_ms']:.6f} ms for the same "
-        f"{b} blocks, library call: none, at N={n}, B={b}")
+        f"(N up to {large[0].numel()}, past the walk's shared-memory "
+        f"table) and to {b} stepped produce_block calls; {row['ms']:.6f} ms "
+        f"(bound {row['bound_ms']:.6f} ms, {row['bound_by']}; plus the "
+        f"walk's chain of {b} dependent shared-memory steps, about "
+        f"{row['chain_ms']:.6f} ms at an assumed {WALK_STEP_S * 1e9:.0f} ns "
+        f"each), plain {row['plain_ms']:.6f} ms, stepped path "
+        f"(VectorChain.run_until, one host sync per block) "
+        f"{row['stepped_ms']:.6f} ms for the same {b} blocks, library "
+        f"call: none, at N={n}, B={b}; at N={large[0].numel()}, "
+        f"B={large[2].numel()} (the table in device memory) "
+        f"{row['large_n_ms']:.6f} ms (chain about "
+        f"{row['large_n_chain_ms']:.6f} ms at an assumed "
+        f"{L2_STEP_S * 1e6:.1f} us an L2 load)")
     return row
 
 
@@ -1512,13 +1539,15 @@ def profile_share(fn, kernels=(("attention", "flash_attention_"),)
 
 # the kernels of the serving paths, by the fragment of their names in a
 # profiler trace (flash_attention_kernel and flash_attention_wgmma_kernel;
-# gmm_wgmma_kernel, gmm_stream_kernel and gmm_split_sum_kernel, ...)
+# gmm_wgmma_kernel, gmm_stream_kernel and gmm_split_sum_kernel, ...;
+# slstm_scan_kernel and slstm_cluster_kernel)
 LM_KERNELS = {"flash_attention": "flash_attention_", "gmm": "::gmm_",
-              "slstm_scan": "slstm_scan_kernel"}
+              "slstm_scan": "slstm_"}
 # the form each serving kernel must take at full width: the prefill's and
 # the decode's (flash_attention runs in the prefill only)
-LM_FORMS = {"prefill": {"flash_attention": "wgmma", "gmm": "wgmma"},
-            "decode": {"gmm": "stream"}}
+LM_FORMS = {"prefill": {"flash_attention": "wgmma", "gmm": "wgmma",
+                        "slstm_scan": "cluster"},
+            "decode": {"gmm": "stream", "slstm_scan": "cluster"}}
 
 
 def lm_launches_expected(cfg) -> dict:
@@ -1556,7 +1585,7 @@ def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
     cfg = get_config(arch)
     wrappers = {"flash_attention": fa.flash_attention, "gmm": gm.gmm,
                 "slstm_scan": ss.slstm_scan}
-    formed = (fa.flash_attention, gm.gmm)      # the wrappers with forms
+    formed = (fa.flash_attention, gm.gmm, ss.slstm_scan)  # with forms
     expected = lm_launches_expected(cfg)
 
     def held_forms(stage: str, counts: dict) -> dict:
@@ -1743,6 +1772,22 @@ MOONSHOT_GMM = [(64, 1920, 2048, 1408), (64, 1920, 1408, 2048)]
 MOONSHOT_GMM_DECODE = [(64, 8, 2048, 1408), (64, 8, 1408, 2048)]
 # xlstm-1.3b's sLSTM scan at phase 14's prefill
 XLSTM_SCAN = dict(B=8, S=4096, nh=4, dh=512)
+# slstm_scan's grid in phase 11, (B, S, nh, dh, dtype): the CPU tests' and
+# batches over MAX_BATCH rows in both dtypes; then the cluster form
+# (bfloat16) at dh 64 / 128 / 512 and 1 to 33 rows, S of 1, 37 and 4,096
+SLSTM_GRID = [(B, S, nh, dh, dtype)
+              for B, S, nh, dh in [(2, 32, 4, 16), (1, 64, 4, 16),
+                                   (3, 16, 4, 16), (2, 1, 4, 16),
+                                   (2, 37, 4, 16), (4, 20, 2, 12),
+                                   (8, 64, 4, 512), (16, 8, 4, 64),
+                                   (17, 6, 4, 512), (32, 6, 4, 512),
+                                   (33, 5, 4, 16)]
+              for dtype in (torch.float32, torch.bfloat16)] \
+    + [(B, 37, 4, dh, torch.bfloat16) for dh in (64, 128, 512)
+       for B in (1, 8, 16, 17, 33)] \
+    + [(B, 1, 4, dh, torch.bfloat16) for dh in (64, 512) for B in (1, 8, 33)] \
+    + [(1, 4096, 4, 64, torch.bfloat16), (17, 4096, 4, 128, torch.bfloat16),
+       (16, 4096, 2, 512, torch.bfloat16)]
 # phase 13's and 14's cuts of the assigned shapes: prefill_32k 32 x 32,768
 # -> 4 x 4,096 (moonshot: its 56 GB of weights, the caches of the prefill
 # and of the decode state must share 80 GB) and 8 x 4,096 (xlstm);
@@ -1765,13 +1810,17 @@ def gmm_bound(E, C, d, f, itemsize=2):
     return max(ops_ms, mem_ms), "operations" if ops_ms >= mem_ms else "bytes"
 
 
-def slstm_bound(B, S, nh, dh, itemsize=2):
+def slstm_bound(B, S, nh, dh, itemsize=2, pieces=None):
     """(bound ms, "operations" or "bytes"): the recurrence's 8 B S d dh
-    float32 FLOPs (h @ r, B x d x 4 dh multiply-adds a step) over the
-    float32 peak; wx and r in the model dtype, y and the state (read and
-    written) in float32, once over HBM."""
+    FLOPs (h @ r, B x d x 4 dh multiply-adds a step), as ``pieces``
+    bfloat16 products over the tensor-core peak (the cluster form: one
+    product a piece of h) or, with ``pieces`` None, in float32 over the
+    CUDA cores' peak (the grid form); wx and r in the model dtype, y and
+    the state (read and written) in float32, once over HBM."""
     d = nh * dh
-    ops_ms = 8 * B * S * d * dh / F32_OPS_PER_S * 1e3
+    flops = 8 * B * S * d * dh
+    ops_ms = (flops / F32_OPS_PER_S if pieces is None
+              else pieces * flops / BF16_TENSOR_FLOPS) * 1e3
     n_bytes = itemsize * (B * S * 4 * d + nh * dh * 4 * dh) \
         + 4 * (B * S * d + 8 * B * d)
     mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -1873,39 +1922,43 @@ def check_moe_xlstm_kernels(dev) -> tuple:
                 f"{row['max_abs_err']} (median |out| {row['median_abs']})")
             del xe, w, got, want
 
-    err, n = {f32: 0.0, bf16: 0.0}, 0
-    for B, S, nh, dh in [(2, 32, 4, 16), (1, 64, 4, 16), (3, 16, 4, 16),
-                         (2, 1, 4, 16), (2, 37, 4, 16), (4, 20, 2, 12),
-                         (8, 64, 4, 512), (16, 8, 4, 64), (17, 6, 4, 512),
-                         (32, 6, 4, 512), (33, 5, 4, 16)]:
-        for dtype in (f32, bf16):
-            d = nh * dh
-            wx = (0.5 * torch.randn(B, S, 4 * d, generator=g)).to(dev, dtype)
-            r = (torch.randn(nh, dh, 4 * dh, generator=g)
-                 * dh ** -0.5).to(dev, dtype)
-            # a live state: the plain scan's after 5 steps of other inputs
-            state = [torch.zeros(B, d, device=dev) for _ in range(3)] + \
-                [torch.full((B, d), -1e30, device=dev)]
-            warm = (0.5 * torch.randn(B, 5, 4 * d, generator=g)).to(dev, dtype)
-            state = list(ss.slstm_scan_torch(warm, r, *state)[1])
-            before = ss.slstm_scan.launches
-            y, carry = ss.slstm_scan(wx, r, *state)
-            if ss.slstm_scan.launches - before != -(-B // ss.MAX_BATCH):
-                raise AssertionError(f"slstm_scan at {B} rows launched "
-                                     f"{ss.slstm_scan.launches - before}")
-            want_y, want_carry = ss.slstm_scan_torch(wx, r, *state)
-            for got, want in zip((y, *carry), (want_y, *want_carry)):
-                torch.testing.assert_close(
-                    got, want, **ss.KERNEL_TOL,
-                    msg=lambda m, sh=(B, S, nh, dh):
-                    f"slstm_scan at {sh}: {m}")
-                err[dtype] = max(err[dtype], float((got - want).abs().max()))
-            n += 1
+    err, n = {}, 0
+    for B, S, nh, dh, dtype in SLSTM_GRID:
+        d = nh * dh
+        wx = (0.5 * torch.randn(B, S, 4 * d, generator=g)).to(dev, dtype)
+        r = (torch.randn(nh, dh, 4 * dh, generator=g)
+             * dh ** -0.5).to(dev, dtype)
+        # a live state: the plain scan's after 5 steps of other inputs
+        state = [torch.zeros(B, d, device=dev) for _ in range(3)] + \
+            [torch.full((B, d), -1e30, device=dev)]
+        warm = (0.5 * torch.randn(B, 5, 4 * d, generator=g)).to(dev, dtype)
+        state = list(ss.slstm_scan_torch(warm, r, *state)[1])
+        chosen = ss.form(dtype, B, nh, dh)
+        before = ss.slstm_scan.launches
+        y, carry = ss.slstm_scan(wx, r, *state)
+        launched = ss.slstm_scan.launches - before
+        if launched != (1 if chosen == "cluster"
+                        else -(-B // ss.MAX_BATCH)) \
+                or ss.slstm_scan.last_form != chosen:
+            raise AssertionError(f"slstm_scan at {(B, S, nh, dh)} "
+                                 f"{dtype} launched {launched} times, "
+                                 f"last in the {ss.slstm_scan.last_form}"
+                                 f" form")
+        want_y, want_carry = ss.slstm_scan_torch(wx, r, *state)
+        key = f"{chosen} {str(dtype)[6:]}"
+        for got, want in zip((y, *carry), (want_y, *want_carry)):
+            torch.testing.assert_close(
+                got, want, **ss.KERNEL_TOL,
+                msg=lambda m, sh=(B, S, nh, dh):
+                f"slstm_scan at {sh}: {m}")
+            err[key] = max(err.get(key, 0.0),
+                           float((got - want).abs().max()))
+        n += 1
     torch.cuda.synchronize()
     log(f"xlstm kernels: slstm_scan within {ss.KERNEL_TOL} of plain on {n} "
-        f"inputs (batches of 17, 32 and 33 rows in launches of "
-        f"{ss.MAX_BATCH}); largest |kernel - plain| float32 {err[f32]}, "
-        f"bfloat16 {err[bf16]}")
+        f"inputs (grid-form batches of 17, 32 and 33 rows in launches of "
+        f"{ss.MAX_BATCH}; cluster-form batches in one launch); largest "
+        f"|kernel - plain| by form and dtype {json.dumps(err)}")
 
     L = XLSTM_SCAN
     d = L["nh"] * L["dh"]
@@ -1915,28 +1968,59 @@ def check_moe_xlstm_kernels(dev) -> tuple:
          * L["dh"] ** -0.5).to(bf16)
     state = [torch.zeros(L["B"], d, device=dev) for _ in range(3)] + \
         [torch.full((L["B"], d), -1e30, device=dev)]
+    clusters = ss.cluster_capacity(dev, L["B"], L["nh"], L["dh"])
     y, carry = ss.slstm_scan(wx, r, *state)
+    if ss.slstm_scan.last_form != "cluster":
+        raise AssertionError(f"slstm_scan at {L} ran the "
+                             f"{ss.slstm_scan.last_form} form")
     want_y, want_carry = ss.slstm_scan_torch(wx, r, *state)
     scan_err = 0.0
     for got, want in zip((y, *carry), (want_y, *want_carry)):
         torch.testing.assert_close(got, want, **ss.KERNEL_TOL,
                                    msg=lambda m: f"slstm_scan at {L}: {m}")
         scan_err = max(scan_err, float((got - want).abs().max()))
-    bound, bound_by = slstm_bound(**L)
+    bound, bound_by = slstm_bound(**L, pieces=ss.PIECES)
+    bound_f32, _ = slstm_bound(**L)
+    # the grid form (the kernel this form replaced at this shape) and the
+    # cluster form in turns, at the prefill's scan and at a decode step's
+    w1 = wx[:, :1].contiguous()
+    times = {("grid", "prefill"): [], ("cluster", "prefill"): [],
+             ("grid", "decode"): [], ("cluster", "decode"): []}
+    for chosen in ("grid", "cluster", "cluster", "grid"):
+        times[chosen, "prefill"].append(timed_ms(
+            lambda: ss._launch(wx, r, *state, chosen=chosen), 3, flush))
+        times[chosen, "decode"].append(timed_ms(
+            lambda: ss._launch(w1, r, *state, chosen=chosen), 20, flush))
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
     scan_row = {"name": "slstm_scan", "shape": list(L.values()),
-                "max_abs_err": scan_err,
-                "ms": timed_ms(lambda: ss.slstm_scan(wx, r, *state), 3, flush),
+                "form": "cluster", "max_abs_err": scan_err,
+                "ms": mean["cluster", "prefill"],
+                "grid_form_ms": mean["grid", "prefill"],
+                "decode_ms": mean["cluster", "decode"],
+                "decode_grid_form_ms": mean["grid", "decode"],
                 "plain_ms": timed_ms(lambda: ss.slstm_scan_torch(wx, r,
                                                                  *state),
                                      1, flush),
-                "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
+                "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
+                "bound_f32_ms": bound_f32, "clusters_resident": clusters}
     scan_row["us_per_step"] = scan_row["ms"] * 1e3 / L["S"]
+    scan_row["grid_form_us_per_step"] = \
+        scan_row["grid_form_ms"] * 1e3 / L["S"]
+    turns = json.dumps({" ".join(k): v for k, v in times.items()})
     log(f"kernel slstm_scan at {scan_row['shape']} (bfloat16 wx and r, "
-        f"float32 state): {scan_row['ms']:.6f} ms, "
-        f"{scan_row['us_per_step']:.3f} us a step (bound {bound:.6f} ms, "
-        f"{bound_by}), plain {scan_row['plain_ms']:.6f} ms (a step-by-step "
-        f"loop), no PyTorch call computes it; |kernel - plain| {scan_err} "
-        f"(median |y| {float(want_y.abs().median())})")
+        f"float32 state), cluster form ({clusters} clusters of "
+        f"{L['dh'] // ss.CLUSTER_DIMS} blocks fit the card at once): "
+        f"{scan_row['ms']:.6f} ms, {scan_row['us_per_step']:.3f} us a step "
+        f"(bound {bound:.6f} ms, {bound_by}: {ss.PIECES} bfloat16 products "
+        f"on the tensor cores; {bound_f32:.6f} ms as float32 on the CUDA "
+        f"cores); the grid form it replaced {scan_row['grid_form_ms']:.6f} "
+        f"ms, {scan_row['grid_form_us_per_step']:.3f} us a step (timed in "
+        f"turns: grid, cluster, cluster, grid; {turns}); "
+        f"a decode step (S = 1): cluster {scan_row['decode_ms']:.6f} ms, "
+        f"grid {scan_row['decode_grid_form_ms']:.6f} ms; plain "
+        f"{scan_row['plain_ms']:.6f} ms (a step-by-step loop), no PyTorch "
+        f"call computes it; |kernel - plain| {scan_err} (median |y| "
+        f"{float(want_y.abs().median())})")
     return gmm_rows, scan_row
 
 

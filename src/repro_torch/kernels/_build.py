@@ -43,8 +43,8 @@ _SIGNATURES = {
     "fl_weighted_agg": (_D, _P, _P, _I, _I, _I, _F, _P, _P),
     "fl_model_distance": (_D, _P, _P, _I, _I, _F, _P, _P),
     # csrc/pack.cu: (device, tmax, gcum, N, times, n_vis, B, gas_limit,
-    # ptr0, stops, stream)
-    "pack_block_pack": (_D, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P),
+    # ptr0, wide table, table, stops, stream)
+    "pack_block_pack": (_D, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P, _P, _P),
     # csrc/attn.cu: (device, q, k, v, B, S, H, Hkv, dh, scale, causal,
     # dtype flag, form, out, stream)
     "attn_flash_attention": (_D, _P, _P, _P, _I, _I, _I, _I, _I, _R, _F, _F,
@@ -53,9 +53,11 @@ _SIGNATURES = {
     # sums, out, stream)
     "moe_gmm": (_D, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P),
     # csrc/slstm.cu: (device, wx, r, hbuf, c0, n0, m0, B, S, nh, dh, U,
-    # dtype flag, y, hN, cN, nN, mN, stream)
-    "slstm_scan": (_D, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P,
-                   _P, _P, _P, _P),
+    # dtype flag, form, y, hN, cN, nN, mN, stream)
+    "slstm_scan": (_D, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                   _P, _P, _P, _P, _P, _P),
+    # (device, B, nh, dh, out int, stream)
+    "slstm_cluster_capacity": (_D, _I, _I, _I, _P, _P),
 }
 
 _LIB = None

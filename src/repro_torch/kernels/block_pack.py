@@ -24,15 +24,17 @@ Kernel: replaces the Pallas ``_pack_kernel`` of
 ``src/repro/kernels/block_pack.py:179`` (``pallas_call`` at ``:219``).
 float64 and int64 compares are native on the card, so the (hi, lo) u32
 pair encoding and the pow2 sentinel padding of the TPU version are gone.
-Bound: the bytes are tiny (16·N + 24·B); what bounds it is the chain of
-about B × (1 + ⌈log32 N⌉) dependent device-memory loads of the gas walk.
-Design (``csrc/pack.cu``), one launch of one thread block: phase A, every
-thread takes blocks by stride and computes the time bound ``min(ub(tmax,
-times[b]), n_vis[b])``, which does not depend on the carried pointer
-(shared memory when B fits, else the output buffer as scratch); phase B,
-one warp walks the blocks in order, each gas search a 32-way warp search
-(32 probes per step, narrowed with a ballot), so a block costs
-⌈log32(hi - ptr)⌉ dependent steps instead of ⌈log2⌉.
+Bound: the bytes are tiny (16·N + 24·B); what bounds it is the chain the
+carried pointer makes, one step a block.  The gas search depends on the
+pointer alone, so it leaves the chain as a jump table over every pointer
+value (``jump_table``: ``g[i] = ub(gcum, base_i + gas_limit)``), and a
+block's stop is ``min(max(g[ptr], ptr), max(hi_t[b], ptr))``.  Design
+(``csrc/pack.cu``), two kernels: a grid builds the table and the time
+bounds ``hi_t[b] = min(ub(tmax, times[b]), n_vis[b])``, every entry its
+own binary search; then one block stages the table in shared memory
+(where it fits: int32, N up to about 56,000) and one thread walks the
+blocks, each one dependent shared-memory load.  ``block_pack_walk_torch``
+mirrors the two for the CPU tests.
 """
 from __future__ import annotations
 
@@ -43,6 +45,15 @@ from repro_torch.kernels.rollup_digest import check_cuda
 
 _DTYPES = (("tmax", torch.float64), ("gcum", torch.int64),
            ("times", torch.float64), ("n_vis", torch.int64))
+WALK_CHUNK = 2048                   # csrc/pack.cu kWalkChunk
+SMEM_LIMIT = 232_448                # bytes of shared memory a block can use
+
+
+def table_staged(n: int) -> bool:
+    """Whether the walk reads the jump table of an N-tx mempool from
+    shared memory (int32 entries, beside ``WALK_CHUNK`` time bounds), not
+    from device memory."""
+    return n < 2**31 - 1 and 4 * (WALK_CHUNK + n + 1) <= SMEM_LIMIT
 
 
 def _check(tmax, gcum, times, n_vis, gas_limit: int, ptr0: int) -> None:
@@ -89,6 +100,32 @@ def block_pack_torch(tmax: torch.Tensor, gcum: torch.Tensor,
     return stops
 
 
+def jump_table(gcum: torch.Tensor, gas_limit: int) -> torch.Tensor:
+    """(N + 1,) int64: entry i is where a block starting at pointer i stops
+    for gas alone, ``ub(gcum, base_i + gas_limit)`` with ``base_i =
+    gcum[i-1]`` (0 at i = 0); every entry before i is at most ``base_i``,
+    so the entry is at least i."""
+    base = torch.cat([gcum.new_zeros(1), gcum])
+    return torch.searchsorted(gcum, base + int(gas_limit), right=True)
+
+
+def block_pack_walk_torch(tmax: torch.Tensor, gcum: torch.Tensor,
+                          times: torch.Tensor, n_vis: torch.Tensor,
+                          gas_limit: int, ptr0: int) -> torch.Tensor:
+    """Plain mirror of the kernels: the jump table and the time bounds,
+    then the walk, ``ptr = min(max(g[ptr], ptr), max(hi_t[b], ptr))`` a
+    block (on the host: one Python step a block)."""
+    _check(tmax, gcum, times, n_vis, gas_limit, ptr0)
+    g = jump_table(gcum, gas_limit).tolist()
+    hi_t = torch.minimum(torch.searchsorted(tmax, times, right=True),
+                         n_vis).tolist()
+    ptr, stops = int(ptr0), []
+    for ht in hi_t:
+        ptr = min(max(g[ptr], ptr), max(ht, ptr))
+        stops.append(ptr)
+    return torch.tensor(stops, dtype=torch.int64, device=times.device)
+
+
 def block_pack(tmax: torch.Tensor, gcum: torch.Tensor, times: torch.Tensor,
                n_vis: torch.Tensor, gas_limit: int,
                ptr0: int) -> torch.Tensor:
@@ -102,10 +139,14 @@ def block_pack(tmax: torch.Tensor, gcum: torch.Tensor, times: torch.Tensor,
     times, n_vis = times.contiguous(), n_vis.contiguous()
     stops = torch.empty(times.shape, dtype=torch.int64, device=dev)
     if times.numel():
+        n = tmax.numel()
+        wide = n >= 2**31 - 1          # int32 table entries otherwise
+        table = torch.empty(n + 1, dtype=torch.int64 if wide else
+                            torch.int32, device=dev)
         _build.launch("pack_block_pack", dev, tmax.data_ptr(),
-                      gcum.data_ptr(), tmax.numel(), times.data_ptr(),
-                      n_vis.data_ptr(), times.numel(), int(gas_limit),
-                      int(ptr0), stops.data_ptr())
+                      gcum.data_ptr(), n, times.data_ptr(), n_vis.data_ptr(),
+                      times.numel(), int(gas_limit), int(ptr0), int(wide),
+                      table.data_ptr(), stops.data_ptr())
         block_pack.launches += 1
     return stops
 

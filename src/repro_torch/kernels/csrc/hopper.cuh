@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the TMA / wgmma kernels
-// (attn.cu, moe.cu): tensor maps encoded on the host, TMA loads completed
-// on mbarriers, wgmma shared-memory descriptors for the 128-byte swizzle,
-// the wgmma products themselves with their fence / commit / wait, and
-// setmaxnreg for warp-specialised blocks.
+// (attn.cu, moe.cu) and the sLSTM scan's cluster form (slstm.cu): tensor
+// maps encoded on the host, TMA loads completed on mbarriers, the cluster
+// barrier and bulk copies into a peer block's shared memory, mma.sync, wgmma
+// shared-memory descriptors for the 128-byte swizzle, the wgmma products
+// themselves with their fence / commit / wait, and setmaxnreg for
+// warp-specialised blocks.
 //
 // The tensor maps are encoded with the driver's cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint: the library links against the
@@ -170,6 +172,65 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
 __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("barrier.arrive %0, %1;\n" :: "r"(id), "r"(threads)
                : "memory");
+}
+
+// -- device: thread-block clusters and distributed shared memory ------------
+
+// the block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+
+// the address of the same shared-memory location in block `rank` of the
+// cluster (`addr` from smem_u32)
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// `bytes` (a multiple of 16) from this block's shared memory at `src`
+// (smem_u32) to a peer's at `dst`, by the TMA unit; completes as
+// transactions on the peer's mbarrier `bar` (`dst` and `bar` from map_rank)
+__device__ __forceinline__ void bulk_copy_to_peer(uint32_t dst, uint32_t src,
+                                                  uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "r"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// this thread's shared-memory writes before what the async proxy (TMA,
+// bulk copies) reads or writes after it
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the cluster barrier, split: arrive releases this thread's writes (to its
+// own and to peers' shared memory), wait acquires every other thread's;
+// every thread of every block of the cluster takes part
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait_acquire() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// -- device: mma.sync --------------------------------------------------------
+
+// d += a b: a 16 x 16 bfloat16 A fragment (4 registers), a 16 x 8 B
+// fragment (2), float32 accumulators
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // -- device: wgmma -----------------------------------------------------------

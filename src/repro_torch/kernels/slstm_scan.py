@@ -15,18 +15,36 @@ Kernel: replaces the Pallas ``_kernel`` of
 ``src/repro/kernels/slstm_scan.py:25`` (``pallas_call`` at ``:93``), which
 asserts ``S % block_t == 0`` and takes the block-diagonal weights expanded
 to a dense (d, 4d) (``expand_block_diag``; kept here for the test that
-holds the port to the JAX kernel), 3/4 zeros.  The CUDA kernel
-(``csrc/slstm.cu``) takes ``r_gates`` as it is.  Bound: operations, the
-recurrence's 8·B·S·d·dh float32 FLOPs over the float32 rate (above the
-bytes of wx, y and the state), along a chain of S dependent steps.
-Design: ONE cooperative launch for the whole scan, d / U blocks of U
-state dimensions (128 at xlstm-1.3b), each keeping its weights in shared
-memory and its state in registers, a grid barrier per step, h exchanged through a
-double-buffered array in device memory.  The blocks must all be resident
-at once: the launcher checks that and refuses otherwise (no fallback).
+holds the port to the JAX kernel), 3/4 zeros.  The CUDA kernels
+(``csrc/slstm.cu``) take ``r_gates`` as it is, the whole scan in ONE
+launch, in one of two forms that ``form`` picks from the shape:
+
+  * ``cluster`` (bfloat16, dh a multiple of 64 up to 512; xlstm-1.3b):
+    one thread-block cluster of dh / 32 blocks per head (the heads are
+    independent) and per 16 batch rows, no grid barrier.  The recurrent
+    product runs on the tensor cores (mma.sync, bfloat16 in, float32
+    sums): h is split into ``PIECES`` bfloat16 pieces (``split_pieces``;
+    two leave under 2^-16 of |h|, three would sum back to it exactly),
+    each product exact (``slstm_cluster_torch`` mirrors the arithmetic).
+    The weights stay in registers; h goes to every block of the cluster
+    by bulk copies into its shared memory, each block waiting on its own
+    mbarrier for the copies it needs, no barrier across the cluster a
+    step.
+  * ``grid`` (everything else: float32, narrow heads): one cooperative
+    launch per ``MAX_BATCH`` rows of d / U blocks of U state dimensions,
+    the weights in shared memory as float32, the state in registers, a
+    grid barrier a step, h exchanged through a double-buffered array in
+    device memory.  The blocks must all be resident at once: the launcher
+    checks that and refuses otherwise (no fallback).
+
+Bound: operations, the recurrence's 8·B·S·d·dh FLOPs as ``PIECES`` bfloat16
+products over the tensor-core rate (the cluster form) or in float32 over
+the CUDA cores' (the grid form), above the bytes of wx, y and the state;
+and the chain of S dependent steps.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -38,9 +56,16 @@ from repro_torch.kernels.weighted_agg import DTYPE_FLAG
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
-MAX_BATCH = 16
+MAX_BATCH = 16                      # rows of one grid-form launch
 THREADS = 512                       # csrc/slstm.cu kThreads
 SMEM_LIMIT = 232_448                # bytes of shared memory a block can use
+# the forms, as csrc/slstm.cu numbers them
+FORMS = {"grid": 0, "cluster": 1}
+CLUSTER_DIMS = 32                   # state dimensions a cluster-form block
+CLUSTER_DH = 64                     # its heads: a multiple of this ..
+MAX_CLUSTER = 16                    # .. in at most this many blocks
+K_GROUPS = 4                        # the cluster form's K split, kKGroups
+PIECES = 2                          # bfloat16 pieces of h, kPieces
 # How far the kernel may sit from the plain version: both compute in
 # float32, the recurrent sums in another order and exp / tanh / log1p
 # from other libraries; the state stays bounded (|h| <= 1, n and c grow
@@ -53,10 +78,16 @@ def slstm_cell(r: torch.Tensor, carry: State, wx_t: torch.Tensor):
     """One step: r (nh, dh, 4·dh) float32, carry 4 x (B, d) float32, wx_t
     (B, 4d).  Returns (new carry, h)."""
     nh, dh = r.shape[0], r.shape[1]
-    d = nh * dh
-    h, c, n, m = carry
-    rec = torch.einsum("bhd,hde->bhe", h.reshape(-1, nh, dh), r)
-    rec = rec.reshape(-1, nh, 4, dh).transpose(1, 2).reshape(-1, 4 * d)
+    rec = torch.einsum("bhd,hde->bhe", carry[0].reshape(-1, nh, dh), r)
+    return _cell_update(rec, carry, wx_t)
+
+
+def _cell_update(rec: torch.Tensor, carry: State, wx_t: torch.Tensor):
+    """The cell after its recurrent product ``rec`` (B, nh, 4·dh)."""
+    nh, dh4 = rec.shape[1], rec.shape[2]
+    d = nh * dh4 // 4
+    _, c, n, m = carry
+    rec = rec.reshape(-1, nh, 4, dh4 // 4).transpose(1, 2).reshape(-1, 4 * d)
     zi, ii, ff, oo = (wx_t.to(torch.float32) + rec).chunk(4, dim=-1)
     logf = F.logsigmoid(ff)
     m_new = torch.maximum(logf + m, ii)
@@ -82,6 +113,65 @@ def slstm_scan_torch(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n, m):
     return y, carry
 
 
+def split_pieces(h: torch.Tensor, pieces: int = PIECES
+                 ) -> Tuple[torch.Tensor, ...]:
+    """float32 h as ``pieces`` bfloat16 values (held in float32), as the
+    cluster form splits it: each piece the nearest bfloat16 to what the
+    pieces before it leave (those remainders are exact in float32).  Three
+    sum back to h exactly; two leave under 2^-16 of |h|."""
+    out, rest = [], h
+    for _ in range(pieces):
+        out.append(rest.to(torch.bfloat16).to(torch.float32))
+        rest = rest - out[-1]
+    return tuple(out)
+
+
+def slstm_cluster_torch(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n,
+                        m):
+    """Plain mirror of the cluster form's arithmetic: the recurrent
+    product from h's ``PIECES`` bfloat16 pieces against r's bfloat16,
+    each in float32, summed as the kernel groups it (where dh allows, K
+    in ``K_GROUPS`` groups, group g the ``CLUSTER_DIMS``-wide slices s
+    with s % K_GROUPS == g, each over its k16 steps with the smallest
+    piece first; then the groups in order), then the same cell.  The
+    kernel takes a group's slices in the order they reach the block, the
+    mirror in ascending order: the float32 sums differ by that order only.
+    For the CPU tests: it shows that the split and the grouping keep the
+    scan within ``KERNEL_TOL`` of ``slstm_scan_torch``."""
+    _check_shapes(wx, r_gates, h, c, n, m)
+    if r_gates.dtype != torch.bfloat16:
+        raise TypeError(f"the cluster form takes r_gates in bfloat16, got "
+                        f"{r_gates.dtype}")
+    r = r_gates.to(torch.float32)
+    nh, dh = r.shape[0], r.shape[1]
+    if dh % CLUSTER_DH == 0:
+        slices = range(0, dh, CLUSTER_DIMS)
+        groups = [[(s, s + CLUSTER_DIMS) for s in slices
+                   if s // CLUSTER_DIMS % K_GROUPS == g]
+                  for g in range(K_GROUPS)]
+    else:
+        groups = [[(0, dh)]]
+    carry = (h, c, n, m)
+    ys = []
+    for t in range(wx.shape[1]):
+        pieces = [p.reshape(-1, nh, dh) for p in split_pieces(carry[0])]
+        rec = torch.zeros(h.shape[0], nh, 4 * dh, device=h.device)
+        for group in groups:
+            acc = torch.zeros_like(rec)
+            for s0, s1 in group:
+                for k0 in range(s0, s1, 16):
+                    k1 = min(k0 + 16, s1)
+                    for piece in reversed(pieces):
+                        acc = acc + torch.einsum(
+                            "bhk,hke->bhe", piece[..., k0:k1], r[:, k0:k1])
+            rec = rec + acc
+        carry, h_t = _cell_update(rec, carry, wx[:, t])
+        ys.append(h_t)
+    B, d = h.shape
+    y = torch.stack(ys, 1) if ys else torch.empty(B, 0, d, device=h.device)
+    return y, carry
+
+
 def slstm_scan(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n, m):
     """The plain version for a CPU tensor, the CUDA kernel for a CUDA
     tensor (no backward through the kernel)."""
@@ -93,6 +183,21 @@ def slstm_scan(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n, m):
 
 
 slstm_scan.launches = 0
+slstm_scan.last_form = None         # the form of the latest launch
+slstm_scan.form_launches = {}       # launches by form
+
+
+def form(dtype: torch.dtype, B: int, nh: int, dh: int) -> str:
+    """The kernel's form for a scan: ``cluster`` for bfloat16 where a head
+    splits into at most ``MAX_CLUSTER`` blocks of ``CLUSTER_DIMS``
+    dimensions (dh a multiple of 64 up to 512; a block's shared memory,
+    104 KB at 16 rows and dh 512, then fits); ``grid`` otherwise.
+    Decided by the shape alone, never after a failure."""
+    if dtype == torch.bfloat16 and dh % CLUSTER_DH == 0 \
+            and dh // CLUSTER_DIMS <= MAX_CLUSTER and nh >= 1 \
+            and 1 <= -(-B // MAX_BATCH) <= 65535:
+        return "cluster"
+    return "grid"
 
 
 def expand_block_diag(r_gates: torch.Tensor) -> torch.Tensor:
@@ -145,8 +250,14 @@ def plan(B: int, dh: int) -> Tuple[int, int]:
     return U, smem
 
 
-def _launch(wx, r_gates, h, c, n, m):
-    """The scan of every row, in launches of up to ``MAX_BATCH`` rows."""
+def _launch(wx, r_gates, h, c, n, m, chosen=None):
+    """The scan of every row in the form ``form`` picks (or ``chosen``):
+    one cluster-form launch, or grid-form launches of up to
+    ``MAX_BATCH`` rows."""
+    if chosen is None:
+        chosen = form(wx.dtype, wx.shape[0], *r_gates.shape[:2])
+    if chosen == "cluster":
+        return _launch_cluster(wx, r_gates, h, c, n, m)
     if wx.shape[0] <= MAX_BATCH:
         return _launch_rows(wx, r_gates, h, c, n, m)
     parts = [_launch_rows(wx[i:i + MAX_BATCH], r_gates,
@@ -178,10 +289,52 @@ def _launch_rows(wx, r_gates, h, c, n, m):
            for _ in range(4)]
     _build.launch("slstm_scan", dev, wx.data_ptr(), r_gates.data_ptr(),
                   hbuf.data_ptr(), c.data_ptr(), n.data_ptr(), m.data_ptr(),
-                  B, S, nh, dh, U, DTYPE_FLAG[wx.dtype], y.data_ptr(),
-                  *(t.data_ptr() for t in out))
-    slstm_scan.launches += 1
+                  B, S, nh, dh, U, DTYPE_FLAG[wx.dtype], FORMS["grid"],
+                  y.data_ptr(), *(t.data_ptr() for t in out))
+    _count("grid")
     return y, tuple(out)
+
+
+def _launch_cluster(wx, r_gates, h, c, n, m):
+    dev = check_cuda(wx, r_gates, h, c, n, m)
+    B, S, _ = wx.shape
+    nh, dh, _ = r_gates.shape
+    if form(wx.dtype, B, nh, dh) != "cluster" or r_gates.dtype != wx.dtype:
+        raise ValueError(f"the cluster form takes bfloat16 wx and r_gates "
+                         f"with dh a multiple of 64 up to 512, got "
+                         f"{wx.dtype}, {r_gates.dtype}, dh {dh}")
+    d = nh * dh
+    if S == 0:
+        return (torch.empty(B, 0, d, device=dev),
+                (h.clone(), c.clone(), n.clone(), m.clone()))
+    wx, r_gates = wx.contiguous(), r_gates.contiguous()
+    h, c, n, m = (t.contiguous() for t in (h, c, n, m))
+    y = torch.empty(B, S, d, dtype=torch.float32, device=dev)
+    out = [torch.empty(B, d, dtype=torch.float32, device=dev)
+           for _ in range(4)]
+    _build.launch("slstm_scan", dev, wx.data_ptr(), r_gates.data_ptr(),
+                  h.data_ptr(), c.data_ptr(), n.data_ptr(), m.data_ptr(),
+                  B, S, nh, dh, 0, DTYPE_FLAG[wx.dtype], FORMS["cluster"],
+                  y.data_ptr(), *(t.data_ptr() for t in out))
+    _count("cluster")
+    return y, tuple(out)
+
+
+def cluster_capacity(device: torch.device, B: int, nh: int, dh: int) -> int:
+    """How many cluster-form clusters for B rows the card can hold at once
+    (``cudaOccupancyMaxActiveClusters``); the launcher refuses the form
+    where this is 0."""
+    out = ctypes.c_int(0)
+    _build.launch("slstm_cluster_capacity", device, B, nh, dh,
+                  ctypes.addressof(out))
+    return out.value
+
+
+def _count(chosen: str) -> None:
+    slstm_scan.launches += 1
+    slstm_scan.last_form = chosen
+    slstm_scan.form_launches[chosen] = \
+        slstm_scan.form_launches.get(chosen, 0) + 1
 
 
 class _KernelScan(torch.autograd.Function):

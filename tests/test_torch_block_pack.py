@@ -1,7 +1,10 @@
 """The port's ``block_pack`` (its plain version, which the wrapper takes
 for CPU tensors) against the JAX package's ``block_pack_np`` and
 ``block_pack_jax``, and against the port's own stepped
-``VectorChain.produce_block``.
+``VectorChain.produce_block``; the CUDA kernels' algorithm (a jump table
+of every pointer's gas stop, then a walk of one step a block) as a torch
+mirror, ``block_pack_walk_torch``, on the same grid and on seeded random
+streams.
 
 Tolerance: none.  Stop pointers are integers and must be equal, element
 for element, on every case (the 2^40 gas limit needs int64 compares).
@@ -125,3 +128,66 @@ def test_block_pack_factory_and_checks():
     before = bp.block_pack.launches
     bp.block_pack(*args, 0)
     assert bp.block_pack.launches == before     # CPU: no launch
+
+
+@pytest.mark.parametrize("start", ["zero", "first_stop"])
+@pytest.mark.parametrize("n_txs,n_blocks,seed,gas_limit", CASES)
+def test_jump_table_walk_matches_jax(n_txs, n_blocks, seed, gas_limit,
+                                     start):
+    """The kernels' algorithm (``block_pack_walk_torch``: the jump table of
+    every pointer's gas stop, then one step a block) equals
+    ``block_pack_np`` bit for bit on the grid above."""
+    args = _pack_stream(n_txs, n_blocks, seed, gas_limit)
+    ptr0 = 0 if start == "zero" else int(block_pack_np(*args, 0)[0])
+    got = bp.block_pack_walk_torch(*_torch_args(*args), ptr0)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), block_pack_np(*args, ptr0))
+
+
+def _random_stream(g):
+    """A mempool with future-stamped txs (stalls on the running max) and
+    txs whose gas alone exceeds the limit, or none at all; a start
+    pointer anywhere in it."""
+    n = int(g.choice([0, 1, int(g.integers(2, 400))]))
+    submit = np.cumsum(g.exponential(0.02, n))
+    for i in g.integers(0, max(n, 1), int(g.integers(0, 3)) if n else 0):
+        submit[i] += g.uniform(0, 5)
+    gas = g.integers(21_000, 120_000, n).astype(np.int64)
+    limit = int(g.choice([0, 21_000, 300_000, 9_000_000, 2**40]))
+    for i in g.integers(0, max(n, 1), int(g.integers(0, 3)) if n else 0):
+        gas[i] = limit + int(g.integers(1, 10**6))
+    n_blocks = int(g.integers(1, 60))
+    times = np.cumsum(g.uniform(0.05, 1.5, n_blocks))
+    n_vis = np.sort(g.integers(0, n + 1, n_blocks)).astype(np.int64)
+    return (np.maximum.accumulate(submit), np.cumsum(gas), times, n_vis,
+            limit), int(g.integers(0, n + 1))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_jump_table_walk_random_streams(seed):
+    """50 seeded random streams a case: stalls, oversized txs, ptr0 > 0,
+    empty mempools and limits from 0 to 2^40; the walk equals
+    ``block_pack_np`` and the plain version bit for bit, and the table's
+    entry i is never below i."""
+    g = np.random.default_rng(1000 + seed)
+    for _ in range(50):
+        args, ptr0 = _random_stream(g)
+        want = block_pack_np(*args, ptr0)
+        targs = _torch_args(*args)
+        np.testing.assert_array_equal(
+            bp.block_pack_walk_torch(*targs, ptr0).numpy(), want)
+        np.testing.assert_array_equal(
+            bp.block_pack_torch(*targs, ptr0).numpy(), want)
+        table = bp.jump_table(targs[1], args[4])
+        assert table.shape == (len(args[1]) + 1,)
+        assert (table >= torch.arange(len(args[1]) + 1)).all()
+
+
+def test_walk_table_staging_threshold():
+    """The walk reads the table from shared memory up to about 56,000
+    entries (the fused node run's 50,042 txs among them) and from device
+    memory past it."""
+    assert bp.table_staged(50_042) and bp.table_staged(0)
+    assert not bp.table_staged(300_000)
+    n = bp.SMEM_LIMIT // 4 - bp.WALK_CHUNK - 1
+    assert bp.table_staged(n) and not bp.table_staged(n + 1)

@@ -10,11 +10,13 @@ round once), and the reduced dense LMs on the card against the CPU; the
 MoE's ``gmm`` kernel against its plain version (``gmm.kernel_tol``: rtol
 1e-5 float32, one bfloat16 step, plus 1e-5 of the largest output), the
 sLSTM scan kernel against its plain version (``slstm_scan.KERNEL_TOL``),
-also at batches split into launches of ``MAX_BATCH`` rows, and the reduced
-MoE and xLSTM LMs on the card against the CPU.  The TMA / wgmma forms of
-``flash_attention`` and ``gmm`` where TMA's edges bite (tails of a row
-past a tile, short boxes); a backward through ``gmm`` or ``slstm_scan``
-raises; two card runs of the reduced moonshot's MoE FFN are bit-equal.
+in both forms (the cluster form at dh 64 / 128 / 512 and 1-33 rows, the
+grid form also at batches split into launches of ``MAX_BATCH`` rows), and
+the reduced MoE and xLSTM LMs on the card against the CPU.  The TMA /
+wgmma forms of ``flash_attention`` and ``gmm`` where TMA's edges bite
+(tails of a row past a tile, short boxes); a backward through ``gmm`` or
+``slstm_scan`` raises; two card runs of the reduced moonshot's MoE FFN are
+bit-equal.
 
 Marked ``gpu``: they skip where no CUDA device is present (the skip is
 decided in the fixture, so every worker collects the same tests).  This
@@ -162,7 +164,9 @@ def _pack_stream(n_txs, n_blocks, seed, gas_limit, device):
     (1, 1, 0, 9_000_000), (100, 7, 1, 9_000_000), (1000, 33, 2, 300_000),
     (513, 16, 3, 2**40), (64, 5, 4, 21_000), (0, 4, 5, 9_000_000),
     (60_000, 900, 6, 9_000_000),
-    (200_000, 30_000, 7, 400_000)])    # more blocks than shared memory
+    (200_000, 30_000, 7, 400_000),     # more blocks than a walk chunk
+    (50_042, 820, 9, 9_000_000),       # the fused run's size: table staged
+    (300_000, 820, 8, 9_000_000)])     # a table too large to stage
 def test_block_pack_kernel(cuda, n_txs, n_blocks, seed, gas_limit):
     args = _pack_stream(n_txs, n_blocks, seed, gas_limit, cuda)
     want0 = bp.block_pack_torch(*args, 0)
@@ -435,6 +439,30 @@ def test_slstm_scan_kernel(cuda, B, S, nh, dh, dtype):
         assert ss.slstm_scan.launches == before + 1
         want_y, want_carry = ss.slstm_scan_torch(wx, r, *state)
         assert y.dtype == torch.float32 and y.shape == want_y.shape
+        torch.testing.assert_close(y, want_y, **ss.KERNEL_TOL)
+        for got, want in zip(carry, want_carry):
+            torch.testing.assert_close(got, want, **ss.KERNEL_TOL)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128, 512])
+@pytest.mark.parametrize("B,S", [(1, 37), (8, 37), (16, 1), (17, 37),
+                                 (33, 5), (1, 4096)])
+def test_slstm_scan_cluster_form(cuda, B, S, dh):
+    """The cluster form (bfloat16, dh a multiple of 64) against the plain
+    version from the initial and a live state: one launch for every row,
+    in the form ``form`` names."""
+    assert ss.form(torch.bfloat16, B, 4, dh) == "cluster"
+    assert ss.cluster_capacity(cuda, B, 4, dh) >= 1
+    for live in (False, True):
+        wx, r, state = _slstm_inputs(B, S, 4, dh, torch.bfloat16, cuda,
+                                     B + S + dh, live)
+        before = ss.slstm_scan.launches
+        y, carry = ss.slstm_scan(wx, r, *state)
+        assert ss.slstm_scan.launches == before + 1
+        assert ss.slstm_scan.last_form == "cluster"
+        want_y, want_carry = ss.slstm_scan_torch(wx, r, *state)
         torch.testing.assert_close(y, want_y, **ss.KERNEL_TOL)
         for got, want in zip(carry, want_carry):
             torch.testing.assert_close(got, want, **ss.KERNEL_TOL)

@@ -26,8 +26,13 @@ reduced xlstm-1.3b on the CPU against the JAX package.
   * bfloat16 prefill against decode: the port's gap no wider than the JAX
     model's own plus one bfloat16 step of the logits.
   * The kernel's wrapper on the CPU, the launch replaced by the plain
-    version: batches over ``MAX_BATCH`` rows split into launches of
-    ``MAX_BATCH``, and a backward through the launch raises.
+    version: batches over ``MAX_BATCH`` rows split into grid-form launches
+    of ``MAX_BATCH``, and a backward through the launch raises.
+  * The cluster form's choice (``slstm_scan.form``, case by case), its
+    split of h into bfloat16 pieces (three sum back exactly, two within
+    2^-16), and a plain mirror of its arithmetic (``slstm_cluster_torch``)
+    against the plain version and the Pallas kernel (interpret mode) within
+    ``KERNEL_TOL``, on the reduced xlstm and on heads up to 512 wide.
 """
 import dataclasses
 
@@ -264,6 +269,106 @@ def _scan_inputs(B, S=9, nh=4, dh=16, seed=0):
     warm = torch.from_numpy(rng.normal(0, 0.5, (B, 5, 4 * d)).astype(
         np.float32))
     return wx, r, list(ts.slstm_scan_torch(warm, r, *st)[1])
+
+
+@pytest.mark.parametrize("dtype,B,dh,want", [
+    (torch.bfloat16, 8, 512, "cluster"),   # xlstm-1.3b: 16 blocks a head
+    (torch.bfloat16, 1, 64, "cluster"),
+    (torch.bfloat16, 16, 128, "cluster"),
+    (torch.bfloat16, 33, 256, "cluster"),  # rows past 16: a grid row more
+    (torch.float32, 8, 512, "grid"),       # float32 r is not exact in bf16
+    (torch.bfloat16, 8, 16, "grid"),       # the reduced xlstm's heads
+    (torch.bfloat16, 2, 12, "grid"),
+    (torch.bfloat16, 8, 32, "grid"),       # a quarter of K under one k16
+    (torch.bfloat16, 8, 96, "grid"),       # not whole k16 steps a quarter
+    (torch.bfloat16, 8, 1024, "grid"),     # 32 blocks: past a cluster
+    (torch.float16, 8, 512, "grid"),
+])
+def test_slstm_scan_form(dtype, B, dh, want):
+    """The form is a function of the shape: the cluster form for bfloat16
+    heads of a multiple of 64 up to 512 dimensions, the grid form else."""
+    assert ts.form(dtype, B, 4, dh) == want
+
+
+def test_split_pieces_sum_back():
+    """h's bfloat16 pieces: each a bfloat16 value; three sum back to a
+    float32 h exactly, two leave under 2^-16 of |h| (the cluster form's
+    ``PIECES``); over magnitudes from 1e-24 to 1e24 (the scan's h lies in
+    [-1, 1]; below about 2^-110 a third piece would fall under bfloat16's
+    normal range)."""
+    rng = np.random.default_rng(7)
+    h = torch.from_numpy((rng.choice([-1.0, 1.0], 200_000)
+                          * rng.uniform(1, 2, 200_000)
+                          * np.exp(rng.uniform(-55, 55, 200_000)))
+                         .astype(np.float32))
+    h = torch.cat([h, torch.tensor([0.0, -1.0, 1.0, 1e-20, -0.75])])
+    for n in (2, 3):
+        pieces = ts.split_pieces(h, n)
+        assert len(pieces) == n
+        for piece in pieces:
+            assert torch.equal(piece.to(torch.bfloat16).float(), piece)
+        total = sum(piece.double() for piece in pieces)
+        if n == 3:
+            assert torch.equal(total, h.double())
+        else:
+            assert ((total - h.double()).abs()
+                    <= 2.0 ** -16 * h.double().abs()).all()
+    assert ts.PIECES == 2
+
+
+@pytest.mark.parametrize("B,S,block_t", [(2, 32, 8), (1, 64, 16), (3, 16, 16),
+                                         (2, 1, 1), (2, 37, 37)])
+def test_slstm_cluster_mirror_matches_jax(B, S, block_t):
+    """The cluster form's arithmetic (``slstm_cluster_torch``: h in
+    bfloat16 pieces, products in float32, summed in the kernel's order)
+    against the Pallas kernel in interpret mode and the plain version on
+    the same inputs, bfloat16 weights, from a live state: within
+    ``KERNEL_TOL``, the tolerance the kernel is held to on the card."""
+    cfg = jax_reduced(JAX_REGISTRY[ARCH])
+    rng = np.random.default_rng(S + 100)
+    nh, d = cfg.n_heads, cfg.d_model
+    dh = d // nh
+    r16 = torch.from_numpy(rng.normal(0, 0.3, (nh, dh, 4 * dh)).astype(
+        np.float32)).bfloat16()
+    wx = rng.normal(0, 0.5, (B, S, 4 * d)).astype(np.float32)
+    state = {k: rng.normal(0, 0.5, (B, d)).astype(np.float32)
+             for k in ("h", "c", "nn")}
+    state["mm"] = np.full((B, d), -1e30, np.float32)
+    args = [torch.from_numpy(wx), r16] + [torch.from_numpy(state[k]) for k
+                                          in ("h", "c", "nn", "mm")]
+    y, carry = ts.slstm_cluster_torch(*args)
+    p_y, p_carry = pallas_slstm(
+        jnp.asarray(wx), jax_expand(jnp.asarray(_np(r16.float()))),
+        *(jnp.asarray(state[k]) for k in ("h", "c", "nn", "mm")), nh=nh,
+        block_t=block_t, interpret=True)
+    want_y, want_carry = ts.slstm_scan_torch(*args)
+    for want, wcarry in ((want_y, want_carry), (p_y, p_carry)):
+        np.testing.assert_allclose(_np(y), _np(want), **ts.KERNEL_TOL)
+        for got, w in zip(carry, wcarry):
+            np.testing.assert_allclose(_np(got), _np(w), **ts.KERNEL_TOL)
+
+
+@pytest.mark.parametrize("B,S,nh,dh", [(2, 24, 4, 16), (3, 17, 2, 64),
+                                       (9, 6, 1, 128), (1, 5, 4, 512)])
+def test_slstm_cluster_mirror_on_reduced_xlstm(B, S, nh, dh):
+    """The mirror on the reduced xlstm's sLSTM layer (its initial weights,
+    bfloat16, and its state's initial value, then a live one) and on heads
+    wide enough for the K quarters (64 up to xlstm-1.3b's 512): within
+    ``KERNEL_TOL`` of the plain version."""
+    cfg = dataclasses.replace(reduced_config(get_config(ARCH)),
+                              d_model=nh * dh, n_heads=nh)
+    g = torch.Generator().manual_seed(B * S + dh)
+    p = tx.init_slstm_params(cfg, torch.bfloat16, g, "cpu")
+    x = torch.randn(B, S, cfg.d_model, generator=g).bfloat16()
+    wx = x @ p["w_gates"] + p["b_gates"]
+    st = tx.init_slstm_state(cfg, B, "cpu")
+    state = [st[k] for k in ("h", "c", "nn", "mm")]
+    for _ in range(2):
+        y, carry = ts.slstm_cluster_torch(wx, p["r_gates"], *state)
+        want_y, want_carry = ts.slstm_scan_torch(wx, p["r_gates"], *state)
+        for got, want in zip((y, *carry), (want_y, *want_carry)):
+            torch.testing.assert_close(got, want, **ts.KERNEL_TOL)
+        state = list(want_carry)
 
 
 @pytest.mark.parametrize("B", [17, 33])
