@@ -17,15 +17,21 @@ Phases, each printing its result on a line of its own:
                TMA / mbarrier / wgmma header) into one library; prints
                ptxas's register use.
   3. kernels — the four fold kernels and ``block_pack`` against their
-               plain PyTorch versions on the card, bit for bit, and the two
-               FL kernels (Eq. 1 ``weighted_agg``, also with its task axis
-               at (32, 64, 2,410), row t bit-equal to the unbatched launch;
-               Eq. 4 ``model_distance``) within rtol 1e-5 / atol 1e-6 in
-               float32 and 2e-2 in bfloat16, at the grids of the CPU tests
-               and at the shapes of the main paths (plus a 1M-wide FL
-               shape); times each (CUDA events, L2 flushed before every
-               launch) beside its bound, the plain version's time and,
-               where one exists, one PyTorch call's.
+               plain PyTorch versions on the card, bit for bit
+               (``rollup_digest`` also on either side of its ``plan``
+               split, one launch a call, timed at 0.8, 4 and 16 MB at each
+               cluster count), and the two FL kernels (Eq. 1
+               ``weighted_agg`` and Eq. 4 ``model_distance``, each also
+               with its task axis at (32, 64, 2,410), row t bit-equal to
+               the unbatched launch; ``model_distance`` in both its forms,
+               on shifted views, P of 1, 7, 2,410, 2,411 and 1M, bit-equal
+               to its mirror) within rtol 1e-5 / atol 1e-6 in float32 and
+               2e-2 in bfloat16, at the grids of the CPU tests and at the
+               shapes of the main paths (plus a 1M-wide FL shape); times
+               each (CUDA events, L2 flushed before every launch) beside
+               its bound, the plain version's time and, where one exists,
+               one PyTorch call's; ``model_distance``'s task axis also
+               beside 32 unbatched launches, in turns.
   4. node    — NodeClient on the card: 1M transactions of the Table-I mix
                over 262,144 accounts, 20 one-second windows of
                submit_arrays / seal / run_until, then flush and drain;
@@ -61,7 +67,9 @@ Phases, each printing its result on a line of its own:
                trainers on NodeSpec() with seal_every=2, TinyMLP(64, 32,
                10), 3 rounds of 2 local sgdm steps on batches of 8 under
                DP, through the default Scheduler; launch counts read just
-               after (weighted_agg 3, model_distance 32, block_pack 1).
+               after (weighted_agg 3, block_pack 1, model_distance 1: the
+               32 tasks finish in the last megastep window and settle in
+               one task-axis launch; the stepped path 32).
                Then the stepped per-task path (fused=False,
                megabatch=False) on the same world, held to it as in
                phase 6, and the stepped path on the CPU for scale; where
@@ -255,7 +263,10 @@ def check_kernels(dev, shapes) -> list:
             [(torch.from_numpy(g.normal(size=p).astype(np.float32)).to(dev),)
              for p in (128, 10_000, 65_536)]
             + [(words(n),) for n in (0, 1, 7, 513, 4096)]
-            + [(seal_words[1:],)],
+            + [(seal_words[1:],)]
+            + [(words(n + 1)[1:],) for n in (
+                rd.SPLIT_WORDS - 1, rd.SPLIT_WORDS + 1,
+                3 * rd.SPLIT_WORDS + 5)],
             (seal_words,),
             lambda a: (4 * a[0].numel() + 4, a[0].numel())),
         "rollup_chunk_digests": (
@@ -305,7 +316,35 @@ def check_kernels(dev, shapes) -> list:
             f"{row['bound_by']}), plain {row['plain_ms']:.6f} ms, "
             f"library call: none, at {row['shape']}")
         results.append(row)
+    check_rollup_plan(words, flush)
     return results
+
+
+def check_rollup_plan(words, flush) -> None:
+    """rollup_digest at 0.8, 4 and 16 MB: one launch of the op a call and
+    bit-equal to plain, at ``plan``'s cluster count and at 1, 2, 4 and 8
+    clusters, each timed beside the bytes bound (the times ``plan``'s
+    split comes from)."""
+    from repro_torch.kernels import rollup_digest as rd
+    for mb in (0.8, 4, 16):
+        n = int(mb * 2**20) // 4
+        w = words(n)
+        want = int(rd.rollup_digest_torch(w))
+        before = rd.rollup_digest.launches
+        if int(rd.rollup_digest(w)) != want or \
+                rd.rollup_digest.launches != before + 1:
+            raise AssertionError(f"rollup_digest at {n} words: differs from "
+                                 f"plain, or not one launch a call")
+        row = {"words": n, "plan": rd.plan(n),
+               "bound_ms": (4 * n + 4) / HBM_BYTES_PER_S * 1e3,
+               "ms": timed_ms(lambda: rd.rollup_digest(w), 50, flush)}
+        for k in (1, 2, 4, 8):
+            if int(rd._launch(w, k)) != want:
+                raise AssertionError(f"rollup_digest at {n} words over {k} "
+                                     f"clusters differs from plain")
+            row[f"ms_{k}_clusters"] = timed_ms(lambda: rd._launch(w, k), 50,
+                                               flush)
+        log(f"kernel rollup_digest at {mb} MB: {json.dumps(row)}")
 
 
 # -- phases 4 and 5: the node path ---------------------------------------------
@@ -711,10 +750,15 @@ def check_fl_kernels(dev, path_n: int, path_p: int, wide_p: int,
                      .to(dev), torch.tensor([1.0, 0.0], device=dev)))
     dist_grid = []
     for n, p, dt in ((4, 1000, f32), (8, 5000, bf16), (1, 128, f32),
-                     (3, 1, f32)):
-        w = rows(n, p, dt)
-        glob = rows(1, p, dt)[0]
-        dist_grid += [(w, glob), (w[:, 1:], glob[1:])]     # unaligned rows
+                     (3, 1, f32), (5, 7, f32), (64, 2410, f32),
+                     (6, 2411, f32), (4, 2411, bf16), (2, 1 << 20, f32),
+                     (2, 1 << 20, bf16)):
+        w = rows(n, p + 1, dt)
+        glob = rows(1, p + 1, dt)[0]
+        # the rows p + 1 apart, then shifted one element off their (and
+        # g's) alignment; the path shape below is contiguous, 9,640 bytes
+        # a row: 8 mod 16
+        dist_grid += [(w[:, :p], glob[:p]), (w[:, 1:], glob[1:])]
     shapes = {"path": (path_n, path_p), "wide": (path_n, wide_p)}
     chips = {}
     for label, (n, p) in shapes.items():
@@ -760,10 +804,15 @@ def check_fl_kernels(dev, path_n: int, path_p: int, wide_p: int,
                 "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
                 "shape": [list(a.shape) for a in args]}
             t = timed[label]
+            if name == "model_distance":
+                t["form"] = md.model_distance.last_form
+                if t["form"] != md.form(args[0].shape[1], args[0].dtype):
+                    raise AssertionError(f"model_distance at {t['shape']}: "
+                                         f"form {t['form']}")
             log(f"kernel {name} at {t['shape']} (float32): {t['ms']:.6f} ms "
                 f"(bound {t['bound_ms']:.6f} ms, {t['bound_by']}), plain "
                 f"{t['plain_ms']:.6f} ms, library call {t['library_ms']:.6f}"
-                f" ms")
+                f" ms; {t.get('form', '')}")
         log(f"kernel {name}: within tolerance of plain on {len(checked)} "
             f"inputs (float32 rtol 1e-5 atol 1e-6, bfloat16 2e-2); largest "
             f"float32 |kernel - plain| {err}")
@@ -771,6 +820,9 @@ def check_fl_kernels(dev, path_n: int, path_p: int, wide_p: int,
                      "wide": timed["wide"]}
     out["weighted_agg"]["task"] = check_task_axis_agg(
         dev, g, n_tasks, path_n, path_p, flush, out["weighted_agg"])
+    out["model_distance"]["task"] = check_task_axis_distance(
+        dev, g, n_tasks, path_n, path_p, wide_p, flush,
+        out["model_distance"])
     return out
 
 
@@ -807,6 +859,79 @@ def check_task_axis_agg(dev, g, n_tasks, n, p, flush, row) -> dict:
         f"(bound {t['bound_ms']:.6f} ms, {t['bound_by']}), plain "
         f"{t['plain_ms']:.6f} ms, library call (batched matmul) "
         f"{t['library_ms']:.6f} ms")
+    return t
+
+
+def check_task_axis_distance(dev, g, n_tasks, n, p, wide_p, flush,
+                             row) -> dict:
+    """The megastep's Eq. 4 launch, (T, n, P) -> (T, n), in both forms, T
+    of 1, 3 and 32, float32 and bfloat16, shifted views too: row t
+    bit-equal to the unbatched launch on task t and to the kernel's mirror
+    (``model_distance_mirror``, on the CPU), all within tolerance of the
+    plain version; at (n_tasks, n, p) timed beside its bound, the plain
+    version, batched ``torch.cdist`` and n_tasks unbatched launches (in
+    turns: unbatched, batched, batched, unbatched)."""
+    from repro_torch.kernels import model_distance as md
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(1, n, p, f32), (3, 16, p + 1, bf16), (n_tasks, n, p, f32),
+             (3, 4, wide_p, f32), (3, 2, wide_p + 3, bf16)]
+    for t_n, r_n, width, dt in cases:
+        w = torch.randn(t_n, r_n, width + 1, generator=g).to(dev, dt)
+        glob = torch.randn(t_n, width + 1, generator=g).to(dev, dt)
+        for lw, lg in ((w[..., :width], glob[..., :width]),
+                       (w[..., 1:], glob[..., 1:])):
+            got = md.model_distance(lw, lg)
+            chosen = md.model_distance.last_form
+            for t in range(t_n):
+                if not torch.equal(got[t], md.model_distance(lw[t], lg[t])):
+                    raise AssertionError(f"model_distance: task-axis row {t} "
+                                         f"at {tuple(lw.shape)} differs from "
+                                         f"the unbatched launch")
+            if not torch.equal(got.cpu(), md.model_distance_mirror(
+                    lw.cpu(), lg.cpu())):
+                raise AssertionError(f"model_distance at {tuple(lw.shape)} "
+                                     f"{dt}: differs from its mirror")
+            want = md.model_distance_torch(lw, lg)
+            torch.testing.assert_close(
+                got, want, **(BF16_TOL if dt == bf16 else F32_TOL))
+            if dt == f32:
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         float((got - want).abs().max()))
+        log(f"kernel model_distance at {[t_n, r_n, width]} {dt}: {chosen} "
+            f"form, rows bit-equal to the {t_n} unbatched launches and to "
+            f"the mirror (aligned and shifted)")
+    torch.cuda.synchronize()
+    w = torch.randn(n_tasks, n, p, generator=g).to(dev)
+    glob = torch.randn(n_tasks, p, generator=g).to(dev)
+
+    def unbatched():
+        for t in range(n_tasks):
+            md.model_distance(w[t], glob[t])
+    turns = []
+    for fn in (unbatched, lambda: md.model_distance(w, glob),
+               lambda: md.model_distance(w, glob), unbatched):
+        turns.append(timed_ms(fn, 50, flush))
+    if md.model_distance.last_form != md.form(p, torch.float32):
+        raise AssertionError("model_distance: task-axis form")
+    mem_ms = ((w.numel() + glob.numel()) * 4 + 4 * n_tasks * n) \
+        / HBM_BYTES_PER_S * 1e3
+    ops_ms = 3 * w.numel() / F32_OPS_PER_S * 1e3
+    t = {"ms": (turns[1] + turns[2]) / 2,
+         "unbatched_ms": (turns[0] + turns[3]) / 2, "turns_ms": turns,
+         "plain_ms": timed_ms(lambda: md.model_distance_torch(w, glob), 20,
+                              flush),
+         "library_ms": timed_ms(lambda: torch.cdist(w, glob[:, None]), 20,
+                                flush),
+         "bound_ms": max(mem_ms, ops_ms),
+         "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+         "form": md.model_distance.last_form,
+         "shape": [list(w.shape), list(glob.shape)]}
+    log(f"kernel model_distance at {t['shape']} (float32, task axis): "
+        f"{t['ms']:.6f} ms in one launch, {n_tasks} unbatched launches "
+        f"{t['unbatched_ms']:.6f} ms (turns {t['turns_ms']}; bound "
+        f"{t['bound_ms']:.6f} ms, {t['bound_by']}), plain "
+        f"{t['plain_ms']:.6f} ms, library call (batched cdist) "
+        f"{t['library_ms']:.6f} ms; {t['form']} form")
     return t
 
 
@@ -1039,7 +1164,9 @@ def fl_measured(dev, smi: str, label: str, **knobs) -> dict:
             (fl_sched, "quorum_from_table", "quorum"),
             (fl_sched, "weighted_average_tree", "eq1"),
             (fl_sched, "weighted_average_tree_mega", "eq1"),
-            (fl_sched.TaskRuntime, "_finalize", "settle"),
+            (fl_sched, "_settle_distances", "settle"),
+            (fl_sched, "_settle_distances_mega", "settle"),
+            (fl_sched.TaskRuntime, "_settle", "settle"),
             (AutoDFL, "settle_window", "settle"),
             (FusedWindowLoop, "execute", "fused_execute")):
         clock.wrap(owner, attr, phase)
@@ -1132,9 +1259,11 @@ def fl_main(dev, smi: str):
     fl_hold(stepped["outputs"], default["outputs"],
             "fl default against stepped")
     windows = FL_RUN["rounds"]          # every task steps its rounds at once
+    # every task is full and finishes in the last megastep window: ONE
+    # task-axis model_distance launch settles them all
     expect = {
-        "default": {"weighted_agg": windows,
-                    "model_distance": FL_RUN["tasks"], "block_pack": 1},
+        "default": {"weighted_agg": windows, "model_distance": 1,
+                    "block_pack": 1},
         "stepped": {"weighted_agg": FL_RUN["tasks"] * FL_RUN["rounds"],
                     "model_distance": FL_RUN["tasks"], "block_pack": 0}}
     for label, run in (("default", default), ("stepped", stepped)):
@@ -2360,7 +2489,8 @@ def main() -> int:
     kernels = []
     # gmm's row: moonshot's gate and up products at the prefill (two of
     # its three launches a layer); the others are logged below
-    for row in rows + [dict(agg, **agg["task"]), fl_rows["model_distance"],
+    dist = fl_rows["model_distance"]
+    for row in rows + [dict(agg, **agg["task"]), dict(dist, **dist["task"]),
                        pack_row, attn_row, gmm_rows[0], scan_row]:
         name = row["name"]
         kernels.append({
@@ -2377,9 +2507,10 @@ def main() -> int:
         raise AssertionError(f"a main path never launched {missing}")
     for name, row in fl_rows.items():
         log(f"wide {name}: {json.dumps(row['wide'])}")
-    per_task = {k: agg[k] for k in ("ms", "plain_ms", "library_ms",
-                                     "bound_ms", "shape")}
-    log(f"per-task weighted_agg: {json.dumps(per_task)}")
+    for name, row in (("weighted_agg", agg), ("model_distance", dist)):
+        per_task = {k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "shape")}
+        log(f"per-task {name}: {json.dumps(per_task)}")
     log(f"flash_attention at prefill_32k's sequence: "
         f"{json.dumps(attn_row['long'])}; at moonshot's layer: "
         f"{json.dumps(attn_row['moonshot'])}")

@@ -29,11 +29,12 @@ def tree_flat(tree: Tree) -> torch.Tensor:
                       for k in sorted(tree)])
 
 
-def tree_flat_stacked(tree: Tree) -> torch.Tensor:
+def tree_flat_stacked(tree: Tree, lead: int = 1) -> torch.Tensor:
     """(n, P) float32 for a tree whose leaves carry a leading trainer
-    axis: the batched counterpart of ``tree_flat``."""
-    return torch.cat([tree[k].reshape(tree[k].shape[0], -1).to(torch.float32)
-                      for k in sorted(tree)], dim=1)
+    axis: the batched counterpart of ``tree_flat``; ``lead`` leading axes
+    in general (2: a (T, n, P) flat of T stacked trees)."""
+    return torch.cat([tree[k].reshape(tree[k].shape[:lead] + (-1,)).to(
+        torch.float32) for k in sorted(tree)], dim=lead)
 
 
 def tree_unflat(flat: torch.Tensor, like: Tree, lead: int = 1) -> Tree:
@@ -68,14 +69,15 @@ def weighted_average_tree(stacked_tree: Tree, scores: torch.Tensor) -> Tree:
 weighted_average_tree_jit = weighted_average_tree
 
 
-def weighted_average_tree_mega(stacked_trees: Tree,
-                               scores: torch.Tensor) -> Tree:
+def weighted_average_tree_mega(stacked_trees: Tree, scores: torch.Tensor,
+                               flat: torch.Tensor | None = None) -> Tree:
     """T Eq. 1 merges in one ``weighted_agg`` launch: leaves carry
     ``(T, n, ...)`` and ``scores`` is ``(T, n)``; returns leaves
     ``(T, ...)``.  Row t is bit-identical to ``weighted_average_tree`` on
-    task t alone (each task's sums keep the unbatched order)."""
-    flat = torch.cat([stacked_trees[k].reshape(
-        stacked_trees[k].shape[:2] + (-1,)).to(torch.float32)
-        for k in sorted(stacked_trees)], dim=2)
+    task t alone (each task's sums keep the unbatched order).  ``flat``:
+    the trees' ``tree_flat_stacked(..., lead=2)``, where the caller has it
+    already."""
+    if flat is None:
+        flat = tree_flat_stacked(stacked_trees, lead=2)
     return tree_unflat(weighted_average_flat(flat, scores), stacked_trees,
                        lead=2)

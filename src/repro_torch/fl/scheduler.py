@@ -17,7 +17,8 @@ A ``Scheduler`` with one task gives ``AutoDFL.run_task``'s outputs.
 Per round a task trains its cohort (fl/cohort.py), scores the stacked
 submissions with the DON (one vmapped score table, one host copy), and
 merges them by Eq. 1 (kernel ``weighted_agg``); at settlement the Eq. 4
-distances (kernel ``model_distance``) feed the Eq. 2-10 update.
+distances (kernel ``model_distance``, one launch and one host copy per
+task) feed the Eq. 2-10 update.
 
 By default (``fused="auto"``, ``megabatch="auto"``) a run takes the JAX
 package's default path:
@@ -29,7 +30,9 @@ package's default path:
     cross-task megastep: ``MegaCohort`` trains all tasks in one call,
     ``mega_score_tables`` scores them in one call, the full-participation
     tasks merge in one task-axis ``weighted_agg`` launch (ragged tasks
-    keep one launch each), and the window's txs go out as one batch.
+    keep one launch each), the full tasks that finish in the window get
+    their Eq. 4 distances in one task-axis ``model_distance`` launch and
+    one host copy, and the window's txs go out as one batch.
 
 Both give the stepped per-task path's outputs, which stay the reference
 semantics (``fused=False, megabatch=False``).
@@ -54,11 +57,20 @@ from repro_torch.fl.cohort import (CohortSubmissions, MegaCohort,
                                    VectorCohort)
 
 
-def _settle_distances(stacked_tree, global_tree) -> torch.Tensor:
-    """Batched Eq. 4 distances of the final submissions (one
-    ``model_distance`` launch per task at settlement)."""
+def _settle_distances(stacked_tree, global_tree) -> np.ndarray:
+    """Batched Eq. 4 distances of one task's final submissions: one
+    ``model_distance`` launch, one host copy."""
     return model_distances(tree_flat_stacked(stacked_tree),
-                           tree_flat(global_tree))
+                           tree_flat(global_tree)).cpu().numpy()
+
+
+def _settle_distances_mega(flat: torch.Tensor,
+                           merged: Dict[str, torch.Tensor]) -> np.ndarray:
+    """(F, K) Eq. 4 distances of F full tasks at once: their (F, K, P)
+    submissions ``flat`` against their merged params (leaves (F, ...)) in
+    one task-axis ``model_distance`` launch, one host copy; row f equals
+    ``_settle_distances`` on task f alone."""
+    return model_distances(flat, tree_flat_stacked(merged)).cpu().numpy()
 
 
 class TaskRuntime:
@@ -157,17 +169,22 @@ class TaskRuntime:
 
     # step 16 prep: cohort settlement arrays ------------------------------------
     def _finalize(self):
-        """Distances + final scores for the end-of-task update.
+        """Distances + final scores for the end-of-task update."""
+        self._settle(self._distances())
 
-        Final scores reuse the last round's DON quorum medians.  Distances
-        are computed for submitters in one batched Eq. 4 pass; every
-        selected non-submitter then gets the max over submitted distances
+    def _distances(self) -> np.ndarray:
+        """The submitters' Eq. 4 distances, in one batched pass."""
+        if self.last_subs is None:
+            return np.zeros(0, np.float32)
+        return _settle_distances(self.last_subs.stacked, self.params)
+
+    def _settle(self, d: np.ndarray):
+        """The host part of settlement, given the submitters' distances
+        ``d``.  Final scores reuse the last round's DON quorum medians;
+        every selected non-submitter gets the max over submitted distances
         (or 1.0 when there is none, or it is 0)."""
         self.participated[self.sel_idx] = 1.0
-        d = np.zeros(0, np.float32)
         if self.last_subs is not None:
-            d = _settle_distances(self.last_subs.stacked,
-                                  self.params).cpu().numpy()
             self.dists[self.last_subs.idxs] = d
             self.score_auto[self.last_subs.idxs] = self.last_scores
         fallback = float(d.max()) if d.size and float(d.max()) > 0 else 1.0
@@ -347,13 +364,26 @@ class Scheduler:
         # full-participation tasks merge in ONE task-axis Eq. 1 launch;
         # ragged tasks (fewer submitters) keep one launch each
         full = mega.full_rows
+        settled: Dict[int, np.ndarray] = {}
         if full:
             dev = next(iter(mega.sorted_full.values())).device
+            flat = tree_flat_stacked(mega.sorted_full, lead=2)
             merged = weighted_average_tree_mega(
                 mega.sorted_full, torch.stack([scores[t] for t in full]).to(
-                    dev))
+                    dev), flat=flat)
             for f, t in enumerate(full):
                 rts[t].params = {k: v[f] for k, v in merged.items()}
+            # the full tasks that finish now settle in ONE task-axis Eq. 4
+            # launch on the merge's flat; the others, one launch each
+            done = [f for f, t in enumerate(full)
+                    if rts[t].rnd >= rts[t].rounds]
+            if done:
+                if len(done) < len(full):
+                    pick = torch.tensor(done, device=dev)
+                    flat = flat[pick]
+                    merged = {k: v[pick] for k, v in merged.items()}
+                for f, d in zip(done, _settle_distances_mega(flat, merged)):
+                    settled[full[f]] = d
         for t in mega.active:
             if t not in full:
                 subs = mega.subs[t]
@@ -366,9 +396,9 @@ class Scheduler:
             if subs is None:
                 node.tsc.advance_round(rt.task_id)
         ready = []
-        for rt in rts:
+        for t, rt in enumerate(rts):
             if rt.rnd >= rt.rounds:
-                rt._finalize()
+                rt._settle(settled[t] if t in settled else rt._distances())
                 ready.append(rt)
         return ready
 

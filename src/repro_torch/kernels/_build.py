@@ -35,13 +35,19 @@ _D, _P, _I, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _R = ctypes.c_float
 _SIGNATURES = {
     # csrc/fold.cu
-    "fold_rollup_digest": (_D, _P, _I, _P, _P),
+    # (device, words, n, clusters, partial words, out, stream)
+    "fold_rollup_digest": (_D, _P, _I, _I, _P, _P, _P),
     "fold_chunk_digests": (_D, _P, _I, _I, _P, _P),
     "fold_dirty_chunks": (_D, _P, _I, _I, _P, _I, _P, _P),
     "fold_batch_seal": (_D, _P, _I, _P, _I, _P, _P),
-    # csrc/fl.cu: (device, in, in, [T,] n, P, dtype flag, out, stream)
+    # csrc/fl.cu: (device, in, in, T, n, P, dtype flag, out, stream)
     "fl_weighted_agg": (_D, _P, _P, _I, _I, _I, _F, _P, _P),
-    "fl_model_distance": (_D, _P, _P, _I, _I, _F, _P, _P),
+    # (device, l, g, T, n, P, l's task and row strides, g's task stride,
+    # dtype flag, form, cluster blocks, span, out, stream)
+    "fl_model_distance": (_D, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                          _P, _P),
+    # (device, dtype flag, cluster blocks, out int, stream)
+    "fl_model_distance_capacity": (_D, _F, _I, _P, _P),
     # csrc/pack.cu: (device, tmax, gcum, N, times, n_vis, B, gas_limit,
     # ptr0, wide table, table, stops, stream)
     "pack_block_pack": (_D, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P, _P, _P),

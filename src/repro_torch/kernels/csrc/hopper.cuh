@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the TMA / wgmma kernels
-// (attn.cu, moe.cu) and the sLSTM scan's cluster form (slstm.cu): tensor
-// maps encoded on the host, TMA loads completed on mbarriers, the cluster
-// barrier and bulk copies into a peer block's shared memory, mma.sync, wgmma
+// (attn.cu, moe.cu), the sLSTM scan's cluster form (slstm.cu) and the
+// cluster reductions of fl.cu and fold.cu: tensor maps encoded on the host,
+// TMA loads and 1-D bulk copies completed on mbarriers, the cluster
+// barrier, stores and bulk copies into a peer block's shared memory,
+// mma.sync, wgmma
 // shared-memory descriptors for the 128-byte swizzle, the wgmma products
 // themselves with their fence / commit / wait, and setmaxnreg for
 // warp-specialised blocks.
@@ -163,6 +165,40 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// 1-D bulk copy: `bytes` (a multiple of 16) from device memory at `src`
+// (16-byte aligned) into this block's shared memory at `dst` (16-byte
+// aligned), by the TMA unit; completes as transactions on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The 16-byte-aligned cover of `count` elements at `p`: where it starts,
+// its bytes (a multiple of 16; 0 for an empty span) and the
+// offset of p[0] in it, in elements.  A 16-byte granule never straddles a
+// page, so reading a cover never faults where p[0..count) does not.
+struct Cover {
+  const void* start;
+  uint32_t bytes;
+  int head;
+};
+
+template <typename T>
+__device__ __forceinline__ Cover cover(const T* p, int64_t count) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uintptr_t lo = a & ~static_cast<uintptr_t>(15);
+  const uintptr_t hi = (a + count * sizeof(T) + 15)
+                       & ~static_cast<uintptr_t>(15);
+  return {reinterpret_cast<const void*>(lo),
+          count > 0 ? static_cast<uint32_t>(hi - lo) : 0u,
+          static_cast<int>((a - lo) / sizeof(T))};
+}
+
 // named barriers (ids 1-15; __syncthreads takes 0) over `threads` threads:
 // sync waits for the others' arrivals, arrive does not wait
 __device__ __forceinline__ void bar_sync(int id, int threads) {
@@ -202,6 +238,12 @@ __device__ __forceinline__ void bulk_copy_to_peer(uint32_t dst, uint32_t src,
       "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
       " [%0], [%1], %2, [%3];\n"
       :: "r"(dst), "r"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// one 32-bit word into shared memory of the cluster (`addr` from map_rank)
+__device__ __forceinline__ void st_cluster_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" :: "r"(addr), "r"(v)
+               : "memory");
 }
 
 // this thread's shared-memory writes before what the async proxy (TMA,

@@ -18,10 +18,16 @@ u32 bits; float32 input is bitcast.  Each op has two forms:
 
 ``rollup_digest`` kernel: replaces the Pallas ``_kernel`` of
 ``src/repro/kernels/rollup_digest.py:16``.  Bound: 4·P bytes read over the
-card's memory rate.  Design: a grid-stride loop of 16-byte loads, a warp
-then block xor-reduce, one ``atomicXor`` per block into an output word
-that starts at the seed (xor is associative, so the result does not depend
-on the order the blocks land in).
+card's memory rate.  At a seal's size (~200,900 words) a launch costs more
+than its bytes, so one call is one launch where ``plan`` allows: a cluster
+of 16 blocks of 1,024 threads folds the buffer in one grid-stride pass
+(four 16-byte loads in flight a thread), a warp then block xor, and rank 0
+xors the blocks' words through distributed shared memory and writes the
+digest, seed included.  A large buffer (``plan(n) > 1``) takes several
+clusters, each writing a partial word into scratch, and a one-warp launch
+folds them with the seed.  No atomics and no fill; xor is associative, so
+every partition gives the same bits (``rollup_digest_mirror`` spells the
+partition out).
 
 ``rollup_chunk_digests`` kernel: replaces ``_chunk_kernel``
 (``src/repro/kernels/rollup_digest.py:76``).  Bound: 4·P bytes read plus
@@ -104,17 +110,69 @@ def rollup_digest_torch(buf: torch.Tensor) -> torch.Tensor:
     return to_i32(MIX_SEED ^ xor_reduce(mixed))
 
 
+DIGEST_BLOCK = 1024                 # threads a block, kDigestBlock
+DIGEST_CLUSTER = 16                 # blocks a cluster, kDigestCluster
+SPLIT_WORDS = 1 << 20               # above this, several clusters ..
+MAX_CLUSTERS = 8                    # .. up to this many
+
+
+def plan(n: int) -> int:
+    """Clusters of the ``rollup_digest`` launch for ``n`` words: 1 (one
+    launch, the digest written by the cluster) up to ``SPLIT_WORDS``;
+    above, one cluster a ``SPLIT_WORDS`` words up to ``MAX_CLUSTERS``, and
+    a second launch folding their partial words."""
+    return max(1, min(MAX_CLUSTERS, -(-n // SPLIT_WORDS)))
+
+
+def rollup_digest_mirror(words: torch.Tensor, clusters: int) -> torch.Tensor:
+    """The kernel's partition of the words in plain PyTorch: each word
+    goes to the one thread ``fold_span4`` (``csrc/fold.cu``) gives it, at
+    the buffer's real alignment; each block xors its threads' words, each
+    cluster its blocks', and the seed takes the clusters'.  Bit-equal to
+    ``rollup_digest_torch`` when every word is folded exactly once."""
+    words = as_words(words)
+    n = words.numel()
+    step = clusters * DIGEST_CLUSTER * DIGEST_BLOCK
+    head = min(n, ((16 - words.data_ptr() % 16) % 16) // 4)
+    body = (n - head) // 4 * 4
+    j = torch.arange(n, dtype=torch.int64)
+    thread = torch.where(j < head, j, torch.where(
+        j < head + body, torch.div(j - head, 4, rounding_mode="floor") % step,
+        j - head - body))
+    block = torch.div(thread, DIGEST_BLOCK, rounding_mode="floor")
+    mixed = mix_u32(to_u32(words.cpu()))
+    n_blocks = clusters * DIGEST_CLUSTER
+    # a block's xor, bit by bit: the parity of the bit over its words
+    block_words = torch.zeros(n_blocks, dtype=torch.int64)
+    for bit in range(32):
+        ones = torch.bincount(block, weights=((mixed >> bit) & 1).to(
+            torch.float64), minlength=n_blocks)
+        block_words |= (ones.to(torch.int64) % 2) << bit
+    cluster_words = xor_reduce(block_words.reshape(clusters, DIGEST_CLUSTER))
+    return to_i32(MIX_SEED ^ xor_reduce(cluster_words))
+
+
 def rollup_digest(buf: torch.Tensor) -> torch.Tensor:
-    """0-d int32 digest of ``buf`` (int32 words, or float32 bitcast)."""
+    """0-d int32 digest of ``buf`` (int32 words, or float32 bitcast): one
+    launch (two above ``SPLIT_WORDS``, see ``plan``) a call."""
     words = as_words(buf)
     if words.device.type == "cpu":
         return rollup_digest_torch(words)
     dev = check_cuda(words)
-    out = torch.full((), SEED_I32, dtype=torch.int32, device=dev)
-    if words.numel():
-        _build.launch("fold_rollup_digest", dev, words.data_ptr(),
-                      words.numel(), out.data_ptr())
-        rollup_digest.launches += 1
+    if not words.numel():
+        return torch.full((), SEED_I32, dtype=torch.int32, device=dev)
+    out = _launch(words, plan(words.numel()))
+    rollup_digest.launches += 1
+    return out
+
+
+def _launch(words: torch.Tensor, clusters: int) -> torch.Tensor:
+    """The kernel over ``clusters`` clusters (``plan`` picks them)."""
+    out = torch.empty((), dtype=torch.int32, device=words.device)
+    parts = out if clusters == 1 else torch.empty(
+        clusters, dtype=torch.int32, device=words.device)
+    _build.launch("fold_rollup_digest", words.device, words.data_ptr(),
+                  words.numel(), clusters, parts.data_ptr(), out.data_ptr())
     return out
 
 

@@ -1,7 +1,9 @@
 """The port's two FL ops, plain PyTorch versions on the CPU, against the JAX
-package: Eq. 1 ``weighted_agg`` and Eq. 4 ``model_distance``, held against
-the Pallas kernels in interpret mode and against the ``kernels/ref.py``
-oracles, on the grids of tests/test_kernels.py.  The tolerances are that
+package: Eq. 1 ``weighted_agg`` and Eq. 4 ``model_distance`` (also with
+its task axis, task by task), held against the Pallas kernels in
+interpret mode and against the ``kernels/ref.py`` oracles, on the grids
+of tests/test_kernels.py; ``model_distance``'s form choice and its mirror
+of the kernel's summation order.  The tolerances are that
 file's: rtol 1e-4 / atol 1e-5 in float32 and 2e-2 in bfloat16 (the sums
 run in another order).  The CUDA kernels themselves are held against these
 plain versions on the card (tests/test_torch_gpu.py, chip_smoke.py).
@@ -131,12 +133,103 @@ def test_model_distance_empty_and_one_row(n, P):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol(F32))
 
 
+@pytest.mark.parametrize("T,n,P,dt", [
+    (3, 4, 1000, F32), (2, 8, 5000, BF16), (32, 64, 2410, F32),
+    (1, 5, 7, F32), (3, 2, 2411, BF16)])
+def test_model_distance_task_axis_matches_pallas_per_task(T, n, P, dt):
+    """(T, n, P) against (T, P) -> (T, n): row t equals the JAX kernel on
+    task t (interpret mode) within the file's tolerance, and the unbatched
+    plain call on task t bit for bit."""
+    rng = np.random.default_rng(T * 1000 + P)
+    lj, lt = _pair(rng.normal(size=(T, n, P)), dt)
+    gj, gt = _pair(rng.normal(size=(T, P)), dt)
+    got = tmd.model_distance_torch(lt, gt)
+    assert got.dtype == torch.float32 and got.shape == (T, n)
+    torch.testing.assert_close(tmd.model_distance(lt, gt), got, rtol=0,
+                               atol=0)
+    for t in range(T):
+        pallas = jax_distance(lj[t], gj[t], block_p=512, interpret=True)
+        np.testing.assert_allclose(got[t].numpy(), _np(pallas), **_tol(dt))
+        assert torch.equal(got[t], tmd.model_distance_torch(lt[t], gt[t]))
+
+
+@pytest.mark.parametrize("P,dt,want", [
+    (0, F32, "row"), (1, F32, "row"), (2410, F32, "row"),
+    (2411, BF16, "row"), (6144, F32, "row"), (6145, F32, "cluster"),
+    (12_288, BF16, "row"), (12_289, BF16, "cluster"),
+    (1 << 20, F32, "cluster"), (1 << 20, BF16, "cluster")])
+def test_model_distance_form(P, dt, want):
+    """The form follows the row's bytes alone (24,576 a row: the row
+    form); the cluster form's blocks cover the row in whole chunks."""
+    dtype = torch.bfloat16 if dt == BF16 else torch.float32
+    assert tmd.form(P, dtype) == want
+    if want == "cluster":
+        blocks, span = tmd.cluster_span(P, dtype)
+        chunk = tmd.CHUNK_BYTES // (2 if dt == BF16 else 4)
+        assert 2 <= blocks <= tmd.MAX_CLUSTER and span % chunk == 0
+        assert (blocks - 1) * span < P <= blocks * span
+
+
+def _emulate(row: np.ndarray, glob: np.ndarray, lanes: int) -> np.float32:
+    """The index-fixed order written out in numpy scalars: lane j adds
+    (l_k - g_k)^2 for k = j (mod lanes) in increasing k, then the halving
+    tree; one lane group's sum, before the square root."""
+    acc = [np.float32(0)] * lanes
+    for k in range(row.size):
+        d = np.float32(row[k] - glob[k])
+        acc[k % lanes] = np.float32(acc[k % lanes] + np.float32(d * d))
+    v = np.array(acc, np.float32)
+    while v.size > 1:
+        v = (v[: v.size // 2] + v[v.size // 2:]).astype(np.float32)
+    return v[0]
+
+
+@pytest.mark.parametrize("P,dt", [(7, F32), (300, F32), (2410, F32),
+                                  (2411, BF16), (9000, F32),
+                                  (40_000, BF16)])
+def test_model_distance_mirror_order(P, dt):
+    """The kernel's mirror: the row form's strided lane sums and shuffle
+    tree, or the cluster form's blocks (256 lanes, then 8 warps) added in
+    rank order, as numpy scalars spell them; within float32 tolerance of
+    the plain version; bit-equal for a row at any offset, batched or not."""
+    rng = np.random.default_rng(P)
+    _, lt = _pair(rng.normal(size=(3, 2, P + 1)), dt)
+    _, gt = _pair(rng.normal(size=(3, P + 1)), dt)
+    dtype = lt.dtype
+    got = tmd.model_distance_mirror(lt[..., 1:], gt[..., 1:])
+    row, glob = _np(lt[1, 0, 1:]), _np(gt[1, 1:])
+    if tmd.form(P, dtype) == "row":
+        want = _emulate(row, glob, tmd.ROW_LANES)
+    else:
+        blocks, span = tmd.cluster_span(P, dtype)
+        want = np.float32(0)
+        for r in range(blocks):
+            part = _emulate(row[r * span:(r + 1) * span],
+                            glob[r * span:(r + 1) * span], tmd.CLUSTER_LANES)
+            want = part if r == 0 else np.float32(want + part)
+    assert float(got[1, 0]) == float(np.float32(np.sqrt(np.float64(want))))
+    torch.testing.assert_close(got, tmd.model_distance_torch(
+        lt[..., 1:], gt[..., 1:]), rtol=1e-5, atol=1e-6)
+    # the same rows copied to another offset, and one task alone
+    moved = tmd.model_distance_mirror(lt[..., 1:].contiguous(),
+                                      gt[..., 1:].contiguous())
+    assert torch.equal(moved, got)
+    assert torch.equal(tmd.model_distance_mirror(lt[2, :, 1:], gt[2, 1:]),
+                       got[2])
+
+
 def test_wrappers_check_shapes_and_factory_routes():
     w = torch.zeros(3, 4)
     with pytest.raises(ValueError, match="weighted_agg takes"):
         twa.weighted_agg(w, torch.zeros(4))
     with pytest.raises(ValueError, match="model_distance takes"):
         tmd.model_distance(w, torch.zeros(3))
+    for bad in ((torch.zeros(2, 3, 4), torch.zeros(4)),
+                (torch.zeros(2, 3, 4), torch.zeros(3, 4)),
+                (torch.zeros(4), torch.zeros(4)),
+                (torch.zeros(1, 2, 3, 4), torch.zeros(1, 2, 4))):
+        with pytest.raises(ValueError, match="model_distance takes"):
+            tmd.model_distance(*bad)
     for op, plain, wrapper in (
             ("weighted_agg", twa.weighted_agg_torch, twa.weighted_agg),
             ("model_distance", tmd.model_distance_torch,

@@ -1,9 +1,12 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-fold kernels and ``block_pack`` bit for bit, the FL kernels (Eq. 1 and
+fold kernels and ``block_pack`` bit for bit (``rollup_digest`` on either
+side of its ``plan`` split, one launch a call), the FL kernels (Eq. 1 and
 Eq. 4, float32 accumulation in another order) at rtol 1e-5 / atol 1e-6 in
-float32 and 2e-2 in bfloat16, a task-axis Eq. 1 launch row for row equal
-to the unbatched launches; the default ``Scheduler`` (fused loop and
-megastep) on the card against the stepped per-task path; the attention
+float32 and 2e-2 in bfloat16, a task-axis Eq. 1 or Eq. 4 launch row for
+row equal to the unbatched launches (Eq. 4 in both its forms, also
+bit-equal to ``model_distance_mirror``); the default ``Scheduler`` (fused
+loop and megastep) on the card against the stepped per-task path, and
+settling its tasks in one ``model_distance`` launch; the attention
 kernel against its plain version (rtol 1e-4 / atol 1e-5 in float32; in
 bfloat16 one bfloat16 step, rtol 2^-7 / atol 1e-4: both sum in float32 and
 round once), and the reduced dense LMs on the card against the CPU; the
@@ -196,6 +199,113 @@ def test_weighted_agg_task_axis_kernel(cuda, T, n, P):
         assert torch.equal(got[t], wa.weighted_agg(w[t], s[t]))
     torch.testing.assert_close(got, wa.weighted_agg_torch(w, s),
                                **_fl_tol(torch.float32))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,n,P,dtype", [
+    (1, 64, 2410, torch.float32), (3, 64, 2411, torch.float32),
+    (32, 64, 2410, torch.float32), (3, 5, 7, torch.bfloat16),
+    (2, 9, 1, torch.float32), (3, 16, 2410, torch.bfloat16),
+    (2, 3, 1 << 20, torch.float32), (3, 2, 100_003, torch.bfloat16),
+    (1, 4, 6145, torch.float32)])
+def test_model_distance_task_axis_kernel(cuda, T, n, P, dtype):
+    """Both forms: row t of the (T, n, P) launch bit-equal to the (n, P)
+    launch on task t and to the kernel's arithmetic in plain PyTorch
+    (``model_distance_mirror``), on shifted views (rows and g one element
+    off their 16-byte alignment) too; within tolerance of the plain
+    version."""
+    g = torch.Generator().manual_seed(T * 10 + n)
+    w = torch.randn(T, n, P + 1, generator=g).to(cuda, dtype)
+    glob = torch.randn(T, P + 1, generator=g).to(cuda, dtype)
+    for rows, ref in ((w[..., :P], glob[..., :P]), (w[..., 1:], glob[..., 1:])):
+        before = md.model_distance.launches
+        got = md.model_distance(rows, ref)
+        assert md.model_distance.launches == before + 1
+        assert md.model_distance.last_form == md.form(P, dtype)
+        assert got.shape == (T, n)
+        for t in range(T):
+            assert torch.equal(got[t], md.model_distance(rows[t], ref[t]))
+        assert torch.equal(got.cpu(), md.model_distance_mirror(rows.cpu(),
+                                                               ref.cpu()))
+        torch.testing.assert_close(got, md.model_distance_torch(rows, ref),
+                                   **_fl_tol(dtype))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_model_distance_refuses(cuda):
+    w = torch.randn(2, 3, 8, device=cuda)
+    with pytest.raises(ValueError, match="model_distance takes"):
+        md.model_distance(w, torch.randn(3, 8, device=cuda))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        md.model_distance(w.half(), torch.randn(2, 8, device=cuda).half())
+    assert md.cluster_capacity(cuda, 1 << 20, torch.float32) >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [rd.SPLIT_WORDS - 1, rd.SPLIT_WORDS + 1,
+                               3 * rd.SPLIT_WORDS + 5, 20 * rd.SPLIT_WORDS])
+def test_rollup_digest_across_plan(cuda, n):
+    """One launch a call on either side of ``plan``'s split, bit-equal to
+    the plain version; every cluster count gives the same bits."""
+    w = _words(n + 1, n, cuda)
+    for buf in (w[:n], w[1:]):
+        want = int(rd.rollup_digest_torch(buf))
+        before = rd.rollup_digest.launches
+        assert int(rd.rollup_digest(buf)) == want
+        assert rd.rollup_digest.launches == before + 1
+        for clusters in (1, 2, rd.MAX_CLUSTERS):
+            assert int(rd._launch(buf, clusters)) == want
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_default_fl_run_settles_in_one_launch(cuda):
+    """The default Scheduler at 4 tasks x 16 trainers, every trainer
+    good: every task is full and finishes in the last megastep window,
+    so Eq. 4 takes ONE model_distance launch (the stepped path: 4)."""
+    from repro_torch.api import FLTaskSpec, NodeSpec
+    from repro_torch.data.synthetic import gaussian_clusters
+    from repro_torch.fl.cohort import CohortKernels, VectorCohort
+    from repro_torch.fl.dp import DPConfig
+    from repro_torch.fl.scheduler import Scheduler
+    from repro_torch.fl.server import AutoDFL
+    from repro_torch.models.mlp import TinyMLP
+    from repro_torch.optim.optimizers import OptimizerSpec, make_optimizer
+    x, y = gaussian_clusters(512, 16, 10, seed=1)
+    vx, vy = gaussian_clusters(50, 16, 10, seed=2)
+    tx, ty = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+
+    def bf(sel, rnd):
+        i = np.random.default_rng(int(rnd)).integers(0, 512,
+                                                     (len(sel), 2, 8))
+        i = torch.from_numpy(i).to(cuda)
+        return {"x": tx[i], "labels": ty[i]}
+    model = TinyMLP(16, 8, 10, device=cuda)
+    opt = make_optimizer(OptimizerSpec(name="sgdm", lr=0.1, grad_clip=5.0))
+    kern = CohortKernels(model, opt, DPConfig(noise_multiplier=0.05))
+
+    def run(**knobs):
+        node = AutoDFL(model, opt, 16, model.accuracy_fn(),
+                       {"x": vx, "labels": vy},
+                       spec=NodeSpec(trainer_funds=50.0), device=cuda)
+        sch = Scheduler(node, seal_every=2, **knobs)
+        for t in range(4):
+            sch.add_task(FLTaskSpec(f"t{t}", rounds=2), VectorCohort(
+                model, opt, bf, node.store, n_trainers=16, local_steps=2,
+                seed=t, kernels=kern, device=cuda))
+        before = md.model_distance.launches
+        out = sch.run()
+        return sch, out, md.model_distance.launches - before
+
+    sd, od, default = run()
+    ss, os_, stepped = run(fused=False, megabatch=False)
+    assert sd.mega_windows > 0 and (default, stepped) == (1, 4)
+    for t in od:
+        np.testing.assert_array_equal(od[t].scores, os_[t].scores)
+        np.testing.assert_allclose(od[t].reputations, os_[t].reputations,
+                                   rtol=1e-5, atol=1e-6)
     torch.cuda.synchronize()
 
 

@@ -91,6 +91,34 @@ def test_rollup_digest_u32_matches_mirror(n):
     assert int(trd.rollup_digest(u)) & trd.MASK == want
 
 
+@pytest.mark.parametrize("n,clusters", [
+    (0, 1), (1, 1), (200_900, 1), (trd.SPLIT_WORDS, 1),
+    (trd.SPLIT_WORDS + 1, 2), (3 * trd.SPLIT_WORDS, 3),
+    (8 * trd.SPLIT_WORDS + 1, trd.MAX_CLUSTERS),
+    (100 * trd.SPLIT_WORDS, trd.MAX_CLUSTERS)])
+def test_rollup_digest_plan(n, clusters):
+    """One cluster (one launch) up to the split, then one a split's words,
+    at most MAX_CLUSTERS."""
+    assert trd.plan(n) == clusters
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 513, 4096, 200_900,
+                               trd.SPLIT_WORDS - 1, trd.SPLIT_WORDS + 1,
+                               3 * trd.SPLIT_WORDS + 5])
+def test_rollup_digest_partition_folds_every_word_once(n):
+    """The kernel's partition (each word to one thread at the buffer's
+    alignment, a xor a block, then a cluster, then the seed) gives the
+    plain digest at every alignment and at one cluster and plan(n)'s:
+    every word is folded exactly once."""
+    rng = np.random.default_rng(n)
+    words = _t(rng.integers(0, 2**32, n + 3, dtype=np.uint32))
+    for start in (0, 1, 2, 3):
+        buf = words[start: start + n]
+        want = int(trd.rollup_digest_torch(buf))
+        for clusters in sorted({1, trd.plan(n)}):
+            assert int(trd.rollup_digest_mirror(buf, clusters)) == want
+
+
 # -- rollup_chunk_digests -----------------------------------------------------
 
 @pytest.mark.parametrize("n", [1, 128, 2048, 4097, 70000])

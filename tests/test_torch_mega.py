@@ -1,6 +1,7 @@
 """The port's cross-task megastep (``MegaCohort``, ``mega_score_tables``,
-the task-axis Eq. 1 merge, ``AutoDFL._tx_batch_many``) against the port's
-per-task path and the JAX package's megastep.
+the task-axis Eq. 1 merge, the task-axis Eq. 4 settlement,
+``AutoDFL._tx_batch_many``) against the port's per-task path and the JAX
+package's megastep.
 
 On tests/test_mega.py's single-shard seeds, the port's megabatched run,
 its per-task run (``megabatch=False``) and the JAX package's megabatched
@@ -35,7 +36,7 @@ from repro.fl.server import AutoDFL as JaxNode
 from repro.models.mlp import TinyMLP as JaxMLP
 from repro.optim.optimizers import OptimizerSpec as JaxOptSpec
 from repro.optim.optimizers import make_optimizer as jax_optimizer
-from repro_torch.core import oracle
+from repro_torch.core import oracle, reputation
 from repro_torch.core.aggregation import (weighted_average_tree,
                                           weighted_average_tree_mega)
 from repro_torch.fl import cohort as tcohort
@@ -218,6 +219,43 @@ def test_mega_matches_per_task_and_jax(world, inject, seed):
         for k, leaf in rj.global_params.items():
             np.testing.assert_allclose(rt.global_params[k].numpy(),
                                        np.asarray(leaf), **TOL)
+
+
+@pytest.mark.parametrize("behaviors", [["good"] * 5,
+                                       ["good", "lazy", "good", "malicious",
+                                        "good"]])
+def test_mega_settles_full_tasks_in_one_distance_call(world, inject,
+                                                      monkeypatch, behaviors):
+    """The megastep's settlement: the full tasks that finish in a window
+    take ONE call of the Eq. 4 op (one task-axis launch on the card), each
+    ragged one a call of its own; the per-task path one call a task.
+    ``dists`` and ``score_auto`` equal the per-task path's bit for bit and
+    the JAX megastep's within TOL."""
+    from repro_torch.fl import scheduler as tsched
+    case = dict(_draw_case(0), n_trainers=5, n_tasks=3, rounds=2,
+                n_select=5, stagger=False, behaviors=behaviors)
+    calls = []
+
+    def counted(local, global_):
+        calls.append(tuple(local.shape))
+        return reputation.model_distances(local, global_)
+    monkeypatch.setattr(tsched, "model_distances", counted)
+    _, sa, _, _ = _run_torch(world, case, megabatch=False)
+    per_task, calls[:] = list(calls), []
+    _, sb, _, _ = _run_torch(world, case, megabatch="auto")
+    _, sj, _ = _run_jax(world, case)
+    assert sb.mega_windows > 0 and len(per_task) == case["n_tasks"]
+    full = [rt for rt in sb.runtimes
+            if len(rt.last_subs.idxs) == len(rt.sel_idx)]
+    assert len(calls) == (1 if full else 0) + len(sb.runtimes) - len(full)
+    if full:
+        assert (len(full), len(full[0].sel_idx)) in [c[:2] for c in calls]
+    for ra, rb, rj in zip(sa.runtimes, sb.runtimes, sj.runtimes):
+        np.testing.assert_array_equal(ra.dists, rb.dists)
+        np.testing.assert_array_equal(ra.score_auto, rb.score_auto)
+        np.testing.assert_allclose(rb.dists, np.asarray(rj.dists), **TOL)
+        np.testing.assert_allclose(rb.score_auto, np.asarray(rj.score_auto),
+                                   **TOL)
 
 
 def test_megabatch_true_raises_on_ineligible_window(world):
