@@ -20,7 +20,18 @@ Phases, each printing its result on a line of its own:
                plain PyTorch versions on the card, bit for bit
                (``rollup_digest`` also on either side of its ``plan``
                split, one launch a call, timed at 0.8, 4 and 16 MB at each
-               cluster count), and the two FL kernels (Eq. 1
+               cluster count; ``batch_seal`` also at its hard cases --
+               the whole 16 MB buffer as one segment, 4,096 one-word
+               segments, power-law lengths from 1 to 10^6 words, starts
+               off the 4-word grid, views offset by 1-3 words, segments of
+               one span and one span +- 1 -- and at every span the kernel
+               takes, timed at each power of two; ``dirty_fold`` also at
+               the node path's shape with repeated ids and at chunks of
+               128, 2,048 and 65,536 words on views offset by 1-3 words,
+               both its forms timed at chunks of 2,048 to 65,536; both
+               timed at the node path's shapes by CUDA events and by the
+               profiler's device time of the kernel), and the two FL
+               kernels (Eq. 1
                ``weighted_agg`` and Eq. 4 ``model_distance``, each also
                with its task axis at (32, 64, 2,410), row t bit-equal to
                the unbatched launch; ``model_distance`` in both its forms,
@@ -41,7 +52,12 @@ Phases, each printing its result on a line of its own:
                pump / run_until, then flush and run_until the end), once
                stepped and once through FusedWindowLoop: blocks, gas log,
                batch digests, WindowSettled roots and event kinds equal,
-               ONE block_pack launch.  block_pack is checked and timed at
+               ONE block_pack launch and TWO batch_seal calls of one
+               launch each; batch_seal is held bit-equal to its plain
+               version at those two calls' own arguments (the batches'
+               roots and one digest a seal over the run's 4M-word buffer)
+               and timed there (events, device time, every span).
+               block_pack is checked and timed at
                this run's shape, beside its bytes bound, its chain of
                dependent walk steps and the stepped per-block path on the
                same blocks; checked also where its jump table is too
@@ -214,6 +230,34 @@ def timed_ms(fn, iters: int, flush: torch.Tensor) -> float:
     return sum(s.elapsed_time(e) for s, e in marks) / iters
 
 
+def device_ms(fn, fragment: str, iters: int, flush: torch.Tensor) -> float:
+    """The kernel's own device time: the mean over ``iters`` launches of
+    ``fn`` (L2 evicted before each) of the device spans whose names hold
+    ``fragment`` in a torch.profiler trace, read by name as fl_profile
+    reads them.  Fails unless there is one such span a launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and fragment in e.name]
+    if len(spans) != iters:
+        raise AssertionError(f"{len(spans)} device spans named {fragment!r} "
+                             f"in {iters} launches")
+    return sum(spans) / iters / 1e3
+
+
+# the fold kernels timed by device_ms too, by their names in a trace
+FOLD_KERNELS = {"batch_seal": "batch_seal_span_kernel",
+                "dirty_fold": "dirty_fold_kernel"}
+
+
 def u32_err(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest |a - b| over the u32 values two int32 word tensors carry."""
     if a.shape != b.shape:
@@ -232,6 +276,32 @@ def seal_starts(n: int, n_lanes: int, batch: int) -> np.ndarray:
         starts.extend(at + np.arange(0, k, batch))
         at += k
     return 4 * np.asarray(starts, np.int64)
+
+
+def seal_hard_cases(words, g, span: int) -> list:
+    """batch_seal's hard inputs (those of tests/test_torch_gpu.py): the
+    whole 16 MB buffer as one segment; 4,096 one-word segments; lengths
+    drawn from a power law (~ 1 / l) between 1 and 10^6 words; starts off
+    the 4-word grid; views offset by 1-3 words; segment edges exactly on
+    span edges (lengths of one span and of one span +- 1).  (words,
+    starts) pairs on the words' device."""
+    def starts_of(lengths, first=0):
+        return np.concatenate([[first], first + np.cumsum(lengths)[:-1]])
+
+    power = []
+    while sum(power) < 4_000_000:
+        power.append(int(10 ** g.uniform(0, 6)))
+    cases = [(words(4 << 20), [0]),
+             (words(4096), np.arange(4096)),
+             (words(sum(power)), starts_of(power)),
+             (words(50_000), starts_of(g.integers(1, 80, 1000) * 4 + 1, 3))]
+    cases += [(words(200_788 + off)[off:],
+               starts_of(g.integers(1, 81, 2600))) for off in (1, 2, 3)]
+    cases += [(words(40 * length), np.arange(40) * length)
+              for length in (span - 1, span, span + 1)]
+    dev = cases[0][0].device
+    return [(w, torch.from_numpy(np.asarray(st, np.int64)[
+        np.asarray(st) < w.numel()]).to(dev)) for w, st in cases]
 
 
 def check_kernels(dev, shapes) -> list:
@@ -280,13 +350,21 @@ def check_kernels(dev, shapes) -> list:
             [(w, torch.from_numpy(g.integers(0, -(-w.numel() // chunk), d)
                                   ).to(dev), chunk)
              for w, d in ((words(1), 1), (words(100), 1), (words(5000), 2),
-                          (words(70_000), 7), (words(300_000), 146))],
+                          (words(70_000), 7), (words(300_000), 146))]
+            # the node path's shape with repeated ids; chunks of 128,
+            # 2,048 and 65,536 words on views offset by 1-3 words
+            + [(state_words, torch.from_numpy(g.integers(
+                0, n_chunks, 2 * n_chunks)).to(dev), chunk)]
+            + [(state_words[off:], torch.from_numpy(g.integers(
+                0, -(-(n_state - off) // c), 300)).to(dev), c)
+               for off in (1, 2, 3) for c in (128, 2048, 65_536)],
             (state_words, ids, chunk),
             lambda a: (4 * n_state + 12 * n_chunks, n_state)),
         "batch_seal": (
             bs.batch_seal, bs.batch_seal_torch,
             [(words(n), segments(n, s)) for n, s in
-             ((4, 1), (4096, 17), (100_000, 257), (128, 128))],
+             ((4, 1), (4096, 17), (100_000, 257), (128, 128))]
+            + seal_hard_cases(words, g, bs.plan(shapes["seal_words"]).span),
             (seal_words, seal_starts_t),
             lambda a: (4 * a[0].numel() + 12 * a[1].numel(),
                        a[0].numel())),
@@ -311,13 +389,85 @@ def check_kernels(dev, shapes) -> list:
                "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
                "shape": [list(a.shape) for a in chip
                          if isinstance(a, torch.Tensor)]}
+        device = ""
+        if name in FOLD_KERNELS:
+            row["device_ms"] = device_ms(lambda: kernel(*chip),
+                                         FOLD_KERNELS[name], 20, flush)
+            device = f", device {row['device_ms']:.6f} ms (profiler)"
         log(f"kernel {name}: bit-equal to plain on {len(grid) + 1} inputs; "
-            f"{row['ms']:.6f} ms (bound {row['bound_ms']:.6f} ms, "
+            f"{row['ms']:.6f} ms{device} (bound {row['bound_ms']:.6f} ms, "
             f"{row['bound_by']}), plain {row['plain_ms']:.6f} ms, "
             f"library call: none, at {row['shape']}")
         results.append(row)
     check_rollup_plan(words, flush)
+    seal_spans(seal_words, seal_starts_t, "the stepped seal", flush)
+    dirty_forms(state_words, chunk, flush)
     return results
+
+
+def seal_spans(w, starts, label: str, flush) -> None:
+    """batch_seal at every span the kernel takes (plan picks one), each
+    bit-equal to plain and timed (CUDA events, L2 flushed): the times
+    ``plan``'s span comes from."""
+    from repro_torch.kernels import batch_seal as bs
+    want = bs.batch_seal_torch(w, starts)
+    n, nb = w.numel(), starts.numel()
+    row = {"words": n, "segments": nb, "plan": bs.plan(n).span}
+    for span in range(bs.MIN_SPAN, bs.MAX_SPAN + 1, bs.MIN_SPAN):
+        p = bs.plan(n, span)
+        if u32_err(bs._launch(w, starts, p), want):
+            raise AssertionError(f"batch_seal at {label}, span {span}: "
+                                 f"differs from plain")
+        if span & (span - 1) == 0:
+            row[f"ms_span_{span}"] = timed_ms(
+                lambda: bs._launch(w, starts, p), 50, flush)
+    log(f"kernel batch_seal spans at {label}: {json.dumps(row)}")
+
+
+def dirty_forms(state_words, chunk: int, flush) -> None:
+    """dirty_fold's two forms (a warp a chunk, a block a chunk) at the node
+    path's chunk and at longer ones, every chunk of the state selected,
+    each bit-equal to plain and timed (CUDA events, L2 flushed): the
+    times ``WARP_CHUNK_MAX`` comes from."""
+    from repro_torch.kernels import dirty_fold as df
+    for c in (chunk, 4096, 8192, 16_384, 65_536):
+        ids = torch.arange(-(-state_words.numel() // c),
+                           device=state_words.device)
+        want = df.dirty_fold_torch(state_words, ids, c)
+        row = {"chunk": c, "ids": ids.numel(), "form": df.form(c)}
+        for warps in (1, df.BLOCK_WARPS):
+            if u32_err(df._launch(state_words, ids, c, warps), want):
+                raise AssertionError(f"dirty_fold at chunk {c} with {warps} "
+                                     f"warps a chunk differs from plain")
+            row[f"ms_{warps}_warps"] = timed_ms(
+                lambda: df._launch(state_words, ids, c, warps), 50, flush)
+        log(f"kernel dirty_fold forms: {json.dumps(row)}")
+
+
+def check_fused_seals(calls, flush) -> None:
+    """The fused twin's two batch_seal calls (the batches' roots and one
+    digest a seal, over the whole run's word buffer) at their real
+    arguments: bit-equal to plain, timed by CUDA events and by the
+    profiler beside the bytes bound and the plain version, and at every
+    span."""
+    from repro_torch.kernels import batch_seal as bs
+    for label, (w, starts) in zip(("roots", "seal digests"), calls):
+        if u32_err(bs.batch_seal(w, starts), bs.batch_seal_torch(w, starts)):
+            raise AssertionError(f"batch_seal at the fused twin's {label} "
+                                 f"differs from plain")
+        n, nb = w.numel(), starts.numel()
+        row = {"words": n, "segments": nb,
+               "longest": int(torch.diff(starts, append=starts.new_tensor(
+                   [n])).max()),
+               "ms": timed_ms(lambda: bs.batch_seal(w, starts), 50, flush),
+               "device_ms": device_ms(lambda: bs.batch_seal(w, starts),
+                                      FOLD_KERNELS["batch_seal"], 20, flush),
+               "bound_ms": (4 * n + 12 * nb) / HBM_BYTES_PER_S * 1e3,
+               "plain_ms": timed_ms(lambda: bs.batch_seal_torch(w, starts),
+                                    10, flush)}
+        log(f"kernel batch_seal at the fused twin's {label}: bit-equal to "
+            f"plain; {json.dumps(row)}")
+        seal_spans(w, starts, f"the fused twin's {label}", flush)
 
 
 def check_rollup_plan(words, flush) -> None:
@@ -547,13 +697,16 @@ def twins_equal(a: dict, b: dict, what: str) -> None:
 
 def fused_node(dev, workload, smi: str):
     """The node workload stepped, then through FusedWindowLoop (block_pack
-    launch count from 0): equal outputs, one launch; host seconds by step
-    of each, and of the work both do inside a seal.  Returns the
-    block_pack arguments of the fused run, its client and the launch
-    count."""
+    and batch_seal launch counts from 0): equal outputs, one block_pack
+    launch and two batch_seal calls of one launch each; host seconds by
+    step of each, and of the work both do inside a seal.  Returns the
+    block_pack arguments of the fused run, the arguments of its two
+    batch_seal calls, its client and the block_pack launch count."""
+    from repro_torch.core import engine as engine_mod
     from repro_torch.core import fused as fused_mod
     from repro_torch.core.engine import VectorChain, VectorRollup
     from repro_torch.core.prover import ProverPipeline
+    from repro_torch.kernels import batch_seal as bs
     from repro_torch.kernels import block_pack as bp
     loop = fused_mod.FusedWindowLoop
     # inside a stepped seal and a fused apply_seal alike
@@ -584,32 +737,45 @@ def fused_node(dev, workload, smi: str):
         _, stepped, stepped_wall = run_twin(workload, dev, fused=False)
     finally:
         restore("stepped")
-    captured = {}
-    real = fused_mod.get_kernel
+    captured = {"batch_seal": []}
+    spied = [(fused_mod, fused_mod.get_kernel),
+             (engine_mod, engine_mod.get_kernel)]
 
-    def spy(op, impl=None):
-        fn = real(op, impl)
-        if op != "block_pack":
-            return fn
+    def spy(real):
+        def resolve(op, impl=None):
+            fn = real(op, impl)
+            if op not in ("block_pack", "batch_seal"):
+                return fn
 
-        def recorded(*args):
-            captured["args"] = args
-            return fn(*args)
-        return recorded
+            def recorded(*args):
+                if op == "block_pack":
+                    captured[op] = args
+                else:
+                    captured[op].append(args)
+                return fn(*args)
+            return recorded
+        return resolve
     wrap("fused")
-    fused_mod.get_kernel = spy
-    bp.block_pack.launches = 0
+    for module, real in spied:
+        module.get_kernel = spy(real)
+    bp.block_pack.launches = bs.batch_seal.launches = 0
     try:
         client, fused, fused_wall = run_twin(workload, dev, fused=True,
                                              until=stepped["blocks"][-1][1])
     finally:
-        fused_mod.get_kernel = real
+        for module, real in spied:
+            module.get_kernel = real
         restore("fused")
     launches = bp.block_pack.launches
+    seal_launches = bs.batch_seal.launches
     twins_equal(stepped, fused, "fused node against stepped")
     if launches != 1:
         raise AssertionError(f"the fused node run launched block_pack "
                              f"{launches} times, not once")
+    if seal_launches != 2 or len(captured["batch_seal"]) != 2:
+        raise AssertionError(f"the fused node run launched batch_seal "
+                             f"{seal_launches} times in "
+                             f"{len(captured['batch_seal'])} calls, not 2")
     spans = {}
     for label, wall in (("stepped", stepped_wall), ("fused", fused_wall)):
         spans[label] = dict(steps[label].seconds)
@@ -619,11 +785,12 @@ def fused_node(dev, workload, smi: str):
         f"{len(fused['window_roots'])} window roots: blocks, gas log, "
         f"digests, roots and event kinds equal to the stepped twin; wall "
         f"stepped {stepped_wall:.6f} s, fused {fused_wall:.6f} s on {smi}; "
-        f"block_pack launches {launches}")
+        f"block_pack launches {launches}, batch_seal launches "
+        f"{seal_launches}")
     log(f"fused node: host seconds by step (each ends in a synchronize) "
         f"{json.dumps(spans)}; of which inside seal / apply_seal "
         f"{json.dumps({k: c.seconds for k, c in inside.items()})}")
-    return captured["args"], client, launches
+    return captured["block_pack"], captured["batch_seal"], client, launches
 
 
 def pack_stream(n_txs, n_blocks, seed, gas_limit, dev):
@@ -2426,9 +2593,11 @@ def main() -> int:
 
     # 4, fused: the same workload through the fused window loop, against
     # the stepped twin; block_pack checked and timed at its shape
-    pack_args, fused_client, _ = fused_node(dev, wl, smi)
+    pack_args, seal_calls, fused_client, _ = fused_node(dev, wl, smi)
     pack_row = check_block_pack(dev, pack_args, fused_client)
-    del fused_client, pack_args, wl
+    check_fused_seals(seal_calls, torch.empty(256 * 2**20 // 4,
+                                              dtype=torch.int32, device=dev))
+    del fused_client, pack_args, seal_calls, wl
 
     # 5. node path: card against CPU at a tenth of the size
     agree(dev)

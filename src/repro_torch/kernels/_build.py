@@ -38,8 +38,10 @@ _SIGNATURES = {
     # (device, words, n, clusters, partial words, out, stream)
     "fold_rollup_digest": (_D, _P, _I, _I, _P, _P, _P),
     "fold_chunk_digests": (_D, _P, _I, _I, _P, _P),
-    "fold_dirty_chunks": (_D, _P, _I, _I, _P, _I, _P, _P),
-    "fold_batch_seal": (_D, _P, _I, _P, _I, _P, _P),
+    # (device, words, n, chunk, ids, D, warps a chunk, out, stream)
+    "fold_dirty_chunks": (_D, _P, _I, _I, _P, _I, _I, _P, _P),
+    # (device, words, n, starts, nb, span, carry scratch, out, stream)
+    "fold_batch_seal": (_D, _P, _I, _P, _I, _I, _P, _P, _P),
     # csrc/fl.cu: (device, in, in, T, n, P, dtype flag, out, stream)
     "fl_weighted_agg": (_D, _P, _P, _I, _I, _I, _F, _P, _P),
     # (device, l, g, T, n, P, l's task and row strides, g's task stride,

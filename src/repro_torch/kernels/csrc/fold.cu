@@ -14,17 +14,47 @@
 //   fold_rollup_digest   whole buffer -> one word (one cluster, or a
 //                        cluster a partial word and a fold of the partials)
 //   fold_chunk_digests   one word per `chunk`-word chunk
-//   fold_dirty_chunks    one word per selected chunk id
-//   fold_batch_seal      one word per [starts[i], starts[i+1]) segment
+//   fold_dirty_chunks    one word per selected chunk id: a warp a chunk
+//                        (a block a chunk for long chunks)
+//   fold_batch_seal      one word per [starts[i], starts[i+1]) segment:
+//                        equal spans of words a block, whatever the
+//                        segments, in one launch
 //
 // All four are bound by the bytes they read: a few integer operations per
-// 4-byte word against 3.35 TB/s of HBM.  The span fold below reads 16-byte
-// (uint4) vectors where the address allows it, neighbouring threads on
+// 4-byte word against 3.35 TB/s of HBM.  What keeps a read at that rate is
+// enough bytes in flight on every SM: the span folds below read 16-byte
+// (uint4) vectors, four in flight a thread, neighbouring threads on
 // neighbouring vectors, with scalar loads for the unaligned head and the
-// tail.  Xor is commutative and associative, so every reduction order --
-// warp shuffles, shared memory, distributed shared memory -- gives the
-// same bits.
+// tail; batch_seal stages its span with one 1-D bulk copy (TMA) of the
+// span's 16-byte cover.  Xor is commutative and associative, so every
+// reduction order -- warp shuffles, shared-memory atomics, distributed
+// shared memory, a prefix over blocks -- gives the same bits.
+//
+// batch_seal's spans and carries.  Block b folds words [b S, (b+1) S) of
+// the buffer (S, the span, from kernels/batch_seal.py plan), so every
+// launch has ceil(n / S) blocks whatever the segment lengths: a segment of
+// one word, of 80 or of the whole buffer.  While the bulk copy runs, the
+// block finds the starts that fall in its span (a search of `starts` with
+// all its threads, a probe a thread: one round for 50,000 segments) and
+// stages them in shared memory.  Each thread then walks a contiguous run
+// of the span: a segment that starts and ends in its run it writes
+// itself, seed included; a piece of a longer segment it xors into the
+// shared-memory slot of the first run edge after the segment's start (an
+// atomicXor), and the thread at that edge writes the segment once the
+// block has walked.  The block leaves two carries: `first`, the piece of
+// the segment begun before the span, and the piece of a segment that
+// starts in the span and runs past it (its id, its value and the span its
+// last word lies in).  The last block to finish (a __threadfence, then a
+// ticket from a counter that the same block resets to 0, so no fill
+// launch is ever needed) takes a prefix xor P of `first` over the spans
+// and writes each running segment as seed ^ its piece ^ P[end span] ^
+// P[its span].  The counter is one word of the library per device, so the
+// calls of one device must run one at a time: the port launches every
+// kernel on torch's current stream, and batch_seal must not run on two
+// streams at once.  kernels/batch_seal.py batch_seal_mirror repeats the
+// spans, pieces and carries on the CPU.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -168,43 +198,377 @@ chunk_digests_kernel(const uint32_t* __restrict__ w, int64_t n,
   if (threadIdx.x == 0) out[c] = kMixSeed ^ acc;
 }
 
-// One block per selected chunk: each block reads its own chunk id, so the
-// gather of the chunk rows happens in the loads.  An id outside
+// One group of kWarps warps per selected chunk (1: a warp, 8 warps a
+// block; kBlock / 32 / kWarps chunks a block): the group reads its own
+// chunk id, so the gather of the chunk rows happens in the loads, and folds
+// the chunk with four 16-byte loads in flight a thread.  A warp ends with
+// a shuffle xor: no shared memory, no __syncthreads.  An id outside
 // [0, n_chunks) folds as an empty chunk instead of reading out of bounds.
+template <int kWarps>
 __global__ void __launch_bounds__(kBlock)
-dirty_chunks_kernel(const uint32_t* __restrict__ w, int64_t n, int64_t chunk,
-                    const int64_t* __restrict__ ids,
-                    uint32_t* __restrict__ out) {
-  const int64_t c = ids[blockIdx.x];
+dirty_fold_kernel(const uint32_t* __restrict__ w, int64_t n, int64_t chunk,
+                  const int64_t* __restrict__ ids, int64_t d,
+                  uint32_t* __restrict__ out) {
+  constexpr int kThreads = 32 * kWarps;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * (kBlock / kThreads)
+                    + threadIdx.x / kThreads;
+  if (kWarps == 1 && i >= d) return;   // whole warps leave together
+  const int t = threadIdx.x % kThreads;
+  const int64_t c = ids[i];
   const int64_t n_chunks = (n + chunk - 1) / chunk;
   uint32_t acc = 0;
   if (c >= 0 && c < n_chunks) {
     const int64_t lo = c * chunk;
     const int64_t hi = lo + chunk < n ? lo + chunk : n;
-    acc = fold_span(w, lo, hi, threadIdx.x, kBlock);
+    acc = fold_span4(w + lo, hi - lo, t, kThreads);
   }
-  acc = block_xor(acc);
-  if (threadIdx.x == 0) out[blockIdx.x] = kMixSeed ^ acc;
+  if constexpr (kWarps == 1) {
+    acc = warp_xor(acc);
+  } else {
+    acc = block_xor<kThreads>(acc);
+  }
+  if (t == 0) out[i] = kMixSeed ^ acc;
 }
 
-// One warp per segment: segments on the node path are one rollup batch
-// (20 txs x 4 words), far too short for a block.  Segment i ends at
-// starts[i + 1], the last one at n.
-__global__ void __launch_bounds__(kBlock)
-batch_seal_kernel(const uint32_t* __restrict__ w, int64_t n,
-                  const int64_t* __restrict__ starts, int64_t nb,
-                  uint32_t* __restrict__ out) {
-  const int64_t seg = static_cast<int64_t>(blockIdx.x) * (kBlock / 32)
-                      + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (seg >= nb) return;             // whole warps leave together
-  int64_t lo = starts[seg];
-  int64_t hi = seg + 1 < nb ? starts[seg + 1] : n;
-  lo = lo < 0 ? 0 : lo;
-  hi = hi > n ? n : hi;
-  const uint32_t acc = lo < hi ? warp_xor(fold_span(w, lo, hi, lane, 32))
-                               : 0u;
-  if (lane == 0) out[seg] = kMixSeed ^ acc;
+// -- batch_seal: equal spans of words, carries across them -------------------
+
+constexpr int kSealThreads = 256;
+constexpr int kSealMinSpan = 4 * kSealThreads;  // one uint4 a thread
+constexpr int kSealMaxSpan = 8 * kSealMinSpan;  // 8,192 words, 32 KB
+
+// What block b leaves for the last block (see the top of the file).
+struct SealCarry {
+  int64_t seg;        // the segment of `last`, -1 if no segment runs past
+  int64_t end_block;  // the span that holds that segment's last word
+  uint32_t first;     // piece of the segment begun before the span (or 0);
+                      // the last block overwrites it with the prefix xor
+  uint32_t last;      // piece of segment `seg` in this span
+};
+
+__device__ __forceinline__ int64_t ldg_i64(const int64_t* p) {
+  return __ldg(reinterpret_cast<const long long*>(p));
+}
+__device__ __forceinline__ int64_t ldcg_i64(const int64_t* p) {
+  return __ldcg(reinterpret_cast<const long long*>(p));
+}
+
+// batch_seal's ticket: blocks that have left their carries in this launch
+__device__ unsigned int g_seal_ticket = 0;
+
+// Dynamic shared memory of a span of `span` words and `staged` starts:
+// the staged cover (at most span + 4 words), a slot a run edge
+// (kSealThreads + 1) and the staged starts (span-relative int16).
+__host__ __device__ constexpr int seal_smem(int span, int staged) {
+  return 4 * (span + 4) + 4 * (kSealThreads + 1) + 2 * staged;
+}
+
+// Narrows lb[k], the number of starts[0, nb) below key[k] (key[0] <=
+// key[1]), for two keys at once, to [lb[k], lb[k] + len[k]] until
+// starts[lb[0], lb[1] + len[1]] fits in `cap` staged starts, using every
+// thread of the block: a round splits each range left into kSealThreads
+// probes, one a thread, and counts those below the key.  No round where
+// nb fits; one for the node path's 2,510 and 50,040 batches.
+__device__ __forceinline__ void seal_bounds(const int64_t* __restrict__ starts,
+                                            int64_t nb, const int64_t key[2],
+                                            int cap, int64_t lb[2],
+                                            int64_t len[2]) {
+  lb[0] = lb[1] = 0;
+  len[0] = len[1] = nb;
+  while ((len[0] > 0 || len[1] > 0) && lb[1] + len[1] - lb[0] >= cap) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int64_t stride = (len[k] + kSealThreads - 1) / kSealThreads;
+      const int64_t end = lb[k] + len[k];
+      const int64_t at = lb[k] + (threadIdx.x + 1) * stride - 1;
+      const bool below = len[k] > 0 && at < end
+                         && ldg_i64(starts + at) < key[k];
+      const int64_t count = __syncthreads_count(below);
+      if (len[k] > 0) {
+        lb[k] += count * stride;
+        len[k] = stride - 1 < end - lb[k] ? stride - 1 : end - lb[k];
+      }
+    }
+  }
+}
+
+// Block b folds words [b span, (b+1) span) of w[0, n) into the segments
+// that begin at starts[0, nb) (strictly increasing, starts[0] >= 0,
+// starts[nb-1] < n; words before starts[0] belong to no segment).  Other
+// starts never make it read or write out of bounds, but their digests are
+// not defined.  `carry` holds gridDim.x records.
+__global__ void __launch_bounds__(kSealThreads)
+batch_seal_span_kernel(const uint32_t* __restrict__ w, int64_t n,
+                       const int64_t* __restrict__ starts, int64_t nb,
+                       int span, int window, int staged_cap,
+                       SealCarry* __restrict__ carry,
+                       uint32_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t bar;
+  __shared__ uint32_t warp_words[kSealThreads / 32];
+  __shared__ int below[2];
+  __shared__ int64_t last_seg;
+  __shared__ int is_last;
+  const int64_t blocks = gridDim.x;
+  const int64_t b = blockIdx.x;
+  const int64_t lo = b * span;
+  const int64_t hi = lo + span < n ? lo + span : n;
+  const int len = static_cast<int>(hi - lo);
+  const int tail = static_cast<int>(n - lo);   // n < 2^31 (the launcher)
+  const hopper::Cover cov = hopper::cover(w + lo, len);
+  auto* stage = reinterpret_cast<uint4*>(smem);
+  auto* slot = reinterpret_cast<uint32_t*>(smem + 4 * (span + 4));
+  auto* staged = reinterpret_cast<int16_t*>(slot + kSealThreads + 1);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bar, 1);
+    hopper::fence_barrier_init();
+    hopper::mbar_expect_tx(&bar, cov.bytes);
+    hopper::bulk_load(stage, cov.start, cov.bytes, &bar);
+    below[0] = below[1] = 0;
+    last_seg = -1;
+  }
+  for (int k = threadIdx.x; k <= kSealThreads; k += kSealThreads) {
+    slot[k] = 0;
+  }
+  __syncthreads();
+  // While the copy runs: the starts of this span.  A coarse search leaves
+  // k0 = lb(lo) and k1 = lb(hi) in
+  // starts[a, z]; one round of loads stages them (relative to lo, clamped
+  // to [-1, span + 1]: every test below is against a word of the span or
+  // its end) and counts those below lo and below hi.
+  const int64_t key[2] = {lo, hi};
+  int64_t lb[2], open[2];
+  seal_bounds(starts, nb, key, staged_cap, lb, open);
+  const int64_t a = lb[0];
+  int64_t z = lb[1] + open[1] < nb ? lb[1] + open[1] : nb - 1;
+  z = z - a < staged_cap ? z : a + staged_cap - 1;
+  int n_lo = 0, n_hi = 0;
+  for (int64_t j = threadIdx.x; a + j <= z; j += kSealThreads) {
+    const int64_t v = ldg_i64(starts + a + j) - lo;
+    const int rel = v < 0 ? -1 : (v > span ? span + 1 : static_cast<int>(v));
+    staged[j] = static_cast<int16_t>(rel);
+    n_lo += rel < 0;
+    n_hi += rel < len;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    n_lo += __shfl_xor_sync(0xffffffffu, n_lo, o);
+    n_hi += __shfl_xor_sync(0xffffffffu, n_hi, o);
+  }
+  if (lane == 0) {
+    atomicAdd(&below[0], n_lo);
+    atomicAdd(&below[1], n_hi);
+  }
+  __syncthreads();
+  // the window: starts[k0, k0 + m), at staged[c0, c0 + m)
+  const int c0 = below[0];
+  const int64_t k0 = a + c0;
+  const int span_starts = below[1] - c0 > 0 ? below[1] - c0 : 0;
+  const int m = span_starts < window ? span_starts : window;
+  const int16_t* win = staged + c0;
+  // where the span's last segment ends, relative to lo (at most span + 1):
+  // the next start, or n; thread 0 reads its true value while the block
+  // walks the span
+  const bool next_in = k0 + m < nb && a + c0 + m <= z;
+  int end_last = next_in ? win[m] : (tail > span ? span + 1 : tail);
+  end_last = end_last < len ? len : end_last;
+  int64_t end_true = n;
+  if (threadIdx.x == 0 && next_in) end_true = ldg_i64(starts + k0 + m);
+  // segment q of the span: q = 0 began before it, q = j + 1 is k0 + j
+  auto seg_start = [&](int q) {
+    return q == 0 ? -1 : static_cast<int>(win[q - 1]);
+  };
+  auto seg_end = [&](int q) {
+    return q < m ? static_cast<int>(win[q]) : end_last;
+  };
+  auto seek = [&](int p) {           // the segment of word p
+    int l = 0, h = m;
+    while (l < h) {
+      const int mid = (l + h) >> 1;
+      if (win[mid] <= p) l = mid + 1; else h = mid;
+    }
+    return l;
+  };
+  hopper::mbar_wait(&bar, 0);
+
+  // Thread t walks the stage vectors [t V, (t+1) V) in order, V = span /
+  // 1,024 (the last thread also the cover's extra vector): span words
+  // [edge(t), edge(t + 1)), its run.  A segment that starts and ends in the
+  // run is written by the thread, seed included; every other piece is
+  // xor-ed into the slot of the first run edge after the segment's start
+  // (slot 0: the segment begun before the span).
+  const int per = span / kSealMinSpan;
+  const int run = 4 * per;
+  const int vecs = static_cast<int>(cov.bytes / 16);
+  auto edge = [&](int k) {
+    const int p = k * run - cov.head;
+    return k >= kSealThreads ? len : (p < 0 ? 0 : (p > len ? len : p));
+  };
+  auto key_of = [&](int s) {         // the slot of a segment starting at s
+    const int k = (s + cov.head) / run;
+    return s < 0 ? 0 : (k < kSealThreads - 1 ? k : kSealThreads - 1) + 1;
+  };
+  const int run_lo = edge(threadIdx.x), run_hi = edge(threadIdx.x + 1);
+  int q = seek(run_lo);
+  int next = q < m ? win[q] : INT_MAX;
+  uint32_t acc = 0;
+  bool got = false;                  // a word of segment q folded
+  auto whole = [&]() {
+    return seg_start(q) >= run_lo && seg_end(q) <= run_hi;
+  };
+  auto flush = [&]() {
+    if (got && whole()) {
+      out[k0 + q - 1] = kMixSeed ^ acc;
+    } else if (acc) {
+      atomicXor(slot + key_of(seg_start(q)), acc);
+    }
+    acc = 0;
+    got = false;
+  };
+  auto word = [&](uint32_t v, int p) {
+    if (p < 0 || p >= len) return;   // cover words outside the span
+    while (p >= next) {
+      flush();
+      ++q;
+      next = q < m ? win[q] : INT_MAX;
+    }
+    acc ^= mix(v);
+    got = true;
+  };
+  const int v_hi = threadIdx.x == kSealThreads - 1 ? vecs
+                   : ((threadIdx.x + 1) * per < vecs
+                      ? (threadIdx.x + 1) * per : vecs);
+  for (int i = threadIdx.x * per; i < v_hi; ++i) {
+    const uint4 x = stage[i];
+    const int p = 4 * i - cov.head;
+    if (p >= 0 && p + 3 < len && p + 3 < next) {
+      acc ^= mix4(x);                // four words of one segment
+      got = true;
+    } else {
+      word(x.x, p);
+      word(x.y, p + 1);
+      word(x.z, p + 2);
+      word(x.w, p + 3);
+    }
+  }
+  // last piece: a warp whose lanes all end on one slot xors it first
+  const int mine = got && !whole() ? key_of(seg_start(q)) : -1;
+  const int first_key = __shfl_sync(0xffffffffu, mine, 0);
+  if (__all_sync(0xffffffffu, mine == first_key && mine >= 0)) {
+    acc = warp_xor(acc);
+    if (lane == 0 && acc) atomicXor(slot + first_key, acc);
+  } else {
+    flush();
+  }
+  __syncthreads();
+
+  // Slot k (k >= 1) belongs to the last segment that starts in run k - 1,
+  // if it runs past the run: written here when it ends in the span, its
+  // piece left for the last block when it runs past the span.
+  {
+    const int k = threadIdx.x + 1;
+    const int r_lo = edge(k - 1), r_hi = edge(k);
+    int l = 0, h = m;                // window starts below r_hi
+    while (l < h) {
+      const int mid = (l + h) >> 1;
+      if (win[mid] < r_hi) l = mid + 1; else h = mid;
+    }
+    if (r_lo < r_hi && l > 0 && win[l - 1] >= r_lo && seg_end(l) > r_hi) {
+      if (seg_end(l) <= len) {
+        out[k0 + l - 1] = kMixSeed ^ slot[k];
+      } else {
+        last_seg = k0 + l - 1;
+        warp_words[0] = slot[k];     // read by thread 0 after the barrier
+      }
+    }
+  }
+  if (blocks == 1) return;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    SealCarry c;
+    c.first = k0 > 0 ? slot[0] : 0u;
+    c.seg = last_seg;
+    c.last = last_seg >= 0 ? warp_words[0] : 0u;
+    const int64_t e = (end_true - 1) / span;
+    c.end_block = last_seg >= 0 ? (e < blocks ? e : blocks - 1) : b;
+    carry[b] = c;
+    __threadfence();                  // the carry before the ticket
+    is_last = atomicAdd(&g_seal_ticket, 1u) == blocks - 1;
+  }
+  __syncthreads();
+  if (!is_last) return;
+
+  // The last block: every carry is written.  P[i] = xor of first[0..i],
+  // kSealThreads x 8 records a round, kept in the stage's shared memory
+  // where it fits (else in place of first[]); then each running segment.
+  // The records of the first kAhead x kSealThreads running segments are
+  // read with the first round's, in one trip to L2.
+  __threadfence();
+  if (threadIdx.x == 0) g_seal_ticket = 0;   // ready for the next launch
+  constexpr int kAhead = 4;
+  int64_t seg_at[kAhead], end_at[kAhead];
+  uint32_t last_at[kAhead];
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) {
+    const int64_t i = threadIdx.x + j * kSealThreads;
+    seg_at[j] = i < blocks ? ldcg_i64(&carry[i].seg) : -1;
+    end_at[j] = i < blocks ? ldcg_i64(&carry[i].end_block) : 0;
+    last_at[j] = i < blocks ? __ldcg(&carry[i].last) : 0u;
+  }
+  auto* prefix = reinterpret_cast<uint32_t*>(smem);
+  const bool in_smem = blocks <= span + 4;
+  uint32_t before = 0;               // xor of first[] over earlier rounds
+  for (int64_t base = 0; base < blocks; base += 8 * kSealThreads) {
+    const int64_t i0 = base + 8 * threadIdx.x;
+    uint32_t v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      v[e] = i0 + e < blocks ? __ldcg(&carry[i0 + e].first) : 0u;
+      if (e) v[e] ^= v[e - 1];
+    }
+    uint32_t incl = v[7];            // inclusive xor scan over the warp
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl ^= u;
+    }
+    __syncthreads();                 // warp_words free (also its word 0)
+    if (lane == 31) warp_words[warp] = incl;
+    __syncthreads();
+    uint32_t excl = before ^ incl ^ v[7];
+    uint32_t round = 0;
+    for (int k = 0; k < kSealThreads / 32; ++k) {
+      if (k < warp) excl ^= warp_words[k];
+      round ^= warp_words[k];
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if (i0 + e >= blocks) break;
+      if (in_smem) {
+        prefix[i0 + e] = excl ^ v[e];
+      } else {
+        carry[i0 + e].first = excl ^ v[e];
+      }
+    }
+    before ^= round;
+  }
+  __syncthreads();
+  auto p_at = [&](int64_t i) {
+    return in_smem ? prefix[i] : __ldcg(&carry[i].first);
+  };
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) {
+    if (seg_at[j] < 0) continue;
+    out[seg_at[j]] = kMixSeed ^ last_at[j]
+                     ^ p_at(threadIdx.x + j * kSealThreads) ^ p_at(end_at[j]);
+  }
+  for (int64_t i = threadIdx.x + kAhead * kSealThreads; i < blocks;
+       i += kSealThreads) {
+    const int64_t seg = ldcg_i64(&carry[i].seg);
+    const int64_t e = ldcg_i64(&carry[i].end_block);
+    const uint32_t piece = __ldcg(&carry[i].last);
+    if (seg >= 0) out[seg] = kMixSeed ^ piece ^ p_at(i) ^ p_at(e);
+  }
 }
 
 int64_t blocks_for(int64_t items, int64_t per_block) {
@@ -285,25 +649,53 @@ int fold_chunk_digests(int device, const void* words, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `warps` (kernels/dirty_fold.py form): 1 folds a chunk with a warp, 8
+// with a block of kBlock threads.
 int fold_dirty_chunks(int device, const void* words, int64_t n,
-                      int64_t chunk, const void* ids, int64_t n_ids, void* out,
-                      void* stream) {
+                      int64_t chunk, const void* ids, int64_t n_ids,
+                      int64_t warps, void* out, void* stream) {
   if (cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
-  dirty_chunks_kernel<<<static_cast<unsigned>(n_ids), kBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), n, chunk,
-      static_cast<const int64_t*>(ids), static_cast<uint32_t*>(out));
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto w = static_cast<const uint32_t*>(words);
+  const auto i = static_cast<const int64_t*>(ids);
+  auto* o = static_cast<uint32_t*>(out);
+  if (warps == 1) {
+    const auto grid = static_cast<unsigned>(blocks_for(n_ids, kBlock / 32));
+    dirty_fold_kernel<1><<<grid, kBlock, 0, st>>>(w, n, chunk, i, n_ids, o);
+  } else if (warps == kBlock / 32) {
+    dirty_fold_kernel<kBlock / 32><<<static_cast<unsigned>(n_ids), kBlock, 0,
+                                     st>>>(w, n, chunk, i, n_ids, o);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+// `span` from kernels/batch_seal.py plan; `carry` holds ceil(n / span)
+// SealCarry records of scratch (never read before written).
 int fold_batch_seal(int device, const void* words, int64_t n,
-                    const void* starts, int64_t nb, void* out, void* stream) {
+                    const void* starts, int64_t nb, int64_t span, void* carry,
+                    void* out, void* stream) {
   if (cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
-  const int64_t grid = blocks_for(nb, kBlock / 32);
-  batch_seal_kernel<<<static_cast<unsigned>(grid), kBlock, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  if (n < 1 || n > INT_MAX || nb < 1 || span < kSealMinSpan
+      || span > kSealMaxSpan || span % kSealMinSpan) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int window = static_cast<int>(nb < span ? nb : span);
+  const int staged = window + 2 * kSealThreads + 1;
+  const int smem = seal_smem(static_cast<int>(span), staged);
+  if (cudaError_t e = cudaFuncSetAttribute(
+          batch_seal_span_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem)) {
+    return static_cast<int>(e);
+  }
+  batch_seal_span_kernel<<<static_cast<unsigned>(blocks_for(n, span)),
+                           kSealThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), n,
-      static_cast<const int64_t*>(starts), nb, static_cast<uint32_t*>(out));
+      static_cast<const int64_t*>(starts), nb, static_cast<int>(span),
+      window, staged, static_cast<SealCarry*>(carry),
+      static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

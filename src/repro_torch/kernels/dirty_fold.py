@@ -6,12 +6,21 @@ refolded, and this op is that refold: given the patched word buffer and
 the ids of the dirty chunks, one digest per id, equal to
 ``rollup_chunk_digests(words, chunk)[chunk_ids]``.
 
-Kernel: replaces the Pallas ``_fold_kernel`` of
-``src/repro/kernels/dirty_fold.py:107``.  Bound: the words of the selected
-chunks read once (4 bytes each), the ids read and one word written per id.
-Design: the block-per-chunk body of ``rollup_chunk_digests``, with each
-block reading its own chunk id from the ``(D,)`` id tensor, so the gather
-happens in the kernel's loads instead of as a gathered copy of the rows.
+Kernel (``dirty_fold_kernel`` in ``csrc/fold.cu``): replaces the Pallas
+``_fold_kernel`` of ``src/repro/kernels/dirty_fold.py:107``.  Bound: the
+words of the selected chunks read once (4 bytes each), the ids read and
+one word written per id; on the node path 1,408 chunks of 2,048 words,
+11.5 MB a window.  What holds a read of that size at the memory's rate is
+the bytes in flight on every SM, so the design (``form``): one warp folds
+one chunk (a 2,048-word chunk is 16 uint4 a lane, four loads in flight
+a lane) and ends with a shuffle xor -- no shared memory, no
+``__syncthreads`` -- 8 warps a block, so the node path's 1,408 ids take
+176 blocks, all resident at once.  Chunks above ``WARP_CHUNK_MAX`` words
+take a block of 8 warps each (a block xor).  Each warp or block reads its
+own chunk id from the ``(D,)`` id tensor, so the gather happens in the
+kernel's loads instead of as a gathered copy of the rows; an id outside
+``[0, n_chunks)`` folds as an empty chunk (the seed).  Any word alignment:
+the head and tail of a chunk off the 16-byte grid are scalar loads.
 """
 from __future__ import annotations
 
@@ -21,6 +30,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.rollup_digest import (MIX_SEED, check_cuda,
                                                as_words, mix_u32, to_i32,
                                                to_u32, xor_reduce)
+
+BLOCK_WARPS = 8                     # warps a block (kBlock / 32)
+WARP_CHUNK_MAX = 2048               # words: a warp a chunk up to this
 
 
 def dirty_fold_torch(words: torch.Tensor, chunk_ids: torch.Tensor,
@@ -47,12 +59,27 @@ def dirty_fold(words: torch.Tensor, chunk_ids: torch.Tensor,
     if words.device.type == "cpu":
         return dirty_fold_torch(words, ids, chunk)
     dev = check_cuda(words, ids)
-    out = torch.empty(ids.numel(), dtype=torch.int32, device=dev)
-    if ids.numel():
-        _build.launch("fold_dirty_chunks", dev, words.data_ptr(),
-                      words.numel(), chunk, ids.data_ptr(), ids.numel(),
-                      out.data_ptr())
-        dirty_fold.launches += 1
+    if not ids.numel():
+        return torch.empty(0, dtype=torch.int32, device=dev)
+    out = _launch(words, ids, chunk, 1 if form(chunk) == "warp"
+                  else BLOCK_WARPS)
+    dirty_fold.launches += 1
+    return out
+
+
+def form(chunk: int) -> str:
+    """``"warp"`` (a warp a chunk) up to ``WARP_CHUNK_MAX`` words, else
+    ``"block"`` (a block of ``BLOCK_WARPS`` warps a chunk)."""
+    return "warp" if chunk <= WARP_CHUNK_MAX else "block"
+
+
+def _launch(words: torch.Tensor, ids: torch.Tensor, chunk: int,
+            warps: int) -> torch.Tensor:
+    """The kernel with ``warps`` warps a chunk (1 or ``BLOCK_WARPS``)."""
+    out = torch.empty(ids.numel(), dtype=torch.int32, device=words.device)
+    _build.launch("fold_dirty_chunks", words.device, words.data_ptr(),
+                  words.numel(), chunk, ids.data_ptr(), ids.numel(), warps,
+                  out.data_ptr())
     return out
 
 

@@ -1,6 +1,11 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 fold kernels and ``block_pack`` bit for bit (``rollup_digest`` on either
-side of its ``plan`` split, one launch a call), the FL kernels (Eq. 1 and
+side of its ``plan`` split, one launch a call; ``batch_seal`` at its hard
+cases -- the whole 16 MB buffer as one segment, one-word segments, power-
+law lengths, starts off the 4-word grid, offset views, segment edges on
+span edges, 20 segments of a 4M-word buffer -- at every span, one launch a
+call; ``dirty_fold`` in both forms on offset views, with repeated and
+out-of-range ids, at chunk 128 to 65,537), the FL kernels (Eq. 1 and
 Eq. 4, float32 accumulation in another order) at rtol 1e-5 / atol 1e-6 in
 float32 and 2e-2 in bfloat16, a task-axis Eq. 1 or Eq. 4 launch row for
 row equal to the unbatched launches (Eq. 4 in both its forms, also
@@ -105,6 +110,80 @@ def test_batch_seal_kernel(cuda, n, n_segs):
     torch.testing.assert_close(bs.batch_seal(w, starts),
                                bs.batch_seal_torch(w, starts),
                                rtol=0, atol=0)
+
+
+def _seal_starts(lengths, first=0):
+    return np.concatenate([[first], first + np.cumsum(lengths)[:-1]]).astype(
+        np.int64)
+
+
+def _seal_cases():
+    """(name, n words, starts, view offset): the hard inputs of
+    ``batch_seal``'s spans and carries."""
+    g = np.random.default_rng(19)
+    span = bs.MIN_SPAN
+    power = []
+    while sum(power) < 4_000_000:       # lengths ~ 1 / l from 1 to 10^6
+        power.append(int(10 ** g.uniform(0, 6)))
+    cases = [("whole 16 MB", 4 << 20, np.zeros(1, np.int64), 0),
+             ("4,096 one-word segments", 4096, np.arange(4096), 0),
+             ("power law", sum(power), _seal_starts(power), 0),
+             ("20 segments of 4M words", 4_001_576,
+              np.linspace(0, 4_001_576, 21)[:-1].astype(np.int64), 0),
+             ("starts off the 4-word grid", 50_000,
+              _seal_starts(g.integers(1, 80, 1000) * 4 + 1, 3), 0)]
+    for off in (1, 2, 3):
+        cases.append((f"view offset {off}", 200_788,
+                      _seal_starts(g.integers(1, 81, 2600)), off))
+    for length in (span - 1, span, span + 1, 2 * span, 3 * span + 1):
+        k = 12 * bs.MAX_SPAN // length
+        cases.append((f"segments of {length} words", k * length,
+                      np.arange(k, dtype=np.int64) * length, 0))
+    return [(name, n, starts[starts < n], off)
+            for name, n, starts, off in cases]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n,starts,off", _seal_cases(),
+                         ids=[c[0] for c in _seal_cases()])
+def test_batch_seal_hard_cases(cuda, name, n, starts, off):
+    """One launch a call, bit-equal to the plain version, at plan's span
+    and at every span the kernel takes."""
+    w = _words(n + off, n, cuda)[off:]
+    st = torch.from_numpy(starts).to(cuda)
+    want = bs.batch_seal_torch(w, st)
+    before = bs.batch_seal.launches
+    torch.testing.assert_close(bs.batch_seal(w, st), want, rtol=0, atol=0)
+    assert bs.batch_seal.launches == before + 1
+    for span in range(bs.MIN_SPAN, bs.MAX_SPAN + 1, bs.MIN_SPAN):
+        got = bs._launch(w, st, bs.plan(n, span))
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [128, 2048, 65_536, 65_537])
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+def test_dirty_fold_forms(cuda, chunk, off):
+    """Both forms on views offset by 0-3 words, repeated ids and ids out of
+    range (the seed), bit-equal to the plain version."""
+    n = 40 * chunk + 7
+    w = _words(n + off, chunk + off, cuda)[off:]
+    g = np.random.default_rng(chunk)
+    n_chunks = -(-n // chunk)
+    ids = torch.from_numpy(np.concatenate([
+        g.integers(0, n_chunks, 300), [0, 0, n_chunks - 1]])).to(cuda)
+    want = df.dirty_fold_torch(w, ids, chunk)
+    before = df.dirty_fold.launches
+    torch.testing.assert_close(df.dirty_fold(w, ids, chunk), want, rtol=0,
+                               atol=0)
+    assert df.dirty_fold.launches == before + 1
+    for warps in (1, df.BLOCK_WARPS):
+        torch.testing.assert_close(df._launch(w, ids, chunk, warps), want,
+                                   rtol=0, atol=0)
+    bad = torch.tensor([-1, n_chunks, 1 << 40], device=cuda)
+    assert (df.dirty_fold(w, bad, chunk) == rd.SEED_I32).all()
+    torch.cuda.synchronize()
 
 
 def _fl_tol(dtype):
