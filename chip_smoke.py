@@ -230,23 +230,50 @@ def timed_ms(fn, iters: int, flush: torch.Tensor) -> float:
     return sum(s.elapsed_time(e) for s, e in marks) / iters
 
 
-def device_ms(fn, fragment: str, iters: int, flush: torch.Tensor) -> float:
+TRACE_TRIES = 3
+# every trace device_ms took again: its name fragment, the launches, the
+# spans of that name it held and all of its device spans
+RETAKES: list = []
+
+
+def device_ms(fn, fragment: str, iters: int, flush: torch.Tensor,
+              clean: bool = False) -> float:
     """The kernel's own device time: the mean over ``iters`` launches of
     ``fn`` (L2 evicted before each) of the device spans whose names hold
     ``fragment`` in a torch.profiler trace, read by name as fl_profile
-    reads them.  Fails unless there is one such span a launch."""
+    reads them.  Fails unless there is one such span a launch; a trace
+    that holds another count is taken again, up to ``TRACE_TRIES``
+    times, each retake logged and kept in ``RETAKES`` (on the H100 one
+    trace of 20 launches once held 5 spans, where every other trace held
+    one a launch; why is not known, so each run's retakes are printed
+    with its numbers).  The L2 is evicted by writing ``flush`` (its dirty
+    lines are written back while the kernel reads), or with ``clean`` by
+    reading it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and fragment in e.name]
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if clean:
+                    flush.sum()
+                else:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        spans = [e.time_range.end - e.time_range.start for e in device
+                 if fragment in e.name]
+        if len(spans) == iters:
+            break
+        RETAKES.append({"fragment": fragment, "launches": iters,
+                        "spans": len(spans), "device_spans": len(device)})
+        log(f"device_ms: {len(spans)} device spans named {fragment!r} in "
+            f"{iters} launches ({len(device)} device spans in all); "
+            f"tracing them again")
     if len(spans) != iters:
         raise AssertionError(f"{len(spans)} device spans named {fragment!r} "
                              f"in {iters} launches")
@@ -255,7 +282,8 @@ def device_ms(fn, fragment: str, iters: int, flush: torch.Tensor) -> float:
 
 # the fold kernels timed by device_ms too, by their names in a trace
 FOLD_KERNELS = {"batch_seal": "batch_seal_span_kernel",
-                "dirty_fold": "dirty_fold_kernel"}
+                "dirty_fold": "dirty_fold_kernel",
+                "rollup_chunk_digests": "chunk_digests_kernel"}
 
 
 def u32_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -342,7 +370,12 @@ def check_kernels(dev, shapes) -> list:
         "rollup_chunk_digests": (
             rd.rollup_chunk_digests, rd.rollup_chunk_digests_torch,
             [(words(n), chunk) for n in (1, 128, 2048, 4097, 70_000)]
-            + [(state_words[3:], chunk)],
+            # views offset by 1-3 words at the node shape and at chunks of
+            # 128, 2,048 and 65,536 (the block form); a ragged last chunk
+            # of one word
+            + [(state_words[off:], c) for off in (1, 2, 3)
+               for c in (chunk, 128, 2048, 65_536)]
+            + [(words(40 * c + 1), c) for c in (128, 2048, 65_536)],
             (state_words, chunk),
             lambda a: (4 * a[0].numel() + 4 * n_chunks, a[0].numel())),
         "dirty_fold": (
@@ -401,7 +434,7 @@ def check_kernels(dev, shapes) -> list:
         results.append(row)
     check_rollup_plan(words, flush)
     seal_spans(seal_words, seal_starts_t, "the stepped seal", flush)
-    dirty_forms(state_words, chunk, flush)
+    chunk_forms(state_words, chunk, flush)
     return results
 
 
@@ -424,24 +457,31 @@ def seal_spans(w, starts, label: str, flush) -> None:
     log(f"kernel batch_seal spans at {label}: {json.dumps(row)}")
 
 
-def dirty_forms(state_words, chunk: int, flush) -> None:
-    """dirty_fold's two forms (a warp a chunk, a block a chunk) at the node
-    path's chunk and at longer ones, every chunk of the state selected,
-    each bit-equal to plain and timed (CUDA events, L2 flushed): the
-    times ``WARP_CHUNK_MAX`` comes from."""
+def chunk_forms(state_words, chunk: int, flush) -> None:
+    """The chunk fold's two forms (a warp a chunk, a block a chunk), which
+    ``rollup_chunk_digests`` and ``dirty_fold`` share, at the node path's
+    chunk and at longer ones: both kernels in both forms bit-equal to
+    plain (``dirty_fold`` with every chunk selected), and
+    ``rollup_chunk_digests`` timed by the profiler (L2 flushed), the times
+    ``WARP_CHUNK_MAX`` comes from."""
     from repro_torch.kernels import dirty_fold as df
+    from repro_torch.kernels import rollup_digest as rd
     for c in (chunk, 4096, 8192, 16_384, 65_536):
-        ids = torch.arange(-(-state_words.numel() // c),
-                           device=state_words.device)
-        want = df.dirty_fold_torch(state_words, ids, c)
-        row = {"chunk": c, "ids": ids.numel(), "form": df.form(c)}
-        for warps in (1, df.BLOCK_WARPS):
-            if u32_err(df._launch(state_words, ids, c, warps), want):
-                raise AssertionError(f"dirty_fold at chunk {c} with {warps} "
-                                     f"warps a chunk differs from plain")
-            row[f"ms_{warps}_warps"] = timed_ms(
-                lambda: df._launch(state_words, ids, c, warps), 50, flush)
-        log(f"kernel dirty_fold forms: {json.dumps(row)}")
+        want = rd.rollup_chunk_digests_torch(state_words, c)
+        ids = torch.arange(want.numel(), device=state_words.device)
+        row = {"chunk": c, "chunks": want.numel(), "form": rd.form(c)}
+        for warps in (1, rd.BLOCK_WARPS):
+            for name, got in (
+                    ("rollup_chunk_digests",
+                     rd._chunk_launch(state_words, c, warps)),
+                    ("dirty_fold", df._launch(state_words, ids, c, warps))):
+                if u32_err(got, want):
+                    raise AssertionError(f"{name} at chunk {c} with {warps} "
+                                         f"warps a chunk differs from plain")
+            row[f"device_ms_{warps}_warps"] = device_ms(
+                lambda: rd._chunk_launch(state_words, c, warps),
+                FOLD_KERNELS["rollup_chunk_digests"], 20, flush)
+        log(f"kernel chunk fold forms: {json.dumps(row)}")
 
 
 def check_fused_seals(calls, flush) -> None:
@@ -945,6 +985,8 @@ def check_fl_kernels(dev, path_n: int, path_p: int, wide_p: int,
                        3 * a[0].numel())),
     }
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
+    agg_mirror(agg_grid + [chips[k]["weighted_agg"] for k in shapes]
+               + agg_hard_cases(rows, scores, path_n, path_p))
     out = {}
     for name, (kernel, plain, grid, library, work) in cases.items():
         err = 0.0
@@ -971,15 +1013,20 @@ def check_fl_kernels(dev, path_n: int, path_p: int, wide_p: int,
                 "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
                 "shape": [list(a.shape) for a in args]}
             t = timed[label]
+            if name == "weighted_agg":
+                t["device_ms"] = device_ms(lambda: kernel(*args),
+                                           "weighted_agg", 20, flush)
             if name == "model_distance":
                 t["form"] = md.model_distance.last_form
                 if t["form"] != md.form(args[0].shape[1], args[0].dtype):
                     raise AssertionError(f"model_distance at {t['shape']}: "
                                          f"form {t['form']}")
-            log(f"kernel {name} at {t['shape']} (float32): {t['ms']:.6f} ms "
-                f"(bound {t['bound_ms']:.6f} ms, {t['bound_by']}), plain "
-                f"{t['plain_ms']:.6f} ms, library call {t['library_ms']:.6f}"
-                f" ms; {t.get('form', '')}")
+            device = (f", device {t['device_ms']:.6f} ms (profiler)"
+                      if "device_ms" in t else "")
+            log(f"kernel {name} at {t['shape']} (float32): {t['ms']:.6f} ms"
+                f"{device} (bound {t['bound_ms']:.6f} ms, {t['bound_by']}), "
+                f"plain {t['plain_ms']:.6f} ms, library call "
+                f"{t['library_ms']:.6f} ms; {t.get('form', '')}")
         log(f"kernel {name}: within tolerance of plain on {len(checked)} "
             f"inputs (float32 rtol 1e-5 atol 1e-6, bfloat16 2e-2); largest "
             f"float32 |kernel - plain| {err}")
@@ -991,6 +1038,32 @@ def check_fl_kernels(dev, path_n: int, path_p: int, wide_p: int,
         dev, g, n_tasks, path_n, path_p, wide_p, flush,
         out["model_distance"])
     return out
+
+
+def agg_hard_cases(rows, scores, n, p) -> list:
+    """weighted_agg's hard inputs (those of tests/test_torch_gpu.py): n of
+    1, 7, 9 and 1,000 rows, P of 1, 3 and 2,411 columns, rows offset by
+    1-3 elements, bfloat16 at the path's (n, p)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(rows(k, p, f32), scores(k)) for k in (1, 7, 9, 1000)]
+    cases += [(rows(n, q, f32), scores(n)) for q in (1, 3, p + 1)]
+    cases += [(rows(n, p + off, f32)[:, off:], scores(n))
+              for off in (1, 2, 3)]
+    return cases + [(rows(n, p, bf16), scores(n))]
+
+
+def agg_mirror(cases) -> None:
+    """weighted_agg bit-equal to ``weighted_agg_mirror`` (the kernel's sum
+    order on the CPU) on every (stacked, scores) pair."""
+    from repro_torch.kernels import weighted_agg as wa
+    for w, s in cases:
+        if not torch.equal(wa.weighted_agg(w, s).cpu(),
+                           wa.weighted_agg_mirror(w, s)):
+            raise AssertionError(f"weighted_agg at {tuple(w.shape)} "
+                                 f"{w.dtype} (strides {w.stride()}): differs "
+                                 f"from its mirror")
+    log(f"kernel weighted_agg: bit-equal to weighted_agg_mirror on "
+        f"{len(cases)} inputs")
 
 
 def check_task_axis_agg(dev, g, n_tasks, n, p, flush, row) -> dict:
@@ -1006,6 +1079,9 @@ def check_task_axis_agg(dev, g, n_tasks, n, p, flush, row) -> dict:
         if not torch.equal(got[t], wa.weighted_agg(w[t], s[t])):
             raise AssertionError(f"weighted_agg: task-axis row {t} differs "
                                  f"from the unbatched launch")
+    if not torch.equal(got.cpu(), wa.weighted_agg_mirror(w, s)):
+        raise AssertionError("weighted_agg: the task-axis launch differs "
+                             "from its mirror")
     torch.testing.assert_close(got, want, **F32_TOL)
     torch.cuda.synchronize()
     row["max_abs_err"] = max(row["max_abs_err"],
@@ -1014,6 +1090,8 @@ def check_task_axis_agg(dev, g, n_tasks, n, p, flush, row) -> dict:
         / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * w.numel() / F32_OPS_PER_S * 1e3
     t = {"ms": timed_ms(lambda: wa.weighted_agg(w, s), 50, flush),
+         "device_ms": device_ms(lambda: wa.weighted_agg(w, s),
+                                "weighted_agg", 20, flush),
          "plain_ms": timed_ms(lambda: wa.weighted_agg_torch(w, s), 20, flush),
          "library_ms": timed_ms(
              lambda: torch.matmul(s[:, None], w)[:, 0]
@@ -1022,7 +1100,8 @@ def check_task_axis_agg(dev, g, n_tasks, n, p, flush, row) -> dict:
          "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
          "shape": [list(w.shape), list(s.shape)]}
     log(f"kernel weighted_agg at {t['shape']} (float32, task axis): rows "
-        f"bit-equal to the {n_tasks} unbatched launches; {t['ms']:.6f} ms "
+        f"bit-equal to the {n_tasks} unbatched launches and to the mirror; "
+        f"{t['ms']:.6f} ms, device {t['device_ms']:.6f} ms (profiler) "
         f"(bound {t['bound_ms']:.6f} ms, {t['bound_by']}), plain "
         f"{t['plain_ms']:.6f} ms, library call (batched matmul) "
         f"{t['library_ms']:.6f} ms")
@@ -2677,14 +2756,16 @@ def main() -> int:
     for name, row in fl_rows.items():
         log(f"wide {name}: {json.dumps(row['wide'])}")
     for name, row in (("weighted_agg", agg), ("model_distance", dist)):
-        per_task = {k: row[k] for k in ("ms", "plain_ms", "library_ms",
-                                         "bound_ms", "shape")}
+        per_task = {k: row[k] for k in ("ms", "device_ms", "plain_ms",
+                                         "library_ms", "bound_ms", "shape")
+                    if k in row}
         log(f"per-task {name}: {json.dumps(per_task)}")
     log(f"flash_attention at prefill_32k's sequence: "
         f"{json.dumps(attn_row['long'])}; at moonshot's layer: "
         f"{json.dumps(attn_row['moonshot'])}")
     log(f"gmm at moonshot's other products: {json.dumps(gmm_rows[1:])}")
 
+    log(f"device_ms retakes: {json.dumps(RETAKES)}")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

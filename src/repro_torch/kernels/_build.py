@@ -37,13 +37,15 @@ _SIGNATURES = {
     # csrc/fold.cu
     # (device, words, n, clusters, partial words, out, stream)
     "fold_rollup_digest": (_D, _P, _I, _I, _P, _P, _P),
-    "fold_chunk_digests": (_D, _P, _I, _I, _P, _P),
+    # (device, words, n, chunk, warps a chunk, out, stream)
+    "fold_chunk_digests": (_D, _P, _I, _I, _I, _P, _P),
     # (device, words, n, chunk, ids, D, warps a chunk, out, stream)
     "fold_dirty_chunks": (_D, _P, _I, _I, _P, _I, _I, _P, _P),
     # (device, words, n, starts, nb, span, carry scratch, out, stream)
     "fold_batch_seal": (_D, _P, _I, _P, _I, _I, _P, _P, _P),
-    # csrc/fl.cu: (device, in, in, T, n, P, dtype flag, out, stream)
-    "fl_weighted_agg": (_D, _P, _P, _I, _I, _I, _F, _P, _P),
+    # csrc/fl.cu: (device, w, s, T, n, P, w's task and row strides, dtype
+    # flag, out, stream)
+    "fl_weighted_agg": (_D, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P),
     # (device, l, g, T, n, P, l's task and row strides, g's task stride,
     # dtype flag, form, cluster blocks, span, out, stream)
     "fl_model_distance": (_D, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,

@@ -28,8 +28,6 @@
 
 namespace {
 
-constexpr int kAggBlock = 256;       // weighted_agg: threads per block
-
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -50,42 +48,136 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Eq. 1.  Columns are independent, so one thread owns a column p (threads
-// of a warp on neighbouring columns: every row read is coalesced) and
-// walks the n rows in order, accumulating s[i] * w[i, p] in float32.  A
-// grid-stride loop covers any P; the tail needs no padding, because a
-// thread past P does nothing.  Each block sums the scores itself (n is
-// small) before the column loop.  Grid row blockIdx.y is task t: its
-// stack, scores and output start t stacks in, and every task's sums run
-// in the same order as a launch on that task alone, so row t of a
-// batched launch is bit-identical to it.
+// -- Eq. 1: weighted_agg ------------------------------------------------------
+//
+// The sum order is fixed by n alone, never by T, P, the tile or an
+// address: the n rows split into kGroups contiguous groups of ceil(n /
+// kGroups) rows (the last ones short or empty); each group's sum runs in
+// increasing row i from 0.0f, every product s[i] w[i, p] and every sum
+// rounded on its own (no fused multiply-add); the kGroups group sums are
+// added in group order from 0.0f.  The denominator: lane j of a warp sums
+// s[j], s[j + 32], ... in increasing order, then the shuffle tree; one
+// correctly rounded division, then the output dtype.  So row t of a
+// task-axis launch gives the bits of a launch on task t alone, and
+// weighted_agg_mirror in kernels/weighted_agg.py repeats the arithmetic bit
+// for bit.
+//
+// A block owns kAggTileBytes of a row, kAggTileBytes / sizeof(T) columns,
+// of one task (grid x: tiles, grid y: tasks); warp r sums row group r over
+// them.  (The width was timed on an H100 at 128 to 1,024 bytes at the FL
+// paths' shapes and 1M wide: 512 was the fastest or within 1 % at each.)
+// The warp's lane 0 stages the group's rows by 1-D bulk copies of their
+// 16-byte covers (a row of the FL path is 9,640 bytes, so every other row
+// starts 8 bytes off the 16-byte grid), `stage_rows` rows a round through a ring of `stages` rounds on an
+// mbarrier each, so shared memory does not grow with n.  Warp 0 sums the
+// scores while the first copies are in flight.  The partials meet in
+// shared memory, where a thread a column adds them in group order and
+// divides.
+
+constexpr int kGroups = 8;                 // row groups, a warp each
+constexpr int kAggThreads = kGroups * 32;
+constexpr int kRingRows = 8;               // rows a warp stages at once
+constexpr int kAggTileBytes = 512;         // a row's span in a block
+constexpr int kAggSlot = kAggTileBytes + 16;  // a ring slot: a tile's cover
+
 template <typename T>
-__global__ void __launch_bounds__(kAggBlock)
+__global__ void __launch_bounds__(kAggThreads)
 weighted_agg_kernel(const T* __restrict__ w, const float* __restrict__ s,
-                    int64_t n, int64_t P, T* __restrict__ out) {
-  const int64_t task = blockIdx.y;
-  w += task * n * P;
-  s += task * n;
-  out += task * P;
+                    int64_t n, int64_t P, int64_t w_task, int64_t w_row,
+                    int stage_rows, int stages, T* __restrict__ out) {
+  constexpr int tile = kAggTileBytes / static_cast<int>(sizeof(T));
+  constexpr int kCols = tile / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t bars[kGroups][2];
   __shared__ float denom;
-  if (threadIdx.x < 32) {
-    float acc = 0.f;
-    for (int64_t i = threadIdx.x; i < n; i += 32) acc += s[i];
-    acc = warp_sum(acc);
-    if (threadIdx.x == 0) denom = fmaxf(acc, 1e-12f);
-  }
-  __syncthreads();
-  const float d = denom;
-  const int64_t step = static_cast<int64_t>(gridDim.x) * kAggBlock;
-  for (int64_t p = static_cast<int64_t>(blockIdx.x) * kAggBlock
-                   + threadIdx.x; p < P; p += step) {
-    const T* col = w + p;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int64_t i = 0; i < n; ++i) {
-      acc = fmaf(__ldg(s + i), to_float(col[i * P]), acc);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t task = blockIdx.y;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * tile;
+  const int cnt = static_cast<int>(P - c0 < tile ? P - c0 : tile);
+  const T* wt = w + task * w_task + c0;
+  const float* st = s + task * n;
+  const int64_t group = (n + kGroups - 1) / kGroups;
+  const int64_t lo = warp * group < n ? warp * group : n;
+  const int64_t hi = lo + group < n ? lo + group : n;
+  const int64_t rounds = (hi - lo + stage_rows - 1) / stage_rows;
+  float* part = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + static_cast<int64_t>(kGroups) * tile * 4
+                        + static_cast<int64_t>(warp) * stages * stage_rows
+                          * kAggSlot;
+  uint64_t* bar = bars[warp];
+  const auto rows_in = [&](int64_t k) {
+    const int64_t left = hi - lo - k * stage_rows;
+    return static_cast<int>(left < stage_rows ? left : stage_rows);
+  };
+  const auto row_cover = [&](int64_t i) {
+    return hopper::cover(wt + i * w_row, cnt);
+  };
+  // lane 0: round k's rows into stage k % stages
+  const auto stage = [&](int64_t k) {
+    const int b = static_cast<int>(k % stages);
+    const int64_t r0 = lo + k * stage_rows;
+    const int nr = rows_in(k);
+    uint32_t bytes = 0;
+    for (int j = 0; j < nr; ++j) bytes += row_cover(r0 + j).bytes;
+    hopper::mbar_expect_tx(&bar[b], bytes);
+    for (int j = 0; j < nr; ++j) {
+      const hopper::Cover c = row_cover(r0 + j);
+      hopper::bulk_load(ring + (static_cast<int64_t>(b) * stage_rows + j)
+                                   * kAggSlot,
+                        c.start, c.bytes, &bar[b]);
     }
-    out[p] = from_float<T>(acc / d);
+  };
+  if (lane == 0) {
+    for (int b = 0; b < stages; ++b) hopper::mbar_init(&bar[b], 1);
+    hopper::fence_barrier_init();
+    for (int64_t k = 0; k < stages && k < rounds; ++k) stage(k);
+  }
+  __syncwarp();
+  if (warp == 0) {
+    float d = 0.f;
+    for (int64_t i = lane; i < n; i += 32) d = __fadd_rn(d, __ldg(st + i));
+    d = warp_sum(d);
+    if (lane == 0) denom = fmaxf(d, 1e-12f);
+  }
+  float acc[kCols];
+#pragma unroll
+  for (int q = 0; q < kCols; ++q) acc[q] = 0.f;
+  for (int64_t k = 0; k < rounds; ++k) {
+    const int b = static_cast<int>(k % stages);
+    const int64_t r0 = lo + k * stage_rows;
+    const int nr = rows_in(k);
+    const float sv = lane < nr ? __ldg(st + r0 + lane) : 0.f;
+    hopper::mbar_wait(&bar[b], static_cast<uint32_t>((k / stages) & 1));
+    for (int j = 0; j < nr; ++j) {
+      const float sj = __shfl_sync(0xffffffffu, sv, j);
+      const T* rs = reinterpret_cast<const T*>(
+                        ring + (static_cast<int64_t>(b) * stage_rows + j)
+                                   * kAggSlot)
+                    + row_cover(r0 + j).head;
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) {
+        const int c = lane + 32 * q;
+        if (c < cnt) {
+          acc[q] = __fadd_rn(acc[q], __fmul_rn(sj, to_float(rs[c])));
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0 && k + stages < rounds) {
+      hopper::fence_proxy_async_smem();   // the reads above, then the copy
+      stage(k + stages);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kCols; ++q) part[warp * tile + lane + 32 * q] = acc[q];
+  __syncthreads();
+  for (int c = threadIdx.x; c < cnt; c += kAggThreads) {
+    float total = 0.f;
+#pragma unroll
+    for (int r = 0; r < kGroups; ++r) {
+      total = __fadd_rn(total, part[r * tile + c]);
+    }
+    out[task * P + c0 + c] = from_float<T>(__fdiv_rn(total, denom));
   }
 }
 
@@ -326,6 +418,37 @@ int sm_count() {
   return sms;
 }
 
+// weighted_agg's launch: a block a tile of a task; a warp's ring
+// holds its whole group where the group has at most kRingRows rows (one
+// round: the FL path's 64 rows), else two stages of kRingRows / 2 rows.
+template <typename T>
+int launch_agg(const void* w, const float* s, int64_t T_, int64_t n,
+               int64_t P, int64_t w_task, int64_t w_row, void* out,
+               cudaStream_t st) {
+  const int64_t tile = kAggTileBytes / static_cast<int64_t>(sizeof(T));
+  const int64_t tiles = blocks_for(P, tile);
+  if (n < 0 || tiles > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t group = (n + kGroups - 1) / kGroups;
+  const int stages = group <= kRingRows ? 1 : 2;
+  const int64_t stage_rows = group <= kRingRows
+                                 ? (group > 0 ? group : 1) : kRingRows / 2;
+  const int64_t smem = kGroups * tile * 4 + kGroups * stages * stage_rows
+                                                * kAggSlot;
+  if (cudaError_t e = cudaFuncSetAttribute(
+          weighted_agg_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem))) {
+    return static_cast<int>(e);
+  }
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(T_));
+  weighted_agg_kernel<T><<<grid, kAggThreads, static_cast<size_t>(smem),
+                           st>>>(
+      static_cast<const T*>(w), s, n, P, w_task, w_row,
+      static_cast<int>(stage_rows), stages, static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // dynamic shared memory of the cluster form's ring at `rows` rows
 constexpr int cluster_smem(int rows) { return kStages * (rows + 1) * kSlot; }
 
@@ -446,31 +569,25 @@ int distance_capacity(int64_t cs, int* clusters) {
 
 extern "C" {
 
-// T stacks of (n, P); dtype: 0 = float32, 1 = bfloat16 (w and out); s is
-// float32 (T, n).
+// T stacks of n rows of P elements: row i of task t at w + t w_task +
+// i w_row (strides in elements, each row contiguous); dtype: 0 = float32,
+// 1 = bfloat16 (w and out); s is float32 (T, n), out (T, P) contiguous.
 int fl_weighted_agg(int device, const void* w, const void* s, int64_t T,
-                    int64_t n, int64_t P, int dtype, void* out,
-                    void* stream) {
+                    int64_t n, int64_t P, int64_t w_task, int64_t w_row,
+                    int dtype, void* out, void* stream) {
   if (cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
-  if (T < 1 || T > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  int64_t grid = blocks_for(P, kAggBlock);
-  if (grid < 1) grid = 1;
-  if (grid > 132 * 8) grid = 132 * 8;  // grid-stride beyond 8 blocks per SM
-  const dim3 blocks(static_cast<unsigned>(grid), static_cast<unsigned>(T));
+  if (T < 1 || T > 65535 || P < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto st = static_cast<cudaStream_t>(stream);
   const auto sf = static_cast<const float*>(s);
   if (dtype == 0) {
-    weighted_agg_kernel<float><<<blocks, kAggBlock, 0, st>>>(
-        static_cast<const float*>(w), sf, n, P, static_cast<float*>(out));
-  } else if (dtype == 1) {
-    weighted_agg_kernel<__nv_bfloat16>
-        <<<blocks, kAggBlock, 0, st>>>(
-            static_cast<const __nv_bfloat16*>(w), sf, n, P,
-            static_cast<__nv_bfloat16*>(out));
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_agg<float>(w, sf, T, n, P, w_task, w_row, out, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1) {
+    return launch_agg<__nv_bfloat16>(w, sf, T, n, P, w_task, w_row, out, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // T tasks of n rows of P elements: row i of task t at l + t l_task +

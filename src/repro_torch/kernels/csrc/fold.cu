@@ -13,9 +13,10 @@
 //
 //   fold_rollup_digest   whole buffer -> one word (one cluster, or a
 //                        cluster a partial word and a fold of the partials)
-//   fold_chunk_digests   one word per `chunk`-word chunk
-//   fold_dirty_chunks    one word per selected chunk id: a warp a chunk
-//                        (a block a chunk for long chunks)
+//   fold_chunk_digests   one word per `chunk`-word chunk, every chunk
+//   fold_dirty_chunks    one word per selected chunk id
+//                        (both fold a chunk with a warp, or with a block
+//                        for long chunks: fold_chunk)
 //   fold_batch_seal      one word per [starts[i], starts[i+1]) segment:
 //                        equal spans of words a block, whatever the
 //                        segments, in one launch
@@ -95,30 +96,9 @@ __device__ __forceinline__ uint32_t mix4(const uint4& q) {
   return mix(q.x) ^ mix(q.y) ^ mix(q.z) ^ mix(q.w);
 }
 
-// Thread `t` of `step` threads (step >= 4) folds its share of w[lo, hi).
-__device__ __forceinline__ uint32_t fold_span(const uint32_t* __restrict__ w,
-                                              int64_t lo, int64_t hi,
-                                              int64_t t, int64_t step) {
-  uint32_t acc = 0;
-  // words before the first 16-byte boundary (at most 3)
-  const int64_t head = static_cast<int64_t>(
-      ((16u - (reinterpret_cast<uintptr_t>(w + lo) & 15u)) & 15u) >> 2);
-  const int64_t a = lo + head < hi ? lo + head : hi;
-  if (lo + t < a) acc ^= mix(w[lo + t]);
-  const int64_t nv = (hi - a) >> 2;
-  const uint4* __restrict__ v = reinterpret_cast<const uint4*>(w + a);
-  for (int64_t i = t; i < nv; i += step) {
-    const uint4 q = __ldg(v + i);
-    acc ^= mix(q.x) ^ mix(q.y) ^ mix(q.z) ^ mix(q.w);
-  }
-  const int64_t b = a + 4 * nv;      // at most 3 words left
-  if (b + t < hi) acc ^= mix(w[b + t]);
-  return acc;
-}
-
-// Thread `t` of `step` threads folds its share of w[0, n) as fold_span
-// does, with four 16-byte loads in flight a thread.  Word j belongs to one
-// thread: j itself before the first 16-byte boundary (at most 3 words),
+// Thread `t` of `step` threads (step >= 4) folds its share of w[0, n):
+// 16-byte loads, four in flight a thread.  Word j belongs to one thread:
+// j itself before the first 16-byte boundary (at most 3 words),
 // (j - head) / 4 mod step in the vector body, j - body end in the tail
 // (kernels/rollup_digest.py, rollup_digest_mirror, spells it out).
 __device__ __forceinline__ uint32_t fold_span4(const uint32_t* __restrict__ w,
@@ -187,34 +167,17 @@ fold_parts_kernel(const uint32_t* __restrict__ parts, int64_t k,
   if (threadIdx.x == 0) out[0] = kMixSeed ^ x;
 }
 
-// One block per chunk; the last chunk may be ragged.
-__global__ void __launch_bounds__(kBlock)
-chunk_digests_kernel(const uint32_t* __restrict__ w, int64_t n,
-                     int64_t chunk, uint32_t* __restrict__ out) {
-  const int64_t c = blockIdx.x;
-  const int64_t lo = c * chunk;
-  const int64_t hi = lo + chunk < n ? lo + chunk : n;
-  const uint32_t acc = block_xor(fold_span(w, lo, hi, threadIdx.x, kBlock));
-  if (threadIdx.x == 0) out[c] = kMixSeed ^ acc;
-}
-
-// One group of kWarps warps per selected chunk (1: a warp, 8 warps a
-// block; kBlock / 32 / kWarps chunks a block): the group reads its own
-// chunk id, so the gather of the chunk rows happens in the loads, and folds
-// the chunk with four 16-byte loads in flight a thread.  A warp ends with
-// a shuffle xor: no shared memory, no __syncthreads.  An id outside
-// [0, n_chunks) folds as an empty chunk instead of reading out of bounds.
+// The digest of chunk c of w[0, n) (the last chunk may be ragged), folded
+// by a group of kWarps warps of which this thread is thread t: a warp (1)
+// with four 16-byte loads in flight a lane and a shuffle xor -- no shared
+// memory, no __syncthreads -- or a block (kBlock / 32 warps) with a block
+// xor for long chunks.  Valid in thread t == 0.  A c outside [0, n_chunks)
+// folds as an empty chunk (the seed) instead of reading out of bounds.
 template <int kWarps>
-__global__ void __launch_bounds__(kBlock)
-dirty_fold_kernel(const uint32_t* __restrict__ w, int64_t n, int64_t chunk,
-                  const int64_t* __restrict__ ids, int64_t d,
-                  uint32_t* __restrict__ out) {
+__device__ __forceinline__ uint32_t fold_chunk(const uint32_t* __restrict__ w,
+                                               int64_t n, int64_t chunk,
+                                               int64_t c, int t) {
   constexpr int kThreads = 32 * kWarps;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * (kBlock / kThreads)
-                    + threadIdx.x / kThreads;
-  if (kWarps == 1 && i >= d) return;   // whole warps leave together
-  const int t = threadIdx.x % kThreads;
-  const int64_t c = ids[i];
   const int64_t n_chunks = (n + chunk - 1) / chunk;
   uint32_t acc = 0;
   if (c >= 0 && c < n_chunks) {
@@ -227,7 +190,40 @@ dirty_fold_kernel(const uint32_t* __restrict__ w, int64_t n, int64_t chunk,
   } else {
     acc = block_xor<kThreads>(acc);
   }
-  if (t == 0) out[i] = kMixSeed ^ acc;
+  return kMixSeed ^ acc;
+}
+
+// Every chunk, in order: group i (a warp, or a block of kWarps warps) of
+// the grid folds chunk i, with no id tensor; kBlock / 32 / kWarps chunks a
+// block.
+template <int kWarps>
+__global__ void __launch_bounds__(kBlock)
+chunk_digests_kernel(const uint32_t* __restrict__ w, int64_t n,
+                     int64_t chunk, uint32_t* __restrict__ out) {
+  constexpr int kThreads = 32 * kWarps;
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * (kBlock / kThreads)
+                    + threadIdx.x / kThreads;
+  const int64_t n_chunks = (n + chunk - 1) / chunk;
+  if (kWarps == 1 && c >= n_chunks) return;   // whole warps leave together
+  const int t = threadIdx.x % kThreads;
+  const uint32_t digest = fold_chunk<kWarps>(w, n, chunk, c, t);
+  if (t == 0) out[c] = digest;
+}
+
+// The chunks named by ids[0, d): group i folds chunk ids[i], so the
+// gather of the chunk rows happens in the loads.
+template <int kWarps>
+__global__ void __launch_bounds__(kBlock)
+dirty_fold_kernel(const uint32_t* __restrict__ w, int64_t n, int64_t chunk,
+                  const int64_t* __restrict__ ids, int64_t d,
+                  uint32_t* __restrict__ out) {
+  constexpr int kThreads = 32 * kWarps;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * (kBlock / kThreads)
+                    + threadIdx.x / kThreads;
+  if (kWarps == 1 && i >= d) return;   // whole warps leave together
+  const int t = threadIdx.x % kThreads;
+  const uint32_t digest = fold_chunk<kWarps>(w, n, chunk, ids[i], t);
+  if (t == 0) out[i] = digest;
 }
 
 // -- batch_seal: equal spans of words, carries across them -------------------
@@ -638,19 +634,30 @@ int fold_rollup_digest(int device, const void* words, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `warps` (kernels/rollup_digest.py chunk_warps): 1 folds a chunk with a
+// warp, 8 with a block of kBlock threads.
 int fold_chunk_digests(int device, const void* words, int64_t n,
-                       int64_t chunk, void* out, void* stream) {
+                       int64_t chunk, int64_t warps, void* out,
+                       void* stream) {
   if (cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  if (n < 1 || chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto w = static_cast<const uint32_t*>(words);
+  auto* o = static_cast<uint32_t*>(out);
   const int64_t n_chunks = blocks_for(n, chunk);
-  chunk_digests_kernel<<<static_cast<unsigned>(n_chunks), kBlock, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), n, chunk,
-      static_cast<uint32_t*>(out));
+  if (warps == 1) {
+    const auto grid = static_cast<unsigned>(blocks_for(n_chunks, kBlock / 32));
+    chunk_digests_kernel<1><<<grid, kBlock, 0, st>>>(w, n, chunk, o);
+  } else if (warps == kBlock / 32) {
+    chunk_digests_kernel<kBlock / 32>
+        <<<static_cast<unsigned>(n_chunks), kBlock, 0, st>>>(w, n, chunk, o);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// `warps` (kernels/dirty_fold.py form): 1 folds a chunk with a warp, 8
-// with a block of kBlock threads.
+// `warps` as fold_chunk_digests'.
 int fold_dirty_chunks(int device, const void* words, int64_t n,
                       int64_t chunk, const void* ids, int64_t n_ids,
                       int64_t warps, void* out, void* stream) {

@@ -20,19 +20,18 @@ take a block of 8 warps each (a block xor).  Each warp or block reads its
 own chunk id from the ``(D,)`` id tensor, so the gather happens in the
 kernel's loads instead of as a gathered copy of the rows; an id outside
 ``[0, n_chunks)`` folds as an empty chunk (the seed).  Any word alignment:
-the head and tail of a chunk off the 16-byte grid are scalar loads.
+the head and tail of a chunk off the 16-byte grid are scalar loads.  The
+fold of a chunk (``fold_chunk`` in ``csrc/fold.cu``) and ``form`` are
+shared with ``rollup_chunk_digests``, which folds every chunk in order.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rollup_digest import (MIX_SEED, check_cuda,
-                                               as_words, mix_u32, to_i32,
-                                               to_u32, xor_reduce)
-
-BLOCK_WARPS = 8                     # warps a block (kBlock / 32)
-WARP_CHUNK_MAX = 2048               # words: a warp a chunk up to this
+from repro_torch.kernels.rollup_digest import (  # noqa: F401
+    BLOCK_WARPS, MIX_SEED, WARP_CHUNK_MAX, as_words, check_cuda,
+    chunk_warps, form, mix_u32, to_i32, to_u32, xor_reduce)
 
 
 def dirty_fold_torch(words: torch.Tensor, chunk_ids: torch.Tensor,
@@ -61,16 +60,9 @@ def dirty_fold(words: torch.Tensor, chunk_ids: torch.Tensor,
     dev = check_cuda(words, ids)
     if not ids.numel():
         return torch.empty(0, dtype=torch.int32, device=dev)
-    out = _launch(words, ids, chunk, 1 if form(chunk) == "warp"
-                  else BLOCK_WARPS)
+    out = _launch(words, ids, chunk, chunk_warps(chunk))
     dirty_fold.launches += 1
     return out
-
-
-def form(chunk: int) -> str:
-    """``"warp"`` (a warp a chunk) up to ``WARP_CHUNK_MAX`` words, else
-    ``"block"`` (a block of ``BLOCK_WARPS`` warps a chunk)."""
-    return "warp" if chunk <= WARP_CHUNK_MAX else "block"
 
 
 def _launch(words: torch.Tensor, ids: torch.Tensor, chunk: int,

@@ -29,10 +29,19 @@ folds them with the seed.  No atomics and no fill; xor is associative, so
 every partition gives the same bits (``rollup_digest_mirror`` spells the
 partition out).
 
-``rollup_chunk_digests`` kernel: replaces ``_chunk_kernel``
-(``src/repro/kernels/rollup_digest.py:76``).  Bound: 4·P bytes read plus
-one word written per chunk.  Design: one block per chunk; the ragged tail
-chunk is masked in the kernel, so no padded copy of the buffer is made.
+``rollup_chunk_digests`` kernel (``chunk_digests_kernel``): replaces
+``_chunk_kernel`` (``src/repro/kernels/rollup_digest.py:76``).  Bound: 4·P
+bytes read plus one word written per chunk; on the node path 2,883,584
+words in 1,408 chunks of 2,048, 11.5 MB.  What holds a read of that size
+at the memory's rate is the bytes in flight on every SM, so it folds as
+``dirty_fold`` does, with the same device function (``fold_chunk`` in
+``csrc/fold.cu``) and the same ``form``: a warp a chunk up to
+``WARP_CHUNK_MAX`` words (four 16-byte loads in flight a lane, a shuffle
+xor, no shared memory or barrier), 8 warps a block; a block of
+``BLOCK_WARPS`` warps a chunk above (``chunk_warps``).  Chunk i is the
+group's index in the grid, so no id tensor is read; the ragged tail
+chunk is masked in the kernel, so no padded copy of the buffer is made,
+and any word alignment folds (scalar loads off the 16-byte grid).
 """
 from __future__ import annotations
 
@@ -181,6 +190,22 @@ rollup_digest.launches = 0
 
 # -- rollup_chunk_digests: one word per chunk --------------------------------
 
+BLOCK_WARPS = 8                     # block form: warps a chunk (kBlock / 32)
+WARP_CHUNK_MAX = 2048               # words: a warp a chunk up to this
+
+
+def form(chunk: int) -> str:
+    """The chunk fold's form (``rollup_chunk_digests`` and ``dirty_fold``):
+    ``"warp"`` (a warp a chunk) up to ``WARP_CHUNK_MAX`` words, else
+    ``"block"`` (a block of ``BLOCK_WARPS`` warps a chunk)."""
+    return "warp" if chunk <= WARP_CHUNK_MAX else "block"
+
+
+def chunk_warps(chunk: int) -> int:
+    """Warps folding one chunk in ``form(chunk)``: 1 or ``BLOCK_WARPS``."""
+    return 1 if form(chunk) == "warp" else BLOCK_WARPS
+
+
 def rollup_chunk_digests_torch(buf: torch.Tensor,
                                chunk: int = 2048) -> torch.Tensor:
     """Plain version: (ceil(P/chunk),) int32 digests, zero-padded tail; an
@@ -203,11 +228,18 @@ def rollup_chunk_digests(buf: torch.Tensor, chunk: int = 2048
     dev = check_cuda(words)
     if not words.numel():
         return torch.full((1,), SEED_I32, dtype=torch.int32, device=dev)
-    n_chunks = -(-words.numel() // chunk)
-    out = torch.empty(n_chunks, dtype=torch.int32, device=dev)
-    _build.launch("fold_chunk_digests", dev, words.data_ptr(),
-                  words.numel(), chunk, out.data_ptr())
+    out = _chunk_launch(words, chunk, chunk_warps(chunk))
     rollup_chunk_digests.launches += 1
+    return out
+
+
+def _chunk_launch(words: torch.Tensor, chunk: int,
+                  warps: int) -> torch.Tensor:
+    """The kernel with ``warps`` warps a chunk (1 or ``BLOCK_WARPS``)."""
+    out = torch.empty(-(-words.numel() // chunk), dtype=torch.int32,
+                      device=words.device)
+    _build.launch("fold_chunk_digests", words.device, words.data_ptr(),
+                  words.numel(), chunk, warps, out.data_ptr())
     return out
 
 

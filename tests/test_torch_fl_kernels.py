@@ -3,9 +3,10 @@ package: Eq. 1 ``weighted_agg`` and Eq. 4 ``model_distance`` (also with
 its task axis, task by task), held against the Pallas kernels in
 interpret mode and against the ``kernels/ref.py`` oracles, on the grids
 of tests/test_kernels.py; ``model_distance``'s form choice and its mirror
-of the kernel's summation order.  The tolerances are that
-file's: rtol 1e-4 / atol 1e-5 in float32 and 2e-2 in bfloat16 (the sums
-run in another order).  The CUDA kernels themselves are held against these
+of the kernel's summation order; ``weighted_agg``'s mirror of its kernel's
+order against a numpy emulation, and the grid its tile gives.  The
+tolerances are that file's: rtol 1e-4 / atol 1e-5 in float32 and 2e-2 in
+bfloat16 (the sums run in another order).  The CUDA kernels themselves are held against these
 plain versions on the card (tests/test_torch_gpu.py, chip_smoke.py).
 """
 import jax
@@ -216,6 +217,94 @@ def test_model_distance_mirror_order(P, dt):
     assert torch.equal(moved, got)
     assert torch.equal(tmd.model_distance_mirror(lt[2, :, 1:], gt[2, 1:]),
                        got[2])
+
+
+def _emulate_agg(w: np.ndarray, s: np.ndarray) -> np.ndarray:
+    """Eq. 1 in the kernel's order, written out in numpy float32: rows in
+    ``ROW_GROUPS`` groups of ceil(n / groups), each group summed from 0 in
+    increasing row (a product and a sum rounded apiece), the group sums
+    added in group order from 0; the score sum as 32 lane sums (lane j:
+    s[j], s[j + 32], ...) and the halving tree, floored at 1e-12; one
+    division."""
+    n, P = w.shape
+    size = -(-n // twa.ROW_GROUPS)
+    total = np.zeros(P, np.float32)
+    for r in range(twa.ROW_GROUPS):
+        acc = np.zeros(P, np.float32)
+        for i in range(r * size, min(n, (r + 1) * size)):
+            acc = (acc + (np.float32(s[i]) * w[i]).astype(np.float32)
+                   ).astype(np.float32)
+        total = (total + acc).astype(np.float32)
+    lanes = [np.float32(0)] * 32
+    for i in range(n):
+        lanes[i % 32] = np.float32(lanes[i % 32] + np.float32(s[i]))
+    v = np.array(lanes, np.float32)
+    while v.size > 1:
+        v = (v[: v.size // 2] + v[v.size // 2:]).astype(np.float32)
+    denom = np.maximum(v[0], np.float32(1e-12))
+    return (total / denom).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,P,dt", [
+    (1, 1, F32), (7, 3, F32), (9, 300, F32), (3, 130, F32),
+    (64, 2410, F32),           # the FL path's shape
+    (1000, 5, F32), (64, 2411, F32), (64, 2410, BF16), (16, 257, BF16)])
+def test_weighted_agg_mirror_order(n, P, dt):
+    """The kernel's mirror bit-equal to the order written out in numpy
+    scalars (in bfloat16: float32 arithmetic, rounded once to bfloat16),
+    and within tolerance (float32 rtol 1e-5 / atol 1e-6, bfloat16 2e-2) of
+    the plain version and of the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(n * 31 + P)
+    wj, wt = _pair(rng.normal(size=(n, P)), dt)
+    s = rng.uniform(0.05, 1.0, n).astype(np.float32)
+    got = twa.weighted_agg_mirror(wt, torch.from_numpy(s))
+    assert got.dtype == wt.dtype and got.shape == (P,)
+    want = _emulate_agg(_np(wt), s)
+    if dt == BF16:
+        want = want.astype(ml_dtypes.bfloat16).astype(np.float32)
+    np.testing.assert_array_equal(_np(got), want)
+    tol = dict(rtol=2e-2, atol=2e-2) if dt == BF16 \
+        else dict(rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(
+        _np(got), _np(twa.weighted_agg_torch(wt, torch.from_numpy(s))), **tol)
+    pallas = jax_agg(wj, jnp.asarray(s), block_p=512, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), **tol)
+
+
+@pytest.mark.parametrize("T,n,P,dt", [
+    (3, 64, 2410, F32), (4, 9, 7, F32), (2, 1000, 3, F32),
+    (3, 0, 5, F32), (2, 16, 300, BF16)])
+def test_weighted_agg_mirror_task_axis_and_offsets(T, n, P, dt):
+    """Row t of a (T, n, P) mirror bit-equal to the (n, P) mirror of task
+    t; rows one element off their alignment equal the same rows moved in
+    place: the order depends on n alone."""
+    rng = np.random.default_rng(T * 1000 + n + P)
+    _, wt = _pair(rng.normal(size=(T, n, P + 1)), dt)
+    s = torch.from_numpy(rng.uniform(0.05, 1.0, (T, n)).astype(np.float32))
+    for rows in (wt[..., :P], wt[..., 1:]):
+        got = twa.weighted_agg_mirror(rows, s)
+        assert got.shape == (T, P) and got.dtype == wt.dtype
+        for t in range(T):
+            assert torch.equal(got[t], twa.weighted_agg_mirror(rows[t], s[t]))
+        assert torch.equal(twa.weighted_agg_mirror(rows.contiguous(), s), got)
+    if n == 0:
+        assert not twa.weighted_agg_mirror(wt, s).float().any()
+
+
+@pytest.mark.parametrize("T,P,dt,blocks", [
+    (32, 2410, F32, 608),      # the default FL path's task-axis launch
+    (1, 2410, F32, 19),        # the stepped path's
+    (1, 1 << 20, F32, 8192),   # 1M wide
+    (1, 2410, BF16, 10), (3, 1, F32, 3)])
+def test_weighted_agg_tile(T, P, dt, blocks):
+    """The kernel's tile: 512 bytes of a row a block, a whole number of
+    warps' columns, and the grid it gives at the paths' shapes."""
+    dtype = torch.bfloat16 if dt == BF16 else torch.float32
+    cols = twa.tile(dtype)
+    assert cols * torch.empty((), dtype=dtype).element_size() \
+        == twa.TILE_BYTES == 512
+    assert cols % 32 == 0
+    assert T * -(-P // cols) == blocks
 
 
 def test_wrappers_check_shapes_and_factory_routes():

@@ -9,7 +9,11 @@ out-of-range ids, at chunk 128 to 65,537), the FL kernels (Eq. 1 and
 Eq. 4, float32 accumulation in another order) at rtol 1e-5 / atol 1e-6 in
 float32 and 2e-2 in bfloat16, a task-axis Eq. 1 or Eq. 4 launch row for
 row equal to the unbatched launches (Eq. 4 in both its forms, also
-bit-equal to ``model_distance_mirror``); the default ``Scheduler`` (fused
+bit-equal to ``model_distance_mirror``), Eq. 1 bit-equal to
+``weighted_agg_mirror`` at its hard cases (n of 1 to 1,000, P of 1 to 1M,
+offset rows, bfloat16), ``rollup_chunk_digests`` in both
+forms on offset views with a ragged one-word chunk; the default
+``Scheduler`` (fused
 loop and megastep) on the card against the stepped per-task path, and
 settling its tasks in one ``model_distance`` launch; the attention
 kernel against its plain version (rtol 1e-4 / atol 1e-5 in float32; in
@@ -336,6 +340,77 @@ def test_rollup_digest_across_plan(cuda, n):
         assert rd.rollup_digest.launches == before + 1
         for clusters in (1, 2, rd.MAX_CLUSTERS):
             assert int(rd._launch(buf, clusters)) == want
+    torch.cuda.synchronize()
+
+
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,P,off,dtype", [
+    # check_fl_kernels' grid, the path shape and 1M wide
+    (2, 256, 0, _F32), (4, 1000, 0, _F32), (16, 8192, 0, _BF16),
+    (64, 4096, 0, _BF16), (3, 130, 0, _F32), (1, 1, 0, _F32),
+    (0, 7, 0, _F32), (64, 2410, 0, _F32), (64, 1 << 20, 0, _F32),
+    # n of 1, 7, 9 and 1,000; P of 1, 3 and 2,411; rows 1-3 elements off
+    # their alignment; bfloat16 at the path shape
+    (1, 2410, 0, _F32), (7, 2410, 0, _F32), (9, 2410, 0, _F32),
+    (1000, 2410, 0, _F32), (64, 1, 0, _F32), (64, 3, 0, _F32),
+    (64, 2411, 0, _F32), (64, 2410, 1, _F32), (64, 2410, 2, _F32),
+    (64, 2410, 3, _F32), (64, 2410, 0, _BF16)])
+def test_weighted_agg_matches_mirror(cuda, n, P, off, dtype):
+    """The kernel bit-equal to ``weighted_agg_mirror`` and within tolerance
+    of the plain version."""
+    g = torch.Generator().manual_seed(n * 10 + P + off)
+    w = torch.randn(n, P + off, generator=g).to(cuda, dtype)[:, off:]
+    s = (torch.rand(n, generator=g) * 0.95 + 0.05).to(cuda)
+    want = wa.weighted_agg_mirror(w, s)
+    before = wa.weighted_agg.launches
+    got = wa.weighted_agg(w, s)
+    assert wa.weighted_agg.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    torch.testing.assert_close(got.float(), wa.weighted_agg_torch(w, s)
+                               .float(), **_fl_tol(dtype))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,n,P,dtype", [
+    (32, 64, 2410, _F32), (3, 9, 7, _F32), (2, 1000, 33, _F32),
+    (4, 64, 2410, _BF16)])
+def test_weighted_agg_task_axis_matches_mirror(cuda, T, n, P, dtype):
+    """A (T, n, P) launch bit-equal to the mirror, on rows one element off
+    their alignment too; row t bit-equal to the launch on task t."""
+    g = torch.Generator().manual_seed(T * 100 + n + P)
+    w = torch.randn(T, n, P + 1, generator=g).to(cuda, dtype)
+    s = (torch.rand(T, n, generator=g) * 0.95 + 0.05).to(cuda)
+    for rows in (w[..., :P], w[..., 1:]):
+        got = wa.weighted_agg(rows, s)
+        assert torch.equal(got.cpu(), wa.weighted_agg_mirror(rows, s))
+        for t in range(T):
+            assert torch.equal(got[t], wa.weighted_agg(rows[t], s[t]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,chunk", [(40 * 128 + 1, 128),
+                                     (40 * 2048 + 1, 2048),
+                                     (40 * 65_536 + 1, 65_536),
+                                     (2_883_584, 2048)])
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+def test_chunk_digests_forms(cuda, n, chunk, off):
+    """Every chunk on views offset by 0-3 words, a ragged last chunk of one
+    word, the node path's shape, chunks of 128 to 65,536 words (the block
+    form): one launch, bit-equal to the plain version, in either form."""
+    w = _words(n + off, chunk + off, cuda)[off:]
+    want = rd.rollup_chunk_digests_torch(w, chunk)
+    before = rd.rollup_chunk_digests.launches
+    torch.testing.assert_close(rd.rollup_chunk_digests(w, chunk), want,
+                               rtol=0, atol=0)
+    assert rd.rollup_chunk_digests.launches == before + 1
+    for warps in (1, rd.BLOCK_WARPS):
+        torch.testing.assert_close(rd._chunk_launch(w, chunk, warps), want,
+                                   rtol=0, atol=0)
     torch.cuda.synchronize()
 
 

@@ -147,6 +147,36 @@ def test_chunk_digests_f32_bitcast_and_empty():
                                   chunk_fold_digests(np.zeros(0, np.uint32)))
 
 
+@pytest.mark.parametrize("n,chunk,off", [
+    (40 * 128 + 1, 128, 1), (40 * 2048 + 1, 2048, 2),
+    (40 * 65_536 + 1, 65_536, 3), (11 * 20_000, 2048, 3)])
+def test_chunk_digests_hard_cases(n, chunk, off):
+    """The card's hard cases on the plain version: a ragged last chunk of
+    one word, chunks of 128 to 65,536 words (the block form), a view
+    offset by 1-3 words; bit-equal to the JAX package's numpy mirror."""
+    rng = np.random.default_rng(chunk + off)
+    words = _u32(rng, n + off)
+    view = _t(words)[off:]
+    want = chunk_fold_digests(words[off:], chunk)
+    np.testing.assert_array_equal(
+        _np(trd.rollup_chunk_digests_torch(view, chunk)), want)
+    np.testing.assert_array_equal(_np(trd.rollup_chunk_digests(view, chunk)),
+                                  want)
+
+
+@pytest.mark.parametrize("chunk,form,warps", [
+    (1, "warp", 1), (2048, "warp", 1),
+    (trd.WARP_CHUNK_MAX + 1, "block", trd.BLOCK_WARPS),
+    (65_536, "block", trd.BLOCK_WARPS)])
+def test_chunk_digests_form(chunk, form, warps):
+    """rollup_chunk_digests folds a chunk as dirty_fold does: one form
+    function, a warp a chunk up to ``WARP_CHUNK_MAX`` words, a block of
+    ``BLOCK_WARPS`` warps a chunk above."""
+    assert tdf.form is trd.form and tdf.chunk_warps is trd.chunk_warps
+    assert trd.form(chunk) == form
+    assert trd.chunk_warps(chunk) == warps
+
+
 # -- batch_seal ---------------------------------------------------------------
 
 @pytest.mark.parametrize("n_words,n_segs,seed", [
