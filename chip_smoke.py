@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's paths on one CUDA card: the rollup node
 path (stepped, and through the fused window loop), the reputation-aware
 FL protocol run (the default Scheduler: fused loop + cross-task megastep,
-and the stepped per-task path) and the token-LM serving paths (prefill
-and decode of yi-6b, moonshot-v1-16b-a3b and xlstm-1.3b at full width).
+and the stepped per-task path), the token-LM serving paths (prefill and
+decode of yi-6b, moonshot-v1-16b-a3b and xlstm-1.3b at full width), and
+the object ledger with its agent path (the default ``AutoDFL()``).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -159,6 +160,31 @@ Phases, each printing its result on a line of its own:
                step's; it emits no recurrent state, so
                decode starts from the initial one, as in the JAX
                package); 32 decode steps at batch 8; the serve loop.
+
+ 15. object  — the object ledger and the agent path (the JAX package's
+               default AutoDFL() stack): rollup_digest bit-equal to its
+               plain version at the object Rollup's buffers (4, 8, 80 and
+               84 words, views offset by 0-3 words, one launch a call),
+               timed at 80 words; (a) the Fig. 4/5 grid of
+               benchmarks/bench_l2_throughput.py (the four Table I
+               functions at 160, 320 and 640 tx/s for 20 s) through
+               simulate_load on the object and the vector chain, card and
+               CPU, all equal, and L2 TPS = 20 x the L1 peak; (b) the Table
+               I replay of benchmarks/bench_gas.py (5, 20, 50, 100 calls)
+               through build_stack on the object backend, card == CPU,
+               within 10 % of the gas model, every batch digest equal to
+               the plain version's; (c) the sequential baseline of
+               benchmarks/bench_protocol.py at 16 tasks x 64 trainers:
+               AutoDFL on the protocol-sequential spec, 64 TrainingAgents,
+               a warm-up task and 16 run_task calls of 3 rounds, launch
+               counts from 0 (rollup_digest one a sealed batch,
+               weighted_agg 49, model_distance 17), beside the default
+               Scheduler on NodeSpec() at the same point; (d) the agent
+               path at 2 tasks x 16 trainers, 2 rounds, three ways (card
+               with kernels, card with the plain versions forced, CPU; the
+               agents' noise drawn on the host), then on the card
+               AutoDFL() == spec=NodeSpec.from_legacy() and a Scheduler of
+               one agent task == run_task, bit for bit.
 
 Then one JSON line lists every kernel with its launches on its path, the
 card's name and power limit follow on a line of their own, and the last
@@ -2594,6 +2620,466 @@ def moe_deterministic(dev) -> None:
         f"{tuple(x[:, :1].shape)} (gmm forms {forms[2]})")
 
 
+# -- phase 15: the object ledger and the agent path ----------------------------
+
+# the Fig. 4/5 grid: benchmarks/bench_l2_throughput.py:15-31
+OBJ_RATES = (160, 320, 640)
+OBJ_DURATION = 20.0
+# the Table I replay: benchmarks/bench_gas.py:33-40
+OBJ_CALLS = (5, 20, 50, 100)
+# the sequential baseline: benchmarks/bench_protocol.py:127-150 at its
+# assert point (16 tasks x 64 trainers); and the agreement point
+OBJ_SEQ = dict(tasks=16, trainers=64, rounds=3, local_steps=2, batch=8)
+OBJ_AGREE = dict(tasks=2, trainers=16, rounds=2, local_steps=2, batch=8)
+# the object Rollup's digest buffers: 4 words a tx, 20 txs a batch, and a
+# flush's remainder of one or 21 txs
+OBJ_DIGEST_WORDS = (4, 8, 80, 84)
+
+
+def object_spec(**kw):
+    from repro_torch.api import ChainSpec, NodeSpec
+    return NodeSpec(chain=ChainSpec(backend="object"), **kw)
+
+
+def object_digests(dev, flush) -> dict:
+    """rollup_digest at the object Rollup's buffer sizes, on views offset
+    by 0-3 words, bit-equal to its plain version; one launch a call; and
+    timed at a 20-tx batch (80 words) beside its bound and the plain
+    version."""
+    from repro_torch.kernels import rollup_digest as rd
+    g = torch.Generator(device=dev).manual_seed(15)
+    base = torch.randint(-2**31, 2**31 - 1, (128,), dtype=torch.int32,
+                         device=dev, generator=g)
+    worst = 0
+    for n in OBJ_DIGEST_WORDS:
+        for off in range(4):
+            w = base[off: off + n]
+            before = rd.rollup_digest.launches
+            got = rd.rollup_digest(w)
+            if rd.rollup_digest.launches != before + 1:
+                raise AssertionError(f"rollup_digest at {n} words took "
+                                     f"{rd.rollup_digest.launches - before} "
+                                     f"launches")
+            worst = max(worst, u32_err(got, rd.rollup_digest_torch(w)))
+    if worst:
+        raise AssertionError(f"rollup_digest at the object batch sizes "
+                             f"differs from its plain version by {worst}")
+    w = base[:80]
+    ms = timed_ms(lambda: rd.rollup_digest(w), 200, flush)
+    plain = timed_ms(lambda: rd.rollup_digest_torch(w), 200, flush)
+    bound = max(80 * 4 / HBM_BYTES_PER_S, 80 * OPS_PER_WORD / INT_OPS_PER_S)
+    row = {"words": list(OBJ_DIGEST_WORDS), "offsets": [0, 1, 2, 3],
+           "max_abs_err": worst, "ms_at_80": ms, "plain_ms_at_80": plain,
+           "bound_ms_at_80": bound * 1e3}
+    log(f"object digests: {json.dumps(row)}")
+    return row
+
+
+def object_grid(dev) -> None:
+    """(a) The Fig. 4/5 grid through simulate_load on the object chain and
+    on the vector chain, on the card and on the CPU: all four equal; L2
+    TPS = ROLLUP_BATCH x the L1 peak, by function."""
+    from repro_torch.api import ChainSpec
+    from repro_torch.core.gas import FUNCTIONS, ROLLUP_BATCH
+    from repro_torch.core.ledger import simulate_load
+    cpu = torch.device("cpu")
+    rows, walls = [], {}
+    for fn in FUNCTIONS:
+        peak = 0.0
+        for rate in OBJ_RATES:
+            got = {}
+            for backend in ("object", "vector"):
+                for label, device in (("card", dev), ("cpu", cpu)):
+                    t0 = time.perf_counter()
+                    got[backend, label] = simulate_load(
+                        fn, rate, duration=OBJ_DURATION, device=device,
+                        spec=ChainSpec(backend=backend))
+                    key = f"{backend}/{label}"
+                    walls[key] = walls.get(key, 0.0) + \
+                        time.perf_counter() - t0
+            ref = got["object", "cpu"]
+            for key, m in got.items():
+                if m != ref:
+                    raise AssertionError(f"object grid {fn} at {rate} tx/s:"
+                                         f" {key} {m} != object/cpu {ref}")
+            peak = max(peak, ref["throughput"])
+        rows.append({"fn": fn, "l1_peak_tps": peak,
+                     "l2_tps": ROLLUP_BATCH * peak})
+    log(f"object grid: {len(FUNCTIONS)} functions x rates {OBJ_RATES} for "
+        f"{OBJ_DURATION} s (up to {int(max(OBJ_RATES) * OBJ_DURATION)} txs "
+        f"a run): object == vector, card == CPU, every metric")
+    log(f"object grid: {json.dumps(rows)}")
+    log(f"object grid: host seconds by engine/device {json.dumps(walls)}")
+
+
+def object_table1(dev) -> None:
+    """(b) bench_gas.py's Table I replay through build_stack on the object
+    backend, on the card and on the CPU: gas logs equal, totals within the
+    bench's 10 % of l2_gas, every batch digest from the kernel equal to
+    the plain version's on the same words (one launch a batch)."""
+    from repro_torch.api import build_stack
+    from repro_torch.core.engine import TxArrays
+    from repro_torch.core.gas import FUNCTIONS, gas_reduction, l2_gas
+    from repro_torch.core.ledger import Tx
+    from repro_torch.kernels import rollup_digest as rd
+    cpu = torch.device("cpu")
+    rows, max_red, n_batches = [], 0.0, 0
+    rd.rollup_digest.launches = 0
+    for fn in FUNCTIONS:
+        for n in OBJ_CALLS:
+            logs = {}
+            for label, device in (("card", dev), ("cpu", cpu)):
+                chain, ru = build_stack(object_spec(), device=device)
+                for i in range(n):
+                    ru.submit(Tx(fn, f"c{i}", {}, 0, i * 0.01))
+                ru.flush()
+                chain.run_until(5.0)
+                logs[label] = (ru.gas_log, [b.word_digest
+                                            for b in ru.batches],
+                               [b.block_hash for b in chain.blocks])
+                if label == "card":
+                    n_batches += len(ru.batches)
+                    for b0 in range(0, n, ru.batch_size):
+                        txs = [Tx(fn, f"c{i}", {}, 0, i * 0.01)
+                               for i in range(b0, min(n, b0 + ru.batch_size))]
+                        words = TxArrays.from_txs(txs, device=device
+                                                  ).word_buffer()
+                        want = int(rd.rollup_digest_torch(words)) & 0xFFFFFFFF
+                        if ru.batches[b0 // ru.batch_size].word_digest != want:
+                            raise AssertionError(f"Table I {fn} x {n}: batch "
+                                                 f"{b0 // ru.batch_size} "
+                                                 f"digest off the plain one")
+            if logs["card"] != logs["cpu"]:
+                raise AssertionError(f"Table I {fn} x {n}: card != CPU")
+            live = sum(r["total"] for r in logs["card"][0])
+            model = l2_gas(fn, n)["total"]
+            if abs(live - model) / model >= 0.1:
+                raise AssertionError(f"Table I {fn} x {n}: live L2 gas {live}"
+                                     f" vs the model's {model}")
+            red = gas_reduction(fn, n)
+            max_red = max(max_red, red)
+            rows.append({"fn": fn, "n": n, "L2_live": live,
+                         "L2_model": model, "reduction": red})
+    if rd.rollup_digest.launches != n_batches:
+        raise AssertionError(f"Table I: {rd.rollup_digest.launches} "
+                             f"rollup_digest launches for {n_batches} "
+                             f"batches")
+    if max_red < 20.0:
+        raise AssertionError(f"Table I: largest reduction {max_red} < 20")
+    log(f"object table1: {json.dumps(rows)}")
+    log(f"object table1: card == CPU (gas logs, digests, block hashes); "
+        f"live L2 within 10 % of the model; {n_batches} batch digests, one "
+        f"rollup_digest launch each, equal to the plain version; largest "
+        f"reduction {max_red}")
+
+
+def obj_world(dev, n_trainers: int, local_steps: int, batch: int):
+    """bench_protocol.py's sequential world on ``dev``: fl_world's model,
+    optimizer and data, and its per-agent batch_fn (one batch of ``batch``
+    rows a local step, numpy index streams)."""
+    model, opt, val, _, dp = fl_world(dev, n_trainers, local_steps, batch)
+    from repro_torch.data.synthetic import gaussian_clusters
+    d = FL_MODEL
+    tr_x, tr_y = gaussian_clusters(4096, d["d_in"], d["n_classes"], seed=1)
+    tx, ty = torch.from_numpy(tr_x).to(dev), torch.from_numpy(tr_y).to(dev)
+
+    def bf(c, r):
+        idx = np.random.default_rng((c * 9973 + r) % 2**31).integers(
+            0, len(tr_x), batch)
+        i = torch.from_numpy(idx).to(dev)
+        return {"x": tx[i], "labels": ty[i]}
+    return model, opt, val, bf, dp
+
+
+def obj_agents(dev, node, cfg, world, behaviors=None):
+    from repro_torch.fl.client import ClientConfig, TrainingAgent
+    model, opt, _, bf, dp = world
+    n = cfg["trainers"]
+    behaviors = behaviors or ["good"] * n
+    return [TrainingAgent(ClientConfig(f"trainer{i}", behaviors[i], dp=dp,
+                                       local_steps=cfg["local_steps"]),
+                          model, opt, node.store, bf, seed=i, device=dev)
+            for i in range(n)]
+
+
+def object_sequential(dev, smi: str) -> dict:
+    """(c) The sequential protocol baseline on the card: AutoDFL on the
+    protocol-sequential spec (the object Chain and Rollup), 64
+    TrainingAgents, a warm-up task of one round and 16 run_task calls of 3
+    rounds (host seconds by phase, each ending in a synchronize); launch
+    counts from before the warm-up.  Then one more task under
+    torch.profiler (the device's busy share), and the default Scheduler
+    on NodeSpec() at the same point (a warm-up run, then the measured one)
+    and the ratio of their rates."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import FLTaskSpec
+    from repro_torch.core.gas import DEFAULT_GAS, L1_DEFAULT_GAS
+    from repro_torch.core.ledger import Chain
+    from repro_torch.core.rollup import Rollup
+    from repro_torch.fl import scheduler as fl_sched
+    from repro_torch.fl import server as fl_server
+    from repro_torch.fl.client import TrainingAgent
+    from repro_torch.fl.server import AutoDFL
+    from repro_torch.kernels import dirty_fold as df
+    from repro_torch.kernels import model_distance as md
+    from repro_torch.kernels import rollup_digest as rd
+    from repro_torch.kernels import weighted_agg as wa
+    cfg = OBJ_SEQ
+    n, tasks = cfg["trainers"], cfg["tasks"]
+    world = obj_world(dev, n, cfg["local_steps"], cfg["batch"])
+    model, opt, val, _, _ = world
+    node = AutoDFL(model, opt, n, model.accuracy_fn(), val,
+                   spec=object_spec(trainer_funds=10.0 * (tasks + 2),
+                                    publisher_funds=100.0 * (tasks + 2)),
+                   device=dev)
+    agents = obj_agents(dev, node, cfg, world)
+    wrappers = {"rollup_digest": rd.rollup_digest,
+                "rollup_chunk_digests": rd.rollup_chunk_digests,
+                "dirty_fold": df.dirty_fold,
+                "weighted_agg": wa.weighted_agg,
+                "model_distance": md.model_distance}
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    node.run_task(FLTaskSpec("warmup", rounds=1), agents)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    calls0 = dict(node.protocol_calls)
+    gas0 = sum(r["total"] for r in node.rollup.gas_log)
+    clock = PhaseClock()
+    for owner, attr, phase in (
+            (TrainingAgent, "train_round", "train"),
+            (fl_sched, "evaluate_quorum", "quorum"),
+            (fl_sched, "weighted_average_tree", "eq1"),
+            (fl_sched.TaskRuntime, "_finalize", "eq4"),
+            (fl_server, "end_of_multitask_update", "eq2_10"),
+            (Rollup, "seal_batch", "seal"),
+            (Chain, "run_until", "blocks")):
+        clock.wrap(owner, attr, phase)
+    t0 = time.perf_counter()
+    try:
+        for t in range(tasks):
+            res = node.run_task(FLTaskSpec(f"task{t}",
+                                           rounds=cfg["rounds"]), agents)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        clock.restore()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    spans = dict(clock.seconds)
+    spans["rest"] = wall - sum(spans.values())
+    delta = {fn: k - calls0.get(fn, 0) for fn, k in node.protocol_calls.items()}
+    n_txs = sum(delta.values())
+    l1_equiv = sum(DEFAULT_GAS.l1_per_call.get(fn, L1_DEFAULT_GAS) * k
+                   for fn, k in delta.items())
+    l2 = sum(r["total"] for r in node.rollup.gas_log) - gas0
+    expect = {"rollup_digest": len(node.rollup.batches),
+              "weighted_agg": tasks * cfg["rounds"] + 1,
+              "model_distance": tasks + 1}
+    for name, k in expect.items():
+        if launches[name] != k:
+            raise AssertionError(f"object sequential: {launches[name]} "
+                                 f"{name} launches, expected {k}")
+    if not launches["rollup_chunk_digests"] or not launches["dirty_fold"]:
+        raise AssertionError(f"object sequential: the state root launched "
+                             f"no fold kernel {launches}")
+    st = node.rollup.state_arrays
+    if int(st.submissions[: st.n].sum()) != \
+            node.protocol_calls["submitLocalModel"]:
+        raise AssertionError("object sequential: state counters miss "
+                             "submissions")
+    root = node.rollup.state_root()
+    from repro_torch.core.state import StateArrays
+    if root != StateArrays.from_numpy(st.to_numpy(), "cpu").root():
+        raise AssertionError("object sequential: the root differs from the "
+                             "CPU root of its fields")
+    for k, v in res.global_params.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"object sequential: non-finite {k}")
+    acc = float(node.eval_fn(res.global_params, node.val_batch))
+    stats = {"tasks": tasks, "trainers": n, "rounds": cfg["rounds"],
+             "warmup_s": warm, "wall_s": wall, "protocol_txs": n_txs,
+             "tps": n_txs / wall, "l1_equivalent_gas": int(l1_equiv),
+             "l2_gas": int(l2), "gas_reduction": l1_equiv / l2,
+             "batches": len(node.rollup.batches),
+             "l1_blocks": len(node.chain.blocks) - 1,
+             "last_task_val_acc": acc, "launches": launches}
+    log(f"object sequential: {json.dumps(stats)}")
+    log(f"object sequential: wall {wall:.6f} s for {n_txs} protocol txs, "
+        f"{n_txs / wall:.1f} tx/s on {smi}; host seconds by phase (each "
+        f"ends in a synchronize) {json.dumps(spans)}; calls "
+        f"{json.dumps(clock.calls)}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        node.run_task(FLTaskSpec("profiled", rounds=cfg["rounds"]), agents)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    n_spans, busy_us, by_name = device_time(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"object sequential profile: one more task, {n_spans} device "
+        f"intervals, device busy {busy_us / 1e6:.6f} s = "
+        f"{busy_us / 1e6 / traced:.6f} of the traced wall {traced:.6f} s; "
+        f"device seconds by name " + json.dumps(
+            {name[:80]: us / 1e6 for name, us in top}))
+    # the default Scheduler at the same point (bench_protocol.py's other
+    # side), warmed up on a throwaway run as the bench does
+    run_fl(dev, cfg)
+    node_s, sch, _, wall_s = run_fl(dev, cfg)
+    tps_s = sum(node_s.protocol_calls.values()) / wall_s
+    log(f"object sequential: the default Scheduler on NodeSpec() at "
+        f"{tasks} x {n}: {sum(node_s.protocol_calls.values())} txs in "
+        f"{wall_s:.6f} s, {tps_s:.1f} tx/s ({sch.mega_windows} megastep "
+        f"windows); ratio to the sequential baseline {tps_s / stats['tps']}"
+        f" on {smi}")
+    return launches
+
+
+def host_agent_noise(agent, kind, shapes):
+    """The agents' draws from a host generator each (seeded by the agent's
+    seed), moved to the agent's device: the card and the CPU see the same
+    numbers."""
+    g = getattr(agent, "_host_generator", None)
+    if g is None:
+        g = agent._host_generator = torch.Generator().manual_seed(agent.seed)
+    return {k: torch.randn(shapes[k], generator=g).to(agent.device)
+            for k in sorted(shapes)}
+
+
+def obj_run(dev, cfg, behaviors, spec=None, scheduler=False):
+    """``cfg['tasks']`` tasks of TrainingAgents through run_task (or one
+    Scheduler) on the object stack: ``AutoDFL()`` from legacy kwargs when
+    ``spec`` is None."""
+    from repro_torch.api import FLTaskSpec
+    from repro_torch.fl.scheduler import Scheduler
+    from repro_torch.fl.server import AutoDFL
+    world = obj_world(dev, cfg["trainers"], cfg["local_steps"],
+                      cfg["batch"])
+    model, opt, val, _, _ = world
+    kw = ({"trainer_funds": 50.0} if spec is None else {"spec": spec})
+    node = AutoDFL(model, opt, cfg["trainers"], model.accuracy_fn(), val,
+                   device=dev, **kw)
+    specs = [FLTaskSpec(f"task{t}", rounds=cfg["rounds"])
+             for t in range(cfg["tasks"])]
+    if scheduler:
+        sch = Scheduler(node)
+        for s in specs:
+            sch.add_task(s, obj_agents(dev, node, cfg, world, behaviors))
+        out = sch.run()
+    else:
+        out = {s.task_id: node.run_task(s, obj_agents(dev, node, cfg, world,
+                                                      behaviors))
+               for s in specs}
+    return node, out
+
+
+def obj_outputs(node, out) -> dict:
+    from repro_torch.core.state import StateArrays
+    st = node.rollup.state_arrays
+    fields = st.to_numpy()
+    return {
+        "protocol_calls": dict(node.protocol_calls),
+        "gas_log": node.rollup.gas_log,
+        "blocks": [(b.height, b.time, len(b.txs), b.gas_used)
+                   for b in node.chain.blocks],
+        "block_hashes": [b.block_hash for b in node.chain.blocks],
+        "total_gas": node.chain.total_gas,
+        "selected": {t: node.tsc.tasks[t].trainers for t in out},
+        "event_kinds": [e.kind for e in node.client().events(cursor=0)],
+        "scores": {t: r.scores.tolist() for t, r in out.items()},
+        "counters": {k: fields[k].tolist() for k in
+                     ("tasks_published", "submissions", "rep_events")},
+        "params": {t: {k: v.cpu().numpy() for k, v in
+                       r.global_params.items()} for t, r in out.items()},
+        "reputation": node.book.reputation.cpu().numpy(),
+        "payouts": {t: r.payouts for t, r in out.items()},
+        "init": {k: v.cpu().numpy()
+                 for k, v in node.model.init_params(0).items()},
+        "root": node.rollup.state_root(),
+        "cpu_root": StateArrays.from_numpy(fields, "cpu").root(),
+    }
+
+
+def object_agree(dev) -> None:
+    """(d) The agent path at 2 tasks x 16 trainers, 2 rounds, three ways
+    (card with kernels, card with the plain versions forced, CPU), the
+    agents' noise drawn on the host so that all three see the same
+    numbers: protocol calls, gas log, block stops, selections, DON scores
+    and the state counters exact; parameters, reputations and payouts as
+    fl_hold holds them; each run's root the CPU root of its fields.  Then
+    on the card: AutoDFL() with no spec equals spec=NodeSpec.from_legacy()
+    (gas log, blocks with their hashes, root), and a Scheduler of one
+    agent task equals run_task on the object engine, bit for bit."""
+    from repro_torch.api import NodeSpec
+    from repro_torch.fl import client as fl_client
+    cfg = OBJ_AGREE
+    behaviors = ["good", "good", "malicious", "lazy"] * (cfg["trainers"] // 4)
+    default_noise = fl_client.agent_noise
+    fl_client.agent_noise = host_agent_noise
+    outs = {}
+    try:
+        for label, device, impl in (("card, kernels", dev, None),
+                                    ("card, plain", dev, "torch"),
+                                    ("cpu", torch.device("cpu"), None)):
+            old = os.environ.pop("REPRO_TORCH_KERNEL_IMPL", None)
+            if impl:
+                os.environ["REPRO_TORCH_KERNEL_IMPL"] = impl
+            try:
+                node, out = obj_run(device, cfg, behaviors)
+            finally:
+                os.environ.pop("REPRO_TORCH_KERNEL_IMPL", None)
+                if old is not None:
+                    os.environ["REPRO_TORCH_KERNEL_IMPL"] = old
+            outs[label] = o = obj_outputs(node, out)
+            if o["root"] != o["cpu_root"]:
+                raise AssertionError(f"object agree {label}: root "
+                                     f"{o['root']} != the CPU root of its "
+                                     f"fields {o['cpu_root']}")
+            log(f"object agree {label}: {type(node.chain).__name__} + "
+                f"{type(node.rollup).__name__}, "
+                f"{sum(o['protocol_calls'].values())} protocol calls, "
+                f"{len(o['gas_log'])} batches, {len(o['blocks']) - 1} "
+                f"blocks, root {o['root']} (= the CPU root of its fields)")
+        ref = outs["cpu"]
+        for label, o in outs.items():
+            fl_hold(ref, o, f"object agree {label} against the CPU")
+            if o["counters"] != ref["counters"]:
+                raise AssertionError(f"object agree {label}: state counters")
+        log(f"object agree: card (kernels), card (plain) and CPU agree over "
+            f"{cfg['tasks']} tasks x {cfg['trainers']} trainers, "
+            f"{cfg['rounds']} rounds")
+        # the Scheduler packs blocks at its window edges, run_task at the
+        # end: their blocks differ, their gas and everything else do not
+        same = ("protocol_calls", "gas_log", "selected", "scores",
+                "counters", "root", "payouts", "total_gas")
+        pairs = (("AutoDFL() against spec=NodeSpec.from_legacy()",
+                  obj_run(dev, cfg, behaviors),
+                  obj_run(dev, cfg, behaviors,
+                          spec=NodeSpec.from_legacy(trainer_funds=50.0)),
+                  same + ("blocks", "block_hashes", "event_kinds")),
+                 ("a Scheduler of one agent task against run_task",
+                  obj_run(dev, dict(cfg, tasks=1), behaviors,
+                          spec=object_spec(), scheduler=True),
+                  obj_run(dev, dict(cfg, tasks=1), behaviors,
+                          spec=object_spec()), same))
+        for what, a, b, keys in pairs:
+            oa, ob = obj_outputs(*a), obj_outputs(*b)
+            for key in keys:
+                if oa[key] != ob[key]:
+                    raise AssertionError(f"object agree, {what}: {key}")
+            for t in oa["params"]:
+                for k, v in oa["params"][t].items():
+                    if not np.array_equal(v, ob["params"][t][k]):
+                        raise AssertionError(f"object agree, {what}: {t} {k}")
+            if not np.array_equal(oa["reputation"], ob["reputation"]):
+                raise AssertionError(f"object agree, {what}: reputation")
+            log(f"object agree on the card: {what}: equal bit for bit "
+                f"(root {oa['root']})")
+    finally:
+        fl_client.agent_noise = default_noise
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -2716,6 +3202,19 @@ def main() -> int:
     # 14. xlstm-1.3b at full width and depth: the same
     launches["slstm_scan"] = lm_main(dev, smi, "xlstm-1.3b", XLSTM_PREFILL,
                                      XLSTM_DECODE, "float32")["slstm_scan"]
+    torch.cuda.empty_cache()
+
+    # 15. the object ledger and the agent path: rollup_digest at the object
+    # batch sizes, the Fig. 4/5 grid, the Table I replay, the sequential
+    # baseline (launch counts from 0, added to the kernels line) and the
+    # agreement three ways
+    object_digests(dev, torch.empty(256 * 2**20 // 4, dtype=torch.int32,
+                                    device=dev))
+    object_grid(dev)
+    object_table1(dev)
+    for name, k in object_sequential(dev, smi).items():
+        launches[name] += k
+    object_agree(dev)
 
     replaces = {"rollup_digest": "src/repro/kernels/rollup_digest.py:16",
                 "rollup_chunk_digests":

@@ -15,8 +15,11 @@
 
 Receipt statuses (``RECEIPT_STATUSES``): ``pending`` -> ``sealed`` ->
 ``proved`` -> ``finalized`` on a rollup node, ``pending`` -> ``confirmed``
-on a chain-only node.  The sharded and object backends and the deprecated
-``subscribe`` shim of ``src/repro/api/client.py`` are not ported yet.
+on a chain-only node.  On the object faces (``Chain``, ``Rollup``) a
+receipt holds its ``Tx`` and a submission may carry a payload; the SoA
+faces carry (time, gas, fn, sender) only and refuse one.  The sharded
+backend and the deprecated ``subscribe`` shim of
+``src/repro/api/client.py`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from repro_torch.core.engine import TxArrays
 from repro_torch.core.events import LedgerEvent
 from repro_torch.core.fused import supports_fused
 from repro_torch.core.gas import DEFAULT_GAS, L1_DEFAULT_GAS, GasTable
+from repro_torch.core.ledger import Tx
 from repro_torch.core.state import STATE_SCHEMA, default_state_handlers
 
 #: the proof lifecycle a receipt walks (chain-only nodes use
@@ -57,6 +61,9 @@ class TxReceipt:
     proof_ref: Optional[int] = None      # the batch's proof job id
     aggregate_ref: Optional[int] = None  # the posted aggregate proof id
     gas_breakdown: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # the object faces' provenance handle: the submitted Tx itself
+    tx: Optional[Any] = dataclasses.field(default=None, repr=False,
+                                          compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,17 +118,23 @@ class NodeClient:
                gas: Optional[int] = None,
                at: Optional[float] = None) -> TxReceipt:
         """Submit one transaction; returns its receipt (initially
-        ``pending`` — call ``refresh`` after blocks/seals advance).  The
-        SoA engines carry (time, gas, fn, sender) only, so a payload is an
+        ``pending`` — call ``refresh`` after blocks/seals advance).
+
+        ``payload`` rides only on the object backends; the SoA engines
+        carry (time, gas, fn, sender) only, so a payload there is an
         error."""
-        if payload:
-            raise ValueError("payloads need the object chain backend, "
-                             "which is not ported yet; the SoA engines "
-                             "carry (time, gas, fn, sender) only")
         gas = int(gas if gas is not None else
                   self.gas_table.l1_per_call.get(fn, L1_DEFAULT_GAS))
         t = self._stamp(at)
         target = self.target
+        if not getattr(target, "soa_native", False):
+            tx = Tx(fn, sender, dict(payload or {}), gas, t)
+            target.submit(tx)
+            return self.refresh(TxReceipt(fn, sender, gas, t, tx=tx))
+        if payload:
+            raise ValueError(
+                "payloads need ChainSpec(backend='object'); the SoA "
+                "engines carry (time, gas, fn, sender) only")
         dev = target.device
         batch = TxArrays(
             torch.tensor([t], dtype=torch.float64, device=dev),
@@ -138,10 +151,14 @@ class NodeClient:
         names = batch.fns.names
         fn_ids, senders = batch.fn_id.tolist(), batch.sender_id.tolist()
         gas, times = batch.gas.tolist(), batch.submit_time.tolist()
-        lo, _hi = self.target.submit_arrays(batch)
-        out = [TxReceipt(names[f], f"acct{s}", g, t, seq=lo + i)
-               for i, (f, s, g, t) in enumerate(zip(fn_ids, senders, gas,
-                                                    times))]
+        prov = self.target.submit_arrays(batch)
+        if isinstance(prov, tuple):                   # (lo, hi) range
+            out = [TxReceipt(names[f], f"acct{s}", g, t, seq=prov[0] + i)
+                   for i, (f, s, g, t) in enumerate(zip(fn_ids, senders,
+                                                        gas, times))]
+        else:                                         # object faces: Txs
+            out = [TxReceipt(names[f], tx.sender, g, t, tx=tx)
+                   for f, g, t, tx in zip(fn_ids, gas, times, prov)]
         self._clock = max(self._clock, times[-1] if times else 0.0)
         return out
 
@@ -155,7 +172,10 @@ class NodeClient:
         return rcpt
 
     def _refresh_rollup(self, r: TxReceipt, ru) -> None:
-        batch = ru.batch_of_seq(r.seq)
+        if r.tx is not None:                          # object Rollup
+            batch = ru.tx_batch.get(r.tx.tx_id)
+        else:
+            batch = ru.batch_of_seq(r.seq)
         if batch is None:
             r.status = "pending"
             return
@@ -184,22 +204,37 @@ class NodeClient:
             phase = ru.prover.phase_of(ru, batch)
             r.status = phase if phase is not None else "sealed"
         ref = ru.batch_commit_ref.get(batch)
-        r.l1_ref = ref
-        if ref is not None:                           # L1 arrival index
+        r.l1_ref = getattr(ref, "tx_id", ref)
+        if isinstance(ref, Tx):                       # object Chain Tx
+            self._resolve_tx(r, ref)
+        elif ref is not None:                         # L1 arrival index
             blk = self.chain.block_of(int(ref))
             if blk is not None:
                 r.block, r.block_hash = blk.height, blk.block_hash
                 r.confirm_time = self.chain.confirm_time_of(int(ref))
 
+    def _resolve_tx(self, r: TxReceipt, tx: Tx) -> None:
+        """Block, hash and confirm time of an object Tx on the L1."""
+        r.block, r.confirm_time = tx.block_height, tx.confirm_time
+        if tx.block_height is not None:
+            r.block_hash = self.chain.blocks[tx.block_height].block_hash
+
     def _refresh_chain(self, r: TxReceipt) -> None:
         r.gas_breakdown = {"intrinsic": float(r.gas)}
-        blk = self.chain.block_of(r.seq)
-        if blk is None:
-            r.status = "pending"
-            return
-        r.status = "confirmed"
-        r.block, r.block_hash = blk.height, blk.block_hash
-        r.confirm_time = self.chain.confirm_time_of(r.seq)
+        if r.tx is not None:                          # object Chain
+            if r.tx.confirm_time is None:
+                r.status = "pending"
+                return
+            r.status = "confirmed"
+            self._resolve_tx(r, r.tx)
+        else:                                         # VectorChain
+            blk = self.chain.block_of(r.seq)
+            if blk is None:
+                r.status = "pending"
+                return
+            r.status = "confirmed"
+            r.block, r.block_hash = blk.height, blk.block_hash
+            r.confirm_time = self.chain.confirm_time_of(r.seq)
         r.l1_ref = r.block_hash
 
     # -- state queries ---------------------------------------------------------

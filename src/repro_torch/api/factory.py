@@ -1,14 +1,13 @@
 """One ledger factory: ``build_ledger(spec) -> LedgerBackend``.
 
-    ChainSpec alone (or NodeSpec(rollup=None))   -> VectorChain
-    + RollupSpec                                 -> VectorRollup
+    ChainSpec alone (or NodeSpec(rollup=None))   -> VectorChain | Chain
+    + RollupSpec                                 -> VectorRollup | Rollup
 
 ``build_ledger`` returns the SUBMISSION target (the L2 face when a rollup
 is configured, else the L1 itself); the rollup keeps its L1 on ``.l1``,
 and ``l1_of`` resolves it uniformly.  Every build function takes ``device``:
-``None`` means the CUDA card and raises without one.  The object backend
-(ROADMAP.md queue 1 item 7) and the sharded fabric (item 6) are not
-ported yet.
+``None`` means the CUDA card and raises without one.  The sharded fabric
+(ROADMAP.md, queue 1 item 6) is not ported yet.
 """
 from __future__ import annotations
 
@@ -31,16 +30,19 @@ def _as_node_spec(spec: LedgerSpec) -> NodeSpec:
 
 def build_chain(spec: ChainSpec, *, fns=None, device=None):
     """Build just the L1 from a ChainSpec.  ``fns``: optional engine
-    FnRegistry to share (a runtime handle, not spec data)."""
-    if spec.backend != "vector":
-        raise NotImplementedError(
-            "the object Chain is not ported yet (ROADMAP.md, queue 1 item 7)")
-    from repro_torch.core.engine import VectorChain
-    return VectorChain(n_validators=spec.n_validators,
-                       block_time=spec.block_time,
-                       block_gas_limit=spec.block_gas_limit,
-                       gas_table=spec.gas_table, fns=fns,
-                       device=resolve_device(device))
+    FnRegistry to share (vector backend only; a runtime handle, not spec
+    data)."""
+    if spec.backend == "vector":
+        from repro_torch.core.engine import VectorChain
+        return VectorChain(n_validators=spec.n_validators,
+                           block_time=spec.block_time,
+                           block_gas_limit=spec.block_gas_limit,
+                           gas_table=spec.gas_table, fns=fns,
+                           device=resolve_device(device))
+    from repro_torch.core.ledger import Chain
+    return Chain(n_validators=spec.n_validators, block_time=spec.block_time,
+                 block_gas_limit=spec.block_gas_limit,
+                 gas_table=spec.gas_table, device=resolve_device(device))
 
 
 def build_stack(spec: LedgerSpec, *, fns=None, device=None
@@ -52,13 +54,21 @@ def build_stack(spec: LedgerSpec, *, fns=None, device=None
     if ru is None:
         return chain, None
     pv = node.prover if node.prover is not None else ProverSpec()
-    from repro_torch.core.engine import VectorRollup
-    return chain, VectorRollup(
-        chain, batch_size=ru.batch_size, gas_table=node.chain.gas_table,
-        prove_time=ru.prove_time if pv.prove_time is None else pv.prove_time,
-        per_tx_time=ru.per_tx_time, n_lanes=ru.n_lanes,
-        digest_backend=ru.digest_backend, agg_width=pv.agg_width,
-        prover_capacity=pv.capacity, finalize=pv.finalize)
+    prove_time = ru.prove_time if pv.prove_time is None else pv.prove_time
+    prover_kw = dict(agg_width=pv.agg_width, prover_capacity=pv.capacity,
+                     finalize=pv.finalize)
+    if node.chain.backend == "vector":
+        from repro_torch.core.engine import VectorRollup
+        return chain, VectorRollup(
+            chain, batch_size=ru.batch_size, gas_table=node.chain.gas_table,
+            prove_time=prove_time, per_tx_time=ru.per_tx_time,
+            n_lanes=ru.n_lanes, digest_backend=ru.digest_backend,
+            **prover_kw)
+    from repro_torch.core.rollup import Rollup
+    return chain, Rollup(chain, batch_size=ru.batch_size,
+                         gas_table=node.chain.gas_table,
+                         prove_time=prove_time, per_tx_time=ru.per_tx_time,
+                         **prover_kw)
 
 
 def build_ledger(spec: LedgerSpec, *, fns=None,

@@ -8,8 +8,10 @@ trainer count), handed to ``repro_torch.api.build_ledger``,
 ``NodeClient.from_spec`` or ``repro_torch.fl.server.AutoDFL``.
 ``FLTaskSpec`` describes one FL task.
 
-``ShardSpec``, ``AdmissionSpec``, ``ServeSpec`` and
-``NodeSpec.from_legacy`` are not ported yet (ROADMAP.md).
+``NodeSpec.from_legacy`` maps the old ``AutoDFL`` flag kwargs onto a
+spec (the object stack by default, as in the JAX package).
+``ShardSpec``, ``AdmissionSpec`` and ``ServeSpec`` are not ported yet
+(ROADMAP.md): ``from_legacy`` refuses ``n_shards > 1``.
 """
 from __future__ import annotations
 
@@ -31,8 +33,8 @@ class ChainSpec:
     """L1 permissioned chain: QBFT quorum + gas-limited FIFO blocks.
 
     ``backend="vector"`` is the SoA engine (core/engine.VectorChain);
-    ``"object"``, the per-Tx simulator, is not ported yet and raises at
-    build time.
+    ``"object"`` the per-Tx simulator (core/ledger.Chain).  Both pack the
+    same blocks from the same transactions.
     """
 
     backend: str = "vector"
@@ -133,6 +135,10 @@ class ReputationSpec(ReputationParams):
     def to_params(self) -> ReputationParams:
         return ReputationParams(**dataclasses.asdict(self))
 
+    @classmethod
+    def from_params(cls, p: ReputationParams) -> "ReputationSpec":
+        return cls(**dataclasses.asdict(p))
+
 
 @dataclasses.dataclass(frozen=True)
 class DONSpec(DONConfig):
@@ -140,6 +146,10 @@ class DONSpec(DONConfig):
 
     def to_config(self) -> DONConfig:
         return DONConfig(**dataclasses.asdict(self))
+
+    @classmethod
+    def from_config(cls, c: DONConfig) -> "DONSpec":
+        return cls(**dataclasses.asdict(c))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,6 +217,32 @@ class NodeSpec:
                 raise ValueError("n_lanes > 1 needs the vector backend")
             if self.rollup.digest_backend != "auto":
                 raise ValueError("digest_backend is a vector-backend knob")
+
+    # -- legacy flag mapping (the deprecation shim's single source) --------
+    @classmethod
+    def from_legacy(cls, *, engine: str = "object", use_rollup: bool = True,
+                    n_shards: int = 1, shard_route: str = "hash",
+                    rep_params: Optional[ReputationParams] = None,
+                    don: Optional[DONConfig] = None,
+                    trainer_funds: float = 10.0,
+                    publisher_funds: float = 1000.0, seed: int = 0,
+                    use_pallas_agg: bool = False) -> "NodeSpec":
+        """Map the old AutoDFL kwargs onto a NodeSpec.  ``n_shards > 1``
+        needs the sharded fabric (``ShardSpec``), which is not ported yet
+        (ROADMAP.md, queue 1 item 6)."""
+        if n_shards > 1:
+            raise NotImplementedError(
+                "n_shards > 1 needs the sharded fabric, which is not ported "
+                "yet (ROADMAP.md, queue 1 item 6)")
+        del shard_route          # routes between shards: none at one
+        return cls(
+            chain=ChainSpec(backend=engine),
+            rollup=RollupSpec() if use_rollup else None,
+            reputation=(ReputationSpec.from_params(rep_params)
+                        if rep_params is not None else ReputationSpec()),
+            don=(DONSpec.from_config(don) if don is not None else DONSpec()),
+            trainer_funds=trainer_funds, publisher_funds=publisher_funds,
+            seed=seed, use_pallas_agg=use_pallas_agg)
 
     def describe(self) -> Dict[str, Any]:
         """JSON-friendly summary."""

@@ -119,6 +119,19 @@ class TxArrays:
                    put(fn_id, np.int32), put(sender_id, np.int32), fns)
 
     @classmethod
+    def homogeneous(cls, fn: str, times, gas: int, n_senders: int = 64,
+                    fns: Optional[FnRegistry] = None,
+                    device=None) -> "TxArrays":
+        """One function type at fixed per-call gas (the Fig. 4 workload),
+        senders round-robin over ``n_senders``, on ``device`` (the card
+        unless named)."""
+        fns = fns or FnRegistry()
+        n = len(times)
+        return cls.from_numpy(times, np.full(n, gas, np.int64),
+                              np.full(n, fns.id(fn), np.int32),
+                              np.arange(n) % max(1, n_senders), fns, device)
+
+    @classmethod
     def from_txs(cls, txs: Sequence[Any], fns: Optional[FnRegistry] = None,
                  device=None) -> "TxArrays":
         """Compatibility shim: lift object ``Tx`` lists into SoA form."""
@@ -404,13 +417,15 @@ class VectorChain(EventHooks):
 
     def load_metrics(self, send_rate: float,
                      duration: float) -> Dict[str, float]:
-        """Fig. 4 metrics (latency summed in another order than numpy's:
-        equal to the JAX package's to about 1e-12 relative)."""
+        """Fig. 4 metrics.  The latency is numpy's mean on the host over
+        one copy of the confirmed txs' latencies, so it equals the object
+        Chain's and the JAX package's bit for bit."""
         n_conf = self._ptr
         if n_conf == 0:
             return {"send_rate": send_rate, "throughput": 0.0, "latency": 0.0,
                     "confirmed": 0, "submitted": self.n_submitted}
-        lat = float(torch.mean(self._confirm[:n_conf] - self._t[:n_conf]))
+        lat = float(np.mean((self._confirm[:n_conf]
+                             - self._t[:n_conf]).cpu().numpy()))
         return {"send_rate": send_rate,
                 "throughput": n_conf / duration,
                 "latency": lat,
@@ -640,13 +655,19 @@ class VectorRollup(ProverFace, EventHooks):
 
     def _l1_submit(self, batch: TxArrays) -> List[Any]:
         """Submit to the L1; returns one settlement ref per tx: the L1
-        arrival index on a VectorChain."""
-        if not getattr(self.l1, "soa_native", False):
-            raise NotImplementedError(
-                "the object Chain is not ported yet (ROADMAP.md, queue 1 "
-                "item 7)")
-        lo, hi = self.l1.submit_arrays(batch)
-        return list(range(lo, hi))
+        arrival index on a VectorChain, the submitted Tx on an object
+        Chain (both resolve to a block through the NodeClient)."""
+        if getattr(self.l1, "soa_native", False):
+            lo, hi = self.l1.submit_arrays(batch)
+            return list(range(lo, hi))
+        from repro_torch.core.ledger import Tx                # object Chain
+        names = batch.fns.names
+        txs = [Tx(names[f], "sequencer", {}, g, t)
+               for f, g, t in zip(batch.fn_id.tolist(), batch.gas.tolist(),
+                                  batch.submit_time.tolist())]
+        for tx in txs:
+            self.l1.submit(tx)
+        return txs
 
     # -- settlement (routed through the shared prover pipeline) -----------------
     def flush(self):

@@ -17,9 +17,9 @@ ONE settlement engine all three rollup backends route through:
      session proof via the same xor-mix/chunk-fold primitive as the
      Pallas ``rollup_digest`` kernel (``core.state.chunk_fold_digests``).
   3. **Recursive aggregation** — ``agg_width`` session proofs fold into
-     one *aggregate proof* (the same construction one level up; see
-     ``kernels.rollup_digest.rollup_aggregate_digests`` for the device
-     form), and the aggregate posts ONE verify + execute pair to the L1,
+     one *aggregate proof* (the same construction one level up, by
+     ``chunk_fold_digests`` on the host), and the aggregate posts ONE
+     verify + execute pair to the L1,
      amortized across every batch it covers — the paper's 20X gas lever,
      now tunable per node (``repro_torch.api.ProverSpec``).
 
@@ -84,10 +84,8 @@ def session_latency(n_calls: int, *, batch_size: int, prove_time: float,
 
 def _fold_digests(digests: np.ndarray, width: int) -> np.ndarray:
     """Vectorized recursive fold: (n,) u32 digests -> (ceil(n/width),)
-    u32, one xor-mix fold per ``width`` inputs — ``chunk_fold_digests``
-    (the NumPy mirror of the Pallas chunk kernel) applied one level up.
-    ``kernels.rollup_digest.rollup_aggregate_digests`` is the bit-exact
-    device form (pinned by tests/test_prover.py)."""
+    u32, one xor-mix fold per ``width`` inputs: ``chunk_fold_digests``
+    on the host (one word per proof), applied one level up."""
     return chunk_fold_digests(np.asarray(digests, np.uint32), chunk=width)
 
 

@@ -9,9 +9,13 @@ chunk is xor-mix folded (kernels ``rollup_chunk_digests`` and, for the
 chunks a window touched, ``dirty_fold``), and the chunk digest vector is
 sealed with one sha256 on the host.  The same rows give the same root as
 the JAX package's ``src/repro/core/state.py``.
+
+``canonical_bytes`` is the type-tagged encoding the object Rollup's
+dict-state digest hashes (core/rollup.state_digest).
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -63,6 +67,73 @@ class Registry:
 
     def __len__(self) -> int:
         return len(self.names)
+
+
+# ---------------------------------------------------------------------------
+# canonical byte encoding (the object Rollup's dict-state digest)
+# ---------------------------------------------------------------------------
+def canonical_bytes(obj: Any) -> bytes:
+    """Total, deterministic, type-tagged encoding of a state value (the
+    bytes of ``src/repro/core/state.py``'s ``canonical_bytes``).
+
+    Every encoding starts with a one-byte type tag and, where the payload
+    is variable-length, a length header, so values of different types or
+    shapes never collide byte-wise.  ndarrays encode dtype, shape and the
+    full buffer; a tensor encodes as the ndarray it holds, so one value
+    gives the same bytes on the card and on the CPU; dataclasses encode
+    their field names and values recursively.
+    """
+    if obj is None:
+        return b"N"
+    if isinstance(obj, bool):                       # before int (bool is int)
+        return b"B1" if obj else b"B0"
+    if isinstance(obj, (int, np.integer)):
+        b = str(int(obj)).encode()
+        return b"I" + len(b).to_bytes(4, "big") + b
+    if isinstance(obj, (float, np.floating)):
+        # bit pattern, not repr: -0.0 vs 0.0 and precision stay distinct
+        return b"F" + np.float64(obj).tobytes()
+    if isinstance(obj, str):
+        b = obj.encode()
+        return b"S" + len(b).to_bytes(4, "big") + b
+    if isinstance(obj, (bytes, bytearray)):
+        return b"Y" + len(obj).to_bytes(4, "big") + bytes(obj)
+    if isinstance(obj, torch.Tensor):
+        return canonical_bytes(obj.detach().cpu().numpy())
+    if isinstance(obj, np.ndarray):
+        if obj.dtype == object:
+            # object arrays hold pointers: encode the elements instead
+            head = str(obj.shape).encode()
+            body = b"".join(canonical_bytes(v) for v in obj.ravel())
+            return (b"P" + len(head).to_bytes(4, "big") + head
+                    + len(body).to_bytes(8, "big") + body)
+        a = np.ascontiguousarray(obj)
+        head = repr(a.dtype.str).encode() + str(a.shape).encode()
+        return (b"A" + len(head).to_bytes(4, "big") + head
+                + len(a.tobytes()).to_bytes(8, "big") + a.tobytes())
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        items = [(f.name, getattr(obj, f.name))
+                 for f in dataclasses.fields(obj)]
+        body = b"".join(canonical_bytes(k) + canonical_bytes(v)
+                        for k, v in items)
+        name = type(obj).__name__.encode()
+        return (b"C" + len(name).to_bytes(4, "big") + name
+                + len(body).to_bytes(8, "big") + body)
+    if isinstance(obj, dict):
+        enc = sorted((canonical_bytes(k), canonical_bytes(v))
+                     for k, v in obj.items())
+        body = b"".join(k + v for k, v in enc)
+        return b"D" + len(body).to_bytes(8, "big") + body
+    if isinstance(obj, (list, tuple)):
+        body = b"".join(canonical_bytes(v) for v in obj)
+        tag = b"L" if isinstance(obj, list) else b"T"
+        return tag + len(body).to_bytes(8, "big") + body
+    if isinstance(obj, (set, frozenset)):
+        body = b"".join(sorted(canonical_bytes(v) for v in obj))
+        return b"E" + len(body).to_bytes(8, "big") + body
+    # last resort: repr, tagged so it cannot collide with structured forms
+    b = repr(obj).encode()
+    return b"R" + len(b).to_bytes(4, "big") + b
 
 
 # ---------------------------------------------------------------------------

@@ -2,19 +2,21 @@
 selectTrainers, submitLocalModel (Algo. 2), with role checks (ASC) and
 escrow hooks (DSC).
 
-The state-dict chain-handler adapters of ``src/repro/core/tasks.py``
-serve the object ledger path, which is not ported yet (ROADMAP.md, queue
-1 item 7).
+The chain-handler adapters run the contract's calls against a ledger's
+state: the per-tx ones (``handler_*``) against the state dict of the
+object ``Chain`` and ``Rollup``, the batched ``batch_counter`` against a
+``VectorChain``'s, once per (block, fn).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.escrow import Escrow
-from repro_torch.core.ledger import AccessControl
+from repro_torch.core.ledger import AccessControl, Tx
 from repro_torch.core.storage import BlobStore
 
 
@@ -107,6 +109,9 @@ class TaskContract:
             raise ValueError("model blob not on IPFS")
         task.models.setdefault(round_, {})[sender] = local_model_cid
 
+    def submitted(self, task_id: str, round_: int, trainer: str) -> bool:
+        return trainer in self.tasks[task_id].models.get(round_, {})
+
     def advance_round(self, task_id: str):
         task = self.tasks[task_id]
         task.current_round += 1
@@ -123,3 +128,48 @@ class TaskContract:
         payouts = self.escrow.settle(task.task_id, task.scores)
         task.state = "closed"
         return payouts
+
+    # chain-handler adapters (the state-dict form of Chain and Rollup) -------
+    @staticmethod
+    def handler_publish(state: Dict[str, Any], tx: Tx):
+        state.setdefault("tasks", {})[tx.payload.get("taskId", tx.tx_id)] = {
+            "publisher": tx.sender, "state": "selection", "round": 0}
+
+    @staticmethod
+    def handler_submit(state: Dict[str, Any], tx: Tx):
+        t = state.setdefault("models", {})
+        key = (tx.payload.get("taskId", "t0"), tx.payload.get("round", 0))
+        t.setdefault(str(key), {})[tx.sender] = tx.payload.get("cid", "")
+
+    @staticmethod
+    def handler_obj_rep(state: Dict[str, Any], tx: Tx):
+        state.setdefault("o_rep", {})[tx.sender] = tx.payload.get("value", 0.0)
+
+    @staticmethod
+    def handler_subj_rep(state: Dict[str, Any], tx: Tx):
+        state.setdefault("s_rep", {})[tx.sender] = tx.payload.get("value", 0.0)
+
+    # batched adapters (engine.VectorChain.register_batch): one call per
+    # (block, fn) updating aggregate counters from the SoA view
+    @staticmethod
+    def batch_counter(fn: str):
+        """Handler counting confirmed calls of ``fn`` per fn and per
+        sender (one host copy of the view's senders of ``fn``)."""
+
+        def handler(state: Dict[str, Any], n: int, view) -> None:
+            calls = state.setdefault("calls", {})
+            calls[fn] = calls.get(fn, 0) + n
+            senders = view.sender_id[view.fn_id == view.fns.id(fn)]
+            per = state.setdefault("calls_by_sender", {}).setdefault(fn, {})
+            sids, cnts = torch.unique(senders, return_counts=True)
+            for sid, cnt in zip(sids.tolist(), cnts.tolist()):
+                per[sid] = per.get(sid, 0) + cnt
+        return handler
+
+    @classmethod
+    def register_batch_handlers(cls, chain, fns=None) -> None:
+        """Wire counting adapters for the Table-I functions (or ``fns``)
+        onto a VectorChain."""
+        from repro_torch.core.gas import FUNCTIONS
+        for fn in (fns or FUNCTIONS):
+            chain.register_batch(fn, cls.batch_counter(fn))

@@ -18,8 +18,11 @@ the cohort round, with each cohort's noise drawn through the same
 optimizer state stays with the MegaCohort between consecutive megasteps;
 a cohort that steps on its own takes it back first (``_opt_holder``).
 
-``AgentCohort`` (needs ``fl/client.TrainingAgent``, ROADMAP.md queue 1
-item 7) is not ported yet.
+``AgentCohort`` wraps a list of ``fl/client.TrainingAgent``s: one
+``train_round`` call a trainer, the per-trainer loop of the JAX package's
+object path (the sequential baseline).  Its submissions are stacked into
+the same ``CohortSubmissions``, so the DON, Eq. 1 and Eq. 4 run on them
+exactly as on a ``VectorCohort``'s.
 """
 from __future__ import annotations
 
@@ -44,6 +47,44 @@ class CohortSubmissions:
     idxs: List[int]          # cohort indices that submitted, ascending
     stacked: Tree            # leaves (len(idxs), ...) in idx order
     cids: Dict[int, str]     # per-idx content id of the submitted blob
+
+    def tree_for(self, k: int) -> Tree:
+        """Per-trainer view (``k`` indexes ``idxs``, not the cohort)."""
+        return {name: leaf[k] for name, leaf in self.stacked.items()}
+
+
+class AgentCohort:
+    """One ``TrainingAgent.train_round`` call per selected trainer, in
+    selection order: each agent's participation stream, noise draws and
+    blob puts are its own, as in the JAX package's object path."""
+
+    def __init__(self, agents: Sequence):
+        self.agents = list(agents)
+        self._opt: Dict[int, Any] = {}
+
+    def __len__(self) -> int:
+        return len(self.agents)
+
+    def start_task(self, global_params: Tree, opt, sel_idx: Sequence[int]):
+        self._opt = {i: opt.init(global_params) for i in sel_idx}
+
+    def train(self, global_params: Tree, rnd: int,
+              sel_idx: Sequence[int]) -> Optional[CohortSubmissions]:
+        subs: Dict[int, Dict] = {}
+        for i in sel_idx:
+            out = self.agents[i].train_round(global_params, self._opt[i],
+                                             i, rnd)
+            if out is None:
+                continue
+            self._opt[i] = out["opt_state"]
+            subs[i] = out
+        if not subs:
+            return None
+        idxs = sorted(subs)
+        stacked = {k: torch.stack([subs[i]["params"][k] for i in idxs])
+                   for k in sorted(global_params)}
+        return CohortSubmissions(idxs, stacked,
+                                 {i: subs[i]["cid"] for i in idxs})
 
 
 def round_noise(seed: int, rnd: int, n: int,

@@ -35,7 +35,9 @@ package's default path:
     one host copy, and the window's txs go out as one batch.
 
 Both give the stepped per-task path's outputs, which stay the reference
-semantics (``fused=False, megabatch=False``).
+semantics (``fused=False, megabatch=False``).  Under the defaults a node
+on the object ``Chain`` / ``Rollup`` runs the stepped ledger loop, and a
+task driven by ``TrainingAgent``s (an ``AgentCohort``) steps per task.
 """
 from __future__ import annotations
 
@@ -50,11 +52,12 @@ from repro_torch.core.aggregation import (tree_flat, tree_flat_stacked,
                                           weighted_average_tree_mega)
 from repro_torch.core.engine import TxArrays
 from repro_torch.core.fused import FusedWindowLoop, supports_fused
+from repro_torch.core.ledger import Tx
 from repro_torch.core.oracle import (evaluate_quorum, is_unbatchable,
                                      mega_score_tables, quorum_from_table)
 from repro_torch.core.reputation import model_distances
-from repro_torch.fl.cohort import (CohortSubmissions, MegaCohort,
-                                   VectorCohort)
+from repro_torch.fl.cohort import (AgentCohort, CohortSubmissions,
+                                   MegaCohort, VectorCohort)
 
 
 def _settle_distances(stacked_tree, global_tree) -> np.ndarray:
@@ -82,12 +85,11 @@ class TaskRuntime:
     window share one reputation update.
     """
 
-    def __init__(self, node, task_id: str, cohort: VectorCohort, *,
+    def __init__(self, node, task_id: str, cohort, *,
                  rounds: int = 5, reward: float = 10.0,
                  n_select: Optional[int] = None, init_seed: int = 0):
-        if not isinstance(cohort, VectorCohort):
-            raise TypeError("the port drives VectorCohorts; AgentCohort is "
-                            "not ported yet (ROADMAP.md, queue 1 item 7)")
+        if isinstance(cohort, (list, tuple)):
+            cohort = AgentCohort(cohort)
         if len(cohort) != len(node.trainer_ids):
             raise ValueError("cohort must cover the node's trainer set")
         self.node = node
@@ -133,7 +135,7 @@ class TaskRuntime:
         model_cid = node.store.put({"arch": node.model.cfg.name})
         node.tsc.publish_task(node.publisher, self.task_id, model_cid,
                               model_cid, self.rounds, 0.5, self.reward)
-        node._tx("publishTask", node.publisher)
+        node._tx("publishTask", node.publisher, {"taskId": self.task_id})
         selected = node.tsc.select_trainers(
             self.task_id, node.book.reputation.cpu().numpy(),
             self.n_select or len(self.cohort), trainer_ids=node.trainer_ids)
@@ -157,15 +159,20 @@ class TaskRuntime:
             node.tsc.submit_local_model(tid, self.task_id, self.rnd - 1,
                                         subs.cids[i])
             senders.append(tid)
-        node._tx_batch("submitLocalModel", senders)
+        node._tx_batch("submitLocalModel", senders,
+                       lambda: [{"taskId": self.task_id,
+                                 "round": self.rnd - 1, "cid": subs.cids[i]}
+                                for i in subs.idxs])
         self.completed[subs.idxs] += 1.0
         scores, report = evaluate_quorum(node.eval_fn, subs.stacked, None,
                                           node.don, slices=node.val_slices)
-        node._tx_batch("calculateObjectiveRep", senders)
+        scores_np = np.asarray(report["median"], np.float32)
+        node._tx_batch("calculateObjectiveRep", senders,
+                       lambda: [{"value": float(v)} for v in scores_np])
         self.params = weighted_average_tree(subs.stacked, scores)
         node.tsc.advance_round(self.task_id)
         self.last_subs = subs
-        self.last_scores = np.asarray(report["median"], np.float32)
+        self.last_scores = scores_np
 
     # step 16 prep: cohort settlement arrays ------------------------------------
     def _finalize(self):
@@ -263,6 +270,14 @@ class Scheduler:
             return
         chain = self.node.chain
         txs = self.background.txs
+        self._bg_pos = j
+        if not getattr(chain, "soa_native", False):
+            # the object Chain: one Tx a row, the same "client<k>" actors
+            names = txs.fns.names
+            for f, s, g, t in zip(txs.fn_id[i:j].tolist(), senders[i:j],
+                                  txs.gas[i:j].tolist(), times[i:j].tolist()):
+                chain.submit(Tx(names[f], f"client{int(s)}", {}, g, t))
+            return
         # remap raw workload sender ids into the chain's namespace (the
         # "client<k>" actors); raw ids would collide with protocol senders
         sid = senders[i:j]
@@ -277,7 +292,6 @@ class Scheduler:
             self._loop.submit(chain, batch)
         else:
             chain.submit_arrays(batch)
-        self._bg_pos = j
 
     def _seal_rollup(self):
         """The window-boundary seal: planned under the fused loop."""
@@ -299,10 +313,11 @@ class Scheduler:
         if any(rt.phase != "round" for rt in rts):
             return False
         node = self.node
-        kernels = rts[0].cohort.kernels
+        kernels = getattr(rts[0].cohort, "kernels", None)
         ok = (getattr(node._target(), "soa_native", False)
               and node.val_slices.stacked is not None
-              and all(rt.cohort.kernels is kernels for rt in rts)
+              and all(isinstance(rt.cohort, VectorCohort)
+                      and rt.cohort.kernels is kernels for rt in rts)
               and len({len(rt.sel_idx) for rt in rts}) == 1
               and not is_unbatchable(node.eval_fn))
         if not ok and self.megabatch is True:

@@ -17,13 +17,19 @@ journaled into the loop's plan (``_fused``) instead of reaching the
 ledger at once; ``_tx_batch_many`` is the cross-task megastep's one
 concatenated emission.
 
-Not ported yet (ROADMAP.md): the legacy flag kwargs and
-``NodeSpec.from_legacy`` (a missing ``spec`` means ``NodeSpec()``), the
-sharded-fabric branches and the object-path payloads.
+Construction follows the JAX package: ``spec=NodeSpec(...)`` is the
+public path; without one, the legacy flag kwargs (``engine=``,
+``use_rollup=``, ...) fold into ``NodeSpec.from_legacy``, whose default is
+the object ``Chain`` and ``Rollup`` (a DeprecationWarning names the flags
+given).  On the object faces each protocol tx carries its payload (the
+task id, the model cid, the reputation value); the SoA engines carry
+(time, gas, fn, sender) only.  The sharded-fabric branches are not ported
+yet (ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -34,9 +40,9 @@ from repro_torch.api.specs import NodeSpec, as_task_spec
 from repro_torch.core.engine import TxArrays
 from repro_torch.core.escrow import Escrow
 from repro_torch.core.gas import DEFAULT_GAS, L1_DEFAULT_GAS
-from repro_torch.core.ledger import AccessControl
-from repro_torch.core.oracle import ValidationSlices
-from repro_torch.core.reputation import (TrainerBook,
+from repro_torch.core.ledger import AccessControl, Tx
+from repro_torch.core.oracle import DONConfig, ValidationSlices
+from repro_torch.core.reputation import (ReputationParams, TrainerBook,
                                          end_of_multitask_update, init_book,
                                          sync_book_to_state)
 from repro_torch.core.state import default_state_handlers
@@ -55,23 +61,64 @@ class FLTaskResult:
 
 
 class AutoDFL:
-    """End-to-end protocol node, built from ``spec=NodeSpec(...)``.
+    """End-to-end protocol node.
 
     ``model``: a ``TinyMLP`` (or any module with ``init_params(seed)``,
     ``loss`` and ``cfg.name``); ``opt``: an ``Optimizer`` pair;
     ``eval_fn(params, batch)`` scores one model (vmapped by the DON);
     ``val_batch``: the publisher's validation set, a dict of host arrays
-    or tensors.  ``device``: the card unless named.
+    or tensors.  ``spec=NodeSpec(...)`` describes the node; without it the
+    legacy kwargs go through ``NodeSpec.from_legacy`` (the object stack by
+    default), with a DeprecationWarning for the ledger-shape flags.  Both
+    paths build the ledger through ``build_stack``.  ``device``: the card
+    unless named.
     """
 
+    #: legacy ctor kwargs folded into NodeSpec.from_legacy, with defaults
+    _LEGACY_DEFAULTS = {"engine": "object", "use_rollup": True,
+                        "n_shards": 1, "shard_route": "hash",
+                        "trainer_funds": 10.0, "publisher_funds": 1000.0}
+
     def __init__(self, model, opt, n_trainers: int, eval_fn: Callable,
-                 val_batch, *, spec: Optional[NodeSpec] = None,
-                 device=None):
-        spec = spec if spec is not None else NodeSpec()
-        if spec.n_trainers not in (None, n_trainers):
-            raise ValueError(
-                f"spec.n_trainers={spec.n_trainers} contradicts the "
-                f"positional n_trainers={n_trainers}")
+                 val_batch, rep_params: Optional[ReputationParams] = None,
+                 don: Optional[DONConfig] = None,
+                 use_rollup: Optional[bool] = None,
+                 use_pallas_agg: Optional[bool] = None,
+                 seed: Optional[int] = None,
+                 engine: Optional[str] = None,
+                 trainer_funds: Optional[float] = None,
+                 publisher_funds: Optional[float] = None,
+                 n_shards: Optional[int] = None,
+                 shard_route: Optional[str] = None, *,
+                 spec: Optional[NodeSpec] = None, device=None):
+        legacy = {k: v for k, v in {
+            "engine": engine, "use_rollup": use_rollup, "n_shards": n_shards,
+            "shard_route": shard_route, "trainer_funds": trainer_funds,
+            "publisher_funds": publisher_funds}.items() if v is not None}
+        if spec is None:
+            # the ledger-shape flags warn; the protocol constants and
+            # funds stay silent
+            flags = sorted(k for k in legacy if k in (
+                "engine", "use_rollup", "n_shards", "shard_route"))
+            if flags:
+                warnings.warn(
+                    f"AutoDFL kwargs {flags} are deprecated; pass "
+                    "spec=repro_torch.api.NodeSpec(...)",
+                    DeprecationWarning, stacklevel=2)
+            spec = NodeSpec.from_legacy(
+                rep_params=rep_params, don=don, seed=seed or 0,
+                use_pallas_agg=bool(use_pallas_agg),
+                **{**self._LEGACY_DEFAULTS, **legacy})
+        else:
+            # spec wins wholesale: reject every kwarg it would shadow
+            if legacy or rep_params is not None or don is not None \
+                    or use_pallas_agg is not None or seed is not None:
+                raise ValueError(
+                    "pass either spec= or legacy kwargs, not both")
+            if spec.n_trainers not in (None, n_trainers):
+                raise ValueError(
+                    f"spec.n_trainers={spec.n_trainers} contradicts the "
+                    f"positional n_trainers={n_trainers}")
         self.device = resolve_device(device)
         self.spec = spec
         self.model = model
@@ -169,13 +216,14 @@ class AutoDFL:
         state.stake[rows] = host[1].to(state.device)
         state.mark_dirty(rows)
 
-    def _tx(self, fn: str, sender: str):
-        self._tx_batch(fn, [sender])
+    def _tx(self, fn: str, sender: str, payload: Dict):
+        self._tx_batch(fn, [sender], [payload])
 
-    def _tx_batch(self, fn: str, senders: Sequence[str]):
-        """Emit one protocol tx per sender, clock-stamped 0.01 s apart,
-        as one SoA batch.  The SoA engines carry (time, gas, fn, sender)
-        only, so the calls' payloads are not materialized."""
+    def _tx_batch(self, fn: str, senders: Sequence[str], payloads=None):
+        """Emit one protocol tx per sender, clock-stamped 0.01 s apart.
+        ``payloads``: a list of dicts, or a zero-argument callable giving
+        one, materialized on the object faces only (one ``Tx`` a sender);
+        a SoA target takes the calls as one batch without payloads."""
         n = len(senders)
         if n == 0:
             return
@@ -185,12 +233,19 @@ class AutoDFL:
         gas = DEFAULT_GAS.l1_per_call.get(fn, L1_DEFAULT_GAS)
         times = self._clock + 0.01 * np.arange(1, n + 1)
         self._clock += 0.01 * n
-        # ids MUST come from the target's own namespace
-        sender_ids = [target.sender_id(s) for s in senders]
-        self._submit(target, TxArrays.from_numpy(
-            times, np.full(n, gas, np.int64),
-            np.full(n, target.fns.id(fn), np.int32), sender_ids,
-            target.fns, self.device))
+        if getattr(target, "soa_native", False):
+            # ids MUST come from the target's own namespace
+            sender_ids = [target.sender_id(s) for s in senders]
+            self._submit(target, TxArrays.from_numpy(
+                times, np.full(n, gas, np.int64),
+                np.full(n, target.fns.id(fn), np.int32), sender_ids,
+                target.fns, self.device))
+        else:
+            if callable(payloads):
+                payloads = payloads()
+            for k, (s, t) in enumerate(zip(senders, times.tolist())):
+                target.submit(Tx(fn, s, payloads[k] if payloads else {},
+                                 gas, t))
         self.protocol_calls[fn] = self.protocol_calls.get(fn, 0) + n
 
     def _submit(self, target, batch: TxArrays) -> None:
@@ -257,9 +312,12 @@ class AutoDFL:
         reputations = host[0]
         diags_h = {k: host[1 + i * len(runtimes): 1 + (i + 1) * len(runtimes)]
                    for i, k in enumerate(keys)}
+        s_rep = diags_h["s_rep"]
         for k, rt in enumerate(runtimes):
             self._tx_batch("calculateSubjectiveRep",
-                           [self.trainer_ids[i] for i in rt.sel_idx])
+                           [self.trainer_ids[i] for i in rt.sel_idx],
+                           lambda k=k, rt=rt: [{"value": float(s_rep[k, i])}
+                                               for i in rt.sel_idx])
             self.tsc.record_scores(rt.task_id, {
                 self.trainer_ids[i]: float(rt.score_auto[i])
                 for i in rt.sel_idx})
@@ -271,14 +329,19 @@ class AutoDFL:
         self._sync_fabric_state()
 
     # -- one full task (steps 1-16 of Fig. 1), driven sequentially ----------------
-    def run_task(self, task, cohort, **task_kw) -> FLTaskResult:
+    def run_task(self, task, agents, batch_fn=None,
+                 **task_kw) -> FLTaskResult:
         """Run one task to completion over the TaskRuntime state
         machine.  ``task`` is an ``FLTaskSpec`` or a task-id string with
-        FLTaskSpec's fields as loose kwargs; ``cohort`` a VectorCohort.
-        A ``Scheduler`` with this one task gives the same outputs."""
+        FLTaskSpec's fields as loose kwargs; ``agents`` a list of
+        ``TrainingAgent``s or a cohort (fl/cohort.py).  ``batch_fn`` is
+        the JAX package's positional slot: the agents and cohorts hold
+        their own.  A ``Scheduler`` with this one task gives the same
+        outputs."""
         from repro_torch.fl.scheduler import TaskRuntime
+        del batch_fn
         task = as_task_spec(task, **task_kw)
-        rt = TaskRuntime(self, task.task_id, cohort, rounds=task.rounds,
+        rt = TaskRuntime(self, task.task_id, agents, rounds=task.rounds,
                          reward=task.reward, n_select=task.n_select,
                          init_seed=task.init_seed)
         while rt.phase not in ("settle_ready", "done"):

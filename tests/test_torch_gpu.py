@@ -28,7 +28,9 @@ the reduced MoE and xLSTM LMs on the card against the CPU.  The TMA /
 wgmma forms of ``flash_attention`` and ``gmm`` where TMA's edges bite
 (tails of a row past a tile, short boxes); a backward through ``gmm`` or
 ``slstm_scan`` raises; two card runs of the reduced moonshot's MoE FFN are
-bit-equal.
+bit-equal; the object Rollup's digest buffers (4 to 84 words, offset
+views) and the default ``AutoDFL()`` agent path on the card against the
+CPU.
 
 Marked ``gpu``: they skip where no CUDA device is present (the skip is
 decided in the fixture, so every worker collects the same tests).  This
@@ -818,3 +820,96 @@ def test_moe_ffn_on_card_is_deterministic(cuda):
     x1 = x[:, :1]
     assert torch.equal(moe.moe_ffn_single(cfg, p, x1),
                        moe.moe_ffn_single(cfg, p, x1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4, 8, 80, 84])
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+def test_rollup_digest_object_batch_sizes(cuda, n, off):
+    """The object Rollup's digest buffers (4 words a tx: a one-tx flush
+    remainder to a 21-tx batch) on views offset by 0-3 words: one launch,
+    bit-equal to the plain version."""
+    w = _words(n + 4, 1000 + n, cuda)[off: off + n]
+    before = rd.rollup_digest.launches
+    got = rd.rollup_digest(w)
+    assert rd.rollup_digest.launches == before + 1
+    assert int(got) == int(rd.rollup_digest_torch(w))
+
+
+@pytest.mark.gpu
+def test_object_agent_path_on_card_matches_cpu(cuda):
+    """The default ``AutoDFL()`` (the object Chain and Rollup) with
+    TrainingAgents, two tasks through run_task, on the card and on the
+    CPU with the agents' noise drawn on the host: the ledger, selections,
+    DON scores and state counters exact, reputations and parameters in
+    tolerance; one rollup_digest launch a sealed batch; and no spec equals
+    ``spec=NodeSpec.from_legacy()`` on the card, bit for bit."""
+    from repro_torch.api import FLTaskSpec, NodeSpec
+    from repro_torch.data.synthetic import gaussian_clusters
+    from repro_torch.fl import client as fl_client
+    from repro_torch.fl.server import AutoDFL
+    from repro_torch.models.mlp import TinyMLP
+    from repro_torch.optim.optimizers import OptimizerSpec, make_optimizer
+    x, y = gaussian_clusters(512, 16, 10, seed=1)
+    vx, vy = gaussian_clusters(50, 16, 10, seed=2)
+    behaviors = ["good", "good", "malicious", "lazy"] * 2
+
+    def host_noise(agent, kind, shapes):
+        g = getattr(agent, "_host_generator", None)
+        if g is None:
+            g = agent._host_generator = torch.Generator().manual_seed(
+                agent.seed)
+        return {k: torch.randn(shapes[k], generator=g).to(agent.device)
+                for k in sorted(shapes)}
+
+    def run(dev, spec=None):
+        model = TinyMLP(16, 8, 10, device=dev)
+        opt = make_optimizer(OptimizerSpec(name="sgdm", lr=0.1,
+                                           grad_clip=5.0,
+                                           moment_dtype="float32"))
+
+        def bf(c, r):
+            i = np.random.default_rng(c * 9973 + r).integers(0, 512, 8)
+            return {"x": x[i], "labels": y[i]}
+        kw = {"spec": spec} if spec is not None else {}
+        node = AutoDFL(model, opt, 8, model.accuracy_fn(),
+                       {"x": vx, "labels": vy}, device=dev, **kw)
+        out = {}
+        for t in range(2):
+            agents = [fl_client.TrainingAgent(fl_client.ClientConfig(
+                f"trainer{i}", b, local_steps=2), model, opt, node.store,
+                bf, seed=i, device=dev) for i, b in enumerate(behaviors)]
+            out[t] = node.run_task(FLTaskSpec(f"t{t}", rounds=2), agents)
+        return node, out
+
+    default_noise = fl_client.agent_noise
+    fl_client.agent_noise = host_noise
+    try:
+        before = rd.rollup_digest.launches
+        nc, oc = run(cuda)
+        assert rd.rollup_digest.launches - before == len(nc.rollup.batches)
+        nl, _ = run(cuda, NodeSpec.from_legacy())
+        nh, oh = run(torch.device("cpu"))
+    finally:
+        fl_client.agent_noise = default_noise
+    assert type(nc.rollup).__name__ == "Rollup"
+    assert nc.rollup.gas_log == nl.rollup.gas_log
+    assert [b.block_hash for b in nc.chain.blocks] == \
+        [b.block_hash for b in nl.chain.blocks]
+    assert nc.rollup.state_root() == nl.rollup.state_root()
+    assert nc.protocol_calls == nh.protocol_calls
+    assert nc.rollup.gas_log == nh.rollup.gas_log
+    assert [(b.height, len(b.txs), b.gas_used) for b in nc.chain.blocks] == \
+        [(b.height, len(b.txs), b.gas_used) for b in nh.chain.blocks]
+    fc, fh = nc.rollup.state_arrays.to_numpy(), nh.rollup.state_arrays.to_numpy()
+    for k in ("tasks_published", "submissions", "rep_events"):
+        np.testing.assert_array_equal(fc[k], fh[k])
+    for t in oh:
+        assert nc.tsc.tasks[f"t{t}"].trainers == nh.tsc.tasks[f"t{t}"].trainers
+        np.testing.assert_array_equal(oc[t].scores, oh[t].scores)
+        np.testing.assert_allclose(oc[t].reputations, oh[t].reputations,
+                                   rtol=1e-5, atol=1e-6)
+        for k, v in oh[t].global_params.items():
+            np.testing.assert_allclose(oc[t].global_params[k].cpu().numpy(),
+                                       v.numpy(), rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()

@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (the
-rollup node path, the FL protocol path and the token-LM serving path all
-run without them), and its entry points run on the CUDA card unless the
-caller names the CPU."""
+rollup node path, the FL protocol path with its object stack and agents,
+and the token-LM serving path all run without them), and its entry points
+run on the CUDA card unless the caller names the CPU."""
 import re
 import subprocess
 import sys
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import repro_torch.api as pt
+from repro_torch.core.ledger import Chain, simulate_load, simulate_workload
 from repro_torch.core.oracle import ValidationSlices
 from repro_torch.core.reputation import init_book
 from repro_torch.core.state import StateArrays
@@ -19,6 +20,7 @@ from repro_torch.core.storage import BlobStore
 from repro_torch.configs.registry import get_config, reduced_config
 from repro_torch.core.workloads import make_workload
 from repro_torch.device import resolve_device
+from repro_torch.fl.client import ClientConfig, TrainingAgent
 from repro_torch.fl.cohort import VectorCohort
 from repro_torch.fl.scheduler import Scheduler
 from repro_torch.fl.server import AutoDFL
@@ -94,6 +96,25 @@ for t in range(2):
         model, opt, bf, node.store, n_trainers=3, local_steps=2, seed=t,
         kernels=kernels, device="cpu"))
 assert sorted(sch.run()) == ["t0", "t1"] and sch.mega_windows == 2
+# the legacy constructor's object stack, driven by TrainingAgents
+from repro_torch.core.ledger import simulate_load
+from repro_torch.core.rollup import Rollup
+from repro_torch.fl.client import ClientConfig, TrainingAgent
+from repro_torch.fl.partition import dirichlet_partition
+node = AutoDFL(model, opt, 3, model.accuracy_fn(), {"x": vx, "labels": vy},
+               device="cpu")
+assert isinstance(node.rollup, Rollup)
+def one(c, r):
+    i = np.random.default_rng(c * 7 + r).integers(0, 256, 4)
+    return {"x": x[i], "labels": y[i]}
+agents = [TrainingAgent(ClientConfig(f"trainer{i}", b, local_steps=2),
+                        model, opt, node.store, one, seed=i, device="cpu")
+          for i, b in enumerate(["good", "malicious", "lazy"])]
+res = node.run_task(FLTaskSpec("t0", rounds=2), agents)
+assert res.scores.shape == (3,) and len(node.rollup.state_root()) == 32
+assert simulate_load("publishTask", 20.0, duration=2.0, device="cpu",
+                     engine="object")["submitted"] == 40
+assert len(dirichlet_partition(y, 4)) == 4
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -183,6 +204,15 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
     for call in (lambda: resolve_device(None),
                  lambda: pt.build_ledger(spec),
                  lambda: pt.build_chain(pt.ChainSpec()),
+                 lambda: pt.build_chain(pt.ChainSpec(backend="object")),
+                 lambda: pt.build_ledger(pt.NodeSpec.from_legacy()),
+                 lambda: simulate_load("publishTask", 10.0, duration=1.0),
+                 lambda: simulate_load("publishTask", 10.0, duration=1.0,
+                                       spec=pt.ChainSpec(backend="object")),
+                 lambda: simulate_workload(pt.WorkloadSpec.make(
+                     "poisson", 10.0, duration=1.0)),
+                 lambda: TrainingAgent(ClientConfig("t0"), model, opt,
+                                       BlobStore(), None),
                  lambda: pt.NodeClient.from_spec(spec),
                  lambda: make_workload("poisson", 10.0, duration=1.0),
                  lambda: StateArrays(),
@@ -205,20 +235,22 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
     # the CPU is there when asked for
     assert build_model(cfg, "cpu").init_params(0).device.type == "cpu"
     assert pt.build_ledger(spec, device="cpu").device == torch.device("cpu")
-    node = AutoDFL(model, opt, 2, model.accuracy_fn(), val, device="cpu")
+    node = AutoDFL(model, opt, 2, model.accuracy_fn(), val,
+                   spec=pt.NodeSpec(), device="cpu")
     assert node.book.reputation.device == torch.device("cpu")
 
 
 def test_unported_backends_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        pt.build_ledger(pt.ChainSpec(backend="object"), device="cpu")
+    assert isinstance(pt.build_ledger(pt.ChainSpec(backend="object"),
+                                      device="cpu"), Chain)
     with pytest.raises(ValueError, match="digest backend"):
         pt.RollupSpec(digest_backend="pallas")
     model = TinyMLP(8, 4, 3, device="cpu")
     val = {"x": np.zeros((10, 8), np.float32),
            "labels": np.zeros(10, np.int32)}
     node = AutoDFL(model, make_optimizer(OptimizerSpec(name="sgdm")), 2,
-                   model.accuracy_fn(), val, device="cpu")
+                   model.accuracy_fn(), val, spec=pt.NodeSpec(),
+                   device="cpu")
     # the fused loop and the megastep are ported: both knobs construct
     for kw in ({"fused": True}, {"megabatch": True}):
         assert Scheduler(node, **kw).mega_windows == 0

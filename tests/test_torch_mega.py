@@ -271,7 +271,7 @@ def test_megabatch_true_raises_on_ineligible_window(world):
 
 def test_scheduler_knobs(world):
     node = AutoDFL(world["tm"], world["to"], 3, world["tm"].accuracy_fn(),
-                   world["val_t"], device="cpu")
+                   world["val_t"], spec=pt.NodeSpec(), device="cpu")
     for value in ("auto", True, False):
         Scheduler(node, fused=value, megabatch=value)
     for bad in ("on", 1, None):
