@@ -3,8 +3,9 @@
 path (stepped, and through the fused window loop), the reputation-aware
 FL protocol run (the default Scheduler: fused loop + cross-task megastep,
 and the stepped per-task path), the token-LM serving paths (prefill and
-decode of yi-6b, moonshot-v1-16b-a3b and xlstm-1.3b at full width), and
-the object ledger with its agent path (the default ``AutoDFL()``).
+decode of yi-6b, moonshot-v1-16b-a3b and xlstm-1.3b at full width), the
+object ledger with its agent path (the default ``AutoDFL()``), and the
+sharded rollup fabric.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -186,6 +187,33 @@ Phases, each printing its result on a line of its own:
                AutoDFL() == spec=NodeSpec.from_legacy() and a Scheduler of
                one agent task == run_task, bit for bit.
 
+ 16. fabric  — the sharded rollup fabric (NodeSpec(shards=ShardSpec(...))):
+               (c) the 1M-tx raw-ledger loop of phase 4's fused twin over
+               an 8-shard fabric (hash routing), stepped and fused: gas
+               logs (with ``shard``), blocks, batch digests, fabric roots,
+               interconnect logs (per kind) and event kinds equal; launch
+               counts from 0: TWO shard_seal launches, one block_pack, no
+               batch_seal; (a) shard_seal bit-equal to its plain version at
+               K of 1, 2, 8 and 64 lanes, an empty lane, unequal lanes,
+               4,096 one-word segments, a 16 MB lane as one segment,
+               power-law lengths and views offset by 1-3 words, the mesh
+               impl equal to the wrapper; then at (c)'s two calls (captured)
+               bit-equal to plain and to one batch_seal a lane, timed by
+               CUDA events and the profiler beside its bytes bound, the
+               plain version, the K batch_seal launches and the ticket
+               buffer's zeroing; (b) benchmarks/bench_shards.py's
+               "shard-fabric" point (Table I's mixed blend at 20,000 tx/s
+               for 10 s, seed 0) through build_stack at 1, 2, 4 and 8
+               shards: the state root equal at every K and in a second run
+               at 8, the fabric root reproduced, every tx sealed in one
+               shard, the per-lane seal walls, the interconnect's summary,
+               the fold kernels' launches from 0, the modeled 8-against-1
+               sealed-batch scaling (at least 3x, the reference's floor)
+               and the measured one; (d) the 32 x 64 FL run on 8 shards,
+               default (two shard_seal launches) against stepped as in
+               phase 7, and the 4 x 16 run on 2 shards three ways as in
+               phase 6.
+
 Then one JSON line lists every kernel with its launches on its path, the
 card's name and power limit follow on a line of their own, and the last
 line is ``{"ok": true, "device": {...}}``.  Any failed phase raises before
@@ -257,24 +285,31 @@ def timed_ms(fn, iters: int, flush: torch.Tensor) -> float:
 
 
 TRACE_TRIES = 3
+# a trace sometimes lacks the device records of its first 15-21 launches
+# (on the H100, traces of 20 launches of 3 records held 5, 13 and 15
+# kernel spans, every other record there): one-word fills before the
+# timed launches (and after them) take the loss in their place, as a
+# profiler schedule's warm-up steps would
+TRACE_PAD = 64
 # every trace device_ms took again: its name fragment, the launches, the
 # spans of that name it held and all of its device spans
 RETAKES: list = []
 
 
 def device_ms(fn, fragment: str, iters: int, flush: torch.Tensor,
-              clean: bool = False) -> float:
+              clean: bool = False, per_call: int = 1) -> float:
     """The kernel's own device time: the mean over ``iters`` launches of
     ``fn`` (L2 evicted before each) of the device spans whose names hold
     ``fragment`` in a torch.profiler trace, read by name as fl_profile
-    reads them.  Fails unless there is one such span a launch; a trace
+    reads them; ``TRACE_PAD`` small fills come before and after the
+    timed launches in the trace.  Fails unless there is one such span a launch; a trace
     that holds another count is taken again, up to ``TRACE_TRIES``
-    times, each retake logged and kept in ``RETAKES`` (on the H100 one
-    trace of 20 launches once held 5 spans, where every other trace held
-    one a launch; why is not known, so each run's retakes are printed
-    with its numbers).  The L2 is evicted by writing ``flush`` (its dirty
+    times, each retake logged and kept in ``RETAKES`` (why a trace loses
+    records is not known, so each run's retakes are printed with its
+    numbers).  The L2 is evicted by writing ``flush`` (its dirty
     lines are written back while the kernel reads), or with ``clean`` by
-    reading it."""
+    reading it.  ``per_call``: launches of the kernel in one call of
+    ``fn`` (their device times add up)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -282,27 +317,31 @@ def device_ms(fn, fragment: str, iters: int, flush: torch.Tensor,
     for _ in range(TRACE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_PAD):
+                flush[:1].zero_()
             for _ in range(iters):
                 if clean:
                     flush.sum()
                 else:
                     flush.zero_()
                 fn()
+            for _ in range(TRACE_PAD):
+                flush[:1].zero_()
             torch.cuda.synchronize()
         device = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
         spans = [e.time_range.end - e.time_range.start for e in device
                  if fragment in e.name]
-        if len(spans) == iters:
+        if len(spans) == iters * per_call:
             break
-        RETAKES.append({"fragment": fragment, "launches": iters,
+        RETAKES.append({"fragment": fragment, "launches": iters * per_call,
                         "spans": len(spans), "device_spans": len(device)})
         log(f"device_ms: {len(spans)} device spans named {fragment!r} in "
-            f"{iters} launches ({len(device)} device spans in all); "
-            f"tracing them again")
-    if len(spans) != iters:
+            f"{iters * per_call} launches ({len(device)} device spans in "
+            f"all); tracing them again")
+    if len(spans) != iters * per_call:
         raise AssertionError(f"{len(spans)} device spans named {fragment!r} "
-                             f"in {iters} launches")
+                             f"in {iters * per_call} launches")
     return sum(spans) / iters / 1e3
 
 
@@ -1234,10 +1273,11 @@ def fl_world(dev, n_trainers: int, local_steps: int, batch: int):
     return model, opt, val, batch_fn, DPConfig(noise_multiplier=0.05)
 
 
-def run_fl(dev, cfg, behaviors=None, **knobs):
+def run_fl(dev, cfg, behaviors=None, shards=None, **knobs):
     """One Scheduler run of ``cfg['tasks']`` concurrent tasks on
-    ``NodeSpec()`` (the protocol-scheduler preset) with seal_every=2 and
-    the Scheduler's ``knobs`` (its defaults: the fused loop and the
+    ``NodeSpec()`` (the protocol-scheduler preset; with ``shards``, a
+    ShardSpec, on that sharded fabric) with seal_every=2 and the
+    Scheduler's ``knobs`` (its defaults: the fused loop and the
     megastep).  ``behaviors``: one list per task, or None (all good).
     Returns (node, scheduler, results, wall seconds ending in a
     synchronize)."""
@@ -1248,7 +1288,7 @@ def run_fl(dev, cfg, behaviors=None, **knobs):
     n, tasks = cfg["trainers"], cfg["tasks"]
     model, opt, val, batch_fn, dp = fl_world(dev, n, cfg["local_steps"],
                                              cfg["batch"])
-    spec = NodeSpec(trainer_funds=10.0 * (tasks + 2),
+    spec = NodeSpec(shards=shards, trainer_funds=10.0 * (tasks + 2),
                     publisher_funds=100.0 * (tasks + 2))
     node = AutoDFL(model, opt, n, model.accuracy_fn(), val, spec=spec,
                    device=dev)
@@ -1272,7 +1312,7 @@ def run_fl(dev, cfg, behaviors=None, **knobs):
 
 def fl_outputs(node, sch, out) -> dict:
     from repro_torch.core.state import StateArrays
-    st = node.rollup.state_arrays
+    st = node.state_arrays
     fields = st.to_numpy()
     return {
         "protocol_calls": dict(node.protocol_calls),
@@ -1329,12 +1369,14 @@ def fl_hold(ref: dict, o: dict, what: str) -> None:
                                **F32_TOL, err_msg=what)
 
 
-def fl_agree(dev) -> None:
+def fl_agree(dev, shards=None) -> None:
     """The default FL run (fused + megastep) at 4 tasks x 16 trainers, 2
     rounds, on the card with kernels, on the card with the plain versions
-    forced, and on the CPU.  The lazy trainers make tasks ragged; the last
-    task has none, so its rounds are full and both Eq. 1 branches run."""
+    forced, and on the CPU (on the sharded fabric ``shards`` when given).
+    The lazy trainers make tasks ragged; the last task has none, so its
+    rounds are full and both Eq. 1 branches run."""
     from repro_torch.fl import scheduler as fl_sched
+    tag = "fl agree" if shards is None else f"fl agree fabric {shards.count}"
     lazy = ["good", "good", "malicious", "lazy"] * (FL_AGREE["trainers"] // 4)
     behaviors = [lazy] * (FL_AGREE["tasks"] - 1) + [
         ["good", "good", "malicious", "good"] * (FL_AGREE["trainers"] // 4)]
@@ -1349,35 +1391,36 @@ def fl_agree(dev) -> None:
         for attr in ("weighted_average_tree_mega", "weighted_average_tree"):
             branches.wrap(fl_sched, attr, attr)
         try:
-            node, sch, out, wall = run_fl(device, FL_AGREE, behaviors)
+            node, sch, out, wall = run_fl(device, FL_AGREE, behaviors,
+                                          shards)
         finally:
             branches.restore()
             os.environ.pop("REPRO_TORCH_KERNEL_IMPL", None)
             if old is not None:
                 os.environ["REPRO_TORCH_KERNEL_IMPL"] = old
         if sch.mega_windows == 0 or 0 in branches.calls.values():
-            raise AssertionError(f"fl agree {label}: megastep windows "
+            raise AssertionError(f"{tag} {label}: megastep windows "
                                  f"{sch.mega_windows}, Eq. 1 calls "
                                  f"{branches.calls}")
-        log(f"fl agree {label}: {sch.mega_windows} megastep windows, Eq. 1 "
+        log(f"{tag} {label}: {sch.mega_windows} megastep windows, Eq. 1 "
             f"calls {json.dumps(branches.calls)}")
         outs[label] = o = fl_outputs(node, sch, out)
         digest = hashlib.sha256(b"".join(
             o["params"][t][k].tobytes() for t in sorted(o["params"])
             for k in sorted(o["params"][t]))).hexdigest()[:16]
-        log(f"fl agree {label}: parameters' sha256 {digest} (compare "
+        log(f"{tag} {label}: parameters' sha256 {digest} (compare "
             f"between calls)")
         if o["root"] != o["cpu_root"]:
-            raise AssertionError(f"fl agree {label}: root {o['root']} != "
+            raise AssertionError(f"{tag} {label}: root {o['root']} != "
                                  f"the CPU root of its fields {o['cpu_root']}")
-        log(f"fl agree {label}: {sum(o['protocol_calls'].values())} protocol "
+        log(f"{tag} {label}: {sum(o['protocol_calls'].values())} protocol "
             f"calls, {len(o['gas_log'])} batches, {len(o['blocks']) - 1} "
             f"blocks, root {o['root']} (= the CPU root of its fields), "
             f"{wall:.3f} s")
     ref = outs["cpu"]
     for label, o in outs.items():
-        fl_hold(ref, o, f"fl agree {label} against the CPU")
-    log(f"fl agree: card (kernels), card (plain) and CPU agree over "
+        fl_hold(ref, o, f"{tag} {label} against the CPU")
+    log(f"{tag}: card (kernels), card (plain) and CPU agree over "
         f"{FL_AGREE['tasks']} tasks x {FL_AGREE['trainers']} trainers, "
         f"{FL_AGREE['rounds']} rounds (ledger, selections, scores exact; "
         f"reputations, payouts within rtol 1e-5 atol 1e-6; params within "
@@ -1415,10 +1458,11 @@ class PhaseClock:
         self._undo.clear()
 
 
-def fl_measured(dev, smi: str, label: str, **knobs) -> dict:
-    """The FL protocol run at 32 tasks x 64 trainers with the Scheduler's
-    ``knobs``, launch counts from 0, host seconds by phase; checks the
-    repo's invariants on the result and returns what it measured."""
+def fl_measured(dev, smi: str, label: str, shards=None, **knobs) -> dict:
+    """The FL protocol run at 32 tasks x 64 trainers (on the sharded
+    fabric ``shards`` when given) with the Scheduler's ``knobs``, launch
+    counts from 0, host seconds by phase; checks the repo's invariants on
+    the result and returns what it measured."""
     from repro_torch.core import oracle
     from repro_torch.core.fused import FusedWindowLoop
     from repro_torch.core.gas import DEFAULT_GAS, L1_DEFAULT_GAS
@@ -1427,6 +1471,7 @@ def fl_measured(dev, smi: str, label: str, **knobs) -> dict:
     from repro_torch.fl.server import AutoDFL
     from repro_torch.kernels import block_pack as bp
     from repro_torch.kernels import model_distance as md
+    from repro_torch.kernels import shard_lanes as sl
     from repro_torch.kernels import weighted_agg as wa
     clock = PhaseClock()
     for owner, attr, phase in (
@@ -1444,7 +1489,7 @@ def fl_measured(dev, smi: str, label: str, **knobs) -> dict:
         clock.wrap(owner, attr, phase)
     wrappers = {"weighted_agg": wa.weighted_agg,
                 "model_distance": md.model_distance,
-                "block_pack": bp.block_pack}
+                "block_pack": bp.block_pack, "shard_seal": sl.shard_seal}
     for fn in wrappers.values():
         fn.launches = 0
     tables = (oracle._score_table_batched, oracle._score_table_loop,
@@ -1453,7 +1498,7 @@ def fl_measured(dev, smi: str, label: str, **knobs) -> dict:
         fn.calls = 0
     torch.cuda.reset_peak_memory_stats()
     try:
-        node, sch, out, wall = run_fl(dev, FL_RUN, **knobs)
+        node, sch, out, wall = run_fl(dev, FL_RUN, shards=shards, **knobs)
     finally:
         clock.restore()
     launches = {name: fn.launches for name, fn in wrappers.items()}
@@ -1477,10 +1522,15 @@ def fl_measured(dev, smi: str, label: str, **knobs) -> dict:
             raise AssertionError(f"{tid}: bad scores {res.scores}")
     ru, chain = node.rollup, node.chain
     l2 = sum(r["total"] for r in ru.gas_log)
-    if l2 != chain.total_gas or chain.n_confirmed != chain.n_submitted:
+    # a fabric's rows carry each shard's float shares of its amortized
+    # verify and execute, which miss the L1's integer gas by rounding
+    # (check_main_path's rule); one rollup's sum is exact
+    tol = 0.0 if shards is None else 1e-9 * chain.total_gas
+    if abs(l2 - chain.total_gas) > tol or \
+            chain.n_confirmed != chain.n_submitted:
         raise AssertionError(f"L2 gas {l2} != L1 gas {chain.total_gas}, or "
                              f"the L1 did not drain")
-    st = ru.state_arrays
+    st = node.state_arrays
     if int(st.submissions[: st.n].sum()) != \
             node.protocol_calls["submitLocalModel"]:
         raise AssertionError("state counters miss submissions")
@@ -1535,9 +1585,10 @@ def fl_main(dev, smi: str):
     # task-axis model_distance launch settles them all
     expect = {
         "default": {"weighted_agg": windows, "model_distance": 1,
-                    "block_pack": 1},
+                    "block_pack": 1, "shard_seal": 0},
         "stepped": {"weighted_agg": FL_RUN["tasks"] * FL_RUN["rounds"],
-                    "model_distance": FL_RUN["tasks"], "block_pack": 0}}
+                    "model_distance": FL_RUN["tasks"], "block_pack": 0,
+                    "shard_seal": 0}}
     for label, run in (("default", default), ("stepped", stepped)):
         if run["launches"] != expect[label]:
             raise AssertionError(f"fl {label}: launches {run['launches']}, "
@@ -3080,6 +3131,414 @@ def object_agree(dev) -> None:
         fl_client.agent_noise = default_noise
 
 
+# -- phase 16: the sharded fabric ------------------------------------------------
+
+# the "shard-fabric" point of benchmarks/bench_shards.py (the preset of
+# src/repro/api/presets.py:34-36): Table I's mixed blend at 20,000 tx/s
+# for 10 s, seed 0, at 1, 2, 4 and 8 shards with hash routing
+FABRIC_POINT = dict(rate=20_000.0, duration=10.0, seed=0)
+FABRIC_SHARDS = (1, 2, 4, 8)
+FABRIC_REPS = 3                  # bench_shards.py's best-of-N a point
+FABRIC_TWIN_SHARDS = 8
+FL_FABRIC_SHARDS = 8
+FL_AGREE_SHARDS = 2
+
+
+def fabric_spec(k: int, **kw):
+    from repro_torch.api import NodeSpec, ShardSpec
+    return NodeSpec(shards=ShardSpec(count=k, fabric=True), **kw)
+
+
+def lane_grid(lanes, dev, offset: int = 0):
+    """(words, starts, n_seg, n_words) of ``shard_seal``'s contract on
+    ``dev`` from host lanes ``[(words u32, starts), ...]``: the word grid
+    a view ``offset`` words into each row of its allocation (each row
+    then starts off the 16-byte grid by a different amount), starts
+    padded with the lane's word count."""
+    k = len(lanes)
+    n_words = np.array([w.size for w, _ in lanes], np.int64)
+    n_seg = np.array([len(s) for _, s in lanes], np.int64)
+    width = max(1, int(n_words.max()))
+    words = np.zeros((k, width + offset), np.uint32)
+    starts = np.repeat(n_words[:, None], max(1, int(n_seg.max())), 1)
+    for i, (w, st) in enumerate(lanes):
+        words[i, offset: offset + w.size] = w
+        starts[i, : len(st)] = st
+    grid = torch.from_numpy(words.view(np.int32)).to(dev)[:, offset:]
+    return (grid, torch.from_numpy(starts).to(dev),
+            torch.from_numpy(n_seg).to(dev), torch.from_numpy(n_words).to(dev))
+
+
+def shard_seal_cases(g) -> list:
+    """shard_seal's hard inputs (those of tests/test_torch_gpu.py): K of
+    1, 2, 8 and 64 lanes of unequal length; an empty lane; 4,096 one-word
+    segments; a 16 MB lane as one segment; power-law segment lengths (1
+    to 10^5 words); views offset by 1-3 words.  (label, lanes, offset)."""
+    def lane(n, n_seg=None, lengths=None, one_word=False):
+        w = g.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        if lengths is not None:
+            st = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        elif one_word:
+            st = np.arange(n)
+        elif n_seg:
+            st = np.concatenate([[0], np.sort(g.choice(
+                np.arange(1, n), n_seg - 1, replace=False))])
+        else:
+            st = np.zeros(0, np.int64)
+        return w, np.asarray(st, np.int64)
+
+    power = []
+    while sum(power) < 1_000_000:
+        power.append(int(10 ** g.uniform(0, 5)))
+    unequal = [lane(int(n), int(s)) for n, s in
+               zip(g.integers(1_000, 300_000, 8), g.integers(1, 900, 8))]
+    return [
+        ("K=1", [lane(200_000, 2_500)], 0),
+        ("K=2 unequal", [lane(50_000, 600), lane(3_000_000, 40_000)], 0),
+        ("K=8 unequal", unequal, 0),
+        ("K=64", [lane(int(n), int(s)) for n, s in zip(
+            g.integers(100, 20_000, 64), g.integers(1, 99, 64))], 0),
+        ("empty lane", [lane(5_000, 70), lane(0), lane(9_000, 1)], 0),
+        ("4,096 one-word segments", [lane(4096, one_word=True),
+                                     lane(4096, 3)], 0),
+        ("16 MB lane, one segment", [lane(4 << 20, 1)], 0),
+        ("power-law lengths", [lane(sum(power), lengths=power),
+                               lane(200_000, 2_500)], 0),
+    ] + [(f"offset {off}", unequal[:4], off) for off in (1, 2, 3)]
+
+
+def lane_views(words, starts, n_seg, n_words) -> list:
+    """Each lane's (words, starts), as views: one batch_seal launch a lane
+    is the per-lane form shard_seal replaces (no PyTorch call computes
+    it)."""
+    ns, nw = n_seg.tolist(), n_words.tolist()
+    return [(words[k, : nw[k]], starts[k, : ns[k]])
+            for k in range(len(ns)) if ns[k]]
+
+
+def per_lane_seals(lanes) -> list:
+    """One batch_seal launch a lane of ``lane_views``."""
+    from repro_torch.kernels import batch_seal as bs
+    return [bs.batch_seal(w, st) for w, st in lanes]
+
+
+def check_shard_seal(dev, calls, flush) -> dict:
+    """(a) shard_seal bit-equal to its plain version at its hard cases,
+    the mesh impl equal to the wrapper; then at the fused fabric twin's
+    two calls (captured), timed by CUDA events and the profiler's device
+    time beside its bytes bound, the plain version and K batch_seal
+    launches on the same lanes.  Returns the kernels line's row (the
+    twin's roots call)."""
+    from repro_torch.kernels import shard_lanes as sl
+    g = np.random.default_rng(16)
+    before = sl.shard_seal.launches
+    n_cases = 0
+    for label, lanes, offset in shard_seal_cases(g):
+        args = lane_grid(lanes, dev, offset)
+        got = sl.shard_seal(*args)
+        want = sl.shard_seal_torch(*args)
+        if u32_err(got, want):
+            raise AssertionError(f"shard_seal at {label}: differs from "
+                                 f"its plain version")
+        if not torch.equal(sl.shard_seal_mesh(*args), got):
+            raise AssertionError(f"shard_seal's mesh impl at {label}: "
+                                 f"differs from the wrapper")
+        n_cases += 1
+    torch.cuda.synchronize()
+    if sl.shard_seal.launches != before + 2 * n_cases:
+        raise AssertionError("shard_seal: not one launch a call")
+    log(f"kernel shard_seal: bit-equal to plain on {n_cases} cases (K of "
+        f"1 to 64, an empty lane, one-word segments, a 16 MB lane, "
+        f"power-law lengths, views offset by 1-3 words); the mesh impl "
+        f"equal to the wrapper")
+    rows = []
+    for label, args in zip(("roots", "seal digests"), calls):
+        words, starts, n_seg, n_words = args
+        err = u32_err(sl.shard_seal(*args), sl.shard_seal_torch(*args))
+        views = lane_views(*args)
+        lanes = torch.cat(per_lane_seals(views))
+        real = torch.arange(starts.shape[1], device=dev)[None] < \
+            n_seg[:, None]
+        err = max(err, u32_err(sl.shard_seal(*args)[real], lanes))
+        if err:
+            raise AssertionError(f"shard_seal at the fused fabric twin's "
+                                 f"{label}: differs from plain or from the "
+                                 f"per-lane batch_seal")
+        k, b = starts.shape
+        sum_w, sum_b = int(n_words.sum()), int(n_seg.sum())
+        n_bytes = 4 * sum_w + 8 * sum_b + 4 * k * b
+        mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = OPS_PER_WORD * sum_w / INT_OPS_PER_S * 1e3
+        row = {"name": "shard_seal", "max_abs_err": err,
+               "lanes": k, "words": sum_w, "segments": sum_b,
+               "grid": [k, int(words.shape[1])],
+               "ms": timed_ms(lambda: sl.shard_seal(*args), 50, flush),
+               "device_ms": device_ms(lambda: sl.shard_seal(*args),
+                                      "shard_seal_span_kernel", 20, flush),
+               "plain_ms": timed_ms(lambda: sl.shard_seal_torch(*args), 5,
+                                    flush),
+               "bound_ms": max(mem_ms, ops_ms),
+               "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+               "library_ms": None,
+               # the per-launch ticket buffer: one fill of K words
+               "tickets_zero_ms": timed_ms(lambda: torch.zeros(
+                   k, dtype=torch.int32, device=dev), 50, flush),
+               "lanes_batch_seal_ms": timed_ms(
+                   lambda: per_lane_seals(views), 20, flush),
+               "lanes_batch_seal_device_ms": device_ms(
+                   lambda: per_lane_seals(views), "batch_seal_span_kernel",
+                   10, flush, per_call=len(views))}
+        log(f"kernel shard_seal at the fused fabric twin's {label}: "
+            f"bit-equal to plain and to {len(views)} per-lane "
+            f"batch_seal launches; {json.dumps(row)}")
+        rows.append(row)
+    return rows[0]
+
+
+def fabric_twin(workload, dev, *, k: int, fused: bool, until=None):
+    """run_twin's raw-ledger window loop on a K-shard fabric (hash
+    routing): per window submit / seal / pump / run_until, then flush and
+    run the L1 to ``until`` (or drain it in 100 s steps).  Returns
+    (client, outputs, wall seconds ending in a synchronize)."""
+    from repro_torch.api import NodeClient
+    from repro_torch.core.fused import FusedWindowLoop
+    client = NodeClient.from_spec(fabric_spec(k), device=dev)
+    chain, fabric = client.chain, client.target
+    loop = FusedWindowLoop(chain, fabric) if fused else None
+    face, blocks = (loop, loop) if fused else (fabric, chain)
+    txs = workload.txs
+    times = txs.submit_time.cpu().numpy()
+    n_windows = int(workload.duration)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for w in range(n_windows):
+        lo, hi = (int(i) for i in np.searchsorted(times, [w, w + 1.0]))
+        batch = txs.select(slice(lo, hi))
+        if fused:
+            loop.submit(fabric, batch)
+        else:
+            fabric.submit_arrays(batch)
+        face.seal()
+        face.pump(w + 1.0)
+        blocks.run_until(w + 1.0)
+    face.flush()
+    if until is None:
+        t = float(n_windows)
+        while chain.n_confirmed < chain.n_submitted:
+            if t > n_windows + 1e5:
+                raise AssertionError("the L1 mempool does not drain")
+            t += 100.0
+            chain.run_until(t)
+    else:
+        blocks.run_until(until)
+    if fused:
+        loop.execute()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    wire = {}
+    for r in fabric.interconnect.log:
+        wire.setdefault(r["kind"], []).append(r)
+    out = {"blocks": [(b.height, b.time, b.n_txs, b.gas_used, b.start,
+                       b.stop, b.block_hash) for b in chain.blocks],
+           "gas_log": fabric.gas_log, "batch_digests": fabric.batch_digests,
+           "fabric_roots": fabric.fabric_roots, "wire": wire,
+           "event_kinds": [e.kind for e in client.events(cursor=0)],
+           "root": client.state_root()}
+    return client, out, wall
+
+
+def fused_fabric(dev, workload, smi: str):
+    """(c) The node workload through fabric_twin on 8 shards, stepped,
+    then fused (shard_seal, batch_seal and block_pack launch counts from
+    0): equal gas logs (with ``shard``), blocks, batch digests, fabric
+    roots, interconnect logs (per kind) and event kinds; exactly two
+    shard_seal launches, no batch_seal launch and one block_pack launch.
+    Returns the arguments of the two shard_seal calls."""
+    from repro_torch.core import fused as fused_mod
+    from repro_torch.kernels import batch_seal as bs
+    from repro_torch.kernels import block_pack as bp
+    from repro_torch.kernels import shard_lanes as sl
+    k = FABRIC_TWIN_SHARDS
+    _, stepped, stepped_wall = fabric_twin(workload, dev, k=k, fused=False)
+    captured = []
+    real = fused_mod.get_kernel
+
+    def spy(op, impl=None):
+        fn = real(op, impl)
+        if op != "shard_seal":
+            return fn
+
+        def recorded(*args):
+            captured.append(args)
+            return fn(*args)
+        return recorded
+    fused_mod.get_kernel = spy
+    for fn in (sl.shard_seal, bs.batch_seal, bp.block_pack):
+        fn.launches = 0
+    try:
+        _, fused, fused_wall = fabric_twin(workload, dev, k=k, fused=True,
+                                           until=stepped["blocks"][-1][1])
+    finally:
+        fused_mod.get_kernel = real
+    launches = {"shard_seal": sl.shard_seal.launches,
+                "batch_seal": bs.batch_seal.launches,
+                "block_pack": bp.block_pack.launches}
+    twins_equal(stepped, fused, "fused fabric against stepped")
+    if launches != {"shard_seal": 2, "batch_seal": 0, "block_pack": 1} or \
+            len(captured) != 2:
+        raise AssertionError(f"the fused fabric run launched {launches} in "
+                             f"{len(captured)} shard_seal calls")
+    if {r["shard"] for r in fused["gas_log"]} != set(range(k)):
+        raise AssertionError("a shard of the fused fabric sealed nothing")
+    log(f"fused fabric: {len(workload)} txs over {k} shards, "
+        f"{len(fused['blocks']) - 1} L1 blocks, {len(fused['gas_log'])} "
+        f"batches, {len(fused['fabric_roots'])} fabric roots: gas log, "
+        f"blocks, digests, fabric roots, interconnect logs and event kinds "
+        f"equal to the stepped fabric; wall stepped {stepped_wall:.6f} s, "
+        f"fused {fused_wall:.6f} s on {smi}; launches {json.dumps(launches)}")
+    return captured, launches["shard_seal"]
+
+
+def fabric_point(wl, k: int, dev) -> dict:
+    """One point of bench_shards.py's _run_point on the card: the whole
+    workload into a K-shard fabric (build_stack, default state handlers),
+    each shard's seal timed alone (ending in a synchronize), the window
+    merged, the sessions settled and drained, one settlement scatter of
+    the whole state recorded, the L1 run for the workload's duration and
+    5 s more; fold kernel launches from 0."""
+    from repro_torch.api import build_stack
+    from repro_torch.core.state import default_state_handlers
+    from repro_torch.kernels import batch_seal as bs
+    from repro_torch.kernels import dirty_fold as df
+    from repro_torch.kernels import rollup_digest as rd
+    wrappers = {"batch_seal": bs.batch_seal,
+                "rollup_digest": rd.rollup_digest,
+                "rollup_chunk_digests": rd.rollup_chunk_digests,
+                "dirty_fold": df.dirty_fold}
+    for fn in wrappers.values():
+        fn.launches = 0
+    chain, fabric = build_stack(fabric_spec(k), fns=wl.txs.fns, device=dev)
+    for fn, handler in default_state_handlers().items():
+        fabric.register_state(fn, handler)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fabric.submit_arrays(wl.txs)
+    torch.cuda.synchronize()
+    submit_wall = time.perf_counter() - t0
+    ic = fabric.interconnect
+    lane_walls, nbs = [], []
+    for s in fabric.shards:
+        t1 = time.perf_counter()
+        nbs.append(s.seal())
+        torch.cuda.synchronize()
+        lane_walls.append(time.perf_counter() - t1)
+    gather_before = ic.totals["root_gather_s"]
+    fabric._finish_window(nbs)
+    root_gather_s = ic.totals["root_gather_s"] - gather_before
+    fabric.settle_session()
+    fabric.prover.drain()
+    settle_scatter_s = ic.record_settle_scatter(fabric.state.n)
+    torch.cuda.synchronize()
+    seal_wall = time.perf_counter() - t0
+    chain.run_until(wl.duration + 5.0)
+    n = len(wl)
+    if sum(r["n_txs"] for r in fabric.gas_log) != n:
+        raise AssertionError("every tx must seal in exactly one shard")
+    wall_window_s = max(lane_walls) + root_gather_s + settle_scatter_s
+    return {"n_shards": k, "n_txs": n, "n_batches": fabric.n_batches,
+            "seal_wall_s": seal_wall,
+            "fabric_latency_s": fabric.latency(n),
+            "sealed_batch_tps": fabric.sealed_batch_throughput(n),
+            "wall": {"submit_wall_s": submit_wall,
+                     "lane_seal_s": lane_walls,
+                     "max_lane_seal_s": max(lane_walls),
+                     "sum_lane_seal_s": sum(lane_walls),
+                     "root_gather_s": root_gather_s,
+                     "settle_scatter_s": settle_scatter_s,
+                     "wall_window_s": wall_window_s,
+                     "wall_tps": n / wall_window_s},
+            "interconnect": ic.summary(),
+            "launches": {name: fn.launches
+                         for name, fn in wrappers.items()},
+            "state_root": fabric.state_root(),
+            "fabric_root": fabric.fabric_root()}
+
+
+def fabric_node(dev, smi: str) -> None:
+    """(b) bench_shards.py's "shard-fabric" point on the card: a warm-up
+    point, then K = 1, 2, 4 and 8 (the best of three runs each) and
+    K = 8 again.  The state root equal
+    at every K and in both K = 8 runs, the fabric root reproduced; the
+    modeled 8-against-1 sealed-batch scaling at least 3x (the
+    reference's assert), the measured one printed."""
+    from repro_torch.core.workloads import make_workload
+    wl = make_workload("mixed", device=dev, **FABRIC_POINT)
+    fabric_point(wl, FABRIC_SHARDS[0], dev)            # warm-up, discarded
+    points = {}
+    for k in FABRIC_SHARDS:
+        # the best of FABRIC_REPS by measured wall (the roots, gas and
+        # model fields repeat exactly), as bench_shards.py takes it
+        points[k] = p = max((fabric_point(wl, k, dev)
+                             for _ in range(FABRIC_REPS)),
+                            key=lambda q: q["wall"]["wall_tps"])
+        log(f"fabric node: {json.dumps(p)}")
+    again = fabric_point(wl, FABRIC_SHARDS[-1], dev)
+    roots = {k: p["state_root"] for k, p in points.items()}
+    if len(set(roots.values())) != 1 or \
+            again["state_root"] != roots[FABRIC_SHARDS[-1]]:
+        raise AssertionError(f"the state root depends on the shard count "
+                             f"or the run: {roots}, {again['state_root']}")
+    if again["fabric_root"] != points[FABRIC_SHARDS[-1]]["fabric_root"]:
+        raise AssertionError("the fabric root does not reproduce")
+    hi, lo = points[FABRIC_SHARDS[-1]], points[FABRIC_SHARDS[0]]
+    scaling = hi["sealed_batch_tps"] / lo["sealed_batch_tps"]
+    wall_scaling = hi["wall"]["wall_tps"] / lo["wall"]["wall_tps"]
+    if scaling < 3.0:
+        raise AssertionError(f"modeled {FABRIC_SHARDS[-1]}-shard scaling "
+                             f"{scaling:.3f}x, under the reference's 3x")
+    log(f"fabric node: {len(wl)} txs; state root {roots[1]} at every K and "
+        f"again at K = {FABRIC_SHARDS[-1]}, fabric root reproduced; "
+        f"modeled sealed-batch scaling {FABRIC_SHARDS[-1]} against "
+        f"{FABRIC_SHARDS[0]} shards {scaling:.6f}x (reference floor 3x), "
+        f"measured wall scaling {wall_scaling:.6f}x; max lane seal "
+        f"{json.dumps({k: p['wall']['max_lane_seal_s'] for k, p in points.items()})}"
+        f" s on {smi}")
+
+
+def fabric_fl(dev, smi: str) -> int:
+    """(d) The FL run at 32 tasks x 64 trainers on an 8-shard fabric, the
+    default Scheduler (fused + megastep; launch counts from 0: two
+    shard_seal launches for the run) and the stepped per-task path, held
+    to each other as phase 7 holds them; then the 4 x 16 run on 2 shards
+    three ways, as phase 6.  Returns the default run's shard_seal
+    launches."""
+    from repro_torch.api import ShardSpec
+    shards = ShardSpec(count=FL_FABRIC_SHARDS)
+    default = fl_measured(dev, smi, f"fabric {FL_FABRIC_SHARDS} default",
+                          shards=shards)
+    stepped = fl_measured(dev, smi, f"fabric {FL_FABRIC_SHARDS} stepped",
+                          shards=shards, fused=False, megabatch=False)
+    fl_hold(stepped["outputs"], default["outputs"],
+            "fl fabric default against stepped")
+    expect = {
+        "default": {"weighted_agg": FL_RUN["rounds"], "model_distance": 1,
+                    "block_pack": 1, "shard_seal": 2},
+        "stepped": {"weighted_agg": FL_RUN["tasks"] * FL_RUN["rounds"],
+                    "model_distance": FL_RUN["tasks"], "block_pack": 0,
+                    "shard_seal": 0}}
+    for label, run in (("default", default), ("stepped", stepped)):
+        if run["launches"] != expect[label]:
+            raise AssertionError(f"fl fabric {label}: launches "
+                                 f"{run['launches']}, expected "
+                                 f"{expect[label]}")
+    log(f"fl fabric: default {default['wall']:.6f} s, stepped "
+        f"{stepped['wall']:.6f} s on {FL_FABRIC_SHARDS} shards on {smi}")
+    fl_agree(dev, ShardSpec(count=FL_AGREE_SHARDS))
+    return default["launches"]["shard_seal"]
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -3216,6 +3675,23 @@ def main() -> int:
         launches[name] += k
     object_agree(dev)
 
+    # 16. the sharded fabric: (c) the fused fabric twin (launch counts from
+    # 0; its two shard_seal calls captured), (a) shard_seal at its hard
+    # cases and timed at those calls, (b) bench_shards.py's point, (d) the
+    # FL run on the fabric (launch counts from 0)
+    torch.cuda.empty_cache()
+    wl = make_workload("mixed", device=dev, **FULL)
+    seal_calls, twin_launches = fused_fabric(dev, wl, smi)
+    del wl
+    shard_row = check_shard_seal(dev, seal_calls, torch.empty(
+        256 * 2**20 // 4, dtype=torch.int32, device=dev))
+    del seal_calls
+    fabric_node(dev, smi)
+    fl_fabric_launches = fabric_fl(dev, smi)
+    launches["shard_seal"] = twin_launches + fl_fabric_launches
+    log(f"shard_seal launches: {twin_launches} on the fused fabric twin, "
+        f"{fl_fabric_launches} on the default FL run on the fabric")
+
     replaces = {"rollup_digest": "src/repro/kernels/rollup_digest.py:16",
                 "rollup_chunk_digests":
                     "src/repro/kernels/rollup_digest.py:76",
@@ -3226,7 +3702,10 @@ def main() -> int:
                 "block_pack": "src/repro/kernels/block_pack.py:179",
                 "flash_attention": "src/repro/kernels/flash_attention.py:25",
                 "gmm": "src/repro/kernels/gmm.py:18",
-                "slstm_scan": "src/repro/kernels/slstm_scan.py:25"}
+                "slstm_scan": "src/repro/kernels/slstm_scan.py:25",
+                # no Pallas form: _lane_fold, the jnp program of
+                # shard_seal_jax and shard_seal_shard_map
+                "shard_seal": "src/repro/kernels/shard_lanes.py:79"}
     sources = {"weighted_agg": "fl.cu", "model_distance": "fl.cu",
                "block_pack": "pack.cu", "flash_attention": "attn.cu",
                "gmm": "moe.cu", "slstm_scan": "slstm.cu"}
@@ -3238,7 +3717,8 @@ def main() -> int:
     # its three launches a layer); the others are logged below
     dist = fl_rows["model_distance"]
     for row in rows + [dict(agg, **agg["task"]), dict(dist, **dist["task"]),
-                       pack_row, attn_row, gmm_rows[0], scan_row]:
+                       pack_row, attn_row, gmm_rows[0], scan_row,
+                       shard_row]:
         name = row["name"]
         kernels.append({
             "name": name, "route": "cuda",

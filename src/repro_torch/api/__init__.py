@@ -15,7 +15,8 @@ from repro_torch.api.factory import (build_chain, build_ledger, build_stack,
                                      l1_of)
 from repro_torch.api.specs import (ChainSpec, DONSpec, FLTaskSpec,
                                    NodeSpec, ProverSpec, ReputationSpec,
-                                   RollupSpec, WorkloadSpec, as_task_spec)
+                                   RollupSpec, ShardSpec, WorkloadSpec,
+                                   as_task_spec)
 from repro_torch.core.events import (AggregateVerified, BatchSealed,
                                      BlockPacked, EventsDropped, LedgerEvent,
                                      ProofGenerated, WindowSettled)
@@ -24,7 +25,8 @@ __all__ = [
     "AccountView", "NodeClient", "TxReceipt", "RECEIPT_STATUSES",
     "build_chain", "build_ledger", "build_stack", "l1_of",
     "ChainSpec", "DONSpec", "FLTaskSpec", "NodeSpec", "ProverSpec",
-    "ReputationSpec", "RollupSpec", "WorkloadSpec", "as_task_spec",
+    "ReputationSpec", "RollupSpec", "ShardSpec", "WorkloadSpec",
+    "as_task_spec",
     "AggregateVerified", "BatchSealed", "BlockPacked", "EventsDropped",
     "LedgerEvent", "ProofGenerated", "WindowSettled",
 ]

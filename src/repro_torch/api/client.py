@@ -17,9 +17,10 @@ Receipt statuses (``RECEIPT_STATUSES``): ``pending`` -> ``sealed`` ->
 ``proved`` -> ``finalized`` on a rollup node, ``pending`` -> ``confirmed``
 on a chain-only node.  On the object faces (``Chain``, ``Rollup``) a
 receipt holds its ``Tx`` and a submission may carry a payload; the SoA
-faces carry (time, gas, fn, sender) only and refuse one.  The sharded
-backend and the deprecated ``subscribe`` shim of
-``src/repro/api/client.py`` are not ported yet.
+faces carry (time, gas, fn, sender) only and refuse one.  On the sharded
+fabric a receipt also names its shard, and resolves through that shard's
+rollup.  The deprecated ``subscribe`` shim of ``src/repro/api/client.py``
+is not ported yet (ROADMAP.md, item 5).
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ from repro_torch.core.events import LedgerEvent
 from repro_torch.core.fused import supports_fused
 from repro_torch.core.gas import DEFAULT_GAS, L1_DEFAULT_GAS, GasTable
 from repro_torch.core.ledger import Tx
-from repro_torch.core.state import STATE_SCHEMA, default_state_handlers
+from repro_torch.core.state import (STATE_SCHEMA, StateArrays,
+                                    default_state_handlers)
 
 #: the proof lifecycle a receipt walks (chain-only nodes use
 #: ``pending`` -> ``confirmed``)
@@ -142,8 +144,13 @@ class NodeClient:
             torch.tensor([target.fns.id(fn)], dtype=torch.int32, device=dev),
             torch.tensor([target.sender_id(sender)], dtype=torch.int32,
                          device=dev), target.fns)
-        lo, _hi = target.submit_arrays(batch)
-        return self.refresh(TxReceipt(fn, sender, gas, t, seq=lo))
+        prov = target.submit_arrays(batch)
+        if isinstance(prov[0], torch.Tensor):         # fabric: (shard, seq)
+            rcpt = TxReceipt(fn, sender, gas, t, shard=int(prov[0][0]),
+                             seq=int(prov[1][0]))
+        else:                                         # (lo, hi) range
+            rcpt = TxReceipt(fn, sender, gas, t, seq=prov[0])
+        return self.refresh(rcpt)
 
     def submit_arrays(self, batch) -> List[TxReceipt]:
         """Submit a SoA TxArrays batch; returns one receipt per tx (built
@@ -152,7 +159,12 @@ class NodeClient:
         fn_ids, senders = batch.fn_id.tolist(), batch.sender_id.tolist()
         gas, times = batch.gas.tolist(), batch.submit_time.tolist()
         prov = self.target.submit_arrays(batch)
-        if isinstance(prov, tuple):                   # (lo, hi) range
+        if isinstance(prov, tuple) and isinstance(prov[0], torch.Tensor):
+            shard_of, seq_of = prov[0].tolist(), prov[1].tolist()  # fabric
+            out = [TxReceipt(names[f], f"acct{s}", g, t, shard=k, seq=q)
+                   for f, s, g, t, k, q in zip(fn_ids, senders, gas, times,
+                                               shard_of, seq_of)]
+        elif isinstance(prov, tuple):                 # (lo, hi) range
             out = [TxReceipt(names[f], f"acct{s}", g, t, seq=prov[0] + i)
                    for i, (f, s, g, t) in enumerate(zip(fn_ids, senders,
                                                         gas, times))]
@@ -165,8 +177,11 @@ class NodeClient:
     # -- receipt resolution ----------------------------------------------------
     def refresh(self, rcpt: TxReceipt) -> TxReceipt:
         """Re-resolve a receipt against the live ledger (in place)."""
-        if hasattr(self.target, "batch_size"):        # rollup face
-            self._refresh_rollup(rcpt, self.target)
+        t = self.target
+        if hasattr(t, "shards"):                      # sharded fabric
+            self._refresh_rollup(rcpt, t.shards[rcpt.shard])
+        elif hasattr(t, "batch_size"):                # rollup face
+            self._refresh_rollup(rcpt, t)
         else:                                         # chain-only
             self._refresh_chain(rcpt)
         return rcpt
@@ -238,11 +253,20 @@ class NodeClient:
         r.l1_ref = r.block_hash
 
     # -- state queries ---------------------------------------------------------
+    def _state_arrays(self):
+        """The account state: the fabric keeps it in ``state`` (the object
+        Rollup's ``state`` is its dict), the other faces in
+        ``state_arrays``."""
+        st = getattr(self.target, "state", None)
+        if isinstance(st, StateArrays):
+            return st
+        return getattr(self.target, "state_arrays", None)
+
     def get_account(self, addr: str) -> AccountView:
         """Balance/stake/reputation + protocol counters for an address
         (a read: unknown addresses are NOT minted into the namespace)."""
         sid = getattr(self.target, "_sender_ids", {}).get(addr)
-        st = getattr(self.target, "state_arrays", None)
+        st = self._state_arrays()
         if sid is None or st is None or sid >= st.n:
             return AccountView(addr, sid)
         vals = {name: getattr(st, name)[sid].item()

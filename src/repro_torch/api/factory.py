@@ -2,12 +2,12 @@
 
     ChainSpec alone (or NodeSpec(rollup=None))   -> VectorChain | Chain
     + RollupSpec                                 -> VectorRollup | Rollup
+    + ShardSpec(count > 1 or fabric=True)        -> ShardedRollup
 
 ``build_ledger`` returns the SUBMISSION target (the L2 face when a rollup
 is configured, else the L1 itself); the rollup keeps its L1 on ``.l1``,
 and ``l1_of`` resolves it uniformly.  Every build function takes ``device``:
-``None`` means the CUDA card and raises without one.  The sharded fabric
-(ROADMAP.md, queue 1 item 6) is not ported yet.
+``None`` means the CUDA card and raises without one.
 """
 from __future__ import annotations
 
@@ -45,9 +45,10 @@ def build_chain(spec: ChainSpec, *, fns=None, device=None):
                  gas_table=spec.gas_table, device=resolve_device(device))
 
 
-def build_stack(spec: LedgerSpec, *, fns=None, device=None
+def build_stack(spec: LedgerSpec, *, fns=None, state=None, device=None
                 ) -> Tuple[object, Optional[object]]:
-    """Build (l1_chain, rollup_or_None) from a spec."""
+    """Build (l1_chain, rollup_or_None) from a spec.  ``state``: an
+    optional pre-built StateArrays for the sharded fabric."""
     node = _as_node_spec(spec)
     chain = build_chain(node.chain, fns=fns, device=device)
     ru = node.rollup
@@ -57,6 +58,15 @@ def build_stack(spec: LedgerSpec, *, fns=None, device=None
     prove_time = ru.prove_time if pv.prove_time is None else pv.prove_time
     prover_kw = dict(agg_width=pv.agg_width, prover_capacity=pv.capacity,
                      finalize=pv.finalize)
+    if node.shards is not None and node.shards.wants_fabric:
+        from repro_torch.core.shards import ShardedRollup
+        return chain, ShardedRollup(
+            chain, n_shards=node.shards.count, batch_size=ru.batch_size,
+            gas_table=node.chain.gas_table, prove_time=prove_time,
+            per_tx_time=ru.per_tx_time, n_lanes=ru.n_lanes,
+            digest_backend=ru.digest_backend, route=node.shards.route,
+            state=state, interconnect=node.shards.interconnect,
+            mesh=node.shards.mesh, **prover_kw)
     if node.chain.backend == "vector":
         from repro_torch.core.engine import VectorRollup
         return chain, VectorRollup(
@@ -71,11 +81,11 @@ def build_stack(spec: LedgerSpec, *, fns=None, device=None
                          **prover_kw)
 
 
-def build_ledger(spec: LedgerSpec, *, fns=None,
+def build_ledger(spec: LedgerSpec, *, fns=None, state=None,
                  device=None) -> LedgerBackend:
     """THE ledger factory: spec -> the LedgerBackend you submit to (the L2
     face when the spec configures a rollup, else the L1)."""
-    chain, rollup = build_stack(spec, fns=fns, device=device)
+    chain, rollup = build_stack(spec, fns=fns, state=state, device=device)
     return rollup if rollup is not None else chain
 
 

@@ -2,7 +2,8 @@
 
 Specs are data: frozen, comparable, serializable (``asdict``).  A node is
 a ``NodeSpec`` of a ``ChainSpec`` (the L1), an optional ``RollupSpec``
-(the L2 sequencer) and an optional ``ProverSpec`` (the proof pipeline),
+(the L2 sequencer), an optional ``ProverSpec`` (the proof pipeline) and
+an optional ``ShardSpec`` (the sharded fabric over that L2),
 with the FL protocol's constants (``ReputationSpec``, ``DONSpec``, funds,
 trainer count), handed to ``repro_torch.api.build_ledger``,
 ``NodeClient.from_spec`` or ``repro_torch.fl.server.AutoDFL``.
@@ -10,8 +11,8 @@ trainer count), handed to ``repro_torch.api.build_ledger``,
 
 ``NodeSpec.from_legacy`` maps the old ``AutoDFL`` flag kwargs onto a
 spec (the object stack by default, as in the JAX package).
-``ShardSpec``, ``AdmissionSpec`` and ``ServeSpec`` are not ported yet
-(ROADMAP.md): ``from_legacy`` refuses ``n_shards > 1``.
+``AdmissionSpec`` and ``ServeSpec`` (the node service) are not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -19,9 +20,11 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.core.gas import DEFAULT_GAS, ROLLUP_BATCH, GasTable
+from repro_torch.core.interconnect import InterconnectSpec
 from repro_torch.core.oracle import DONConfig
 from repro_torch.core.prover import FINALIZE_MODES
 from repro_torch.core.reputation import ReputationParams
+from repro_torch.core.shards import MESH_MODES
 from repro_torch.core.state import DIGEST_BACKENDS
 
 #: engine paths a ChainSpec can select
@@ -99,6 +102,45 @@ class ProverSpec:
         if self.finalize not in FINALIZE_MODES:
             raise ValueError(f"unknown finalize mode {self.finalize!r}; "
                              f"choose from {FINALIZE_MODES}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """Sharded rollup fabric (core/shards.py): K sequencers, one L1.
+
+    ``count=1`` without ``fabric=True`` means a plain rollup;
+    ``fabric=True`` builds the ``ShardedRollup`` even at one shard
+    (bit-equivalent to ``VectorRollup``, with fabric roots and per-shard
+    receipts).
+
+    ``mesh``: whether the fused window loop folds the K lanes' seals
+    through the mesh impl of ``shard_seal`` (kernels/shard_lanes.py over
+    launch/mesh.make_shard_mesh): ``"auto"`` where more than one card is
+    visible, ``"on"`` always; ``"off"`` and a single card leave the
+    choice to the kernel factory.  Every impl gives the same bits.
+
+    ``interconnect`` (core/interconnect.InterconnectSpec) overrides the
+    fabric's modeled wire costs; ``None`` means the default links.
+    """
+
+    count: int = 1
+    route: str = "hash"                 # "hash" | "least_loaded"
+    fabric: bool = False
+    mesh: str = "auto"                  # "auto" | "on" | "off"
+    interconnect: Optional[InterconnectSpec] = None
+
+    def __post_init__(self):
+        if self.count < 1:
+            raise ValueError("shard count must be >= 1")
+        if self.route not in ("hash", "least_loaded"):
+            raise ValueError(f"unknown shard route {self.route!r}")
+        if self.mesh not in MESH_MODES:
+            raise ValueError(f"unknown shard mesh mode {self.mesh!r}; "
+                             f"choose from {MESH_MODES}")
+
+    @property
+    def wants_fabric(self) -> bool:
+        return self.fabric or self.count > 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,8 +225,9 @@ def as_task_spec(task, **kw) -> FLTaskSpec:
 
 @dataclasses.dataclass(frozen=True)
 class NodeSpec:
-    """A node: L1 + optional L2 + optional proof pipeline, the FL
-    protocol's constants, and the background traffic it is driven with.
+    """A node: L1 + optional L2 + optional proof pipeline + optional
+    sharded fabric, the FL protocol's constants, and the background
+    traffic it is driven with.
 
     ``n_trainers=None`` defers the cohort size to ``AutoDFL``'s positional
     argument.  ``use_pallas_agg`` is kept so that specs and ``describe()``
@@ -197,6 +240,7 @@ class NodeSpec:
     rollup: Optional[RollupSpec] = dataclasses.field(
         default_factory=RollupSpec)
     prover: Optional[ProverSpec] = None     # None = default proof pipeline
+    shards: Optional[ShardSpec] = None
     reputation: ReputationSpec = dataclasses.field(
         default_factory=ReputationSpec)
     don: DONSpec = dataclasses.field(default_factory=DONSpec)
@@ -212,6 +256,11 @@ class NodeSpec:
         if self.prover is not None and self.rollup is None:
             raise ValueError("a ProverSpec needs a RollupSpec (the proof "
                              "pipeline settles sealed L2 batches)")
+        if self.shards is not None and self.shards.wants_fabric:
+            if self.rollup is None:
+                raise ValueError("a sharded fabric needs a RollupSpec")
+            if self.chain.backend != "vector":
+                raise ValueError("sharding needs the vector chain backend")
         if self.rollup is not None and self.chain.backend == "object":
             if self.rollup.n_lanes != 1:
                 raise ValueError("n_lanes > 1 needs the vector backend")
@@ -227,17 +276,14 @@ class NodeSpec:
                     trainer_funds: float = 10.0,
                     publisher_funds: float = 1000.0, seed: int = 0,
                     use_pallas_agg: bool = False) -> "NodeSpec":
-        """Map the old AutoDFL kwargs onto a NodeSpec.  ``n_shards > 1``
-        needs the sharded fabric (``ShardSpec``), which is not ported yet
-        (ROADMAP.md, queue 1 item 6)."""
-        if n_shards > 1:
-            raise NotImplementedError(
-                "n_shards > 1 needs the sharded fabric, which is not ported "
-                "yet (ROADMAP.md, queue 1 item 6)")
-        del shard_route          # routes between shards: none at one
+        """Map the old AutoDFL kwargs onto a NodeSpec (``n_shards > 1``
+        builds the sharded fabric)."""
+        shards = (ShardSpec(count=n_shards, route=shard_route)
+                  if n_shards > 1 else None)
         return cls(
             chain=ChainSpec(backend=engine),
             rollup=RollupSpec() if use_rollup else None,
+            shards=shards,
             reputation=(ReputationSpec.from_params(rep_params)
                         if rep_params is not None else ReputationSpec()),
             don=(DONSpec.from_config(don) if don is not None else DONSpec()),

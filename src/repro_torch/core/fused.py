@@ -31,10 +31,16 @@ streams, state roots, gas logs, blocks, confirm times and results
 root (``WindowSettled`` carries it as a string) still read the device at
 each seal point, as the stepped seal does.
 
-Scope: ``VectorChain`` alone or ``VectorChain`` + ``VectorRollup``.  The
-sharded fabric's lanes (routing, the ``shard_seal`` fold) wait for the
-fabric's port (ROADMAP.md, queue 1 item 6): ``supports_fused`` is False
-for a rollup with ``shards``.
+Scope: ``VectorChain`` alone, ``VectorChain`` + ``VectorRollup``, or
+``VectorChain`` + ``ShardedRollup``.  The fabric runs as K shard lanes:
+routing decisions (the hash split, the least-loaded argmin, task pins) are
+taken at record time against the live ``_submitted`` counters, each
+lane's seal groups go through the same precompute, the K lanes' digest
+folds are two ``shard_seal`` calls over a ``(K, W)`` word grid (kernel
+``shard_seal``; its ``mesh`` impl where the fabric's ``mesh`` knob asks
+for it), and every window closes through ``ShardedRollup._finish_window``
+as a stepped seal does.  A plain ``VectorRollup`` is the one-lane case and
+keeps its two ``batch_seal`` calls.
 """
 from __future__ import annotations
 
@@ -48,20 +54,19 @@ from repro_torch.core.engine import (BlockStats, TxArrays, VectorChain,
                                      VectorRollup, _remap,
                                      xor_fold_digest_segments)
 from repro_torch.core.events import BatchSealed, BlockPacked
+from repro_torch.core.state import kernel_impl
 from repro_torch.kernels.factory import get_kernel
 from repro_torch.kernels.rollup_digest import MASK
 
 
 def supports_fused(chain, rollup) -> bool:
     """True when the (chain, rollup) pair can run the fused loop: a SoA L1
-    and, optionally, a single SoA rollup face (a ``fused_capable`` class
-    marker on each; not the sharded fabric)."""
+    and, optionally, a SoA rollup face (a ``fused_capable`` class marker
+    on each: ``VectorChain``, ``VectorRollup`` and ``ShardedRollup``; the
+    object faces lack it)."""
     if not getattr(chain, "fused_capable", False):
         return False
-    if rollup is None:
-        return True
-    return (getattr(rollup, "fused_capable", False)
-            and not hasattr(rollup, "shards"))
+    return rollup is None or getattr(rollup, "fused_capable", False)
 
 
 @dataclasses.dataclass
@@ -94,35 +99,55 @@ class FusedWindowLoop:
     once; afterwards the ledger is indistinguishable from a stepped run.
     """
 
-    def __init__(self, chain: VectorChain,
-                 rollup: Optional[VectorRollup] = None):
+    def __init__(self, chain: VectorChain, rollup=None):
         if not supports_fused(chain, rollup):
             raise ValueError("the fused loop needs a VectorChain and, "
-                             "optionally, a VectorRollup")
+                             "optionally, a VectorRollup or a "
+                             "ShardedRollup")
         self.chain = chain
         self.rollup = rollup
+        # the sharded fabric runs as K shard lanes; a plain VectorRollup
+        # is the one-lane case of the same machinery
+        self.fabric = rollup if hasattr(rollup, "shards") else None
+        self._lanes: List[VectorRollup] = (
+            list(rollup.shards) if self.fabric is not None
+            else ([rollup] if rollup is not None else []))
         self._plan: List[Tuple] = []
-        # journaled rollup staging; anything already pending is adopted so
+        # journaled staging a lane; anything already pending is adopted so
         # the first planned seal covers it, as a stepped seal would
-        self._r_batches: List[TxArrays] = []
-        if rollup is not None and rollup._pending:
-            self._r_batches.extend(rollup._pending)
-            rollup._pending, rollup._pending_n = [], 0
+        self._r_batches: List[List[TxArrays]] = [[] for _ in self._lanes]
+        for k, lane in enumerate(self._lanes):
+            if lane._pending:
+                self._r_batches[k].extend(lane._pending)
+                lane._pending, lane._pending_n = [], 0
         self._executed = False
 
     # -- record phase ----------------------------------------------------------
-    def submit(self, target, batch: TxArrays):
+    def _stage(self, k: int, batch: TxArrays) -> Tuple[int, int]:
+        """Journal one batch into lane ``k``, assigning its sequence range
+        now (receipts hold ``[lo, hi)`` before ``execute``)."""
+        lane = self._lanes[k]
+        lo = lane._next_seq
+        lane._next_seq += len(batch)
+        self._r_batches[k].append(batch)
+        return lo, lo + len(batch)
+
+    def submit(self, target, batch: TxArrays, shard: Optional[int] = None):
         """Journal one SoA batch for ``target`` (the rollup or the chain).
         Fn names register in the target's registry NOW, in the stepped
         path's order.  Returns the rollup's ``[lo, hi)`` sequence range
-        for a rollup batch, None for a chain batch."""
+        for a rollup batch, the per-tx ``(shard_of, seq_of)`` provenance
+        on the fabric (routed now, as ``ShardedRollup.submit_arrays``
+        would route it; ``shard`` pins the batch), None for a chain
+        batch."""
         rollup = self.rollup
         if rollup is not None and target is rollup:
             batch = _remap(batch, rollup.fns, rollup.device)
-            lo = rollup._next_seq
-            rollup._next_seq += len(batch)
-            self._r_batches.append(batch)
-            return lo, lo + len(batch)
+            if self.fabric is None:
+                return self._stage(0, batch)
+            # the stepped routing decision, taken now; the parts journal
+            # into the lanes instead of the shards' pending queues
+            return self.fabric._route(batch, shard, self._stage)
         if target is not self.chain:
             raise ValueError("unknown fused submit target")
         self._plan.append(("tx", _remap(batch, self.chain.fns,
@@ -139,11 +164,12 @@ class FusedWindowLoop:
         return self.rollup
 
     def seal(self):
-        """Plan a seal point at the current staging watermark."""
+        """Plan a seal point at the current staging watermark of every
+        lane."""
         # the stepped path registers the commit fn at its first seal: keep
         # the registry's id order identical
         self._need_rollup("seal").fns.id("rollup_commit")
-        self._plan.append(("seal", len(self._r_batches)))
+        self._plan.append(("seal", tuple(len(rb) for rb in self._r_batches)))
 
     def pump(self, t_end: float):
         self._need_rollup("pump")
@@ -198,7 +224,14 @@ class FusedWindowLoop:
                 chain_buf.append(entry[1])
             elif op == "seal":
                 flush_chain()
-                self._apply_seal(preps[seal_i], rollup)
+                if self.fabric is not None:
+                    # lanes seal in shard order, then the fabric merges
+                    # the window: the stepped ShardedRollup.seal()
+                    self.fabric._finish_window(
+                        [self._apply_seal(preps[k][seal_i], lane)
+                         for k, lane in enumerate(self._lanes)])
+                else:
+                    self._apply_seal(preps[0][seal_i], rollup)
                 seal_i += 1
             elif op == "pump":
                 flush_chain()
@@ -206,7 +239,9 @@ class FusedWindowLoop:
             elif op == "settle":
                 flush_chain()
                 rollup.settle_session()
-                rollup.prover.drain(rollup)
+                # the fabric's drain is fabric-wide, as its flush()'s
+                rollup.prover.drain(None if self.fabric is not None
+                                    else rollup)
             elif op == "sync":
                 _, state, ids, rep, bal, stake = entry
                 state.ensure_ids(ids)
@@ -230,33 +265,35 @@ class FusedWindowLoop:
         self._pack_blocks(times, n_vis, markers)
 
     # -- seal precompute + per-point application -------------------------------
-    def _collect_groups(self) -> List[List[TxArrays]]:
-        """Split the journaled staging at the planned watermarks; batches
-        past the last watermark go back to the rollup's pending queue
-        (what a stepped run would leave unsealed)."""
+    def _collect_groups(self, k: int) -> List[List[TxArrays]]:
+        """Split lane ``k``'s journaled staging at the planned watermarks;
+        batches past the last watermark go back to the lane's pending
+        queue (what a stepped run would leave unsealed)."""
         groups, prev = [], 0
         for entry in self._plan:
             if entry[0] == "seal":
-                groups.append(self._r_batches[prev:entry[1]])
-                prev = entry[1]
-        tail = self._r_batches[prev:]
+                groups.append(self._r_batches[k][prev:entry[1][k]])
+                prev = entry[1][k]
+        tail = self._r_batches[k][prev:]
         if tail:
-            self.rollup._pending.extend(tail)
-            self.rollup._pending_n += sum(len(b) for b in tail)
+            lane = self._lanes[k]
+            lane._pending.extend(tail)
+            lane._pending_n += sum(len(b) for b in tail)
         return groups
 
-    def _prepare_seals(self) -> List[Optional[_SealPrep]]:
+    def _prepare_seals(self) -> List[List[Optional[_SealPrep]]]:
         """Every seal point's batch structure, commit gas, timestamps,
-        digests, gas rows and commit txs in one pass (the stepped
-        ``VectorRollup.seal`` math, all windows at once).  Indexed by
-        seal point."""
+        digests, gas rows and commit txs, a lane at a time (the stepped
+        ``VectorRollup.seal`` math, all windows at once), with the digest
+        folds of all lanes together.  Indexed ``[lane][seal point]``."""
         if self.rollup is None:
             return []
-        groups = self._collect_groups()
-        st = self._lane_struct(self.rollup, groups)
-        if st is not None:
-            self._fold_digests(st)
-        return self._lane_preps(self.rollup, st, len(groups))
+        groups = [self._collect_groups(k) for k in range(len(self._lanes))]
+        structs = [self._lane_struct(lane, g)
+                   for lane, g in zip(self._lanes, groups)]
+        self._fold_digests(structs)
+        return [self._lane_preps(lane, st, len(g))
+                for lane, st, g in zip(self._lanes, structs, groups)]
 
     def _lane_struct(self, rollup: VectorRollup,
                      groups: List[List[TxArrays]]) -> Optional[Dict]:
@@ -335,18 +372,56 @@ class FusedWindowLoop:
                 "inv_post": inv_post, "arrival_batch": batch_of[dest],
                 "roots": None, "gdigest": None}
 
-    def _fold_digests(self, st: Dict) -> None:
-        """The two segmented folds of the whole run (kernel
-        ``batch_seal``): per-batch tx roots, and per-seal update digests
+    def _fold_digests(self, structs: List[Optional[Dict]]) -> None:
+        """Every lane's per-batch tx roots and per-seal update digests
         (each seal's txs are word-contiguous in the sorted order, so its
-        merged-buffer digest is one segment of the same buffer)."""
-        dev, backend = st["words"].device, self.rollup.digest_backend
-        st["roots"] = xor_fold_digest_segments(
-            st["words"], torch.from_numpy(st["starts"] * 4).to(dev),
-            backend)
-        st["gdigest"] = xor_fold_digest_segments(
-            st["words"], torch.from_numpy(st["gstart"] * 4).to(dev),
-            backend)
+        merged-buffer digest is one segment of the same buffer).  One
+        lane: two ``batch_seal`` folds over its buffer.  The fabric: the
+        live lanes' buffers are the rows of one ``(K, W)`` word grid, and
+        two ``shard_seal`` calls fold every lane's segments."""
+        live = [st for st in structs if st is not None]
+        if not live:
+            return
+        dev = live[0]["words"].device
+        if self.fabric is None:
+            st, backend = live[0], self.rollup.digest_backend
+            for key, cut in (("roots", "starts"), ("gdigest", "gstart")):
+                st[key] = xor_fold_digest_segments(
+                    st["words"], torch.from_numpy(st[cut] * 4).to(dev),
+                    backend)
+            return
+        fold = get_kernel("shard_seal", self._shard_seal_impl())
+        words = torch.nn.utils.rnn.pad_sequence(
+            [st["words"] for st in live], batch_first=True)
+        n_words = np.array([st["words"].numel() for st in live], np.int64)
+        for key, cut in (("roots", "starts"), ("gdigest", "gstart")):
+            n_seg = np.array([st[cut].size for st in live], np.int64)
+            # the starts grid (padded with each lane's word count), the
+            # segment counts and the word counts in one copy
+            host = np.repeat(n_words[:, None], int(n_seg.max()) + 2, 1)
+            for i, st in enumerate(live):
+                host[i, : n_seg[i]] = st[cut] * 4
+            host[:, -2] = n_seg
+            grid = torch.from_numpy(host).to(dev)
+            out = fold(words, grid[:, :-2], grid[:, -2].contiguous(),
+                       grid[:, -1].contiguous())
+            for i, st in enumerate(live):
+                st[key] = out[i, : n_seg[i]]
+
+    def _shard_seal_impl(self) -> Optional[str]:
+        """The fabric's ``mesh`` knob as a ``shard_seal`` impl: ``"on"``
+        takes the mesh impl, ``"auto"`` takes it where more than one card
+        is visible; otherwise the lanes' digest backend decides (``None``
+        for ``"auto"``: the factory default and
+        ``REPRO_TORCH_KERNEL_IMPL``)."""
+        mode = self.fabric.mesh_mode
+        if mode == "on":
+            return "mesh"
+        if mode == "auto":
+            from repro_torch.launch.mesh import n_local_devices
+            if n_local_devices() > 1:
+                return "mesh"
+        return kernel_impl(self._lanes[0].digest_backend)
 
     def _lane_preps(self, rollup: VectorRollup, st: Optional[Dict],
                     n_groups: int) -> List[Optional[_SealPrep]]:

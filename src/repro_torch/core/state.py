@@ -10,6 +10,10 @@ chunks a window touched, ``dirty_fold``), and the chunk digest vector is
 sealed with one sha256 on the host.  The same rows give the same root as
 the JAX package's ``src/repro/core/state.py``.
 
+``account_owner`` is the one partition function of the sharded fabric
+(core/shards.py): it routes a sender's txs and assigns its state rows to
+the partition root (``StateArrays.partition_roots``) of the same shard.
+
 ``canonical_bytes`` is the type-tagged encoding the object Rollup's
 dict-state digest hashes (core/rollup.state_digest).
 """
@@ -24,6 +28,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.factory import get_kernel
+from repro_torch.kernels.rollup_digest import MASK, mix_u32
 
 # Mixing constants shared with core/engine.py and kernels/rollup_digest.py.
 MIX_MULT = np.uint32(0x85EBCA6B)
@@ -67,6 +72,29 @@ class Registry:
 
     def __len__(self) -> int:
         return len(self.names)
+
+
+def account_owner(account_ids: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """Shard of each account id (int64, on the ids' device): the xor-mix
+    of the id mod K, computed in int64 and masked to 32 bits (torch on
+    the CPU has no ``>>`` on uint32)."""
+    return mix_u32(account_ids.to(torch.int64) & MASK) % n_shards
+
+
+def account_owner_np(account_ids, n_shards: int) -> np.ndarray:
+    """``account_owner`` for host callers, on numpy arrays (int64)."""
+    s = np.asarray(account_ids).astype(np.uint32)
+    mixed = (s ^ (s >> np.uint32(16))) * MIX_MULT
+    return (mixed % np.uint32(n_shards)).astype(np.int64)
+
+
+def group_by(keys: torch.Tensor, n_groups: int):
+    """Indices of ``keys`` grouped by key value in ``[0, n_groups)``, in
+    their order within each group (a stable sort), and the group sizes on
+    the host: one copy of ``n_groups`` counts, not a mask a group."""
+    order = torch.sort(keys, stable=True).indices
+    counts = torch.bincount(keys, minlength=n_groups).tolist()
+    return order, counts
 
 
 # ---------------------------------------------------------------------------
@@ -171,15 +199,26 @@ def _fold_digests(words: torch.Tensor, chunk: int,
         words, chunk)
 
 
+def _seal_many(headers: Sequence[bytes], n_words: Sequence[int],
+               digests: Sequence[torch.Tensor]) -> List[str]:
+    """One sha256 a chunk digest vector over it and its schema/length
+    header; the vectors reach the host in one copy."""
+    host = torch.cat(list(digests)).cpu().numpy().view(np.uint32)
+    out, at = [], 0
+    for header, n, d in zip(headers, n_words, digests):
+        h = hashlib.sha256()
+        h.update(header)
+        h.update(np.uint64(n).tobytes())
+        h.update(host[at: at + d.numel()].tobytes())
+        out.append(h.hexdigest()[:32])
+        at += d.numel()
+    return out
+
+
 def _seal_digests(header: bytes, n_words: int,
                   digests: torch.Tensor) -> str:
-    """One sha256 over the chunk digest vector + schema/length header (one
-    copy of the digest vector to the host)."""
-    h = hashlib.sha256()
-    h.update(header)
-    h.update(np.uint64(n_words).tobytes())
-    h.update(digests.cpu().numpy().view(np.uint32).tobytes())
-    return h.hexdigest()[:32]
+    """The root of one digest vector (``_seal_many`` of one)."""
+    return _seal_many([header], [n_words], [digests])[0]
 
 
 def chunked_root(words: torch.Tensor, chunk: int = STATE_CHUNK_WORDS,
@@ -316,7 +355,8 @@ class StateArrays:
             cache["pending"].clear()
             rows = rows[rows < self.n]
             if rows.numel():
-                touched = self._patch_rows(cache["words"], self.n, rows)
+                touched = self._patch_rows(cache["words"], self.n, rows,
+                                           rows)
                 dirty = torch.unique(touched // chunk)
                 cache["digests"][dirty] = get_kernel(
                     "dirty_fold", kernel_impl(backend))(
@@ -324,22 +364,109 @@ class StateArrays:
         return _seal_digests(self.schema_header(), cache["words"].numel(),
                              cache["digests"])
 
-    def _patch_rows(self, words: torch.Tensor, m: int,
-                    rows: torch.Tensor) -> torch.Tensor:
+    def _patch_rows(self, words: torch.Tensor, m: int, rows: torch.Tensor,
+                    pos: torch.Tensor) -> torch.Tensor:
         """Overwrite the cached word buffer in place with the CURRENT
         field values of ``rows`` and return the touched word indices.
-        A row's slot in field ``f`` is ``off_f + row * itemsize//4``."""
+
+        ``words`` is a field-major encoding of ``m`` rows (``word_buffer``
+        for the flat commitment, ``_rows_words`` for a partition); ``pos``
+        is each row's position in that row set.  A row's slot in field
+        ``f`` is ``off_f + pos * itemsize//4``."""
         touched = []
         off = 0
         for name, dtype in STATE_SCHEMA:
             isw = np.dtype(dtype).itemsize // 4
             vals = getattr(self, name)[rows].view(torch.int32)
-            idx = (off + rows[:, None] * isw
-                   + torch.arange(isw, device=rows.device)).reshape(-1)
+            idx = (off + pos[:, None] * isw
+                   + torch.arange(isw, device=pos.device)).reshape(-1)
             words[idx] = vals
             touched.append(idx)
             off += m * isw
         return torch.cat(touched)
+
+    def _rows_words(self, idx: torch.Tensor) -> torch.Tensor:
+        """Canonical u32 words (int32 bits) over the selected rows, field
+        after field in schema order."""
+        return torch.cat([getattr(self, name)[idx].view(torch.int32)
+                          for name, _ in STATE_SCHEMA])
+
+    def _shard_headers(self, n_shards: int) -> List[bytes]:
+        return [self.schema_header() + f"|shard={k}/{n_shards}".encode()
+                for k in range(n_shards)]
+
+    def _shard_rows(self, n_shards: int) -> List[torch.Tensor]:
+        """Each shard's account rows, ascending (one ``account_owner``
+        pass, one host copy of the K counts)."""
+        owner = account_owner(torch.arange(self.n, device=self.device),
+                              n_shards)
+        order, counts = group_by(owner, n_shards)
+        return list(torch.split(order, counts))
+
+    def partition_roots(self, n_shards: int,
+                        chunk: int = STATE_CHUNK_WORDS,
+                        backend: str = "auto") -> List[str]:
+        """All K per-shard roots.  Ownership is ``account_owner``, the
+        partition function hash routing uses: the shard that sequenced an
+        account's txs is the shard whose root commits it.  Unlike
+        ``root()`` these depend on the partition.
+
+        With dirty tracking, each shard's word buffer and digest vector
+        are cached under ``("part", K, chunk)``; only the dirty chunks of
+        a shard refold (kernel ``dirty_fold``, one launch a shard that
+        has dirty rows).  The K digest vectors reach the host in one
+        copy."""
+        headers = self._shard_headers(n_shards)
+        if not self._track_dirty:
+            words = [self._rows_words(r) for r in self._shard_rows(n_shards)]
+            return _seal_many(headers, [w.numel() for w in words],
+                              [_fold_digests(w, chunk, backend)
+                               for w in words])
+        key = ("part", n_shards, chunk)
+        cache = self._commit_caches.get(key)
+        if cache is None:
+            rows_k = self._shard_rows(n_shards)
+            words_k = [self._rows_words(r) for r in rows_k]
+            cache = {"rows": rows_k, "words": words_k,
+                     "digests": [_fold_digests(w, chunk, backend)
+                                 for w in words_k],
+                     "pending": []}
+            self._commit_caches[key] = cache
+        elif cache["pending"]:
+            rows = torch.unique(torch.cat(cache["pending"]))
+            cache["pending"].clear()
+            rows = rows[rows < self.n]
+            if rows.numel():
+                fold = get_kernel("dirty_fold", kernel_impl(backend))
+                order, counts = group_by(account_owner(rows, n_shards),
+                                         n_shards)
+                for k, rk in enumerate(torch.split(rows[order], counts)):
+                    if not counts[k]:
+                        continue
+                    shard_rows = cache["rows"][k]
+                    pos = torch.searchsorted(shard_rows, rk)
+                    touched = self._patch_rows(cache["words"][k],
+                                               shard_rows.numel(), rk, pos)
+                    dirty = torch.unique(touched // chunk)
+                    cache["digests"][k][dirty] = fold(cache["words"][k],
+                                                      dirty, chunk)
+        return _seal_many(headers, [w.numel() for w in cache["words"]],
+                          cache["digests"])
+
+    def partition_root(self, shard: int, n_shards: int,
+                       chunk: int = STATE_CHUNK_WORDS,
+                       backend: str = "auto") -> str:
+        """Single-shard form of ``partition_roots``: folds only the
+        requested shard's rows, unless a tracked cache already holds all
+        K."""
+        if self._track_dirty and ("part", n_shards,
+                                  chunk) in self._commit_caches:
+            return self.partition_roots(n_shards, chunk, backend)[shard]
+        owner = account_owner(torch.arange(self.n, device=self.device),
+                              n_shards)
+        words = self._rows_words(torch.nonzero(owner == shard).reshape(-1))
+        return chunked_root(words, chunk, backend,
+                            self._shard_headers(n_shards)[shard])
 
     # -- host exchange -----------------------------------------------------------
     @classmethod

@@ -99,6 +99,12 @@ class TaskRuntime:
         self.reward = reward
         self.n_select = n_select
         self.init_seed = init_seed
+        # on a sharded fabric (core/shards.py) every emission of this task
+        # goes to one shard, chosen when the task is created
+        rollup = getattr(node, "rollup", None)
+        self.shard: Optional[int] = (rollup.assign_task(task_id)
+                                     if hasattr(rollup, "assign_task")
+                                     else None)
         self.phase = "select"
         self.rnd = 0
         self.start_window = 0
@@ -116,18 +122,24 @@ class TaskRuntime:
 
     # -- lifecycle -------------------------------------------------------------
     def step(self):
-        if self.phase == "select":
-            self._select()
-            self.phase = "round"
-            if self.rounds == 0:
-                self._finalize()
-        elif self.phase == "round":
-            self._round()
-            if self.rnd >= self.rounds:
-                self._finalize()
-        else:
-            raise RuntimeError(f"step() in phase {self.phase!r} "
-                               f"(task {self.task_id})")
+        # every protocol tx emitted while this task steps goes to the
+        # task's shard (nothing changes off a fabric)
+        self.node._route_shard = self.shard
+        try:
+            if self.phase == "select":
+                self._select()
+                self.phase = "round"
+                if self.rounds == 0:
+                    self._finalize()
+            elif self.phase == "round":
+                self._round()
+                if self.rnd >= self.rounds:
+                    self._finalize()
+            else:
+                raise RuntimeError(f"step() in phase {self.phase!r} "
+                                   f"(task {self.task_id})")
+        finally:
+            self.node._route_shard = None
 
     # steps 1-2: publish + reputation-ranked selection --------------------------
     def _select(self):
@@ -314,18 +326,23 @@ class Scheduler:
             return False
         node = self.node
         kernels = getattr(rts[0].cohort, "kernels", None)
-        ok = (getattr(node._target(), "soa_native", False)
+        target = node._target()
+        ok = (getattr(target, "soa_native", False)
               and node.val_slices.stacked is not None
               and all(isinstance(rt.cohort, VectorCohort)
                       and rt.cohort.kernels is kernels for rt in rts)
               and len({len(rt.sel_idx) for rt in rts}) == 1
+              # a fabric: the one emission a shard needs every task pinned
+              # (least-loaded routing depends on how submissions are cut)
+              and (not hasattr(target, "shards")
+                   or all(rt.shard is not None for rt in rts))
               and not is_unbatchable(node.eval_fn))
         if not ok and self.megabatch is True:
             raise RuntimeError(
                 "Scheduler(megabatch=True): window is not megabatchable "
                 "(needs a SoA-native target, equal-sized oracle slices, "
-                "VectorCohorts sharing one CohortKernels, one cohort size "
-                "and a vmappable eval_fn)")
+                "VectorCohorts sharing one CohortKernels, one cohort size, "
+                "a vmappable eval_fn and shard pins on a fabric)")
         return ok
 
     def _mega_window(self, rts: List[TaskRuntime]) -> List[TaskRuntime]:
@@ -353,8 +370,8 @@ class Scheduler:
                 node.tsc.submit_local_model(tid, rt.task_id, rt.rnd - 1,
                                             subs.cids[i])
                 senders.append(tid)
-            groups += [("submitLocalModel", senders),
-                       ("calculateObjectiveRep", senders)]
+            groups += [("submitLocalModel", senders, rt.shard),
+                       ("calculateObjectiveRep", senders, rt.shard)]
             rt.completed[subs.idxs] += 1.0
         node._tx_batch_many(groups)
         scores: Dict[int, torch.Tensor] = {}

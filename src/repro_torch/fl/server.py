@@ -23,8 +23,11 @@ public path; without one, the legacy flag kwargs (``engine=``,
 the object ``Chain`` and ``Rollup`` (a DeprecationWarning names the flags
 given).  On the object faces each protocol tx carries its payload (the
 task id, the model cid, the reputation value); the SoA engines carry
-(time, gas, fn, sender) only.  The sharded-fabric branches are not ported
-yet (ROADMAP.md).
+(time, gas, fn, sender) only.  On a sharded fabric (core/shards.py) every
+emission of a task goes to the task's shard (``_route_shard``, set while
+a ``TaskRuntime`` steps), and the end-of-window scatter of the reputation
+book and the escrow is a cross-shard settlement whose wire cost the
+fabric's interconnect model records.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ from repro_torch.core.oracle import DONConfig, ValidationSlices
 from repro_torch.core.reputation import (ReputationParams, TrainerBook,
                                          end_of_multitask_update, init_book,
                                          sync_book_to_state)
-from repro_torch.core.state import default_state_handlers
+from repro_torch.core.state import StateArrays, default_state_handlers
 from repro_torch.core.storage import BlobStore
 from repro_torch.core.tasks import TaskContract
 from repro_torch.device import resolve_device
@@ -158,6 +161,9 @@ class AutoDFL:
         # the active core/fused.py plan while a Scheduler runs fused:
         # emissions and the end-of-window state scatter journal into it
         self._fused = None
+        # the shard pin of the current emission on a fabric (set by
+        # TaskRuntime.step and settle_window; None routes by policy)
+        self._route_shard: Optional[int] = None
 
     def trainer_index(self, trainer_id: str) -> int:
         return self._trainer_idx[trainer_id]
@@ -178,16 +184,23 @@ class AutoDFL:
 
     def _wire_state(self) -> None:
         """Attach the fixed-schema account state and the default protocol
-        counters to the L2 target (or the L1 on a chain-only node)."""
+        counters to the L2 target (or the L1 on a chain-only node).  The
+        fabric keeps its StateArrays in ``state``, the other faces in
+        ``state_arrays``."""
         target = self._target()
         for fn, handler in default_state_handlers().items():
             target.register_state(fn, handler)
-        self.state_arrays = target.state_arrays
+        st = getattr(target, "state", None)
+        self.state_arrays = st if isinstance(st, StateArrays) \
+            else target.state_arrays
 
     def _sync_fabric_state(self) -> None:
         """End-of-window settlement: scatter the reputation book and the
         escrow balances and stake into the account state; the next
-        window-boundary seal roots the result."""
+        window-boundary seal roots the result.  On a fabric these rows
+        span every shard's partition: their wire cost is recorded on the
+        interconnect now, at the same point on the stepped and the fused
+        path."""
         state = self.state_arrays
         target = self._target()
         ids = np.array([target.sender_id(t) for t in self.trainer_ids],
@@ -199,6 +212,9 @@ class AutoDFL:
         balances = [self.escrow.balances.get(t, 0.0)
                     for t in self.trainer_ids]
         stake = [locked.get(t, 0.0) for t in self.trainer_ids]
+        ic = getattr(target, "interconnect", None)
+        if ic is not None and len(ids):
+            ic.record_settle_scatter(len(ids))
         if self._fused is not None:
             # the per-seal roots commit this scatter: journal it so the
             # fused replay writes it between the same seal points
@@ -248,22 +264,31 @@ class AutoDFL:
                                  gas, t))
         self.protocol_calls[fn] = self.protocol_calls.get(fn, 0) + n
 
-    def _submit(self, target, batch: TxArrays) -> None:
-        """Stage on the ledger, or journal into the fused plan."""
+    def _submit(self, target, batch: TxArrays,
+                shard: Optional[int] = None) -> None:
+        """Stage on the ledger, or journal into the fused plan; ``shard``
+        pins the batch on a fabric (the current task's shard by
+        default)."""
+        if shard is None:
+            shard = self._route_shard
         if self._fused is not None and self._fused.covers(target):
-            self._fused.submit(target, batch)
+            self._fused.submit(target, batch, shard=shard)
+        elif shard is not None and hasattr(target, "shards"):
+            target.submit_arrays(batch, shard=shard)
         else:
             target.submit_arrays(batch)
 
     def _tx_batch_many(self, groups) -> None:
-        """The megastep's emission: ``groups`` is ``[(fn, senders)]`` in
-        the order sequential ``_tx_batch`` calls would run.  Times are
-        stamped group by group with ``_tx_batch``'s arithmetic (clock +
-        0.01 per tx), and the whole window's protocol traffic lands in ONE
-        SoA batch: the target's tx stream is the one the per-task calls
+        """The megastep's emission: ``groups`` is ``[(fn, senders,
+        shard)]`` in the order sequential ``_tx_batch`` calls would run.
+        Times are stamped group by group with ``_tx_batch``'s arithmetic
+        (clock + 0.01 per tx), and the whole window's protocol traffic
+        lands in ONE SoA batch a destination shard (one batch off a
+        fabric): each shard's tx stream is the one the per-task calls
         give (submitting only stages; batches and blocks form later)."""
-        groups = [(fn, senders) for fn, senders in groups if senders]
-        total = sum(len(senders) for _, senders in groups)
+        groups = [(fn, senders, shard) for fn, senders, shard in groups
+                  if senders]
+        total = sum(len(senders) for _, senders, _ in groups)
         if total == 0:
             return
         if self.pre_tx_hook is not None:
@@ -273,8 +298,9 @@ class AutoDFL:
         gas = np.empty(total, np.int64)
         fn_id = np.empty(total, np.int32)
         sender_id = np.empty(total, np.int32)
+        shard_of = np.full(total, -1, np.int64)
         o = 0
-        for fn, senders in groups:
+        for fn, senders, shard in groups:
             n = len(senders)
             # advance the clock group by group, as _tx_batch does: one
             # arange over the concatenation drifts by ulps
@@ -283,10 +309,22 @@ class AutoDFL:
             gas[o: o + n] = DEFAULT_GAS.l1_per_call.get(fn, L1_DEFAULT_GAS)
             fn_id[o: o + n] = target.fns.id(fn)
             sender_id[o: o + n] = [target.sender_id(s) for s in senders]
+            if shard is not None:
+                shard_of[o: o + n] = shard
             self.protocol_calls[fn] = self.protocol_calls.get(fn, 0) + n
             o += n
-        self._submit(target, TxArrays.from_numpy(
-            times, gas, fn_id, sender_id, target.fns, self.device))
+        if not hasattr(target, "shards"):
+            self._submit(target, TxArrays.from_numpy(
+                times, gas, fn_id, sender_id, target.fns, self.device))
+            return
+        if (shard_of < 0).any():
+            raise ValueError("the megastep's emission on a fabric needs "
+                             "a shard pin for every task")
+        for k in np.unique(shard_of):
+            m = shard_of == k
+            self._submit(target, TxArrays.from_numpy(
+                times[m], gas[m], fn_id[m], sender_id[m], target.fns,
+                self.device), shard=int(k))
 
     # -- end-of-task settlement (step 16, Eq. 2-10) -------------------------------
     def settle_window(self, runtimes) -> None:
@@ -314,10 +352,15 @@ class AutoDFL:
                    for i, k in enumerate(keys)}
         s_rep = diags_h["s_rep"]
         for k, rt in enumerate(runtimes):
-            self._tx_batch("calculateSubjectiveRep",
-                           [self.trainer_ids[i] for i in rt.sel_idx],
-                           lambda k=k, rt=rt: [{"value": float(s_rep[k, i])}
-                                               for i in rt.sel_idx])
+            self._route_shard = rt.shard
+            try:
+                self._tx_batch(
+                    "calculateSubjectiveRep",
+                    [self.trainer_ids[i] for i in rt.sel_idx],
+                    lambda k=k, rt=rt: [{"value": float(s_rep[k, i])}
+                                        for i in rt.sel_idx])
+            finally:
+                self._route_shard = None
             self.tsc.record_scores(rt.task_id, {
                 self.trainer_ids[i]: float(rt.score_auto[i])
                 for i in rt.sel_idx})
@@ -326,6 +369,8 @@ class AutoDFL:
             rt.result = FLTaskResult(rt.params, rt.score_auto, reputations,
                                      payouts, [diag_k])
             rt.phase = "done"
+        # cross-shard settlement: commit the merged book and escrow into
+        # the account state; the next window-boundary seal roots it
         self._sync_fabric_state()
 
     # -- one full task (steps 1-16 of Fig. 1), driven sequentially ----------------

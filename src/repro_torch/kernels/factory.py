@@ -10,12 +10,17 @@ Impl keys:
   * ``"cuda"``  — the wrapper: the hand-written CUDA kernel for a CUDA
     tensor, the plain version for a CPU tensor.  The default.
   * ``"torch"`` — the plain PyTorch version, on any device.
+  * ``"mesh"``  — ``shard_seal`` only: the lane rows split over the shard
+    mesh (launch/mesh.py), each block through the op's default impl on
+    its own device.
 
 Selection: an explicit ``impl=`` wins; else the ``REPRO_TORCH_KERNEL_IMPL``
 environment variable; else ``"auto"``, the op's default.  The ledger ops
 (``batch_seal``, ``rollup_digest``, ``rollup_chunk_digests``,
 ``dirty_fold``) take and return int32 tensors carrying u32 bits, with
-identical bits from every impl; ``block_pack`` (the fused loop's block
+identical bits from every impl, and so does ``shard_seal`` (the fused
+fabric's K-lane ``batch_seal``: a (K, W) word grid and (K, B) starts to
+(K, B) digests); ``block_pack`` (the fused loop's block
 packing) takes float64 times and int64 gas cumsums and returns int64 stop
 pointers, identical from every impl.  The FL ops (``weighted_agg``, Eq. 1, and
 ``model_distance``, Eq. 4) take float32 or bfloat16 and agree to float32
@@ -56,10 +61,12 @@ def _load() -> None:
     from repro_torch.kernels import gmm as gm
     from repro_torch.kernels import model_distance as md
     from repro_torch.kernels import rollup_digest as rd
+    from repro_torch.kernels import shard_lanes as sl
     from repro_torch.kernels import slstm_scan as ss
     from repro_torch.kernels import weighted_agg as wa
     for op, plain, wrapper in (
             ("batch_seal", bs.batch_seal_torch, bs.batch_seal),
+            ("shard_seal", sl.shard_seal_torch, sl.shard_seal),
             ("rollup_digest", rd.rollup_digest_torch, rd.rollup_digest),
             ("rollup_chunk_digests", rd.rollup_chunk_digests_torch,
              rd.rollup_chunk_digests),
@@ -74,6 +81,7 @@ def _load() -> None:
             ("slstm_scan", ss.slstm_scan_torch, ss.slstm_scan)):
         register_kernel(op, "torch", plain)
         register_kernel(op, "cuda", wrapper, default=True)
+    register_kernel("shard_seal", "mesh", sl.shard_seal_mesh)
 
 
 def available_impls(op: str) -> Tuple[str, ...]:

@@ -59,6 +59,7 @@ from repro_torch.core.engine import VectorChain, VectorRollup
 from repro_torch.core.fused import supports_fused
 from repro_torch.core.ledger import Chain
 from repro_torch.core.rollup import Rollup
+from repro_torch.core.shards import ShardedRollup
 from repro_torch.core.state import STATE_SCHEMA
 from repro_torch.core.storage import BlobStore
 from repro_torch.fl import client as tclient
@@ -234,7 +235,8 @@ def _run(w, api, node_cls, agents_fn, mode, legacy, **kw):
     ("run_task", {"use_rollup": False}),
     ("scheduler", {}),
     ("run_task", {"engine": "vector"}),
-], ids=["object", "object-l1", "object-scheduler", "vector"])
+    ("scheduler", {"engine": "vector", "n_shards": 2}),
+], ids=["object", "object-l1", "object-scheduler", "vector", "fabric"])
 def test_sequential_agent_run_matches_jax(world, monkeypatch, mode, legacy):
     """``AutoDFL(...)`` from legacy kwargs (no spec: the object stack) and
     two tasks of TrainingAgents, through run_task or the Scheduler, on
@@ -285,7 +287,7 @@ def test_sequential_agent_run_matches_jax(world, monkeypatch, mode, legacy):
     # the account state: counters exact, reputation in tolerance, and the
     # port's root the JAX root of its own fields
     target = nt._target()
-    ft, fj = _fields(target.state_arrays), _fields(nj._target().state_arrays)
+    ft, fj = _fields(nt.state_arrays), _fields(nj.state_arrays)
     js = JaxState(len(ft["balances"]))
     for name in ft:
         getattr(js, name)[: js.n] = ft[name]
@@ -325,11 +327,13 @@ LEGACY_CONFIGS = [
      pt.NodeSpec(chain=pt.ChainSpec(backend="object"), rollup=None)),
     ({"engine": "vector"}, pt.NodeSpec()),
     ({"engine": "vector", "use_rollup": False}, pt.NodeSpec(rollup=None)),
+    ({"engine": "vector", "n_shards": 2},
+     pt.NodeSpec(shards=pt.ShardSpec(count=2))),
 ]
 
 
 @pytest.mark.parametrize("legacy,spec", LEGACY_CONFIGS,
-                         ids=["obj", "obj-l1", "vec", "vec-l1"])
+                         ids=["obj", "obj-l1", "vec", "vec-l1", "fabric"])
 def test_spec_node_equivalent_to_legacy_node(world, monkeypatch, legacy,
                                              spec):
     """tests/test_api.py:318 at one shard: the legacy kwargs and the spec
@@ -368,9 +372,19 @@ def test_legacy_kwargs_warn_but_work(world):
         warnings.simplefilter("error")
         node = AutoDFL(*args, trainer_funds=3.0, seed=4, device=CPU)
     assert node.spec.trainer_funds == 3.0 and node.spec.seed == 4
-    with pytest.warns(DeprecationWarning), \
-            pytest.raises(NotImplementedError, match="item 6"):
-        AutoDFL(*args, engine="vector", n_shards=2, device=CPU)
+    # n_shards > 1 builds the sharded fabric, as the JAX package does
+    # (run against it in test_sequential_agent_run_matches_jax[fabric])
+    with pytest.warns(DeprecationWarning, match="n_shards"):
+        node = AutoDFL(*args, engine="vector", n_shards=2,
+                       shard_route="least_loaded", device=CPU)
+    assert isinstance(node.rollup, ShardedRollup)
+    assert node.rollup.n_shards == 2 and node.rollup.route == "least_loaded"
+    assert node.state_arrays is node.rollup.state
+    with pytest.warns(DeprecationWarning):
+        jnode = JaxNode(w["jm"], w["jo"], 4, w["jm"].accuracy_fn(),
+                        w["val_j"], engine="vector", n_shards=2,
+                        shard_route="least_loaded")
+    assert node.spec.describe() == jnode.spec.describe()
     # spec= and legacy kwargs are exclusive, the defaulted ones included
     for kw in ({"engine": "vector"}, {"use_pallas_agg": True}, {"seed": 0},
                {"trainer_funds": 1.0}):

@@ -267,11 +267,16 @@ def test_fused_is_the_default_and_capabilities(world):
                                          device="cpu")
     assert "fused_window_loop" in chain_only.capabilities()
 
-    class Fabric(VectorRollup):
-        shards = ()
-    assert not supports_fused(node.chain, Fabric(node.chain))
+    # the sharded fabric runs fused too (tests/test_torch_fused_fabric.py);
+    # the object faces do not
+    fabric = pt.NodeClient.from_spec(pt.NodeSpec(
+        shards=pt.ShardSpec(count=2)), device="cpu").target
+    assert supports_fused(fabric.l1, fabric)
+    obj = pt.NodeClient.from_spec(pt.NodeSpec(
+        chain=pt.ChainSpec(backend="object")), device="cpu")
+    assert not supports_fused(obj.chain, obj.target)
     with pytest.raises(ValueError, match="fused loop needs"):
-        FusedWindowLoop(node.chain, Fabric(node.chain))
+        FusedWindowLoop(obj.chain, obj.target)
     loop = FusedWindowLoop(node.chain, node.rollup)
     with pytest.raises(ValueError, match="unknown fused submit target"):
         loop.submit(object(), None)

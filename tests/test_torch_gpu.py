@@ -30,7 +30,11 @@ wgmma forms of ``flash_attention`` and ``gmm`` where TMA's edges bite
 ``slstm_scan`` raises; two card runs of the reduced moonshot's MoE FFN are
 bit-equal; the object Rollup's digest buffers (4 to 84 words, offset
 views) and the default ``AutoDFL()`` agent path on the card against the
-CPU.
+CPU; ``shard_seal`` bit for bit at its hard cases (K of 1 to 64 lanes, an
+empty lane, one-word segments, a 16 MB lane, power-law lengths, offset
+views), one launch a call, equal to one ``batch_seal`` a lane and to its
+mesh impl, and the 2-shard fabric's node path on the card against the
+CPU (its fused twin in two ``shard_seal`` launches).
 
 Marked ``gpu``: they skip where no CUDA device is present (the skip is
 decided in the fixture, so every worker collects the same tests).  This
@@ -912,4 +916,137 @@ def test_object_agent_path_on_card_matches_cpu(cuda):
         for k, v in oh[t].global_params.items():
             np.testing.assert_allclose(oc[t].global_params[k].cpu().numpy(),
                                        v.numpy(), rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+
+
+def _lane_cases():
+    """(name, lanes, view offset): shard_seal's hard inputs, each lane a
+    (words, starts) pair on the host."""
+    g = np.random.default_rng(22)
+
+    def lane(n, n_segs=0, lengths=None, one_word=False):
+        w = g.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        if lengths is not None:
+            st = _seal_starts(lengths)
+        elif one_word:
+            st = np.arange(n, dtype=np.int64)
+        elif n_segs:
+            st = np.concatenate([[0], np.sort(g.choice(
+                np.arange(1, n), n_segs - 1, replace=False))])
+        else:
+            st = np.zeros(0, np.int64)
+        return w, np.asarray(st, np.int64)
+
+    power = []
+    while sum(power) < 1_000_000:
+        power.append(int(10 ** g.uniform(0, 5)))
+    unequal = [lane(int(n), int(s)) for n, s in
+               zip(g.integers(1_000, 120_000, 8), g.integers(1, 500, 8))]
+    return ([("K=1", [lane(200_000, 2_500)], 0),
+             ("K=2 unequal", [lane(9_000, 40), lane(700_000, 9_000)], 0),
+             ("K=8 unequal", unequal, 0),
+             ("K=64", [lane(int(n), int(s)) for n, s in zip(
+                 g.integers(100, 9_000, 64), g.integers(1, 60, 64))], 0),
+             ("empty lane", [lane(5_000, 70), lane(0), lane(9_000, 1)], 0),
+             ("4,096 one-word segments", [lane(4096, one_word=True)], 0),
+             ("16 MB lane, one segment", [lane(4 << 20, 1)], 0),
+             ("power law", [lane(sum(power), lengths=power)], 0)]
+            + [(f"view offset {off}", unequal[:3], off)
+               for off in (1, 2, 3)])
+
+
+def _lane_grid(lanes, device, off):
+    k = len(lanes)
+    n_words = np.array([w.size for w, _ in lanes], np.int64)
+    n_seg = np.array([len(s) for _, s in lanes], np.int64)
+    words = np.zeros((k, max(1, int(n_words.max())) + off), np.uint32)
+    starts = np.repeat(n_words[:, None], max(1, int(n_seg.max())), 1)
+    for i, (w, st) in enumerate(lanes):
+        words[i, off: off + w.size] = w
+        starts[i, : len(st)] = st
+    return (torch.from_numpy(words.view(np.int32)).to(device)[:, off:],
+            torch.from_numpy(starts).to(device),
+            torch.from_numpy(n_seg).to(device),
+            torch.from_numpy(n_words).to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,lanes,off", _lane_cases(),
+                         ids=[c[0] for c in _lane_cases()])
+def test_shard_seal_kernel(cuda, name, lanes, off):
+    """One launch a call, bit-equal to the plain version and to one
+    batch_seal a lane; padded columns hold the seed; the mesh impl equal
+    to the wrapper."""
+    from repro_torch.kernels import shard_lanes as sl
+    args = _lane_grid(lanes, cuda, off)
+    before = sl.shard_seal.launches
+    got = sl.shard_seal(*args)
+    assert sl.shard_seal.launches == before + 1
+    torch.testing.assert_close(got, sl.shard_seal_torch(*args), rtol=0,
+                               atol=0)
+    words, starts, n_seg, n_words = args
+    for k, ns in enumerate(n_seg.tolist()):
+        assert (got[k, ns:] == rd.SEED_I32).all()
+        if ns:
+            torch.testing.assert_close(
+                got[k, :ns], bs.batch_seal(words[k, : int(n_words[k])],
+                                           starts[k, :ns]), rtol=0, atol=0)
+    assert torch.equal(sl.shard_seal_mesh(*args), got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_two_shard_fabric_node_card_matches_cpu(cuda):
+    """The 2-shard fabric's node path (NodeClient, hash routing, windows
+    of submit / seal / run_until, flush) and its fused twin, on the card
+    against the CPU: gas log, digests, fabric roots, blocks, receipts and
+    the state root, exactly; the fused twin folds its seals in two
+    shard_seal launches."""
+    from repro_torch.api import NodeClient, NodeSpec, ShardSpec
+    from repro_torch.core.fused import FusedWindowLoop
+    from repro_torch.core.workloads import make_workload
+    from repro_torch.kernels import shard_lanes as sl
+    spec = NodeSpec(shards=ShardSpec(count=2))
+
+    def run(dev, fused):
+        wl = make_workload("mixed", 2000.0, duration=5.0, seed=3,
+                           n_senders=4000, device=dev)
+        c = NodeClient.from_spec(spec, device=dev)
+        loop = FusedWindowLoop(c.chain, c.target) if fused else None
+        times = wl.txs.submit_time.cpu().numpy()
+        rcpts = []
+        for w in range(5):
+            lo, hi = (int(i) for i in np.searchsorted(times, [w, w + 1.0]))
+            batch = wl.txs.select(slice(lo, hi))
+            if fused:
+                loop.submit(c.target, batch)
+                loop.seal()
+                loop.pump(w + 1.0)
+                loop.run_until(w + 1.0)
+            else:
+                rcpts += c.submit_arrays(batch)
+                c.seal()
+                c.run_until(w + 1.0)
+        (loop or c).flush()
+        (loop or c).run_until(60.0)
+        if fused:
+            loop.execute()
+        fab = c.target
+        return {"gas_log": fab.gas_log, "digests": fab.batch_digests,
+                "update": fab.update_digest,
+                "fabric_roots": fab.fabric_roots,
+                "blocks": [(b.start, b.stop, b.block_hash)
+                           for b in c.chain.blocks],
+                "receipts": [vars(c.refresh(r)) for r in rcpts],
+                "root": c.state_root()}
+
+    card, cpu = run(cuda, False), run(torch.device("cpu"), False)
+    assert card == cpu
+    assert {r["status"] for r in card["receipts"]} == {"finalized"}
+    before = sl.shard_seal.launches
+    fused = run(cuda, True)
+    assert sl.shard_seal.launches == before + 2
+    assert fused["gas_log"] == cpu["gas_log"]
+    assert fused["digests"] == cpu["digests"]
+    assert fused["fabric_roots"] == cpu["fabric_roots"]
     torch.cuda.synchronize()

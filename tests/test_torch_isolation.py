@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (the
-rollup node path, the FL protocol path with its object stack and agents,
-and the token-LM serving path all run without them), and its entry points
-run on the CUDA card unless the caller names the CPU."""
+rollup node path, the sharded fabric, the FL protocol path with its object
+stack and agents, and the token-LM serving path all run without them), and
+its entry points run on the CUDA card unless the caller names the CPU."""
 import re
 import subprocess
 import sys
@@ -24,7 +24,9 @@ from repro_torch.fl.client import ClientConfig, TrainingAgent
 from repro_torch.fl.cohort import VectorCohort
 from repro_torch.fl.scheduler import Scheduler
 from repro_torch.fl.server import AutoDFL
+from repro_torch.kernels.shard_lanes import shard_seal, shard_seal_mesh
 from repro_torch.launch import serve_model
+from repro_torch.launch.mesh import make_shard_mesh
 from repro_torch.models import transformer
 from repro_torch.models.mlp import TinyMLP
 from repro_torch.models.model import Model, build_model
@@ -45,6 +47,27 @@ c.flush()
 c.run_until(30.0)
 assert {c.refresh(r).status for r in rs} == {"finalized"}, "not finalized"
 assert len(c.state_root()) == 32
+# the sharded fabric, stepped and through the fused loop
+from repro_torch.core.fused import FusedWindowLoop
+from repro_torch.core.state import default_state_handlers
+f = pt.NodeClient.from_spec(pt.NodeSpec(shards=pt.ShardSpec(count=4)),
+                            device="cpu")
+rs = f.submit_arrays(wl.txs)
+f.flush()
+f.run_until(30.0)
+assert {f.refresh(r).status for r in rs} == {"finalized"}, "not finalized"
+assert {r.shard for r in rs} == {0, 1, 2, 3}
+assert f.state_root() == c.state_root()
+chain, fab = pt.build_stack(pt.NodeSpec(shards=pt.ShardSpec(count=4)),
+                            device="cpu")
+for fn, h in default_state_handlers().items():
+    fab.register_state(fn, h)
+loop = FusedWindowLoop(chain, fab)
+loop.submit(fab, wl.txs)
+loop.flush()
+loop.run_until(30.0)
+loop.execute()
+assert fab.gas_log == f.target.gas_log and fab.state_root() == c.state_root()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -96,6 +119,17 @@ for t in range(2):
         model, opt, bf, node.store, n_trainers=3, local_steps=2, seed=t,
         kernels=kernels, device="cpu"))
 assert sorted(sch.run()) == ["t0", "t1"] and sch.mega_windows == 2
+# the same on a sharded fabric: tasks pinned to shards
+from repro_torch.api import ShardSpec
+node = AutoDFL(model, opt, 3, model.accuracy_fn(), {"x": vx, "labels": vy},
+               spec=NodeSpec(shards=ShardSpec(count=2)), device="cpu")
+sch = Scheduler(node, seal_every=1)
+for t in range(2):
+    sch.add_task(FLTaskSpec(f"t{t}", rounds=2), VectorCohort(
+        model, opt, bf, node.store, n_trainers=3, local_steps=2, seed=t,
+        kernels=kernels, device="cpu"))
+assert sorted(sch.run()) == ["t0", "t1"] and sch.mega_windows == 2
+assert len(node.rollup.fabric_roots) > 0
 # the legacy constructor's object stack, driven by TrainingAgents
 from repro_torch.core.ledger import simulate_load
 from repro_torch.core.rollup import Rollup
@@ -197,6 +231,7 @@ def test_sources_import_neither_jax_nor_repro(path):
 def test_entry_points_need_a_card_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = pt.NodeSpec()
+    fabric = pt.NodeSpec(shards=pt.ShardSpec(count=8))
     model = TinyMLP(8, 4, 3, device="cpu")
     opt = make_optimizer(OptimizerSpec(name="sgdm"))
     val = {"x": np.zeros((10, 8), np.float32),
@@ -221,9 +256,23 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
                                       n_trainers=2),
                  lambda: ValidationSlices(val, 5),
                  lambda: init_book(4),
-                 lambda: AutoDFL(model, opt, 2, model.accuracy_fn(), val)):
+                 lambda: AutoDFL(model, opt, 2, model.accuracy_fn(), val),
+                 lambda: pt.build_stack(fabric),
+                 lambda: pt.NodeClient.from_spec(fabric),
+                 lambda: AutoDFL(model, opt, 2, model.accuracy_fn(), val,
+                                 engine="vector", n_shards=2),
+                 lambda: AutoDFL(model, opt, 2, model.accuracy_fn(), val,
+                                 spec=fabric),
+                 lambda: make_shard_mesh()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    # a tensor off the CPU never takes the plain version: the kernel or
+    # a raise
+    words = torch.zeros(2, 8, dtype=torch.int32, device="meta")
+    starts = torch.zeros(2, 1, dtype=torch.int64, device="meta")
+    for fold in (shard_seal, shard_seal_mesh):
+        with pytest.raises((RuntimeError, ValueError)):
+            fold(words, starts, [1, 1], [8, 8])
     cfg = reduced_config(get_config("yi-6b"))
     for call in (lambda: Model(cfg),
                  lambda: build_model(cfg),

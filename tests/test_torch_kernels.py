@@ -268,7 +268,7 @@ def test_factory_impls_and_selection(op, monkeypatch):
 
 def test_factory_errors():
     with pytest.raises(KeyError, match="unknown kernel op"):
-        factory.get_kernel("shard_seal")
+        factory.get_kernel("shard_fold")
     with pytest.raises(KeyError, match="no impl"):
         factory.get_kernel("batch_seal", "pallas")
 

@@ -216,9 +216,7 @@ def test_workload_spec_builds_the_same_batch():
     np.testing.assert_array_equal(wt.txs.sender_id.numpy(), wj.txs.sender_id)
     node_t = pt.NodeSpec(workload=spec_t)
     node_j = jx.NodeSpec(workload=spec_j)
-    want = node_j.describe()
-    want.pop("shards")                  # the sharded fabric is not ported
-    assert node_t.describe() == want
+    assert node_t.describe() == node_j.describe()
     tasks = (pt.FLTaskSpec("t0", rounds=2), pt.FLTaskSpec("t1", reward=3.0))
     full_t = pt.NodeSpec(n_trainers=8, trainer_funds=7.0, seed=3,
                          reputation=pt.ReputationSpec(theta=0.3),
@@ -228,6 +226,4 @@ def test_workload_spec_builds_the_same_batch():
                          don=jx.DONSpec(n_oracles=3),
                          tasks=tuple(jx.FLTaskSpec(**dataclasses.asdict(t))
                                      for t in tasks))
-    want = full_j.describe()
-    want.pop("shards")
-    assert full_t.describe() == want
+    assert full_t.describe() == full_j.describe()
