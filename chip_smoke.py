@@ -4,8 +4,8 @@ path (stepped, and through the fused window loop), the reputation-aware
 FL protocol run (the default Scheduler: fused loop + cross-task megastep,
 and the stepped per-task path), the token-LM serving paths (prefill and
 decode of yi-6b, moonshot-v1-16b-a3b and xlstm-1.3b at full width), the
-object ledger with its agent path (the default ``AutoDFL()``), and the
-sharded rollup fabric.
+object ledger with its agent path (the default ``AutoDFL()``), the
+sharded rollup fabric, and the admission-controlled node service.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -213,6 +213,31 @@ Phases, each printing its result on a line of its own:
                default (two shard_seal launches) against stepped as in
                phase 7, and the 4 x 16 run on 2 shards three ways as in
                phase 6.
+
+ 17. serve   — the node service (repro_torch.serve, NodeSpec() unless
+               named): (a) benchmarks/bench_serve.py's full-mode spam point
+               (honest 300 tx/s over 1,000 senders and spam 1,200 tx/s
+               from 24 spammers for 30 s, pool cap 512, window 1.0, seed
+               0), driven as its _drive does (one asyncio client a sender,
+               lockstep windows), beside its honest control: honest
+               retention at least 0.8, launch counts from 0 (the four fold
+               kernels, no shard_seal), admission counters and log, op log,
+               committed txs, state root and L1 gas equal on the card and
+               the CPU, replay_ops on the card reaching the served root; the
+               wall, submits per wall second, host seconds by step
+               (admission, pool commit, seal, run_until) and the device
+               busy share (torch.profiler) of further runs, held equal; (b)
+               its poisson point on a 2-shard fabric (each shard sealed
+               stepped: no shard_seal), served on the card == replayed
+               on the CPU; (c)
+               ``python -m repro_torch.launch.serve_node --port 0`` as a
+               process on the card, driven over HTTP (submits, flush, a
+               finalized receipt, state_root, metrics), stopped by an
+               interrupt; (d) cross_verify_aggregate at 64 x 2,410 (the FL
+               path's TinyMLP, a local update of 0.01 a trainer): five
+               weighted_agg launches, agree 5, oracle 0 bit-equal to
+               weighted_average_tree, within 1e-6 of the CPU; (e) each
+               preset's drive (tests/test_presets.py) card == CPU.
 
 Then one JSON line lists every kernel with its launches on its path, the
 card's name and power limit follow on a line of their own, and the last
@@ -3539,6 +3564,404 @@ def fabric_fl(dev, smi: str) -> int:
     return default["launches"]["shard_seal"]
 
 
+# -- phase 17: the node service ------------------------------------------------
+
+# benchmarks/bench_serve.py's full mode (:130-132): the spam point and its
+# honest control, and the poisson point (on the 2-shard fabric here)
+SERVE_POINT = dict(n_honest=1000, n_spammers=24, honest_rate=300.0,
+                   spam_rate=1200.0, duration=30.0, pool_cap=512,
+                   window=1.0, seed=0)
+SERVE_HONEST_FN = "submitLocalModel"        # dearer intrinsic gas
+SERVE_SPAM_FN = "calculateSubjectiveRep"    # the cheapest target
+SERVE_RETENTION = 0.8                       # bench_serve.py:183-185
+SERVE_SHARDS = 2
+# cross_verify_aggregate at the FL path's shape: 64 trainers' TinyMLP(64,
+# 32, 10) (2,410 parameters), the global model plus a local update each
+XV_TRAINERS, XV_UPDATE = 64, 0.01
+SERVE_TOL = 1e-6
+
+
+def serve_spec(node, n_clients: int):
+    """bench_serve.py's _serve_spec: the default admission rules at its
+    pool cap, a queue of one in-flight op a client and 64 more."""
+    from repro_torch.api import AdmissionSpec, ServeSpec
+    return ServeSpec(node=node,
+                     admission=AdmissionSpec(pool_cap=SERVE_POINT["pool_cap"]),
+                     queue_cap=n_clients + 64, window=SERVE_POINT["window"])
+
+
+def serve_txs(wl) -> tuple:
+    """A workload's (times, fn names, sender ids) on the host."""
+    t = wl.txs
+    names = t.fns.names
+    return (t.submit_time.cpu().numpy(),
+            [names[f] for f in t.fn_id.tolist()], t.sender_id.cpu().numpy())
+
+
+def serve_drive(txs, duration: float, spec, dev, hooks=None) -> dict:
+    """bench_serve.py's _drive through the port's NodeService on ``dev``:
+    one asyncio client a sender, each submitting its own transactions in
+    modeled-time order, all clients in lockstep epochs of one window.
+    ``txs``: host arrays (``serve_txs``), made before the clock starts.
+    ``hooks``: (start, stop), called just inside the clock (a profiler).
+    Returns the service, the wall and what bench_serve.py reads."""
+    import asyncio
+    from repro_torch.serve import NodeService
+    times, names, senders = txs
+    n_epochs = int(duration / spec.window) + 2
+    by_sender = {}
+    for i in range(len(times)):
+        epoch = min(int(times[i] / spec.window), n_epochs - 1)
+        by_sender.setdefault(int(senders[i]),
+                             [[] for _ in range(n_epochs)])[epoch].append(i)
+
+    async def run():
+        svc = await NodeService(spec, device=dev).start()
+        ref_sender = {}
+
+        async def one_client(sid, idxs):
+            for i in idxs:
+                r = await svc.submit(names[i], f"c{sid}", at=float(times[i]))
+                if "ref" in r:
+                    ref_sender[r["ref"]] = sid
+                await asyncio.sleep(0)          # interleave with peers
+        for k in range(n_epochs):
+            await asyncio.gather(*(one_client(s, per_epoch[k])
+                                   for s, per_epoch in sorted(
+                                       by_sender.items())
+                                   if per_epoch[k]))
+        await svc.close()
+        return svc, ref_sender
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if hooks:
+        hooks[0]()
+    svc, ref_sender = asyncio.run(run())
+    torch.cuda.synchronize()
+    if hooks:
+        hooks[1]()
+    wall = time.perf_counter() - t0
+    committed = {}
+    for ref, rec in svc.receipts.items():
+        if rec.get("status") == "submitted" and ref in ref_sender:
+            sid = ref_sender[ref]
+            committed[sid] = committed.get(sid, 0) + 1
+    return {"svc": svc, "wall": wall, "n_clients": len(by_sender),
+            "committed": committed, "counters": svc.admission.counters(),
+            "submitted": svc.metrics.submitted,
+            "flushed": svc.metrics.flushed, "windows": svc.metrics.windows}
+
+
+def served(res: dict) -> dict:
+    """What a served run must repeat on another device or in another run:
+    the admission counters and log, the op log, committed txs by sender,
+    the state root and the L1 gas."""
+    svc = res["svc"]
+    return {"counters": res["counters"], "log": svc.admission.log,
+            "ops": svc.ops, "committed": res["committed"],
+            "root": svc.client.state_root(),
+            "gas": svc.client.chain.total_gas}
+
+
+def replayed(node, res: dict, dev, what: str) -> float:
+    """replay_ops of a served run's op log on ``dev``: its root and L1 gas
+    must be the served ones.  Returns the replay's wall."""
+    from repro_torch.serve import replay_ops
+    svc = res["svc"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serial = replay_ops(node, svc.ops, device=dev)
+    root = serial.state_root()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if root != svc.client.state_root() or \
+            serial.chain.total_gas != svc.client.chain.total_gas:
+        raise AssertionError(f"{what}: replay_ops diverged from the served "
+                             f"stack ({root} against "
+                             f"{svc.client.state_root()})")
+    return wall
+
+
+def serve_wrappers() -> dict:
+    from repro_torch.kernels import batch_seal as bs
+    from repro_torch.kernels import dirty_fold as df
+    from repro_torch.kernels import rollup_digest as rd
+    from repro_torch.kernels import shard_lanes as sl
+    return {"batch_seal": bs.batch_seal, "rollup_digest": rd.rollup_digest,
+            "rollup_chunk_digests": rd.rollup_chunk_digests,
+            "dirty_fold": df.dirty_fold, "shard_seal": sl.shard_seal}
+
+
+def serve_spam(dev, smi: str) -> dict:
+    """(a) bench_serve.py's full-mode spam point on the card: the honest
+    control, then the spam run (launch counts from 0), the same on the
+    CPU, replay_ops on the card, and the spam run again under a
+    PhaseClock (host seconds by step) and under torch.profiler (device
+    busy share).  Returns the fold kernels' launches of the spam run."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import NodeClient, NodeSpec
+    from repro_torch.core.workloads import adversarial_spam_workload
+    from repro_torch.serve import AdmissionController, NodeService
+    p = SERVE_POINT
+    common = dict(duration=p["duration"], fn=SERVE_HONEST_FN,
+                  spam_fn=SERVE_SPAM_FN, n_spammers=p["n_spammers"],
+                  seed=p["seed"], n_senders=p["n_honest"], device="cpu")
+    alone = serve_txs(adversarial_spam_workload(p["honest_rate"], 0.0,
+                                                **common))
+    spam = serve_txs(adversarial_spam_workload(p["honest_rate"],
+                                               p["spam_rate"], **common))
+    spec = serve_spec(NodeSpec(), p["n_honest"] + p["n_spammers"])
+
+    def honest(res):
+        return sum(n for sid, n in res["committed"].items()
+                   if sid >= p["n_spammers"])
+
+    res_alone = serve_drive(alone, p["duration"], spec, dev)
+    wrappers = serve_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    res = serve_drive(spam, p["duration"], spec, dev)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    if launches.pop("shard_seal") or not all(launches.values()):
+        raise AssertionError(f"serve spam: launches {launches}")
+    retention = honest(res) / max(honest(res_alone), 1)
+    # bench_serve.py's full mode drives >= 1000 concurrent clients
+    if res["n_clients"] < p["n_honest"] or retention < SERVE_RETENTION:
+        raise AssertionError(f"serve spam: {res['n_clients']} clients, "
+                             f"honest retention {retention:.6f} (floor "
+                             f"{SERVE_RETENTION})")
+    want = served(res)
+    replay_wall = replayed(spec.node, res, dev, "serve spam")
+    res_cpu = serve_drive(spam, p["duration"], spec, torch.device("cpu"))
+    if served(res_cpu) != want:
+        raise AssertionError("serve spam: the card and the CPU admitted or "
+                             "committed differently")
+    clock = PhaseClock()
+    for owner, attr, phase in (
+            (AdmissionController, "admit", "admission"),
+            (NodeService, "_reputation", "admission"),
+            (NodeService, "_commit_pool", "pool_commit"),
+            (NodeClient, "seal", "seal"),
+            (NodeClient, "run_until", "run_until")):
+        clock.wrap(owner, attr, phase)
+    try:
+        res_clock = serve_drive(spam, p["duration"], spec, dev)
+    finally:
+        clock.restore()
+    # device activity only: recording every host op of 21,000 submits
+    # took the traced wall from 2.5 to 23 s on the H100
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    res_prof = serve_drive(spam, p["duration"], spec, dev,
+                           hooks=(prof.start, prof.stop))
+    for again in (res_clock, res_prof):
+        if served(again) != want:
+            raise AssertionError("serve spam: a second card run differed")
+    n_spans, busy_us, by_name = device_time(prof)
+    if not n_spans:
+        raise AssertionError("serve spam: the trace holds no device span")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    wall = res["wall"]
+    log(f"serve spam: {res['n_clients']} clients, {res['submitted']} "
+        f"submits, {res['flushed']} committed over {res['windows']} "
+        f"windows; counters {json.dumps(res['counters'])}; honest retention "
+        f"{retention:.6f} ({honest(res)} / {honest(res_alone)}, floor "
+        f"{SERVE_RETENTION}); card == CPU (admission log, op log, committed "
+        f"by sender, state root {want['root']}, L1 gas {want['gas']}); "
+        f"replay_ops on the card == served ({replay_wall:.6f} s)")
+    log(f"serve spam: wall {wall:.6f} s, {res['submitted'] / wall:.1f} "
+        f"submits per wall s (CPU {res_cpu['wall']:.6f} s; honest control "
+        f"{res_alone['wall']:.6f} s) on {smi}; launches from 0 "
+        f"{json.dumps(launches)}")
+    log(f"serve spam: host seconds by step (each ends in a synchronize; "
+        f"wall {res_clock['wall']:.6f} s) {json.dumps(clock.seconds)}, "
+        f"calls {json.dumps(clock.calls)}")
+    log(f"serve spam profile: {n_spans} device intervals, device busy "
+        f"{busy_us / 1e6:.6f} s = {busy_us / 1e6 / res_prof['wall']:.6f} of "
+        f"the traced wall {res_prof['wall']:.6f} s and "
+        f"{busy_us / 1e6 / wall:.6f} of the untraced wall; device seconds "
+        f"by name " + json.dumps({n[:80]: us / 1e6 for n, us in top}))
+    return launches
+
+
+def serve_fabric(dev, smi: str) -> None:
+    """(b) bench_serve.py's poisson point (300 tx/s for 30 s over 1,000
+    senders) served on a 2-shard fabric on the card, each shard sealed
+    stepped (no shard_seal launch), and replayed by replay_ops on the CPU
+    (one tx at a time: 9.5 s on the card, a fifth of that on the CPU):
+    the same root and L1 gas."""
+    from repro_torch.api import NodeSpec, ShardSpec
+    from repro_torch.core.workloads import make_workload
+    p = SERVE_POINT
+    txs = serve_txs(make_workload(
+        "poisson", p["honest_rate"], duration=p["duration"], seed=p["seed"],
+        fn=SERVE_HONEST_FN, n_senders=p["n_honest"], device="cpu"))
+    node = NodeSpec(shards=ShardSpec(count=SERVE_SHARDS, fabric=True))
+    spec = serve_spec(node, p["n_honest"])
+    wrappers = serve_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    res = serve_drive(txs, p["duration"], spec, dev)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    if launches["shard_seal"] or not launches["batch_seal"]:
+        raise AssertionError(f"serve fabric: launches {launches}")
+    replay_wall = replayed(node, res, torch.device("cpu"), "serve fabric")
+    log(f"serve fabric: {SERVE_SHARDS} shards, {res['n_clients']} clients, "
+        f"{res['submitted']} submits, {res['flushed']} committed; counters "
+        f"{json.dumps(res['counters'])}; state root "
+        f"{res['svc'].client.state_root()} served on the card == replayed "
+        f"on the CPU ({replay_wall:.6f} s); wall {res['wall']:.6f} s "
+        f"({res['submitted'] / res['wall']:.1f} submits per wall s) on "
+        f"{smi}; launches from 0 {json.dumps(launches)}")
+
+
+def serve_http(smi: str) -> None:
+    """(c) ``python -m repro_torch.launch.serve_node --port 0`` as a
+    process of its own on the card, driven over HTTP by http_rpc: submits,
+    a flush, a finalized receipt, the state root and the metrics; then
+    stopped by an interrupt."""
+    import asyncio
+    import re
+    import signal
+    from repro_torch.serve import http_rpc
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve_node", "--port",
+         "0", "--serve-for", "300"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        line = proc.stdout.readline()
+        boot = time.perf_counter() - t0
+        found = re.search(r"http://([\d.]+):(\d+)/rpc .*device=(\S+)\)",
+                          line)
+        if not found or not found.group(3).startswith("cuda"):
+            raise AssertionError(f"serve_node did not start on the card: "
+                                 f"{line!r}")
+        host, port = found.group(1), int(found.group(2))
+
+        async def drive():
+            out = [await http_rpc(host, port, "submit", {
+                "fn": SERVE_HONEST_FN, "sender": f"h{i}", "at": 0.1 * i})
+                for i in range(8)]
+            for method, params in (("flush", None), ("receipt", {"ref": 0}),
+                                   ("state_root", None), ("metrics", None)):
+                out.append(await http_rpc(host, port, method, params))
+            return out
+        t1 = time.perf_counter()
+        replies = asyncio.run(drive())
+        rpc_wall = time.perf_counter() - t1
+        if any(st != 200 for st, _ in replies) or \
+                any(b["result"]["status"] != "queued"
+                    for _, b in replies[:8]):
+            raise AssertionError(f"serve_node replies {replies}")
+        flushed, rcpt, root, metrics = (b["result"] for _, b in replies[8:])
+        if flushed["flushed"] != 8 or rcpt["status"] != "finalized" or \
+                len(root["state_root"]) != 32 or metrics["flushed"] != 8:
+            raise AssertionError(f"serve_node replies {replies[8:]}")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"serve_node exited {proc.returncode}: "
+                             f"{proc.stderr.read()[-2000:]}")
+    log(f"serve http: serve_node up in {boot:.3f} s on port {port} "
+        f"({found.group(3)}); 8 submits, flush, receipt (finalized, block "
+        f"{rcpt['block']}), state_root {root['state_root']}, metrics in "
+        f"{rpc_wall:.6f} s on {smi}; stopped by SIGINT, exit code 0")
+
+
+def serve_cross_verify(dev) -> int:
+    """(d) cross_verify_aggregate at the FL path's shape on the card: one
+    weighted_agg launch an oracle, all five agreeing, oracle 0 bit-equal
+    to weighted_average_tree, the card within SERVE_TOL of the CPU.
+    Returns the launches."""
+    from repro_torch.core.aggregation import weighted_average_tree
+    from repro_torch.core.oracle import DONConfig, cross_verify_aggregate
+    from repro_torch.kernels import weighted_agg as wa
+    from repro_torch.models.mlp import TinyMLP
+    d = FL_MODEL
+    glob = TinyMLP(d["d_in"], d["d_h"], d["n_classes"],
+                   device="cpu").init_params(0)
+    rng = np.random.default_rng(0)
+    host = {k: v[None] + XV_UPDATE * torch.from_numpy(rng.normal(
+        size=(XV_TRAINERS,) + tuple(v.shape)).astype(np.float32))
+        for k, v in glob.items()}
+    scores = torch.from_numpy(rng.uniform(0.1, 1.0, XV_TRAINERS).astype(
+        np.float32))
+    card = {k: v.to(dev) for k, v in host.items()}
+    cfg = DONConfig()
+    wa.weighted_agg.launches = 0
+    ref, agree = cross_verify_aggregate(weighted_average_tree, card,
+                                        scores.to(dev), cfg)
+    launches = wa.weighted_agg.launches
+    plain = weighted_average_tree(card, scores.to(dev))
+    cpu_ref, cpu_agree = cross_verify_aggregate(weighted_average_tree, host,
+                                                scores, cfg)
+    err = max(float((ref[k].cpu() - cpu_ref[k]).abs().max()) for k in ref)
+    n_params = sum(v[0].numel() for v in host.values())
+    if launches != cfg.n_oracles or not agree == cpu_agree == cfg.n_oracles \
+            or not all(torch.equal(ref[k], plain[k]) for k in ref) \
+            or err > SERVE_TOL:
+        raise AssertionError(f"cross_verify_aggregate: launches {launches}, "
+                             f"agree {agree} (CPU {cpu_agree}), card "
+                             f"against CPU {err}")
+    log(f"serve cross_verify_aggregate: {XV_TRAINERS} x {n_params} "
+        f"parameters, {launches} weighted_agg launches, agree {agree} of "
+        f"{cfg.n_oracles} (CPU {cpu_agree}), oracle 0 bit-equal to "
+        f"weighted_average_tree, card against CPU {err:.3e} (tol "
+        f"{SERVE_TOL})")
+    return launches
+
+
+def serve_presets(dev) -> None:
+    """(e) every preset driven on the card as tests/test_presets.py's
+    _drive does (12 submits, flush, run_until 8): its receipts settled and
+    its state root equal to the CPU's."""
+    from repro_torch.api import PRESETS, NodeClient, preset
+
+    def drive(spec, d):
+        client = NodeClient.from_spec(spec, device=d)
+        rs = [client.submit("submitLocalModel", f"t{i % 4}")
+              for i in range(12)]
+        client.flush()
+        client.run_until(8.0)
+        return client.state_root(), [client.refresh(r).status for r in rs]
+    roots = {}
+    for name in sorted(PRESETS):
+        spec = preset(name)
+        root, statuses = drive(spec, dev)
+        want = "finalized" if spec.rollup is not None else "confirmed"
+        if set(statuses) != {want} or \
+                (root, statuses) != drive(spec, torch.device("cpu")):
+            raise AssertionError(f"preset {name}: {root} {statuses} on the "
+                                 f"card against the CPU")
+        roots[name] = root
+    log(f"serve presets: card == CPU for {json.dumps(roots)}")
+
+
+def serve_main(dev, smi: str) -> dict:
+    """Phase 17; returns the launches of its paths."""
+    steps, launches = {}, {}
+    for label, step in (("spam", lambda: launches.update(
+                            serve_spam(dev, smi))),
+                        ("fabric", lambda: serve_fabric(dev, smi)),
+                        ("http", lambda: serve_http(smi)),
+                        ("cross_verify", lambda: launches.update(
+                            weighted_agg=serve_cross_verify(dev))),
+                        ("presets", lambda: serve_presets(dev))):
+        t0 = time.perf_counter()
+        step()
+        steps[label] = time.perf_counter() - t0
+    log(f"serve: phase 17 in {sum(steps.values()):.3f} s "
+        f"{json.dumps(steps)}")
+    return launches
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -3691,6 +4114,14 @@ def main() -> int:
     launches["shard_seal"] = twin_launches + fl_fabric_launches
     log(f"shard_seal launches: {twin_launches} on the fused fabric twin, "
         f"{fl_fabric_launches} on the default FL run on the fabric")
+
+    # 17. the node service: (a) bench_serve.py's spam point (launch counts
+    # from 0, added to the kernels line), card == CPU, replayed; (b) its
+    # poisson point on 2 shards; (c) serve_node over HTTP; (d)
+    # cross_verify_aggregate (launches added); (e) the presets
+    torch.cuda.empty_cache()
+    for name, k in serve_main(dev, smi).items():
+        launches[name] += k
 
     replaces = {"rollup_digest": "src/repro/kernels/rollup_digest.py:16",
                 "rollup_chunk_digests":

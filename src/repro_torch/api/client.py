@@ -19,13 +19,14 @@ on a chain-only node.  On the object faces (``Chain``, ``Rollup``) a
 receipt holds its ``Tx`` and a submission may carry a payload; the SoA
 faces carry (time, gas, fn, sender) only and refuse one.  On the sharded
 fabric a receipt also names its shard, and resolves through that shard's
-rollup.  The deprecated ``subscribe`` shim of ``src/repro/api/client.py``
-is not ported yet (ROADMAP.md, item 5).
+rollup.  The string-keyed callback ``subscribe`` is kept as a deprecation
+shim, as in the JAX package: drain ``events()`` instead.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+import warnings
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -337,6 +338,30 @@ class NodeClient:
             kinds = frozenset(kinds)
             new = [e for e in new if e.kind in kinds]
         return new, next_cursor, n_dropped
+
+    def subscribe(self, event: str, callback: Callable) -> None:
+        """DEPRECATED one-release shim over the string-keyed callback
+        hooks (``batch_sealed``/``session_settled`` on rollup faces,
+        ``window_settled`` on the fabric, ``block_packed`` on the L1) —
+        drain typed events via ``events()`` instead."""
+        warnings.warn(
+            "NodeClient.subscribe is deprecated; drain typed events via "
+            "client.events() (see docs/MIGRATION.md)", DeprecationWarning,
+            stacklevel=2)
+        if event == "block_packed":
+            self.chain.subscribe(event, callback)
+            return
+        target = self.target
+        sub = getattr(target, "subscribe", None)
+        legacy = set(getattr(target, "EVENTS", ()))
+        if hasattr(target, "shards"):
+            legacy |= {"batch_sealed", "session_settled", "window_settled"}
+        if sub is None or event not in legacy:
+            raise ValueError(
+                f"event {event!r} is not a callback hook of this backend; "
+                f"typed stream capabilities: {sorted(self.capabilities())} "
+                f"(use client.events())")
+        sub(event, callback)
 
     # -- lifecycle passthroughs ------------------------------------------------
     def seal(self) -> int:

@@ -6,8 +6,9 @@
 
 ``build_ledger`` returns the SUBMISSION target (the L2 face when a rollup
 is configured, else the L1 itself); the rollup keeps its L1 on ``.l1``,
-and ``l1_of`` resolves it uniformly.  Every build function takes ``device``:
-``None`` means the CUDA card and raises without one.
+and ``l1_of`` resolves it uniformly.  ``build_node`` builds the whole
+protocol node (``fl/server.AutoDFL``).  Every build function takes
+``device``: ``None`` means the CUDA card and raises without one.
 """
 from __future__ import annotations
 
@@ -92,3 +93,18 @@ def build_ledger(spec: LedgerSpec, *, fns=None, state=None,
 def l1_of(backend) -> object:
     """The L1 chain behind any backend built by ``build_ledger``."""
     return getattr(backend, "l1", backend)
+
+
+def build_node(spec: NodeSpec, model, opt, eval_fn, val_batch, *,
+               device=None, **kw):
+    """Build a full protocol node (``fl/server.AutoDFL``) from a NodeSpec
+    on ``device`` (the CUDA card unless named; raises without one).
+
+    ``spec.n_trainers`` is required here (the ledger-only factories
+    don't need it).  Extra ``kw`` are forwarded to AutoDFL.
+    """
+    if spec.n_trainers is None:
+        raise ValueError("build_node needs spec.n_trainers")
+    from repro_torch.fl.server import AutoDFL
+    return AutoDFL(model, opt, spec.n_trainers, eval_fn, val_batch,
+                   spec=spec, device=device, **kw)

@@ -11,8 +11,9 @@ trainer count), handed to ``repro_torch.api.build_ledger``,
 
 ``NodeSpec.from_legacy`` maps the old ``AutoDFL`` flag kwargs onto a
 spec (the object stack by default, as in the JAX package).
-``AdmissionSpec`` and ``ServeSpec`` (the node service) are not ported yet
-(ROADMAP.md).
+``AdmissionSpec`` and ``ServeSpec`` configure the node service
+(``repro_torch.serve``).  No spec names a device: the constructors take
+``device=`` (``NodeClient.from_spec``, ``NodeService``, ``build_node``).
 """
 from __future__ import annotations
 
@@ -295,3 +296,88 @@ class NodeSpec:
         d = dataclasses.asdict(self)
         d["chain"].pop("gas_table", None)       # calibration table, not data
         return d
+
+
+#: reputation-gate policies an AdmissionSpec can select
+REP_GATES = ("off", "surcharge", "reject")
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmissionSpec:
+    """Mempool admission rules for the node service (repro_torch/serve).
+
+    Every rule is a pure function of (this spec, the sender's modeled
+    state, the pending pool) — no wall clock anywhere on the decision
+    path; the token bucket refills on the MODELED submit
+    time, the same window clock the ledgers run on.
+
+      * ``rate_limit``/``burst`` — per-sender token bucket: ``burst``
+        tokens deep, refilling ``rate_limit`` tokens per modeled second;
+        each transaction consumes one token.
+      * ``fee_floor`` — minimum offered fee (gas) for any transaction.
+      * ``rep_gate`` — senders whose reputation is below the trust line
+        (``ReputationParams.r_min``; unknown senders start at ``r_init``)
+        are ``"reject"``-ed outright, or under ``"surcharge"`` must
+        offer at least ``rep_surcharge`` x the function's intrinsic gas;
+        ``"off"`` disables the gate.
+      * ``pool_cap``/``evict`` — the pending pool holds at most
+        ``pool_cap`` admitted transactions per flush window; at cap,
+        ``evict=True`` drops the lowest-fee entry to make room for a
+        strictly higher-fee arrival (spam eviction — spam floods the
+        cheapest function, so it drains first), ``evict=False`` rejects
+        the arrival as overloaded instead.
+    """
+
+    rate_limit: float = 50.0
+    burst: float = 20.0
+    fee_floor: int = 0
+    rep_gate: str = "surcharge"
+    rep_surcharge: float = 1.5
+    pool_cap: int = 4096
+    evict: bool = True
+
+    def __post_init__(self):
+        if self.rate_limit <= 0 or self.burst < 1:
+            raise ValueError("rate_limit must be > 0 and burst >= 1")
+        if self.rep_gate not in REP_GATES:
+            raise ValueError(f"unknown rep_gate {self.rep_gate!r}; "
+                             f"choose from {REP_GATES}")
+        if self.rep_surcharge < 1.0:
+            raise ValueError("rep_surcharge must be >= 1.0")
+        if self.pool_cap < 1:
+            raise ValueError("pool_cap must be >= 1")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeSpec:
+    """One concurrent node service (repro_torch/serve.NodeService): the node it
+    fronts, its admission rules, and the serving knobs.
+
+      * ``queue_cap`` — bound of the single-writer op queue; a submit
+        arriving while the queue is full gets an explicit
+        ``overloaded``/HTTP-429 response (the backpressure contract).
+      * ``window`` — modeled seconds between pool flushes: the service
+        drains the admitted pool into the ledger, seals, and pumps
+        ``run_until`` at every window boundary the modeled clock
+        crosses.
+      * ``event_cap`` — bounds the stack's EventLog as a ring buffer so
+        long-lived multi-consumer serving cannot grow it without limit
+        (``None`` keeps the default unbounded log).
+    """
+
+    node: NodeSpec = dataclasses.field(default_factory=NodeSpec)
+    admission: AdmissionSpec = dataclasses.field(
+        default_factory=AdmissionSpec)
+    host: str = "127.0.0.1"
+    port: int = 8545
+    queue_cap: int = 1024
+    window: float = 1.0
+    event_cap: Optional[int] = None
+
+    def __post_init__(self):
+        if self.queue_cap < 1:
+            raise ValueError("queue_cap must be >= 1")
+        if self.window <= 0:
+            raise ValueError("window must be > 0 modeled seconds")
+        if self.event_cap is not None and self.event_cap < 1:
+            raise ValueError("event_cap must be >= 1 (or None)")

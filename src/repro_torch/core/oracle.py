@@ -19,8 +19,11 @@ clears it).
 
 ``mega_score_tables`` scores a whole stack of tasks (the cross-task
 megastep) with a third vmap, over tasks, around the same oracle x trainer
-vmap: one call, one host copy.  ``cross_verify_aggregate`` is not ported
-yet (ROADMAP.md).
+vmap: one call, one host copy.
+
+``cross_verify_aggregate`` guards Eq. 1 itself: each oracle recomputes the
+aggregate over its own seeded permutation of the trainer axis, and a 2/3
+quorum must agree elementwise.
 """
 from __future__ import annotations
 
@@ -240,3 +243,48 @@ def evaluate_quorum(eval_fn: Callable, trainer_params,
         table = _score_table_loop(eval_fn, stacked, n_trainers, val.slices)
     scores, report = quorum_from_table(table, cfg, adversarial_oracles)
     return scores.to(device), report
+
+
+def _leaves(tree):
+    """A parameter tree's tensors in sorted key order (a bare tensor is
+    its own one leaf)."""
+    if isinstance(tree, dict):
+        return [tree[k] for k in sorted(tree)]
+    return [tree]
+
+
+def cross_verify_aggregate(agg_fn: Callable, stacked_params, scores,
+                           cfg: DONConfig = DONConfig(), rtol: float = 1e-4,
+                           seed: int = 0):
+    """Bad-mouthing guard on aggregation: n_oracles independently recompute
+    the Eq. 1 aggregate; accept iff a 2/3 quorum agrees elementwise.
+
+    Each oracle o >= 1 recomputes over a seeded permutation of the trainer
+    axis (numpy's ``default_rng(seed + o)``, as in the JAX package) --
+    algebraically the same aggregate, but a distinct floating-point
+    reduction path -- so an ``agg_fn`` whose output depends on trainer
+    order or call history loses the quorum.  Agreement is
+    ``torch.allclose(a, b, rtol=rtol, atol=1e-8)`` on every leaf against
+    oracle 0's result, which is returned with the count of agreeing
+    oracles."""
+    leaves = _leaves(stacked_params)
+    device = leaves[0].device
+    scores = _as_tensor(scores, device)
+    n = int(leaves[0].shape[0])
+    results = []
+    for o in range(cfg.n_oracles):
+        perm = (np.arange(n) if o == 0
+                else np.random.default_rng(seed + o).permutation(n))
+        idx = torch.from_numpy(perm).to(device)
+        permuted = ({k: v[idx] for k, v in stacked_params.items()}
+                    if isinstance(stacked_params, dict)
+                    else stacked_params[idx])
+        results.append(agg_fn(permuted, scores[idx]))
+    ref = results[0]
+    agree = 0
+    for r in results:
+        agree += all(torch.allclose(a, b, rtol=rtol, atol=1e-8)
+                     for a, b in zip(_leaves(ref), _leaves(r)))
+    if agree < cfg.quorum_frac * cfg.n_oracles:
+        raise RuntimeError("oracle quorum failed on aggregation")
+    return ref, agree

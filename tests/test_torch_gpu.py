@@ -34,7 +34,9 @@ CPU; ``shard_seal`` bit for bit at its hard cases (K of 1 to 64 lanes, an
 empty lane, one-word segments, a 16 MB lane, power-law lengths, offset
 views), one launch a call, equal to one ``batch_seal`` a lane and to its
 mesh impl, and the 2-shard fabric's node path on the card against the
-CPU (its fused twin in two ``shard_seal`` launches).
+CPU (its fused twin in two ``shard_seal`` launches); the node service
+(``repro_torch.serve``) on the vector and the 2-shard fabric backends on
+the card against the CPU, replayed by ``replay_ops``.
 
 Marked ``gpu``: they skip where no CUDA device is present (the skip is
 decided in the fixture, so every worker collects the same tests).  This
@@ -1049,4 +1051,69 @@ def test_two_shard_fabric_node_card_matches_cpu(cuda):
     assert fused["gas_log"] == cpu["gas_log"]
     assert fused["digests"] == cpu["digests"]
     assert fused["fabric_roots"] == cpu["fabric_roots"]
+    torch.cuda.synchronize()
+
+
+def _serve_script(n=600, duration=6.0, seed=0):
+    """Submissions that walk every rung of the admission ladder (as in
+    tests/test_torch_serve.py): intrinsic fees, offered fees above and
+    below the floor, spam that drops its senders below the trust line."""
+    rng = np.random.default_rng(seed)
+    fns = np.where(rng.uniform(size=n) < 0.3, "calculateSubjectiveRep",
+                   np.where(rng.uniform(size=n) < 0.5, "submitLocalModel",
+                            "publishTask"))
+    senders = [f"s{k}" for k in rng.integers(0, 40, n)]
+    fees = np.where(rng.uniform(size=n) < 0.7, -1,
+                    rng.integers(10_000, 120_000, n))
+    times = np.sort(rng.uniform(0.0, duration, n))
+    return [(str(f), s, None if fee < 0 else int(fee), float(t))
+            for f, s, fee, t in zip(fns, senders, fees, times)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [None, 2])
+def test_node_service_card_matches_cpu(cuda, shards):
+    """The node service (repro_torch.serve) on the card against the CPU,
+    on the vector and the 2-shard fabric backends: replies, admission log,
+    op log, receipts, events, state root and L1 gas, exactly; replay_ops
+    on the card reaches the served root; the service seals through
+    batch_seal (each shard stepped), never shard_seal."""
+    import asyncio
+    from repro_torch.api import AdmissionSpec, NodeSpec, ServeSpec, ShardSpec
+    from repro_torch.kernels import shard_lanes as sl
+    from repro_torch.serve import NodeService, replay_ops
+    node = NodeSpec(shards=None if shards is None else
+                    ShardSpec(count=shards, fabric=True))
+    spec = ServeSpec(node=node, window=0.5, admission=AdmissionSpec(
+        rate_limit=4.0, burst=3.0, fee_floor=20_000, pool_cap=24))
+    script = _serve_script()
+
+    def run(dev):
+        async def go():
+            svc = await NodeService(spec, device=dev).start()
+
+            async def one(part):
+                return [await svc.submit(fn, s, fee=fee, at=at)
+                        for fn, s, fee, at in part]
+            replies = await asyncio.gather(*(one(script[i::4])
+                                             for i in range(4)))
+            await svc.close()
+            return svc, replies
+        svc, replies = asyncio.run(go())
+        return svc, {
+            "replies": replies, "log": svc.admission.log, "ops": svc.ops,
+            "receipts": [svc.receipt(r) for r in sorted(svc.receipts)],
+            "events": svc.events(cursor=0), "stats": svc.stats(),
+            "root": svc.state_root(), "gas": svc.client.chain.total_gas}
+
+    seals, shard_seals = bs.batch_seal.launches, sl.shard_seal.launches
+    svc, card = run(cuda)
+    assert bs.batch_seal.launches > seals
+    assert sl.shard_seal.launches == shard_seals
+    _, cpu = run(torch.device("cpu"))
+    assert card == cpu
+    assert card["stats"]["evicted"] > 0
+    serial = replay_ops(node, svc.ops, device=cuda)
+    assert serial.state_root() == card["root"]
+    assert serial.chain.total_gas == card["gas"]
     torch.cuda.synchronize()

@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package (the
 rollup node path, the sharded fabric, the FL protocol path with its object
-stack and agents, and the token-LM serving path all run without them), and
-its entry points run on the CUDA card unless the caller names the CPU."""
+stack and agents, the token-LM serving path and the node service all run
+without them), and its entry points run on the CUDA card unless the caller
+names the CPU.  The node service keeps every ledger op on the event loop's
+thread: no file of ``repro_torch/serve`` hands work to a thread."""
 import re
 import subprocess
 import sys
@@ -25,12 +27,13 @@ from repro_torch.fl.cohort import VectorCohort
 from repro_torch.fl.scheduler import Scheduler
 from repro_torch.fl.server import AutoDFL
 from repro_torch.kernels.shard_lanes import shard_seal, shard_seal_mesh
-from repro_torch.launch import serve_model
+from repro_torch.launch import serve_model, serve_node
 from repro_torch.launch.mesh import make_shard_mesh
 from repro_torch.models import transformer
 from repro_torch.models.mlp import TinyMLP
 from repro_torch.models.model import Model, build_model
 from repro_torch.optim.optimizers import OptimizerSpec, make_optimizer
+from repro_torch.serve import NodeService, replay_ops
 
 ROOT = Path(__file__).resolve().parents[1]
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:[.\s]|$)", re.M)
@@ -198,6 +201,40 @@ print("FOREIGN", bad)
 """
 
 
+_SERVICE = """
+import asyncio
+import sys
+import repro_torch.api as pt
+from repro_torch.launch import serve_node
+from repro_torch.serve import HttpNodeServer, NodeService, http_rpc, replay_ops
+spec = pt.ServeSpec(node=pt.NodeSpec(shards=pt.ShardSpec(count=2,
+                                                         fabric=True)),
+                    port=0, window=0.5)
+async def run():
+    server = HttpNodeServer(NodeService(spec, device="cpu"))
+    host, port = await server.start()
+    for i in range(20):
+        st, body = await http_rpc(host, port, "submit", {
+            "fn": "submitLocalModel", "sender": f"u{i}", "at": 0.1 * i})
+        assert st == 200 and body["result"]["status"] == "queued"
+    st, body = await http_rpc(host, port, "flush")
+    assert body["result"]["flushed"] == 20
+    st, body = await http_rpc(host, port, "receipt", {"ref": 0})
+    assert body["result"]["status"] == "finalized"
+    svc = server.service
+    await server.close()
+    return svc
+svc = asyncio.run(run())
+assert replay_ops(spec.node, svc.ops, device="cpu").state_root() == \
+    svc.state_root()
+serve_node.main(["--port", "0", "--serve-for", "0.1", "--device", "cpu"])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print("FOREIGN", bad)
+"""
+
+
 def _run_alone(code: str) -> None:
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
            "OMP_NUM_THREADS": "1"}
@@ -217,6 +254,22 @@ def test_fl_protocol_runs_without_jax_or_repro():
 
 def test_serving_path_runs_without_jax_or_repro():
     _run_alone(_SERVE)
+
+
+def test_node_service_runs_without_jax_or_repro():
+    _run_alone(_SERVICE)
+
+
+_THREADS = re.compile(r"to_thread|run_in_executor|threading")
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT))
+    for p in (ROOT / "src" / "repro_torch" / "serve").rglob("*.py")))
+def test_node_service_keeps_one_thread(path):
+    # batch_seal's one process-wide ticket: every ledger op on the event
+    # loop's thread and torch's current stream
+    assert not _THREADS.findall((ROOT / path).read_text()), path
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -263,7 +316,14 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
                                  engine="vector", n_shards=2),
                  lambda: AutoDFL(model, opt, 2, model.accuracy_fn(), val,
                                  spec=fabric),
-                 lambda: make_shard_mesh()):
+                 lambda: make_shard_mesh(),
+                 lambda: NodeService(pt.ServeSpec()),
+                 lambda: NodeService(pt.ServeSpec(node=fabric)),
+                 lambda: replay_ops(spec, []),
+                 lambda: serve_node.main(["--port", "0", "--serve-for",
+                                          "0"]),
+                 lambda: pt.build_node(pt.NodeSpec(n_trainers=2), model, opt,
+                                       model.accuracy_fn(), val)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # a tensor off the CPU never takes the plain version: the kernel or
