@@ -120,9 +120,15 @@ Phases, each printing its result on a line of its own:
                through 64 decode steps, held to each other; Model.prefill
                on 8 x 4,096 tokens (32 flash_attention launches, counted
                from 0, every one in the wgmma form); its caches in an 8 x 4,128 decode state and 32
-               decode steps; the kernel's share of the prefill's device
-               time (torch.profiler); then launch/serve_model.py's loop at
-               its defaults (batch 4, prompt 8, 8 tokens).
+               decode steps; (d) one untimed row of the prefill (1 x
+               4,096) under analysis.hlo_cost.counting(): counted FLOPs
+               and bytes (32 flash_attention launches at their registered
+               cost), model_flops' figure and the useful_flops_ratio, the
+               share of the 989 TFLOP/s bf16 peak the timed prefill
+               reaches by model_flops; the kernel's share of the
+               prefill's device time (torch.profiler); then
+               launch/serve_model.py's loop at its defaults (batch 4,
+               prompt 8, 8 tokens).
  11. moe/xlstm kernels — gmm and slstm_scan against their plain versions
                on the grids of the CPU tests plus ragged shapes and where
                TMA's edges bite (C of 33 and 1,921, f = 200), float32 and
@@ -238,6 +244,22 @@ Phases, each printing its result on a line of its own:
                weighted_agg launches, agree 5, oracle 0 bit-equal to
                weighted_average_tree, within 1e-6 of the CPU; (e) each
                preset's drive (tests/test_presets.py) card == CPU.
+ 18. analysis — (a) REPRO_SANITIZE=1 through build_stack: the node path
+               at full size (1M txs, 20 windows; sanitizer off, on, on,
+               off), its fused twin and the 8-shard fused fabric at a
+               tenth, and the FL run at FL_AGREE through the default
+               Scheduler, each silent with checks made, its gas log,
+               blocks, batch digests and WindowSettled roots equal to the
+               unsanitized run's and rollup_chunk_digests (counted from
+               0) launched at least once more a WindowSettled (R001's
+               refold, on the card); the node path's walls both ways; (b)
+               one violation a dynamic rule (R001, R005, R006, R007)
+               injected on a stack whose state lives on the card, each
+               raising its rule; (c) every bound of the kernels line
+               recomputed from its op's registered cost at the row's
+               timed arguments (cost_bound: bytes over 3.35 TB/s,
+               operations over 989 TFLOP/s bf16) and equal to PERF.md
+               section 6's Bound column, the hand code's (HAND_BOUNDS).
 
 Then one JSON line lists every kernel with its launches on its path, the
 card's name and power limit follow on a line of their own, and the last
@@ -260,10 +282,15 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+# a kernel's bound: the larger of its registered cost's bytes over the
+# memory rate and its operations over the bf16 tensor-core peak
+# (``cost_bound``); the ledger and FL kernels' integer and float32
+# operations are held to the same peak: at every shape timed here their
+# bytes take at least 10x as long as their operations would at the CUDA
+# cores' 67 T/s (block_pack's searches the closest), so their bound is
+# the bytes either way
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
-INT_OPS_PER_S = 67e12            # H100 SXM 32-bit rate outside tensor cores
-F32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
-OPS_PER_WORD = 4                 # shift, xor, multiply, xor-reduce
+BF16_TENSOR_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
 # assumed time of one step of block_pack's walk (an estimate, not a
 # measurement): a dependent shared-memory load and two min / max, about 40
 # clocks; and a dependent L2 load where the table stays in device memory
@@ -282,6 +309,52 @@ BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def cost_args(args) -> list:
+    """The arguments of a kernel call as a cost needs them: a tensor's
+    shape and dtype; a small 1-D tensor (shard_seal's lane counts) whole."""
+    out = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            out.append({"dtype": str(a.dtype).split(".")[1],
+                        **({"values": a.cpu().tolist()}
+                           if a.dim() == 1 and a.numel() <= 64
+                           and a.device.type != "meta"
+                           else {"shape": list(a.shape)})})
+        else:
+            out.append(a)
+    return out
+
+
+def from_cost_args(spec) -> list:
+    """``cost_args``' record as arguments: meta tensors of each shape (a
+    cost reads shapes and dtypes only), small tensors on the host."""
+    out = []
+    for a in spec:
+        if isinstance(a, dict):
+            dtype = getattr(torch, a["dtype"])
+            out.append(torch.tensor(a["values"], dtype=dtype)
+                       if "values" in a else
+                       torch.empty(a["shape"], dtype=dtype, device="meta"))
+        else:
+            out.append(a)
+    return out
+
+
+def cost_bound(op: str, *args) -> dict:
+    """The bound of one call of factory op ``op`` at these arguments: its
+    registered cost (``kernels.factory.kernel_cost``: operations and bytes,
+    whatever implements the op), the bytes over ``HBM_BYTES_PER_S``, the
+    operations over ``BF16_TENSOR_FLOPS``, the larger; with the arguments
+    as ``cost_args`` records them (phase 18 (c) recomputes it)."""
+    from repro_torch.kernels.factory import kernel_cost
+    flops, n_bytes = kernel_cost(op)(*args)
+    ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
+    mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, mem_ms),
+            "bound_by": "operations" if ops_ms > mem_ms else "bytes",
+            "cost_args": cost_args(args)}
 
 
 def nvidia_smi() -> str:
@@ -455,8 +528,7 @@ def check_kernels(dev, shapes) -> list:
             + [(words(n + 1)[1:],) for n in (
                 rd.SPLIT_WORDS - 1, rd.SPLIT_WORDS + 1,
                 3 * rd.SPLIT_WORDS + 5)],
-            (seal_words,),
-            lambda a: (4 * a[0].numel() + 4, a[0].numel())),
+            (seal_words,)),
         "rollup_chunk_digests": (
             rd.rollup_chunk_digests, rd.rollup_chunk_digests_torch,
             [(words(n), chunk) for n in (1, 128, 2048, 4097, 70_000)]
@@ -466,8 +538,7 @@ def check_kernels(dev, shapes) -> list:
             + [(state_words[off:], c) for off in (1, 2, 3)
                for c in (chunk, 128, 2048, 65_536)]
             + [(words(40 * c + 1), c) for c in (128, 2048, 65_536)],
-            (state_words, chunk),
-            lambda a: (4 * a[0].numel() + 4 * n_chunks, a[0].numel())),
+            (state_words, chunk)),
         "dirty_fold": (
             df.dirty_fold, df.dirty_fold_torch,
             [(w, torch.from_numpy(g.integers(0, -(-w.numel() // chunk), d)
@@ -481,20 +552,17 @@ def check_kernels(dev, shapes) -> list:
             + [(state_words[off:], torch.from_numpy(g.integers(
                 0, -(-(n_state - off) // c), 300)).to(dev), c)
                for off in (1, 2, 3) for c in (128, 2048, 65_536)],
-            (state_words, ids, chunk),
-            lambda a: (4 * n_state + 12 * n_chunks, n_state)),
+            (state_words, ids, chunk)),
         "batch_seal": (
             bs.batch_seal, bs.batch_seal_torch,
             [(words(n), segments(n, s)) for n, s in
              ((4, 1), (4096, 17), (100_000, 257), (128, 128))]
             + seal_hard_cases(words, g, bs.plan(shapes["seal_words"]).span),
-            (seal_words, seal_starts_t),
-            lambda a: (4 * a[0].numel() + 12 * a[1].numel(),
-                       a[0].numel())),
+            (seal_words, seal_starts_t)),
     }
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
     results = []
-    for name, (kernel, plain, grid, chip, work) in cases.items():
+    for name, (kernel, plain, grid, chip) in cases.items():
         err = 0
         for args in grid + [chip]:
             err = max(err, u32_err(kernel(*args), plain(*args)))
@@ -502,14 +570,10 @@ def check_kernels(dev, shapes) -> list:
         if err:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version by {err}")
-        n_bytes, n_words = work(chip)
-        mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = OPS_PER_WORD * n_words / INT_OPS_PER_S * 1e3
         row = {"name": name, "max_abs_err": err,
                "ms": timed_ms(lambda: kernel(*chip), 50, flush),
                "plain_ms": timed_ms(lambda: plain(*chip), 10, flush),
-               "bound_ms": max(mem_ms, ops_ms),
-               "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+               **cost_bound(name, *chip),
                "shape": [list(a.shape) for a in chip
                          if isinstance(a, torch.Tensor)]}
         device = ""
@@ -592,7 +656,7 @@ def check_fused_seals(calls, flush) -> None:
                "ms": timed_ms(lambda: bs.batch_seal(w, starts), 50, flush),
                "device_ms": device_ms(lambda: bs.batch_seal(w, starts),
                                       FOLD_KERNELS["batch_seal"], 20, flush),
-               "bound_ms": (4 * n + 12 * nb) / HBM_BYTES_PER_S * 1e3,
+               "bound_ms": cost_bound("batch_seal", w, starts)["bound_ms"],
                "plain_ms": timed_ms(lambda: bs.batch_seal_torch(w, starts),
                                     10, flush)}
         log(f"kernel batch_seal at the fused twin's {label}: bit-equal to "
@@ -616,7 +680,7 @@ def check_rollup_plan(words, flush) -> None:
             raise AssertionError(f"rollup_digest at {n} words: differs from "
                                  f"plain, or not one launch a call")
         row = {"words": n, "plan": rd.plan(n),
-               "bound_ms": (4 * n + 4) / HBM_BYTES_PER_S * 1e3,
+               "bound_ms": cost_bound("rollup_digest", w)["bound_ms"],
                "ms": timed_ms(lambda: rd.rollup_digest(w), 50, flush)}
         for k in (1, 2, 4, 8):
             if int(rd._launch(w, k)) != want:
@@ -942,8 +1006,6 @@ def check_block_pack(dev, args, client) -> dict:
     beside its bytes bound, its chain of B dependent walk steps, the plain
     version and the stepped path (``VectorChain.run_until``, one host
     sync per block) on the same mempool and blocks."""
-    import math
-
     from repro_torch.core.engine import TxArrays, VectorChain
     from repro_torch.kernels import block_pack as bp
     grid = []
@@ -966,17 +1028,10 @@ def check_block_pack(dev, args, client) -> dict:
     tmax, gcum, times, n_vis, limit, ptr0 = args
     n, b = tmax.numel(), times.numel()
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
-    mem_ms = 8 * (2 * n + 3 * b) / HBM_BYTES_PER_S * 1e3
-    # the table's and the time bounds' binary searches, a compare and a
-    # move a probe
-    ops_ms = 2 * ((n + 1) * math.ceil(math.log2(max(n, 2)))
-                  + b * math.ceil(math.log2(max(n, 2)))) \
-        / INT_OPS_PER_S * 1e3
     row = {"name": "block_pack", "max_abs_err": 0,
            "ms": timed_ms(lambda: bp.block_pack(*args), 20, flush),
            "plain_ms": timed_ms(lambda: bp.block_pack_torch(*args), 3, flush),
-           "bound_ms": max(mem_ms, ops_ms),
-           "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+           **cost_bound("block_pack", *args),
            "library_ms": None, "chain_steps": b,
            "chain_ms": b * WALK_STEP_S * 1e3,
            "large_n": [large[0].numel(), large[2].numel()],
@@ -1065,20 +1120,16 @@ def check_fl_kernels(dev, path_n: int, path_p: int, wide_p: int,
     cases = {
         "weighted_agg": (
             wa.weighted_agg, wa.weighted_agg_torch, agg_grid,
-            lambda w, s: torch.matmul(s, w) / s.sum().clamp(min=1e-12),
-            lambda a: ((a[0].numel() + a[0].shape[1]) * 4 + 4 * a[1].numel(),
-                       2 * a[0].numel())),
+            lambda w, s: torch.matmul(s, w) / s.sum().clamp(min=1e-12)),
         "model_distance": (
             md.model_distance, md.model_distance_torch, dist_grid,
-            lambda w, glob: torch.cdist(w, glob[None])[:, 0],
-            lambda a: ((a[0].numel() + a[1].numel()) * 4 + 4 * a[0].shape[0],
-                       3 * a[0].numel())),
+            lambda w, glob: torch.cdist(w, glob[None])[:, 0]),
     }
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
     agg_mirror(agg_grid + [chips[k]["weighted_agg"] for k in shapes]
                + agg_hard_cases(rows, scores, path_n, path_p))
     out = {}
-    for name, (kernel, plain, grid, library, work) in cases.items():
+    for name, (kernel, plain, grid, library) in cases.items():
         err = 0.0
         checked = grid + [chips["path"][name], chips["wide"][name]]
         for args in checked:
@@ -1092,15 +1143,11 @@ def check_fl_kernels(dev, path_n: int, path_p: int, wide_p: int,
         timed = {}
         for label in shapes:
             args = chips[label][name]
-            n_bytes, n_ops = work(args)
-            mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = n_ops / F32_OPS_PER_S * 1e3
             timed[label] = {
                 "ms": timed_ms(lambda: kernel(*args), 50, flush),
                 "plain_ms": timed_ms(lambda: plain(*args), 20, flush),
                 "library_ms": timed_ms(lambda: library(*args), 20, flush),
-                "bound_ms": max(mem_ms, ops_ms),
-                "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+                **cost_bound(name, *args),
                 "shape": [list(a.shape) for a in args]}
             t = timed[label]
             if name == "weighted_agg":
@@ -1176,9 +1223,6 @@ def check_task_axis_agg(dev, g, n_tasks, n, p, flush, row) -> dict:
     torch.cuda.synchronize()
     row["max_abs_err"] = max(row["max_abs_err"],
                              float((got - want).abs().max()))
-    mem_ms = ((w.numel() + n_tasks * p) * 4 + 4 * s.numel()) \
-        / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * w.numel() / F32_OPS_PER_S * 1e3
     t = {"ms": timed_ms(lambda: wa.weighted_agg(w, s), 50, flush),
          "device_ms": device_ms(lambda: wa.weighted_agg(w, s),
                                 "weighted_agg", 20, flush),
@@ -1186,8 +1230,7 @@ def check_task_axis_agg(dev, g, n_tasks, n, p, flush, row) -> dict:
          "library_ms": timed_ms(
              lambda: torch.matmul(s[:, None], w)[:, 0]
              / s.sum(1, keepdim=True).clamp(min=1e-12), 20, flush),
-         "bound_ms": max(mem_ms, ops_ms),
-         "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+         **cost_bound("weighted_agg", w, s),
          "shape": [list(w.shape), list(s.shape)]}
     log(f"kernel weighted_agg at {t['shape']} (float32, task axis): rows "
         f"bit-equal to the {n_tasks} unbatched launches and to the mirror; "
@@ -1249,17 +1292,13 @@ def check_task_axis_distance(dev, g, n_tasks, n, p, wide_p, flush,
         turns.append(timed_ms(fn, 50, flush))
     if md.model_distance.last_form != md.form(p, torch.float32):
         raise AssertionError("model_distance: task-axis form")
-    mem_ms = ((w.numel() + glob.numel()) * 4 + 4 * n_tasks * n) \
-        / HBM_BYTES_PER_S * 1e3
-    ops_ms = 3 * w.numel() / F32_OPS_PER_S * 1e3
     t = {"ms": (turns[1] + turns[2]) / 2,
          "unbatched_ms": (turns[0] + turns[3]) / 2, "turns_ms": turns,
          "plain_ms": timed_ms(lambda: md.model_distance_torch(w, glob), 20,
                               flush),
          "library_ms": timed_ms(lambda: torch.cdist(w, glob[:, None]), 20,
                                 flush),
-         "bound_ms": max(mem_ms, ops_ms),
-         "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+         **cost_bound("model_distance", w, glob),
          "form": md.model_distance.last_form,
          "shape": [list(w.shape), list(glob.shape)]}
     log(f"kernel model_distance at {t['shape']} (float32, task axis): "
@@ -1727,7 +1766,6 @@ MOON_LAYER = dict(B=4, S=4096, H=16, Hkv=16, dh=128)
 # 128 x 32,768 -> 8 x 4,128 (decode_32k's cache at batch 128 is 256 GiB)
 PREFILL = dict(batch=8, seq=4096)
 DECODE = dict(batch=8, max_len=4128, steps=32)
-BF16_TENSOR_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
 # query rows held to the plain version at prefill_32k's sequence (its
 # full scores would take 137 GB): the first, a middle and the last 256
 LONG_ROWS = 256
@@ -1742,16 +1780,6 @@ LM_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
 # rounding a layer: the bfloat16 gap is logged beside the held one)
 PREFILL_DECODE_TOL = dict(rtol=0.15, atol=0.15)
 PREFILL_DECODE_TOL_F32 = dict(rtol=1e-2, atol=1e-2)
-
-
-def attn_bound(B, S, H, Hkv, dh, causal=True, itemsize=2):
-    """(bound ms, "operations" or "bytes"): 4 B H S^2 dh FLOPs (halved
-    when causal) over the bf16 tensor peak, q + k + v + o over HBM."""
-    flops = 4 * B * H * S * S * dh / (2 if causal else 1)
-    n_bytes = itemsize * (2 * B * S * H * dh + 2 * B * S * Hkv * dh)
-    ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
-    mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    return max(ops_ms, mem_ms), "operations" if ops_ms >= mem_ms else "bytes"
 
 
 def sdpa(q, k, v):
@@ -1863,14 +1891,15 @@ def check_attention(dev) -> dict:
                  want[:, S - LONG_ROWS:], "plain_rows against plain")
     lib_err = float((sdpa(q, k, v).float() - out.float()).abs().max())
     del out, want
-    bound, bound_by = attn_bound(**L)
+    cb = cost_bound("flash_attention", q, k, v)
+    bound, bound_by = cb["bound_ms"], cb["bound_by"]
     row = {"name": "flash_attention", "max_abs_err": row_err,
            "ms": timed_ms(lambda: fa.flash_attention(q, k, v), 5, flush),
            "plain_ms": timed_ms(lambda: [fa.flash_attention_torch(
                q[b:b + 1], k[b:b + 1], v[b:b + 1]) for b in range(L["B"])],
                2, flush),
            "library_ms": timed_ms(lambda: sdpa(q, k, v), 5, flush),
-           "bound_ms": bound, "bound_by": bound_by,
+           **cb,
            "shape": [L["B"], L["S"], L["H"], L["Hkv"], L["dh"]]}
     log(f"kernel flash_attention at {row['shape']} (bfloat16, causal, form "
         f"wgmma): {row['ms']:.6f} ms (bound {bound:.6f} ms, {bound_by}), "
@@ -1892,12 +1921,13 @@ def check_attention(dev) -> dict:
               for r0, r1 in spans}
     long_err = float((out.float() - sdpa(q, k, v).float()).abs().max())
     del out
-    bound, bound_by = attn_bound(**L)
+    cb = cost_bound("flash_attention", q, k, v)
+    bound, bound_by = cb["bound_ms"], cb["bound_by"]
     row["long"] = {
         "ms": timed_ms(lambda: fa.flash_attention(q, k, v), 2, flush),
         "plain_ms": None, "library_ms": timed_ms(lambda: sdpa(q, k, v), 2,
                                                  flush),
-        "bound_ms": bound, "bound_by": bound_by,
+        **cb,
         "shape": [L["B"], L["S"], L["H"], L["Hkv"], L["dh"]]}
     t = row["long"]
     log(f"kernel flash_attention at {t['shape']} (bfloat16, causal): "
@@ -1911,11 +1941,12 @@ def check_attention(dev) -> dict:
     h_moon = held(fa.flash_attention(q[:1], k[:1], v[:1]),
                   fa.flash_attention_torch(q[:1], k[:1], v[:1]),
                   f"at {list(L.values())}, row 0")
-    bound, bound_by = attn_bound(**L)
+    cb = cost_bound("flash_attention", q, k, v)
+    bound, bound_by = cb["bound_ms"], cb["bound_by"]
     row["moonshot"] = {
         "ms": timed_ms(lambda: fa.flash_attention(q, k, v), 5, flush),
         "library_ms": timed_ms(lambda: sdpa(q, k, v), 5, flush),
-        "bound_ms": bound, "bound_by": bound_by,
+        **cb,
         "shape": [L["B"], L["S"], L["H"], L["Hkv"], L["dh"]]}
     t = row["moonshot"]
     log(f"kernel flash_attention at {t['shape']} (bfloat16, causal): "
@@ -2037,8 +2068,55 @@ def lm_launches_expected(cfg) -> dict:
             "slstm_scan": sum(m == "slstm" for m, _ in specs)}
 
 
+def counted_prefill(model, params, tokens, timed_batch: int,
+                    timed_s: float, smi: str) -> dict:
+    """Phase 10 (d): one untimed pass of the prefill of ``tokens`` under
+    ``analysis.hlo_cost.counting``: the counted FLOPs and bytes (each
+    flash_attention launch at its registered cost), the launches it
+    recorded, model_flops' prefill figure (exact parameter counts) and
+    their ratio, dryrun.py's useful_flops_ratio; and the share of the bf16
+    peak that phase 10's timed prefill (``timed_batch`` rows of the same
+    length in ``timed_s``) reaches by model_flops."""
+    from repro_torch.analysis.hlo_cost import counting
+    from repro_torch.analysis.model_flops import model_flops
+    from repro_torch.configs.base import ShapeConfig
+    cfg = model.cfg
+    B, S = tokens.shape
+    plain_logits, _ = model.prefill(params, {"tokens": tokens})
+    with counting() as cost:
+        logits, _ = model.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    gap = float((logits.float() - plain_logits.float()).abs().max())
+    torch.testing.assert_close(logits.float(), plain_logits.float(),
+                               **LM_TOL["bfloat16"])
+    launches = cost.launches("flash_attention")
+    want = lm_launches_expected(cfg)["flash_attention"]
+    if launches != want or cost.flops <= 0:
+        raise AssertionError(f"counted prefill: {launches} flash_attention "
+                             f"launches recorded, not {want}")
+    mf = model_flops(cfg, ShapeConfig("counted", S, B, "prefill"), params)
+    timed = model_flops(cfg, ShapeConfig("timed", S, timed_batch, "prefill"),
+                        params)
+    row = {"tokens": [B, S], "counted_flops": cost.flops,
+           "counted_bytes": cost.bytes,
+           "transcendentals": cost.transcendentals,
+           "convert_bytes": cost.convert_bytes,
+           "flash_attention_launches": launches,
+           "model_flops": mf["model_flops_total"],
+           "useful_flops_ratio": mf["model_flops_total"] / cost.flops,
+           "timed_prefill": [timed_batch, S], "timed_prefill_s": timed_s,
+           "timed_model_flops": timed["model_flops_total"],
+           "bf16_peak_share": timed["model_flops_total"] / timed_s
+           / BF16_TENSOR_FLOPS,
+           "logits_gap_uncounted": gap}
+    log(f"lm counted: the prefill of {B} x {S} tokens under counting() "
+        f"(untimed; logits within {LM_TOL['bfloat16']} of an uncounted "
+        f"pass) on {smi}: {json.dumps(row)}")
+    return row
+
+
 def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
-            decode=DECODE, check_dtype=None) -> dict:
+            decode=DECODE, check_dtype=None, count: bool = False) -> dict:
     """``arch`` at full width and depth, bfloat16, weights drawn on the
     card: a 64-token prompt through prefill and through 64 decode steps
     (held to each other, in ``check_dtype`` if given, with weights of that
@@ -2046,7 +2124,8 @@ def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
     logged, not held; an MoE model with a capacity that drops nothing,
     since the prefill's queues overflow where a decode step's never do);
     the prefill of ``prefill`` tokens, each serving kernel's launches
-    counted from 0; the prefill's caches in a decode state (an xLSTM
+    counted from 0 (with ``count``, then one row of it counted:
+    ``counted_prefill``); the prefill's caches in a decode state (an xLSTM
     prefill emits none: its decode starts from the initial state, as in
     the JAX package) and ``decode["steps"]`` decode steps; the device
     shares under the profiler; then the serve loop of
@@ -2177,6 +2256,8 @@ def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
             or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill gave logits {tuple(logits.shape)}, "
                              f"caches {kv_shapes}")
+    if count:
+        counted_prefill(model, params, tokens[:1], B, prefill_s, smi)
 
     # c. decode against the prefill's caches
     state = model.init_decode_state(decode["batch"], decode["max_len"])
@@ -2278,32 +2359,6 @@ XLSTM_DECODE = dict(batch=8, max_len=4128, steps=32)
 ROUTING_GAP = 1e-6
 
 
-def gmm_bound(E, C, d, f, itemsize=2):
-    """(bound ms, "operations" or "bytes"): 2 E C d f FLOPs over the bf16
-    tensor peak; x, w and the output once over HBM."""
-    ops_ms = 2 * E * C * d * f / BF16_TENSOR_FLOPS * 1e3
-    mem_ms = itemsize * (E * C * d + E * d * f + E * C * f) \
-        / HBM_BYTES_PER_S * 1e3
-    return max(ops_ms, mem_ms), "operations" if ops_ms >= mem_ms else "bytes"
-
-
-def slstm_bound(B, S, nh, dh, itemsize=2, pieces=None):
-    """(bound ms, "operations" or "bytes"): the recurrence's 8 B S d dh
-    FLOPs (h @ r, B x d x 4 dh multiply-adds a step), as ``pieces``
-    bfloat16 products over the tensor-core peak (the cluster form: one
-    product a piece of h) or, with ``pieces`` None, in float32 over the
-    CUDA cores' peak (the grid form); wx and r in the model dtype, y and
-    the state (read and written) in float32, once over HBM."""
-    d = nh * dh
-    flops = 8 * B * S * d * dh
-    ops_ms = (flops / F32_OPS_PER_S if pieces is None
-              else pieces * flops / BF16_TENSOR_FLOPS) * 1e3
-    n_bytes = itemsize * (B * S * 4 * d + nh * dh * 4 * dh) \
-        + 4 * (B * S * d + 8 * B * d)
-    mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    return max(ops_ms, mem_ms), "operations" if ops_ms >= mem_ms else "bytes"
-
-
 def check_moe_xlstm_kernels(dev) -> tuple:
     """gmm and slstm_scan against their plain versions on the card: the
     grids of the CPU tests (tests/test_kernels.py:84-89 and
@@ -2379,7 +2434,8 @@ def check_moe_xlstm_kernels(dev) -> tuple:
             torch.testing.assert_close(
                 got.float(), want.float(), **gm.kernel_tol(want),
                 msg=lambda m, s=(E, C, d, f): f"gmm at {s}: {m}")
-            bound, bound_by = gmm_bound(E, C, d, f)
+            cb = cost_bound("gmm", xe, w)
+            bound, bound_by = cb["bound_ms"], cb["bound_by"]
             row = {"name": "gmm", "path": label, "shape": [E, C, d, f],
                    "form": gm.gmm.last_form,
                    "max_abs_err": float((got.float() - want.float()).abs()
@@ -2389,7 +2445,7 @@ def check_moe_xlstm_kernels(dev) -> tuple:
                    "plain_ms": timed_ms(lambda: gm.gmm_torch(xe, w), 3,
                                         flush),
                    "library_ms": timed_ms(lambda: torch.bmm(xe, w), 5, flush),
-                   "bound_ms": bound, "bound_by": bound_by}
+                   **cb}
             gmm_rows.append(row)
             log(f"kernel gmm ({label}) at {row['shape']} (bfloat16, form "
                 f"{row['form']}): "
@@ -2456,8 +2512,8 @@ def check_moe_xlstm_kernels(dev) -> tuple:
         torch.testing.assert_close(got, want, **ss.KERNEL_TOL,
                                    msg=lambda m: f"slstm_scan at {L}: {m}")
         scan_err = max(scan_err, float((got - want).abs().max()))
-    bound, bound_by = slstm_bound(**L, pieces=ss.PIECES)
-    bound_f32, _ = slstm_bound(**L)
+    cb = cost_bound("slstm_scan", wx, r, *state)
+    bound, bound_by = cb["bound_ms"], cb["bound_by"]
     # the grid form (the kernel this form replaced at this shape) and the
     # cluster form in turns, at the prefill's scan and at a decode step's
     w1 = wx[:, :1].contiguous()
@@ -2478,8 +2534,7 @@ def check_moe_xlstm_kernels(dev) -> tuple:
                 "plain_ms": timed_ms(lambda: ss.slstm_scan_torch(wx, r,
                                                                  *state),
                                      1, flush),
-                "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
-                "bound_f32_ms": bound_f32, "clusters_resident": clusters}
+                "library_ms": None, **cb, "clusters_resident": clusters}
     scan_row["us_per_step"] = scan_row["ms"] * 1e3 / L["S"]
     scan_row["grid_form_us_per_step"] = \
         scan_row["grid_form_ms"] * 1e3 / L["S"]
@@ -2489,8 +2544,8 @@ def check_moe_xlstm_kernels(dev) -> tuple:
         f"{L['dh'] // ss.CLUSTER_DIMS} blocks fit the card at once): "
         f"{scan_row['ms']:.6f} ms, {scan_row['us_per_step']:.3f} us a step "
         f"(bound {bound:.6f} ms, {bound_by}: {ss.PIECES} bfloat16 products "
-        f"on the tensor cores; {bound_f32:.6f} ms as float32 on the CUDA "
-        f"cores); the grid form it replaced {scan_row['grid_form_ms']:.6f} "
+        f"on the tensor cores); the grid form it replaced "
+        f"{scan_row['grid_form_ms']:.6f} "
         f"ms, {scan_row['grid_form_us_per_step']:.3f} us a step (timed in "
         f"turns: grid, cluster, cluster, grid; {turns}); "
         f"a decode step (S = 1): cluster {scan_row['decode_ms']:.6f} ms, "
@@ -2743,10 +2798,9 @@ def object_digests(dev, flush) -> dict:
     w = base[:80]
     ms = timed_ms(lambda: rd.rollup_digest(w), 200, flush)
     plain = timed_ms(lambda: rd.rollup_digest_torch(w), 200, flush)
-    bound = max(80 * 4 / HBM_BYTES_PER_S, 80 * OPS_PER_WORD / INT_OPS_PER_S)
     row = {"words": list(OBJ_DIGEST_WORDS), "offsets": [0, 1, 2, 3],
            "max_abs_err": worst, "ms_at_80": ms, "plain_ms_at_80": plain,
-           "bound_ms_at_80": bound * 1e3}
+           "bound_ms_at_80": cost_bound("rollup_digest", w)["bound_ms"]}
     log(f"object digests: {json.dumps(row)}")
     return row
 
@@ -3291,9 +3345,6 @@ def check_shard_seal(dev, calls, flush) -> dict:
                                  f"per-lane batch_seal")
         k, b = starts.shape
         sum_w, sum_b = int(n_words.sum()), int(n_seg.sum())
-        n_bytes = 4 * sum_w + 8 * sum_b + 4 * k * b
-        mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = OPS_PER_WORD * sum_w / INT_OPS_PER_S * 1e3
         row = {"name": "shard_seal", "max_abs_err": err,
                "lanes": k, "words": sum_w, "segments": sum_b,
                "grid": [k, int(words.shape[1])],
@@ -3302,8 +3353,7 @@ def check_shard_seal(dev, calls, flush) -> dict:
                                       "shard_seal_span_kernel", 20, flush),
                "plain_ms": timed_ms(lambda: sl.shard_seal_torch(*args), 5,
                                     flush),
-               "bound_ms": max(mem_ms, ops_ms),
-               "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+               **cost_bound("shard_seal", *args),
                "library_ms": None,
                # the per-launch ticket buffer: one fill of K words
                "tickets_zero_ms": timed_ms(lambda: torch.zeros(
@@ -3962,6 +4012,247 @@ def serve_main(dev, smi: str) -> dict:
     return launches
 
 
+# -- phase 18: the analysis layer ----------------------------------------------
+
+# PERF.md section 6's Bound column: what the hand code this phase's cost
+# functions replaced gave at each kernels-line row's shape (as printed, to
+# 6 decimals)
+HAND_BOUNDS = {"batch_seal": 0.000249, "rollup_digest": 0.000240,
+               "rollup_chunk_digests": 0.003445, "dirty_fold": 0.003448,
+               "weighted_agg": 0.005988, "model_distance": 0.005988,
+               "block_pack": 0.000245, "flash_attention": 1.111741,
+               "gmm": 0.716552, "slstm_scan": 0.555870,
+               "shard_seal": 0.004958}
+SANITIZED_RULES = ("R001", "R005", "R006", "R007")
+
+
+@contextlib.contextmanager
+def sanitizing(on: bool):
+    """``REPRO_SANITIZE`` set to 1 (or unset) inside the block."""
+    from repro_torch.analysis.sanitize import ENV_FLAG
+    old = os.environ.pop(ENV_FLAG, None)
+    if on:
+        os.environ[ENV_FLAG] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(ENV_FLAG, None)
+        if old is not None:
+            os.environ[ENV_FLAG] = old
+
+
+def settled(events) -> list:
+    """Every WindowSettled's (shard, window, state root, fabric root)."""
+    return [(e.shard, e.window, e.state_root, e.fabric_root)
+            for e in events if e.kind == "window_settled"]
+
+
+def sanitized_pair(label: str, run, turns=(False, True)) -> dict:
+    """``run()`` (-> (chain, ledger outputs, wall)) with the sanitizer off
+    and on, in ``turns``: the sanitized runs silent with checks made, every
+    ledger output equal to the unsanitized run's, and
+    ``rollup_chunk_digests`` launched (counted from 0) at least once a
+    WindowSettled more than without the sanitizer: its R001 refold, on the
+    card through the kernel."""
+    from repro_torch.kernels import rollup_digest as rd
+    outs, walls, launches, checks = {}, {False: [], True: []}, {}, []
+    for on in turns:
+        rd.rollup_chunk_digests.launches = 0
+        with sanitizing(on):
+            chain, out, wall = run()
+        torch.cuda.synchronize()
+        walls[on].append(wall)
+        launches[on] = rd.rollup_chunk_digests.launches
+        san = getattr(chain.events, "_sanitizer", None)
+        if (san is not None) != on:
+            raise AssertionError(f"sanitize {label}: REPRO_SANITIZE={int(on)}"
+                                 f" {'did not install' if on else 'installed'}"
+                                 f" the sanitizer")
+        if on:
+            checks.append(san.n_checks)
+            if san.n_checks <= 0:
+                raise AssertionError(f"sanitize {label}: no checks made")
+        if on in outs and outs[on] != out:
+            raise AssertionError(f"sanitize {label}: two runs differ")
+        outs[on] = out
+    for key in outs[False]:
+        if outs[True][key] != outs[False][key]:
+            raise AssertionError(f"sanitize {label}: {key} differ with the "
+                                 f"sanitizer on")
+    n_ws = len(outs[True]["settled"])
+    if n_ws == 0 or launches[True] - launches[False] < n_ws:
+        raise AssertionError(f"sanitize {label}: rollup_chunk_digests "
+                             f"launched {launches[True]} times sanitized, "
+                             f"{launches[False]} without, for {n_ws} "
+                             f"WindowSettled events")
+    row = {"n_checks": checks, "window_settled": n_ws,
+           "rollup_chunk_digests_launches": launches,
+           "wall_s": {("sanitized" if on else "unsanitized"): w
+                      for on, w in walls.items()}}
+    log(f"sanitize {label}: silent, outputs (gas log, blocks, batch "
+        f"digests, WindowSettled roots) equal to the unsanitized run; "
+        f"{json.dumps(row)}")
+    return row
+
+
+def ledger_outputs(client) -> dict:
+    ru, chain = client.target, client.chain
+    return {"gas_log": ru.gas_log,
+            "blocks": [(b.height, b.n_txs, b.gas_used, b.start, b.stop,
+                        b.block_hash) for b in chain.blocks],
+            "batch_digests": ru.batch_digests,
+            "settled": settled(client.events(cursor=0)),
+            "root": client.state_root()}
+
+
+def sanitize_paths(dev, smi: str) -> dict:
+    """(a) The node path at full size (1M txs, 20 windows; sanitizer off,
+    on, on, off), its fused twin at a tenth, the FL run at FL_AGREE
+    through the default Scheduler and the 8-shard fused fabric at a
+    tenth, each built through build_stack with REPRO_SANITIZE=1 against
+    the same run without it."""
+    from repro_torch.core.workloads import make_workload
+
+    wl = make_workload("mixed", device=dev, **FULL)
+
+    def node():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        client, _, _, _ = run_node(wl, dev, receipts=False)
+        torch.cuda.synchronize()
+        return client.chain, ledger_outputs(client), \
+            time.perf_counter() - t0
+    out = {"node": sanitized_pair("node path (1M txs)", node,
+                                  (False, True, True, False))}
+    walls = out["node"]["wall_s"]
+    log(f"sanitize node path: wall unsanitized {walls['unsanitized']} s, "
+        f"sanitized {walls['sanitized']} s on {smi}")
+    del wl
+
+    tenth = make_workload("mixed", device=dev, **TENTH)
+    _, stepped, _ = run_twin(tenth, dev, fused=False)
+    until = stepped["blocks"][-1][1]
+
+    def twin():
+        client, o, wall = run_twin(tenth, dev, fused=True, until=until)
+        return client.chain, dict(ledger_outputs(client), **o), wall
+    out["fused"] = sanitized_pair("fused twin (a tenth)", twin)
+
+    def fabric():
+        client, o, wall = fabric_twin(tenth, dev, k=FABRIC_TWIN_SHARDS,
+                                      fused=True, until=until)
+        return client.chain, dict(ledger_outputs(client), **o), wall
+    out["fabric"] = sanitized_pair(f"fused fabric ({FABRIC_TWIN_SHARDS} "
+                                   f"shards, a tenth)", fabric)
+    del tenth
+
+    # fl_agree's world: ragged tasks, and a last one with full rounds
+    lazy = ["good", "good", "malicious", "lazy"] * (FL_AGREE["trainers"] // 4)
+    behaviors = [lazy] * (FL_AGREE["tasks"] - 1) + [
+        ["good", "good", "malicious", "good"] * (FL_AGREE["trainers"] // 4)]
+    fl_runs = []
+
+    def fl():
+        node, sch, res, wall = run_fl(dev, FL_AGREE, behaviors)
+        if sch.mega_windows == 0:
+            raise AssertionError("sanitize FL: the megastep did not run")
+        client = node.client()
+        fl_runs.append(fl_outputs(node, sch, res))
+        return node.chain, ledger_outputs(client), wall
+    out["fl"] = sanitized_pair("FL run (default Scheduler, FL_AGREE)", fl)
+    fl_hold(fl_runs[0], fl_runs[1], "sanitize FL: sanitized against "
+            "unsanitized")
+    return out
+
+
+def inject_violation(rule: str, client) -> None:
+    """One violation of ``rule`` on a primed stack, as
+    tests/test_sanitize.py's ``_inject`` makes it."""
+    from repro_torch.core.events import BlockPacked, ProofGenerated
+    log_ = client.chain.events
+    if rule == "R001":
+        # a column write that skips mark_dirty; the next window carries a
+        # tx with no state handler, so nothing re-dirties the chunk
+        client.target.state_arrays.balances[0] += 7.0
+        client.submit("bgPing", "s0")
+        client.seal()
+    elif rule == "R005":
+        log_._events.append(BlockPacked(
+            seq=len(log_._events) + 5, time=0.0, shard=None, height=99,
+            n_txs=0, gas_used=0, block_hash="bogus"))
+        log_.emit(BlockPacked, time=1.0, height=100, n_txs=0, gas_used=0,
+                  block_hash="next")
+    elif rule == "R006":
+        client.chain.total_gas += 12345
+        client.chain.produce_block(1e6)
+    elif rule == "R007":
+        log_.emit(ProofGenerated, time=0.5, shard=None, job=0, batch=777,
+                  n_txs=1, digest=0, sealed_at=0.0)
+    else:
+        raise AssertionError(rule)
+
+
+def sanitize_injections(dev) -> dict:
+    """(b) One violation a dynamic rule on a stack whose StateArrays lives
+    on the card: each raises SanitizeViolation with that rule."""
+    from repro_torch.analysis.sanitize import SanitizeViolation, install_stack
+    from repro_torch.api import NodeClient, NodeSpec
+    caught = {}
+    for rule in SANITIZED_RULES:
+        client = NodeClient.from_spec(NodeSpec(), device=dev)
+        san = install_stack(client.chain, client.target)
+        for i in range(3):
+            client.submit("submitLocalModel", f"s{i}")
+        client.seal()
+        if client.target.state_arrays.balances.device.type != "cuda" or \
+                san.n_checks <= 0:
+            raise AssertionError("sanitize inject: the stack is not on the "
+                                 "card, or no checks ran")
+        try:
+            inject_violation(rule, client)
+        except SanitizeViolation as exc:
+            caught[rule] = exc.rule
+        if caught.get(rule) != rule:
+            raise AssertionError(f"sanitize inject: {rule} raised "
+                                 f"{caught.get(rule)}")
+    log(f"sanitize inject: on the card each injected violation raised its "
+        f"rule: {json.dumps(caught)}")
+    return caught
+
+
+def check_bounds(rows) -> dict:
+    """(c) Every kernels-line row's bound: recomputed from the registered
+    cost at the row's timed arguments (one source), and equal to the bound
+    the hand code it replaced gave there (HAND_BOUNDS)."""
+    out = {}
+    for row in rows:
+        name = row["name"]
+        again = cost_bound(name, *from_cost_args(row["cost_args"]))
+        if (again["bound_ms"], again["bound_by"]) != \
+                (row["bound_ms"], row["bound_by"]):
+            raise AssertionError(f"bounds: {name}'s row holds "
+                                 f"{row['bound_ms']} ({row['bound_by']}), "
+                                 f"its cost gives {again['bound_ms']}")
+        if round(row["bound_ms"], 6) != HAND_BOUNDS[name]:
+            raise AssertionError(f"bounds: {name}'s cost gives "
+                                 f"{row['bound_ms']:.6f} ms, the hand code "
+                                 f"gave {HAND_BOUNDS[name]}")
+        out[name] = [row["bound_ms"], row["bound_by"]]
+    log(f"bounds: every kernels-line bound from its registered cost, equal "
+        f"to the hand code's: {json.dumps(out)}")
+    return out
+
+
+def analysis_main(dev, smi: str, rows) -> None:
+    """Phase 18: (a) the sanitizer on the sanitized paths, (b) injections
+    on the card, (c) the kernels line's bounds from the registered costs."""
+    t0 = time.perf_counter()
+    sanitize_paths(dev, smi)
+    sanitize_injections(dev)
+    check_bounds(rows)
+    log(f"analysis: phase 18 in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -3984,12 +4275,14 @@ def main() -> int:
     from repro_torch.kernels import rollup_digest as rd
 
     # 2. build
+    t0 = time.perf_counter()
     built = _build.build(force=True)
+    build_s = time.perf_counter() - t0
     usage = [ln.strip() for ln in built.log.splitlines()
              if "registers" in ln or "Compiling entry" in ln
              or ln.startswith("==")]
     log(f"build: {[src.name for src in _build.sources()]} -> "
-        f"{built.path.relative_to(ROOT)} in {built.seconds:.3f} s")
+        f"{built.path.relative_to(ROOT)} in {build_s:.3f} s")
     for ln in usage:
         log(f"  ptxas: {ln}")
 
@@ -4065,7 +4358,7 @@ def main() -> int:
 
     # 10. yi-6b at full width and depth: prefill (launch counts from 0),
     # decode, the serve loop
-    launches.update(lm_main(dev, smi))
+    launches.update(lm_main(dev, smi, count=True))
     torch.cuda.empty_cache()
 
     # 11. the MoE and xLSTM kernels against their plain versions and bmm
@@ -4123,6 +4416,22 @@ def main() -> int:
     for name, k in serve_main(dev, smi).items():
         launches[name] += k
 
+    # the kernels line's source rows: the default FL path merges Eq. 1 and
+    # Eq. 4 with the task axis, so their rows are timed at (32, 64, 2,410)
+    # (the per-task (64, 2,410) is logged below); gmm's is moonshot's gate
+    # and up products at the prefill (two of its three launches a layer)
+    agg, dist = fl_rows["weighted_agg"], fl_rows["model_distance"]
+    source_rows = rows + [dict(agg, **agg["task"]), dict(dist, **dist["task"]),
+                          pack_row, attn_row, gmm_rows[0], scan_row,
+                          shard_row]
+
+    # 18. the analysis layer: (a) the sanitizer through build_stack on the
+    # node path, its fused twin, the 8-shard fused fabric and the FL run,
+    # against unsanitized runs; (b) injected violations on the card; (c)
+    # every bound of the kernels line from its op's registered cost
+    torch.cuda.empty_cache()
+    analysis_main(dev, smi, source_rows)
+
     replaces = {"rollup_digest": "src/repro/kernels/rollup_digest.py:16",
                 "rollup_chunk_digests":
                     "src/repro/kernels/rollup_digest.py:76",
@@ -4140,16 +4449,8 @@ def main() -> int:
     sources = {"weighted_agg": "fl.cu", "model_distance": "fl.cu",
                "block_pack": "pack.cu", "flash_attention": "attn.cu",
                "gmm": "moe.cu", "slstm_scan": "slstm.cu"}
-    # the default FL path merges Eq. 1 with the task axis: its row is
-    # timed at (32, 64, 2,410); the per-task (64, 2,410) is logged below
-    agg = fl_rows["weighted_agg"]
     kernels = []
-    # gmm's row: moonshot's gate and up products at the prefill (two of
-    # its three launches a layer); the others are logged below
-    dist = fl_rows["model_distance"]
-    for row in rows + [dict(agg, **agg["task"]), dict(dist, **dist["task"]),
-                       pack_row, attn_row, gmm_rows[0], scan_row,
-                       shard_row]:
+    for row in source_rows:
         name = row["name"]
         kernels.append({
             "name": name, "route": "cuda",

@@ -6,7 +6,9 @@
 
 ``build_ledger`` returns the SUBMISSION target (the L2 face when a rollup
 is configured, else the L1 itself); the rollup keeps its L1 on ``.l1``,
-and ``l1_of`` resolves it uniformly.  ``build_node`` builds the whole
+and ``l1_of`` resolves it uniformly.  With ``REPRO_SANITIZE=1``
+``build_stack`` installs the runtime sanitizer (analysis/sanitize.py) on
+every stack it builds.  ``build_node`` builds the whole
 protocol node (``fl/server.AutoDFL``).  Every build function takes
 ``device``: ``None`` means the CUDA card and raises without one.
 """
@@ -54,32 +56,41 @@ def build_stack(spec: LedgerSpec, *, fns=None, state=None, device=None
     chain = build_chain(node.chain, fns=fns, device=device)
     ru = node.rollup
     if ru is None:
-        return chain, None
+        return _sanitized(chain, None)
     pv = node.prover if node.prover is not None else ProverSpec()
     prove_time = ru.prove_time if pv.prove_time is None else pv.prove_time
     prover_kw = dict(agg_width=pv.agg_width, prover_capacity=pv.capacity,
                      finalize=pv.finalize)
     if node.shards is not None and node.shards.wants_fabric:
         from repro_torch.core.shards import ShardedRollup
-        return chain, ShardedRollup(
+        return _sanitized(chain, ShardedRollup(
             chain, n_shards=node.shards.count, batch_size=ru.batch_size,
             gas_table=node.chain.gas_table, prove_time=prove_time,
             per_tx_time=ru.per_tx_time, n_lanes=ru.n_lanes,
             digest_backend=ru.digest_backend, route=node.shards.route,
             state=state, interconnect=node.shards.interconnect,
-            mesh=node.shards.mesh, **prover_kw)
+            mesh=node.shards.mesh, **prover_kw))
     if node.chain.backend == "vector":
         from repro_torch.core.engine import VectorRollup
-        return chain, VectorRollup(
+        return _sanitized(chain, VectorRollup(
             chain, batch_size=ru.batch_size, gas_table=node.chain.gas_table,
             prove_time=prove_time, per_tx_time=ru.per_tx_time,
             n_lanes=ru.n_lanes, digest_backend=ru.digest_backend,
-            **prover_kw)
+            **prover_kw))
     from repro_torch.core.rollup import Rollup
-    return chain, Rollup(chain, batch_size=ru.batch_size,
-                         gas_table=node.chain.gas_table,
-                         prove_time=prove_time, per_tx_time=ru.per_tx_time,
-                         **prover_kw)
+    return _sanitized(chain, Rollup(chain, batch_size=ru.batch_size,
+                                    gas_table=node.chain.gas_table,
+                                    prove_time=prove_time,
+                                    per_tx_time=ru.per_tx_time, **prover_kw))
+
+
+def _sanitized(chain, rollup):
+    """REPRO_SANITIZE=1 installs the runtime sanitizer on every stack
+    this factory builds (see analysis/sanitize.py; a no-op otherwise)."""
+    from repro_torch.analysis import sanitize
+    if sanitize.enabled():
+        sanitize.install_stack(chain, rollup)
+    return chain, rollup
 
 
 def build_ledger(spec: LedgerSpec, *, fns=None, state=None,

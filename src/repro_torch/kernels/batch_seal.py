@@ -40,12 +40,14 @@ repeats the spans, pieces and carries on the CPU.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rollup_digest import (MIX_SEED, SEED_I32, check_cuda,
+from repro_torch.kernels.factory import counted
+from repro_torch.kernels.rollup_digest import (MIX_SEED, OPS_PER_WORD,
+                                               SEED_I32, check_cuda,
                                                as_words, mix_u32, to_i32,
                                                to_u32)
 
@@ -78,6 +80,15 @@ def plan(n: int, span: Optional[int] = None) -> Plan:
     return Plan(span, -(-n // span))
 
 
+def batch_seal_cost(words: torch.Tensor,
+                    starts: torch.Tensor) -> Tuple[int, int]:
+    """(operations, bytes) of one seal: every word read once and mixed,
+    8 bytes of start read and one word written a segment."""
+    n = words.numel()
+    return OPS_PER_WORD * n, 4 * n + 12 * starts.numel()
+
+
+@counted("batch_seal")
 def batch_seal_torch(words: torch.Tensor,
                      starts: torch.Tensor) -> torch.Tensor:
     """Plain version: (nb,) int32 segment digests by prefix xor."""
@@ -174,6 +185,7 @@ def batch_seal_mirror(words: torch.Tensor, starts: torch.Tensor,
     return to_i32(MIX_SEED ^ out)
 
 
+@counted("batch_seal")
 def batch_seal(words: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     """(nb,) int32 digests of the segments that begin at ``starts``: one
     launch a call (``plan``)."""

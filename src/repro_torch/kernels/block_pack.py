@@ -38,9 +38,13 @@ mirrors the two for the CPU tests.
 """
 from __future__ import annotations
 
+import math
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.factory import counted
 from repro_torch.kernels.rollup_digest import check_cuda
 
 _DTYPES = (("tmax", torch.float64), ("gcum", torch.int64),
@@ -70,6 +74,20 @@ def _check(tmax, gcum, times, n_vis, gas_limit: int, ptr0: int) -> None:
         raise ValueError("block_pack: gas_limit must be >= 0")
 
 
+def block_pack_cost(tmax: torch.Tensor, gcum: torch.Tensor,
+                    times: torch.Tensor, n_vis: torch.Tensor,
+                    gas_limit: int, ptr0: int) -> Tuple[int, int]:
+    """(operations, bytes) of packing B blocks over an N-tx mempool: the
+    jump table's N + 1 binary searches and the B time bounds' (a compare
+    and a move a probe); tmax and gcum read, times and n_vis read and the
+    stops written once, 8 bytes an entry.  The walk's chain of B
+    dependent steps is latency, not counted here."""
+    n, b = tmax.numel(), times.numel()
+    probes = math.ceil(math.log2(max(n, 2)))
+    return 2 * ((n + 1) * probes + b * probes), 8 * (2 * n + 3 * b)
+
+
+@counted("block_pack")
 def block_pack_torch(tmax: torch.Tensor, gcum: torch.Tensor,
                      times: torch.Tensor, n_vis: torch.Tensor,
                      gas_limit: int, ptr0: int) -> torch.Tensor:
@@ -126,6 +144,7 @@ def block_pack_walk_torch(tmax: torch.Tensor, gcum: torch.Tensor,
     return torch.tensor(stops, dtype=torch.int64, device=times.device)
 
 
+@counted("block_pack")
 def block_pack(tmax: torch.Tensor, gcum: torch.Tensor, times: torch.Tensor,
                n_vis: torch.Tensor, gas_limit: int,
                ptr0: int) -> torch.Tensor:

@@ -26,14 +26,28 @@ shared with ``rollup_chunk_digests``, which folds every chunk in order.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.factory import counted
 from repro_torch.kernels.rollup_digest import (  # noqa: F401
-    BLOCK_WARPS, MIX_SEED, WARP_CHUNK_MAX, as_words, check_cuda,
-    chunk_warps, form, mix_u32, to_i32, to_u32, xor_reduce)
+    BLOCK_WARPS, MIX_SEED, OPS_PER_WORD, WARP_CHUNK_MAX, as_words,
+    check_cuda, chunk_warps, form, mix_u32, to_i32, to_u32, xor_reduce)
 
 
+def dirty_fold_cost(words: torch.Tensor, chunk_ids: torch.Tensor,
+                    chunk: int) -> Tuple[int, int]:
+    """(operations, bytes) of folding the D named chunks: their words
+    (at most the whole buffer) read once and mixed, the int64 ids read
+    and one word written an id."""
+    d = chunk_ids.numel()
+    folded = min(d * chunk, words.numel())
+    return OPS_PER_WORD * folded, 4 * folded + 12 * d
+
+
+@counted("dirty_fold")
 def dirty_fold_torch(words: torch.Tensor, chunk_ids: torch.Tensor,
                      chunk: int) -> torch.Tensor:
     """Plain version: (D,) int32 digests of chunks ``chunk_ids``."""
@@ -48,6 +62,7 @@ def dirty_fold_torch(words: torch.Tensor, chunk_ids: torch.Tensor,
     return to_i32(MIX_SEED ^ xor_reduce(mix_u32(rows)))
 
 
+@counted("dirty_fold")
 def dirty_fold(words: torch.Tensor, chunk_ids: torch.Tensor,
                chunk: int) -> torch.Tensor:
     """(D,) int32 digests of the chunks named by ``chunk_ids``."""

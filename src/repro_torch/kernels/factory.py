@@ -29,15 +29,46 @@ rounding; so do ``flash_attention`` (the prefill's causal GQA attention,
 ``(xe, w)``) and ``slstm_scan`` (the sLSTM time scan, ``(wx, r_gates, h,
 c, n, m)``).  Every impl returns its result on the input's
 device.
+
+Work: every op registers one pure ``cost(*args, **kw) -> (flops,
+bytes)``, its work at those arguments whatever implements it (``kernel_cost``;
+each kernel module defines its op's next to the kernel).  Every impl is
+wrapped by ``counted``: while a work counter is active
+(``analysis/hlo_cost.counting``), a call records its op's cost once and the
+aten ops inside it are not counted, so a program counts the same whether
+an op resolves to the CUDA kernel or to the plain version.  With no
+counter active the wrapper reads one module global and calls through.
 """
 from __future__ import annotations
 
+import functools
 import os
 from typing import Callable, Dict, Tuple
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
 _DEFAULTS: Dict[str, str] = {}
+_COSTS: Dict[str, Callable] = {}
 _LOADED = False
+#: the innermost active work counter (``analysis/hlo_cost.counting``), or
+#: None; read at every call of a counted impl
+_COUNTER = None
+
+
+def counted(op: str) -> Callable:
+    """Decorate an impl of ``op`` (a kernel wrapper or a plain version):
+    while a work counter is active the call goes through
+    ``counter.kernel(op, fn, args, kw)``, which records ``op``'s
+    registered cost once; otherwise it calls ``fn`` directly.  The check
+    happens at call time, so callers may hold on to the impl."""
+    def wrap(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            counter = _COUNTER
+            if counter is None:
+                return fn(*args, **kw)
+            return counter.kernel(op, fn, args, kw)
+        return call
+    return wrap
 
 
 def register_kernel(op: str, impl: str, fn: Callable, *,
@@ -47,6 +78,24 @@ def register_kernel(op: str, impl: str, fn: Callable, *,
     if default or op not in _DEFAULTS:
         _DEFAULTS[op] = impl
     return fn
+
+
+def register_cost(op: str, cost: Callable) -> Callable:
+    """Register ``cost(*args, **kw) -> (flops, bytes)`` as ``op``'s work."""
+    _COSTS[op] = cost
+    return cost
+
+
+def kernel_cost(op: str) -> Callable:
+    """``op``'s registered ``cost``: its FLOPs (integer operations for the
+    ledger ops) and bytes moved (each input read once, each output written
+    once) at the arguments of a call."""
+    _load()
+    try:
+        return _COSTS[op]
+    except KeyError:
+        raise KeyError(f"unknown kernel op {op!r}; "
+                       f"registered: {sorted(_COSTS)}") from None
 
 
 def _load() -> None:
@@ -64,23 +113,31 @@ def _load() -> None:
     from repro_torch.kernels import shard_lanes as sl
     from repro_torch.kernels import slstm_scan as ss
     from repro_torch.kernels import weighted_agg as wa
-    for op, plain, wrapper in (
-            ("batch_seal", bs.batch_seal_torch, bs.batch_seal),
-            ("shard_seal", sl.shard_seal_torch, sl.shard_seal),
-            ("rollup_digest", rd.rollup_digest_torch, rd.rollup_digest),
+    for op, plain, wrapper, cost in (
+            ("batch_seal", bs.batch_seal_torch, bs.batch_seal,
+             bs.batch_seal_cost),
+            ("shard_seal", sl.shard_seal_torch, sl.shard_seal,
+             sl.shard_seal_cost),
+            ("rollup_digest", rd.rollup_digest_torch, rd.rollup_digest,
+             rd.rollup_digest_cost),
             ("rollup_chunk_digests", rd.rollup_chunk_digests_torch,
-             rd.rollup_chunk_digests),
-            ("dirty_fold", df.dirty_fold_torch, df.dirty_fold),
-            ("weighted_agg", wa.weighted_agg_torch, wa.weighted_agg),
+             rd.rollup_chunk_digests, rd.rollup_chunk_digests_cost),
+            ("dirty_fold", df.dirty_fold_torch, df.dirty_fold,
+             df.dirty_fold_cost),
+            ("weighted_agg", wa.weighted_agg_torch, wa.weighted_agg,
+             wa.weighted_agg_cost),
             ("model_distance", md.model_distance_torch,
-             md.model_distance),
-            ("block_pack", bp.block_pack_torch, bp.block_pack),
+             md.model_distance, md.model_distance_cost),
+            ("block_pack", bp.block_pack_torch, bp.block_pack,
+             bp.block_pack_cost),
             ("flash_attention", fa.flash_attention_torch,
-             fa.flash_attention),
-            ("gmm", gm.gmm_torch, gm.gmm),
-            ("slstm_scan", ss.slstm_scan_torch, ss.slstm_scan)):
+             fa.flash_attention, fa.flash_attention_cost),
+            ("gmm", gm.gmm_torch, gm.gmm, gm.gmm_cost),
+            ("slstm_scan", ss.slstm_scan_torch, ss.slstm_scan,
+             ss.slstm_scan_cost)):
         register_kernel(op, "torch", plain)
         register_kernel(op, "cuda", wrapper, default=True)
+        register_cost(op, cost)
     register_kernel("shard_seal", "mesh", sl.shard_seal_mesh)
 
 

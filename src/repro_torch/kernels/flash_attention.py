@@ -31,9 +31,12 @@ raises.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.factory import counted
 from repro_torch.kernels.rollup_digest import check_cuda
 from repro_torch.kernels.weighted_agg import DTYPE_FLAG
 
@@ -48,6 +51,19 @@ KERNEL_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
               torch.bfloat16: dict(rtol=2 ** -7, atol=1e-4)}
 
 
+def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True) -> Tuple[float, int]:
+    """(FLOPs, bytes) of the attention: the two products, 4·B·H·S²·dh
+    (halved when causal: the tiles past the diagonal are skipped); q, k,
+    v read once and the output written once."""
+    B, S, H, dh = q.shape
+    flops = 4 * B * H * S * S * dh / (2 if causal else 1)
+    n_bytes = q.element_size() * (2 * B * S * H * dh
+                                  + 2 * B * S * k.shape[2] * dh)
+    return flops, n_bytes
+
+
+@counted("flash_attention")
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True) -> torch.Tensor:
     """Plain version (``ref.flash_attention_ref``'s semantics): kv heads
@@ -67,6 +83,7 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype)
 
 
+@counted("flash_attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """The plain version for a CPU tensor, the CUDA kernel for a CUDA

@@ -34,9 +34,12 @@ ROADMAP.md queue 1 item 10(d), and a backward through them raises.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.factory import counted
 from repro_torch.kernels.rollup_digest import check_cuda
 from repro_torch.kernels.weighted_agg import DTYPE_FLAG
 
@@ -58,6 +61,16 @@ def kernel_tol(want: torch.Tensor) -> dict:
     return dict(rtol=tol["rtol"], atol=tol["atol_of_max"] * scale)
 
 
+def gmm_cost(xe: torch.Tensor, w: torch.Tensor) -> Tuple[int, int]:
+    """(FLOPs, bytes) of the grouped product: 2·E·C·d·f; x, w read once
+    and the output written once, in x's dtype."""
+    E, C, d = xe.shape
+    f = w.shape[2]
+    return 2 * E * C * d * f, xe.element_size() * (E * C * d + E * d * f
+                                                   + E * C * f)
+
+
+@counted("gmm")
 def gmm_torch(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version: an einsum in float32, then a cast."""
     _check_shapes(xe, w)
@@ -65,6 +78,7 @@ def gmm_torch(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                         w.to(torch.float32)).to(xe.dtype)
 
 
+@counted("gmm")
 def gmm(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The plain version for a CPU tensor, the CUDA kernel for a CUDA
     tensor (no backward through the kernel)."""

@@ -42,6 +42,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.factory import counted
 from repro_torch.kernels.rollup_digest import check_cuda
 from repro_torch.kernels.weighted_agg import DTYPE_FLAG
 
@@ -55,6 +56,17 @@ BLOCK_BYTES = 32_768                # .. about this much of a row a block ..
 MAX_CLUSTER = 8                     # .. in at most this many blocks
 
 
+def model_distance_cost(local: torch.Tensor,
+                        global_: torch.Tensor) -> Tuple[int, int]:
+    """(FLOPs, bytes) of Eq. 4: a subtract, a multiply and an add a local
+    element; the rows and the global model read once, one float32
+    distance written a row."""
+    rows = local.numel() // max(local.shape[-1], 1)
+    return 3 * local.numel(), ((local.numel() + global_.numel())
+                               * local.element_size() + 4 * rows)
+
+
+@counted("model_distance")
 def model_distance_torch(local: torch.Tensor,
                          global_: torch.Tensor) -> torch.Tensor:
     """Plain version: (n, P), (P,) -> (n,), or (T, n, P), (T, P) -> (T, n),
@@ -149,6 +161,7 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t if t.shape[-1] <= 1 or t.stride(-1) == 1 else t.contiguous()
 
 
+@counted("model_distance")
 def model_distance(local: torch.Tensor,
                    global_: torch.Tensor) -> torch.Tensor:
     """Distances of the rows of ``local`` from ``global_``: (n, P), (P,)

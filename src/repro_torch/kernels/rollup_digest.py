@@ -45,9 +45,12 @@ and any word alignment folds (scalar loads off the 16-byte grid).
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.factory import counted
 
 MIX_MULT = 0x85EBCA6B
 MIX_SEED = 0x9E3779B9
@@ -113,6 +116,19 @@ def check_cuda(*tensors: torch.Tensor) -> torch.device:
 
 # -- rollup_digest: whole buffer -> one word ---------------------------------
 
+#: integer operations to mix and fold one word: shift, xor, multiply,
+#: xor-reduce
+OPS_PER_WORD = 4
+
+
+def rollup_digest_cost(buf: torch.Tensor) -> Tuple[int, int]:
+    """(operations, bytes) of one digest over ``buf``, whatever computes
+    it: every word read once and mixed, one word written."""
+    n = buf.numel()
+    return OPS_PER_WORD * n, 4 * n + 4
+
+
+@counted("rollup_digest")
 def rollup_digest_torch(buf: torch.Tensor) -> torch.Tensor:
     """Plain version: 0-d int32 digest of the whole buffer."""
     mixed = mix_u32(to_u32(as_words(buf)))
@@ -161,6 +177,7 @@ def rollup_digest_mirror(words: torch.Tensor, clusters: int) -> torch.Tensor:
     return to_i32(MIX_SEED ^ xor_reduce(cluster_words))
 
 
+@counted("rollup_digest")
 def rollup_digest(buf: torch.Tensor) -> torch.Tensor:
     """0-d int32 digest of ``buf`` (int32 words, or float32 bitcast): one
     launch (two above ``SPLIT_WORDS``, see ``plan``) a call."""
@@ -206,6 +223,15 @@ def chunk_warps(chunk: int) -> int:
     return 1 if form(chunk) == "warp" else BLOCK_WARPS
 
 
+def rollup_chunk_digests_cost(buf: torch.Tensor, chunk: int = 2048
+                               ) -> Tuple[int, int]:
+    """(operations, bytes) of the chunk digests of ``buf``: every word
+    read once and mixed, one word written a chunk."""
+    n = buf.numel()
+    return OPS_PER_WORD * n, 4 * n + 4 * max(1, -(-n // chunk))
+
+
+@counted("rollup_chunk_digests")
 def rollup_chunk_digests_torch(buf: torch.Tensor,
                                chunk: int = 2048) -> torch.Tensor:
     """Plain version: (ceil(P/chunk),) int32 digests, zero-padded tail; an
@@ -217,6 +243,7 @@ def rollup_chunk_digests_torch(buf: torch.Tensor,
     return to_i32(MIX_SEED ^ xor_reduce(mix_u32(v).reshape(-1, chunk)))
 
 
+@counted("rollup_chunk_digests")
 def rollup_chunk_digests(buf: torch.Tensor, chunk: int = 2048
                          ) -> torch.Tensor:
     """(ceil(P/chunk),) int32 digests, one per ``chunk``-word chunk."""

@@ -44,12 +44,16 @@ written).
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.batch_seal import plan
-from repro_torch.kernels.rollup_digest import (MIX_SEED, check_cuda, mix_u32,
-                                               to_i32, to_u32)
+from repro_torch.kernels.factory import counted
+from repro_torch.kernels.rollup_digest import (MIX_SEED, OPS_PER_WORD,
+                                               check_cuda, mix_u32, to_i32,
+                                               to_u32)
 
 
 def _lanes(n, k: int, device) -> torch.Tensor:
@@ -72,6 +76,19 @@ def _grid_words(words: torch.Tensor) -> torch.Tensor:
         else words.contiguous()
 
 
+def shard_seal_cost(words: torch.Tensor, starts: torch.Tensor, n_seg,
+                    n_words) -> Tuple[int, int]:
+    """(operations, bytes) of one K-lane seal at this run's lanes: each
+    lane's ``n_words`` read once and mixed, 8 bytes of start read a real
+    segment, the (K, B) digests written.  Reads ``n_seg`` and ``n_words``
+    where they lie (one sync on the card)."""
+    K, B = starts.shape[0], starts.shape[1]
+    sum_w = int(torch.as_tensor(n_words).sum())
+    sum_b = int(torch.as_tensor(n_seg).sum())
+    return OPS_PER_WORD * sum_w, 4 * sum_w + 8 * sum_b + 4 * K * B
+
+
+@counted("shard_seal")
 def shard_seal_torch(words: torch.Tensor, starts: torch.Tensor, n_seg,
                      n_words) -> torch.Tensor:
     """Plain version: (K, B) int32 digests by a prefix xor along each
@@ -103,6 +120,7 @@ def shard_seal_torch(words: torch.Tensor, starts: torch.Tensor, n_seg,
     return to_i32(torch.where(real, out, MIX_SEED))
 
 
+@counted("shard_seal")
 def shard_seal(words: torch.Tensor, starts: torch.Tensor, n_seg,
                n_words) -> torch.Tensor:
     """(K, B) int32 digests of every lane's segments: the plain version
@@ -148,6 +166,7 @@ def _launch(words, starts, n_seg, n_words, span: int) -> torch.Tensor:
 shard_seal.launches = 0
 
 
+@counted("shard_seal")
 def shard_seal_mesh(words: torch.Tensor, starts: torch.Tensor, n_seg,
                     n_words, *, mesh=None) -> torch.Tensor:
     """The fold with the lane rows split over a shard mesh

@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.factory import counted
 from repro_torch.kernels.rollup_digest import check_cuda
 from repro_torch.kernels.weighted_agg import DTYPE_FLAG
 
@@ -99,6 +100,26 @@ def _cell_update(rec: torch.Tensor, carry: State, wx_t: torch.Tensor):
     return (h_new, c_new, n_new, m_new), h_new
 
 
+def slstm_scan_cost(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n, m
+                    ) -> Tuple[int, int]:
+    """(FLOPs, bytes) of the scan: the recurrence's h @ r, 8·B·S·d·dh
+    (B x d x 4·dh multiply-adds a step), counted as ``PIECES`` products
+    in bfloat16 (h, float32, carried as that many bfloat16 pieces) and as
+    one in float32; wx and r read once, y written and the float32 state
+    read and written once.  The gates' elementwise work is not counted."""
+    B, S = wx.shape[0], wx.shape[1]
+    nh, dh = r_gates.shape[0], r_gates.shape[1]
+    d = nh * dh
+    flops = 8 * B * S * d * dh
+    if wx.dtype == torch.bfloat16:
+        flops *= PIECES
+    n_bytes = (wx.element_size() * B * S * 4 * d
+               + r_gates.element_size() * nh * dh * 4 * dh
+               + 4 * (B * S * d + 8 * B * d))
+    return flops, n_bytes
+
+
+@counted("slstm_scan")
 def slstm_scan_torch(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n, m):
     """Plain version: a per-step loop of ``slstm_cell``."""
     _check_shapes(wx, r_gates, h, c, n, m)
@@ -172,6 +193,7 @@ def slstm_cluster_torch(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n,
     return y, carry
 
 
+@counted("slstm_scan")
 def slstm_scan(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n, m):
     """The plain version for a CPU tensor, the CUDA kernel for a CUDA
     tensor (no backward through the kernel)."""

@@ -39,9 +39,12 @@ masks the ragged tile instead, so no padded copy is made.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.factory import counted
 from repro_torch.kernels.rollup_digest import check_cuda
 
 #: dtype flags of the launchers in csrc/fl.cu
@@ -51,6 +54,18 @@ DENOM_LANES = 32                    # lanes summing the scores
 TILE_BYTES = 512                    # a row's span in a block (kAggTileBytes)
 
 
+def weighted_agg_cost(stacked: torch.Tensor,
+                      scores: torch.Tensor) -> Tuple[int, int]:
+    """(FLOPs, bytes) of Eq. 1: a multiply and an add a stacked element;
+    the rows and scores read once, one row a task written."""
+    rows = stacked.shape[-2] if stacked.dim() >= 2 else 1
+    out = stacked.numel() // max(rows, 1)
+    return 2 * stacked.numel(), ((stacked.numel() + out)
+                                 * stacked.element_size()
+                                 + scores.element_size() * scores.numel())
+
+
+@counted("weighted_agg")
 def weighted_agg_torch(stacked: torch.Tensor,
                        scores: torch.Tensor) -> torch.Tensor:
     """Plain version: (n, P), (n,) -> (P,), or (T, n, P), (T, n) -> (T, P),
@@ -106,6 +121,7 @@ def weighted_agg_mirror(stacked: torch.Tensor,
     return (total / denom[..., None]).to(stacked.dtype)
 
 
+@counted("weighted_agg")
 def weighted_agg(stacked: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
     """Eq. 1 average of the rows of ``stacked`` weighted by ``scores``:
     (n, P), (n,) -> (P,), or T tasks at once, (T, n, P), (T, n) -> (T, P).

@@ -1117,3 +1117,65 @@ def test_node_service_card_matches_cpu(cuda, shards):
     assert serial.state_root() == card["root"]
     assert serial.chain.total_gas == card["gas"]
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True], ids=["stepped", "fused"])
+def test_sanitized_node_run_on_card(cuda, fused, monkeypatch):
+    """REPRO_SANITIZE=1 through build_stack on the card, the node path
+    stepped and through the fused loop: silent with checks made, the gas
+    log, blocks, digests and WindowSettled roots equal to the unsanitized
+    run, and the R001 refold launching rollup_chunk_digests on the card
+    at every WindowSettled; then one injected R001 violation (a column
+    write on the card that skips mark_dirty) raises."""
+    from repro_torch.analysis.sanitize import ENV_FLAG, SanitizeViolation
+    from repro_torch.api import NodeClient, NodeSpec
+    from repro_torch.core.fused import FusedWindowLoop
+    from repro_torch.core.workloads import make_workload
+    wl = make_workload("mixed", 2000.0, duration=5.0, seed=3,
+                       n_senders=4000, device=cuda)
+    times = wl.txs.submit_time.cpu().numpy()
+
+    def run(flag):
+        monkeypatch.setenv(ENV_FLAG, flag)
+        rd.rollup_chunk_digests.launches = 0
+        c = NodeClient.from_spec(NodeSpec(), device=cuda)
+        loop = FusedWindowLoop(c.chain, c.target) if fused else None
+        for w in range(5):
+            lo, hi = (int(i) for i in np.searchsorted(times, [w, w + 1.0]))
+            batch = wl.txs.select(slice(lo, hi))
+            if fused:
+                loop.submit(c.target, batch)
+                loop.seal()
+                loop.pump(w + 1.0)
+                loop.run_until(w + 1.0)
+            else:
+                c.submit_arrays(batch)
+                c.seal()
+                c.run_until(w + 1.0)
+        (loop or c).flush()
+        (loop or c).run_until(60.0)
+        if fused:
+            loop.execute()
+        torch.cuda.synchronize()
+        ru = c.target
+        return c, rd.rollup_chunk_digests.launches, {
+            "gas_log": ru.gas_log, "digests": ru.batch_digests,
+            "blocks": [(b.start, b.stop, b.block_hash)
+                       for b in c.chain.blocks],
+            "settled": [e.state_root for e in c.events(
+                kinds={"window_settled"})],
+            "root": c.state_root()}
+
+    _, plain_launches, plain = run("0")
+    c, launches, sanitized = run("1")
+    san = c.chain.events._sanitizer
+    assert san.n_checks > 0
+    assert sanitized == plain
+    assert launches - plain_launches >= len(sanitized["settled"]) > 0
+    assert c.target.state_arrays.balances.device.type == "cuda"
+    c.target.state_arrays.balances[0] += 7.0
+    c.submit("bgPing", "s0")
+    with pytest.raises(SanitizeViolation) as exc:
+        c.seal()
+    assert exc.value.rule == "R001"
