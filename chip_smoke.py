@@ -5,7 +5,8 @@ FL protocol run (the default Scheduler: fused loop + cross-task megastep,
 and the stepped per-task path), the token-LM serving paths (prefill and
 decode of yi-6b, moonshot-v1-16b-a3b and xlstm-1.3b at full width), the
 object ledger with its agent path (the default ``AutoDFL()``), the
-sharded rollup fabric, and the admission-controlled node service.
+sharded rollup fabric, the admission-controlled node service, and token-LM
+training (a qwen2-0.5b step at full width and the rollup FL round).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -260,6 +261,30 @@ Phases, each printing its result on a line of its own:
                timed arguments (cost_bound: bytes over 3.35 TB/s,
                operations over 989 TFLOP/s bf16) and equal to PERF.md
                section 6's Bound column, the hand code's (HAND_BOUNDS).
+ 19. train   — (a) flash_attention_bwd (csrc/attn_bwd.cu) against its
+               plain version on the forward kernel's output and logsumexp
+               (flash_attention.BWD_TOL): qwen2-0.5b's layer at the step
+               below (4, 4,096, 14, 2, 64) and yi-6b's head (1, 4,096, 32,
+               4, 128) in bfloat16, float32 at dh 64, 80 and 40, S of 1,
+               63, 65 and 4,095, causal and not, offset views; every case
+               launched twice, bit-equal; timed at both shapes by CUDA
+               events and the profiler's device time beside its bound, the
+               plain version and SDPA's backward; (b) one build_train_step
+               step of qwen2-0.5b at full width and depth (adamw, remat
+               full, 4 x 4,096 tokens): launch counts from 0 (48
+               flash_attention, forward and recompute; 24
+               flash_attention_bwd), the loss near ln(vocab), two steps
+               equal, loss, gradients and new weights held to the same step
+               with the plain versions forced; step seconds, tokens/s,
+               peak memory, the attention's device share; (c) the rollup
+               round (fl/round.py) at full width, T 4, H 2 on 2 x 1,024
+               tokens: one weighted_agg and one model_distance launch a
+               round on the (4, 630M) stack, equal scores give the average,
+               a score of 0 drops a trainer, distances and digest
+               recomputed on the host; the reduced round card == CPU; (d)
+               ``python -m repro_torch.launch.train --arch qwen2-0.5b
+               --rounds 2 --seq-len 1024`` as a process, and the reduced
+               launcher resumed from a checkpoint == uninterrupted.
 
 Then one JSON line lists every kernel with its launches on its path, the
 card's name and power limit follow on a line of their own, and the last
@@ -4253,6 +4278,447 @@ def analysis_main(dev, smi: str, rows) -> None:
     log(f"analysis: phase 18 in {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 19: training ----------------------------------------------------------
+
+# qwen2-0.5b's attention at phase 19's step (batch 4 of 4,096 tokens: 14
+# heads on 2 kv heads, dh 64) and yi-6b's head at one 4,096-token row
+QWEN_TRAIN_LAYER = dict(B=4, S=4096, H=14, Hkv=2, dh=64)
+YI_TRAIN_LAYER = dict(B=1, S=4096, H=32, Hkv=4, dh=128)
+# phase 19's cut of train_4k (global batch 256 x 4,096): one card holds
+# the weights, the adamw moments and one step's float32 logits and their
+# gradient (4 x 4,096 x 151,936 x 4 bytes, about 10 GB each) at batch 4
+TRAIN_STEP = dict(batch=4, seq=4096)
+FL_FULL = dict(trainers=4, local_steps=2, batch=2, seq=1024)
+ROUND_AGREE = dict(trainers=3, local_steps=2, batch=2, seq=12)
+# the train step held against the same step with the plain versions
+# forced (bfloat16 weights, float32 attention both ways): the loss within
+# 2e-3 of it (the attention outputs round to bfloat16 at other points);
+# each gradient leaf within 5e-2 of its norm (L2); each new weight within
+# one bfloat16 step of the larger of the two plus 2 lr (adamw's first step
+# moves a weight by lr times the sign of its gradient, which a gradient
+# within noise of 0 may flip, and each side rounds to bfloat16)
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_GRAD_REL = 5e-2
+
+
+def sdpa_bwd(q, k, v, do):
+    """SDPA's backward on one forward of it (the yardstick; the port
+    never calls it): a function that computes dq, dk, dv."""
+    qt, kt, vt = (t.detach().requires_grad_() for t in (q, k, v))
+    out = sdpa(qt, kt, vt)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), do,
+                                       retain_graph=True)
+
+
+def check_attention_bwd(dev) -> dict:
+    """flash_attention_bwd against its plain version on the card
+    (flash_attention.BWD_TOL) on the forward kernel's output and
+    logsumexp: qwen2-0.5b's layer at phase 19's step, yi-6b's head, float32
+    (the CUDA-core forward) at dh 64, 80 and 40, S of 1, 63, 65 and 4,095,
+    causal and not, and offset views; every case launched twice and
+    bit-equal.  Timed at qwen2-0.5b's and yi-6b's shapes by CUDA events and
+    by the profiler's device time beside the bound, the plain version and
+    SDPA's backward."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator().manual_seed(19)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def inputs(B, S, H, Hkv, dh, dtype):
+        return [torch.randn(B, S, n, dh, generator=g).to(dev, dtype)
+                for n in (H, Hkv, Hkv, H)]
+
+    def run(q, k, v, do, causal, what):
+        o, lse = fa._launch(q, k, v, causal, lse=True)
+        want = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, causal)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {what}: two launches "
+                                 f"differ")
+        errs = [float((a.float() - w.float()).abs().max())
+                for a, w in zip(got, want)]
+        if not fa.bwd_close(got, want):
+            raise AssertionError(f"flash_attention_bwd {what}: dq, dk, dv "
+                                 f"off by {errs}, tolerance "
+                                 f"{fa.BWD_TOL[q.dtype]}")
+        return max(errs)
+
+    QL, YL = QWEN_TRAIN_LAYER, YI_TRAIN_LAYER
+    grid = [(tuple(QL.values()), bf16), (tuple(YL.values()), bf16),
+            ((2, 1024, 8, 2, 64), f32), ((1, 512, 4, 1, 80), f32),
+            ((2, 300, 6, 3, 40), f32)]
+    grid += [((1, S, 4, 2, 64), dt) for S in (1, 63, 65, 4095)
+             for dt in (f32, bf16)]
+    err, n = {}, 0
+    for shape, dtype in grid:
+        q, k, v, do = inputs(*shape, dtype)
+        for causal in (True, False):
+            e = run(q, k, v, do, causal, f"at {shape} {dtype} causal "
+                    f"{causal}")
+            err[f"{list(shape)} {str(dtype)[6:]} {causal}"] = e
+            n += 1
+        del q, k, v, do
+    # offset views: every input 2 elements past a 16-byte boundary
+    q, k, v, do = inputs(2, 65, 14, 2, 64, bf16)
+    views = []
+    for t in (q, k, v, do):
+        buf = torch.zeros(t.numel() + 2, dtype=t.dtype, device=dev)
+        views.append(buf[2:].view_as(t).copy_(t))
+    o, lse = fa._launch(q, k, v, True, lse=True)
+    ov = torch.zeros(o.numel() + 2, dtype=o.dtype, device=dev)[2:].view_as(
+        o).copy_(o)
+    base = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    off = fa.flash_attention_bwd(views[0], views[1], views[2], ov, lse,
+                                 views[3], True)
+    if not all(torch.equal(a, b) for a, b in zip(base, off)):
+        raise AssertionError("flash_attention_bwd on offset views differs")
+    torch.cuda.synchronize()
+    log(f"attention bwd: flash_attention_bwd within tolerance of plain and "
+        f"bit-equal across two launches on {n} inputs and offset views "
+        f"(BWD_TOL {json.dumps({str(k)[6:]: v for k, v in fa.BWD_TOL.items()})}); "
+        f"largest |kernel - plain| {json.dumps(err)}")
+
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
+    rows = []
+    for L in (QL, YL):
+        q, k, v, do = inputs(*L.values(), bf16)
+        o, lse = fa._launch(q, k, v, True, lse=True)
+        kernel = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+        cb = cost_bound("flash_attention_bwd", q, k, v, o, lse, do, True)
+        row = {"name": "flash_attention_bwd",
+               "max_abs_err": err[f"{list(L.values())} bfloat16 True"],
+               "ms": timed_ms(kernel, 3, flush),
+               "device_ms": device_ms(kernel, "attn_bwd_", 3, flush,
+                                      per_call=3),
+               "plain_ms": timed_ms(lambda: fa.flash_attention_bwd_torch(
+                   q, k, v, o, lse, do, True), 2, flush),
+               "library_ms": timed_ms(sdpa_bwd(q, k, v, do), 3, flush),
+               **cb, "shape": list(L.values())}
+        log(f"kernel flash_attention_bwd at {row['shape']} (bfloat16, "
+            f"causal): {row['ms']:.6f} ms, device {row['device_ms']:.6f} ms "
+            f"(bound {row['bound_ms']:.6f} ms, {row['bound_by']}), plain "
+            f"{row['plain_ms']:.6f} ms, SDPA backward "
+            f"{row['library_ms']:.6f} ms")
+        rows.append(row)
+        del q, k, v, do, o, lse
+    rows[0]["yi"] = {k: rows[1][k] for k in ("ms", "device_ms", "plain_ms",
+                                             "library_ms", "bound_ms",
+                                             "shape")}
+    return rows[0]
+
+
+def token_batch(vocab: int, shape, seed: int, dev) -> dict:
+    toks = np.random.default_rng(seed).integers(0, vocab,
+                                                tuple(shape[:-1])
+                                                + (shape[-1] + 1,))
+    return {"tokens": torch.as_tensor(toks[..., :-1], dtype=torch.int32,
+                                      device=dev),
+            "labels": torch.as_tensor(toks[..., 1:], dtype=torch.int32,
+                                      device=dev)}
+
+
+def train_step_main(dev, smi: str) -> dict:
+    """(b) One build_train_step step of qwen2-0.5b at full width and
+    depth (adamw, remat full) on 4 x 4,096 tokens: launch counts from 0
+    (48 forward flash_attention launches, forward and recompute; 24
+    flash_attention_bwd), the loss near ln(vocab), held with its gradients
+    and new weights against the same step with the plain versions forced;
+    step seconds, tokens/s, peak memory and the attention's share of the
+    device time (torch.profiler)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import build_train_step, value_and_grad
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import make_optimizer, spec_for_config
+    cfg = get_config("qwen2-0.5b")
+    model = build_model(cfg, dev)
+    params = model.train_params(model.init_params(0))
+    n_params = sum(p.numel() for p in params.values())
+    spec = spec_for_config(cfg)
+    opt = make_optimizer(spec, groups=model.param_groups(params))
+    state = opt.init(params)
+    B, S = TRAIN_STEP["batch"], TRAIN_STEP["seq"]
+    batch = token_batch(cfg.vocab_size, (B, S), 19, dev)
+    step = build_train_step(model, opt)
+
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new_p, _, met = step(params, state, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "flash_attention_bwd": fa.flash_attention_bwd.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # remat recomputes each layer's forward in the backward
+    want = {"flash_attention": cfg.n_layers
+            * (1 if cfg.sharding.remat == "none" else 2),
+            "flash_attention_bwd": cfg.n_layers}
+    if launches != want:
+        raise AssertionError(f"train step launched {launches}, not {want}")
+    loss = float(met["loss"])
+    ln_v = float(np.log(cfg.vocab_size))
+    if not np.isfinite(loss) or abs(loss - ln_v) > 0.5:
+        raise AssertionError(f"train step loss {loss}, ln(vocab) {ln_v}")
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if not torch.equal(again[2]["loss"], met["loss"]) or not all(
+            torch.equal(again[0][k], new_p[k]) for k in new_p):
+        raise AssertionError("two train steps on one input differ")
+    del again
+    prof = profile_share(lambda: step(params, state, batch), kernels=(
+        ("attention_fwd", "flash_attention_"), ("attention_bwd", "attn_bwd_")))
+
+    with kernel_impl("torch"):
+        plain_p, _, plain_met = step(params, state, batch)
+    plain_loss = float(plain_met["loss"])
+    if abs(loss - plain_loss) > TRAIN_LOSS_RTOL * abs(plain_loss):
+        raise AssertionError(f"train step loss {loss} against plain "
+                             f"{plain_loss}")
+    beyond, worst = 0, 0.0
+    for k in new_p:
+        a, b = new_p[k].float(), plain_p[k].float()
+        d = (a - b).abs()
+        if bool((d > 2 ** -7 * torch.maximum(a.abs(), b.abs())
+                 + 2 * spec.lr).any()):
+            raise AssertionError(f"train step weight {k} off the plain "
+                                 f"step by {float(d.max())}")
+        beyond += int((d > 2 ** -8 * b.abs()).sum())
+        worst = max(worst, float(d.max()))
+    del plain_p, new_p
+    lk, gk = value_and_grad(model, params, batch)
+    with kernel_impl("torch"):
+        lp, gp = value_and_grad(model, params, batch)
+    rel = {k: float((gk[k].float() - gp[k].float()).norm()
+                    / gp[k].float().norm().clamp_min(1e-30)) for k in gk}
+    top = max(rel, key=rel.get)
+    if rel[top] > TRAIN_GRAD_REL:
+        raise AssertionError(f"train step gradient {top} off plain by "
+                             f"{rel[top]} of its norm")
+    if not torch.equal(lk, met["loss"]):
+        raise AssertionError("value_and_grad's loss is not the step's")
+    del gk, gp
+    step_s = sum(walls) / len(walls)
+    out = {"arch": cfg.name, "params": n_params, "tokens": B * S,
+           "loss": loss, "ln_vocab": ln_v, "plain_loss": plain_loss,
+           "first_step_s": first_s, "step_s": walls,
+           "tokens_per_s": B * S / step_s, "peak_gib": peak,
+           "launches": launches, "weights_beyond_one_bf16_step": beyond,
+           "weights": n_params, "largest_weight_gap": worst,
+           "largest_grad_rel": {top: rel[top]}, "profile": prof}
+    log(f"train: qwen2-0.5b step at {B} x {S} on {smi}: {json.dumps(out)}")
+    return launches
+
+
+def round_agree(dev) -> None:
+    """The reduced qwen2-0.5b round (float32, T 3, H 2, sgdm at lr 0.05)
+    on the card against the CPU from one set of weights, within
+    tests/test_torch_round.py's tolerance: weights rtol 1e-4 / atol 1e-5,
+    distances rtol 1e-4, loss rtol 1e-5."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.fl.round import FLRoundSpec, build_fl_round, replicate
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import OptimizerSpec, make_optimizer
+    cfg = dataclasses.replace(reduced_config(get_config("qwen2-0.5b")),
+                              dtype="float32")
+    A = ROUND_AGREE
+    T = A["trainers"]
+    host = build_model(cfg, "cpu").init_params(0)
+    outs = []
+    for where in (dev, torch.device("cpu")):
+        model = build_model(cfg, where)
+        params = {k: v.to(where) for k, v in
+                  model.train_params(host).items()}
+        opt = make_optimizer(OptimizerSpec(name="sgdm", lr=0.05))
+        fl_round = build_fl_round(model, opt, FLRoundSpec(
+            T, A["local_steps"], A["batch"]))
+        out_T, _, m = fl_round(replicate(params, T), replicate(
+            opt.init(params), T), torch.tensor(
+            [1.0, 0.5, 0.25], device=where), token_batch(
+                cfg.vocab_size, (T, A["local_steps"], A["batch"], A["seq"]),
+                7, where))
+        outs.append(({k: v[0].cpu() for k, v in out_T.items()},
+                     {k: v.cpu() for k, v in m.items()}))
+    (cw, cm), (hw, hm) = outs
+    for k in hw:
+        torch.testing.assert_close(cw[k], hw[k], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(cm["distances"], hm["distances"], rtol=1e-4,
+                               atol=0.0)
+    torch.testing.assert_close(cm["loss"], hm["loss"], rtol=1e-5, atol=0.0)
+    log(f"round agree: reduced qwen2-0.5b round T {T} card == CPU (weights "
+        f"rtol 1e-4 atol 1e-5; distances {cm['distances'].tolist()} vs "
+        f"{hm['distances'].tolist()}; loss {float(cm['loss'])} vs "
+        f"{float(hm['loss'])})")
+
+
+def fl_round_main(dev, smi: str) -> None:
+    """(c) build_fl_round on qwen2-0.5b at full width and depth, T = 4
+    trainers, H = 2 local adamw steps on 2 x 1,024 tokens: one
+    weighted_agg and one model_distance launch a round (on the (4,
+    630,167,424) bfloat16 stack, 2.52e9 elements); equal scores give the
+    trainers' average (plain Eq. 1 on the captured stack, within one
+    bfloat16 step); the distances (within 1e-3, the kernel's float32 sums
+    of 3.1e5 terms a thread against float64) and the digest (bit for bit)
+    recomputed on the CPU from the stack and the merged weights copied to
+    the host; a second round with a
+    trainer at score 0, whose row drops out of the merge."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.fl.round import (FLRoundSpec, build_fl_round,
+                                      digest_tree, replicate)
+    from repro_torch.kernels import factory
+    from repro_torch.kernels import model_distance as md
+    from repro_torch.kernels import weighted_agg as wa
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import make_optimizer, spec_for_config
+    cfg = get_config("qwen2-0.5b")
+    model = build_model(cfg, dev)
+    params = model.train_params(model.init_params(0))
+    opt = make_optimizer(spec_for_config(cfg),
+                         groups=model.param_groups(params))
+    F = FL_FULL
+    T, H = F["trainers"], F["local_steps"]
+    fl_round = build_fl_round(model, opt, FLRoundSpec(T, H, F["batch"]))
+    captured = []
+    impl = factory.get_kernel("weighted_agg", "cuda")
+
+    def capture(stacked, scores):
+        out = impl(stacked, scores)
+        captured.append((stacked, scores, out))
+        return out
+    factory._REGISTRY["weighted_agg"]["cuda"] = capture
+    p_T, o_T = replicate(params, T), replicate(opt.init(params), T)
+    del params
+    report = {}
+    try:
+        for rnd, scores in enumerate(([1.0] * T, [1.0] * (T - 1) + [0.0])):
+            batches = token_batch(cfg.vocab_size,
+                                  (T, H, F["batch"], F["seq"]), 20 + rnd, dev)
+            wa.weighted_agg.launches = md.model_distance.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            p_T, o_T, m = fl_round(p_T, o_T, torch.tensor(scores,
+                                                           device=dev),
+                                   batches)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_launch = {"weighted_agg": wa.weighted_agg.launches,
+                        "model_distance": md.model_distance.launches}
+            if n_launch != {"weighted_agg": 1, "model_distance": 1}:
+                raise AssertionError(f"round {rnd} launched {n_launch}")
+            stack, s, merged_flat = captured.pop()
+            live = [t for t in range(T) if scores[t] > 0]
+            want = wa.weighted_agg_torch(stack[live], s[live])
+            gap = float((merged_flat.float() - want.float()).abs().max())
+            if not bool(((merged_flat.float() - want.float()).abs()
+                         <= 2 ** -7 * want.float().abs() + 1e-6).all()):
+                raise AssertionError(f"round {rnd}: the merge is not the "
+                                     f"average of trainers {live} ({gap})")
+            del want
+            # the distances and the digest from host copies
+            merged = {k: v[0].cpu() for k, v in p_T.items()}
+            host_digest = int(digest_tree(merged))
+            if host_digest != int(m["digest"]):
+                raise AssertionError(f"round {rnd} digest "
+                                     f"{int(m['digest']):#x} != host "
+                                     f"{host_digest:#x}")
+            g = torch.cat([merged[k].reshape(-1) for k in sorted(merged)])
+            rows = stack.cpu()
+            del stack
+            dist = []
+            for t in range(T):
+                acc = 0.0
+                for c in range(0, g.numel(), 1 << 26):
+                    d = rows[t, c:c + (1 << 26)].float() - \
+                        g[c:c + (1 << 26)].float()
+                    acc += float(torch.sum(d * d, dtype=torch.float64))
+                dist.append(acc ** 0.5)
+            del rows
+            # each of model_distance's threads sums some 3.1e5 squared
+            # differences in float32 (the cluster form's 78.8M-element
+            # span over 256 threads): up to 1e-3 of the float64 sum
+            torch.testing.assert_close(m["distances"].cpu().double(),
+                                       torch.tensor(dist, dtype=torch.float64),
+                                       rtol=1e-3, atol=0.0)
+            report[f"round {rnd}"] = {
+                "scores": scores, "loss": float(m["loss"]),
+                "digest": f"{int(m['digest']):#010x}",
+                "distances": m["distances"].tolist(), "host_distances": dist,
+                "merge_gap": gap, "wall_s": wall,
+                "tokens_per_s": T * H * F["batch"] * F["seq"] / wall,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches": n_launch}
+    finally:
+        factory._REGISTRY["weighted_agg"]["cuda"] = impl
+    log(f"fl round: qwen2-0.5b at full width, T {T}, H {H}, "
+        f"{F['batch']} x {F['seq']} tokens a step, on {smi}: "
+        f"{json.dumps(report)}")
+
+
+def launcher_main(smi: str) -> None:
+    """(d) ``python -m repro_torch.launch.train --arch qwen2-0.5b
+    --rounds 2 --seq-len 1024`` as a process on the card, its round lines;
+    then the reduced launcher in this process: --rounds 2 with a
+    checkpoint directory, continued to 4 with --resume, against an
+    uninterrupted --rounds 4: rounds 2-3 print equal losses and digests."""
+    import shutil
+    from repro_torch.launch import train
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen2-0.5b", "--rounds", "2", "--seq-len", "1024"],
+        capture_output=True, text=True, timeout=900, env=env, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"launch.train exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("round ")]
+    if len(lines) != 2 or "training complete." not in out.stdout:
+        raise AssertionError(f"launch.train printed {out.stdout[-2000:]}")
+    log(f"launcher: qwen2-0.5b, 2 rounds of T 1, H 2, 2 x 1,024 tokens, as "
+        f"a process on {smi} ({wall:.1f} s with start-up): {lines}")
+    ck = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    try:
+        full = train.main(["--reduced", "--rounds", "4"])
+        train.main(["--reduced", "--rounds", "2", "--ckpt-dir", str(ck)])
+        rest = train.main(["--reduced", "--rounds", "4", "--ckpt-dir",
+                           str(ck), "--resume"])
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    key = [(ln["round"], ln["loss"], ln["digest"]) for ln in rest]
+    if key != [(ln["round"], ln["loss"], ln["digest"]) for ln in full[2:]]:
+        raise AssertionError(f"resumed rounds {key} differ from the "
+                             f"uninterrupted run's {full[2:]}")
+    log(f"launcher: reduced, resumed at round 2 == uninterrupted: {key}")
+
+
+def train_main(dev, smi: str) -> tuple:
+    """Phase 19: (a) the backward kernel, (b) one train step at full size,
+    (c) the FL round at full width and the reduced round card == CPU, (d)
+    the launcher.  Returns the backward kernel's row and (b)'s launches."""
+    t0 = time.perf_counter()
+    row = check_attention_bwd(dev)
+    torch.cuda.empty_cache()
+    launches = train_step_main(dev, smi)
+    torch.cuda.empty_cache()
+    fl_round_main(dev, smi)
+    torch.cuda.empty_cache()
+    round_agree(dev)
+    launcher_main(smi)
+    log(f"train: phase 19 in {time.perf_counter() - t0:.1f} s")
+    return row, launches
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -4432,6 +4898,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     analysis_main(dev, smi, source_rows)
 
+    # 19. training: (a) flash_attention_bwd against its plain version,
+    # timed; (b) one qwen2-0.5b train step at full width and depth (launch
+    # counts from 0, added to the kernels line); (c) the rollup round at
+    # full width, T 4, and the reduced round card == CPU; (d) the launcher
+    torch.cuda.empty_cache()
+    bwd_row, train_launches = train_main(dev, smi)
+    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    source_rows.append(bwd_row)
+
     replaces = {"rollup_digest": "src/repro/kernels/rollup_digest.py:16",
                 "rollup_chunk_digests":
                     "src/repro/kernels/rollup_digest.py:76",
@@ -4441,6 +4916,10 @@ def main() -> int:
                 "model_distance": "src/repro/kernels/model_distance.py:18",
                 "block_pack": "src/repro/kernels/block_pack.py:179",
                 "flash_attention": "src/repro/kernels/flash_attention.py:25",
+                # no Pallas backward: the gradient of the kernel above,
+                # which the JAX package derives from jnp attention
+                "flash_attention_bwd":
+                    "src/repro/kernels/flash_attention.py:25",
                 "gmm": "src/repro/kernels/gmm.py:18",
                 "slstm_scan": "src/repro/kernels/slstm_scan.py:25",
                 # no Pallas form: _lane_fold, the jnp program of
@@ -4448,6 +4927,7 @@ def main() -> int:
                 "shard_seal": "src/repro/kernels/shard_lanes.py:79"}
     sources = {"weighted_agg": "fl.cu", "model_distance": "fl.cu",
                "block_pack": "pack.cu", "flash_attention": "attn.cu",
+               "flash_attention_bwd": "attn_bwd.cu",
                "gmm": "moe.cu", "slstm_scan": "slstm.cu"}
     kernels = []
     for row in source_rows:
@@ -4475,6 +4955,7 @@ def main() -> int:
         f"{json.dumps(attn_row['long'])}; at moonshot's layer: "
         f"{json.dumps(attn_row['moonshot'])}")
     log(f"gmm at moonshot's other products: {json.dumps(gmm_rows[1:])}")
+    log(f"flash_attention_bwd at yi-6b's head: {json.dumps(bwd_row['yi'])}")
 
     log(f"device_ms retakes: {json.dumps(RETAKES)}")
     log(json.dumps({"kernels": kernels}))

@@ -59,9 +59,13 @@ _SIGNATURES = {
     # ptr0, wide table, table, stops, stream)
     "pack_block_pack": (_D, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P, _P, _P),
     # csrc/attn.cu: (device, q, k, v, B, S, H, Hkv, dh, scale, causal,
-    # dtype flag, form, out, stream)
+    # dtype flag, form, out, lse or null, stream)
     "attn_flash_attention": (_D, _P, _P, _P, _I, _I, _I, _I, _I, _R, _F, _F,
-                             _F, _P, _P),
+                             _F, _P, _P, _P),
+    # csrc/attn_bwd.cu: (device, q, k, v, o, dO, lse, B, S, H, Hkv, dh,
+    # scale, causal, dtype flag, delta scratch, dq, dk, dv, stream)
+    "attn_flash_attention_bwd": (_D, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _R, _F, _F, _P, _P, _P, _P, _P),
     # csrc/moe.cu: (device, x, w, E, C, d, f, dtype flag, form, partial
     # sums, out, stream)
     "moe_gmm": (_D, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P),

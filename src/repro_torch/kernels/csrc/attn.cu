@@ -54,66 +54,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attn_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int kRows = 64;              // query rows per block
-constexpr int kKeys = 64;              // keys per kv tile
-constexpr int kThreads = 256;          // 16 x 16 thread groups
-constexpr int kPRow = kKeys + 4;       // padded row of the probability tile
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ void unpack(const uint4& u, float* out, float) {
-  const float* x = reinterpret_cast<const float*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) out[i] = x[i];
-}
-__device__ __forceinline__ void unpack(const uint4& u, float* out,
-                                       __nv_bfloat16) {
-  const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(x[i]);
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);          // round to nearest even, as torch does
-}
-
-// Stage up to kRows rows of dh values (16-byte vectors; row r at
-// src + r * stride) into shared memory as float32, zeros past `rows` and
-// past dh.  d-major: dst[d * kRows + r], neighbouring threads on
-// neighbouring rows; row-major: dst[r * DHP + d].
-template <typename T, int DHP, bool kDMajor>
-__device__ __forceinline__ void stage(const T* __restrict__ src,
-                                      int64_t stride, int rows, int dh,
-                                      float* __restrict__ dst) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecs = DHP / kVec;
-  for (int it = threadIdx.x; it < kRows * kVecs; it += kThreads) {
-    const int r = kDMajor ? it % kRows : it / kVecs;
-    const int d0 = (kDMajor ? it / kRows : it % kVecs) * kVec;
-    float x[kVec];
-    if (r < rows && d0 < dh) {
-      unpack(__ldg(reinterpret_cast<const uint4*>(src + r * stride + d0)),
-             x, T());
-    } else {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) x[i] = 0.f;
-    }
-    if constexpr (kDMajor) {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) dst[(d0 + i) * kRows + r] = x[i];
-    } else {
-#pragma unroll
-      for (int i = 0; i < kVec; i += 4) {
-        *reinterpret_cast<float4*>(dst + r * DHP + d0 + i) =
-            make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
-      }
-    }
-  }
-}
 
 // Floats of shared memory: q (d-major), k (d-major; later the
 // probabilities), v (row-major).
@@ -140,8 +84,9 @@ __device__ __forceinline__ float group_sum(float x) {
 template <typename T, int DHP>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S,
-                       int H, int Hkv, int dh, float scale, int causal) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int S, int H, int Hkv, int dh,
+                       float scale, int causal) {
   constexpr int kCols = DHP / 16;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                    // [DHP][kRows]
@@ -272,6 +217,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= S) continue;
+    if (lse != nullptr && tx == 0) {   // the row's logsumexp, for autograd
+      lse[(static_cast<int64_t>(b) * H + h) * S + row] = m[i] + logf(l[i]);
+    }
     const float denom = fmaxf(l[i], 1e-30f);
     T* orow = o + (static_cast<int64_t>(b) * S + row) * q_stride
               + static_cast<int64_t>(h) * dh;
@@ -284,9 +232,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DHP>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
-           int64_t S, int64_t H, int64_t Hkv, int64_t dh, float scale,
-           int causal, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int64_t B, int64_t S, int64_t H, int64_t Hkv, int64_t dh,
+           float scale, int causal, cudaStream_t st) {
   constexpr size_t smem = smem_bytes<DHP>();
   if (cudaError_t e = cudaFuncSetAttribute(
           flash_attention_kernel<T, DHP>,
@@ -298,7 +246,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
                   static_cast<unsigned>(B * H));
   flash_attention_kernel<T, DHP><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<int>(S),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, static_cast<int>(S),
       static_cast<int>(H), static_cast<int>(Hkv), static_cast<int>(dh),
       scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -310,6 +258,7 @@ constexpr int kFN = 64;                // keys a kv tile
 constexpr int kFStages = 4;
 constexpr int kFThreads = 384;         // 2 consumer warpgroups + producer
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DH>
 constexpr size_t wgmma_smem() {
@@ -341,8 +290,9 @@ __global__ void __launch_bounds__(kFThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap kmap,
                              const __grid_constant__ CUtensorMap vmap,
-                             __nv_bfloat16* __restrict__ o, int S, int H,
-                             int Hkv, float scale_log2, int causal) {
+                             __nv_bfloat16* __restrict__ o,
+                             float* __restrict__ lse, int S, int H, int Hkv,
+                             float scale_log2, int causal) {
   constexpr int kBoxes = DH / 64;      // 64-value boxes across a head
   constexpr int kQBox = kFM * 128;     // bytes of a box of Q
   constexpr int kKBox = kFN * 128;     // bytes of a box of K or V
@@ -546,6 +496,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const float inv = 1.f / fmaxf(lsum, 1e-30f);
     const int row = r0 + 8 * hr;
     if (row >= S) continue;
+    if (lse != nullptr && t % 4 == 0) {  // the row's logsumexp, natural log
+      lse[(static_cast<int64_t>(b) * H + h) * S + row] =
+          (m[hr] + log2f(lsum)) * kLn2;
+    }
     __nv_bfloat16* orow =
         o + ((static_cast<int64_t>(b) * S + row) * H + h) * DH + cq;
 #pragma unroll
@@ -559,8 +513,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <int DH>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 int64_t B, int64_t S, int64_t H, int64_t Hkv, float scale,
-                 int causal, cudaStream_t st) {
+                 float* lse, int64_t B, int64_t S, int64_t H, int64_t Hkv,
+                 float scale, int causal, cudaStream_t st) {
   CUtensorMap qmap, kmap, vmap;
   const uint64_t e = 2;                // bytes of a bfloat16
   const uint64_t qdims[4] = {DH, static_cast<uint64_t>(H),
@@ -591,22 +545,24 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(static_cast<unsigned>((S + kFM - 1) / kFM),
                   static_cast<unsigned>(B * H));
   flash_attention_wgmma_kernel<DH><<<grid, kFThreads, smem, st>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), static_cast<int>(S),
-      static_cast<int>(H), static_cast<int>(Hkv), scale * kLog2e, causal);
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse,
+      static_cast<int>(S), static_cast<int>(H), static_cast<int>(Hkv),
+      scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o,
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
              int64_t B, int64_t S, int64_t H, int64_t Hkv, int64_t dh,
              float scale, int causal, cudaStream_t st) {
-  if (dh <= 32) return launch<T, 32>(q, k, v, o, B, S, H, Hkv, dh, scale,
-                                     causal, st);
-  if (dh <= 64) return launch<T, 64>(q, k, v, o, B, S, H, Hkv, dh, scale,
-                                     causal, st);
-  if (dh <= 80) return launch<T, 80>(q, k, v, o, B, S, H, Hkv, dh, scale,
-                                     causal, st);
-  return launch<T, 128>(q, k, v, o, B, S, H, Hkv, dh, scale, causal, st);
+  if (dh <= 32) return launch<T, 32>(q, k, v, o, lse, B, S, H, Hkv, dh,
+                                     scale, causal, st);
+  if (dh <= 64) return launch<T, 64>(q, k, v, o, lse, B, S, H, Hkv, dh,
+                                     scale, causal, st);
+  if (dh <= 80) return launch<T, 80>(q, k, v, o, lse, B, S, H, Hkv, dh,
+                                     scale, causal, st);
+  return launch<T, 128>(q, k, v, o, lse, B, S, H, Hkv, dh, scale, causal,
+                        st);
 }
 
 }  // namespace
@@ -618,11 +574,14 @@ extern "C" {
 // dtype and dh; 1 = flash_attention_wgmma_kernel, bfloat16 with dh 64 or
 // 128.  Needs contiguous tensors on 16-byte boundaries, 0 < dh <= 128
 // with dh a multiple of 8, H a multiple of Hkv, B * H <= 65535 and S <
-// 2^31 (the wrapper checks).
+// 2^31 (the wrapper checks).  lse: null, or (B, H, S) float32 that takes
+// each row's logsumexp of the scaled scores (natural log), which the
+// backward (attn_bwd.cu) reads; serving passes null and writes nothing more.
 int attn_flash_attention(int device, const void* q, const void* k,
                          const void* v, int64_t B, int64_t S, int64_t H,
                          int64_t Hkv, int64_t dh, float scale, int causal,
-                         int dtype, int form, void* o, void* stream) {
+                         int dtype, int form, void* o, void* lse,
+                         void* stream) {
   if (cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   if (B < 1 || S < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || dh < 1
       || dh > 128 || dh % 8 != 0 || B * H > 65535 || S > 0x7fffffff
@@ -631,16 +590,18 @@ int attn_flash_attention(int device, const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto st = static_cast<cudaStream_t>(stream);
+  const auto l = static_cast<float*>(lse);
   if (form == 1) {
-    return dh == 64 ? launch_wgmma<64>(q, k, v, o, B, S, H, Hkv, scale,
+    return dh == 64 ? launch_wgmma<64>(q, k, v, o, l, B, S, H, Hkv, scale,
                                        causal, st)
-                    : launch_wgmma<128>(q, k, v, o, B, S, H, Hkv, scale,
+                    : launch_wgmma<128>(q, k, v, o, l, B, S, H, Hkv, scale,
                                         causal, st);
   }
   if (dtype == 0) {
-    return dispatch<float>(q, k, v, o, B, S, H, Hkv, dh, scale, causal, st);
+    return dispatch<float>(q, k, v, o, l, B, S, H, Hkv, dh, scale, causal,
+                           st);
   }
-  return dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, Hkv, dh, scale,
+  return dispatch<__nv_bfloat16>(q, k, v, o, l, B, S, H, Hkv, dh, scale,
                                  causal, st);
 }
 

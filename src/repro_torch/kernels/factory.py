@@ -25,10 +25,11 @@ packing) takes float64 times and int64 gas cumsums and returns int64 stop
 pointers, identical from every impl.  The FL ops (``weighted_agg``, Eq. 1, and
 ``model_distance``, Eq. 4) take float32 or bfloat16 and agree to float32
 rounding; so do ``flash_attention`` (the prefill's causal GQA attention,
-``(q, k, v, causal=True)``), ``gmm`` (the MoE FFN's expert products,
-``(xe, w)``) and ``slstm_scan`` (the sLSTM time scan, ``(wx, r_gates, h,
-c, n, m)``).  Every impl returns its result on the input's
-device.
+``(q, k, v, causal=True)``) and its gradient ``flash_attention_bwd``
+(``(q, k, v, o, lse, do, causal=True)`` -> ``(dq, dk, dv)``), ``gmm``
+(the MoE FFN's expert products, ``(xe, w)``) and ``slstm_scan`` (the
+sLSTM time scan, ``(wx, r_gates, h, c, n, m)``).  Every impl returns its
+result on the input's device.
 
 Work: every op registers one pure ``cost(*args, **kw) -> (flops,
 bytes)``, its work at those arguments whatever implements it (``kernel_cost``;
@@ -132,6 +133,8 @@ def _load() -> None:
              bp.block_pack_cost),
             ("flash_attention", fa.flash_attention_torch,
              fa.flash_attention, fa.flash_attention_cost),
+            ("flash_attention_bwd", fa.flash_attention_bwd_torch,
+             fa.flash_attention_bwd, fa.flash_attention_bwd_cost),
             ("gmm", gm.gmm_torch, gm.gmm, gm.gmm_cost),
             ("slstm_scan", ss.slstm_scan_torch, ss.slstm_scan,
              ss.slstm_scan_cost)):

@@ -25,9 +25,13 @@ forms, chosen by ``form`` from the dtype and dh:
     block per 64-row query tile, float32 on the CUDA cores.
 
 Both skip the causal tiles past the diagonal and read the kv head in
-place, with no repeat.  Neither has a backward: training through attention
-is ROADMAP.md queue 1 item 10(d), and a backward through the kernel
-raises.
+place, with no repeat.  Where autograd records (``q``, ``k`` or ``v``
+requires grad), the forward also writes each row's logsumexp (B, H, S)
+float32, and the backward is ``flash_attention_bwd``: the kernels of
+``csrc/attn_bwd.cu`` (a D = rowsum(dO o) pass, a dQ pass over the key
+tiles, a dK/dV pass over the query tiles and the group's heads; float32
+on the CUDA cores, no atomics, so two runs give the same bits).  Serving
+passes no logsumexp and launches as before.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.factory import counted
+from repro_torch.kernels.factory import counted, get_kernel
 from repro_torch.kernels.rollup_digest import check_cuda
 from repro_torch.kernels.weighted_agg import DTYPE_FLAG
 
@@ -49,6 +53,28 @@ MAX_HEAD_DIM = 128
 # is so small that the float32 order shows.
 KERNEL_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
               torch.bfloat16: dict(rtol=2 ** -7, atol=1e-4)}
+# How far the backward kernel's dq, dk and dv may sit from
+# flash_attention_bwd_torch's: rtol of the value plus ``atol_of_max`` of
+# the largest |value| of the three gradients.  Both sum in float32 and
+# round once; the sums are of S terms of either sign, and dS = P (dP - D)
+# cancels (wholly at S = 1, where o = v and dq, dk are float32 noise on
+# both sides), so a float32 order shows at the scale of the summed terms,
+# which the largest gradient stands for, not at each value's; in bfloat16
+# the two float32 sums may also straddle one rounding point (2^-7 of the
+# value).
+BWD_TOL = {torch.float32: dict(rtol=1e-4, atol_of_max=1e-5),
+           torch.bfloat16: dict(rtol=2 ** -7, atol_of_max=2 ** -9)}
+
+
+def bwd_close(got, want) -> bool:
+    """The gradients ``got`` (dq, dk, dv) within ``BWD_TOL`` of
+    ``want``."""
+    tol = BWD_TOL[want[0].dtype]
+    top = max((float(w.abs().max()) for w in want if w.numel()), default=0.)
+    return all(g.shape == w.shape and bool(
+        ((g.float() - w.float()).abs()
+         <= tol["rtol"] * w.float().abs() + tol["atol_of_max"] * top).all())
+        for g, w in zip(got, want))
 
 
 def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,11 +113,74 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """The plain version for a CPU tensor, the CUDA kernel for a CUDA
-    tensor (no backward through the kernel)."""
+    tensor; its backward the ``flash_attention_bwd`` kernel."""
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal)
-    return _KernelAttention.apply(q, k, v, causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _KernelAttention.apply(q, k, v, causal)[0]
+    return _launch(q, k, v, causal)[0]
+
+
+def flash_attention_bwd_cost(q, k, v, o, lse, do,
+                             causal: bool = True) -> Tuple[float, int]:
+    """(FLOPs, bytes) of the attention's gradient: the five products (QKᵀ
+    recomputed, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K), 10·B·H·S²·dh (halved when
+    causal); q, k, v, o, dO and the logsumexp read once, dq, dk and dv
+    written once."""
+    B, S, H, dh = q.shape
+    flops = 10 * B * H * S * S * dh / (2 if causal else 1)
+    n_bytes = q.element_size() * 4 * (B * S * H * dh
+                                      + B * S * k.shape[2] * dh) \
+        + 4 * B * H * S
+    return flops, n_bytes
+
+
+@counted("flash_attention_bwd")
+def flash_attention_bwd_torch(q, k, v, o, lse, do, causal: bool = True):
+    """Plain version of the gradient (q, k, v, the forward's output ``o``
+    and ``lse``, the output's gradient ``do``) -> (dq, dk, dv) in q's
+    dtype: the full (S, S) float32 scores recomputed, masked and
+    softmaxed (``lse`` is the kernel's shortcut to P and is not read
+    here), D = rowsum(dO·o) from the saved output as the kernel takes it,
+    dS = P (dP - D), and dk, dv summed over each kv head's query heads."""
+    _check_shapes(q, k, v)
+    B, S, H, dh = q.shape
+    Hkv = k.shape[2]
+    n_rep, scale = H // Hkv, dh ** -0.5
+    f32 = torch.float32
+    qf, of, gf = q.to(f32), o.to(f32), do.to(f32)
+    kf = k.to(f32).repeat_interleave(n_rep, dim=2)
+    vf = v.to(f32).repeat_interleave(n_rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    delta = (gf * of).sum(-1).permute(0, 2, 1)[..., None]
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dk = dk.reshape(B, S, Hkv, n_rep, dh).sum(3)
+    dv = dv.reshape(B, S, Hkv, n_rep, dh).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@counted("flash_attention_bwd")
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
+    """The gradient of ``flash_attention``: the plain version for CPU
+    tensors, the ``csrc/attn_bwd.cu`` kernels (one count in ``launches``)
+    for CUDA tensors."""
+    _check_shapes(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_torch(q, k, v, o, lse, do, causal)
+    return _launch_bwd(q, k, v, o, lse, do, causal)
+
+
+flash_attention_bwd.launches = 0
 
 
 flash_attention.launches = 0
@@ -123,41 +212,85 @@ def _on_16_bytes(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(q, k, v, causal: bool) -> torch.Tensor:
+def _check_launch(q, k, v, what: str) -> torch.device:
     dev = check_cuda(q, k, v)
     if q.dtype not in DTYPE_FLAG or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes float32 or bfloat16 of one "
-                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError(f"{what} takes float32 or bfloat16 of one dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     B, S, H, dh = q.shape
     if dh > MAX_HEAD_DIM or dh % 8:
-        raise ValueError(f"the flash_attention kernel takes head widths up "
-                         f"to {MAX_HEAD_DIM} that are multiples of 8, got "
-                         f"{dh}")
+        raise ValueError(f"the {what} kernel takes head widths up to "
+                         f"{MAX_HEAD_DIM} that are multiples of 8, got {dh}")
     if B * H > 65535:
-        raise ValueError(f"the flash_attention kernel takes B * H <= 65535, "
-                         f"got {B} * {H}")
+        raise ValueError(f"the {what} kernel takes B * H <= 65535, got {B} "
+                         f"* {H}")
+    return dev
+
+
+def _launch(q, k, v, causal: bool, lse: bool = False):
+    """(output, the rows' logsumexp (B, H, S) float32 or None)."""
+    dev = _check_launch(q, k, v, "flash_attention")
+    B, S, H, dh = q.shape
     q, k, v = _on_16_bytes(q), _on_16_bytes(k), _on_16_bytes(v)
     out = torch.empty_like(q)
+    rows = torch.empty(B, H, S, dtype=torch.float32, device=dev) \
+        if lse else None
     if out.numel():
         chosen = form(q.dtype, dh)
         _build.launch("attn_flash_attention", dev, q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), B, S, H, k.shape[2], dh,
                       dh ** -0.5, int(causal), DTYPE_FLAG[q.dtype],
-                      FORMS[chosen], out.data_ptr())
+                      FORMS[chosen], out.data_ptr(),
+                      rows.data_ptr() if lse else None)
         flash_attention.launches += 1
         flash_attention.last_form = chosen
         counts = flash_attention.form_launches
         counts[chosen] = counts.get(chosen, 0) + 1
-    return out
+    return out, rows
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal: bool):
+    dev = _check_launch(q, k, v, "flash_attention_bwd")
+    B, S, H, dh = q.shape
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or lse.shape != (B, H, S) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd takes o and do shaped as q "
+                         f"{tuple(q.shape)} and lse (B, H, S) float32, got "
+                         f"{tuple(o.shape)}, {tuple(do.shape)}, "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    q, k, v, o = (_on_16_bytes(t) for t in (q, k, v, o))
+    do, lse = _on_16_bytes(do.to(q.dtype)), lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel():
+        delta = torch.empty(B, H, S, dtype=torch.float32, device=dev)
+        _build.launch("attn_flash_attention_bwd", dev, q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      do.data_ptr(), lse.data_ptr(), B, S, H, k.shape[2], dh,
+                      dh ** -0.5, int(causal), DTYPE_FLAG[q.dtype],
+                      delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                      dv.data_ptr())
+        flash_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 class _KernelAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal):
-        return _launch(q, k, v, causal)
+    """The forward kernel with its logsumexp, and the backward kernel."""
 
     @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError(
-            "the flash_attention CUDA kernel has no backward: training "
-            "through attention is ROADMAP.md queue 1 item 10(d)")
+    def forward(q, k, v, causal):
+        return _launch(q, k, v, causal, lse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal = inputs
+        out, lse = output
+        ctx.causal = causal
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+
+    @staticmethod
+    def backward(ctx, grad, _grad_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = get_kernel("flash_attention_bwd")(q, k, v, out, lse,
+                                                       grad, ctx.causal)
+        return dq, dk, dv, None

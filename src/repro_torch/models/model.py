@@ -4,14 +4,18 @@ stacks), in the JAX package's interface:
     model = build_model(cfg)                  # on the card; device="cpu"
     params = model.init_params(0)             # a TransformerLM module
     logits = model.forward(params, {"tokens": tokens})
+    loss   = model.loss(model.train_params(params),
+                        {"tokens": tokens, "labels": labels})
     logits, caches = model.prefill(params, {"tokens": tokens})
     state = model.init_decode_state(batch_size, max_len)
     logits, state = model.decode(params, state, {"tokens": tok, "pos": t})
 
-The port runs one card with no mesh: the JAX facade's ``ctx is None``
-branch.  Meshes and sharding are ROADMAP.md queue 1 item 10(f); training
-(``loss``) is item 10(d); Mamba (and jamba), LeNet, whisper and the VLM's
-embeds input are item 10(e), and their configs raise
+``loss`` takes the module or a flat dict of its weights
+(``train_params``), which autograd differentiates (``launch/steps.py``);
+the module is frozen for serving.  The port runs one card with no mesh:
+the JAX facade's ``ctx is None`` branch.  Meshes and sharding are
+ROADMAP.md queue 1 item 10(f); Mamba (and jamba), LeNet, whisper and the
+VLM's embeds input are item 10(e), and their configs raise
 ``NotImplementedError`` here.
 """
 from __future__ import annotations
@@ -38,11 +42,36 @@ class Model:
         return transformer.init_params(self.cfg, g, dtype, self.device)
 
     def _tokens(self, batch):
-        return dict(batch, tokens=torch.as_tensor(batch["tokens"],
-                                                  device=self.device))
+        out = dict(batch, tokens=torch.as_tensor(batch["tokens"],
+                                                 device=self.device))
+        if "labels" in batch:
+            out["labels"] = torch.as_tensor(batch["labels"],
+                                            device=self.device)
+        return out
 
-    def forward(self, params, batch) -> torch.Tensor:
-        return transformer.forward(self.cfg, params, self._tokens(batch))
+    def _params(self, params):
+        return transformer.params_view(self.cfg, params) \
+            if isinstance(params, dict) else params
+
+    def train_params(self, params) -> dict:
+        """The weights of ``params`` (a module) as the flat dict ``loss``
+        differentiates."""
+        return transformer.train_params(params)
+
+    def param_groups(self, flat: dict) -> dict:
+        """Each key's JAX leaf, for adafactor (``optim.make_optimizer``)."""
+        return transformer.param_groups(self.cfg, flat)
+
+    def loss(self, params, batch, remat=None) -> torch.Tensor:
+        """Mean next-token cross entropy over ``batch`` (``tokens``,
+        ``labels``); each layer checkpointed by ``remat`` (default the
+        config's)."""
+        return transformer.loss_fn(self.cfg, self._params(params),
+                                   self._tokens(batch), remat)
+
+    def forward(self, params, batch, remat=None) -> torch.Tensor:
+        return transformer.forward(self.cfg, self._params(params),
+                                   self._tokens(batch), remat)
 
     def prefill(self, params, batch):
         return transformer.prefill(self.cfg, params, self._tokens(batch))

@@ -20,19 +20,35 @@ S_max, Hkv, dh)}`` for attention, ``{"C", "n", "m"}`` for mLSTM and
 attention blocks' caches only, as the JAX prefill does: it emits no
 recurrent state.
 
+Training differentiates a flat dict of the weights instead, keyed as
+``named_parameters`` names them (``train_params``; ``params_view`` gives
+the forward the module's attributes over it): the module itself stays
+frozen for serving.  ``loss_fn`` is the JAX package's float32 logsumexp
+minus the label's logit, averaged; ``forward``'s ``remat`` (default the
+config's ``sharding.remat``) checkpoints each layer: ``full`` keeps only
+its input, ``dots`` also the outputs of its matrix products (``aten.mm``
+and ``aten.addmm``, the products without batch dimensions, as
+``dots_with_no_batch_dims_saveable`` keeps), ``none`` everything.  The
+JAX package checkpoints a period of the pattern, which is a layer for
+every pattern of one block.  ``flat_to_numpy`` gives a flat dict (the
+gradients) back in the JAX layout, and ``param_groups`` names each key's
+JAX leaf for adafactor.
+
 Mamba blocks (and with them jamba) raise ``NotImplementedError`` naming
-ROADMAP.md queue 1 item 10(e), as do whisper, the VLM and LeNet.  Weights
-are serving weights: the module does not require gradients (training is
-item 10(d)).
+ROADMAP.md queue 1 item 10(e), as do whisper, the VLM and LeNet.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+import types
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ATTN, MAMBA, MLSTM, SLSTM
 from repro_torch.device import resolve_device
@@ -223,8 +239,27 @@ def params_to_numpy(params: TransformerLM):
     """The module's weights as the JAX package's stacked tree of numpy
     arrays (bfloat16 weights as float32, which holds them exactly; the
     float32 router as it is)."""
-    cfg = params.cfg
+    return flat_to_numpy(params.cfg, train_params(params))
 
+
+def _block_tree(flat: Dict[str, torch.Tensor], layer: int) -> dict:
+    """Layer ``layer``'s entries of a flat dict in the per-block layout:
+    ``{name: tensor}``, a mixer's parameters as a nested dict."""
+    prefix, out = f"blocks.{layer}.", {}
+    for key, t in flat.items():
+        if key.startswith(prefix):
+            *path, name = key[len(prefix):].split(".")
+            node = out
+            for part in path:
+                node = node.setdefault(part, {})
+            node[name] = t
+    return out
+
+
+def flat_to_numpy(cfg, flat: Dict[str, torch.Tensor]):
+    """A flat dict keyed as ``named_parameters`` (the weights, or their
+    gradients) as the JAX package's stacked tree of numpy arrays, bfloat16
+    as float32."""
     def host(t: torch.Tensor) -> np.ndarray:
         if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)
@@ -238,12 +273,48 @@ def params_to_numpy(params: TransformerLM):
 
     periods = {}
     for i in range(len(block_specs(cfg))):
-        periods[f"b{i}"] = stack([params.blocks[layer].tree()
+        periods[f"b{i}"] = stack([_block_tree(flat, layer)
                                   for layer, _, pi in _layer_items(cfg)
                                   if pi == i])
-    return {"periods": periods, "final_norm": host(params.final_norm),
-            "head_w": host(params.head_w),
-            "embed": {"table": host(params.embed)}}
+    return {"periods": periods, "final_norm": host(flat["final_norm"]),
+            "head_w": host(flat["head_w"]),
+            "embed": {"table": host(flat["embed"])}}
+
+
+def param_groups(cfg, flat) -> Dict[str, Tuple[str, Optional[int]]]:
+    """``{key: (leaf, j)}`` for ``optim.make_optimizer``'s adafactor: the
+    JAX package's leaf that holds each key (``periods.b{i}.<name>``,
+    stacked over the periods, ``j`` the period; the embedding, final norm
+    and head unstacked, ``j`` None)."""
+    layers = {layer: (j, i) for layer, j, i in _layer_items(cfg)}
+    out = {}
+    for key in flat:
+        if key.startswith("blocks."):
+            _, layer, rest = key.split(".", 2)
+            j, i = layers[int(layer)]
+            out[key] = (f"periods.b{i}.{rest}", j)
+        else:
+            out[key] = (key, None)
+    return out
+
+
+def train_params(params: TransformerLM) -> Dict[str, torch.Tensor]:
+    """The module's weights as a flat dict keyed as ``named_parameters``:
+    tensors detached from the frozen module, sharing its storage."""
+    return {k: p.detach() for k, p in params.named_parameters()}
+
+
+def params_view(cfg, flat: Dict[str, torch.Tensor]):
+    """A flat dict of weights with the attributes the forward reads from a
+    :class:`TransformerLM` (``blocks[l].attn["wq"]``, ``embed``, ...), so
+    that the forward differentiates the dict's tensors themselves."""
+    specs = block_specs(cfg)
+    blocks = [types.SimpleNamespace(spec=specs[i], **_block_tree(flat, layer))
+              for layer, _, i in _layer_items(cfg)]
+    return types.SimpleNamespace(cfg=cfg, blocks=blocks, embed=flat["embed"],
+                                 final_norm=flat["final_norm"],
+                                 head_w=flat["head_w"],
+                                 device=flat["head_w"].device)
 
 
 # ---------------------------------------------------------------------------
@@ -314,13 +385,50 @@ def embed_inputs(cfg, params: TransformerLM, batch):
     return x, positions
 
 
-def forward(cfg, params: TransformerLM, batch) -> torch.Tensor:
-    """Forward over the whole sequence -> logits (B, S, V)."""
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kw):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, policy: str):
+    """``fn`` checkpointed by ``policy`` (none | dots | full) where
+    autograd records; as it is otherwise."""
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    if policy != "full":
+        raise ValueError(f"remat policy {policy!r}")
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def forward(cfg, params: TransformerLM, batch, remat=None) -> torch.Tensor:
+    """Forward over the whole sequence -> logits (B, S, V); each layer
+    checkpointed by ``remat`` (default ``cfg.sharding.remat``) where
+    autograd records."""
+    policy = remat if remat is not None else cfg.sharding.remat
     x, positions = embed_inputs(cfg, params, batch)
     for bp in params.blocks:
-        x = apply_block_train(cfg, bp, x, positions)
+        x = _maybe_remat(functools.partial(apply_block_train, cfg, bp),
+                         policy)(x, positions)
     x = apply_norm(cfg, x, params.final_norm)
     return x @ params.head_w
+
+
+def loss_fn(cfg, params: TransformerLM, batch, remat=None) -> torch.Tensor:
+    """Mean next-token cross entropy: float32 logsumexp of the logits
+    minus the label's logit."""
+    logits = forward(cfg, params, batch, remat).to(torch.float32)
+    labels = batch["labels"].to(torch.int64)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.mean(lse - ll)
 
 
 def _stacked(state: Dict[str, torch.Tensor], n: int):

@@ -134,8 +134,20 @@ def test_sgdm_update_with_clipping(mlp_pair, grad_clip):
         _close({k: v.float() for k, v in st["m"].items()},
                {k: np.asarray(v, np.float32) for k, v in sj["m"].items()})
     assert int(st["step"]) == int(sj["step"]) == 2
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_optimizer(OptimizerSpec(name="adamw"))
+    # adamw (queue 1 item 10(d)) on the same tree and gradients: one step,
+    # within float32 noise plus lr * 2^-7 (its bfloat16 moments)
+    jo = jax_optimizer(JaxOptSpec(name="adamw", lr=0.1, grad_clip=grad_clip))
+    to = make_optimizer(OptimizerSpec(name="adamw", lr=0.1,
+                                      grad_clip=grad_clip))
+    pj, sj, gnj = jo.update(jax.tree.map(jnp.asarray, grads), jo.init(pj),
+                            pj)
+    pt_, st, gnt = to.update({k: torch.from_numpy(v)
+                              for k, v in grads.items()}, to.init(pt_), pt_)
+    _close(gnt, gnj)
+    for k, v in pt_.items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(pj[k]), rtol=1e-5,
+                                   atol=0.1 * 2 ** -7)
+    assert st["v"]["w1"].dtype == torch.bfloat16 and int(st["step"]) == 1
 
 
 def _update_tree(rng, scale):

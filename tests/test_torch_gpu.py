@@ -18,9 +18,13 @@ loop and megastep) on the card against the stepped per-task path, and
 settling its tasks in one ``model_distance`` launch; the attention
 kernel against its plain version (rtol 1e-4 / atol 1e-5 in float32; in
 bfloat16 one bfloat16 step, rtol 2^-7 / atol 1e-4: both sum in float32 and
-round once), and the reduced dense LMs on the card against the CPU; the
-MoE's ``gmm`` kernel against its plain version (``gmm.kernel_tol``: rtol
-1e-5 float32, one bfloat16 step, plus 1e-5 of the largest output), the
+round once), its backward kernel against the plain backward
+(``flash_attention.BWD_TOL``, bit-equal across two launches, offset
+views), the forward's logsumexp left out of serving, a reduced train step
+on the card against the CPU, and the reduced dense LMs on the card against
+the CPU; the MoE's ``gmm`` kernel against its plain version
+(``gmm.kernel_tol``: rtol 1e-5 float32, one bfloat16 step, plus 1e-5 of
+the largest output), the
 sLSTM scan kernel against its plain version (``slstm_scan.KERNEL_TOL``),
 in both forms (the cluster form at dh 64 / 128 / 512 and 1-33 rows, the
 grid form also at batches split into launches of ``MAX_BATCH`` rows), and
@@ -554,18 +558,111 @@ def test_flash_attention_kernel(cuda, B, S, H, Hkv, dh, dtype, causal):
 
 @pytest.mark.gpu
 def test_flash_attention_kernel_refuses(cuda):
+    """A backward through the kernel now runs the backward kernel, equal
+    to autograd through the plain version; the checks still refuse what
+    the kernels do not take."""
     q, k, v = _qkv(1, 16, 2, 1, 32, torch.float32, 0, cuda)
     for t in (q, k, v):
         t.requires_grad_()
-    out = fa.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="10\\(d\\)"):
-        out.sum().backward()
+    before = fa.flash_attention_bwd.launches
+    fa.flash_attention(q, k, v).sum().backward()
+    assert fa.flash_attention_bwd.launches == before + 1
+    grads = [t.grad for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    fa.flash_attention_torch(q, k, v).sum().backward()
+    assert fa.bwd_close(grads, [t.grad for t in (q, k, v)])
     for dh in (136, 12):
         q, k, v = _qkv(1, 16, 2, 1, dh, torch.float32, 0, cuda)
         with pytest.raises(ValueError, match="head widths"):
             fa.flash_attention(q, k, v)
     with pytest.raises(TypeError):
         fa.flash_attention(q.half(), k.half(), v.half())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,Hkv,dh,dtype", [
+    (2, 256, 4, 2, 64, torch.float32), (1, 63, 8, 8, 32, torch.float32),
+    (2, 65, 14, 2, 64, torch.bfloat16), (1, 128, 4, 1, 128, torch.bfloat16),
+    (2, 7, 4, 2, 16, torch.float32), (1, 1, 2, 1, 128, torch.float32),
+    (2, 33, 4, 1, 80, torch.float32), (3, 65, 6, 3, 40, torch.bfloat16),
+    (1, 300, 7, 1, 64, torch.bfloat16)])
+def test_flash_attention_bwd_kernel(cuda, B, S, H, Hkv, dh, dtype, causal):
+    """The backward kernel against its plain version (``BWD_TOL``) on the
+    forward kernel's output and logsumexp, bit-equal across two launches,
+    offset views taken as they are."""
+    q, k, v = _qkv(B, S, H, Hkv, dh, dtype, S * dh + H + 7, cuda)
+    g = torch.Generator().manual_seed(S + dh)
+    do = torch.randn(B, S, H, dh, generator=g).to(cuda, dtype)
+    o, lse = fa._launch(q, k, v, causal, lse=True)
+    want = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, causal)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    assert fa.flash_attention_bwd.launches == before + 2
+    for a, b_, w in zip(got, again, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.equal(a, b_)
+    assert fa.bwd_close(got, want), [float((a.float() - w.float()).abs().max())
+                                     for a, w in zip(got, want)]
+    # offset views (the rows of a larger buffer, 2 elements in)
+    pad = [torch.zeros(t.numel() + 2, dtype=dtype, device=cuda)
+           for t in (q, do)]
+    qv = pad[0][2:].view_as(q).copy_(q)
+    dov = pad[1][2:].view_as(do).copy_(do)
+    off = fa.flash_attention_bwd(qv, k, v, o, lse, dov, causal)
+    for a, b_ in zip(off, got):
+        assert torch.equal(a, b_)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, remat):
+    """Reduced qwen2-0.5b in float32: the loss and gradients through the
+    attention kernels and their backward on the card against the CPU's
+    plain versions (rtol 1e-4, atol 1e-4 of each leaf's largest value),
+    with one flash_attention_bwd launch a layer."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(reduced_config(get_config("qwen2-0.5b")),
+                              dtype="float32")
+    host = build_model(cfg, "cpu")
+    params = host.train_params(host.init_params(0))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 33))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    want_loss, want = value_and_grad(host, params, batch, remat)
+    card = build_model(cfg, cuda)
+    before = fa.flash_attention_bwd.launches
+    loss, got = value_and_grad(card, {k: v.to(cuda) for k, v in
+                                      params.items()}, batch, remat)
+    assert fa.flash_attention_bwd.launches == before + cfg.n_layers
+    torch.testing.assert_close(loss.cpu(), want_loss, rtol=1e-5, atol=0.0)
+    for k, w in want.items():
+        torch.testing.assert_close(got[k].cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.gpu
+def test_flash_attention_lse_leaves_serving_alone(cuda):
+    """Without autograd the forward writes no logsumexp and gives the
+    same output as with it."""
+    q, k, v = _qkv(2, 200, 8, 2, 64, torch.bfloat16, 3, cuda)
+    plain, none = fa._launch(q, k, v, True)
+    with_lse, lse = fa._launch(q, k, v, True, lse=True)
+    assert none is None and torch.equal(plain, with_lse)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     k.float().repeat_interleave(4, 2)) * 64 ** -0.5
+    s = torch.where(torch.ones(200, 200, dtype=torch.bool,
+                               device=cuda).tril(), s, fa.NEG_INF)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-5,
+                               atol=1e-5)
+    with torch.inference_mode():
+        assert torch.equal(fa.flash_attention(q, k, v), plain)
 
 
 @pytest.mark.gpu

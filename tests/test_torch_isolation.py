@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package (the
 rollup node path, the sharded fabric, the FL protocol path with its object
-stack and agents, the token-LM serving path and the node service all run
-without them), and its entry points run on the CUDA card unless the caller
-names the CPU.  The node service keeps every ledger op on the event loop's
+stack and agents, the token-LM serving path, the node service and the
+token-LM training path with its launcher all run without them), and its
+entry points run on the CUDA card unless the caller names the CPU.  The
+node service keeps every ledger op on the event loop's
 thread: no file of ``repro_torch/serve`` hands work to a thread."""
 import re
 import subprocess
@@ -27,8 +28,9 @@ from repro_torch.fl.cohort import VectorCohort
 from repro_torch.fl.scheduler import Scheduler
 from repro_torch.fl.server import AutoDFL
 from repro_torch.kernels.shard_lanes import shard_seal, shard_seal_mesh
-from repro_torch.launch import serve_model, serve_node
-from repro_torch.launch.mesh import make_shard_mesh
+from repro_torch.data.pipeline import Prefetcher
+from repro_torch.launch import serve_model, serve_node, train
+from repro_torch.launch.mesh import make_production_mesh, make_shard_mesh
 from repro_torch.models import transformer
 from repro_torch.models.mlp import TinyMLP
 from repro_torch.models.model import Model, build_model
@@ -235,6 +237,44 @@ print("FOREIGN", bad)
 """
 
 
+_TRAIN = """
+import sys, tempfile
+import numpy as np
+import torch
+from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.configs.registry import get_config, reduced_config
+from repro_torch.data.pipeline import Prefetcher, client_batch_fn
+from repro_torch.data.synthetic import make_mnist_like, token_batches
+from repro_torch.fl.round import FLRoundSpec, build_fl_round, digest_tree
+from repro_torch.launch import train
+from repro_torch.launch.steps import build_train_step
+from repro_torch.models.model import build_model
+from repro_torch.optim.compression import ef_compress_tree, quantize_tree
+from repro_torch.optim.optimizers import (OptimizerSpec, make_optimizer,
+                                          spec_for_config)
+from repro_torch.runtime.fault_tolerance import ElasticController
+cfg = reduced_config(get_config("qwen2-0.5b"))
+model = build_model(cfg, "cpu")
+params = model.train_params(model.init_params(0))
+for name in ("adamw", "adafactor", "sgdm"):
+    opt = make_optimizer(OptimizerSpec(name=name),
+                         groups=model.param_groups(params))
+    step = build_train_step(model, opt)
+    batch = {k: torch.from_numpy(v) for k, v in
+             next(token_batches(cfg.vocab_size, 2, 8)).items()}
+    p, s, m = step(params, opt.init(params), batch)
+    assert np.isfinite(float(m["loss"]))
+lines = train.main(["--reduced", "--device", "cpu", "--rounds", "2",
+                    "--ckpt-dir", tempfile.mkdtemp()])
+assert len(lines) == 2
+assert spec_for_config(cfg).name == "adamw"
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print("FOREIGN", bad)
+"""
+
+
 def _run_alone(code: str) -> None:
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
            "OMP_NUM_THREADS": "1"}
@@ -258,6 +298,10 @@ def test_serving_path_runs_without_jax_or_repro():
 
 def test_node_service_runs_without_jax_or_repro():
     _run_alone(_SERVICE)
+
+
+def test_training_runs_without_jax_or_repro():
+    _run_alone(_TRAIN)
 
 
 _THREADS = re.compile(r"to_thread|run_in_executor|threading")
@@ -338,7 +382,10 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
                  lambda: build_model(cfg),
                  lambda: transformer.init_params(cfg, torch.Generator()),
                  lambda: transformer.init_decode_state(cfg, 2, 8),
-                 lambda: serve_model.main(["--reduced"])):
+                 lambda: serve_model.main(["--reduced"]),
+                 lambda: train.main(["--reduced"]),
+                 lambda: make_production_mesh(),
+                 lambda: Prefetcher(iter([]))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # the CPU is there when asked for

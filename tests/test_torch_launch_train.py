@@ -1,0 +1,70 @@
+"""The port's training launcher (``python -m repro_torch.launch.train``)
+on the CPU: reduced rounds, resume equal to an uninterrupted run, the
+one-card mesh, the data pipeline and the synthetic data beside the JAX
+package's."""
+import numpy as np
+import pytest
+import torch
+
+from repro.data import synthetic as jsyn
+from repro_torch.data import pipeline, synthetic
+from repro_torch.launch import mesh, train
+
+torch.set_num_threads(1)
+
+
+def test_reduced_rounds_run_and_learn():
+    lines = train.main(["--reduced", "--device", "cpu", "--rounds", "3",
+                        "--host-mesh"])
+    assert [ln["round"] for ln in lines] == [0, 1, 2]
+    assert all(np.isfinite(ln["loss"]) and 0 <= ln["digest"] < 2 ** 32
+               for ln in lines)
+    assert len({ln["digest"] for ln in lines}) == 3
+
+
+def test_resume_equals_an_uninterrupted_run(tmp_path):
+    full = train.main(["--reduced", "--device", "cpu", "--rounds", "4"])
+    first = train.main(["--reduced", "--device", "cpu", "--rounds", "2",
+                        "--ckpt-dir", str(tmp_path)])
+    rest = train.main(["--reduced", "--device", "cpu", "--rounds", "4",
+                       "--ckpt-dir", str(tmp_path), "--resume"])
+    key = [(ln["round"], ln["loss"], ln["digest"], ln["mean_rep"])
+           for ln in (first + rest)]
+    assert key == [(ln["round"], ln["loss"], ln["digest"], ln["mean_rep"])
+                   for ln in full]
+
+
+def test_multi_pod_and_wide_meshes_are_refused():
+    with pytest.raises(NotImplementedError, match="10\\(f\\)"):
+        train.main(["--reduced", "--device", "cpu", "--multi-pod"])
+    with pytest.raises(NotImplementedError, match="10\\(f\\)"):
+        mesh.make_train_mesh(data=2, device="cpu")
+    m = mesh.make_production_mesh(device="cpu")
+    assert m.shape == {"data": 1, "model": 1} and m.size == 1
+
+
+def test_synthetic_data_match_jax():
+    a = next(synthetic.token_batches(500, 3, 7, seed=4))
+    b = next(jsyn.token_batches(500, 3, 7, seed=4))
+    for k in ("tokens", "labels"):
+        np.testing.assert_array_equal(a[k], b[k])
+    for x, y in zip(synthetic.make_mnist_like(64, seed=2),
+                    jsyn.make_mnist_like(64, seed=2)):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_prefetcher_and_client_batches():
+    from repro.data.pipeline import client_batch_fn as jax_client_batch_fn
+    it = synthetic.token_batches(100, 2, 5, seed=1)
+    want = [next(synthetic.token_batches(100, 2, 5, seed=1))]
+    pf = pipeline.Prefetcher(it, depth=2, device="cpu")
+    got = next(pf)
+    pf.close()
+    assert isinstance(got["tokens"], torch.Tensor)
+    np.testing.assert_array_equal(got["tokens"].numpy(), want[0]["tokens"])
+    xs, ys = synthetic.make_mnist_like(40, seed=0)
+    parts = [np.arange(0, 20), np.arange(20, 40)]
+    fn = pipeline.client_batch_fn(xs, ys, parts, 5)
+    jfn = jax_client_batch_fn(xs, ys, parts, 5)
+    for c, r in ((0, 0), (1, 3)):
+        np.testing.assert_array_equal(fn(c, r)["labels"], jfn(c, r)["labels"])

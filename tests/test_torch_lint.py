@@ -4,7 +4,7 @@ The CLI exits nonzero on each known-bad fixture of
 ``tests/lint_fixtures_torch/`` (one per static rule, R001-R005 and R008,
 in the port's forms), zero on the shipped ``src/repro_torch`` tree;
 suppression comments work; findings are machine-readable in the JAX
-package's record; R002 sees all eleven factory ops through the factory's
+package's record; R002 sees all twelve factory ops through the factory's
 loop of registrations; and on the JAX package's framework-neutral
 fixtures the port's linter reports the same rules at the same lines as
 ``repro.analysis.lint``.  Fixtures are referenced by file name only —
@@ -43,7 +43,7 @@ RULE_FIXTURES = {
 FACTORY_OPS = {
     "batch_seal", "rollup_digest", "rollup_chunk_digests", "dirty_fold",
     "weighted_agg", "model_distance", "block_pack", "flash_attention",
-    "gmm", "slstm_scan", "shard_seal"}
+    "flash_attention_bwd", "gmm", "slstm_scan", "shard_seal"}
 
 
 def _run_cli(*args):
