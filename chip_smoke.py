@@ -265,15 +265,19 @@ Phases, each printing its result on a line of its own:
                plain version on the forward kernel's output and logsumexp
                (flash_attention.BWD_TOL): qwen2-0.5b's layer at the step
                below (4, 4,096, 14, 2, 64) and yi-6b's head (1, 4,096, 32,
-               4, 128) in bfloat16, float32 at dh 64, 80 and 40, S of 1,
-               63, 65 and 4,095, causal and not, offset views; every case
-               launched twice, bit-equal; timed at both shapes by CUDA
-               events and the profiler's device time beside its bound, the
-               plain version and SDPA's backward; (b) one build_train_step
+               4, 128) in bfloat16, (2, 300, 8, 8, 128) bfloat16, float32
+               at dh 64, 80 and 40, S of 1, 63, 65 and 4,095, causal and
+               not, offset views; every case launched twice, bit-equal, in
+               the form flash_attention.form gives (wgmma for bfloat16 at
+               dh 64 and 128, simt for float32); timed at both shapes by
+               CUDA events and the profiler's device time beside its
+               bound, the plain version and SDPA's backward, the form
+               beside each row; (b) one build_train_step
                step of qwen2-0.5b at full width and depth (adamw, remat
                full, 4 x 4,096 tokens): launch counts from 0 (48
                flash_attention, forward and recompute; 24
-               flash_attention_bwd), the loss near ln(vocab), two steps
+               flash_attention_bwd, all in the wgmma form), the loss near
+               ln(vocab), two steps
                equal, loss, gradients and new weights held to the same step
                with the plain versions forced; step seconds, tokens/s,
                peak memory, the attention's device share; (c) the rollup
@@ -4331,6 +4335,11 @@ def check_attention_bwd(dev) -> dict:
         o, lse = fa._launch(q, k, v, causal, lse=True)
         want = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, causal)
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        chosen = fa.form(q.dtype, q.shape[3])
+        if fa.flash_attention_bwd.last_form != chosen:
+            raise AssertionError(f"flash_attention_bwd {what}: launched the "
+                                 f"{fa.flash_attention_bwd.last_form} form, "
+                                 f"not {chosen}")
         again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"flash_attention_bwd {what}: two launches "
@@ -4341,21 +4350,23 @@ def check_attention_bwd(dev) -> dict:
             raise AssertionError(f"flash_attention_bwd {what}: dq, dk, dv "
                                  f"off by {errs}, tolerance "
                                  f"{fa.BWD_TOL[q.dtype]}")
-        return max(errs)
+        return chosen, max(errs)
 
     QL, YL = QWEN_TRAIN_LAYER, YI_TRAIN_LAYER
     grid = [(tuple(QL.values()), bf16), (tuple(YL.values()), bf16),
+            ((2, 300, 8, 8, 128), bf16),
             ((2, 1024, 8, 2, 64), f32), ((1, 512, 4, 1, 80), f32),
             ((2, 300, 6, 3, 40), f32)]
     grid += [((1, S, 4, 2, 64), dt) for S in (1, 63, 65, 4095)
              for dt in (f32, bf16)]
-    err, n = {}, 0
+    err, forms, n = {}, {}, 0
     for shape, dtype in grid:
         q, k, v, do = inputs(*shape, dtype)
         for causal in (True, False):
-            e = run(q, k, v, do, causal, f"at {shape} {dtype} causal "
-                    f"{causal}")
+            chosen, e = run(q, k, v, do, causal, f"at {shape} {dtype} causal "
+                            f"{causal}")
             err[f"{list(shape)} {str(dtype)[6:]} {causal}"] = e
+            forms[chosen] = forms.get(chosen, 0) + 1
             n += 1
         del q, k, v, do
     # offset views: every input 2 elements past a 16-byte boundary
@@ -4373,9 +4384,10 @@ def check_attention_bwd(dev) -> dict:
     if not all(torch.equal(a, b) for a, b in zip(base, off)):
         raise AssertionError("flash_attention_bwd on offset views differs")
     torch.cuda.synchronize()
+    tol = {str(k)[6:]: v for k, v in fa.BWD_TOL.items()}
     log(f"attention bwd: flash_attention_bwd within tolerance of plain and "
-        f"bit-equal across two launches on {n} inputs and offset views "
-        f"(BWD_TOL {json.dumps({str(k)[6:]: v for k, v in fa.BWD_TOL.items()})}); "
+        f"bit-equal across two launches on {n} inputs ({json.dumps(forms)} "
+        f"by form) and offset views (BWD_TOL {json.dumps(tol)}); "
         f"largest |kernel - plain| {json.dumps(err)}")
 
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
@@ -4386,6 +4398,7 @@ def check_attention_bwd(dev) -> dict:
         kernel = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True)
         cb = cost_bound("flash_attention_bwd", q, k, v, o, lse, do, True)
         row = {"name": "flash_attention_bwd",
+               "form": fa.form(bf16, L["dh"]),
                "max_abs_err": err[f"{list(L.values())} bfloat16 True"],
                "ms": timed_ms(kernel, 3, flush),
                "device_ms": device_ms(kernel, "attn_bwd_", 3, flush,
@@ -4395,7 +4408,8 @@ def check_attention_bwd(dev) -> dict:
                "library_ms": timed_ms(sdpa_bwd(q, k, v, do), 3, flush),
                **cb, "shape": list(L.values())}
         log(f"kernel flash_attention_bwd at {row['shape']} (bfloat16, "
-            f"causal): {row['ms']:.6f} ms, device {row['device_ms']:.6f} ms "
+            f"causal, {row['form']} form): {row['ms']:.6f} ms, device "
+            f"{row['device_ms']:.6f} ms "
             f"(bound {row['bound_ms']:.6f} ms, {row['bound_by']}), plain "
             f"{row['plain_ms']:.6f} ms, SDPA backward "
             f"{row['library_ms']:.6f} ms")
@@ -4403,7 +4417,7 @@ def check_attention_bwd(dev) -> dict:
         del q, k, v, do, o, lse
     rows[0]["yi"] = {k: rows[1][k] for k in ("ms", "device_ms", "plain_ms",
                                              "library_ms", "bound_ms",
-                                             "shape")}
+                                             "shape", "form")}
     return rows[0]
 
 
@@ -4443,6 +4457,7 @@ def train_step_main(dev, smi: str) -> dict:
 
     fa.flash_attention.launches = 0
     fa.flash_attention_bwd.launches = 0
+    fa.flash_attention_bwd.form_launches = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4458,6 +4473,12 @@ def train_step_main(dev, smi: str) -> dict:
             "flash_attention_bwd": cfg.n_layers}
     if launches != want:
         raise AssertionError(f"train step launched {launches}, not {want}")
+    # bfloat16 at dh 64: every backward launch in the tensor-core form
+    bwd_forms = dict(fa.flash_attention_bwd.form_launches)
+    if bwd_forms != {"wgmma": cfg.n_layers}:
+        raise AssertionError(f"train step's flash_attention_bwd launched "
+                             f"{bwd_forms} by form, not {cfg.n_layers} "
+                             f"wgmma")
     loss = float(met["loss"])
     ln_v = float(np.log(cfg.vocab_size))
     if not np.isfinite(loss) or abs(loss - ln_v) > 0.5:
@@ -4510,7 +4531,8 @@ def train_step_main(dev, smi: str) -> dict:
            "loss": loss, "ln_vocab": ln_v, "plain_loss": plain_loss,
            "first_step_s": first_s, "step_s": walls,
            "tokens_per_s": B * S / step_s, "peak_gib": peak,
-           "launches": launches, "weights_beyond_one_bf16_step": beyond,
+           "launches": launches, "bwd_forms": bwd_forms,
+           "weights_beyond_one_bf16_step": beyond,
            "weights": n_params, "largest_weight_gap": worst,
            "largest_grad_rel": {top: rel[top]}, "profile": prof}
     log(f"train: qwen2-0.5b step at {B} x {S} on {smi}: {json.dumps(out)}")
@@ -4745,7 +4767,7 @@ def main() -> int:
     built = _build.build(force=True)
     build_s = time.perf_counter() - t0
     usage = [ln.strip() for ln in built.log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln
              or ln.startswith("==")]
     log(f"build: {[src.name for src in _build.sources()]} -> "
         f"{built.path.relative_to(ROOT)} in {build_s:.3f} s")

@@ -63,9 +63,9 @@ _SIGNATURES = {
     "attn_flash_attention": (_D, _P, _P, _P, _I, _I, _I, _I, _I, _R, _F, _F,
                              _F, _P, _P, _P),
     # csrc/attn_bwd.cu: (device, q, k, v, o, dO, lse, B, S, H, Hkv, dh,
-    # scale, causal, dtype flag, delta scratch, dq, dk, dv, stream)
+    # scale, causal, dtype flag, form, rows scratch, dq, dk, dv, stream)
     "attn_flash_attention_bwd": (_D, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _I, _R, _F, _F, _P, _P, _P, _P, _P),
+                                 _I, _R, _F, _F, _F, _P, _P, _P, _P, _P),
     # csrc/moe.cu: (device, x, w, E, C, d, f, dtype flag, form, partial
     # sums, out, stream)
     "moe_gmm": (_D, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P),

@@ -266,14 +266,6 @@ constexpr size_t wgmma_smem() {
          + (1 + 3 * kFStages) * sizeof(uint64_t);
 }
 
-// 2^x by the SFU (ex2.approx, relative error below 2^-22; -1e30 and
-// below give 0): exp2f's accurate form branches on its range a value
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // bfloat16 pairs (the wgmma A fragment's registers) of p and of p minus
 // its bfloat16 rounding: hi + lo carries about 16 bits of p
 __device__ __forceinline__ void split_pair(float p0, float p1, uint32_t& hi,
@@ -452,13 +444,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, 2));
       const float m_new = fmaxf(m[hr], mx * scale_log2);
-      corr[hr] = fast_exp2(m[hr] - m_new);
+      corr[hr] = hopper::ex2(m[hr] - m_new);
 #pragma unroll
       for (int j = 0; j < kFN / 8; ++j) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           float& x = sc[4 * j + 2 * hr + c];
-          x = fast_exp2(fmaf(x, scale_log2, -m_new));
+          x = hopper::ex2(fmaf(x, scale_log2, -m_new));
         }
         const float x = sc[4 * j + 2 * hr] + sc[4 * j + 2 * hr + 1];
         part[j % 4] = j < 4 ? x : part[j % 4] + x;

@@ -6,79 +6,142 @@
 //   scores)  ->  dq (B, S, H, dh), dk and dv (B, S, Hkv, dh) in q's dtype
 //
 // with P = exp(q.k^T scale - lse) (masked scores: causal j > i, and keys or
-// rows past S, give 0), D = rowsum(dO o), dS = P (dO.v^T - D):
+// rows past S, give 0), D = rowsum(dO o), dS = P (dP - D), dP = dO.v^T:
 //
 //   dv = P^T dO,  dq = scale dS k,  dk = scale dS^T q,
 //
 // dk and dv summed over the H / Hkv query heads that read each kv head.
-// Everything is float32 on the CUDA cores; each output is rounded once to
-// the input's dtype.  No atomics: every sum runs in a fixed order, so two
-// launches give the same bits.  One launcher with a plain C interface
-// (loaded with ctypes by src/repro_torch/kernels/_build.py), three kernels
-// on the given stream:
+// Sums are float32; each output is rounded once to the input's dtype.  No
+// atomics: every sum runs in a fixed order, so two launches give the same
+// bits.  One launcher with a plain C interface (loaded with ctypes by
+// src/repro_torch/kernels/_build.py), three kernels on the given stream,
+// in one of two forms (the forward's `form`):
 //
-//   1. attn_bwd_delta_kernel: D for every (b, h, row), a warp a row.
-//   2. attn_bwd_dq_kernel: one block per (b, h, 64-row query tile); walks
-//      the key tiles up to the diagonal, recomputing S = q.k^T and
-//      dP = dO.v^T, then dS, and adds dS.k into registers.
-//   3. attn_bwd_dkdv_kernel: one block per (b, kv head, 64-key tile), K and
-//      V staged once; walks the query tiles from the diagonal on, for each
-//      of the group's query heads, recomputing S and dP, and adds P^T.dO
-//      and dS^T.q into registers.  Summing the group inside the block needs
-//      no atomics.
+//   1. attn_bwd_rows_kernel: D for every (b, h, row), a warp four rows,
+//      and the wgmma form's base-2 logsumexp, padded past S.
+//   2. the dQ pass, one block per query tile of one (b, h), walking the key
+//      tiles up to the diagonal: S = q.k^T and dP = dO.v^T recomputed, dS,
+//      dq += dS.k.
+//   3. the dK/dV pass, one block per key tile of one (b, kv head) with K and
+//      V staged once, walking the query tiles from the diagonal on for each
+//      of the group's query heads: S^T, dP^T, P^T, dS^T, dv += P^T.dO and
+//      dk += dS^T.q.  Summing the group inside the block needs no atomics.
 //
 // The JAX package has no backward kernel: it trains through jnp attention
 // (src/repro/models/attention.py:77-162), whose gradient XLA derives; this
 // is the gradient of the port's forward kernel, which replaces the Pallas
 // `_kernel` of src/repro/kernels/flash_attention.py:25.  Bound: operations,
 // the five products 10 B H S^2 dh (halved when causal) against the bytes of
-// q, k, v, o, dO and the three gradients; this first form recomputes S and
-// dP in both passes (seven products) on the CUDA cores, float32, so it sits
-// far above that bound: mma.sync or wgmma tiles are later work.
+// q, k, v, o, dO and the three gradients.  Both forms recompute S and dP in
+// both passes (seven products; the wgmma form's split below makes ten).
+// The forms:
 //
-// Thread layout (256 threads, attn_tiles.cuh): thread (ty, tx) of 16 x 16
-// holds the 4 x 4 score entries of rows 4 ty.. and columns 4 tx.. of a
-// 64 x 64 tile, and of a 64 x dh accumulator rows 4 ty.. and columns
-// tx + 16 c.  Operands of the score products are staged d-major (float4
-// reads without bank conflicts), those of the accumulating products
-// row-major; the 64 x 64 P or dS tile goes through shared memory.
+//   * wgmma (attn_bwd_dq_wgmma_kernel, attn_bwd_dkdv_wgmma_kernel):
+//     bfloat16, dh 64 or 128, every product on the tensor cores.  A
+//     producer thread streams 64-row tiles by TMA (4-D tensor maps over the
+//     (B, S, heads, dh) layouts read in place, 64-value boxes under the
+//     128-byte swizzle, rows past S read as zeros; the tile's lse and D by
+//     1-D bulk copies of the padded rows) through a 4-stage ring; each
+//     consumer warpgroup owns 64 keys (dK/dV) or 64 query rows (dQ) and
+//     runs the two score products with both operands in shared memory
+//     (K-major), P and dS in float32 registers (ex2 on the SFU, masking
+//     only on the diagonal tile and the key tail), then the accumulating
+//     products with A from registers and B the streamed tile read
+//     N-major.  P and dS enter those as the forward's P does, in two
+//     bfloat16 pieces (the rounding and the rounding of what it left, two
+//     products each): one rounding (2^-9 of each term) put dv past BWD_TOL
+//     at S = 4,095, and dq and dk at S = 65, where the sum of dS's terms
+//     cancels (each row's dS sums to 0).  Rows past S carry lse = +inf, so
+//     their P is 0 with no mask.  dK/dV blocks take two warpgroups (128
+//     keys) at dh 64 and one at dh 128, where dK and dV alone hold 128
+//     float32 registers a thread (a 384-thread launch caps ptxas at 168).
+//     dQ blocks take two (128 rows).
+//   * simt (attn_bwd_dq_kernel, attn_bwd_dkdv_kernel): float32 and other
+//     head widths, float32 on the CUDA cores.  Thread layout (256 threads,
+//     attn_tiles.cuh): thread (ty, tx) of 16 x 16 holds the 4 x 4 score
+//     entries of rows 4 ty.. and columns 4 tx.. of a 64 x 64 tile, and of a
+//     64 x dh accumulator rows 4 ty.. and columns tx + 16 c.  Operands of
+//     the score products are staged d-major (float4 reads without bank
+//     conflicts), those of the accumulating products row-major; the 64 x 64
+//     P or dS tile goes through shared memory.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "attn_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// D[b, h, i] = sum_d dO[b, i, h, d] o[b, i, h, d]: a warp a (b, i, h) row
+// The rows' pass over (B, H, Sp): D[b, h, i] = sum_d dO[b, i, h, d]
+// o[b, i, h, d] into out[n + r] and lse[b, h, i] log2(e) into out[r] (the
+// wgmma form's base-2 logsumexp), r = (b H + h) Sp + i, n = B H Sp; rows
+// past S (i >= S, Sp > S) take D = 0 and lse = +inf, so that their P is 0.
+// blockIdx.y is b H + h; a warp takes kRowsWarp rows, their loads in
+// flight together.
+constexpr int kRowsWarp = 4;
 template <typename T>
 __global__ void __launch_bounds__(256)
-attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                      int64_t rows, int S, int H, int dh,
-                      float* __restrict__ delta) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * 8 + threadIdx.x / 32;
+attn_bwd_rows_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                     const float* __restrict__ lse, int64_t n, int S, int Sp,
+                     int H, int dh, float* __restrict__ out) {
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int i0 = (static_cast<int>(blockIdx.x) * 8
+                  + static_cast<int>(threadIdx.x) / 32) * kRowsWarp;
   const int lane = threadIdx.x % 32;
-  if (r >= rows) return;
-  const T* orow = o + r * dh;
-  const T* grow = dout + r * dh;
-  float acc = 0.f;
-  for (int d = lane; d < dh; d += 32) {
-    acc = fmaf(to_f(orow[d]), to_f(grow[d]), acc);
+  float acc[kRowsWarp];
+#pragma unroll
+  for (int j = 0; j < kRowsWarp; ++j) {
+    acc[j] = 0.f;
+    if (i0 + j < S) {
+      const int64_t at = ((static_cast<int64_t>(b) * S + i0 + j) * H + h)
+                         * dh;
+      for (int d = lane; d < dh; d += 32) {
+        acc[j] = fmaf(to_f(o[at + d]), to_f(dout[at + d]), acc[j]);
+      }
+    }
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_xor_sync(~0u, acc, off);
+  for (int j = 0; j < kRowsWarp; ++j) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      acc[j] += __shfl_xor_sync(~0u, acc[j], off);
+    }
   }
-  if (lane == 0) {                     // r = (b S + i) H + h
-    const int64_t h = r % H, bi = r / H;
-    delta[(bi / S * H + h) * S + bi % S] = acc;
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < kRowsWarp; ++j) {
+      const int i = i0 + j;
+      if (i >= Sp) break;
+      const int64_t r = static_cast<int64_t>(bh) * Sp + i;
+      out[r] = i < S ? lse[static_cast<int64_t>(bh) * S + i] * kLog2e
+                     : __int_as_float(0x7f800000);
+      out[n + r] = acc[j];
+    }
   }
+}
+
+// the rows' pass over B H rows of Sp
+template <typename T>
+int launch_rows(const void* o, const void* dout, const float* lse,
+                int64_t B, int64_t S, int64_t Sp, int64_t H, int dh,
+                float* rows, cudaStream_t st) {
+  constexpr int kBlockRows = 8 * kRowsWarp;
+  attn_bwd_rows_kernel<T>
+      <<<dim3(static_cast<unsigned>((Sp + kBlockRows - 1) / kBlockRows),
+              static_cast<unsigned>(B * H)), 256, 0, st>>>(
+          static_cast<const T*>(o), static_cast<const T*>(dout), lse,
+          B * H * Sp, static_cast<int>(S), static_cast<int>(Sp),
+          static_cast<int>(H), dh, rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // S = q.k^T and dP = dO.v^T for this thread's 4 x 4 entries: q and dO
@@ -383,7 +446,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DHP>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const float* lse, float* delta, void* dq,
+               const void* dout, const float* lse, float* rows, void* dq,
                void* dk, void* dv, int64_t B, int64_t S, int64_t H,
                int64_t Hkv, int64_t dh, float scale, int causal,
                cudaStream_t st) {
@@ -405,12 +468,12 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   const auto kt = static_cast<const T*>(k);
   const auto vt = static_cast<const T*>(v);
   const auto gt = static_cast<const T*>(dout);
-  const int64_t rows = B * S * H;
-  attn_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
-                             st>>>(static_cast<const T*>(o), gt, rows,
-                                   static_cast<int>(S), static_cast<int>(H),
-                                   static_cast<int>(dh), delta);
-  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  // rows of (B, H, S): no padding
+  if (int rc = launch_rows<T>(o, dout, lse, B, S, S, H, static_cast<int>(dh),
+                              rows, st)) {
+    return rc;
+  }
+  const float* delta = rows + B * H * S;
   const unsigned tiles = static_cast<unsigned>((S + kRows - 1) / kRows);
   attn_bwd_dq_kernel<T, DHP><<<dim3(tiles, static_cast<unsigned>(B * H)),
                                kThreads, dq_bytes, st>>>(
@@ -428,24 +491,548 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
 
 template <typename T>
 int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
-                 const void* dout, const float* lse, float* delta, void* dq,
+                 const void* dout, const float* lse, float* rows, void* dq,
                  void* dk, void* dv, int64_t B, int64_t S, int64_t H,
                  int64_t Hkv, int64_t dh, float scale, int causal,
                  cudaStream_t st) {
   if (dh <= 32) {
-    return launch_bwd<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
+    return launch_bwd<T, 32>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, S,
                              H, Hkv, dh, scale, causal, st);
   }
   if (dh <= 64) {
-    return launch_bwd<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
+    return launch_bwd<T, 64>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, S,
                              H, Hkv, dh, scale, causal, st);
   }
   if (dh <= 80) {
-    return launch_bwd<T, 80>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
+    return launch_bwd<T, 80>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, S,
                              H, Hkv, dh, scale, causal, st);
   }
-  return launch_bwd<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
+  return launch_bwd<T, 128>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, S,
                             H, Hkv, dh, scale, causal, st);
+}
+
+// -- bfloat16, dh 64 or 128: TMA-fed wgmma -----------------------------------
+constexpr int kWT = 64;                // rows of a streamed tile (queries or
+                                       // keys) and of a warpgroup's slice
+constexpr int kWStages = 4;
+constexpr int kPad = 128;              // the rows' pass pads S to this
+
+// consumer warpgroups of a block (each owns 64 keys, or 64 query rows):
+// two where a thread's accumulators fit the 168 registers of a 384-thread
+// launch, else one (dK and dV at dh 128 take 128 registers a thread)
+template <int DH> constexpr int kDkdvGroups = DH == 64 ? 2 : 1;
+template <int DH> constexpr int kDqGroups = 2;
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// The 64 x 64 accumulator x (hopper.cuh's layout) as the A fragments of
+// four k16 steps, in two pieces: its bfloat16 rounding (hi) and the
+// rounding of what that left (lo), so that hi + lo carries about 16 bits
+// of x
+__device__ __forceinline__ void to_split_frags(const float (&x)[32],
+                                               uint32_t (&hi)[4][4],
+                                               uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a = x[8 * kc + 2 * i], b = x[8 * kc + 2 * i + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      hi[kc][i] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[kc][i] = bf16_pair(a - __low2float(h), b - __high2float(h));
+    }
+  }
+}
+
+// keep A fragments live (their registers untouched) until this point: a
+// wgmma in flight reads them after its instruction has issued
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kc][i]) :: "memory");
+  }
+}
+
+// d (64 x DH) += a (64 x 64, four k16 fragments) . b, b a 64-row tile in
+// shared memory (N-major, boxes of 64 columns `box` bytes apart)
+template <int DH>
+__device__ __forceinline__ void rs_tile(float (&d)[DH / 2],
+                                        const uint32_t (&a)[4][4],
+                                        const uint8_t* b, int box) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    const uint64_t bd = hopper::desc_sw128(b + 2048 * kc, box, 1024);
+    if constexpr (DH == 128) {
+      hopper::wgmma_rs_n128(d, a[kc], bd);
+    } else {
+      hopper::wgmma_rs_n64(d, a[kc], bd);
+    }
+  }
+}
+
+// d (64 x 64) = a (64 x DH) . b^T (b 64 x DH), both K-major in shared
+// memory, boxes of 64 columns `abox` and `bbox` bytes apart
+template <int DH>
+__device__ __forceinline__ void ss_tile(float (&d)[32], const uint8_t* a,
+                                        int abox, const uint8_t* b,
+                                        int bbox) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const int box = kk / 4, in_box = 32 * (kk % 4);
+    hopper::wgmma_ss_n64<0>(
+        d, hopper::desc_sw128(a + box * abox + in_box, 16, 1024),
+        hopper::desc_sw128(b + box * bbox + in_box, 16, 1024), kk > 0);
+  }
+}
+
+template <int DH>
+constexpr size_t dkdv_wgmma_smem() {
+  return 1024 + static_cast<size_t>(2 * kDkdvGroups<DH> * kWT
+                                    + 2 * kWStages * kWT) * DH * 2
+         + 2 * kWStages * kWT * sizeof(float)
+         + (1 + 2 * kWStages) * sizeof(uint64_t);
+}
+
+template <int DH>
+constexpr size_t dq_wgmma_smem() {
+  return 1024 + static_cast<size_t>(2 * kDqGroups<DH> * kWT
+                                    + 2 * kWStages * kWT) * DH * 2
+         + 2 * kDqGroups<DH> * kWT * sizeof(float)
+         + (1 + 2 * kWStages) * sizeof(uint64_t);
+}
+
+// dK and dV of a block of 64 kG keys of one (b, kv head): K and V staged
+// once; a producer thread streams the group's (query head, 64-row tile)
+// pairs, heads outer, each tile's Q, dO (TMA) and lse, D (bulk copies)
+// through a ring; consumer warpgroup w owns keys k0 + 64 w .. and computes
+// S^T = K.Q^T and dP^T = V.dO^T (wgmma, both operands K-major), P^T and
+// dS^T in registers, then dV += P^T.dO and dK += dS^T.Q (wgmma, A from
+// registers, B the tile N-major)
+template <int DH>
+__global__ void __launch_bounds__((kDkdvGroups<DH> + 1) * 128, 1)
+attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap gmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const float* __restrict__ rows,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int S, int Sp,
+                           int H, int Hkv, int BH, float scale_log2,
+                           float scale, int causal) {
+  constexpr int kG = kDkdvGroups<DH>;
+  constexpr int kBoxes = DH / 64;      // 64-value boxes across a head
+  constexpr int kKBox = kG * kWT * 128;  // bytes of a box of K or V
+  constexpr int kTBox = kWT * 128;     // bytes of a box of a Q or dO tile
+  constexpr int kTile = kBoxes * kTBox;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align_1024(smem_raw);
+  uint8_t* vs = ks + kBoxes * kKBox;
+  uint8_t* qs = vs + kBoxes * kKBox;   // [stage][box][row]
+  uint8_t* gs = qs + kWStages * kTile;
+  float* ls = reinterpret_cast<float*>(gs + kWStages * kTile);  // [stage][row]
+  float* ds = ls + kWStages * kWT;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(ds + kWStages * kWT);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kWStages;
+
+  // the first key blocks see the most query tiles: blockIdx.y is the key
+  // block, so that every (b, kv head) takes its heaviest first
+  const int k0 = static_cast<int>(blockIdx.y) * kG * kWT;
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+  const int rep = H / Hkv;
+  const int n_q = (S + kWT - 1) / kWT;
+  const int first = causal ? k0 / kWT : 0;
+  const int per_head = n_q - first;
+  const int items = rep * per_head;
+  const int wg = __shfl_sync(~0u, static_cast<int>(threadIdx.x) / 128, 0);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < kWStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kG * 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == kG) {                      // producer warpgroup: one thread
+    if (threadIdx.x == kG * 128) {
+      hopper::prefetch_map(&qmap);
+      hopper::prefetch_map(&gmap);
+      hopper::prefetch_map(&kmap);
+      hopper::prefetch_map(&vmap);
+      hopper::mbar_expect_tx(kv_full, 2 * kBoxes * kKBox);
+#pragma unroll
+      for (int j = 0; j < kBoxes; ++j) {
+        hopper::tma_load_4d(ks + j * kKBox, &kmap, kv_full, 64 * j, hk, k0,
+                            b);
+        hopper::tma_load_4d(vs + j * kKBox, &vmap, kv_full, 64 * j, hk, k0,
+                            b);
+      }
+      for (int it = 0; it < items; ++it) {
+        const int s = it % kWStages;
+        const int h = hk * rep + it / per_head;
+        const int q0 = (first + it % per_head) * kWT;
+        if (it >= kWStages) {
+          hopper::mbar_wait(&empty[s], ((it / kWStages) & 1) ^ 1);
+        }
+        hopper::mbar_expect_tx(&full[s], 2 * kTile + 2 * kWT * 4);
+#pragma unroll
+        for (int j = 0; j < kBoxes; ++j) {
+          hopper::tma_load_4d(qs + s * kTile + j * kTBox, &qmap, &full[s],
+                              64 * j, h, q0, b);
+          hopper::tma_load_4d(gs + s * kTile + j * kTBox, &gmap, &full[s],
+                              64 * j, h, q0, b);
+        }
+        const float* lrow = rows + (static_cast<int64_t>(b) * H + h) * Sp
+                            + q0;
+        hopper::bulk_load(ls + s * kWT, lrow, kWT * 4, &full[s]);
+        hopper::bulk_load(ds + s * kWT, lrow + static_cast<int64_t>(BH) * Sp,
+                          kWT * 4, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: keys kr and kr + 8 of this thread (the
+  // accumulator's rows), query columns 8 j + cq + {0, 1} of each tile
+  const int t = threadIdx.x % 128;
+  const int my_k0 = k0 + wg * kWT;
+  const int kr = my_k0 + (t / 32) * 16 + (t % 32) / 4;
+  const int cq = 2 * (t % 4);
+  const uint8_t* my_k = ks + wg * kWT * 128;
+  const uint8_t* my_v = vs + wg * kWT * 128;
+  float dka[DH / 2], dva[DH / 2], st[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dka[i] = dva[i] = 0.f;
+  hopper::mbar_wait(kv_full, 0);
+
+  for (int it = 0; it < items; ++it) {
+    const int s = it % kWStages;
+    const int q0 = (first + it % per_head) * kWT;
+    hopper::mbar_wait(&full[s], (it / kWStages) & 1);
+    // causal: a tile wholly before this warpgroup's keys sees none of them
+    if (!causal || q0 + kWT > my_k0) {
+      const uint8_t* qt = qs + s * kTile;
+      const uint8_t* gt = gs + s * kTile;
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
+      hopper::wgmma_fence();
+      ss_tile<DH>(st, my_k, kKBox, qt, kTBox);
+      ss_tile<DH>(dpt, my_v, kKBox, gt, kTBox);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
+      // P^T = 2^(S^T scale log2(e) - lse log2(e)) (0 where the query
+      // precedes the key, on the diagonal tile; 0 past S, whose lse is
+      // +inf), dS^T = P^T (dP^T - D)
+      const bool diag = causal && q0 < my_k0 + kWT;
+      const float* lq = ls + s * kWT;
+      const float* dt = ds + s * kWT;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lq + 8 * j + cq);
+        const float2 d2 = *reinterpret_cast<const float2*>(dt + 8 * j + cq);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float lv = i % 2 ? l2.y : l2.x, dd = i % 2 ? d2.y : d2.x;
+          float p = hopper::ex2(fmaf(st[4 * j + i], scale_log2, -lv));
+          if (diag && q0 + 8 * j + cq + i % 2 < kr + 8 * (i / 2)) p = 0.f;
+          st[4 * j + i] = p;
+          dpt[4 * j + i] = p * (dpt[4 * j + i] - dd);
+        }
+      }
+      // dS^T and P^T each in two pieces (one rounding of either put dq
+      // and dk, or dv, past BWD_TOL).  dS^T is split and its products
+      // issue, then P^T is split under them: each float32 tile turns into
+      // its pieces as it dies (splitting both first, or dS^T under P^T's
+      // products, spilled at dh 64)
+      uint32_t p_hi[4][4], p_lo[4][4], s_hi[4][4], s_lo[4][4];
+      to_split_frags(dpt, s_hi, s_lo);
+      hopper::fence_regs(dka);
+      hopper::wgmma_fence();
+      rs_tile<DH>(dka, s_hi, qt, kTBox);
+      rs_tile<DH>(dka, s_lo, qt, kTBox);
+      hopper::wgmma_commit();
+      to_split_frags(st, p_hi, p_lo);
+      hopper::fence_regs(dva);
+      hopper::wgmma_fence();
+      rs_tile<DH>(dva, p_hi, gt, kTBox);
+      rs_tile<DH>(dva, p_lo, gt, kTBox);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      fence_frags(p_hi);
+      fence_frags(p_lo);
+      fence_frags(s_hi);
+      fence_frags(s_lo);
+      hopper::fence_regs(dka);
+      hopper::fence_regs(dva);
+    }
+    hopper::mbar_arrive(&empty[s]);
+  }
+
+  // dk = scale dS^T.Q and dv, rounded once; keys past S are not written
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = kr + 8 * hr;
+    if (key >= S) continue;
+    const int64_t at = ((static_cast<int64_t>(b) * S + key) * Hkv + hk) * DH
+                       + cq;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
+          __floats2bfloat162_rn(dka[4 * j + 2 * hr] * scale,
+                                dka[4 * j + 2 * hr + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
+          __floats2bfloat162_rn(dva[4 * j + 2 * hr], dva[4 * j + 2 * hr + 1]);
+    }
+  }
+}
+
+// dQ of a block of 64 kG query rows of one (b, h): Q, dO and the rows' lse
+// and D staged once; a producer thread streams the kv head's K and V tiles
+// of 64 keys (up to the diagonal when causal) through a ring; consumer
+// warpgroup w owns rows q0 + 64 w .. and computes S = Q.K^T and dP = dO.V^T
+// (wgmma, K-major), dS in registers, and dQ += dS.K (A from registers, B
+// the K tile N-major)
+template <int DH>
+__global__ void __launch_bounds__((kDqGroups<DH> + 1) * 128, 1)
+attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap gmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const float* __restrict__ rows,
+                         __nv_bfloat16* __restrict__ dq, int S, int Sp, int H,
+                         int Hkv, int BH, float scale_log2, float scale,
+                         int causal) {
+  constexpr int kG = kDqGroups<DH>;
+  constexpr int kRowsB = kG * kWT;     // query rows a block
+  constexpr int kBoxes = DH / 64;
+  constexpr int kQBox = kRowsB * 128;  // bytes of a box of Q or dO
+  constexpr int kTBox = kWT * 128;     // bytes of a box of a K or V tile
+  constexpr int kTile = kBoxes * kTBox;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align_1024(smem_raw);
+  uint8_t* gs = qs + kBoxes * kQBox;
+  uint8_t* ks = gs + kBoxes * kQBox;   // [stage][box][key]
+  uint8_t* vs = ks + kWStages * kTile;
+  float* ls = reinterpret_cast<float*>(vs + kWStages * kTile);
+  float* ds = ls + kRowsB;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ds + kRowsB);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kWStages;
+
+  // the heaviest (last) query blocks first
+  const int n_tiles = (S + kRowsB - 1) / kRowsB;
+  const int q0 = (n_tiles - 1 - static_cast<int>(blockIdx.y)) * kRowsB;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int hk = h / (H / Hkv);
+  const int n_kv = (S + kWT - 1) / kWT;
+  const int end = causal ? min(n_kv, (q0 + kRowsB - 1) / kWT + 1) : n_kv;
+  const int wg = __shfl_sync(~0u, static_cast<int>(threadIdx.x) / 128, 0);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kWStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kG * 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == kG) {                      // producer warpgroup: one thread
+    if (threadIdx.x == kG * 128) {
+      hopper::prefetch_map(&qmap);
+      hopper::prefetch_map(&gmap);
+      hopper::prefetch_map(&kmap);
+      hopper::prefetch_map(&vmap);
+      hopper::mbar_expect_tx(q_full, 2 * kBoxes * kQBox + 2 * kRowsB * 4);
+#pragma unroll
+      for (int j = 0; j < kBoxes; ++j) {
+        hopper::tma_load_4d(qs + j * kQBox, &qmap, q_full, 64 * j, h, q0, b);
+        hopper::tma_load_4d(gs + j * kQBox, &gmap, q_full, 64 * j, h, q0, b);
+      }
+      const float* lrow = rows + (static_cast<int64_t>(b) * H + h) * Sp + q0;
+      hopper::bulk_load(ls, lrow, kRowsB * 4, q_full);
+      hopper::bulk_load(ds, lrow + static_cast<int64_t>(BH) * Sp,
+                        kRowsB * 4, q_full);
+      for (int kt = 0; kt < end; ++kt) {
+        const int s = kt % kWStages;
+        if (kt >= kWStages) {
+          hopper::mbar_wait(&empty[s], ((kt / kWStages) & 1) ^ 1);
+        }
+        hopper::mbar_expect_tx(&full[s], 2 * kTile);
+#pragma unroll
+        for (int j = 0; j < kBoxes; ++j) {
+          hopper::tma_load_4d(ks + s * kTile + j * kTBox, &kmap, &full[s],
+                              64 * j, hk, kt * kWT, b);
+          hopper::tma_load_4d(vs + s * kTile + j * kTBox, &vmap, &full[s],
+                              64 * j, hk, kt * kWT, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: rows r0 and r0 + 8 of this thread, keys 8 j +
+  // cq + {0, 1} of each tile
+  const int t = threadIdx.x % 128;
+  const int my_q0 = q0 + wg * kWT;
+  const int r0 = my_q0 + (t / 32) * 16 + (t % 32) / 4;
+  const int cq = 2 * (t % 4);
+  const uint8_t* my_q = qs + wg * kWT * 128;
+  const uint8_t* my_g = gs + wg * kWT * 128;
+  float acc[DH / 2], sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  hopper::mbar_wait(q_full, 0);
+  const float lr[2] = {ls[r0 - q0], ls[r0 + 8 - q0]};
+  const float dr[2] = {ds[r0 - q0], ds[r0 + 8 - q0]};
+
+  for (int kt = 0; kt < end; ++kt) {
+    const int s = kt % kWStages;
+    const int k0 = kt * kWT;
+    hopper::mbar_wait(&full[s], (kt / kWStages) & 1);
+    // causal: a tile wholly after this warpgroup's rows is masked
+    if (!causal || k0 < my_q0 + kWT) {
+      const uint8_t* ktile = ks + s * kTile;
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      hopper::wgmma_fence();
+      ss_tile<DH>(sc, my_q, kQBox, ktile, kTBox);
+      ss_tile<DH>(dp, my_g, kQBox, vs + s * kTile, kTBox);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      // P = 2^(S scale log2(e) - lse log2(e)), 0 past S and, on the
+      // diagonal, where the key follows the row; dS = P (dP - D)
+      const bool edge = k0 + kWT > S || (causal && k0 + kWT > my_q0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = k0 + 8 * j + cq + i % 2;
+          float p = hopper::ex2(fmaf(sc[4 * j + i], scale_log2, -lr[i / 2]));
+          if (edge && (col >= S || (causal && col > r0 + 8 * (i / 2)))) {
+            p = 0.f;
+          }
+          dp[4 * j + i] = p * (dp[4 * j + i] - dr[i / 2]);
+        }
+      }
+      // dS in two pieces (one rounding put dq past BWD_TOL)
+      uint32_t s_hi[4][4], s_lo[4][4];
+      to_split_frags(dp, s_hi, s_lo);
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+      rs_tile<DH>(acc, s_hi, ktile, kTBox);
+      rs_tile<DH>(acc, s_lo, ktile, kTBox);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      fence_frags(s_hi);
+      fence_frags(s_lo);
+      hopper::fence_regs(acc);
+    }
+    hopper::mbar_arrive(&empty[s]);
+  }
+
+  // dq = scale dS.K, rounded once; rows past S are not written
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + 8 * hr;
+    if (row >= S) continue;
+    __nv_bfloat16* out =
+        dq + ((static_cast<int64_t>(b) * S + row) * H + h) * DH + cq;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * hr] * scale,
+                                acc[4 * j + 2 * hr + 1] * scale);
+    }
+  }
+}
+
+// bfloat16 tensor maps over (B, S, heads, DH), boxes of 64 values by `box`
+// rows, 128-byte swizzle; rows past S read as zeros
+template <int DH>
+int head_map(CUtensorMap* map, const void* base, int64_t B, int64_t S,
+             int64_t heads, uint32_t box) {
+  const uint64_t e = 2;
+  const uint64_t dims[4] = {DH, static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(B)};
+  const uint64_t str[3] = {DH * e, heads * DH * e, S * heads * DH * e};
+  const uint32_t boxes[4] = {64, 1, box, 1};
+  return hopper::make_map(map, base, 4, dims, str, boxes, true);
+}
+
+template <int DH>
+int launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     float* rows, void* dq, void* dk, void* dv, int64_t B,
+                     int64_t S, int64_t H, int64_t Hkv, float scale,
+                     int causal, cudaStream_t st) {
+  constexpr int kKeys = kDkdvGroups<DH> * kWT;
+  constexpr int kRowsB = kDqGroups<DH> * kWT;
+  const int64_t Sp = (S + kPad - 1) / kPad * kPad;
+  CUtensorMap q_tile, g_tile, k_block, v_block, q_block, g_block, k_tile,
+      v_tile;
+  if (int rc = head_map<DH>(&q_tile, q, B, S, H, kWT)) return rc;
+  if (int rc = head_map<DH>(&g_tile, dout, B, S, H, kWT)) return rc;
+  if (int rc = head_map<DH>(&k_block, k, B, S, Hkv, kKeys)) return rc;
+  if (int rc = head_map<DH>(&v_block, v, B, S, Hkv, kKeys)) return rc;
+  if (int rc = head_map<DH>(&q_block, q, B, S, H, kRowsB)) return rc;
+  if (int rc = head_map<DH>(&g_block, dout, B, S, H, kRowsB)) return rc;
+  if (int rc = head_map<DH>(&k_tile, k, B, S, Hkv, kWT)) return rc;
+  if (int rc = head_map<DH>(&v_tile, v, B, S, Hkv, kWT)) return rc;
+  constexpr size_t dkdv_bytes = dkdv_wgmma_smem<DH>();
+  constexpr size_t dq_bytes = dq_wgmma_smem<DH>();
+  if (cudaError_t e = cudaFuncSetAttribute(
+          attn_bwd_dkdv_wgmma_kernel<DH>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(dkdv_bytes))) {
+    return static_cast<int>(e);
+  }
+  if (cudaError_t e = cudaFuncSetAttribute(
+          attn_bwd_dq_wgmma_kernel<DH>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(dq_bytes))) {
+    return static_cast<int>(e);
+  }
+  if (int rc = launch_rows<__nv_bfloat16>(o, dout, lse, B, S, Sp, H, DH,
+                                          rows, st)) {
+    return rc;
+  }
+  const float scale_log2 = scale * kLog2e;
+  attn_bwd_dq_wgmma_kernel<DH>
+      <<<dim3(static_cast<unsigned>(B * H),
+              static_cast<unsigned>((S + kRowsB - 1) / kRowsB)),
+         (kDqGroups<DH> + 1) * 128, dq_bytes, st>>>(
+          q_block, g_block, k_tile, v_tile, rows,
+          static_cast<__nv_bfloat16*>(dq), static_cast<int>(S),
+          static_cast<int>(Sp), static_cast<int>(H), static_cast<int>(Hkv),
+          static_cast<int>(B * H), scale_log2, scale, causal);
+  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  attn_bwd_dkdv_wgmma_kernel<DH>
+      <<<dim3(static_cast<unsigned>(B * Hkv),
+              static_cast<unsigned>((S + kKeys - 1) / kKeys)),
+         (kDkdvGroups<DH> + 1) * 128, dkdv_bytes, st>>>(
+          q_tile, g_tile, k_block, v_block, rows,
+          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+          static_cast<int>(S), static_cast<int>(Sp), static_cast<int>(H),
+          static_cast<int>(Hkv), static_cast<int>(B * H), scale_log2, scale,
+          causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -453,30 +1040,43 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dO and the gradients).
-// lse: the forward's (B, H, S) float32 logsumexp; delta: (B, H, S) float32
-// scratch.  Needs contiguous tensors on 16-byte boundaries, 0 < dh <= 128
-// with dh a multiple of 8, H a multiple of Hkv, B * H <= 65535 and S <
-// 2^31 (the wrapper checks).
+// form (kernels/flash_attention.py's `form`, as the forward's): 0 = the
+// CUDA-core kernels, any dtype and dh; 1 = the wgmma kernels, bfloat16 with
+// dh 64 or 128.  lse: the forward's (B, H, S) float32 logsumexp; rows:
+// float32 scratch of 2 B H Sp, Sp = S for form 0 and S rounded up to 128
+// for form 1 (bwd_rows in the wrapper).  Needs contiguous tensors on
+// 16-byte boundaries, 0 < dh <= 128 with dh a multiple of 8, H a multiple
+// of Hkv, B * H <= 65535 and S < 2^31 (the wrapper checks).
 int attn_flash_attention_bwd(int device, const void* q, const void* k,
                              const void* v, const void* o, const void* dout,
                              const void* lse, int64_t B, int64_t S,
                              int64_t H, int64_t Hkv, int64_t dh, float scale,
-                             int causal, int dtype, void* delta, void* dq,
-                             void* dk, void* dv, void* stream) {
+                             int causal, int dtype, int form, void* rows,
+                             void* dq, void* dk, void* dv, void* stream) {
   if (cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   if (B < 1 || S < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || dh < 1
       || dh > 128 || dh % 8 != 0 || B * H > 65535 || S > 0x7fffffff
-      || (dtype != 0 && dtype != 1)) {
+      || (dtype != 0 && dtype != 1) || (form != 0 && form != 1)
+      || (form == 1 && (dtype != 1 || (dh != 64 && dh != 128)
+                        || (S + kWT - 1) / kWT > 65535))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto st = static_cast<cudaStream_t>(stream);
   const auto l = static_cast<const float*>(lse);
-  const auto d = static_cast<float*>(delta);
+  const auto r = static_cast<float*>(rows);
+  if (form == 1) {
+    return dh == 64 ? launch_bwd_wgmma<64>(q, k, v, o, dout, l, r, dq, dk,
+                                           dv, B, S, H, Hkv, scale, causal,
+                                           st)
+                    : launch_bwd_wgmma<128>(q, k, v, o, dout, l, r, dq, dk,
+                                            dv, B, S, H, Hkv, scale, causal,
+                                            st);
+  }
   if (dtype == 0) {
-    return dispatch_bwd<float>(q, k, v, o, dout, l, d, dq, dk, dv, B, S, H,
+    return dispatch_bwd<float>(q, k, v, o, dout, l, r, dq, dk, dv, B, S, H,
                                Hkv, dh, scale, causal, st);
   }
-  return dispatch_bwd<__nv_bfloat16>(q, k, v, o, dout, l, d, dq, dk, dv, B, S,
+  return dispatch_bwd<__nv_bfloat16>(q, k, v, o, dout, l, r, dq, dk, dv, B, S,
                                      H, Hkv, dh, scale, causal, st);
 }
 

@@ -307,6 +307,14 @@ __device__ __forceinline__ void fence_regs(float (&d)[M]) {
   for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+// 2^x by the SFU (ex2.approx, relative error below 2^-22; -inf and -1e30
+// and below give 0): exp2f's accurate form branches on its range a value
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // the registers of a warpgroup at run time: fewer for a producer, more for
 // a consumer.  ptxas still allocates every thread within the launch bound
 // (168 a thread at 384 threads); what it moves is the room at run time.

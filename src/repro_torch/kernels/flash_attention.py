@@ -28,10 +28,21 @@ Both skip the causal tiles past the diagonal and read the kv head in
 place, with no repeat.  Where autograd records (``q``, ``k`` or ``v``
 requires grad), the forward also writes each row's logsumexp (B, H, S)
 float32, and the backward is ``flash_attention_bwd``: the kernels of
-``csrc/attn_bwd.cu`` (a D = rowsum(dO o) pass, a dQ pass over the key
-tiles, a dK/dV pass over the query tiles and the group's heads; float32
-on the CUDA cores, no atomics, so two runs give the same bits).  Serving
-passes no logsumexp and launches as before.
+``csrc/attn_bwd.cu`` (a rows pass, D = rowsum(dO o); a dQ pass over the
+key tiles; a dK/dV pass over the query tiles and the group's heads; no
+atomics, so two runs give the same bits), in the forward's two forms:
+
+  * ``wgmma`` (bfloat16, dh 64 or 128: the training shapes): a producer
+    streams 64-row Q/dO or K/V tiles by TMA through a 4-stage ring; each
+    consumer warpgroup owns 64 keys (dK/dV) or 64 query rows (dQ), runs
+    the score products Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ (or S, dP) with ``wgmma``
+    from shared memory, P and dS in float32 registers, and the
+    accumulating products with P or dS from registers, each in the
+    forward's two bfloat16 pieces (its rounding and the rounding of what
+    that left).
+  * ``simt`` (float32, other head widths): float32 on the CUDA cores.
+
+Serving passes no logsumexp and launches as before.
 """
 from __future__ import annotations
 
@@ -172,8 +183,8 @@ def flash_attention_bwd_torch(q, k, v, o, lse, do, causal: bool = True):
 @counted("flash_attention_bwd")
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     """The gradient of ``flash_attention``: the plain version for CPU
-    tensors, the ``csrc/attn_bwd.cu`` kernels (one count in ``launches``)
-    for CUDA tensors."""
+    tensors, the ``csrc/attn_bwd.cu`` kernels (one count in ``launches``,
+    in the form ``form`` gives) for CUDA tensors."""
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_bwd_torch(q, k, v, o, lse, do, causal)
@@ -181,20 +192,35 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.last_form = None    # the form of the latest launch
+flash_attention_bwd.form_launches = {}  # launches by form
 
 
 flash_attention.launches = 0
 flash_attention.last_form = None    # the form of the latest launch
 flash_attention.form_launches = {}  # launches by form
 
-# the forms, as csrc/attn.cu's launcher numbers them
+# the forms, as csrc/attn.cu's and csrc/attn_bwd.cu's launchers number them
 FORMS = {"simt": 0, "wgmma": 1}
 
 
 def form(dtype: torch.dtype, dh: int) -> str:
-    """The kernel's form for a launch: ``wgmma`` for bfloat16 at head
-    width 64 or 128, ``simt`` otherwise."""
+    """The form of a launch of either kernel, forward or backward:
+    ``wgmma`` for bfloat16 at head width 64 or 128, ``simt`` otherwise."""
     return "wgmma" if dtype == torch.bfloat16 and dh in (64, 128) else "simt"
+
+
+def bwd_rows(S: int, chosen: str) -> int:
+    """The rows a (b, h) takes in the backward's scratch: S for ``simt``,
+    S rounded up to 128 for ``wgmma`` (whose tiles bulk-copy the rows'
+    lse and D 64 or 128 at a time)."""
+    return -(-S // 128) * 128 if chosen == "wgmma" else S
+
+
+def _count(wrapper, chosen: str) -> None:
+    wrapper.launches += 1
+    wrapper.last_form = chosen
+    wrapper.form_launches[chosen] = wrapper.form_launches.get(chosen, 0) + 1
 
 
 def _check_shapes(q, k, v) -> None:
@@ -242,10 +268,7 @@ def _launch(q, k, v, causal: bool, lse: bool = False):
                       dh ** -0.5, int(causal), DTYPE_FLAG[q.dtype],
                       FORMS[chosen], out.data_ptr(),
                       rows.data_ptr() if lse else None)
-        flash_attention.launches += 1
-        flash_attention.last_form = chosen
-        counts = flash_attention.form_launches
-        counts[chosen] = counts.get(chosen, 0) + 1
+        _count(flash_attention, chosen)
     return out, rows
 
 
@@ -262,14 +285,17 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool):
     do, lse = _on_16_bytes(do.to(q.dtype)), lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel():
-        delta = torch.empty(B, H, S, dtype=torch.float32, device=dev)
+        chosen = form(q.dtype, dh)
+        # each row's D, and the wgmma form's base-2 logsumexp
+        rows = torch.empty(2, B, H, bwd_rows(S, chosen), dtype=torch.float32,
+                           device=dev)
         _build.launch("attn_flash_attention_bwd", dev, q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       do.data_ptr(), lse.data_ptr(), B, S, H, k.shape[2], dh,
                       dh ** -0.5, int(causal), DTYPE_FLAG[q.dtype],
-                      delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                      dv.data_ptr())
-        flash_attention_bwd.launches += 1
+                      FORMS[chosen], rows.data_ptr(), dq.data_ptr(),
+                      dk.data_ptr(), dv.data_ptr())
+        _count(flash_attention_bwd, chosen)
     return dq, dk, dv
 
 

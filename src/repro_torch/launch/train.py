@@ -13,9 +13,13 @@ configs take their own optimizer (``spec_for_config``: adamw for
 qwen2-0.5b); ``--reduced`` takes sgdm at lr 0.05.  The initial weights
 come from a ``torch.Generator`` seeded 0 on the device, not from the JAX
 package's ``jax.random`` draws, so the two launchers start from other
-weights.  A round's batches are drawn by ``numpy.random.default_rng((17,
-round))``, so a resumed run sees the batches the uninterrupted run saw
-(the JAX launcher restarts one stream at 17 on resume).
+weights.  Every round's batches come from one
+``numpy.random.default_rng(17)`` stream, made before the first round, as
+the JAX launcher draws them, so an uninterrupted run sees the JAX
+launcher's tokens.  On ``--resume`` the skipped rounds' blocks are drawn
+and dropped first (every round draws one block of the same shape), so a
+resumed run sees the batches the uninterrupted run saw (the JAX launcher
+restarts its stream at 17 on resume).
 """
 from __future__ import annotations
 
@@ -110,15 +114,16 @@ def main(argv=None) -> list:
         start_round = extra["round"] + 1
         print(f"resumed from round {extra['round']}")
 
+    rng = np.random.default_rng(DATA_SEED)
+    block = (T, spec.h_local_steps, spec.local_batch, args.seq_len + 1)
+    for _ in range(start_round):       # the rounds a resumed run skips
+        rng.integers(0, cfg.vocab_size, block)
     lines = []
     for rnd in range(start_round, args.rounds):
         t0 = time.time()
         for t in range(T):
             registry.beat(f"trainer{t}")
-        rng = np.random.default_rng((DATA_SEED, rnd))
-        toks = rng.integers(
-            0, cfg.vocab_size,
-            (T, spec.h_local_steps, spec.local_batch, args.seq_len + 1))
+        toks = rng.integers(0, cfg.vocab_size, block)
         batches = {"tokens": torch.as_tensor(toks[..., :-1], dtype=torch.int32,
                                              device=dev),
                    "labels": torch.as_tensor(toks[..., 1:], dtype=torch.int32,

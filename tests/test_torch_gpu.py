@@ -587,20 +587,32 @@ def test_flash_attention_kernel_refuses(cuda):
     (2, 65, 14, 2, 64, torch.bfloat16), (1, 128, 4, 1, 128, torch.bfloat16),
     (2, 7, 4, 2, 16, torch.float32), (1, 1, 2, 1, 128, torch.float32),
     (2, 33, 4, 1, 80, torch.float32), (3, 65, 6, 3, 40, torch.bfloat16),
-    (1, 300, 7, 1, 64, torch.bfloat16)])
+    (1, 300, 7, 1, 64, torch.bfloat16), (1, 1, 4, 2, 64, torch.bfloat16),
+    (1, 1, 2, 1, 128, torch.bfloat16), (3, 65, 6, 6, 64, torch.bfloat16),
+    (1, 65, 8, 8, 128, torch.bfloat16), (2, 300, 8, 1, 128, torch.bfloat16),
+    (1, 257, 16, 2, 128, torch.bfloat16),
+    (1, 4095, 4, 2, 64, torch.bfloat16)])
 def test_flash_attention_bwd_kernel(cuda, B, S, H, Hkv, dh, dtype, causal):
     """The backward kernel against its plain version (``BWD_TOL``) on the
     forward kernel's output and logsumexp, bit-equal across two launches,
-    offset views taken as they are."""
+    offset views taken as they are; bfloat16 at dh 64 and 128 in the wgmma
+    form (S of 1, 65, 300 and 4,095, H == Hkv, groups of 7 and 8 query
+    heads), float32 and the other widths in the simt form."""
     q, k, v = _qkv(B, S, H, Hkv, dh, dtype, S * dh + H + 7, cuda)
     g = torch.Generator().manual_seed(S + dh)
     do = torch.randn(B, S, H, dh, generator=g).to(cuda, dtype)
     o, lse = fa._launch(q, k, v, causal, lse=True)
     want = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, causal)
     before = fa.flash_attention_bwd.launches
+    forms = dict(fa.flash_attention_bwd.form_launches)
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
     again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
     assert fa.flash_attention_bwd.launches == before + 2
+    chosen = ("wgmma" if dtype == torch.bfloat16 and dh in (64, 128)
+              else "simt")
+    assert fa.flash_attention_bwd.last_form == chosen
+    assert fa.flash_attention_bwd.form_launches[chosen] \
+        == forms.get(chosen, 0) + 2
     for a, b_, w in zip(got, again, want):
         assert a.dtype == w.dtype and a.shape == w.shape
         assert torch.equal(a, b_)
@@ -645,6 +657,34 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, remat):
     for k, w in want.items():
         torch.testing.assert_close(got[k].cpu(), w, rtol=1e-4,
                                    atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.gpu
+def test_bfloat16_train_step_takes_the_wgmma_backward(cuda, monkeypatch):
+    """qwen2-0.5b at full width (bfloat16, dh 64), two layers: every
+    backward launch of a value_and_grad is in the wgmma form, one a layer,
+    and the gradients sit within 5e-2 of each leaf's norm (L2) of the same
+    step with the plain versions forced (phase 19's tolerance)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=2)
+    model = build_model(cfg, cuda)
+    params = model.train_params(model.init_params(0))
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 257))
+    batch = {k: torch.from_numpy(t).to(cuda)
+             for k, t in (("tokens", toks[:, :-1]), ("labels", toks[:, 1:]))}
+    monkeypatch.setattr(fa.flash_attention_bwd, "form_launches", {})
+    loss, got = value_and_grad(model, params, batch)
+    assert fa.flash_attention_bwd.form_launches == {"wgmma": cfg.n_layers}
+    monkeypatch.setenv("REPRO_TORCH_KERNEL_IMPL", "torch")
+    plain_loss, want = value_and_grad(model, params, batch)
+    assert abs(float(loss) - float(plain_loss)) <= 2e-3 * abs(
+        float(plain_loss))
+    for k, w in want.items():
+        gap = (got[k].float() - w.float()).norm()
+        assert float(gap) <= 5e-2 * float(w.float().norm()), k
 
 
 @pytest.mark.gpu

@@ -68,3 +68,38 @@ def test_prefetcher_and_client_batches():
     jfn = jax_client_batch_fn(xs, ys, parts, 5)
     for c, r in ((0, 0), (1, 3)):
         np.testing.assert_array_equal(fn(c, r)["labels"], jfn(c, r)["labels"])
+
+
+def _recording(module, monkeypatch, seen):
+    """Patches ``module.build_fl_round`` so that every round's batches are
+    kept, as numpy, in ``seen`` before the round runs."""
+    real = module.build_fl_round
+
+    def build(*a, **kw):
+        fl_round = real(*a, **kw)
+
+        def recorded(params_T, opt_T, scores, batches):
+            seen.append({k: np.array(v.cpu() if isinstance(v, torch.Tensor)
+                                     else v) for k, v in batches.items()})
+            return fl_round(params_T, opt_T, scores, batches)
+        return recorded
+    monkeypatch.setattr(module, "build_fl_round", build)
+
+
+def test_batches_equal_the_jax_launchers(monkeypatch):
+    import jax
+
+    from repro.launch import train as jtrain
+    argv = ["--reduced", "--host-mesh", "--rounds", "4"]
+    mine, theirs = [], []
+    _recording(train, monkeypatch, mine)
+    _recording(jtrain, monkeypatch, theirs)
+    train.main(argv + ["--device", "cpu"])
+    with jax.disable_jit():
+        jtrain.main(argv)
+    assert len(mine) == len(theirs) == 4
+    for a, b in zip(mine, theirs):
+        assert a.keys() == b.keys() == {"tokens", "labels"}
+        for key in a:
+            assert a[key].dtype == b[key].dtype == np.int32
+            np.testing.assert_array_equal(a[key], b[key])

@@ -227,6 +227,54 @@ def test_flash_attention_bwd_torch_is_the_gradient(B, S, H, Hkv, dh, causal):
                                    atol=2 ** -7 * top)
 
 
+@pytest.mark.parametrize("dtype,dh,S,want", [
+    (torch.bfloat16, 64, 65, "wgmma"), (torch.bfloat16, 128, 1, "wgmma"),
+    (torch.bfloat16, 128, 300, "wgmma"), (torch.bfloat16, 80, 65, "simt"),
+    (torch.bfloat16, 40, 7, "simt"), (torch.float32, 64, 65, "simt"),
+    (torch.float32, 128, 128, "simt")])
+def test_flash_attention_bwd_form(monkeypatch, dtype, dh, S, want):
+    """The backward launches in the forward's form (``form``: wgmma for
+    bfloat16 at dh 64 or 128, simt otherwise): the launcher gets the
+    form's number and a (2, B, H, rows) float32 scratch, S rows for simt
+    and S rounded up to 128 for wgmma, and the wrapper counts the launch
+    by form.  The launch itself is recorded, not run (no card here)."""
+    calls = []
+    monkeypatch.setattr(fa, "check_cuda", lambda *t: t[0].device)
+    monkeypatch.setattr(fa._build, "launch",
+                        lambda name, dev, *args: calls.append((name, args)))
+    monkeypatch.setattr(fa.flash_attention_bwd, "launches", 0)
+    monkeypatch.setattr(fa.flash_attention_bwd, "form_launches", {})
+    B, H, Hkv = 2, 6, 3
+    q, o, do = (torch.zeros(B, S, H, dh, dtype=dtype) for _ in range(3))
+    k, v = (torch.zeros(B, S, Hkv, dh, dtype=dtype) for _ in range(2))
+    lse = torch.zeros(B, H, S)
+    scratch = []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        scratch.append(t)
+        return t
+    monkeypatch.setattr(torch, "empty", empty)
+    for _ in range(2):
+        fa._launch_bwd(q, k, v, o, lse, do, True)
+    assert fa.form(dtype, dh) == want
+    assert fa.flash_attention_bwd.last_form == want
+    assert fa.flash_attention_bwd.form_launches == {want: 2}
+    assert fa.flash_attention_bwd.launches == 2
+    rows = -(-S // 128) * 128 if want == "wgmma" else S
+    assert fa.bwd_rows(S, want) == rows
+    assert [tuple(t.shape) for t in scratch] == [(2, B, H, rows)] * 2
+    assert all(t.dtype == torch.float32 for t in scratch)
+    (name, args), _ = calls
+    assert name == "attn_flash_attention_bwd"
+    # (q, k, v, o, dO, lse, B, S, H, Hkv, dh, scale, causal, dtype, form,
+    # rows, dq, dk, dv)
+    assert args[6:11] == (B, S, H, Hkv, dh)
+    assert args[14] == fa.FORMS[want]
+    assert args[15] == scratch[0].data_ptr()
+
+
 def test_attention_block_backward_on_the_cpu_is_plain():
     """On the CPU the attention block differentiates through the plain
     version; the backward op's plain version is registered beside the

@@ -9,7 +9,11 @@ their paths' shapes (``CASES``):
   accounts) in chunks of 2,048: ``dirty_fold`` with every chunk selected
   and ``rollup_chunk_digests``;
 * Eq. 1 ``weighted_agg`` in float32 at the default FL path's (32, 64,
-  2,410) task-axis launch, the stepped path's (64, 2,410) and 1M wide.
+  2,410) task-axis launch, the stepped path's (64, 2,410) and 1M wide;
+* ``flash_attention_bwd`` in bfloat16, causal, at qwen2-0.5b's training
+  layer (4, 4,096, 14, 2, 64) and yi-6b's head (1, 4,096, 32, 4, 128),
+  on the tree's own forward kernel's output and logsumexp (three kernels
+  a call, their device times added).
 
     python3 tools/turns.py [--only TEXT ...] TREE [TREE ...]
 
@@ -26,7 +30,8 @@ and its own library: CUDA events with L2 flushed before each launch
 (chip_smoke.device_ms), with L2 evicted by writing a buffer
 (``device_ms``: its dirty lines are written back while the kernel reads)
 and by reading it (``clean_device_ms``), each result held to the plain
-version (bit for bit, Eq. 1 at float32 rtol 1e-5 / atol 1e-6).  One JSON
+version (bit for bit, Eq. 1 at float32 rtol 1e-5 / atol 1e-6, the
+attention's gradient by ``flash_attention.bwd_close``).  One JSON
 line a tree, in the order given, with the profiler traces taken again
 (``retakes``); all of them, with the card's name and power limit, in
 chiprun_out/turns.json.
@@ -51,19 +56,27 @@ F32_TOL = {"rtol": 1e-5, "atol": 1e-6}
 AGG_SHAPES = {"(32, 64, 2410)": (32, 64, 2410), "(64, 2410)": (1, 64, 2410),
               "(64, 1048576)": (1, 64, 1 << 20)}
 
+BWD_SHAPES = {"(4, 4096, 14, 2, 64)": (4, 4096, 14, 2, 64),
+              "(1, 4096, 32, 4, 128)": (1, 4096, 32, 4, 128)}
+
 # label -> (module of repro_torch.kernels, wrapper, tolerance against the
-# plain version (None: bit for bit), a name fragment of its kernels in a
-# trace: this tree's and those they replaced)
+# plain version (None: bit for bit; a string: the module's function that
+# holds (got, want)), a name fragment of its kernels in a trace: this
+# tree's and those they replaced, the launches of them a call)
 CASES = {
-    "stepped seal": ("batch_seal", "batch_seal", None, "batch_seal"),
-    "fused roots": ("batch_seal", "batch_seal", None, "batch_seal"),
-    "fused seal digests": ("batch_seal", "batch_seal", None, "batch_seal"),
-    "state refold": ("dirty_fold", "dirty_fold", None, "dirty_"),
+    "stepped seal": ("batch_seal", "batch_seal", None, "batch_seal", 1),
+    "fused roots": ("batch_seal", "batch_seal", None, "batch_seal", 1),
+    "fused seal digests": ("batch_seal", "batch_seal", None, "batch_seal",
+                           1),
+    "state refold": ("dirty_fold", "dirty_fold", None, "dirty_", 1),
     f"rollup_chunk_digests ({STATE_WORDS}, {CHUNK})": (
         "rollup_digest", "rollup_chunk_digests", None,
-        "chunk_digests_kernel"),
+        "chunk_digests_kernel", 1),
     **{f"weighted_agg {shape}": ("weighted_agg", "weighted_agg", F32_TOL,
-                                 "weighted_agg") for shape in AGG_SHAPES},
+                                 "weighted_agg", 1) for shape in AGG_SHAPES},
+    **{f"flash_attention_bwd {shape}": (
+        "flash_attention", "flash_attention_bwd", "bwd_close", "attn_bwd_",
+        3) for shape in BWD_SHAPES},
 }
 FROM_WORKLOAD = ("stepped seal", "fused roots", "fused seal digests")
 
@@ -97,6 +110,15 @@ def drawn(label: str, dev) -> tuple:
     """The arguments of a case not taken from the workload, drawn on the
     card from the case's own seed (the same in every process)."""
     g = torch.Generator(device=dev).manual_seed(list(CASES).index(label))
+    if label.startswith("flash_attention_bwd"):
+        from repro_torch.kernels import flash_attention as fa
+        B, S, H, Hkv, dh = BWD_SHAPES[label.removeprefix(
+            "flash_attention_bwd ")]
+        q, k, v, do = (torch.randn(B, S, n, dh, generator=g, device=dev,
+                                   dtype=torch.bfloat16)
+                       for n in (H, Hkv, Hkv, H))
+        o, lse = fa._launch(q, k, v, True, lse=True)
+        return q, k, v, o, lse, do, True
     if label.startswith("weighted_agg"):
         T, n, p = AGG_SHAPES[label.removeprefix("weighted_agg ")]
         w = torch.randn(T, n, p, generator=g, device=dev)
@@ -125,23 +147,30 @@ def time_tree(tree: Path, labels: list, dev) -> dict:
                 else {})
     row = {"tree": str(tree), "build_s": build_s}
     for label in labels:
-        module, op, tol, fragment = CASES[label]
+        module, op, tol, fragment, per_call = CASES[label]
         mod = importlib.import_module(f"repro_torch.kernels.{module}")
         kernel, plain = getattr(mod, op), getattr(mod, f"{op}_torch")
         args = (tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
                       for a in captured[label])
                 if label in FROM_WORKLOAD else drawn(label, dev))
         got, want = kernel(*args), plain(*args)
-        if tol:
+        if isinstance(tol, str):
+            if not getattr(mod, tol)(got, want):
+                raise AssertionError(f"{tree}: {label} is not {tol} plain")
+        elif tol:
             torch.testing.assert_close(got, want, **tol)
         elif not torch.equal(got, want):
             raise AssertionError(f"{tree}: {label} differs from plain")
+        del got, want
         row[label] = {"ms": cs.timed_ms(lambda: kernel(*args), 50, flush),
                       "device_ms": cs.device_ms(lambda: kernel(*args),
-                                                fragment, 20, flush),
+                                                fragment, 20, flush,
+                                                per_call=per_call),
                       "clean_device_ms": cs.device_ms(
                           lambda: kernel(*args), fragment, 20, flush,
-                          clean=True)}
+                          clean=True, per_call=per_call)}
+        if label.startswith("flash_attention_bwd"):
+            row[label]["form"] = getattr(kernel, "last_form", None)
     row["retakes"] = cs.RETAKES
     return row
 
