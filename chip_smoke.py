@@ -200,15 +200,19 @@ Phases, each printing its result on a line of its own:
                logs (with ``shard``), blocks, batch digests, fabric roots,
                interconnect logs (per kind) and event kinds equal; launch
                counts from 0: TWO shard_seal launches, one block_pack, no
-               batch_seal; (a) shard_seal bit-equal to its plain version at
-               K of 1, 2, 8 and 64 lanes, an empty lane, unequal lanes,
-               4,096 one-word segments, a 16 MB lane as one segment,
-               power-law lengths and views offset by 1-3 words, the mesh
-               impl equal to the wrapper; then at (c)'s two calls (captured)
+               batch_seal; (a) shard_seal (csrc/shard.cu, a cluster a
+               lane) bit-equal to its plain version at K of 1, 2, 8 and 64
+               lanes, an empty lane, unequal lanes, 4,096 one-word
+               segments, a 16 MB lane as one segment, power-law lengths,
+               views offset by 1-3 words, edges on the kernel's range and
+               stage edges and ranges past its window, at plan_clusters'
+               block count and at every one from 1 to 16, the mesh impl
+               equal to the wrapper; then at (c)'s two calls (captured)
                bit-equal to plain and to one batch_seal a lane, timed by
-               CUDA events and the profiler beside its bytes bound, the
-               plain version, the K batch_seal launches and the ticket
-               buffer's zeroing; (b) benchmarks/bench_shards.py's
+               CUDA events and the profiler (L2 evicted by writes and by
+               reads) beside its bytes bound, the plain version and the K
+               batch_seal launches, with the block count a lane; (b)
+               benchmarks/bench_shards.py's
                "shard-fabric" point (Table I's mixed blend at 20,000 tx/s
                for 10 s, seed 0) through build_stack at 1, 2, 4 and 8
                shards: the state root equal at every K and in a second run
@@ -3277,11 +3281,36 @@ def lane_grid(lanes, dev, offset: int = 0):
             torch.from_numpy(n_seg).to(dev), torch.from_numpy(n_words).to(dev))
 
 
+def edge_starts(n: int, g, fill: int) -> np.ndarray:
+    """Segment starts of an ``n``-word lane with edges on the kernel's
+    range and stage edges (and on the chunk edges of each range's first
+    stage) at every block count and every misalignment of the row: the
+    word at each such edge and the two on each side of it start
+    segments, plus ``fill`` random cuts."""
+    from repro_torch.kernels import shard_lanes as sl
+    cuts = {0} | (set(g.integers(1, n, fill).tolist()) if n > 1 else set())
+    for h0 in range(4):
+        v = (h0 + n + 3) // 4                 # the cover, in vectors
+        c = 1
+        while c <= sl.MAX_CLUSTER:
+            rv = -(-v // c)
+            for lo in range(0, v, rv):
+                edges = set(range(lo, min(v, lo + rv), sl.STAGE_VECS))
+                edges |= set(range(lo, min(v, lo + sl.STAGE_VECS),
+                                   sl.CHUNK_VECS))
+                cuts |= {4 * x - h0 + d for x in edges for d in range(-2, 3)}
+            c *= 2
+    return np.array(sorted(x for x in cuts if 0 <= x < n), np.int64)
+
+
 def shard_seal_cases(g) -> list:
     """shard_seal's hard inputs (those of tests/test_torch_gpu.py): K of
     1, 2, 8 and 64 lanes of unequal length; an empty lane; 4,096 one-word
     segments; a 16 MB lane as one segment; power-law segment lengths (1
-    to 10^5 words); views offset by 1-3 words.  (label, lanes, offset)."""
+    to 10^5 words); views offset by 1-3 words; segment edges on the
+    kernel's range, stage and chunk edges (``edge_starts``); ranges of
+    more starts than the kernel's window (100,000 one-word segments;
+    150,000 segments in 300,000 words).  (label, lanes, offset)."""
     def lane(n, n_seg=None, lengths=None, one_word=False):
         w = g.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
         if lengths is not None:
@@ -3312,7 +3341,13 @@ def shard_seal_cases(g) -> list:
         ("16 MB lane, one segment", [lane(4 << 20, 1)], 0),
         ("power-law lengths", [lane(sum(power), lengths=power),
                                lane(200_000, 2_500)], 0),
-    ] + [(f"offset {off}", unequal[:4], off) for off in (1, 2, 3)]
+    ] + [(f"offset {off}", unequal[:4], off) for off in (1, 2, 3)] + [
+        ("edges on range and stage edges",
+         [lane(n, lengths=np.diff(np.append(edge_starts(n, g, 3_000), n)))
+          for n in (262_141, 95_997)], 1),
+        ("100,000 one-word segments", [lane(100_000, one_word=True)], 1),
+        ("150,000 segments in 300,000 words",
+         [lane(300_000, 150_000), lane(7_000, 6_999)], 2)]
 
 
 def lane_views(words, starts, n_seg, n_words) -> list:
@@ -3330,13 +3365,17 @@ def per_lane_seals(lanes) -> list:
     return [bs.batch_seal(w, st) for w, st in lanes]
 
 
+SHARD_CLUSTERS = (1, 2, 4, 8, 16)
+
+
 def check_shard_seal(dev, calls, flush) -> dict:
     """(a) shard_seal bit-equal to its plain version at its hard cases,
-    the mesh impl equal to the wrapper; then at the fused fabric twin's
-    two calls (captured), timed by CUDA events and the profiler's device
-    time beside its bytes bound, the plain version and K batch_seal
-    launches on the same lanes.  Returns the kernels line's row (the
-    twin's roots call)."""
+    at plan_clusters' block count and forced to every block count, the
+    mesh impl equal to the wrapper; then at the fused fabric twin's two
+    calls (captured), timed by CUDA events and the profiler's device time
+    (L2 evicted by writing a buffer, and by reading it) beside its bytes
+    bound, the plain version and K batch_seal launches on the same lanes.
+    Returns the kernels line's row (the twin's roots call)."""
     from repro_torch.kernels import shard_lanes as sl
     g = np.random.default_rng(16)
     before = sl.shard_seal.launches
@@ -3348,6 +3387,11 @@ def check_shard_seal(dev, calls, flush) -> dict:
         if u32_err(got, want):
             raise AssertionError(f"shard_seal at {label}: differs from "
                                  f"its plain version")
+        for clusters in SHARD_CLUSTERS:
+            if u32_err(sl._launch(*args, clusters), want):
+                raise AssertionError(f"shard_seal at {label}, {clusters} "
+                                     f"blocks a lane: differs from its "
+                                     f"plain version")
         if not torch.equal(sl.shard_seal_mesh(*args), got):
             raise AssertionError(f"shard_seal's mesh impl at {label}: "
                                  f"differs from the wrapper")
@@ -3357,8 +3401,9 @@ def check_shard_seal(dev, calls, flush) -> dict:
         raise AssertionError("shard_seal: not one launch a call")
     log(f"kernel shard_seal: bit-equal to plain on {n_cases} cases (K of "
         f"1 to 64, an empty lane, one-word segments, a 16 MB lane, "
-        f"power-law lengths, views offset by 1-3 words); the mesh impl "
-        f"equal to the wrapper")
+        f"power-law lengths, views offset by 1-3 words, edges on range and "
+        f"stage edges, ranges past the window) at {SHARD_CLUSTERS} blocks "
+        f"a lane; the mesh impl equal to the wrapper")
     rows = []
     for label, args in zip(("roots", "seal digests"), calls):
         words, starts, n_seg, n_words = args
@@ -3374,19 +3419,20 @@ def check_shard_seal(dev, calls, flush) -> dict:
                                  f"per-lane batch_seal")
         k, b = starts.shape
         sum_w, sum_b = int(n_words.sum()), int(n_seg.sum())
+        kernel = "shard_seal_cluster_kernel"
         row = {"name": "shard_seal", "max_abs_err": err,
                "lanes": k, "words": sum_w, "segments": sum_b,
                "grid": [k, int(words.shape[1])],
+               "clusters": sl.shard_seal.last_clusters,
                "ms": timed_ms(lambda: sl.shard_seal(*args), 50, flush),
-               "device_ms": device_ms(lambda: sl.shard_seal(*args),
-                                      "shard_seal_span_kernel", 20, flush),
+               "device_ms": device_ms(lambda: sl.shard_seal(*args), kernel,
+                                      20, flush),
+               "clean_device_ms": device_ms(lambda: sl.shard_seal(*args),
+                                            kernel, 20, flush, clean=True),
                "plain_ms": timed_ms(lambda: sl.shard_seal_torch(*args), 5,
                                     flush),
                **cost_bound("shard_seal", *args),
                "library_ms": None,
-               # the per-launch ticket buffer: one fill of K words
-               "tickets_zero_ms": timed_ms(lambda: torch.zeros(
-                   k, dtype=torch.int32, device=dev), 50, flush),
                "lanes_batch_seal_ms": timed_ms(
                    lambda: per_lane_seals(views), 20, flush),
                "lanes_batch_seal_device_ms": device_ms(
@@ -4950,7 +4996,8 @@ def main() -> int:
     sources = {"weighted_agg": "fl.cu", "model_distance": "fl.cu",
                "block_pack": "pack.cu", "flash_attention": "attn.cu",
                "flash_attention_bwd": "attn_bwd.cu",
-               "gmm": "moe.cu", "slstm_scan": "slstm.cu"}
+               "gmm": "moe.cu", "slstm_scan": "slstm.cu",
+               "shard_seal": "shard.cu"}
     kernels = []
     for row in source_rows:
         name = row["name"]

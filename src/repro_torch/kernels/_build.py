@@ -42,10 +42,11 @@ _SIGNATURES = {
     "fold_dirty_chunks": (_D, _P, _I, _I, _P, _I, _I, _P, _P),
     # (device, words, n, starts, nb, span, carry scratch, out, stream)
     "fold_batch_seal": (_D, _P, _I, _P, _I, _I, _P, _P, _P),
-    # (device, words, row stride, starts, row stride, n_seg, n_words, K,
-    # B, W, span, carry scratch, tickets, out, stream)
-    "fold_shard_seal": (_D, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P,
-                        _P, _P),
+    # csrc/shard.cu: (device, words, row stride, starts, row stride,
+    # n_seg, n_words, K, B, W, blocks a lane, out, stream)
+    "fold_shard_seal": (_D, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P),
+    # (device, blocks a cluster, out int, stream)
+    "fold_shard_seal_capacity": (_D, _I, _P, _P),
     # csrc/fl.cu: (device, w, s, T, n, P, w's task and row strides, dtype
     # flag, out, stream)
     "fl_weighted_agg": (_D, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P),

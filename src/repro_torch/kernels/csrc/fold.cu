@@ -6,7 +6,7 @@
 // 0x9E3779B9.  Zero words mix to zero, so a ragged tail needs no padding:
 // a thread that has no word folds in zero.
 //
-// Five launchers with a plain C interface (loaded with ctypes by
+// Four launchers with a plain C interface (loaded with ctypes by
 // src/repro_torch/kernels/_build.py).  Each takes the device index, raw
 // device pointers and a cudaStream_t, allocates nothing and returns
 // cudaGetLastError():
@@ -20,11 +20,11 @@
 //   fold_batch_seal      one word per [starts[i], starts[i+1]) segment:
 //                        equal spans of words a block, whatever the
 //                        segments, in one launch
-//   fold_shard_seal      batch_seal over each row of a (K, W) grid of
-//                        shard lanes, a lane a grid row (blockIdx.y), in
-//                        one launch
 //
-// All five are bound by the bytes they read: a few integer operations per
+// (shard_seal, the same segment fold over K lanes, is csrc/shard.cu.)
+// fold_error_string names any launcher's error code.
+//
+// All four are bound by the bytes they read: a few integer operations per
 // 4-byte word against 3.35 TB/s of HBM.  What keeps a read at that rate is
 // enough bytes in flight on every SM: the span folds below read 16-byte
 // (uint4) vectors, four in flight a thread, neighbouring threads on
@@ -55,9 +55,7 @@
 // P[its span].  The counter is one word of the library per device, so the
 // calls of one device must run one at a time: the port launches every
 // kernel on torch's current stream, and batch_seal must not run on two
-// streams at once.  shard_seal runs the same span fold (seal_span) a
-// lane at a time, with a ticket a lane in a buffer its caller zeroes for
-// the launch, so it shares no counter with any other launch.  kernels/batch_seal.py batch_seal_mirror repeats the
+// streams at once.  kernels/batch_seal.py batch_seal_mirror repeats the
 // spans, pieces and carries on the CPU.
 
 #include <climits>
@@ -299,8 +297,7 @@ __device__ __forceinline__ void seal_bounds(const int64_t* __restrict__ starts,
 // digests are not defined.  `carry` holds `blocks` records; `ticket`
 // counts the blocks that left theirs (the last one resets it to 0).
 // `smem` is the launch's dynamic shared memory (seal_smem bytes).
-// batch_seal_span_kernel runs it once a launch, shard_seal_span_kernel
-// once a lane.
+// batch_seal_span_kernel runs it once a launch.
 __device__ __forceinline__ void seal_span(
     const uint32_t* __restrict__ w, int64_t n,
     const int64_t* __restrict__ starts, int64_t nb, int span, int window,
@@ -583,42 +580,6 @@ batch_seal_span_kernel(const uint32_t* __restrict__ w, int64_t n,
             &g_seal_ticket, blockIdx.x, gridDim.x, smem);
 }
 
-// shard_seal: lane k = blockIdx.y is batch_seal over row k of a (K, W)
-// word grid, words[k ldw, k ldw + n_words[k]) cut at starts[k lds,
-// k lds + n_seg[k]), into out[k B, k B + n_seg[k]); the other columns of
-// the output row get the seed (the digest of an empty segment), written
-// by the lane's block 0.  Every lane takes the same span, so blockIdx.x
-// is the span; blocks past a lane's ceil(n_words[k] / span) spans leave
-// at once.  Each lane has its own carries (`lane_blocks` records from
-// carry + k lane_blocks) and its own ticket (tickets[k], zeroed by the
-// caller), so lanes never wait on each other and no counter is shared
-// with another launch.
-__global__ void __launch_bounds__(kSealThreads)
-shard_seal_span_kernel(const uint32_t* __restrict__ w, int64_t ldw,
-                       const int64_t* __restrict__ starts, int64_t lds,
-                       const int64_t* __restrict__ n_seg,
-                       const int64_t* __restrict__ n_words, int64_t B,
-                       int span, int window, int staged_cap,
-                       int64_t lane_blocks, SealCarry* __restrict__ carry,
-                       unsigned int* __restrict__ tickets,
-                       uint32_t* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int64_t k = blockIdx.y;
-  const int64_t n = n_words[k];
-  const int64_t nb = n_seg[k];
-  uint32_t* row = out + k * B;
-  if (blockIdx.x == 0) {
-    for (int64_t j = nb + threadIdx.x; j < B; j += kSealThreads) {
-      row[j] = kMixSeed;
-    }
-  }
-  const int64_t blocks = (n + span - 1) / span;
-  if (nb < 1 || blockIdx.x >= blocks) return;
-  seal_span(w + k * ldw, n, starts + k * lds, nb, span, window, staged_cap,
-            carry + k * lane_blocks, row, tickets + k, blockIdx.x, blocks,
-            smem);
-}
-
 int64_t blocks_for(int64_t items, int64_t per_block) {
   return (items + per_block - 1) / per_block;
 }
@@ -755,43 +716,6 @@ int fold_batch_seal(int device, const void* words, int64_t n,
       static_cast<const int64_t*>(starts), nb, static_cast<int>(span),
       window, staged, static_cast<SealCarry*>(carry),
       static_cast<uint32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// shard_seal over K lanes of a (K, W) word grid (row stride ldw words)
-// and a (K, B) start grid (row stride lds), n_seg and n_words (K,) int64
-// on the device; `span` from kernels/shard_lanes.py, `carry` K x
-// ceil(W / span) SealCarry records of scratch, `tickets` K words set to 0;
-// out (K, B) contiguous.
-int fold_shard_seal(int device, const void* words, int64_t ldw,
-                    const void* starts, int64_t lds, const void* n_seg,
-                    const void* n_words, int64_t lanes, int64_t B, int64_t W,
-                    int64_t span, void* carry, void* tickets, void* out,
-                    void* stream) {
-  if (cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
-  if (lanes < 1 || lanes > 65535 || B < 1 || W < 0 || W > INT_MAX
-      || span < kSealMinSpan || span > kSealMaxSpan || span % kSealMinSpan) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int window = static_cast<int>(B < span ? B : span);
-  const int staged = window + 2 * kSealThreads + 1;
-  const int smem = seal_smem(static_cast<int>(span), staged);
-  if (cudaError_t e = cudaFuncSetAttribute(
-          shard_seal_span_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          smem)) {
-    return static_cast<int>(e);
-  }
-  const int64_t lane_blocks = W > 0 ? blocks_for(W, span) : 1;
-  const dim3 grid(static_cast<unsigned>(lane_blocks),
-                  static_cast<unsigned>(lanes));
-  shard_seal_span_kernel<<<grid, kSealThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), ldw,
-      static_cast<const int64_t*>(starts), lds,
-      static_cast<const int64_t*>(n_seg),
-      static_cast<const int64_t*>(n_words), B, static_cast<int>(span),
-      window, staged, lane_blocks, static_cast<SealCarry*>(carry),
-      static_cast<unsigned int*>(tickets), static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,30 +30,45 @@ blocks over ``launch/mesh.make_shard_mesh``, as
 its own device, the results gathered on the first; one block on one
 card).
 
-Kernel (``shard_seal_span_kernel`` in ``csrc/fold.cu``): ``batch_seal``'s
-equal spans of words (``batch_seal_span_kernel``: the same device
-function, ``seal_span``) with a lane axis.  ``blockIdx.y`` is the lane,
-``blockIdx.x`` the span; every lane takes one span, ``plan(K·W)``'s, and
-the blocks past a lane's words leave at once.  A lane keeps its own carry
-records and its own ticket: the tickets are a buffer of K words that the
-wrapper zeroes for each call (one ``torch.zeros``), so no counter is shared
-with another launch (``batch_seal``'s ``g_seal_ticket`` is one word of
-the library).  Block 0 of each lane writes the lane's padded columns.
-Bound: ``4·ΣW_k + 8·ΣB_k + 4·K·B`` bytes (words read, starts read, digests
-written).
+Kernel (``shard_seal_cluster_kernel`` in ``csrc/shard.cu``; the JAX
+package's ``_lane_fold`` at ``src/repro/kernels/shard_lanes.py:79`` has no
+Pallas form): a thread-block cluster a lane, grid ``(C, K)``, ``C`` from
+``plan_clusters`` (a power of two up to 16, about a block for every two
+SMs).  Block ``r`` owns the ``r``-th of ``C`` equal ranges of the lane's
+16-byte cover: one producer thread bulk-copies the starts an evenly cut
+lane would put in the range (a search takes over where they do not
+bracket it), then streams the range's words through a ring of 16 KB
+stages; two groups of 256 walkers take the stages in turn, a run of 4
+vectors a thread; a warp joins its 32 runs by a scan of shuffles, writes
+the segments that start and end in its chunk of ``CHUNK_VECS`` vectors and
+xors the chunk's first and last pieces into the segments' shared-memory
+accumulators; the block then writes its segments that ended in the range.
+The piece of the segment begun before each range, and of the one still
+open at its end, meet in rank 0's shared memory (distributed shared
+memory, one cluster barrier), where a prefix xor over the cluster writes
+the segments that cross ranges.  No scratch, no fill, no counter: one
+launch a call, refused (never run another way) where no cluster of ``C``
+blocks fits the card.  ``shard_seal_mirror`` repeats the ranges, chunks
+and join on the CPU.  Bound: ``4·ΣW_k + 8·ΣB_k + 4·K·B`` bytes (words
+read, starts read, digests written).
 """
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.batch_seal import plan
 from repro_torch.kernels.factory import counted
 from repro_torch.kernels.rollup_digest import (MIX_SEED, OPS_PER_WORD,
                                                check_cuda, mix_u32, to_i32,
                                                to_u32)
+
+MAX_CLUSTER = 16                    # blocks a lane at most, kMaxCluster
+STAGE_VECS = 1024                   # 16-byte vectors a ring stage ..
+CHUNK_VECS = 128                    # .. and a warp's 32 runs, kChunkWords / 4
 
 
 def _lanes(n, k: int, device) -> torch.Tensor:
@@ -120,11 +135,25 @@ def shard_seal_torch(words: torch.Tensor, starts: torch.Tensor, n_seg,
     return to_i32(torch.where(real, out, MIX_SEED))
 
 
+def plan_clusters(k: int, sms: int = 132) -> int:
+    """Blocks a lane for ``k`` lanes on a card of ``sms`` SMs: the largest
+    power of two up to ``MAX_CLUSTER`` that keeps ``k`` clusters to a
+    block for every two SMs (at least 1).  A block's two walker groups
+    keep an SM's share of the bandwidth busy; at 8 lanes on an H100, 8
+    blocks a lane ran both fused fabric calls faster than 16
+    (tools/shard_split.py)."""
+    c = 1
+    while 2 * c <= MAX_CLUSTER and k * 2 * c <= sms // 2:
+        c *= 2
+    return c
+
+
 @counted("shard_seal")
 def shard_seal(words: torch.Tensor, starts: torch.Tensor, n_seg,
                n_words) -> torch.Tensor:
     """(K, B) int32 digests of every lane's segments: the plain version
-    for CPU tensors, one launch of the CUDA kernel for CUDA tensors."""
+    for CPU tensors, one launch of the CUDA kernel for CUDA tensors
+    (``plan_clusters`` blocks a lane, kept in ``last_clusters``)."""
     words = _grid_words(words)
     starts = starts.to(torch.int64)
     if starts.dim() != 2 or starts.shape[0] != words.shape[0]:
@@ -139,31 +168,118 @@ def shard_seal(words: torch.Tensor, starts: torch.Tensor, n_seg,
     if starts.stride(1) != 1:
         starts = starts.contiguous()
     n_seg, n_words = _lanes(n_seg, K, dev), _lanes(n_words, K, dev)
-    out = _launch(words, starts, n_seg, n_words, plan(max(1, K * W)).span)
+    shard_seal.last_clusters = plan_clusters(K, _sm_count(dev))
+    out = _launch(words, starts, n_seg, n_words, shard_seal.last_clusters)
     shard_seal.launches += 1
     return out
 
 
-def _launch(words, starts, n_seg, n_words, span: int) -> torch.Tensor:
-    """The kernel at ``span`` words a block (a multiple of
-    ``batch_seal.MIN_SPAN``)."""
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _launch(words, starts, n_seg, n_words, clusters: int) -> torch.Tensor:
+    """The kernel at ``clusters`` blocks a lane (a power of two up to
+    ``MAX_CLUSTER``; ``plan_clusters`` picks it, a test forces it)."""
     K, W = words.shape
     B = starts.shape[1]
-    dev = words.device
-    out = torch.empty(K, B, dtype=torch.int32, device=dev)
-    lane_blocks = max(1, -(-W // span))
-    # a SealCarry record (three 8-byte words) a block of each lane, never
-    # read unwritten; a ticket a lane, zeroed for this launch
-    carry = torch.empty(3 * K * lane_blocks, dtype=torch.int64, device=dev)
-    tickets = torch.zeros(K, dtype=torch.int32, device=dev)
-    _build.launch("fold_shard_seal", dev, words.data_ptr(), words.stride(0),
-                  starts.data_ptr(), starts.stride(0), n_seg.data_ptr(),
-                  n_words.data_ptr(), K, B, W, span, carry.data_ptr(),
-                  tickets.data_ptr(), out.data_ptr())
+    out = torch.empty(K, B, dtype=torch.int32, device=words.device)
+    _build.launch("fold_shard_seal", words.device, words.data_ptr(),
+                  words.stride(0), starts.data_ptr(), starts.stride(0),
+                  n_seg.data_ptr(), n_words.data_ptr(), K, B, W, clusters,
+                  out.data_ptr())
     return out
 
 
 shard_seal.launches = 0
+shard_seal.last_clusters = None
+
+
+def shard_seal_mirror(words: torch.Tensor, starts: torch.Tensor, n_seg,
+                      n_words, clusters: Optional[int] = None
+                      ) -> torch.Tensor:
+    """The kernel's ranges, chunks and cluster join on the CPU, at
+    ``clusters`` blocks a lane (``plan_clusters``' by default).  Block
+    ``r`` of lane ``k`` owns vectors ``[r·RV, (r+1)·RV)`` of the row's
+    16-byte cover (its misalignment read from the row's address, as the
+    kernel reads it), ``RV = ceil(V / C)``.  A segment is written by a
+    warp where it starts and ends in one warp's chunk of ``CHUNK_VECS``
+    vectors (chunks tile each block's ring stages of ``STAGE_VECS``
+    vectors from its first), by its block where it starts and ends in the
+    block's range, else by rank 0's join as ``seed ^`` its piece in the
+    block where it starts ``^ P[e] ^ P[r]``: ``P`` the prefix xor over the
+    cluster of each block's piece of the segment begun before its range,
+    ``e`` the block of the segment's last word.  Raises if a block would
+    leave the join more than one open segment."""
+    words = _grid_words(words).cpu()
+    starts = starts.to(torch.int64).cpu()
+    K, _ = words.shape
+    B = starts.shape[1]
+    n_seg = _lanes(n_seg, K, "cpu").numpy()
+    n_words = _lanes(n_words, K, "cpu").numpy()
+    c = plan_clusters(K) if clusters is None else clusters
+    if c < 1 or c > MAX_CLUSTER or c & (c - 1):
+        raise ValueError(f"{c} blocks a lane: not a power of two up to "
+                         f"{MAX_CLUSTER}")
+    out = np.full((K, B), MIX_SEED, np.uint32)
+    mult = np.uint32(0x85EBCA6B)
+    for k in range(K):
+        n, nb = int(n_words[k]), int(n_seg[k])
+        if nb < 1:
+            continue
+        row = words[k]
+        h0 = (row.data_ptr() & 15) >> 2
+        w = row[:n].numpy().view(np.uint32)
+        mixed = (w ^ (w >> np.uint32(16))) * mult
+        # prefix[i]: xor of the first i mixed words
+        prefix = np.concatenate([[np.uint32(0)],
+                                 np.bitwise_xor.accumulate(mixed)])
+        st = starts[k, :nb].numpy()
+        en = np.append(st[1:], n)
+        v_total = (h0 + n + 3) // 4
+        rv = -(-v_total // c)
+        v_lo = np.minimum(np.arange(c) * rv, v_total)
+        r_lo = np.where(v_lo == 0, 0, np.minimum(4 * v_lo - h0, n))
+        r_hi = np.minimum(4 * np.minimum(v_lo + rv, v_total) - h0, n)
+
+        def block(p):                       # the block of lane word p
+            return (p + h0) // 4 // rv
+
+        # chunks tile each block's vectors from its first (rv need not be
+        # a multiple of CHUNK_VECS): (block, block vector // CHUNK_VECS)
+        def chunk_in_block(p):
+            v = (p + h0) // 4
+            return block(p), (v - v_lo[block(p)]) // CHUNK_VECS
+
+        def piece(b, lo, hi):               # words [lo, hi) cut to block b
+            lo = np.maximum(lo, r_lo[b])
+            hi = np.minimum(hi, r_hi[b])
+            return np.where(hi > lo, prefix[np.maximum(hi, lo)] ^
+                            prefix[lo], np.uint32(0))
+        b_s, chunk_s = chunk_in_block(st)
+        b_e, chunk_e = chunk_in_block(en - 1)
+        # the segment begun before each range: k_lo(r) = starts below r_lo
+        k_lo = np.searchsorted(st, r_lo)
+        before = k_lo - 1
+        first = np.where(
+            k_lo > 0, piece(np.arange(c), st[np.maximum(before, 0)],
+                            en[np.maximum(before, 0)]), np.uint32(0))
+        p_join = np.bitwise_xor.accumulate(first)
+        digest = np.zeros(nb, np.uint32)
+        warp = (b_s == b_e) & (chunk_s == chunk_e)
+        in_block = (b_s == b_e) & ~warp
+        joined = b_s != b_e
+        for mask in (warp, in_block):       # the block's own words
+            digest[mask] = piece(b_s[mask], st[mask], en[mask])
+        digest[joined] = (piece(b_s[joined], st[joined], en[joined])
+                          ^ p_join[b_e[joined]] ^ p_join[b_s[joined]])
+        # a block leaves one open segment at most: the last that starts
+        # in it
+        if np.bincount(b_s[joined], minlength=c).max(initial=0) > 1:
+            raise AssertionError("a block leaves two open segments")
+        out[k, :nb] = np.uint32(MIX_SEED) ^ digest
+    return torch.from_numpy(out.view(np.int32))
 
 
 @counted("shard_seal")

@@ -36,7 +36,9 @@ bit-equal; the object Rollup's digest buffers (4 to 84 words, offset
 views) and the default ``AutoDFL()`` agent path on the card against the
 CPU; ``shard_seal`` bit for bit at its hard cases (K of 1 to 64 lanes, an
 empty lane, one-word segments, a 16 MB lane, power-law lengths, offset
-views), one launch a call, equal to one ``batch_seal`` a lane and to its
+views, segment edges on the kernel's range and stage edges, ranges of
+more starts than its window) at every block count, one launch and one
+device kernel a call, equal to one ``batch_seal`` a lane and to its
 mesh impl, and the 2-shard fabric's node path on the card against the
 CPU (its fused twin in two ``shard_seal`` launches); the node service
 (``repro_torch.serve``) on the vector and the 2-shard fabric backends on
@@ -52,6 +54,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from repro_torch.kernels import batch_seal as bs
 from repro_torch.kernels import block_pack as bp
 from repro_torch.kernels import dirty_fold as df
@@ -1091,7 +1094,15 @@ def _lane_cases():
              ("16 MB lane, one segment", [lane(4 << 20, 1)], 0),
              ("power law", [lane(sum(power), lengths=power)], 0)]
             + [(f"view offset {off}", unequal[:3], off)
-               for off in (1, 2, 3)])
+               for off in (1, 2, 3)]
+            + [("edges on range and stage edges",
+                [lane(n, lengths=np.diff(np.append(
+                    chip_smoke.edge_starts(n, g, 2_000), n)))
+                 for n in (131_069, 50_001)], 3),
+               ("100,000 one-word segments",
+                [lane(100_000, one_word=True)], 1),
+               ("150,000 segments in 300,000 words",
+                [lane(300_000, 150_000), lane(7_000, 6_999)], 2)])
 
 
 def _lane_grid(lanes, device, off):
@@ -1113,16 +1124,23 @@ def _lane_grid(lanes, device, off):
 @pytest.mark.parametrize("name,lanes,off", _lane_cases(),
                          ids=[c[0] for c in _lane_cases()])
 def test_shard_seal_kernel(cuda, name, lanes, off):
-    """One launch a call, bit-equal to the plain version and to one
-    batch_seal a lane; padded columns hold the seed; the mesh impl equal
-    to the wrapper."""
+    """One launch a call at plan_clusters' block count, bit-equal to the
+    plain version at every block count (1 to 16) and to one batch_seal a
+    lane; padded columns hold the seed; the mesh impl equal to the
+    wrapper."""
     from repro_torch.kernels import shard_lanes as sl
     args = _lane_grid(lanes, cuda, off)
     before = sl.shard_seal.launches
     got = sl.shard_seal(*args)
     assert sl.shard_seal.launches == before + 1
-    torch.testing.assert_close(got, sl.shard_seal_torch(*args), rtol=0,
-                               atol=0)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert sl.shard_seal.last_clusters == sl.plan_clusters(len(lanes), sms)
+    want = sl.shard_seal_torch(*args)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for clusters in (1, 2, 4, 8, 16):
+        torch.testing.assert_close(sl._launch(*args, clusters), want,
+                                   rtol=0, atol=0)
+    assert sl.shard_seal.launches == before + 1
     words, starts, n_seg, n_words = args
     for k, ns in enumerate(n_seg.tolist()):
         assert (got[k, ns:] == rd.SEED_I32).all()
@@ -1132,6 +1150,39 @@ def test_shard_seal_kernel(cuda, name, lanes, off):
                                            starts[k, :ns]), rtol=0, atol=0)
     assert torch.equal(sl.shard_seal_mesh(*args), got)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_shard_seal_one_kernel_a_call(cuda):
+    """A call enqueues exactly one device kernel, the cluster kernel: no
+    fill and no second launch.  The profiler's trace is padded with small
+    adds before and after the calls (it can drop a trace's first
+    records), and every other kernel in it is one of the calls'."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import shard_lanes as sl
+    name, lanes, off = _lane_cases()[2]                  # K=8 unequal
+    args = _lane_grid(lanes, cuda, off)
+    pad = torch.zeros(1, dtype=torch.int32, device=cuda)
+    sl.shard_seal(*args)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                pad.add_(1)
+            for _ in range(5):
+                sl.shard_seal(*args)
+            for _ in range(64):
+                pad.add_(1)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        calls = [n for n in names if "elementwise" not in n]
+        if names[-1:] and "elementwise" in names[-1]:
+            break
+    assert len(calls) == 5, calls
+    assert all("shard_seal_cluster_kernel" in n for n in calls), calls
 
 
 @pytest.mark.gpu

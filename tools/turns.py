@@ -5,6 +5,10 @@ their paths' shapes (``CASES``):
 * ``batch_seal``: the stepped seal (200,788 words in 2,510 batches) and
   the fused twin's two calls over the run's 4,001,576-word buffer (50,040
   batch roots, and one digest a seal);
+* ``shard_seal``: the fused fabric twin's two calls over 8 lanes of the
+  same run (some 502,000 words a lane: 50,096 batch roots, and 160 seal
+  digests), whichever kernel the tree has (the name fragment
+  ``shard_seal`` matches them all);
 * the state commitment's full refold, 2,883,584 words (11 x 262,144
   accounts) in chunks of 2,048: ``dirty_fold`` with every chunk selected
   and ``rollup_chunk_digests``;
@@ -22,8 +26,10 @@ e.g. ``python3 tools/turns.py build/parent . . build/parent`` with a
 ``--only TEXT`` (repeatable) keeps the cases whose label holds TEXT.  The
 seals' inputs come from this checkout: the stepped seal's from
 chip_smoke's arithmetic on random words, the fused calls' arguments
-captured from the fused twin of the 1M-tx workload (chip_smoke.fused_node);
-the others are drawn on the card from a seed a case.  Each TREE (the root
+captured from the fused twin of the 1M-tx workload (chip_smoke.fused_node)
+and the fabric's from its 8-shard fused fabric twin
+(chip_smoke.fused_fabric); the others are drawn on the card from a seed a
+case.  Each TREE (the root
 of a checkout) is then timed in a process of its own, with its own src/
 and its own library: CUDA events with L2 flushed before each launch
 (chip_smoke.timed_ms) and the kernel's device time from torch.profiler
@@ -68,6 +74,9 @@ CASES = {
     "fused roots": ("batch_seal", "batch_seal", None, "batch_seal", 1),
     "fused seal digests": ("batch_seal", "batch_seal", None, "batch_seal",
                            1),
+    "fabric roots": ("shard_lanes", "shard_seal", None, "shard_seal", 1),
+    "fabric seal digests": ("shard_lanes", "shard_seal", None, "shard_seal",
+                            1),
     "state refold": ("dirty_fold", "dirty_fold", None, "dirty_", 1),
     f"rollup_chunk_digests ({STATE_WORDS}, {CHUNK})": (
         "rollup_digest", "rollup_chunk_digests", None,
@@ -78,11 +87,14 @@ CASES = {
         "flash_attention", "flash_attention_bwd", "bwd_close", "attn_bwd_",
         3) for shape in BWD_SHAPES},
 }
-FROM_WORKLOAD = ("stepped seal", "fused roots", "fused seal digests")
+FROM_WORKLOAD = ("stepped seal", "fused roots", "fused seal digests",
+                 "fabric roots", "fabric seal digests")
+FROM_FABRIC = ("fabric roots", "fabric seal digests")
 
 
-def make_shapes(dev) -> None:
-    """The seals' inputs, saved to SHAPES (CPU tensors)."""
+def make_shapes(dev, labels) -> None:
+    """The seals' inputs, saved to SHAPES (CPU tensors); the fabric's
+    captured only where ``labels`` hold one of its cases."""
     sys.path.insert(0, str(ROOT / "src"))
     import chip_smoke as cs
     from repro_torch.core.workloads import make_workload
@@ -102,6 +114,10 @@ def make_shapes(dev) -> None:
                                             spec.rollup.batch_size))),
         "fused roots": tuple(t.cpu() for t in seals[0]),
         "fused seal digests": tuple(t.cpu() for t in seals[1])}
+    if set(labels) & set(FROM_FABRIC):
+        calls, _ = cs.fused_fabric(dev, wl, cs.nvidia_smi())
+        for label, call in zip(FROM_FABRIC, calls):
+            shapes[label] = tuple(t.cpu() for t in call)
     SHAPES.parent.mkdir(parents=True, exist_ok=True)
     torch.save(shapes, SHAPES)
 
@@ -195,7 +211,7 @@ def main(argv) -> int:
         print(__doc__, file=sys.stderr)
         return 2
     if set(labels) & set(FROM_WORKLOAD):
-        make_shapes(dev)
+        make_shapes(dev, labels)
     import chip_smoke as cs
     rows = []
     for tree in argv:
