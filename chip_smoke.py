@@ -5,8 +5,10 @@ FL protocol run (the default Scheduler: fused loop + cross-task megastep,
 and the stepped per-task path), the token-LM serving paths (prefill and
 decode of yi-6b, moonshot-v1-16b-a3b and xlstm-1.3b at full width), the
 object ledger with its agent path (the default ``AutoDFL()``), the
-sharded rollup fabric, the admission-controlled node service, and token-LM
-training (a qwen2-0.5b step at full width and the rollup FL round).
+sharded rollup fabric, the admission-controlled node service, token-LM
+training (a qwen2-0.5b step at full width and the rollup FL round), the
+paper's LeNet-5 Fig. 3 run, and MoE / xLSTM training through the gmm and
+slstm_scan backward kernels.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -14,7 +16,8 @@ Phases, each printing its result on a line of its own:
 
   1. device  — needs a CUDA card; prints its name and power limit
                (nvidia-smi) and the torch and CUDA versions; float32
-               matrix products must run in full float32 (no TF32).
+               matrix products must run in full float32 (no TF32), and
+               cuDNN must not use TF32 inside LeNet's convolutions.
   2. build   — compiles every src/repro_torch/kernels/csrc/*.cu with nvcc
                (in parallel; attn.cu and moe.cu include hopper.cuh, the
                TMA / mbarrier / wgmma header) into one library; prints
@@ -135,7 +138,8 @@ Phases, each printing its result on a line of its own:
                TMA's edges bite (C of 33 and 1,921, f = 200), float32 and
                bfloat16, every gmm form run (gmm.form: wgmma, wmma, simt,
                stream, skinny); a backward through gmm or slstm_scan
-               raises; gmm at moonshot's prefill and decode products timed
+               launches gmm_bwd or slstm_scan_bwd once; gmm at moonshot's
+               prefill and decode products timed
                beside its bound, the plain version and torch.bmm;
                slstm_scan in the form slstm_scan.form names: the grid form
                also at batches of 17, 32 and 33 rows (launches of 16), the
@@ -293,6 +297,29 @@ Phases, each printing its result on a line of its own:
                ``python -m repro_torch.launch.train --arch qwen2-0.5b
                --rounds 2 --seq-len 1024`` as a process, and the reduced
                launcher resumed from a checkpoint == uninterrupted.
+ 20. lenet/train — (a) LeNet's forward card == CPU within float32
+               tolerance (TF32 would miss it); the paper's Fig. 3 run
+               (``python -m repro_torch.launch.fl_mnist`` at its defaults:
+               5 tasks x 4 rounds x 4 LeNet-5 agents, good / good /
+               malicious / lazy, the agents' noise drawn on the host) on
+               the card with the rollup and on the L1 alone: Fig. 3's
+               phenomenology (tests/test_fl_e2e.py:48-57), wall, tx/s and
+               the object path's launches from 0; the rollup run card ==
+               CPU (fl_hold); the default Scheduler with LeNet at 4 tasks
+               x 16 trainers card == CPU, its wall; (b) gmm_bwd
+               (csrc/moe_bwd.cu) and slstm_scan_bwd (csrc/slstm_bwd.cu)
+               against their plain versions at their hard shapes, two
+               launches bit-equal, timed at moonshot's and xlstm-1.3b's
+               training shapes beside bound, plain and (gmm_bwd) the two
+               torch.bmm; (c) the reduced moonshot and xlstm value_and_grad
+               through the kernels == the plain step on the card; one
+               build_train_step step (2 x 4,096 tokens, adamw) of
+               moonshot-v1-16b-a3b cut to the depth the card holds
+               (reckon_layers) and of xlstm-1.3b at full depth: launch
+               counts from 0, loss, tokens/s, peak memory, device busy
+               share and each kernel's share; (d) ``python -m
+               repro_torch.launch.train`` for xlstm-1.3b and for moonshot
+               cut to the depth a round holds.
 
 Then one JSON line lists every kernel with its launches on its path, the
 card's name and power limit follow on a line of their own, and the last
@@ -2054,14 +2081,18 @@ def lm_agree(dev) -> None:
                 f"{json.dumps(LM_TOL[dt])})")
 
 
-def profile_share(fn, kernels=(("attention", "flash_attention_"),)
-                  ) -> dict:
+def profile_share(fn, kernels=(("attention", "flash_attention_"),),
+                  cpu: bool = True) -> dict:
     """``fn`` under torch.profiler: the union of its device intervals over
     the traced wall, the part of it in each of ``kernels`` ((label, name
-    fragment) pairs), and the kernels that take the most device time."""
+    fragment) pairs), and the kernels that take the most device time.
+    ``cpu`` False traces the device alone (a trace of millions of host
+    ops takes minutes to read)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2437,22 +2468,29 @@ def check_moe_xlstm_kernels(dev) -> tuple:
     log(f"moe kernels: gmm within gmm.kernel_tol of plain on {n} inputs "
         f"({json.dumps({str(k): v for k, v in gm.KERNEL_TOL.items()})}); "
         f"largest |kernel - plain| by form and dtype {json.dumps(err)}")
-    # no backward through the kernels: it raises, it does not cut the graph
+    # a backward through the kernels runs their backward kernels (phase
+    # 20 holds those to their plain versions)
     xe = torch.randn(2, 40, 64, device=dev, requires_grad=True)
     wx = torch.randn(2, 3, 64, device=dev, requires_grad=True)
-    for what, run in (("gmm", lambda: gm.gmm(xe, torch.randn(2, 64, 16,
-                                                             device=dev))),
-                      ("slstm_scan", lambda: ss.slstm_scan(
-                          wx, torch.randn(1, 16, 64, device=dev),
-                          *[torch.zeros(2, 16, device=dev)
-                            for _ in range(4)])[0])):
-        try:
-            run().sum().backward()
-        except NotImplementedError:
-            continue
-        raise AssertionError(f"a backward through {what} did not raise")
-    log("moe/xlstm kernels: a backward through gmm or slstm_scan raises "
-        "NotImplementedError")
+    for what, run, bwd in (
+            ("gmm", lambda: gm.gmm(xe, torch.randn(2, 64, 16, device=dev)),
+             gm.gmm_bwd),
+            ("slstm_scan", lambda: ss.slstm_scan(
+                wx, torch.randn(1, 16, 64, device=dev),
+                *[torch.zeros(2, 16, device=dev) for _ in range(3)],
+                torch.full((2, 16), -1e30, device=dev))[0],
+             ss.slstm_scan_bwd)):
+        before = bwd.launches
+        run().sum().backward()
+        if bwd.launches != before + 1:
+            raise AssertionError(f"a backward through {what} launched its "
+                                 f"backward kernel {bwd.launches - before} "
+                                 f"times, not once")
+    if not (torch.isfinite(xe.grad).all() and torch.isfinite(wx.grad).all()):
+        raise AssertionError("a backward through gmm or slstm_scan gave "
+                             "non-finite gradients")
+    log("moe/xlstm kernels: a backward through gmm or slstm_scan launches "
+        "gmm_bwd or slstm_scan_bwd once")
 
     gd = torch.Generator(device=dev).manual_seed(5)
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
@@ -4787,6 +4825,684 @@ def train_main(dev, smi: str) -> tuple:
     return row, launches
 
 
+# -- phase 20: LeNet's Fig. 3, and MoE / xLSTM training -------------------------
+
+# examples/fl_mnist.py's defaults: the paper's Fig. 3 run
+FIG3 = dict(tasks=5, rounds=4, clients=4)
+# the default Scheduler with LeNet at phase 6's point (4 tasks x 16
+# trainers); 250 validation images, five equal oracle slices
+LENET_SCHED = dict(tasks=4, trainers=16, rounds=2, local_steps=2, batch=16)
+# the kernels Fig. 3's object path launches with the rollup (PERF.md
+# section 6 rows 2-4, 6 and 7): the object Rollup seals a batch with
+# rollup_digest, so batch_seal (row 1, the vector engine's seal) stays at 0
+FIG3_KERNELS = ("rollup_digest", "rollup_chunk_digests", "dirty_fold",
+                "weighted_agg", "model_distance")
+# the MoE and xLSTM train steps: 2 x 4,096 tokens (train_4k's sequence; at
+# batch 2 xlstm-1.3b's remat "dots" activations and the float32 logits
+# leave room on the card)
+LM_TRAIN = dict(batch=2, seq=4096)
+# bytes a parameter holds through one adamw step (bfloat16 weight and
+# gradient, adamw's two bfloat16 moments, and the step's new weight and
+# moments while the old ones live), and through one rollup round of the
+# launcher (those; the round's flat stack, float32 where the router's
+# float32 weights mix the dtypes, the aggregate and the merged weights
+# besides: a 3-layer round ran out of the card's 79 GiB, over 33 bytes a
+# parameter); bytes a logit takes in a step (the float32 logits and their
+# gradient, the bfloat16 head output)
+ADAMW_STEP_BYTES = 14
+ROUND_BYTES = 34
+LOGIT_BYTES = 10
+# the share of the card a reckoned depth may fill: the rest is left for
+# activations, the optimizer's float32 temporaries of one leaf (3.7 GB at
+# moonshot's expert weights) and the allocator's slack
+CARD_SHARE = 0.8
+# moonshot's expert products at LM_TRAIN (moe.capacity: 480 rows an
+# expert a 4,096-token sequence, 2 sequences): gate / up, then down
+MOONSHOT_GMM_TRAIN = [(64, 960, 2048, 1408), (64, 960, 1408, 2048)]
+# xlstm-1.3b's sLSTM scan at LM_TRAIN (bfloat16: the cluster form's
+# forward, whose states the backward takes)
+XLSTM_SCAN_TRAIN = dict(B=2, S=4096, nh=4, dh=512)
+# the launcher's runs: 2 rounds of H 2 local steps, 2 x 1,024 tokens
+LAUNCH_TRAIN = dict(rounds=2, seq=1024, batch=2)
+# reduced MoE / xLSTM value_and_grad through the backward kernels against
+# the same step with the plain versions (float32, both on the card): the
+# loss within rtol 1e-5; each gradient leaf within 1e-3 of its own norm
+# plus 1e-5 of the whole gradient's: float32 sums taken in another order
+# leave errors on the scale of the whole backward pass, which a leaf whose
+# gradient nearly cancels carries at a large share of its own norm (the
+# reduced xlstm's last mLSTM input-gate bias: norm 1.2e-5, 1e-5 of the
+# whole; the CPU's float32 gradients sit 1.1e-3 of a b_ig's norm from
+# float64's)
+TRAIN_AGREE_GRAD_REL = 1e-3
+TRAIN_AGREE_GRAD_ABS = 1e-5
+
+
+def reckon_layers(cfg, tokens: int, per_param: float, total: int) -> dict:
+    """The depth of ``cfg`` one card of ``total`` bytes holds: the
+    embedding and the head at ``per_param`` bytes a parameter, ``tokens``
+    logits at LOGIT_BYTES each, the rest of CARD_SHARE of the card over a
+    layer's parameters at ``per_param`` bytes; a multiple of the block
+    pattern's period."""
+    d, v = cfg.d_model, cfg.vocab_size
+    per_layer = (cfg.param_count() - 2 * v * d) / cfg.n_layers
+    base = 2 * v * d * per_param + tokens * v * LOGIT_BYTES
+    room = CARD_SHARE * total - base
+    period = len(cfg.pattern)
+    layers = int(room // (per_layer * per_param)) // period * period
+    if layers < period:
+        raise AssertionError(f"{cfg.name}: {total} bytes hold no layer "
+                             f"(base {base:.3e} B)")
+    return {"layers": min(layers, cfg.n_layers),
+            "per_layer_params": per_layer, "base_bytes": base,
+            "reckoned_bytes": base + layers * per_layer * per_param,
+            "card_bytes": total}
+
+
+def fig3_world(dev, rollup: bool) -> dict:
+    """The Fig. 3 run (``python -m repro_torch.launch.fl_mnist`` at its
+    defaults) on ``dev``, the agents' noise drawn on the host
+    (``host_agent_noise``): launch counts of the object path's kernels
+    from 0, wall, protocol transactions a second, the ledger outputs."""
+    from repro_torch.fl import client as fl_client
+    from repro_torch.launch import fl_mnist
+    wrappers = fig3_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    default_noise = fl_client.agent_noise
+    fl_client.agent_noise = host_agent_noise
+    try:
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fl_mnist.run(FIG3["tasks"], FIG3["rounds"], FIG3["clients"],
+                           rollup, dev, say=lambda _: None)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        fl_client.agent_noise = default_noise
+    node = res["node"]
+    out = {f"task{t}": r for t, r in enumerate(res["results"])}
+    res.update(wall=wall, out=out,
+               launches={k: fn.launches for k, fn in wrappers.items()},
+               txs=sum(node.protocol_calls.values()))
+    return res
+
+
+def fig3_wrappers() -> dict:
+    from repro_torch.kernels import batch_seal as bs
+    from repro_torch.kernels import dirty_fold as df
+    from repro_torch.kernels import model_distance as md
+    from repro_torch.kernels import rollup_digest as rd
+    from repro_torch.kernels import weighted_agg as wa
+    return {"batch_seal": bs.batch_seal, "rollup_digest": rd.rollup_digest,
+            "rollup_chunk_digests": rd.rollup_chunk_digests,
+            "dirty_fold": df.dirty_fold, "weighted_agg": wa.weighted_agg,
+            "model_distance": md.model_distance}
+
+
+def fig3_phenomenology(res: dict, what: str) -> dict:
+    """tests/test_fl_e2e.py:48-57 on a Fig. 3 run: good trainers above
+    0.7, the malicious one below 0.35, the lazy one between them, the
+    global model's accuracy above 0.9, the free-rider paid under 0.2 of a
+    good trainer, and (with the rollup) its gas logged."""
+    last = res["results"][-1]
+    reps = [float(r) for r in last.reputations]
+    node = res["node"]
+    checks = {
+        "good above 0.7": reps[0] > 0.7 and reps[1] > 0.7,
+        "malicious below 0.35": reps[2] < 0.35,
+        "lazy between": reps[2] < reps[3] < reps[0],
+        "accuracy above 0.9": res["accuracy"] > 0.9,
+        "free-rider under 0.2x": last.payouts["trainer2"]
+        < 0.2 * last.payouts["trainer0"],
+        "rollup gas logged": node.rollup is None or (bool(
+            node.rollup.gas_log) and all(b["verify"] > 0 and b["execute"] > 0
+                                         for b in node.rollup.gas_log))}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{what}: Fig. 3 fails {failed}: reputations "
+                             f"{reps}, accuracy {res['accuracy']}, payouts "
+                             f"{last.payouts}")
+    return {"reputations": reps, "accuracy": res["accuracy"],
+            "payouts": {k: float(v) for k, v in last.payouts.items()}}
+
+
+def fl_mnist_warm(dev) -> None:
+    """One untimed task of one round: the card's first LeNet steps (cuDNN
+    handles and plans, the allocator) stay out of the timed runs."""
+    from repro_torch.launch import fl_mnist
+    fl_mnist.run(1, 1, FIG3["clients"], True, dev, say=lambda _: None)
+
+
+def fig3_main(dev, smi: str) -> dict:
+    """(a) The Fig. 3 run on the card with the rollup and with the L1
+    alone: Fig. 3's phenomenology, wall, tx/s and the launches of the
+    object path's kernels (counts from 0 a run); the run with the rollup
+    held to the same run on the CPU (fl_hold: ledger, selections and DON
+    scores exact; parameters, reputations and payouts at the FL path's
+    tolerance; the state counters exact; each root the CPU root of its
+    fields).  Returns the rollup run's launches."""
+    from repro_torch.models.lenet import LeNet
+    fl_mnist_warm(dev)
+    runs = {}
+    for rollup in (True, False):
+        label = "rollup" if rollup else "L1 alone"
+        res = fig3_world(dev, rollup)
+        shown = fig3_phenomenology(res, f"Fig. 3 on the card, {label}")
+        node = res["node"]
+        if rollup:
+            missing = [k for k in FIG3_KERNELS if res["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"Fig. 3 with the rollup never launched "
+                                     f"{missing}")
+        ledger = {"l1_blocks": len(node.chain.blocks),
+                  "l1_gas": node.chain.total_gas}
+        if node.rollup is not None:
+            ledger.update(rollup_batches=len(node.rollup.batches),
+                          settled_gas=sum(b["total"]
+                                          for b in node.rollup.gas_log))
+        log(f"fig3: {label}, {FIG3['tasks']} tasks x {FIG3['rounds']} rounds "
+            f"x {FIG3['clients']} LeNet-5 agents on {smi}: "
+            f"{json.dumps(dict(shown, **ledger))}; wall {res['wall']:.3f} s, "
+            f"{res['txs']} protocol txs, {res['txs'] / res['wall']:.1f} tx/s; "
+            f"launches {json.dumps(res['launches'])}")
+        runs[label] = res
+    card = runs["rollup"]
+    cpu = fig3_world(torch.device("cpu"), True)
+    ref = obj_outputs(cpu["node"], cpu["out"])
+    got = obj_outputs(card["node"], card["out"])
+    for label, o in (("card", got), ("cpu", ref)):
+        if o["root"] != o["cpu_root"]:
+            raise AssertionError(f"Fig. 3 {label}: root {o['root']} is not "
+                                 f"the CPU root of its fields")
+    fl_hold(ref, got, "Fig. 3 card against the CPU")
+    if got["counters"] != ref["counters"]:
+        raise AssertionError("Fig. 3 card against the CPU: state counters")
+    if not isinstance(card["node"].model, LeNet):
+        raise AssertionError("Fig. 3 did not train LeNet")
+    log(f"fig3: card == CPU (host-drawn agent noise): protocol calls, gas "
+        f"log, blocks, selections, DON scores exact, parameters, "
+        f"reputations and payouts within the FL path's tolerance; the CPU "
+        f"run {cpu['wall']:.3f} s")
+    return card["launches"]
+
+
+def lenet_conv_check(dev) -> dict:
+    """LeNet's forward on the card against the CPU on one set of weights
+    (float32): within rtol 1e-5 / atol 1e-6 of the largest logit, which a
+    TF32 convolution (10-bit mantissa, ~5e-4 a product) would miss."""
+    from repro_torch.data.synthetic import make_mnist_like
+    from repro_torch.models.lenet import LeNet
+    cpu_model, card_model = LeNet(device="cpu"), LeNet(device=dev)
+    p = cpu_model.init_params(3)
+    xs, ys = make_mnist_like(512, seed=7)
+    batch = {"images": torch.from_numpy(xs), "labels": torch.from_numpy(ys)}
+    want = cpu_model.logits(p, batch)
+    got = card_model.logits({k: v.to(dev) for k, v in p.items()},
+                            {k: v.to(dev) for k, v in batch.items()}).cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
+    return {"max_abs_err": err, "largest_logit": scale}
+
+
+def lenet_sched_world(dev):
+    """The default Scheduler's world with LeNet on ``dev``: sgdm with
+    grad_clip, make_mnist_like images (numpy streams, then placed on the
+    device), DP; 250 validation images."""
+    from repro_torch.data.synthetic import make_mnist_like
+    from repro_torch.fl.dp import DPConfig
+    from repro_torch.models.lenet import LeNet
+    from repro_torch.optim.optimizers import OptimizerSpec, make_optimizer
+    cfg = LENET_SCHED
+    model = LeNet(device=dev)
+    opt = make_optimizer(OptimizerSpec(name="sgdm", lr=0.05, grad_clip=5.0))
+    xs, ys = make_mnist_like(4096, seed=1)
+    tx, ty = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+
+    def batch_fn(sel, rnd):
+        idx = np.random.default_rng(int(rnd) * 131 + 7).integers(
+            250, len(xs), (len(sel), cfg["local_steps"], cfg["batch"]))
+        i = torch.from_numpy(idx).to(dev)
+        return {"images": tx[i], "labels": ty[i]}
+    val = {"images": tx[:250], "labels": ty[:250]}
+    return model, opt, val, batch_fn, DPConfig(noise_multiplier=0.05)
+
+
+def lenet_sched_run(dev):
+    """One default Scheduler run (fused loop + megastep) of LENET_SCHED on
+    NodeSpec(), good / good / malicious / lazy cohorts.  Returns (node,
+    scheduler, results, wall seconds ending in a synchronize)."""
+    from repro_torch.api import FLTaskSpec, NodeSpec
+    from repro_torch.fl.cohort import CohortKernels, VectorCohort
+    from repro_torch.fl.scheduler import Scheduler
+    from repro_torch.fl.server import AutoDFL
+    cfg = LENET_SCHED
+    n, tasks = cfg["trainers"], cfg["tasks"]
+    model, opt, val, batch_fn, dp = lenet_sched_world(dev)
+    node = AutoDFL(model, opt, n, model.accuracy_fn(), val,
+                   spec=NodeSpec(trainer_funds=10.0 * (tasks + 2),
+                                 publisher_funds=100.0 * (tasks + 2)),
+                   device=dev)
+    kernels = CohortKernels(model, opt, dp)
+    sch = Scheduler(node, seal_every=2)
+    behaviors = ["good", "good", "malicious", "lazy"] * (n // 4)
+    for t in range(tasks):
+        sch.add_task(FLTaskSpec(f"task{t}", rounds=cfg["rounds"]),
+                     VectorCohort(model, opt, batch_fn, node.store,
+                                  behaviors=behaviors, n_trainers=n,
+                                  local_steps=cfg["local_steps"], dp=dp,
+                                  seed=t, kernels=kernels, device=dev))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sch.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return node, sch, out, time.perf_counter() - t0
+
+
+def lenet_sched_main(dev, smi: str) -> None:
+    """(a) The default Scheduler with LeNet at 4 tasks x 16 trainers: the
+    card (its wall, the megastep's windows) against the CPU, held by
+    fl_hold."""
+    lenet_sched_run(dev)                       # warm: cuDNN's plans
+    node, sch, out, wall = lenet_sched_run(dev)
+    if sch.mega_windows == 0:
+        raise AssertionError("the LeNet Scheduler never ran the megastep")
+    got = fl_outputs(node, sch, out)
+    cnode, csch, cout, cwall = lenet_sched_run(torch.device("cpu"))
+    ref = fl_outputs(cnode, csch, cout)
+    for label, o in (("card", got), ("cpu", ref)):
+        if o["root"] != o["cpu_root"]:
+            raise AssertionError(f"LeNet Scheduler {label}: root is not the "
+                                 f"CPU root of its fields")
+    fl_hold(ref, got, "LeNet Scheduler card against the CPU")
+    log(f"lenet scheduler: {LENET_SCHED['tasks']} tasks x "
+        f"{LENET_SCHED['trainers']} trainers, {LENET_SCHED['rounds']} "
+        f"rounds of {LENET_SCHED['local_steps']} local steps of "
+        f"{LENET_SCHED['batch']} images on {smi}: wall {wall:.3f} s "
+        f"({sch.mega_windows} megastep windows, "
+        f"{sum(node.protocol_calls.values())} protocol txs), CPU "
+        f"{cwall:.3f} s; card == CPU (fl_hold)")
+
+
+def gmm_bwd_library(xe, w, dy):
+    """The yardstick: the two torch.bmm of the gradient (the port never
+    calls them)."""
+    return lambda: (torch.bmm(dy, w.transpose(1, 2)),
+                    torch.bmm(xe.transpose(1, 2), dy))
+
+
+def check_train_kernels(dev) -> tuple:
+    """(b) gmm_bwd and slstm_scan_bwd against their plain versions on the
+    card: gmm_bwd within gmm.kernel_tol at its hard shapes (C of 1, E of
+    1, every tile's tail, dw's sum split and forced into chunks) and
+    moonshot's training products, two launches bit-equal;
+    slstm_scan_bwd within slstm_scan.kernel_bwd_tol on the kernel
+    forward's saved states (grid and cluster forms; S of 1, 37 and 129,
+    batches over MAX_BATCH rows, dh 8 to 512), two launches bit-equal, the
+    saved states within the forward's tolerance of the plain scan's.  Both
+    timed at the training shapes (events, device ms) beside bound, plain
+    and (gmm_bwd) the two torch.bmm.  Returns the two kernels-line rows."""
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import slstm_scan as ss
+    g = torch.Generator().manual_seed(20)
+    f32, bf16 = torch.float32, torch.bfloat16
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
+
+    def gmm_case(E, C, d, f, dtype, chunk=None):
+        xe, w, dy = (torch.randn(s, generator=g).to(dev, dtype)
+                     for s in ((E, C, d), (E, d, f), (E, C, f)))
+        run = (lambda: gm._launch_bwd(xe, w, dy, chunk)) if chunk else \
+            (lambda: gm.gmm_bwd(xe, w, dy))
+        got, again = run(), run()
+        want = gm.gmm_bwd_torch(xe, w, dy)
+        errs = []
+        for a, b, name in zip(got, want, ("dx", "dw")):
+            torch.testing.assert_close(
+                a.float(), b.float(), **gm.kernel_tol(b),
+                msg=lambda m: f"gmm_bwd {name} at {(E, C, d, f)} {dtype}: "
+                              f"{m}")
+            errs.append(float((a.float() - b.float()).abs().max()))
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"gmm_bwd at {(E, C, d, f)}: two launches "
+                                 f"differ")
+        return max(errs), (xe, w, dy)
+
+    gmm_err = {}
+    for shape, dtype, chunk in (
+            ((1, 1, 8, 8), f32, None), ((2, 1, 5, 3), bf16, None),
+            ((3, 33, 17, 9), f32, None), ((3, 33, 17, 9), bf16, None),
+            ((1, 129, 130, 131), bf16, None), ((2, 700, 24, 40), f32, None),
+            ((1, 4096, 128, 136), bf16, None),
+            ((4, 1921, 72, 200), bf16, None), ((2, 1000, 40, 72), bf16, 32),
+            ((2, 1000, 40, 72), f32, 96)):
+        gmm_err[f"{list(shape)} {str(dtype)[6:]} chunk {chunk}"] = \
+            gmm_case(*shape, dtype, chunk)[0]
+    rows = []
+    for shape in MOONSHOT_GMM_TRAIN:
+        err, (xe, w, dy) = gmm_case(*shape, bf16)
+        kernel = lambda: gm.gmm_bwd(xe, w, dy)
+        splits = -(-shape[1] // gm.bwd_chunk(*shape))
+        cb = cost_bound("gmm_bwd", xe, w, dy)
+        rows.append({"name": "gmm_bwd", "shape": list(shape),
+                     "max_abs_err": err, "splits": splits,
+                     "ms": timed_ms(kernel, 5, flush),
+                     "device_ms": device_ms(kernel, "gmm_bwd_", 5, flush,
+                                            per_call=2 + (splits > 1)),
+                     "plain_ms": timed_ms(lambda: gm.gmm_bwd_torch(xe, w, dy),
+                                          2, flush),
+                     "library_ms": timed_ms(gmm_bwd_library(xe, w, dy), 5,
+                                            flush), **cb})
+        del xe, w, dy
+    log(f"train kernels: gmm_bwd within gmm.kernel_tol of plain and "
+        f"bit-equal across two launches at {len(gmm_err) + 2} shapes; "
+        f"largest |kernel - plain| {json.dumps(gmm_err)}")
+
+    scan_err = {}
+    for B, S, nh, dh, dtype in (
+            (2, 1, 4, 16, f32), (2, 37, 4, 16, f32), (3, 16, 4, 16, bf16),
+            (17, 9, 2, 8, f32), (2, 129, 4, 64, bf16), (4, 37, 4, 512, bf16),
+            (1, 1, 4, 512, bf16)):
+        err, _ = scan_bwd_case(dev, B, S, nh, dh, dtype, g)
+        scan_err[f"{[B, S, nh, dh]} {str(dtype)[6:]} "
+                 f"{ss.form(dtype, B, nh, dh)}"] = err
+    L = XLSTM_SCAN_TRAIN
+    err, args = scan_bwd_case(dev, *L.values(), bf16, g)
+    kernel = lambda: ss.slstm_scan_bwd(*args)
+    cb = cost_bound("slstm_scan_bwd", *args)
+    launches = -(-L["B"] // ss.MAX_BATCH)
+    scan_row = {"name": "slstm_scan_bwd", "shape": list(L.values()),
+                "forward_form": ss.form(bf16, L["B"], L["nh"], L["dh"]),
+                "max_abs_err": err, "ms": timed_ms(kernel, 2, flush),
+                "device_ms": device_ms(kernel, "slstm_bwd_", 2, flush,
+                                       per_call=launches),
+                # one call, timed by events (the plain version's step
+                # loop, already run once in scan_bwd_case)
+                "plain_ms": once_ms(lambda: ss.slstm_scan_bwd_torch(*args)),
+                "library_ms": None, **cb}
+    scan_row["us_a_step"] = scan_row["device_ms"] * 1e3 / L["S"]
+    log(f"train kernels: slstm_scan_bwd within slstm_scan.kernel_bwd_tol of "
+        f"plain on the forward kernel's states and bit-equal across two "
+        f"launches at {len(scan_err) + 1} shapes; largest |kernel - plain| "
+        f"{json.dumps(scan_err)}")
+    for row in rows + [scan_row]:
+        log(f"kernel {row['name']} at {row['shape']} (bfloat16): "
+            f"{row['ms']:.6f} ms, device {row['device_ms']:.6f} ms (bound "
+            f"{row['bound_ms']:.6f} ms, {row['bound_by']}), plain "
+            f"{row['plain_ms']:.6f} ms, library {row['library_ms']}")
+    rows[0]["down"] = {k: rows[1][k] for k in (
+        "shape", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+        "max_abs_err")}
+    return rows[0], scan_row
+
+
+def once_ms(fn) -> float:
+    """One call of ``fn`` timed by CUDA events (no warm-up call)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def scan_bwd_case(dev, B, S, nh, dh, dtype, g) -> tuple:
+    """One slstm_scan_bwd case on the card: the kernel forward from a
+    state a plain scan reached, with its saved states (checked against the
+    plain scan's), random output gradients; kernel against plain backward,
+    two launches bit-equal.  Returns (largest error, the arguments)."""
+    from repro_torch.kernels import slstm_scan as ss
+    d = nh * dh
+    wx = (0.5 * torch.randn(B, S + 5, 4 * d, generator=g)).to(dev, dtype)
+    r = (torch.randn(nh, dh, 4 * dh, generator=g) * dh ** -0.5).to(dev, dtype)
+    state = [torch.zeros(B, d, device=dev) for _ in range(3)] + \
+        [torch.full((B, d), -1e30, device=dev)]
+    state = list(ss.slstm_scan_torch(wx[:, :5], r, *state)[1])
+    wx = wx[:, 5:].contiguous()
+    states = torch.empty(B, 3, S, d, device=dev)
+    y, _ = ss._launch(wx, r, *state, states=states)
+    _, _, want_states = ss.slstm_states_torch(wx, r, *state)
+    torch.testing.assert_close(states, want_states, **ss.KERNEL_TOL,
+                               msg=lambda m: f"slstm_scan states at "
+                                             f"{[B, S, nh, dh]}: {m}")
+    grads = [torch.randn(s, generator=g).to(dev)
+             for s in ((B, S, d),) + ((B, d),) * 4]
+    args = (wx, r, *state, y, states, *grads)
+    got, again = ss.slstm_scan_bwd(*args), ss.slstm_scan_bwd(*args)
+    want = ss.slstm_scan_bwd_torch(*args)
+    errs = []
+    for a, b, name in zip(got, want, ("dwx", "dr", "dh0", "dc0", "dn0",
+                                      "dm0")):
+        torch.testing.assert_close(
+            a, b, **ss.kernel_bwd_tol(b),
+            msg=lambda m: f"slstm_scan_bwd {name} at {[B, S, nh, dh]} "
+                          f"{dtype}: {m}")
+        errs.append(float((a.float() - b.float()).abs().max()))
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"slstm_scan_bwd at {[B, S, nh, dh]}: two "
+                             f"launches differ")
+    return max(errs), args
+
+
+def train_agree(dev) -> None:
+    """The reduced moonshot and xlstm, float32, one set of weights:
+    value_and_grad on the card through gmm_bwd and slstm_scan_bwd held to
+    the same step on the card with the plain versions forced (the loss
+    within rtol 1e-5, each gradient within TRAIN_AGREE_GRAD_REL of its
+    leaf's norm plus TRAIN_AGREE_GRAD_ABS of the whole gradient's), and
+    its loss to the CPU's within rtol 1e-5; each one's gradient gap to
+    the CPU's logged (the reduced xlstm's mLSTM layers, plain torch, sit
+    further from the CPU than the kernels from the plain versions)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import slstm_scan as ss
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.model import build_model
+
+    def gaps(got, want):
+        whole = float(torch.sqrt(sum(w.square().sum()
+                                     for w in want.values())))
+        return whole, {k: float((got[k].cpu() - w.cpu()).norm())
+                       for k, w in want.items()}
+    for arch in ("moonshot-v1-16b-a3b", "xlstm-1.3b"):
+        cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                                  dtype="float32")
+        host = build_model(cfg, "cpu")
+        params = host.train_params(host.init_params(0))
+        batch = token_batch(cfg.vocab_size, (2, 32), 20, "cpu")
+        cpu_loss, cpu_grads = value_and_grad(host, params, batch)
+        card = build_model(cfg, dev)
+        on_card = {k: v.to(dev) for k, v in params.items()}
+        before = gm.gmm_bwd.launches + ss.slstm_scan_bwd.launches
+        loss, got = value_and_grad(card, on_card, batch)
+        if gm.gmm_bwd.launches + ss.slstm_scan_bwd.launches == before:
+            raise AssertionError(f"train agree {arch}: no backward kernel "
+                                 f"launched")
+        with kernel_impl("torch"):
+            plain_loss, want = value_and_grad(card, on_card, batch)
+        for ref, what in ((plain_loss, "the card's plain step"),
+                          (cpu_loss, "the CPU's")):
+            if abs(float(loss) - float(ref)) > 1e-5 * abs(float(ref)):
+                raise AssertionError(f"train agree {arch}: loss "
+                                     f"{float(loss)} against {what} "
+                                     f"{float(ref)}")
+        whole, gap = gaps(got, want)
+        off = [k for k, w in want.items()
+               if gap[k] > TRAIN_AGREE_GRAD_REL * float(w.norm())
+               + TRAIN_AGREE_GRAD_ABS * whole]
+        if off:
+            raise AssertionError(f"train agree {arch}: gradients {off} off "
+                                 f"the plain step's by "
+                                 f"{[gap[k] for k in off]} (whole "
+                                 f"gradient's norm {whole})")
+        cpu_whole, cpu_gap = gaps(got, cpu_grads)
+        log(f"train agree: reduced {arch} value_and_grad, kernels == plain "
+            f"versions on the card (loss {float(loss):.6f}, plain "
+            f"{float(plain_loss):.6f}, CPU {float(cpu_loss):.6f}; largest "
+            f"gradient gap {max(gap.values()):.3e}, "
+            f"{max(gap.values()) / whole:.3e} of the whole gradient's norm); "
+            f"against the CPU's gradients: largest gap "
+            f"{max(cpu_gap.values()):.3e}, "
+            f"{max(cpu_gap.values()) / cpu_whole:.3e} of the whole")
+
+
+def lm_train_step(dev, smi: str, arch: str, layers=None,
+                  steps=None) -> dict:
+    """(c) One build_train_step step of ``arch`` at full width (``layers``:
+    a depth cut) on LM_TRAIN tokens (adamw, the config's remat): launch
+    counts from 0 (every MoE layer's three gmm_bwd launches, every sLSTM
+    layer's slstm_scan_bwd launch a MAX_BATCH rows), the loss finite and
+    near ln(vocab), the seconds of ``steps`` more steps (default 2),
+    tokens/s, peak memory, the device busy share and each kernel's share
+    (torch.profiler, the device traced alone)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import slstm_scan as ss
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import make_optimizer, spec_for_config
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = build_model(cfg, dev)
+    params = model.train_params(model.init_params(0))
+    n_params = sum(p.numel() for p in params.values())
+    opt = make_optimizer(spec_for_config(cfg),
+                         groups=model.param_groups(params))
+    state = opt.init(params)
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    batch = token_batch(cfg.vocab_size, (B, S), 20, dev)
+    step = build_train_step(model, opt)
+    wrappers = {"gmm": gm.gmm, "gmm_bwd": gm.gmm_bwd,
+                "slstm_scan": ss.slstm_scan,
+                "slstm_scan_bwd": ss.slstm_scan_bwd,
+                "flash_attention": fa.flash_attention,
+                "flash_attention_bwd": fa.flash_attention_bwd}
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, _, met = step(params, state, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    specs = tt.block_specs(cfg) * cfg.n_periods
+    want = {"gmm_bwd": 3 * sum(f == "moe" for _, f in specs),
+            "slstm_scan_bwd": sum(m == "slstm" for m, _ in specs)
+            * -(-B // ss.MAX_BATCH)}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{arch} train step launched {launches}, "
+                             f"expected {want}")
+    loss = float(met["loss"])
+    ln_v = float(np.log(cfg.vocab_size))
+    if not np.isfinite(loss) or abs(loss - ln_v) > 2.0:
+        raise AssertionError(f"{arch} train step loss {loss}, ln(vocab) "
+                             f"{ln_v}")
+    walls = []
+    for _ in range(2 if steps is None else steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    prof = profile_share(lambda: step(params, state, batch), kernels=(
+        ("gmm_bwd", "gmm_bwd_"), ("slstm_scan_bwd", "slstm_bwd_"),
+        ("gmm_fwd", "gmm_wgmma"), ("slstm_scan_fwd", "slstm_cluster"),
+        ("attention_fwd", "flash_attention_"),
+        ("attention_bwd", "attn_bwd_")), cpu=False)
+    step_s = sum(walls) / len(walls)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "tokens": B * S, "loss": loss, "ln_vocab": ln_v,
+           "first_step_s": first_s, "step_s": walls,
+           "tokens_per_s": B * S / step_s, "peak_gib": peak,
+           "launches": launches, "profile": prof}
+    log(f"train: {arch} step at {B} x {S}, {cfg.n_layers} layers, on {smi}: "
+        f"{json.dumps(out)}")
+    del params, state, model, met
+    torch.cuda.empty_cache()
+    return out
+
+
+def launch_train(smi: str, arch: str, layers=None) -> None:
+    """(d) ``python -m repro_torch.launch.train --arch ARCH`` (with
+    ``--layers``, a depth cut) as a process on the card: LAUNCH_TRAIN's
+    rounds, their lines."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+           "--rounds", str(LAUNCH_TRAIN["rounds"]), "--seq-len",
+           str(LAUNCH_TRAIN["seq"]), "--local-batch",
+           str(LAUNCH_TRAIN["batch"])]
+    if layers is not None:
+        cmd += ["--layers", str(layers)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                         env=env, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"launch.train --arch {arch} exited "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("round ")]
+    if len(lines) != LAUNCH_TRAIN["rounds"] or \
+            "training complete." not in out.stdout:
+        raise AssertionError(f"launch.train --arch {arch} printed "
+                             f"{out.stdout[-2000:]}")
+    log(f"launcher: {arch}{f' cut to {layers} layers' if layers else ''}, "
+        f"{LAUNCH_TRAIN['rounds']} rounds of T 1, H 2, "
+        f"{LAUNCH_TRAIN['batch']} x {LAUNCH_TRAIN['seq']:,} tokens, as a "
+        f"process on {smi} ({wall:.1f} s with start-up): {lines}")
+
+
+def lenet_train_main(dev, smi: str) -> tuple:
+    """Phase 20: (a) Fig. 3 and the LeNet Scheduler, card == CPU; (b) the
+    two backward kernels; (c) the MoE and xLSTM train steps (moonshot cut
+    to the depth the card holds) and the reduced ones card == CPU; (d)
+    the launcher on both.  Returns (the kernels-line rows, the launches of
+    the object path's kernels in Fig. 3, those of the backward kernels in
+    the train steps)."""
+    from repro_torch.configs.registry import get_config
+    t0 = time.perf_counter()
+    conv = lenet_conv_check(dev)
+    log(f"lenet: forward card == CPU within float32 tolerance (cuDNN TF32 "
+        f"off inside its convolutions): {json.dumps(conv)}")
+    fig3_launches = fig3_main(dev, smi)
+    lenet_sched_main(dev, smi)
+    torch.cuda.empty_cache()
+    rows = check_train_kernels(dev)
+    torch.cuda.empty_cache()
+    train_agree(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    moonshot = get_config("moonshot-v1-16b-a3b")
+    step_cut = reckon_layers(moonshot, LM_TRAIN["batch"] * LM_TRAIN["seq"],
+                             ADAMW_STEP_BYTES, total)
+    log(f"train: moonshot-v1-16b-a3b cut to {step_cut['layers']} of "
+        f"{moonshot.n_layers} layers for one step at {LM_TRAIN['batch']} x "
+        f"{LM_TRAIN['seq']}: {json.dumps(step_cut)}")
+    moe = lm_train_step(dev, smi, "moonshot-v1-16b-a3b", step_cut["layers"])
+    # one timed step: xlstm-1.3b's takes about 10 s, held by the host
+    xl = lm_train_step(dev, smi, "xlstm-1.3b", steps=1)
+    launches = {"gmm_bwd": moe["launches"]["gmm_bwd"],
+                "slstm_scan_bwd": xl["launches"]["slstm_scan_bwd"]}
+    round_cut = reckon_layers(moonshot,
+                              LAUNCH_TRAIN["batch"] * LAUNCH_TRAIN["seq"],
+                              ROUND_BYTES, total)
+    log(f"train: moonshot-v1-16b-a3b cut to {round_cut['layers']} layers "
+        f"for the launcher's round: {json.dumps(round_cut)}")
+    launch_train(smi, "xlstm-1.3b")
+    launch_train(smi, "moonshot-v1-16b-a3b", round_cut["layers"])
+    log(f"lenet/train: phase 20 in {time.perf_counter() - t0:.1f} s")
+    return list(rows), fig3_launches, launches
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -4800,8 +5516,15 @@ def main() -> int:
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.get_float32_matmul_precision() != "highest":
         raise AssertionError("float32 matrix products must not use TF32")
-    log("device: float32 matmul precision 'highest', TF32 off")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.models.lenet import fp32_convolutions
+    with fp32_convolutions():
+        if torch.backends.cudnn.allow_tf32:
+            raise AssertionError("LeNet's float32 convolutions must not use "
+                                 "TF32")
+    log(f"device: float32 matmul precision 'highest', TF32 off; cuDNN TF32 "
+        f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'} by default, "
+        f"off inside LeNet's convolutions (models.lenet.fp32_convolutions)")
     from repro_torch.core.workloads import make_workload
     from repro_torch.kernels import _build
     from repro_torch.kernels import batch_seal as bs
@@ -4975,6 +5698,19 @@ def main() -> int:
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
     source_rows.append(bwd_row)
 
+    # 20. LeNet and MoE / xLSTM training: (a) Fig. 3 on the card with and
+    # without the rollup (the object path's launch counts from 0, added to
+    # the kernels line), card == CPU, and the LeNet Scheduler card == CPU;
+    # (b) gmm_bwd and slstm_scan_bwd against their plain versions, timed;
+    # (c) a moonshot (depth cut) and an xlstm-1.3b train step (launch
+    # counts from 0) and the reduced ones card == CPU; (d) the launcher
+    torch.cuda.empty_cache()
+    new_rows, fig3_launches, lm_launches = lenet_train_main(dev, smi)
+    for name, k in fig3_launches.items():
+        launches[name] += k
+    launches.update(lm_launches)
+    source_rows += new_rows
+
     replaces = {"rollup_digest": "src/repro/kernels/rollup_digest.py:16",
                 "rollup_chunk_digests":
                     "src/repro/kernels/rollup_digest.py:76",
@@ -4990,6 +5726,10 @@ def main() -> int:
                     "src/repro/kernels/flash_attention.py:25",
                 "gmm": "src/repro/kernels/gmm.py:18",
                 "slstm_scan": "src/repro/kernels/slstm_scan.py:25",
+                # no Pallas backward either: the gradients of the two
+                # kernels above, which the JAX package derives from jnp
+                "gmm_bwd": "src/repro/kernels/gmm.py:18",
+                "slstm_scan_bwd": "src/repro/kernels/slstm_scan.py:25",
                 # no Pallas form: _lane_fold, the jnp program of
                 # shard_seal_jax and shard_seal_shard_map
                 "shard_seal": "src/repro/kernels/shard_lanes.py:79"}
@@ -4997,6 +5737,7 @@ def main() -> int:
                "block_pack": "pack.cu", "flash_attention": "attn.cu",
                "flash_attention_bwd": "attn_bwd.cu",
                "gmm": "moe.cu", "slstm_scan": "slstm.cu",
+               "gmm_bwd": "moe_bwd.cu", "slstm_scan_bwd": "slstm_bwd.cu",
                "shard_seal": "shard.cu"}
     kernels = []
     for row in source_rows:
@@ -5025,6 +5766,8 @@ def main() -> int:
         f"{json.dumps(attn_row['moonshot'])}")
     log(f"gmm at moonshot's other products: {json.dumps(gmm_rows[1:])}")
     log(f"flash_attention_bwd at yi-6b's head: {json.dumps(bwd_row['yi'])}")
+    log(f"gmm_bwd at moonshot's down product: "
+        f"{json.dumps(new_rows[0]['down'])}")
 
     log(f"device_ms retakes: {json.dumps(RETAKES)}")
     log(json.dumps({"kernels": kernels}))

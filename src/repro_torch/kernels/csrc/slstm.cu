@@ -5,7 +5,10 @@
 //   [zi | ii | ff | oo], each d wide), r (nh, dh, 4 dh) block-diagonal
 //   recurrent weights in wx's dtype (per head [zi | ii | ff | oo], each dh
 //   wide), state h0, c0, n0, m0 (B, d) float32
-//   ->  y (B, S, d) float32 and the final state hN, cN, nN, mN (B, d)
+//   ->  y (B, S, d) float32 and the final state hN, cN, nN, mN (B, d),
+//   and, where `states` is not null (autograd records), every step's
+//   (c, n, m) into states (B, 3, S, d) float32 for the backward
+//   (csrc/slstm_bwd.cu)
 //
 // and per step, in float32, as the JAX package's xlstm._slstm_cell
 // computes it:
@@ -115,8 +118,8 @@ slstm_scan_kernel(const T* __restrict__ wx, const T* __restrict__ r,
                   const float* __restrict__ n0, const float* __restrict__ m0,
                   float* __restrict__ y, float* __restrict__ hN,
                   float* __restrict__ cN, float* __restrict__ nN,
-                  float* __restrict__ mN, int B, int S, int nh, int dh,
-                  int U) {
+                  float* __restrict__ mN, float* __restrict__ states, int B,
+                  int S, int nh, int dh, int U) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int d = nh * dh;
@@ -206,6 +209,13 @@ slstm_scan_kernel(const T* __restrict__ wx, const T* __restrict__ r,
       m = m_new;
       y[(static_cast<int64_t>(ob) * S + t) * d + u0 + ou] = h;
       hout[unit] = h;
+      if (states != nullptr) {
+        float* st = states + (static_cast<int64_t>(ob) * 3 * S + t) * d
+                    + u0 + ou;
+        st[0] = c;
+        st[static_cast<int64_t>(S) * d] = n;
+        st[2 * static_cast<int64_t>(S) * d] = m;
+      }
     }
     grid.sync();
   }
@@ -228,8 +238,8 @@ size_t smem_bytes(int B, int dh, int U) {
 template <typename T, int MAXB>
 int launch(int device, const void* wx, const void* r, void* hbuf,
            const void* c0, const void* n0, const void* m0, void* y, void* hN,
-           void* cN, void* nN, void* mN, int B, int S, int nh, int dh, int U,
-           cudaStream_t st) {
+           void* cN, void* nN, void* mN, void* states, int B, int S, int nh,
+           int dh, int U, cudaStream_t st) {
   auto kernel = slstm_scan_kernel<T, MAXB>;
   const size_t smem = smem_bytes(B, dh, U);
   if (cudaError_t e = cudaFuncSetAttribute(
@@ -266,8 +276,9 @@ int launch(int device, const void* wx, const void* r, void* hbuf,
   float* cN_t = static_cast<float*>(cN);
   float* nN_t = static_cast<float*>(nN);
   float* mN_t = static_cast<float*>(mN);
+  float* st_t = static_cast<float*>(states);
   void* args[] = {&wx_t, &r_t, &hbuf_t, &c0_t, &n0_t, &m0_t, &y_t, &hN_t,
-                  &cN_t, &nN_t, &mN_t, &B, &S, &nh, &dh, &U};
+                  &cN_t, &nN_t, &mN_t, &st_t, &B, &S, &nh, &dh, &U};
   if (cudaError_t e = cudaLaunchCooperativeKernel(
           reinterpret_cast<void*>(kernel), dim3(blocks), dim3(kThreads),
           args, smem, st)) {
@@ -279,11 +290,11 @@ int launch(int device, const void* wx, const void* r, void* hbuf,
 template <typename T>
 int dispatch(int device, const void* wx, const void* r, void* hbuf,
              const void* c0, const void* n0, const void* m0, void* y,
-             void* hN, void* cN, void* nN, void* mN, int B, int S, int nh,
-             int dh, int U, cudaStream_t st) {
+             void* hN, void* cN, void* nN, void* mN, void* states, int B,
+             int S, int nh, int dh, int U, cudaStream_t st) {
 #define SLSTM_LAUNCH(MAXB)                                                  \
   return launch<T, MAXB>(device, wx, r, hbuf, c0, n0, m0, y, hN, cN, nN,    \
-                         mN, B, S, nh, dh, U, st)
+                         mN, states, B, S, nh, dh, U, st)
   if (B <= 1) SLSTM_LAUNCH(1);
   if (B <= 2) SLSTM_LAUNCH(2);
   if (B <= 4) SLSTM_LAUNCH(4);
@@ -345,8 +356,9 @@ slstm_cluster_kernel(const __nv_bfloat16* __restrict__ wx,
                      const float* __restrict__ n0,
                      const float* __restrict__ m0, float* __restrict__ y,
                      float* __restrict__ hN, float* __restrict__ cN,
-                     float* __restrict__ nN, float* __restrict__ mN, int B,
-                     int S, int nh, int dh) {
+                     float* __restrict__ nN, float* __restrict__ mN,
+                     float* __restrict__ states, int B, int S, int nh,
+                     int dh) {
   constexpr int kRows = 8 * NT;
   constexpr int kSlab = kCDims * kPieces * kRows;   // a block's h, values
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -581,6 +593,13 @@ slstm_cluster_kernel(const __nv_bfloat16* __restrict__ wx,
       if (valid[nt]) {
         y[(static_cast<int64_t>(row0 + n) * S + t) * d + head * dh + off
           + u] = h[nt];
+        if (states != nullptr) {
+          float* st = states + (static_cast<int64_t>(row0 + n) * 3 * S + t)
+                                   * d + head * dh + off + u;
+          st[0] = c[nt];
+          st[static_cast<int64_t>(S) * d] = nn[nt];
+          st[2 * static_cast<int64_t>(S) * d] = m[nt];
+        }
       }
       if (send) {
         uint16_t pc[kPieces];
@@ -684,8 +703,8 @@ cudaError_t cluster_capacity(int* clusters, int B, int nh, int dh) {
 template <int NT>
 int launch_cluster(const void* wx, const void* r, const void* h0,
                    const void* c0, const void* n0, const void* m0, void* y,
-                   void* hN, void* cN, void* nN, void* mN, int B, int S,
-                   int nh, int dh, cudaStream_t st) {
+                   void* hN, void* cN, void* nN, void* mN, void* states,
+                   int B, int S, int nh, int dh, cudaStream_t st) {
   // refused, not run otherwise, where no GPC can hold one cluster
   int clusters = 0;
   if (cudaError_t e = cluster_capacity<NT>(&clusters, B, nh, dh)) {
@@ -705,7 +724,8 @@ int launch_cluster(const void* wx, const void* r, const void* h0,
           static_cast<const float*>(n0), static_cast<const float*>(m0),
           static_cast<float*>(y), static_cast<float*>(hN),
           static_cast<float*>(cN), static_cast<float*>(nN),
-          static_cast<float*>(mN), B, S, nh, dh)) {
+          static_cast<float*>(mN), static_cast<float*>(states), B, S, nh,
+          dh)) {
     return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
@@ -722,7 +742,8 @@ bool cluster_shape_ok(int64_t B, int64_t nh, int64_t dh) {
 extern "C" {
 
 // form: 0 = the grid form, 1 = the cluster form.  dtype: 0 = float32, 1 =
-// bfloat16 (wx and r).  The grid form takes hbuf (2, B, d) float32 with h0
+// bfloat16 (wx and r).  states: null, or (B, 3, S, d) float32 for every
+// step's (c, n, m).  The grid form takes hbuf (2, B, d) float32 with h0
 // in its first half and needs 1 <= B <= 16, U a power of two <= 16
 // dividing dh, B U <= 512 and the shared memory within 227 KB; the cluster
 // form takes h0 itself as hbuf and needs bfloat16 and dh a multiple of 64
@@ -733,7 +754,7 @@ int slstm_scan(int device, const void* wx, const void* r, void* hbuf,
                const void* c0, const void* n0, const void* m0, int64_t B,
                int64_t S, int64_t nh, int64_t dh, int64_t U, int dtype,
                int form, void* y, void* hN, void* cN, void* nN, void* mN,
-               void* stream) {
+               void* states, void* stream) {
   if (cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   const auto st = static_cast<cudaStream_t>(stream);
   if (S < 1 || S > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
@@ -745,10 +766,10 @@ int slstm_scan(int device, const void* wx, const void* r, void* hbuf,
     const int h = static_cast<int>(nh), w = static_cast<int>(dh);
     if (B <= 8) {
       return launch_cluster<1>(wx, r, hbuf, c0, n0, m0, y, hN, cN, nN, mN,
-                               b, s, h, w, st);
+                               states, b, s, h, w, st);
     }
-    return launch_cluster<2>(wx, r, hbuf, c0, n0, m0, y, hN, cN, nN, mN, b,
-                             s, h, w, st);
+    return launch_cluster<2>(wx, r, hbuf, c0, n0, m0, y, hN, cN, nN, mN,
+                             states, b, s, h, w, st);
   }
   if (form != 0 || B < 1 || B > 16 || nh < 1 || dh < 1 || U < 1 || U > 16
       || (U & (U - 1)) != 0 || dh % U != 0 || B * U > kThreads
@@ -760,11 +781,11 @@ int slstm_scan(int device, const void* wx, const void* r, void* hbuf,
   const int u = static_cast<int>(U);
   if (dtype == 0) {
     return dispatch<float>(device, wx, r, hbuf, c0, n0, m0, y, hN, cN, nN,
-                           mN, b, s, h, w, u, st);
+                           mN, states, b, s, h, w, u, st);
   }
   if (dtype == 1) {
     return dispatch<__nv_bfloat16>(device, wx, r, hbuf, c0, n0, m0, y, hN,
-                                   cN, nN, mN, b, s, h, w, u, st);
+                                   cN, nN, mN, states, b, s, h, w, u, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

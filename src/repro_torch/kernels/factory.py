@@ -27,8 +27,11 @@ pointers, identical from every impl.  The FL ops (``weighted_agg``, Eq. 1, and
 rounding; so do ``flash_attention`` (the prefill's causal GQA attention,
 ``(q, k, v, causal=True)``) and its gradient ``flash_attention_bwd``
 (``(q, k, v, o, lse, do, causal=True)`` -> ``(dq, dk, dv)``), ``gmm``
-(the MoE FFN's expert products, ``(xe, w)``) and ``slstm_scan`` (the
-sLSTM time scan, ``(wx, r_gates, h, c, n, m)``).  Every impl returns its
+(the MoE FFN's expert products, ``(xe, w)``) and its gradient
+``gmm_bwd`` (``(xe, w, dy)`` -> ``(dx, dw)``), and ``slstm_scan`` (the
+sLSTM time scan, ``(wx, r_gates, h, c, n, m)``) and its gradient
+``slstm_scan_bwd`` (the saved forward and the outputs' gradients ->
+``(dwx, dr_gates, dh0, dc0, dn0, dm0)``).  Every impl returns its
 result on the input's device.
 
 Work: every op registers one pure ``cost(*args, **kw) -> (flops,
@@ -136,8 +139,11 @@ def _load() -> None:
             ("flash_attention_bwd", fa.flash_attention_bwd_torch,
              fa.flash_attention_bwd, fa.flash_attention_bwd_cost),
             ("gmm", gm.gmm_torch, gm.gmm, gm.gmm_cost),
+            ("gmm_bwd", gm.gmm_bwd_torch, gm.gmm_bwd, gm.gmm_bwd_cost),
             ("slstm_scan", ss.slstm_scan_torch, ss.slstm_scan,
-             ss.slstm_scan_cost)):
+             ss.slstm_scan_cost),
+            ("slstm_scan_bwd", ss.slstm_scan_bwd_torch, ss.slstm_scan_bwd,
+             ss.slstm_scan_bwd_cost)):
         register_kernel(op, "torch", plain)
         register_kernel(op, "cuda", wrapper, default=True)
         register_cost(op, cost)

@@ -29,8 +29,14 @@ of 16 bytes, on 16-byte boundaries):
   * ``skinny`` (C <= 32 otherwise): a block streams a 256-column slab of
     w into registers for up to 8 rows of x.
 
-The kernels have no backward: training through the expert products is
-ROADMAP.md queue 1 item 10(d), and a backward through them raises.
+The gradient (``gmm_bwd``: dx = dy·wᵀ and dw = xᵀ·dy, the same float32
+sums and one rounding) is its own kernel (``csrc/moe_bwd.cu``): the JAX
+package has no Pallas backward (it differentiates jnp), so it replaces no
+TPU kernel.  One generic 128 x 128 tile serves both products, WMMA for
+bfloat16 and the CUDA cores for float32, each transposed operand staged
+as it lies; dw's sum over C is split over blocks where its output tiles
+alone leave the card short of blocks (``bwd_chunk``), the splits added in
+order by a second pass (no atomics).  Bound: operations, 4·E·C·d·f.
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.factory import counted
+from repro_torch.kernels.factory import counted, get_kernel
 from repro_torch.kernels.rollup_digest import check_cuda
 from repro_torch.kernels.weighted_agg import DTYPE_FLAG
 
@@ -70,6 +76,16 @@ def gmm_cost(xe: torch.Tensor, w: torch.Tensor) -> Tuple[int, int]:
                                                    + E * C * f)
 
 
+def gmm_bwd_cost(xe: torch.Tensor, w: torch.Tensor, dy: torch.Tensor
+                 ) -> Tuple[int, int]:
+    """(FLOPs, bytes) of the gradient: the two products, 4·E·C·d·f; x, w
+    and dy read once, dx and dw written once, in x's dtype."""
+    E, C, d = xe.shape
+    f = w.shape[2]
+    n_bytes = xe.element_size() * (2 * E * C * d + 2 * E * d * f + E * C * f)
+    return 4 * E * C * d * f, n_bytes
+
+
 @counted("gmm")
 def gmm_torch(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version: an einsum in float32, then a cast."""
@@ -81,16 +97,66 @@ def gmm_torch(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 @counted("gmm")
 def gmm(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The plain version for a CPU tensor, the CUDA kernel for a CUDA
-    tensor (no backward through the kernel)."""
+    tensor; its backward the ``gmm_bwd`` kernel."""
     _check_shapes(xe, w)
     if xe.device.type == "cpu":
         return gmm_torch(xe, w)
     return _KernelGmm.apply(xe, w)
 
 
+@counted("gmm_bwd")
+def gmm_bwd_torch(xe: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
+    """Plain version of the gradient (autograd's through ``gmm_torch``):
+    dx = dy·wᵀ and dw = xᵀ·dy as float32 einsums, each cast once to its
+    input's dtype."""
+    _check_bwd_shapes(xe, w, dy)
+    f32 = torch.float32
+    g = dy.to(f32)
+    dx = torch.einsum("ecf,edf->ecd", g, w.to(f32))
+    dw = torch.einsum("ecd,ecf->edf", xe.to(f32), g)
+    return dx.to(xe.dtype), dw.to(w.dtype)
+
+
+@counted("gmm_bwd")
+def gmm_bwd(xe: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
+    """The gradient of ``gmm``: the plain version for CPU tensors, the
+    ``csrc/moe_bwd.cu`` kernels (one count in ``launches``) for CUDA
+    tensors.  Returns (dx, dw)."""
+    _check_bwd_shapes(xe, w, dy)
+    if xe.device.type == "cpu":
+        return gmm_bwd_torch(xe, w, dy)
+    return _launch_bwd(xe, w, dy)
+
+
 gmm.launches = 0
 gmm.last_form = None                # the form of the latest launch
 gmm.form_launches = {}              # launches by form
+gmm_bwd.launches = 0
+gmm_bwd.last_chunk = None           # the latest launch's rows a dw split
+
+# dw's split of its sum over C (csrc/moe_bwd.cu): enough blocks to fill
+# the card twice over, each split at least BWD_MIN_ROWS rows of C, a
+# multiple of the 32-deep k tile
+BWD_TILE = 128                      # output tile, both products
+BWD_TARGET_BLOCKS = 2 * 132
+BWD_MIN_ROWS = 256
+
+
+def bwd_chunk(E: int, C: int, d: int, f: int) -> int:
+    """Rows of C a split of dw's sum takes: C itself (one split) where
+    dw's E·⌈d/128⌉·⌈f/128⌉ output tiles already give ``BWD_TARGET_BLOCKS``
+    blocks; else C over as many splits as make up the difference, at most
+    ⌊C / BWD_MIN_ROWS⌋ and 65535 / E, rounded up to a multiple of 32 (so
+    each split takes at least ``BWD_MIN_ROWS`` rows).  A pure function of
+    the shape, so a shape always sums in one order."""
+    tiles = E * -(-d // BWD_TILE) * -(-f // BWD_TILE)
+    splits = min(-(-BWD_TARGET_BLOCKS // max(tiles, 1)), C // BWD_MIN_ROWS,
+                 65535 // max(E, 1))
+    if splits <= 1:
+        return max(C, 1)
+    chunk = -(-C // splits)
+    chunk = -(-chunk // 32) * 32
+    return C if chunk >= C else chunk
 
 # the forms, as csrc/moe.cu's Form numbers them
 FORMS = {"simt": 0, "wmma": 1, "wgmma": 2, "skinny": 3, "stream": 4}
@@ -117,6 +183,14 @@ def _check_shapes(xe, w) -> None:
             or w.shape[1] != xe.shape[2]:
         raise ValueError(f"gmm takes xe (E, C, d) and w (E, d, f), got "
                          f"{tuple(xe.shape)}, {tuple(w.shape)}")
+
+
+def _check_bwd_shapes(xe, w, dy) -> None:
+    _check_shapes(xe, w)
+    want = (xe.shape[0], xe.shape[1], w.shape[2])
+    if tuple(dy.shape) != want:
+        raise ValueError(f"gmm_bwd takes dy (E, C, f) = {want}, got "
+                         f"{tuple(dy.shape)}")
 
 
 def _launch(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -151,13 +225,52 @@ def _launch(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _launch_bwd(xe: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                chunk: int | None = None):
+    """(dx, dw) by ``csrc/moe_bwd.cu``; ``chunk`` forces dw's rows a split
+    (default ``bwd_chunk``)."""
+    dev = check_cuda(xe, w, dy)
+    if xe.dtype not in DTYPE_FLAG or w.dtype != xe.dtype:
+        raise TypeError(f"gmm_bwd takes float32 or bfloat16 of one dtype, "
+                        f"got {xe.dtype}, {w.dtype}")
+    E, C, d = xe.shape
+    f = w.shape[2]
+    if C >= 1 << 20 or d >= 1 << 23 or f >= 1 << 23:
+        raise ValueError(f"the gmm_bwd kernel takes C < 2^20 and d, f < "
+                         f"2^23, got C {C}, d {d}, f {f}")
+    xe, w = xe.contiguous(), w.contiguous()
+    dy = dy.to(xe.dtype).contiguous()
+    dx = torch.empty_like(xe)
+    dw = torch.empty_like(w)
+    if E == 0 or d == 0 or f == 0 or C == 0:
+        # empty products: dx sums over f, dw over C
+        return dx.zero_(), dw.zero_()
+    chunk = bwd_chunk(E, C, d, f) if chunk is None else chunk
+    splits = -(-C // chunk)
+    if chunk < 1 or (chunk < C and chunk % 32) or E * splits > 65535:
+        raise ValueError(f"gmm_bwd's split takes a multiple of 32 rows of C "
+                         f"(or C) with E x splits <= 65535, got chunk "
+                         f"{chunk} of C {C}, E {E}")
+    part = torch.empty(splits, E, d, f, dtype=torch.float32, device=dev) \
+        if splits > 1 else None
+    _build.launch("moe_gmm_bwd", dev, xe.data_ptr(), w.data_ptr(),
+                  dy.data_ptr(), E, C, d, f, DTYPE_FLAG[xe.dtype], chunk,
+                  part.data_ptr() if part is not None else None,
+                  dx.data_ptr(), dw.data_ptr())
+    gmm_bwd.launches += 1
+    gmm_bwd.last_chunk = chunk
+    return dx, dw
+
+
 class _KernelGmm(torch.autograd.Function):
+    """The forward kernel, and the ``gmm_bwd`` kernel as its backward."""
+
     @staticmethod
     def forward(ctx, xe, w):
+        ctx.save_for_backward(xe, w)
         return _launch(xe, w)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the gmm CUDA kernel has no backward: training through the "
-            "expert products is ROADMAP.md queue 1 item 10(d)")
+        xe, w = ctx.saved_tensors
+        return get_kernel("gmm_bwd")(xe, w, grad)

@@ -41,6 +41,28 @@ Bound: operations, the recurrence's 8·B·S·d·dh FLOPs as ``PIECES`` bfloat16
 products over the tensor-core rate (the cluster form) or in float32 over
 the CUDA cores' (the grid form), above the bytes of wx, y and the state;
 and the chain of S dependent steps.
+
+Where autograd records (``slstm_scan`` with an input that requires grad),
+either form also writes each step's (c, n, m), float32, ``states`` (B, 3,
+S, d): the backward needs every step's state and cannot run the
+recurrence backwards, and a forward replay would cost a second scan.
+
+The gradient, ``slstm_scan_bwd`` (``csrc/slstm_bwd.cu``), replaces no TPU
+kernel (the JAX package differentiates its jnp recurrence,
+``src/repro/models/xlstm.py:219-277``): ONE cooperative launch a
+``MAX_BATCH`` rows, d / U blocks of U state dimensions as the grid form,
+walking t from S - 1 down to 0 with a grid barrier a step.  Each step a
+block recomputes its gates from h_{t-1} (y's previous row) and its r
+columns in shared memory, its owners follow autograd's formula of the
+cell back (``_cell_bwd``: the max's tie split in half, the clamp's cut,
+both exps) to the gate gradients dgates_t (float32, written out) and the
+carries dc, dn, dm, and the block adds its gate columns' share of
+dh_{t-1} = dgates_t · r_headᵀ for every dimension of its head into a
+double-buffered scratch, which the owners sum in block order after the
+barrier.  dwx is dgates in wx's dtype; dr_gates = Σ_t h_{t-1}ᵀ dgates_t
+per head is one batched ``torch.matmul`` after the scan (the JAX
+package's is an einsum's autodiff, no Pallas kernel).  Bound: operations,
+dh_{t-1}'s product and dr's, 16·B·S·d·dh; and the S dependent steps.
 """
 from __future__ import annotations
 
@@ -51,7 +73,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.factory import counted
+from repro_torch.kernels.factory import counted, get_kernel
 from repro_torch.kernels.rollup_digest import check_cuda
 from repro_torch.kernels.weighted_agg import DTYPE_FLAG
 
@@ -73,6 +95,23 @@ PIECES = 2                          # bfloat16 pieces of h, kPieces
 # at most by one a step), so the gap stays at float32 rounding of the
 # sums, times the steps that carry it.
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)
+# How far the backward kernel may sit from the plain backward on the same
+# saved forward: both follow autograd's formula in float32, the products
+# (the gates' recomputation, dh_rec's share sums) in another order and
+# exp / tanh / log1p from other libraries.  The carries pass back through
+# fw <= 1 and the gates' derivatives, so a step's gap of a few float32
+# steps stays near that size over the scan: rtol 1e-3, and 1e-4 of the
+# largest gradient of its tensor (dwx in bfloat16: one bfloat16 step).
+KERNEL_BWD_TOL = dict(rtol=1e-3, atol_of_max=1e-4)
+
+
+def kernel_bwd_tol(want: torch.Tensor) -> dict:
+    """``assert_close`` tolerances of a backward-kernel result against
+    ``want``, the plain backward's (see ``KERNEL_BWD_TOL``)."""
+    scale = float(want.float().abs().max()) if want.numel() else 0.0
+    rtol = max(KERNEL_BWD_TOL["rtol"],
+               2 ** -7 if want.dtype == torch.bfloat16 else 0.0)
+    return dict(rtol=rtol, atol=KERNEL_BWD_TOL["atol_of_max"] * scale)
 
 
 def slstm_cell(r: torch.Tensor, carry: State, wx_t: torch.Tensor):
@@ -119,6 +158,26 @@ def slstm_scan_cost(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n, m
     return flops, n_bytes
 
 
+def slstm_scan_bwd_cost(wx, r_gates, h, c, n, m, y, states, dy, dhN, dcN,
+                        dnN, dmN) -> Tuple[int, int]:
+    """(FLOPs, bytes) of the gradient: dh_{t-1} = dgates_t · r_headᵀ and
+    dr_gates = Σ_t h_{t-1}ᵀ dgates_t, 16·B·S·d·dh, counted as ``PIECES``
+    products in bfloat16 as the forward's are (the gates' recomputation is
+    this design's, not the function's); wx, r, y, the saved states, dy
+    and the eight state tensors read once, dwx, dr and the four initial
+    state gradients written once."""
+    B, S = wx.shape[0], wx.shape[1]
+    nh, dh = r_gates.shape[0], r_gates.shape[1]
+    d = nh * dh
+    flops = 16 * B * S * d * dh
+    if wx.dtype == torch.bfloat16:
+        flops *= PIECES
+    n_bytes = (2 * wx.element_size() * B * S * 4 * d
+               + 2 * r_gates.element_size() * nh * dh * 4 * dh
+               + 4 * (5 * B * S * d + 12 * B * d))
+    return flops, n_bytes
+
+
 @counted("slstm_scan")
 def slstm_scan_torch(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n, m):
     """Plain version: a per-step loop of ``slstm_cell``."""
@@ -132,6 +191,109 @@ def slstm_scan_torch(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n, m):
     B, d = h.shape
     y = torch.stack(ys, 1) if ys else torch.empty(B, 0, d, device=h.device)
     return y, carry
+
+
+def slstm_states_torch(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n,
+                       m):
+    """``slstm_scan_torch`` that also returns every step's (c, n, m), as
+    the kernels write them where autograd records: (y, final state,
+    states (B, 3, S, d) float32)."""
+    _check_shapes(wx, r_gates, h, c, n, m)
+    r = r_gates.to(torch.float32)
+    carry = (h, c, n, m)
+    ys, st = [], []
+    for t in range(wx.shape[1]):
+        carry, h_t = slstm_cell(r, carry, wx[:, t])
+        ys.append(h_t)
+        st.append(torch.stack(carry[1:], 1))
+    B, d = h.shape
+    if not ys:
+        empty = torch.empty(B, 0, d, device=h.device)
+        return empty, carry, torch.empty(B, 3, 0, d, device=h.device)
+    return torch.stack(ys, 1), carry, torch.stack(st, 2)
+
+
+def _cell_bwd(r: torch.Tensor, prev: State, wx_t: torch.Tensor, dh, dc, dn,
+              dm):
+    """One step back through ``slstm_cell`` as autograd takes it: the
+    gates recomputed from ``prev`` = (h, c, n, m) at t - 1, then the
+    gradients of h_t (``dh``) and of the carries (c, n, m)_t through every
+    op of ``_cell_update``: ``torch.maximum`` splits a tie's gradient in
+    half, ``torch.clamp`` passes none below 1e-6, and both exps pass
+    theirs, though h does not depend on m in exact arithmetic.  Returns
+    (dgates (B, 4d) gate-major float32, dc, dn, dm at t - 1)."""
+    h, c, n, m = prev
+    nh, dh4 = r.shape[0], r.shape[2]
+    rec = torch.einsum("bhd,hde->bhe", h.reshape(-1, nh, dh4 // 4), r)
+    rec = rec.reshape(-1, nh, 4, dh4 // 4).transpose(1, 2).reshape(
+        rec.shape[0], -1)
+    zi, ii, ff, oo = (wx_t.to(torch.float32) + rec).chunk(4, dim=-1)
+    t1 = F.logsigmoid(ff) + m
+    m_new = torch.maximum(t1, ii)
+    fw = torch.exp(t1 - m_new)
+    iw = torch.exp(ii - m_new)
+    z = torch.tanh(zi)
+    c_new = fw * c + iw * z
+    n_new = fw * n + iw
+    s = torch.sigmoid(oo)
+    ncl = torch.clamp(n_new, min=1e-6)
+    dq = dh / ncl
+    dn = dn + torch.where(n_new >= 1e-6, -dh * (s * c_new) / (ncl * ncl),
+                          0.0)
+    dc = dc + dq * s
+    doo = dq * c_new * s * (1 - s)
+    dfw = dc * c + dn * n
+    diw = dc * z + dn
+    dzi = dc * iw * (1 - z * z)
+    de1, de2 = dfw * fw, diw * iw
+    dmn = dm - de1 - de2
+    share = torch.where(t1 == ii, 0.5 * dmn, dmn)
+    dt1 = de1 + torch.where(t1 >= ii, share, 0.0)
+    dii = de2 + torch.where(ii >= t1, share, 0.0)
+    dff = dt1 * torch.sigmoid(-ff)
+    return torch.cat([dzi, dii, dff, doo], -1), dc * fw, dn * fw, dt1
+
+
+def dr_gates(h0: torch.Tensor, y: torch.Tensor, dgates: torch.Tensor,
+             nh: int) -> torch.Tensor:
+    """dr_gates (nh, dh, 4·dh) float32 = Σ_{b,t} h_{t-1}ᵀ dgates_t per head:
+    h_{t-1} is h0 and y's rows before the last, dgates (B, S, 4d) the
+    gate-major gate gradients; one batched matmul."""
+    B, S, d = y.shape
+    dh = d // nh
+    h_prev = torch.cat([h0[:, None].to(torch.float32), y[:, :-1]], 1)
+    hh = h_prev.reshape(B * S, nh, dh).permute(1, 2, 0)
+    gh = dgates.reshape(B * S, 4, nh, dh).permute(2, 0, 1, 3).reshape(
+        nh, B * S, 4 * dh)
+    return torch.matmul(hh, gh)
+
+
+@counted("slstm_scan_bwd")
+def slstm_scan_bwd_torch(wx, r_gates, h, c, n, m, y, states, dy, dhN, dcN,
+                         dnN, dmN):
+    """Plain version of the gradient: a reverse loop of ``_cell_bwd`` from
+    the saved forward (y, and ``states`` (B, 3, S, d), every step's (c, n,
+    m)) and the gradients of y and of the final (h, c, n, m) ->
+    (dwx in wx's dtype, dr_gates in r's, dh0, dc0, dn0, dm0)."""
+    _check_shapes(wx, r_gates, h, c, n, m)
+    r = r_gates.to(torch.float32)
+    B, S, d4 = wx.shape
+    dgates = torch.empty(B, S, d4, dtype=torch.float32, device=wx.device)
+    dh_rec = torch.zeros_like(h)
+    dc, dn, dm = dcN, dnN, dmN
+    nh, dh = r.shape[0], r.shape[1]
+    for t in reversed(range(S)):
+        prev = (y[:, t - 1], *states[:, :, t - 1].unbind(1)) if t \
+            else (h, c, n, m)
+        dh_t = dy[:, t] + dh_rec + (dhN if t == S - 1 else 0.0)
+        g, dc, dn, dm = _cell_bwd(r, prev, wx[:, t], dh_t, dc, dn, dm)
+        dgates[:, t] = g
+        gh = g.reshape(B, 4, nh, dh).transpose(1, 2).reshape(B, nh, 4 * dh)
+        dh_rec = torch.einsum("bhe,hde->bhd", gh, r).reshape(B, -1)
+    if S == 0:
+        dh_rec = dhN
+    return (dgates.to(wx.dtype), dr_gates(h, y, dgates, nh).to(r_gates.dtype),
+            dh_rec, dc, dn, dm)
 
 
 def split_pieces(h: torch.Tensor, pieces: int = PIECES
@@ -196,17 +358,38 @@ def slstm_cluster_torch(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n,
 @counted("slstm_scan")
 def slstm_scan(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n, m):
     """The plain version for a CPU tensor, the CUDA kernel for a CUDA
-    tensor (no backward through the kernel)."""
+    tensor; its backward the ``slstm_scan_bwd`` kernel."""
     _check_shapes(wx, r_gates, h, c, n, m)
     if wx.device.type == "cpu":
         return slstm_scan_torch(wx, r_gates, h, c, n, m)
-    y, *carry = _KernelScan.apply(wx, r_gates, h, c, n, m)
-    return y, tuple(carry)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (wx, r_gates, h, c, n, m)):
+        y, *carry = _KernelScan.apply(wx, r_gates, h, c, n, m)
+        return y, tuple(carry)
+    return _launch(wx, r_gates, h, c, n, m)
+
+
+@counted("slstm_scan_bwd")
+def slstm_scan_bwd(wx, r_gates, h, c, n, m, y, states, dy, dhN, dcN, dnN,
+                   dmN):
+    """The gradient of ``slstm_scan``: the plain version for CPU tensors,
+    the ``csrc/slstm_bwd.cu`` kernel (one count in ``launches`` a
+    ``MAX_BATCH`` rows) for CUDA tensors, then dr_gates by one batched
+    matmul.  Returns (dwx, dr_gates, dh0, dc0, dn0, dm0)."""
+    _check_shapes(wx, r_gates, h, c, n, m)
+    if wx.device.type == "cpu":
+        return slstm_scan_bwd_torch(wx, r_gates, h, c, n, m, y, states, dy,
+                                    dhN, dcN, dnN, dmN)
+    dgates, *dstate = _launch_bwd(wx, r_gates, h, c, n, m, y, states, dy,
+                                  dhN, dcN, dnN, dmN)
+    dr = dr_gates(h, y, dgates, r_gates.shape[0])
+    return (dgates.to(wx.dtype), dr.to(r_gates.dtype), *dstate)
 
 
 slstm_scan.launches = 0
 slstm_scan.last_form = None         # the form of the latest launch
 slstm_scan.form_launches = {}       # launches by form
+slstm_scan_bwd.launches = 0
 
 
 def form(dtype: torch.dtype, B: int, nh: int, dh: int) -> str:
@@ -253,6 +436,14 @@ def _check_shapes(wx, r_gates, *state) -> None:
                         f"{[s.dtype for s in state]}")
 
 
+def _check_states(wx, states) -> None:
+    B, S, d4 = wx.shape
+    want = (B, 3, S, d4 // 4)
+    if tuple(states.shape) != want or states.dtype != torch.float32:
+        raise ValueError(f"slstm_scan's saved states are {want} float32, "
+                         f"got {tuple(states.shape)} {states.dtype}")
+
+
 def plan(B: int, dh: int) -> Tuple[int, int]:
     """(U, shared-memory bytes) of one launch of B rows: U state dimensions
     a block, the largest power of two up to 16 dividing dh.  Raises
@@ -272,24 +463,55 @@ def plan(B: int, dh: int) -> Tuple[int, int]:
     return U, smem
 
 
-def _launch(wx, r_gates, h, c, n, m, chosen=None):
+def bwd_plan(B: int, dh: int) -> Tuple[int, int]:
+    """(U, shared-memory bytes) of one backward launch of B rows: U as
+    ``plan``'s; the block keeps its r columns (rows padded by one value,
+    so that a warp's rows fall on 32 banks), h_{t-1} of its head, the
+    product's partial sums and its gate gradients.  Raises ``ValueError``
+    for a batch one launch cannot hold."""
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"the slstm_scan_bwd kernel takes 1 to {MAX_BATCH} "
+                         f"batch rows, got {B}")
+    U = 16
+    while dh % U:
+        U //= 2
+    J = 4 * U
+    smem = 4 * (dh * (J + 1) + B * dh + (THREADS // J) * B * J + B * J)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the slstm_scan_bwd kernel holds a head of {dh} "
+                         f"dimensions x {B} rows in {smem} bytes of shared "
+                         f"memory, over the {SMEM_LIMIT} a block can use")
+    return U, smem
+
+
+def _launch(wx, r_gates, h, c, n, m, chosen=None, states=None):
     """The scan of every row in the form ``form`` picks (or ``chosen``):
     one cluster-form launch, or grid-form launches of up to
-    ``MAX_BATCH`` rows."""
+    ``MAX_BATCH`` rows; each step's (c, n, m) into ``states`` (B, 3, S, d)
+    float32 where given."""
     if chosen is None:
         chosen = form(wx.dtype, wx.shape[0], *r_gates.shape[:2])
+    if states is not None:
+        _check_states(wx, states)
     if chosen == "cluster":
-        return _launch_cluster(wx, r_gates, h, c, n, m)
+        return _launch_cluster(wx, r_gates, h, c, n, m, states)
     if wx.shape[0] <= MAX_BATCH:
-        return _launch_rows(wx, r_gates, h, c, n, m)
+        return _launch_rows(wx, r_gates, h, c, n, m,
+                            **({} if states is None else {"states": states}))
     parts = [_launch_rows(wx[i:i + MAX_BATCH], r_gates,
-                          *(t[i:i + MAX_BATCH] for t in (h, c, n, m)))
+                          *(t[i:i + MAX_BATCH] for t in (h, c, n, m)),
+                          **({} if states is None
+                             else {"states": states[i:i + MAX_BATCH]}))
              for i in range(0, wx.shape[0], MAX_BATCH)]
     return (torch.cat([y for y, _ in parts]),
             tuple(torch.cat(ts) for ts in zip(*(st for _, st in parts))))
 
 
-def _launch_rows(wx, r_gates, h, c, n, m):
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _launch_rows(wx, r_gates, h, c, n, m, states=None):
     dev = check_cuda(wx, r_gates, h, c, n, m)
     if wx.dtype not in DTYPE_FLAG or r_gates.dtype != wx.dtype:
         raise TypeError(f"slstm_scan takes wx and r_gates in float32 or "
@@ -312,12 +534,12 @@ def _launch_rows(wx, r_gates, h, c, n, m):
     _build.launch("slstm_scan", dev, wx.data_ptr(), r_gates.data_ptr(),
                   hbuf.data_ptr(), c.data_ptr(), n.data_ptr(), m.data_ptr(),
                   B, S, nh, dh, U, DTYPE_FLAG[wx.dtype], FORMS["grid"],
-                  y.data_ptr(), *(t.data_ptr() for t in out))
+                  y.data_ptr(), *(t.data_ptr() for t in out), _ptr(states))
     _count("grid")
     return y, tuple(out)
 
 
-def _launch_cluster(wx, r_gates, h, c, n, m):
+def _launch_cluster(wx, r_gates, h, c, n, m, states=None):
     dev = check_cuda(wx, r_gates, h, c, n, m)
     B, S, _ = wx.shape
     nh, dh, _ = r_gates.shape
@@ -337,9 +559,52 @@ def _launch_cluster(wx, r_gates, h, c, n, m):
     _build.launch("slstm_scan", dev, wx.data_ptr(), r_gates.data_ptr(),
                   h.data_ptr(), c.data_ptr(), n.data_ptr(), m.data_ptr(),
                   B, S, nh, dh, 0, DTYPE_FLAG[wx.dtype], FORMS["cluster"],
-                  y.data_ptr(), *(t.data_ptr() for t in out))
+                  y.data_ptr(), *(t.data_ptr() for t in out), _ptr(states))
     _count("cluster")
     return y, tuple(out)
+
+
+def _launch_bwd(wx, r_gates, h, c, n, m, y, states, dy, dhN, dcN, dnN, dmN):
+    """(dgates (B, S, 4d) float32, dh0, dc0, dn0, dm0) by
+    ``csrc/slstm_bwd.cu``: one cooperative launch a ``MAX_BATCH`` rows."""
+    dev = check_cuda(wx, r_gates, h, c, n, m, y, states, dy, dhN, dcN, dnN,
+                     dmN)
+    if wx.dtype not in DTYPE_FLAG or r_gates.dtype != wx.dtype:
+        raise TypeError(f"slstm_scan_bwd takes wx and r_gates in float32 or "
+                        f"bfloat16 of one dtype, got {wx.dtype}, "
+                        f"{r_gates.dtype}")
+    _check_states(wx, states)
+    B, S, d4 = wx.shape
+    nh, dh, _ = r_gates.shape
+    d = d4 // 4
+    f32 = dict(dtype=torch.float32, device=dev)
+    grads = [t.to(torch.float32).contiguous() for t in (dy, dhN, dcN, dnN,
+                                                         dmN)]
+    if tuple(grads[0].shape) != (B, S, d) or any(
+            tuple(t.shape) != (B, d) for t in grads[1:]):
+        raise ValueError(f"slstm_scan_bwd takes dy (B, S, d) and the final "
+                         f"state's gradients (B, d), got "
+                         f"{[tuple(t.shape) for t in grads]}")
+    dgates = torch.empty(B, S, d4, **f32)
+    if S == 0:
+        return (dgates, grads[1].clone(), grads[2].clone(), grads[3].clone(),
+                grads[4].clone())
+    U, _ = bwd_plan(min(B, MAX_BATCH), dh)
+    wx, r_gates = wx.contiguous(), r_gates.contiguous()
+    ins = [t.contiguous() for t in (h, c, n, m, y, states)]
+    outs = [torch.empty(B, d, **f32) for _ in range(4)]
+    dpart = torch.empty(2, d // U, min(B, MAX_BATCH), dh, **f32)
+    for i in range(0, B, MAX_BATCH):
+        rows = slice(i, i + MAX_BATCH)
+        b = len(range(B)[rows])
+        _build.launch("slstm_scan_bwd", dev, wx[rows].data_ptr(),
+                      r_gates.data_ptr(), *(t[rows].data_ptr() for t in ins),
+                      *(t[rows].data_ptr() for t in grads), b, S, nh, dh, U,
+                      DTYPE_FLAG[wx.dtype], dpart.data_ptr(),
+                      dgates[rows].data_ptr(),
+                      *(t[rows].data_ptr() for t in outs))
+        slstm_scan_bwd.launches += 1
+    return (dgates, *outs)
 
 
 def cluster_capacity(device: torch.device, B: int, nh: int, dh: int) -> int:
@@ -360,13 +625,22 @@ def _count(chosen: str) -> None:
 
 
 class _KernelScan(torch.autograd.Function):
+    """The forward kernel writing each step's state, and the
+    ``slstm_scan_bwd`` kernel as its backward."""
+
     @staticmethod
     def forward(ctx, wx, r_gates, h, c, n, m):
-        y, carry = _launch(wx, r_gates, h, c, n, m)
+        B, S, d4 = wx.shape
+        states = torch.empty(B, 3, S, d4 // 4, dtype=torch.float32,
+                             device=wx.device)
+        y, carry = _launch(wx, r_gates, h, c, n, m, states=states)
+        ctx.save_for_backward(wx, r_gates, h, c, n, m, y, states)
         return (y, *carry)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the slstm_scan CUDA kernel has no backward: training through "
-            "the scan is ROADMAP.md queue 1 item 10(d)")
+    def backward(ctx, dy, *dfinal):
+        wx, r_gates, h, c, n, m, y, states = ctx.saved_tensors
+        grads = [torch.zeros_like(t) if g is None else g
+                 for g, t in zip((dy, *dfinal), (y, h, c, n, m))]
+        return get_kernel("slstm_scan_bwd")(wx, r_gates, h, c, n, m, y,
+                                            states, *grads)

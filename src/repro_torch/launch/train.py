@@ -5,6 +5,7 @@ updates, as ``src/repro/launch/train.py`` runs them.
     python -m repro_torch.launch.train                    # qwen2-0.5b, the card
     python -m repro_torch.launch.train --reduced --device cpu
     python -m repro_torch.launch.train --ckpt-dir /tmp/ck --rounds 4 --resume
+    python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b --layers 4
 
 The port trains on one card: the mesh is 1 x 1 (``launch/mesh.py``), so a
 round runs T = 1 trainer, and ``--multi-pod`` raises (ROADMAP.md queue 1
@@ -19,7 +20,9 @@ the JAX launcher draws them, so an uninterrupted run sees the JAX
 launcher's tokens.  On ``--resume`` the skipped rounds' blocks are drawn
 and dropped first (every round draws one block of the same shape), so a
 resumed run sees the batches the uninterrupted run saw (the JAX launcher
-restarts its stream at 17 on resume).
+restarts its stream at 17 on resume).  ``--layers N`` cuts the stack to N
+layers at full width (a depth one card holds, where the whole model does
+not).
 """
 from __future__ import annotations
 
@@ -57,6 +60,9 @@ def parse_args(argv=None):
                     help="1x1 mesh (the CPU smoke mesh)")
     ap.add_argument("--reduced", action="store_true",
                     help="reduced same-family config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the stack to this depth (a multiple of the "
+                         "block pattern's period), at full width")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default=None,
@@ -77,6 +83,11 @@ def main(argv=None) -> list:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
+    if args.layers is not None:
+        if args.layers < 1 or args.layers % len(cfg.pattern):
+            raise ValueError(f"--layers {args.layers}: {cfg.name} stacks "
+                             f"periods of {len(cfg.pattern)} layers")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if cfg.input_mode != "tokens" or cfg.enc_dec or cfg.family == "conv":
         raise ValueError("the FL-LM launcher drives token-LM archs")
 

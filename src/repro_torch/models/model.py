@@ -14,9 +14,15 @@ stacks), in the JAX package's interface:
 (``train_params``), which autograd differentiates (``launch/steps.py``);
 the module is frozen for serving.  The port runs one card with no mesh:
 the JAX facade's ``ctx is None`` branch.  Meshes and sharding are
-ROADMAP.md queue 1 item 10(f); Mamba (and jamba), LeNet, whisper and the
-VLM's embeds input are item 10(e), and their configs raise
+ROADMAP.md queue 1 item 10(f); Mamba (and jamba), whisper and the VLM's
+embeds input are item 10(e), and their configs raise
 ``NotImplementedError`` here.
+
+The conv family (``lenet5``, the paper's FL workload) is the JAX facade's
+``lenet`` branch: ``build_model`` returns a ``models.lenet.LeNet``, which
+has the interface the FL protocol takes (``models.mlp.TinyMLP``'s:
+``init_params(seed)``, ``loss(params, batch)``, ``accuracy_fn()``, flat
+parameter dicts) rather than this class's.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import lenet, transformer
 
 
 class Model:
@@ -85,5 +91,9 @@ class Model:
                                              device=self.device)
 
 
-def build_model(cfg: ModelConfig, device=None) -> Model:
+def build_model(cfg: ModelConfig, device=None):
+    """The model of ``cfg`` on ``device`` (the card unless named): a
+    ``LeNet`` for the conv family, a ``Model`` otherwise."""
+    if cfg.family == "conv":
+        return lenet.LeNet(cfg, device)
     return Model(cfg, device)

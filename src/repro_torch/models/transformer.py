@@ -81,10 +81,11 @@ def block_specs(cfg):
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a config this slice does not run."""
+    """Raise ``NotImplementedError`` for a config the port does not run
+    yet.  The conv family (LeNet) runs, as ``models.lenet.LeNet``, which
+    ``models.model.build_model`` builds for it."""
     if cfg.family == "conv":
-        raise NotImplementedError(f"{cfg.name}: LeNet is not ported yet "
-                                  f"(ROADMAP.md queue 1 item 10(e))")
+        return
     if cfg.enc_dec:
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder (whisper) "
                                   f"is not ported yet (ROADMAP.md queue 1 "
@@ -157,6 +158,10 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg, dtype=None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if cfg.family == "conv":
+            raise ValueError(f"{cfg.name} is a conv config: LeNet, which "
+                             f"models.model.build_model builds "
+                             f"(models/lenet.py), not a token LM")
         check_supported(cfg)
         self.cfg = cfg
         dtype = _torch_dtype(dtype or cfg.dtype)

@@ -30,9 +30,13 @@ in both forms (the cluster form at dh 64 / 128 / 512 and 1-33 rows, the
 grid form also at batches split into launches of ``MAX_BATCH`` rows), and
 the reduced MoE and xLSTM LMs on the card against the CPU.  The TMA /
 wgmma forms of ``flash_attention`` and ``gmm`` where TMA's edges bite
-(tails of a row past a tile, short boxes); a backward through ``gmm`` or
-``slstm_scan`` raises; two card runs of the reduced moonshot's MoE FFN are
-bit-equal; the object Rollup's digest buffers (4 to 84 words, offset
+(tails of a row past a tile, short boxes); the backward kernels
+``gmm_bwd`` (``gmm.kernel_tol``, dw's split sum forced and planned, two
+launches bit-equal) and ``slstm_scan_bwd`` (``slstm_scan.kernel_bwd_tol``
+on the saved states of either forward form, bit-equal across launches)
+against their plain versions, and a reduced MoE and xLSTM train step on
+the card against the same step with the plain versions; two card runs of the reduced moonshot's MoE FFN
+are bit-equal; the object Rollup's digest buffers (4 to 84 words, offset
 views) and the default ``AutoDFL()`` agent path on the card against the
 CPU; ``shard_seal`` bit for bit at its hard cases (K of 1 to 64 lanes, an
 empty lane, one-word segments, a 16 MB lane, power-law lengths, offset
@@ -793,9 +797,62 @@ def test_gmm_kernel_refuses(cuda):
     before = gm.gmm.launches
     assert float(gm.gmm(xe[:, :0], w).sum()) == 0.0
     assert gm.gmm.launches == before
+    # a backward through the kernel is the gmm_bwd kernel, one launch
     xe.requires_grad_()
-    with pytest.raises(NotImplementedError, match="10\\(d\\)"):
-        gm.gmm(xe, w).sum().backward()
+    before = gm.gmm_bwd.launches
+    gm.gmm(xe, w).sum().backward()
+    assert gm.gmm_bwd.launches == before + 1
+    assert torch.equal(xe.grad, torch.full_like(xe, 4.0))
+    with pytest.raises(TypeError):
+        gm.gmm_bwd(xe.half(), w.half(), torch.ones(2, 3, 4, device=cuda))
+    before = gm.gmm_bwd.launches
+    dx, dw = gm.gmm_bwd(xe[:, :0], w, torch.ones(2, 0, 4, device=cuda))
+    assert gm.gmm_bwd.launches == before and not dw.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,d,f,dtype", [
+    (1, 1, 8, 8, torch.float32), (2, 1, 5, 3, torch.bfloat16),
+    (3, 33, 17, 9, torch.float32), (3, 33, 17, 9, torch.bfloat16),
+    (1, 129, 130, 131, torch.bfloat16), (2, 700, 24, 40, torch.float32),
+    (1, 4096, 128, 136, torch.bfloat16), (4, 1921, 72, 200, torch.bfloat16),
+    (64, 1920, 2048, 1408, torch.bfloat16), (8, 96, 64, 200, torch.float32)])
+def test_gmm_bwd_kernel(cuda, E, C, d, f, dtype):
+    """The backward kernel against the plain backward at the hard shapes
+    (C of 1, E of 1, tails of every tile, dw's sum split over blocks)
+    and moonshot's training shape: dx and dw within ``gm.kernel_tol``,
+    one launch, two launches bit-equal."""
+    g = torch.Generator().manual_seed(E + C + d + f)
+    xe, w, dy = (torch.randn(s, generator=g).to(cuda, dtype)
+                 for s in ((E, C, d), (E, d, f), (E, C, f)))
+    before = gm.gmm_bwd.launches
+    got = gm.gmm_bwd(xe, w, dy)
+    assert gm.gmm_bwd.launches == before + 1
+    assert gm.gmm_bwd.last_chunk == gm.bwd_chunk(E, C, d, f)
+    want = gm.gmm_bwd_torch(xe, w, dy)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), **gm.kernel_tol(b))
+    for a, b in zip(gm.gmm_bwd(xe, w, dy), got):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [32, 96, 1024])
+def test_gmm_bwd_kernel_forced_splits(cuda, chunk):
+    """dw's sum over C split into forced chunks: each within
+    ``gm.kernel_tol`` of the plain version, two launches bit-equal."""
+    g = torch.Generator().manual_seed(chunk)
+    xe, w, dy = (torch.randn(s, generator=g).to(cuda, torch.bfloat16)
+                 for s in ((2, 1000, 40), (2, 40, 72), (2, 1000, 72)))
+    got = gm._launch_bwd(xe, w, dy, chunk)
+    assert gm.gmm_bwd.last_chunk == chunk
+    want = gm.gmm_bwd_torch(xe, w, dy)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), **gm.kernel_tol(b))
+    for a, b in zip(gm._launch_bwd(xe, w, dy, chunk), got):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -892,15 +949,110 @@ def test_slstm_scan_kernel_refuses(cuda):
         want_y, want_carry = ss.slstm_scan_torch(wx, r, *state)
         for got, want in zip((y, *carry), (want_y, *want_carry)):
             torch.testing.assert_close(got, want, **ss.KERNEL_TOL)
+    # a backward through the kernel is the slstm_scan_bwd kernel, one
+    # launch a MAX_BATCH rows
     wx.requires_grad_()
-    with pytest.raises(NotImplementedError, match="10\\(d\\)"):
-        ss.slstm_scan(wx, r, *state)[0].sum().backward()
+    before = ss.slstm_scan_bwd.launches
+    ss.slstm_scan(wx, r, *state)[0].sum().backward()
+    assert ss.slstm_scan_bwd.launches == before + 2
+    wg = wx.detach().clone().requires_grad_()
+    ss.slstm_scan_torch(wg, r, *state)[0].sum().backward()
+    torch.testing.assert_close(wx.grad, wg.grad, **ss.kernel_bwd_tol(wg.grad))
+    with pytest.raises(ValueError, match="batch rows"):
+        ss.bwd_plan(17, 16)
     wx, r, state = _slstm_inputs(16, 2, 1, 1024, torch.float32, cuda)
     with pytest.raises(ValueError, match="shared memory"):
         ss.slstm_scan(wx, r, *state)
     wx, r, state = _slstm_inputs(2, 2, 4, 16, torch.float32, cuda)
     with pytest.raises(TypeError):
         ss.slstm_scan(wx.half(), r.half(), *state)
+
+
+def _scan_bwd_case(B, S, nh, dh, dtype, device, seed):
+    """The kernel forward's saved inputs (y, states) and output gradients
+    for one backward case."""
+    wx, r, state = _slstm_inputs(B, S, nh, dh, dtype, device, seed)
+    d = nh * dh
+    states = torch.empty(B, 3, S, d, device=device)
+    y, carry = ss._launch(wx, r, *state, states=states)
+    g = torch.Generator().manual_seed(seed + 1)
+    grads = [torch.randn(s, generator=g).to(device)
+             for s in ((B, S, d),) + ((B, d),) * 4]
+    return wx, r, state, y, carry, states, grads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,nh,dh,dtype", [
+    (2, 1, 4, 16, torch.float32), (2, 37, 4, 16, torch.float32),
+    (3, 16, 4, 16, torch.bfloat16), (4, 20, 2, 12, torch.float32),
+    (17, 9, 2, 8, torch.float32), (2, 300, 8, 32, torch.float32),
+    (2, 33, 4, 64, torch.bfloat16), (4, 129, 4, 512, torch.bfloat16),
+    (1, 1, 4, 512, torch.bfloat16)])
+def test_slstm_scan_bwd_kernel(cuda, B, S, nh, dh, dtype):
+    """The backward kernel against the plain backward on the kernel
+    forward's saved states (in the form the forward took: grid or
+    cluster), at S of 1, S on no tile, batches over MAX_BATCH rows and
+    xlstm-1.3b's head: within ``ss.kernel_bwd_tol``, one launch a
+    MAX_BATCH rows, two launches bit-equal; the saved states within the
+    forward's tolerance of the plain scan's."""
+    wx, r, state, y, carry, states, grads = _scan_bwd_case(
+        B, S, nh, dh, dtype, cuda, B + S + dh)
+    _, _, want_states = ss.slstm_states_torch(wx, r, *state)
+    torch.testing.assert_close(states, want_states, **ss.KERNEL_TOL)
+    before = ss.slstm_scan_bwd.launches
+    got = ss.slstm_scan_bwd(wx, r, *state, y, states, *grads)
+    assert ss.slstm_scan_bwd.launches == before + -(-B // ss.MAX_BATCH)
+    want = ss.slstm_scan_bwd_torch(wx, r, *state, y, states, *grads)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        torch.testing.assert_close(a, b, **ss.kernel_bwd_tol(b))
+    for a, b in zip(ss.slstm_scan_bwd(wx, r, *state, y, states, *grads),
+                    got):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "xlstm-1.3b"])
+def test_moe_xlstm_train_step_on_the_card_matches_the_plain_step(
+        cuda, arch, monkeypatch):
+    """One value_and_grad of the reduced moonshot and xlstm in float32 on
+    the card through gmm_bwd and slstm_scan_bwd against the same step on
+    the card with the plain versions forced: loss within rtol 1e-5, each
+    gradient within 1e-3 of its leaf's norm plus 1e-5 of the whole
+    gradient's (chip_smoke's TRAIN_AGREE_GRAD_REL / _ABS: a leaf whose
+    gradient nearly cancels carries float32 rounding at a large share of
+    its own norm); the loss within rtol 1e-5 of the CPU's; the backward
+    kernels launched."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              dtype="float32")
+    host = build_model(cfg, "cpu")
+    params = host.train_params(host.init_params(0))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 33))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    cpu_loss, _ = value_and_grad(host, params, batch)
+    card = build_model(cfg, cuda)
+    on_card = {k: v.to(cuda) for k, v in params.items()}
+    before = (gm.gmm_bwd.launches, ss.slstm_scan_bwd.launches)
+    loss, got = value_and_grad(card, on_card, batch)
+    launched = (gm.gmm_bwd.launches - before[0],
+                ss.slstm_scan_bwd.launches - before[1])
+    assert launched[0 if cfg.moe is not None else 1] > 0
+    monkeypatch.setenv("REPRO_TORCH_KERNEL_IMPL", "torch")
+    want_loss, want = value_and_grad(card, on_card, batch)
+    for ref in (want_loss, cpu_loss):
+        torch.testing.assert_close(loss.cpu(), ref.cpu(), rtol=1e-5,
+                                   atol=0.0)
+    whole = float(torch.sqrt(sum(w.square().sum() for w in want.values())))
+    for k, w in want.items():
+        gap = float((got[k] - w).norm())
+        assert gap <= chip_smoke.TRAIN_AGREE_GRAD_REL * float(w.norm()) \
+            + chip_smoke.TRAIN_AGREE_GRAD_ABS * whole, (k, gap, whole)
 
 
 @pytest.mark.gpu

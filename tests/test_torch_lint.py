@@ -43,7 +43,8 @@ RULE_FIXTURES = {
 FACTORY_OPS = {
     "batch_seal", "rollup_digest", "rollup_chunk_digests", "dirty_fold",
     "weighted_agg", "model_distance", "block_pack", "flash_attention",
-    "flash_attention_bwd", "gmm", "slstm_scan", "shard_seal"}
+    "flash_attention_bwd", "gmm", "gmm_bwd", "slstm_scan", "slstm_scan_bwd",
+    "shard_seal"}
 
 
 def _run_cli(*args):

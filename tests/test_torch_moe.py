@@ -270,19 +270,22 @@ def test_gmm_form(dtype, C, d, f, aligned, want):
 
 
 def test_gmm_kernel_has_no_backward(monkeypatch):
-    """The launch sits in an autograd.Function whose backward raises (the
-    plain version stands in for the launch on the CPU); the plain version
-    itself differentiates."""
+    """The launch sits in an autograd.Function whose backward is the
+    ``gmm_bwd`` op (the plain versions stand in for the launches on the
+    CPU): its gradients equal the plain version's own, which itself
+    differentiates (tests/test_torch_moe_bwd.py holds the gradient)."""
     monkeypatch.setattr(tg, "_launch", tg.gmm_torch)
     g = np.random.default_rng(0)
     xe = torch.from_numpy(g.normal(size=(2, 40, 16)).astype(np.float32))
     w = torch.from_numpy(g.normal(size=(2, 16, 8)).astype(np.float32))
-    out = tg._KernelGmm.apply(xe.requires_grad_(), w)
+    out = tg._KernelGmm.apply(xe.requires_grad_(), w.requires_grad_())
     torch.testing.assert_close(out, tg.gmm_torch(xe, w))
-    with pytest.raises(NotImplementedError, match=r"item 10\(d\)"):
-        out.sum().backward()
+    out.sum().backward()
+    got = xe.grad.clone(), w.grad.clone()
+    xe.grad = w.grad = None
     tg.gmm(xe, w).sum().backward()
     assert torch.isfinite(xe.grad).all() and xe.grad.abs().sum() > 0
+    assert torch.equal(got[0], xe.grad) and torch.equal(got[1], w.grad)
 
 
 def test_moe_ffn_differentiates_on_the_cpu():

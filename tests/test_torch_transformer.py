@@ -228,11 +228,18 @@ def test_serve_model_main_on_cpu(capsys):
     ("moonshot-v1-16b-a3b", None), ("kimi-k2-1t-a32b", None),
     ("xlstm-1.3b", None), ("jamba-1.5-large-398b", "10(e)"),
     ("whisper-medium", "10(e)"), ("qwen2-vl-72b", "10(e)"),
-    ("lenet5", "10(e)")])
+    ("lenet5", None)])
 def test_unported_families_raise(arch, item):
     """The families still to port raise naming their ROADMAP.md item (jamba
-    for its Mamba layers); the MoE and xLSTM families, ported, build."""
+    for its Mamba layers); the MoE and xLSTM families, ported, build, and
+    LeNet's conv family builds a LeNet (tests/test_torch_lenet.py)."""
     cfg = reduced_config(REGISTRY[arch])
+    if cfg.family == "conv":
+        from repro_torch.models.lenet import LeNet
+        model = build_model(cfg, "cpu")
+        assert isinstance(model, LeNet) and model.cfg is cfg
+        assert sorted(model.init_params(0)) == list(model.init_params(0))
+        return
     if item is None:
         assert build_model(cfg, "cpu").cfg is cfg
         lm = tt.TransformerLM(cfg, device="cpu")

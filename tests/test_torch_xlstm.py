@@ -395,19 +395,29 @@ def test_slstm_scan_batches_run_in_launches_of_max_batch(B, monkeypatch):
 
 
 def test_slstm_scan_kernel_has_no_backward(monkeypatch):
-    """The kernel's launch sits in an autograd.Function whose backward
-    raises: a backward through the kernel is refused, not cut silently
-    (the plain version on the CPU stands in for the launch)."""
-    monkeypatch.setattr(ts, "_launch_rows", ts.slstm_scan_torch)
+    """The kernel's launch sits in an autograd.Function whose backward is
+    the ``slstm_scan_bwd`` op over the states the forward saved (the plain
+    versions on the CPU stand in for the launches): its gradient equals
+    the plain version's own (tests/test_torch_slstm_bwd.py holds the
+    gradient at its hard shapes)."""
+    def rows(wx, r, h, c, n, m, states=None):
+        y, carry, st = ts.slstm_states_torch(wx, r, h, c, n, m)
+        if states is not None:
+            states.copy_(st)
+        return y, carry
+    monkeypatch.setattr(ts, "_launch_rows", rows)
     wx, r, state = _scan_inputs(3)
     wx.requires_grad_()
     y, *carry = ts._KernelScan.apply(wx, r, *state)
     assert y.requires_grad
-    with pytest.raises(NotImplementedError, match=r"item 10\(d\)"):
-        (y.sum() + carry[1].sum()).backward()
+    (y.sum() + carry[1].sum()).backward()
+    got = wx.grad.clone()
+    wx.grad = None
     # the plain version on the CPU differentiates
-    ts.slstm_scan(wx, r, *state)[0].sum().backward()
+    y, carry = ts.slstm_scan(wx, r, *state)
+    (y.sum() + carry[1].sum()).backward()
     assert torch.isfinite(wx.grad).all() and wx.grad.abs().sum() > 0
+    torch.testing.assert_close(got, wx.grad, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("seed,B,S", [(0, 1, 64), (1, 2, 64), (3, 2, 48)])
