@@ -5138,14 +5138,18 @@ def gmm_bwd_library(xe, w, dy):
 def check_train_kernels(dev) -> tuple:
     """(b) gmm_bwd and slstm_scan_bwd against their plain versions on the
     card: gmm_bwd within gmm.kernel_tol at its hard shapes (C of 1, E of
-    1, every tile's tail, dw's sum split and forced into chunks) and
-    moonshot's training products, two launches bit-equal;
-    slstm_scan_bwd within slstm_scan.kernel_bwd_tol on the kernel
-    forward's saved states (grid and cluster forms; S of 1, 37 and 129,
-    batches over MAX_BATCH rows, dh 8 to 512), two launches bit-equal, the
-    saved states within the forward's tolerance of the plain scan's.  Both
-    timed at the training shapes (events, device ms) beside bound, plain
-    and (gmm_bwd) the two torch.bmm.  Returns the two kernels-line rows."""
+    1, every tail of the wgmma form's 64 / 128 / 256 tiles, rows TMA
+    cannot take in the WMMA form, float32, dw's sum split and forced into
+    chunks that end inside a 64-row slice) and moonshot's training
+    products, two launches bit-equal; slstm_scan_bwd within
+    slstm_scan.kernel_bwd_tol on the kernel forward's saved states (grid
+    and cluster forms; S of 1, 37 and 129, batches over 4 and over
+    MAX_BATCH rows, dh 8 to 512, float32 at dh 512 in the grid form), two
+    launches bit-equal, the saved states within the forward's tolerance of
+    the plain scan's; each case's form checked against the form chooser
+    and the launches counted by form.  Both timed at the training shapes
+    (events, device ms) beside bound, plain and (gmm_bwd) the two
+    torch.bmm.  Returns the two kernels-line rows."""
     from repro_torch.kernels import gmm as gm
     from repro_torch.kernels import slstm_scan as ss
     g = torch.Generator().manual_seed(20)
@@ -5158,6 +5162,9 @@ def check_train_kernels(dev) -> tuple:
         run = (lambda: gm._launch_bwd(xe, w, dy, chunk)) if chunk else \
             (lambda: gm.gmm_bwd(xe, w, dy))
         got, again = run(), run()
+        if gm.gmm_bwd.last_form != gm.bwd_form(dtype, d, f, True):
+            raise AssertionError(f"gmm_bwd at {(E, C, d, f)} {dtype} ran "
+                                 f"the {gm.gmm_bwd.last_form} form")
         want = gm.gmm_bwd_torch(xe, w, dy)
         errs = []
         for a, b, name in zip(got, want, ("dx", "dw")):
@@ -5172,50 +5179,75 @@ def check_train_kernels(dev) -> tuple:
         return max(errs), (xe, w, dy)
 
     gmm_err = {}
+    gm.gmm_bwd.form_launches = {}
     for shape, dtype, chunk in (
             ((1, 1, 8, 8), f32, None), ((2, 1, 5, 3), bf16, None),
             ((3, 33, 17, 9), f32, None), ((3, 33, 17, 9), bf16, None),
             ((1, 129, 130, 131), bf16, None), ((2, 700, 24, 40), f32, None),
             ((1, 4096, 128, 136), bf16, None),
             ((4, 1921, 72, 200), bf16, None), ((2, 1000, 40, 72), bf16, 32),
-            ((2, 1000, 40, 72), f32, 96)):
-        gmm_err[f"{list(shape)} {str(dtype)[6:]} chunk {chunk}"] = \
+            ((2, 1000, 40, 72), bf16, 96), ((2, 1000, 40, 72), f32, 96),
+            # the wgmma form's edges: E of 1 and C under a slice; C past a
+            # 128-row tile, d past 128, f past a 256-wide tile; d past 512
+            ((1, 65, 8, 8), bf16, None), ((3, 129, 136, 264), bf16, None),
+            ((2, 130, 520, 264), bf16, None), ((1, 33, 72, 200), bf16, None)):
+        gmm_err[f"{list(shape)} {str(dtype)[6:]} chunk {chunk} "
+                f"{gm.bwd_form(dtype, shape[2], shape[3], True)}"] = \
             gmm_case(*shape, dtype, chunk)[0]
+    hard_forms = {k: v // 2 for k, v in gm.gmm_bwd.form_launches.items()}
     rows = []
     for shape in MOONSHOT_GMM_TRAIN:
         err, (xe, w, dy) = gmm_case(*shape, bf16)
         kernel = lambda: gm.gmm_bwd(xe, w, dy)
-        splits = -(-shape[1] // gm.bwd_chunk(*shape))
+        form = gm.gmm_bwd.last_form
+        if form != "wgmma":
+            raise AssertionError(f"gmm_bwd at moonshot's {shape} ran the "
+                                 f"{form} form")
+        splits = -(-shape[1] // gm.bwd_chunk(*shape, form))
         cb = cost_bound("gmm_bwd", xe, w, dy)
         rows.append({"name": "gmm_bwd", "shape": list(shape),
-                     "max_abs_err": err, "splits": splits,
+                     "form": form, "max_abs_err": err, "splits": splits,
                      "ms": timed_ms(kernel, 5, flush),
                      "device_ms": device_ms(kernel, "gmm_bwd_", 5, flush,
-                                            per_call=2 + (splits > 1)),
+                                            per_call=1 + (splits > 1)),
                      "plain_ms": timed_ms(lambda: gm.gmm_bwd_torch(xe, w, dy),
                                           2, flush),
                      "library_ms": timed_ms(gmm_bwd_library(xe, w, dy), 5,
                                             flush), **cb})
         del xe, w, dy
     log(f"train kernels: gmm_bwd within gmm.kernel_tol of plain and "
-        f"bit-equal across two launches at {len(gmm_err) + 2} shapes; "
-        f"largest |kernel - plain| {json.dumps(gmm_err)}")
+        f"bit-equal across two launches at {len(gmm_err) + 2} shapes "
+        f"(hard shapes' calls by form {json.dumps(hard_forms)}); largest "
+        f"|kernel - plain| {json.dumps(gmm_err)}")
 
     scan_err = {}
+    ss.slstm_scan_bwd.form_launches = {}
     for B, S, nh, dh, dtype in (
             (2, 1, 4, 16, f32), (2, 37, 4, 16, f32), (3, 16, 4, 16, bf16),
             (17, 9, 2, 8, f32), (2, 129, 4, 64, bf16), (4, 37, 4, 512, bf16),
-            (1, 1, 4, 512, bf16)):
+            (1, 1, 4, 512, bf16),
+            # the cluster form's edges: S of 1, 37 and 129 at dh 64 and
+            # 512; rows past a cluster's 4 and past 16; float32 at dh 512
+            (2, 1, 4, 64, bf16), (17, 37, 2, 64, bf16),
+            (5, 129, 4, 512, bf16), (2, 37, 4, 512, f32)):
         err, _ = scan_bwd_case(dev, B, S, nh, dh, dtype, g)
         scan_err[f"{[B, S, nh, dh]} {str(dtype)[6:]} "
-                 f"{ss.form(dtype, B, nh, dh)}"] = err
+                 f"{ss.form(dtype, B, nh, dh)} forward, "
+                 f"{ss.bwd_form(dtype, B, nh, dh)} backward"] = err
+    hard_scan_forms = dict(ss.slstm_scan_bwd.form_launches)
     L = XLSTM_SCAN_TRAIN
     err, args = scan_bwd_case(dev, *L.values(), bf16, g)
     kernel = lambda: ss.slstm_scan_bwd(*args)
     cb = cost_bound("slstm_scan_bwd", *args)
-    launches = -(-L["B"] // ss.MAX_BATCH)
+    form = ss.bwd_form(bf16, L["B"], L["nh"], L["dh"])
+    if ss.slstm_scan_bwd.last_form != form or form != "cluster":
+        raise AssertionError(f"slstm_scan_bwd at xlstm-1.3b's training scan "
+                             f"ran the {ss.slstm_scan_bwd.last_form} form")
+    launches = 1 if form == "cluster" else -(-L["B"] // ss.MAX_BATCH)
     scan_row = {"name": "slstm_scan_bwd", "shape": list(L.values()),
                 "forward_form": ss.form(bf16, L["B"], L["nh"], L["dh"]),
+                "form": form, "capacity": ss.bwd_cluster_capacity(
+                    dev, L["B"], L["nh"], L["dh"]),
                 "max_abs_err": err, "ms": timed_ms(kernel, 2, flush),
                 "device_ms": device_ms(kernel, "slstm_bwd_", 2, flush,
                                        per_call=launches),
@@ -5226,16 +5258,18 @@ def check_train_kernels(dev) -> tuple:
     scan_row["us_a_step"] = scan_row["device_ms"] * 1e3 / L["S"]
     log(f"train kernels: slstm_scan_bwd within slstm_scan.kernel_bwd_tol of "
         f"plain on the forward kernel's states and bit-equal across two "
-        f"launches at {len(scan_err) + 1} shapes; largest |kernel - plain| "
+        f"launches at {len(scan_err) + 1} shapes (hard shapes' launches by "
+        f"form {json.dumps(hard_scan_forms)}); largest |kernel - plain| "
         f"{json.dumps(scan_err)}")
     for row in rows + [scan_row]:
-        log(f"kernel {row['name']} at {row['shape']} (bfloat16): "
+        log(f"kernel {row['name']} at {row['shape']} (bfloat16, the "
+            f"{row['form']} form): "
             f"{row['ms']:.6f} ms, device {row['device_ms']:.6f} ms (bound "
             f"{row['bound_ms']:.6f} ms, {row['bound_by']}), plain "
             f"{row['plain_ms']:.6f} ms, library {row['library_ms']}")
     rows[0]["down"] = {k: rows[1][k] for k in (
-        "shape", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-        "max_abs_err")}
+        "shape", "form", "ms", "device_ms", "plain_ms", "library_ms",
+        "bound_ms", "max_abs_err")}
     return rows[0], scan_row
 
 
@@ -5272,7 +5306,16 @@ def scan_bwd_case(dev, B, S, nh, dh, dtype, g) -> tuple:
     grads = [torch.randn(s, generator=g).to(dev)
              for s in ((B, S, d),) + ((B, d),) * 4]
     args = (wx, r, *state, y, states, *grads)
+    before = ss.slstm_scan_bwd.launches
     got, again = ss.slstm_scan_bwd(*args), ss.slstm_scan_bwd(*args)
+    form = ss.bwd_form(dtype, B, nh, dh)
+    launched = 1 if form == "cluster" else -(-B // ss.MAX_BATCH)
+    if ss.slstm_scan_bwd.last_form != form or \
+            ss.slstm_scan_bwd.launches - before != 2 * launched:
+        raise AssertionError(f"slstm_scan_bwd at {[B, S, nh, dh]} {dtype}: "
+                             f"{ss.slstm_scan_bwd.launches - before} "
+                             f"launches in the {ss.slstm_scan_bwd.last_form}"
+                             f" form, expected {2 * launched} in the {form}")
     want = ss.slstm_scan_bwd_torch(*args)
     errs = []
     for a, b, name in zip(got, want, ("dwx", "dr", "dh0", "dc0", "dn0",
@@ -5397,9 +5440,11 @@ def lm_train_step(dev, smi: str, arch: str, layers=None,
     launches = {k: fn.launches for k, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     specs = tt.block_specs(cfg) * cfg.n_periods
+    scan_form = ss.bwd_form(getattr(torch, cfg.dtype), B, cfg.n_heads,
+                            cfg.d_model // cfg.n_heads)
     want = {"gmm_bwd": 3 * sum(f == "moe" for _, f in specs),
             "slstm_scan_bwd": sum(m == "slstm" for m, _ in specs)
-            * -(-B // ss.MAX_BATCH)}
+            * (1 if scan_form == "cluster" else -(-B // ss.MAX_BATCH))}
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"{arch} train step launched {launches}, "
                              f"expected {want}")

@@ -70,19 +70,22 @@ _SIGNATURES = {
     # csrc/moe.cu: (device, x, w, E, C, d, f, dtype flag, form, partial
     # sums, out, stream)
     "moe_gmm": (_D, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P),
-    # csrc/moe_bwd.cu: (device, x, w, dy, E, C, d, f, dtype flag, rows a
-    # split of dw, partial sums, dx, dw, stream)
-    "moe_gmm_bwd": (_D, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P),
+    # csrc/moe_bwd.cu: (device, x, w, dy, E, C, d, f, dtype flag, form,
+    # rows a split of dw, partial sums, dx, dw, stream)
+    "moe_gmm_bwd": (_D, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P, _P, _P,
+                    _P),
     # csrc/slstm.cu: (device, wx, r, hbuf, c0, n0, m0, B, S, nh, dh, U,
     # dtype flag, form, y, hN, cN, nN, mN, states or null, stream)
     "slstm_scan": (_D, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                    _P, _P, _P, _P, _P, _P, _P),
     # csrc/slstm_bwd.cu: (device, wx, r, h0, c0, n0, m0, y, states, dy,
-    # dhN, dcN, dnN, dmN, B, S, nh, dh, U, dtype flag, scratch, dgates,
-    # dh0, dc0, dn0, dm0, stream)
+    # dhN, dcN, dnN, dmN, B, S, nh, dh, U, dtype flag, form, scratch,
+    # dgates, dh0, dc0, dn0, dm0, stream)
     "slstm_scan_bwd": (_D, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P,
-                       _P),
+                       _P, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P,
+                       _P, _P),
+    # (device, B, nh, dh, out int, stream)
+    "slstm_bwd_cluster_capacity": (_D, _I, _I, _I, _P, _P),
     # (device, B, nh, dh, out int, stream)
     "slstm_cluster_capacity": (_D, _I, _I, _I, _P, _P),
 }

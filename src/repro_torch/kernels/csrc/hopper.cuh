@@ -1,12 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the TMA / wgmma kernels
-// (attn.cu, moe.cu), the sLSTM scan's cluster form (slstm.cu) and the
-// cluster reductions of fl.cu and fold.cu: tensor maps encoded on the host,
-// TMA loads and 1-D bulk copies completed on mbarriers, the cluster
-// barrier, stores and bulk copies into a peer block's shared memory,
-// mma.sync, wgmma
-// shared-memory descriptors for the 128-byte swizzle, the wgmma products
-// themselves with their fence / commit / wait, and setmaxnreg for
-// warp-specialised blocks.
+// (attn.cu, attn_bwd.cu, moe.cu, moe_bwd.cu), the sLSTM scans' cluster
+// forms (slstm.cu, slstm_bwd.cu) and the cluster reductions of fl.cu and
+// fold.cu: tensor maps encoded on the host, TMA loads and 1-D bulk copies
+// completed on mbarriers, TMA stores, the cluster barrier, stores and bulk
+// copies into a peer block's shared memory, mma.sync, ldmatrix and
+// movmatrix, wgmma shared-memory descriptors for the 128-byte swizzle, the
+// wgmma products themselves with their fence / commit / wait, and
+// setmaxnreg for warp-specialised blocks.
 //
 // The tensor maps are encoded with the driver's cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint: the library links against the
@@ -25,6 +25,13 @@
 //     1,024-byte group, SBO = 1,024; the next 64 columns of N lie in the
 //     next box, LBO = the box's bytes; a k16 step advances the start
 //     address by 16 rows, 2,048 bytes.
+//   * M-major A (a row holds 64 values of the output axis M, rows run
+//     along the reduction axis; A = x^T of the expert products' weight
+//     gradient, read with wgmma's A-transpose bit, legal for bfloat16 with
+//     A in shared memory): the N-major layout with M for N.  A warpgroup's
+//     64 rows of M are one box, so LBO (the next 64 of M) is never
+//     crossed; SBO = 1,024 (8 reduction rows); a k16 step advances the
+//     start address by 16 rows, 2,048 bytes.
 //
 // Every stage buffer starts on 1,024 bytes, so the swizzle's base offset
 // is 0.
@@ -165,6 +172,34 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// TMA store: the box at coordinates (innermost first) from `src` in
+// shared memory into the tensor, clipped at its edges; a bulk async-group
+// of this thread (commit with bulk_commit, wait with bulk_wait_read /
+// bulk_wait)
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's committed groups still read shared
+// memory (bulk_wait_read) or are not complete (bulk_wait)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // 1-D bulk copy: `bytes` (a multiple of 16) from device memory at `src`
 // (16-byte aligned) into this block's shared memory at `dst` (16-byte
 // aligned), by the TMA unit; completes as transactions on `bar`
@@ -275,6 +310,29 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// four 8 x 8 bfloat16 matrices from shared memory into mma.sync's
+// fragment layout, one register each: lane l gives the address of row
+// l % 8 of matrix l / 8 (16 contiguous bytes)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+// the transpose of an 8 x 8 bfloat16 matrix held one register a thread
+// in mma.sync's fragment layout (lane l: row l / 4, columns 2 (l % 4) and
+// + 1), returned in the same layout; every lane of the warp takes part.
+// Volatile: the transposes of a loop-invariant matrix stay in the loop
+// (hoisted out, they would double its registers and spill).
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y) : "r"(x));
+  return y;
+}
+
 // -- device: wgmma -----------------------------------------------------------
 
 // Shared-memory descriptor of a 128-byte-swizzled operand (see the top)
@@ -355,8 +413,9 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
 }
 
 // d (64 x 256) += a (64 x 16) . b (16 x 256), a and b in shared memory
-// (descriptors); TB = 1: b is N-major (the transpose bit), 0: K-major
-template <int TB>
+// (descriptors); TB = 1: b is N-major (the transpose bit), 0: K-major;
+// TA = 1: a is M-major (the A-transpose bit), 0: K-major
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t a,
                                               uint64_t b, int scale_d) {
   asm volatile(
@@ -373,7 +432,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t a,
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
       "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -400,7 +459,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t a,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 // d (64 x 64) += a (64 x 16: four registers of bfloat16 pairs a thread,

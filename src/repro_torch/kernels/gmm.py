@@ -32,11 +32,24 @@ of 16 bytes, on 16-byte boundaries):
 The gradient (``gmm_bwd``: dx = dy·wᵀ and dw = xᵀ·dy, the same float32
 sums and one rounding) is its own kernel (``csrc/moe_bwd.cu``): the JAX
 package has no Pallas backward (it differentiates jnp), so it replaces no
-TPU kernel.  One generic 128 x 128 tile serves both products, WMMA for
-bfloat16 and the CUDA cores for float32, each transposed operand staged
-as it lies; dw's sum over C is split over blocks where its output tiles
-alone leave the card short of blocks (``bwd_chunk``), the splits added in
-order by a second pass (no atomics).  Bound: operations, 4·E·C·d·f.
+TPU kernel.  Bound: operations, 4·E·C·d·f.  Three forms, chosen by
+``bwd_form`` from the dtype and whether TMA can read the rows (the
+forward's rule):
+
+  * ``wgmma`` (bfloat16, TMA rows; moonshot's training products): the
+    forward's pipeline, both products in ONE persistent launch (a block an
+    SM walks dx's tiles, then dw's, its producer loading the next tile
+    during the epilogue): 128 x 256 tiles, a TMA producer, a 4-stage
+    mbarrier ring, two consumer warpgroups on ``wgmma m64n256k16``; the
+    transposed operands read as they lie, by the hardware (w's rows
+    K-major for dx; x M-major, through wgmma's A-transpose bit, for dw);
+  * ``wmma`` (bfloat16, rows TMA cannot take): WMMA on 128 x 128 tiles,
+    each transposed operand staged as it lies;
+  * ``simt`` (float32): the CUDA cores in full float32 (no TF32).
+
+dw's sum over C is split over blocks only where its output tiles alone
+leave the card short of them (``bwd_chunk``, by the form's tile), the
+splits added in order by a second pass (no atomics).
 """
 from __future__ import annotations
 
@@ -133,30 +146,50 @@ gmm.last_form = None                # the form of the latest launch
 gmm.form_launches = {}              # launches by form
 gmm_bwd.launches = 0
 gmm_bwd.last_chunk = None           # the latest launch's rows a dw split
+gmm_bwd.last_form = None            # the form of the latest launch
+gmm_bwd.form_launches = {}          # launches by form
 
-# dw's split of its sum over C (csrc/moe_bwd.cu): enough blocks to fill
-# the card twice over, each split at least BWD_MIN_ROWS rows of C, a
-# multiple of the 32-deep k tile
-BWD_TILE = 128                      # output tile, both products
+# dw's split of its sum over C (csrc/moe_bwd.cu): enough tiles to fill the
+# card twice over, each split at least BWD_MIN_ROWS rows of C, a multiple
+# of the form's k slice
+BWD_TILES = {"wgmma": (128, 256), "wmma": (128, 128), "simt": (128, 128)}
+BWD_K = {"wgmma": 64, "wmma": 32, "simt": 32}   # rows of C a k slice
 BWD_TARGET_BLOCKS = 2 * 132
 BWD_MIN_ROWS = 256
+# the backward's forms, as csrc/moe_bwd.cu's Form numbers them
+BWD_FORMS = {"simt": 0, "wmma": 1, "wgmma": 2}
 
 
-def bwd_chunk(E: int, C: int, d: int, f: int) -> int:
+def bwd_chunk(E: int, C: int, d: int, f: int, form: str = "wmma") -> int:
     """Rows of C a split of dw's sum takes: C itself (one split) where
-    dw's E·⌈d/128⌉·⌈f/128⌉ output tiles already give ``BWD_TARGET_BLOCKS``
-    blocks; else C over as many splits as make up the difference, at most
-    ⌊C / BWD_MIN_ROWS⌋ and 65535 / E, rounded up to a multiple of 32 (so
-    each split takes at least ``BWD_MIN_ROWS`` rows).  A pure function of
-    the shape, so a shape always sums in one order."""
-    tiles = E * -(-d // BWD_TILE) * -(-f // BWD_TILE)
+    dw's E·⌈d/TM⌉·⌈f/TN⌉ output tiles of the form (``BWD_TILES``: 128 x
+    256 for ``wgmma``, 128 x 128 for the others) already give
+    ``BWD_TARGET_BLOCKS``; else C over as many splits as make up the
+    difference, at most ⌊C / BWD_MIN_ROWS⌋ and 65535 / E, rounded up to a
+    multiple of the form's k slice (``BWD_K``; so each split takes at
+    least ``BWD_MIN_ROWS`` rows).  A pure function of the shape and the
+    form, so a shape always sums in one order."""
+    tm, tn = BWD_TILES[form]
+    tiles = E * -(-d // tm) * -(-f // tn)
     splits = min(-(-BWD_TARGET_BLOCKS // max(tiles, 1)), C // BWD_MIN_ROWS,
                  65535 // max(E, 1))
     if splits <= 1:
         return max(C, 1)
     chunk = -(-C // splits)
-    chunk = -(-chunk // 32) * 32
+    chunk = -(-chunk // BWD_K[form]) * BWD_K[form]
     return C if chunk >= C else chunk
+
+
+def bwd_form(dtype: torch.dtype, d: int, f: int, aligned: bool) -> str:
+    """The backward kernel's form: ``wgmma`` for bfloat16 where TMA can
+    read the rows (d and f multiples of 8 values, ``aligned``: x, w and dy
+    on 16 bytes; the forward's rule), else ``wmma`` (bfloat16) or
+    ``simt`` (float32).  Decided by the shape alone, never after a
+    failure."""
+    if dtype == torch.bfloat16:
+        return "wgmma" if d % 8 == 0 and f % 8 == 0 and aligned else "wmma"
+    return "simt"
+
 
 # the forms, as csrc/moe.cu's Form numbers them
 FORMS = {"simt": 0, "wmma": 1, "wgmma": 2, "skinny": 3, "stream": 4}
@@ -227,8 +260,8 @@ def _launch(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _launch_bwd(xe: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
                 chunk: int | None = None):
-    """(dx, dw) by ``csrc/moe_bwd.cu``; ``chunk`` forces dw's rows a split
-    (default ``bwd_chunk``)."""
+    """(dx, dw) by ``csrc/moe_bwd.cu`` in the form ``bwd_form`` picks;
+    ``chunk`` forces dw's rows a split (default ``bwd_chunk``)."""
     dev = check_cuda(xe, w, dy)
     if xe.dtype not in DTYPE_FLAG or w.dtype != xe.dtype:
         raise TypeError(f"gmm_bwd takes float32 or bfloat16 of one dtype, "
@@ -245,7 +278,9 @@ def _launch_bwd(xe: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     if E == 0 or d == 0 or f == 0 or C == 0:
         # empty products: dx sums over f, dw over C
         return dx.zero_(), dw.zero_()
-    chunk = bwd_chunk(E, C, d, f) if chunk is None else chunk
+    chosen = bwd_form(xe.dtype, d, f, all(t.data_ptr() % 16 == 0
+                                          for t in (xe, w, dy)))
+    chunk = bwd_chunk(E, C, d, f, chosen) if chunk is None else chunk
     splits = -(-C // chunk)
     if chunk < 1 or (chunk < C and chunk % 32) or E * splits > 65535:
         raise ValueError(f"gmm_bwd's split takes a multiple of 32 rows of C "
@@ -254,11 +289,14 @@ def _launch_bwd(xe: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     part = torch.empty(splits, E, d, f, dtype=torch.float32, device=dev) \
         if splits > 1 else None
     _build.launch("moe_gmm_bwd", dev, xe.data_ptr(), w.data_ptr(),
-                  dy.data_ptr(), E, C, d, f, DTYPE_FLAG[xe.dtype], chunk,
+                  dy.data_ptr(), E, C, d, f, DTYPE_FLAG[xe.dtype],
+                  BWD_FORMS[chosen], chunk,
                   part.data_ptr() if part is not None else None,
                   dx.data_ptr(), dw.data_ptr())
     gmm_bwd.launches += 1
     gmm_bwd.last_chunk = chunk
+    gmm_bwd.last_form = chosen
+    gmm_bwd.form_launches[chosen] = gmm_bwd.form_launches.get(chosen, 0) + 1
     return dx, dw
 
 

@@ -49,20 +49,36 @@ recurrence backwards, and a forward replay would cost a second scan.
 
 The gradient, ``slstm_scan_bwd`` (``csrc/slstm_bwd.cu``), replaces no TPU
 kernel (the JAX package differentiates its jnp recurrence,
-``src/repro/models/xlstm.py:219-277``): ONE cooperative launch a
-``MAX_BATCH`` rows, d / U blocks of U state dimensions as the grid form,
-walking t from S - 1 down to 0 with a grid barrier a step.  Each step a
-block recomputes its gates from h_{t-1} (y's previous row) and its r
-columns in shared memory, its owners follow autograd's formula of the
-cell back (``_cell_bwd``: the max's tie split in half, the clamp's cut,
-both exps) to the gate gradients dgates_t (float32, written out) and the
-carries dc, dn, dm, and the block adds its gate columns' share of
-dh_{t-1} = dgates_t · r_headᵀ for every dimension of its head into a
-double-buffered scratch, which the owners sum in block order after the
-barrier.  dwx is dgates in wx's dtype; dr_gates = Σ_t h_{t-1}ᵀ dgates_t
-per head is one batched ``torch.matmul`` after the scan (the JAX
-package's is an einsum's autodiff, no Pallas kernel).  Bound: operations,
-dh_{t-1}'s product and dr's, 16·B·S·d·dh; and the S dependent steps.
+``src/repro/models/xlstm.py:219-277``): ONE launch that walks t from S - 1
+down to 0, following autograd's formula of the cell back (``_cell_bwd``:
+the max's tie split in half, the clamp's cut, both exps) to the gate
+gradients dgates_t (float32, written out) and the carries dc, dn, dm,
+and adding dh_{t-1} = dgates_t · r_headᵀ.  Two forms, by ``bwd_form``:
+
+  * ``cluster`` (the forward's rule: bfloat16, dh a multiple of 64 up to
+    512; xlstm-1.3b): the forward's cluster form run backwards, a cluster
+    of dh / 32 blocks a head for each ``BWD_ROWS`` batch rows, no grid
+    barrier.  A block keeps r's block slice in registers; dh_{t-1}'s
+    product takes dgates_t as two bfloat16 pieces (``split_pieces``) on
+    mma.sync, and its shares meet in a reduce-scatter over distributed
+    shared memory (bulk copies, one mbarrier a receive buffer), added in
+    rank order.  The gates are recomputed off the chain from h's two
+    pieces, by the warps with no row of the cell while it runs and by the
+    rest while the exchange does; every step's inputs come in by bulk
+    copies three steps ahead.  ``slstm_cluster_bwd_torch`` mirrors the
+    arithmetic on the CPU.
+  * ``grid`` (everything else: float32, narrow heads): one cooperative
+    launch a ``MAX_BATCH`` rows, d / U blocks of U state dimensions, a
+    grid barrier a step; each step a block recomputes its gates from
+    h_{t-1} and its r columns in shared memory (float32), and adds its
+    gate columns' share of dh_{t-1} for every dimension of its head into a
+    double-buffered scratch, which the owners sum in block order after
+    the barrier.
+
+dwx is dgates in wx's dtype; dr_gates = Σ_t h_{t-1}ᵀ dgates_t per head is
+one batched ``torch.matmul`` after the scan (the JAX package's is an
+einsum's autodiff, no Pallas kernel).  Bound: operations, dh_{t-1}'s
+product and dr's, 16·B·S·d·dh; and the S dependent steps.
 """
 from __future__ import annotations
 
@@ -82,8 +98,8 @@ State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 MAX_BATCH = 16                      # rows of one grid-form launch
 THREADS = 512                       # csrc/slstm.cu kThreads
 SMEM_LIMIT = 232_448                # bytes of shared memory a block can use
-# the forms, as csrc/slstm.cu numbers them
-FORMS = {"grid": 0, "cluster": 1}
+# the forms, as csrc/slstm.cu and csrc/slstm_bwd.cu number them
+FORMS = BWD_FORMS = {"grid": 0, "cluster": 1}
 CLUSTER_DIMS = 32                   # state dimensions a cluster-form block
 CLUSTER_DH = 64                     # its heads: a multiple of this ..
 MAX_CLUSTER = 16                    # .. in at most this many blocks
@@ -218,16 +234,23 @@ def _cell_bwd(r: torch.Tensor, prev: State, wx_t: torch.Tensor, dh, dc, dn,
     """One step back through ``slstm_cell`` as autograd takes it: the
     gates recomputed from ``prev`` = (h, c, n, m) at t - 1, then the
     gradients of h_t (``dh``) and of the carries (c, n, m)_t through every
-    op of ``_cell_update``: ``torch.maximum`` splits a tie's gradient in
-    half, ``torch.clamp`` passes none below 1e-6, and both exps pass
-    theirs, though h does not depend on m in exact arithmetic.  Returns
-    (dgates (B, 4d) gate-major float32, dc, dn, dm at t - 1)."""
+    op of ``_cell_update`` (``_gates_bwd``).  Returns (dgates (B, 4d)
+    gate-major float32, dc, dn, dm at t - 1)."""
     h, c, n, m = prev
     nh, dh4 = r.shape[0], r.shape[2]
     rec = torch.einsum("bhd,hde->bhe", h.reshape(-1, nh, dh4 // 4), r)
     rec = rec.reshape(-1, nh, 4, dh4 // 4).transpose(1, 2).reshape(
         rec.shape[0], -1)
-    zi, ii, ff, oo = (wx_t.to(torch.float32) + rec).chunk(4, dim=-1)
+    return _gates_bwd(wx_t.to(torch.float32) + rec, c, n, m, dh, dc, dn, dm)
+
+
+def _gates_bwd(gates: torch.Tensor, c, n, m, dh, dc, dn, dm):
+    """The cell back from its gate-major pre-activations ``gates`` (B, 4d)
+    and the state (c, n, m) at t - 1: ``torch.maximum`` splits a tie's
+    gradient in half, ``torch.clamp`` passes none below 1e-6, and both
+    exps pass theirs, though h does not depend on m in exact arithmetic.
+    Returns (dgates, dc, dn, dm at t - 1)."""
+    zi, ii, ff, oo = gates.chunk(4, dim=-1)
     t1 = F.logsigmoid(ff) + m
     m_new = torch.maximum(t1, ii)
     fw = torch.exp(t1 - m_new)
@@ -355,6 +378,81 @@ def slstm_cluster_torch(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n,
     return y, carry
 
 
+def slstm_cluster_bwd_torch(wx, r_gates, h, c, n, m, y, states, dy, dhN,
+                            dcN, dnN, dmN):
+    """Plain mirror of the backward cluster form's arithmetic (the same
+    arguments and results as ``slstm_scan_bwd_torch``): each step's gates
+    recomputed from h_{t-1}'s ``PIECES`` bfloat16 pieces against r's
+    bfloat16, in float32, grouped as the kernel's warps take K in
+    16-dimension m-tiles (warp w < 4 the m-tile w, warp 4 + w the m-tiles
+    w + 4, .., w + 28 and those warp w lends it, w + 8, w + 16 and w + 24;
+    each piece summed over them, then piece 0 + piece 1, then the warps in
+    order, then added to wx); the same cell back; dh_{t-1} from dgates_t's
+    two bfloat16 pieces against r, each block's share over its 128 gate
+    columns (gate g of its ``CLUSTER_DIMS`` dimensions) as piece 0 +
+    piece 1, the shares added in rank order.  Heads the kernel does not
+    take (dh not a multiple of 64) run as one block and one m-tile.  For
+    the CPU tests: it shows that the pieces and the grouping keep the
+    gradient within ``kernel_bwd_tol`` of ``slstm_scan_bwd_torch``."""
+    _check_shapes(wx, r_gates, h, c, n, m)
+    if r_gates.dtype != torch.bfloat16:
+        raise TypeError(f"the cluster form takes r_gates in bfloat16, got "
+                        f"{r_gates.dtype}")
+    r = r_gates.to(torch.float32)
+    nh, dh = r.shape[0], r.shape[1]
+    B, S, d4 = wx.shape
+    d = d4 // 4
+    width = CLUSTER_DIMS if dh % CLUSTER_DH == 0 else dh   # dims a block
+    tile = 16 if dh % CLUSTER_DH == 0 else dh              # dims an m-tile
+    cs = dh // width
+    n_tiles = dh // tile
+    # warp w < 4: its m-tile w; warp 4 + w: its own four, then the three
+    # warp w lends (w + 8, w + 16, w + 24)
+    warps = [[m for m in (w,) if m < n_tiles] for w in range(4)] + \
+        [[m for m in (w + 4, w + 12, w + 20, w + 28, w + 8, w + 16, w + 24)
+          if m < n_tiles] for w in range(4)]
+    warps = [tiles for w, tiles in enumerate(warps) if w < min(8, n_tiles)]
+    # r's columns in the blocks' order: [head][block][i][gate g, dim u]
+    rb = r.reshape(nh, dh, 4, cs, width).permute(0, 3, 1, 2, 4).reshape(
+        nh, cs, dh, 4 * width)
+    dgates = torch.empty(B, S, d4, dtype=torch.float32, device=wx.device)
+    dc, dn, dm = dcN, dnN, dmN
+    rec = torch.zeros_like(h)
+    for t in reversed(range(S)):
+        prev_h = y[:, t - 1] if t else h
+        c_p, n_p, m_p = states[:, :, t - 1].unbind(1) if t else (c, n, m)
+        pieces = [p.reshape(B, nh, dh) for p in split_pieces(prev_h)]
+        acc = torch.zeros(B, nh, 4 * dh, device=wx.device)
+        for tiles in warps:
+            part = None
+            for piece in pieces:
+                pp = torch.zeros_like(acc)
+                for mi in tiles:
+                    k = slice(mi * tile, (mi + 1) * tile)
+                    pp = pp + torch.einsum("bhk,hke->bhe", piece[..., k],
+                                           r[:, k])
+                part = pp if part is None else part + pp
+            acc = acc + part
+        acc = acc.reshape(B, nh, 4, dh).transpose(1, 2).reshape(B, d4)
+        dh_t = dy[:, t] + rec + (dhN if t == S - 1 else 0.0)
+        g, dc, dn, dm = _gates_bwd(wx[:, t].to(torch.float32) + acc, c_p,
+                                   n_p, m_p, dh_t, dc, dn, dm)
+        dgates[:, t] = g
+        gb = g.reshape(B, 4, nh, cs, width).permute(0, 2, 3, 1, 4).reshape(
+            B, nh, cs, 4 * width)
+        p0, p1 = split_pieces(gb)
+        share = torch.einsum("bhkc,hkic->bhki", p0, rb) \
+            + torch.einsum("bhkc,hkic->bhki", p1, rb)
+        total = torch.zeros(B, nh, dh, device=wx.device)
+        for k in range(cs):
+            total = total + share[:, :, k]
+        rec = total.reshape(B, d)
+    if S == 0:
+        rec = dhN
+    return (dgates.to(wx.dtype), dr_gates(h, y, dgates, nh).to(r_gates.dtype),
+            rec, dc, dn, dm)
+
+
 @counted("slstm_scan")
 def slstm_scan(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n, m):
     """The plain version for a CPU tensor, the CUDA kernel for a CUDA
@@ -373,9 +471,10 @@ def slstm_scan(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n, m):
 def slstm_scan_bwd(wx, r_gates, h, c, n, m, y, states, dy, dhN, dcN, dnN,
                    dmN):
     """The gradient of ``slstm_scan``: the plain version for CPU tensors,
-    the ``csrc/slstm_bwd.cu`` kernel (one count in ``launches`` a
-    ``MAX_BATCH`` rows) for CUDA tensors, then dr_gates by one batched
-    matmul.  Returns (dwx, dr_gates, dh0, dc0, dn0, dm0)."""
+    the ``csrc/slstm_bwd.cu`` kernel (one count in ``launches`` a launch:
+    one in the cluster form, one a ``MAX_BATCH`` rows in the grid form)
+    for CUDA tensors, then dr_gates by one batched matmul.  Returns (dwx,
+    dr_gates, dh0, dc0, dn0, dm0)."""
     _check_shapes(wx, r_gates, h, c, n, m)
     if wx.device.type == "cpu":
         return slstm_scan_bwd_torch(wx, r_gates, h, c, n, m, y, states, dy,
@@ -390,6 +489,8 @@ slstm_scan.launches = 0
 slstm_scan.last_form = None         # the form of the latest launch
 slstm_scan.form_launches = {}       # launches by form
 slstm_scan_bwd.launches = 0
+slstm_scan_bwd.last_form = None     # the form of the latest launch
+slstm_scan_bwd.form_launches = {}   # launches by form
 
 
 def form(dtype: torch.dtype, B: int, nh: int, dh: int) -> str:
@@ -401,6 +502,21 @@ def form(dtype: torch.dtype, B: int, nh: int, dh: int) -> str:
     if dtype == torch.bfloat16 and dh % CLUSTER_DH == 0 \
             and dh // CLUSTER_DIMS <= MAX_CLUSTER and nh >= 1 \
             and 1 <= -(-B // MAX_BATCH) <= 65535:
+        return "cluster"
+    return "grid"
+
+
+BWD_ROWS = 4                        # batch rows a backward cluster
+
+
+def bwd_form(dtype: torch.dtype, B: int, nh: int, dh: int) -> str:
+    """The backward kernel's form: ``cluster`` where the forward's
+    cluster form runs (bfloat16, dh a multiple of 64 up to 512), for any
+    B (a grid row of clusters a ``BWD_ROWS`` rows); ``grid`` otherwise.
+    Decided by the shape alone, never after a failure."""
+    if dtype == torch.bfloat16 and dh % CLUSTER_DH == 0 \
+            and dh // CLUSTER_DIMS <= MAX_CLUSTER and nh >= 1 \
+            and 1 <= -(-B // BWD_ROWS) <= 65535:
         return "cluster"
     return "grid"
 
@@ -566,7 +682,8 @@ def _launch_cluster(wx, r_gates, h, c, n, m, states=None):
 
 def _launch_bwd(wx, r_gates, h, c, n, m, y, states, dy, dhN, dcN, dnN, dmN):
     """(dgates (B, S, 4d) float32, dh0, dc0, dn0, dm0) by
-    ``csrc/slstm_bwd.cu``: one cooperative launch a ``MAX_BATCH`` rows."""
+    ``csrc/slstm_bwd.cu`` in the form ``bwd_form`` picks: one cluster-form
+    launch, or a grid-form cooperative launch a ``MAX_BATCH`` rows."""
     dev = check_cuda(wx, r_gates, h, c, n, m, y, states, dy, dhN, dcN, dnN,
                      dmN)
     if wx.dtype not in DTYPE_FLAG or r_gates.dtype != wx.dtype:
@@ -589,10 +706,24 @@ def _launch_bwd(wx, r_gates, h, c, n, m, y, states, dy, dhN, dcN, dnN, dmN):
     if S == 0:
         return (dgates, grads[1].clone(), grads[2].clone(), grads[3].clone(),
                 grads[4].clone())
-    U, _ = bwd_plan(min(B, MAX_BATCH), dh)
+    chosen = bwd_form(wx.dtype, B, nh, dh)
     wx, r_gates = wx.contiguous(), r_gates.contiguous()
     ins = [t.contiguous() for t in (h, c, n, m, y, states)]
     outs = [torch.empty(B, d, **f32) for _ in range(4)]
+    if chosen == "cluster":
+        # the bulk copies read every input from 16-byte boundaries
+        wx, *ins = [t if t.data_ptr() % 16 == 0 else t.clone()
+                    for t in (wx, *ins)]
+        grads = [t if t.data_ptr() % 16 == 0 else t.clone() for t in grads]
+        r_gates = r_gates if r_gates.data_ptr() % 4 == 0 else r_gates.clone()
+        _build.launch("slstm_scan_bwd", dev, wx.data_ptr(),
+                      r_gates.data_ptr(), *(t.data_ptr() for t in ins),
+                      *(t.data_ptr() for t in grads), B, S, nh, dh, 0,
+                      DTYPE_FLAG[wx.dtype], BWD_FORMS["cluster"], None,
+                      dgates.data_ptr(), *(t.data_ptr() for t in outs))
+        _count_bwd("cluster")
+        return (dgates, *outs)
+    U, _ = bwd_plan(min(B, MAX_BATCH), dh)
     dpart = torch.empty(2, d // U, min(B, MAX_BATCH), dh, **f32)
     for i in range(0, B, MAX_BATCH):
         rows = slice(i, i + MAX_BATCH)
@@ -600,11 +731,22 @@ def _launch_bwd(wx, r_gates, h, c, n, m, y, states, dy, dhN, dcN, dnN, dmN):
         _build.launch("slstm_scan_bwd", dev, wx[rows].data_ptr(),
                       r_gates.data_ptr(), *(t[rows].data_ptr() for t in ins),
                       *(t[rows].data_ptr() for t in grads), b, S, nh, dh, U,
-                      DTYPE_FLAG[wx.dtype], dpart.data_ptr(),
-                      dgates[rows].data_ptr(),
+                      DTYPE_FLAG[wx.dtype], BWD_FORMS["grid"],
+                      dpart.data_ptr(), dgates[rows].data_ptr(),
                       *(t[rows].data_ptr() for t in outs))
-        slstm_scan_bwd.launches += 1
+        _count_bwd("grid")
     return (dgates, *outs)
+
+
+def bwd_cluster_capacity(device: torch.device, B: int, nh: int,
+                         dh: int) -> int:
+    """How many backward cluster-form clusters for B rows the card can
+    hold at once (``cudaOccupancyMaxActiveClusters``); the launcher
+    refuses the form where this is 0."""
+    out = ctypes.c_int(0)
+    _build.launch("slstm_bwd_cluster_capacity", device, B, nh, dh,
+                  ctypes.addressof(out))
+    return out.value
 
 
 def cluster_capacity(device: torch.device, B: int, nh: int, dh: int) -> int:
@@ -615,6 +757,13 @@ def cluster_capacity(device: torch.device, B: int, nh: int, dh: int) -> int:
     _build.launch("slstm_cluster_capacity", device, B, nh, dh,
                   ctypes.addressof(out))
     return out.value
+
+
+def _count_bwd(chosen: str) -> None:
+    slstm_scan_bwd.launches += 1
+    slstm_scan_bwd.last_form = chosen
+    slstm_scan_bwd.form_launches[chosen] = \
+        slstm_scan_bwd.form_launches.get(chosen, 0) + 1
 
 
 def _count(chosen: str) -> None:

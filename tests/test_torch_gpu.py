@@ -816,19 +816,30 @@ def test_gmm_kernel_refuses(cuda):
     (3, 33, 17, 9, torch.float32), (3, 33, 17, 9, torch.bfloat16),
     (1, 129, 130, 131, torch.bfloat16), (2, 700, 24, 40, torch.float32),
     (1, 4096, 128, 136, torch.bfloat16), (4, 1921, 72, 200, torch.bfloat16),
-    (64, 1920, 2048, 1408, torch.bfloat16), (8, 96, 64, 200, torch.float32)])
+    (64, 1920, 2048, 1408, torch.bfloat16), (8, 96, 64, 200, torch.float32),
+    # the wgmma form's edges: E of 1; C past a 128-row tile and short of a
+    # 64-row slice; d past the 128 / 256 tiles; f past a 256-wide tile
+    (1, 65, 8, 8, torch.bfloat16), (3, 129, 136, 264, torch.bfloat16),
+    (2, 130, 520, 264, torch.bfloat16), (1, 33, 72, 200, torch.bfloat16),
+    (64, 960, 2048, 1408, torch.bfloat16),
+    (64, 960, 1408, 2048, torch.bfloat16)])
 def test_gmm_bwd_kernel(cuda, E, C, d, f, dtype):
     """The backward kernel against the plain backward at the hard shapes
-    (C of 1, E of 1, tails of every tile, dw's sum split over blocks)
-    and moonshot's training shape: dx and dw within ``gm.kernel_tol``,
-    one launch, two launches bit-equal."""
+    (C of 1, E of 1, tails of every tile, dw's sum split over blocks,
+    rows TMA cannot take) and moonshot's training shapes: dx and dw within
+    ``gm.kernel_tol``, one launch in the form ``bwd_form`` picks (the
+    wgmma form for bfloat16 TMA rows), two launches bit-equal."""
     g = torch.Generator().manual_seed(E + C + d + f)
     xe, w, dy = (torch.randn(s, generator=g).to(cuda, dtype)
                  for s in ((E, C, d), (E, d, f), (E, C, f)))
     before = gm.gmm_bwd.launches
+    form = gm.bwd_form(dtype, d, f, True)
+    forms = gm.gmm_bwd.form_launches.get(form, 0)
     got = gm.gmm_bwd(xe, w, dy)
     assert gm.gmm_bwd.launches == before + 1
-    assert gm.gmm_bwd.last_chunk == gm.bwd_chunk(E, C, d, f)
+    assert gm.gmm_bwd.last_form == form
+    assert gm.gmm_bwd.form_launches[form] == forms + 1
+    assert gm.gmm_bwd.last_chunk == gm.bwd_chunk(E, C, d, f, form)
     want = gm.gmm_bwd_torch(xe, w, dy)
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape
@@ -841,13 +852,15 @@ def test_gmm_bwd_kernel(cuda, E, C, d, f, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("chunk", [32, 96, 1024])
 def test_gmm_bwd_kernel_forced_splits(cuda, chunk):
-    """dw's sum over C split into forced chunks: each within
+    """dw's sum over C split into forced chunks (32 and 96: a split ends
+    inside a 64-row slice of the wgmma form): each within
     ``gm.kernel_tol`` of the plain version, two launches bit-equal."""
     g = torch.Generator().manual_seed(chunk)
     xe, w, dy = (torch.randn(s, generator=g).to(cuda, torch.bfloat16)
                  for s in ((2, 1000, 40), (2, 40, 72), (2, 1000, 72)))
     got = gm._launch_bwd(xe, w, dy, chunk)
     assert gm.gmm_bwd.last_chunk == chunk
+    assert gm.gmm_bwd.last_form == "wgmma"
     want = gm.gmm_bwd_torch(xe, w, dy)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), **gm.kernel_tol(b))
@@ -987,21 +1000,31 @@ def _scan_bwd_case(B, S, nh, dh, dtype, device, seed):
     (3, 16, 4, 16, torch.bfloat16), (4, 20, 2, 12, torch.float32),
     (17, 9, 2, 8, torch.float32), (2, 300, 8, 32, torch.float32),
     (2, 33, 4, 64, torch.bfloat16), (4, 129, 4, 512, torch.bfloat16),
-    (1, 1, 4, 512, torch.bfloat16)])
+    (1, 1, 4, 512, torch.bfloat16),
+    # the cluster form's edges: S of 1, 37 and 129 at dh 64 and 512, rows
+    # past a cluster's 4 and past 16; float32 at dh 512 to the grid form
+    (2, 1, 4, 64, torch.bfloat16), (17, 37, 2, 64, torch.bfloat16),
+    (5, 129, 4, 512, torch.bfloat16), (2, 37, 4, 512, torch.float32)])
 def test_slstm_scan_bwd_kernel(cuda, B, S, nh, dh, dtype):
     """The backward kernel against the plain backward on the kernel
     forward's saved states (in the form the forward took: grid or
     cluster), at S of 1, S on no tile, batches over MAX_BATCH rows and
-    xlstm-1.3b's head: within ``ss.kernel_bwd_tol``, one launch a
-    MAX_BATCH rows, two launches bit-equal; the saved states within the
+    xlstm-1.3b's head: within ``ss.kernel_bwd_tol``, one launch in the
+    cluster form (bfloat16, dh a multiple of 64) or a MAX_BATCH rows in
+    the grid form, two launches bit-equal; the saved states within the
     forward's tolerance of the plain scan's."""
     wx, r, state, y, carry, states, grads = _scan_bwd_case(
         B, S, nh, dh, dtype, cuda, B + S + dh)
     _, _, want_states = ss.slstm_states_torch(wx, r, *state)
     torch.testing.assert_close(states, want_states, **ss.KERNEL_TOL)
     before = ss.slstm_scan_bwd.launches
+    form = ss.bwd_form(dtype, B, nh, dh)
+    forms = ss.slstm_scan_bwd.form_launches.get(form, 0)
     got = ss.slstm_scan_bwd(wx, r, *state, y, states, *grads)
-    assert ss.slstm_scan_bwd.launches == before + -(-B // ss.MAX_BATCH)
+    launched = 1 if form == "cluster" else -(-B // ss.MAX_BATCH)
+    assert ss.slstm_scan_bwd.launches == before + launched
+    assert ss.slstm_scan_bwd.last_form == form
+    assert ss.slstm_scan_bwd.form_launches[form] == forms + launched
     want = ss.slstm_scan_bwd_torch(wx, r, *state, y, states, *grads)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
@@ -1010,6 +1033,17 @@ def test_slstm_scan_bwd_kernel(cuda, B, S, nh, dh, dtype):
                     got):
         assert torch.equal(a, b)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_slstm_bwd_cluster_capacity(cuda):
+    """The backward cluster form's clusters fit the card at xlstm-1.3b's
+    head (16 blocks of 256 threads) and the narrowest (2 blocks); a shape
+    the form does not take is refused."""
+    assert ss.bwd_cluster_capacity(cuda, 2, 4, 512) >= 1
+    assert ss.bwd_cluster_capacity(cuda, 4, 1, 64) >= 1
+    with pytest.raises(RuntimeError):
+        ss.bwd_cluster_capacity(cuda, 2, 4, 1024)
 
 
 @pytest.mark.gpu

@@ -127,3 +127,38 @@ def test_moe_ffn_gradients_through_the_kernel_path(monkeypatch):
     got = grads()
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("E,C,d,f,want", [
+    (64, 960, 2048, 1408, 960),      # moonshot's gate / up: 6,144 tiles
+    (64, 960, 1408, 2048, 960),      # its down product: 5,632 tiles
+    (1, 4096, 128, 128, 256),        # one tile: 16 splits of 256 rows
+    (2, 700, 16, 8, 384),            # 2 tiles, C / 256 caps the splits:
+                                     # 350 rows rounded to the 64-row slice
+    (3, 1000, 40, 72, 384),          # 3 tiles, 3 splits
+    (2, 300, 24, 40, 300),           # under two splits of 256 rows
+    (1, 0, 8, 8, 1)])
+def test_bwd_chunk_plan_wgmma(E, C, d, f, want):
+    """dw's split in the wgmma form: tiles of 128 x 256, each split a
+    multiple of the 64-row k slice, at least BWD_MIN_ROWS rows."""
+    chunk = gm.bwd_chunk(E, C, d, f, "wgmma")
+    assert chunk == want
+    splits = -(-C // chunk) if C else 1
+    assert chunk >= C or (chunk % 64 == 0 and chunk >= gm.BWD_MIN_ROWS)
+    assert (splits - 1) * chunk < max(C, 1)       # no empty split
+
+
+@pytest.mark.parametrize("dtype,d,f,aligned,want", [
+    (torch.bfloat16, 2048, 1408, True, "wgmma"),   # moonshot's products
+    (torch.bfloat16, 1408, 2048, True, "wgmma"),
+    (torch.bfloat16, 8, 8, True, "wgmma"),
+    (torch.bfloat16, 130, 136, True, "wmma"),      # d off the 8 values
+    (torch.bfloat16, 136, 131, True, "wmma"),      # f off the 8 values
+    (torch.bfloat16, 2048, 1408, False, "wmma"),   # a pointer off 16 bytes
+    (torch.float32, 2048, 1408, True, "simt"),
+    (torch.float32, 5, 3, False, "simt")])
+def test_gmm_bwd_form(dtype, d, f, aligned, want):
+    """The backward's form is a function of the dtype and the rows: the
+    TMA / wgmma form for bfloat16 where TMA reads the rows (the forward's
+    rule), WMMA for other bfloat16, the CUDA cores for float32."""
+    assert gm.bwd_form(dtype, d, f, aligned) == want

@@ -6,7 +6,9 @@ forms' head widths) in float32 and bfloat16, from the initial state and
 from states a scan reached (the gauge of tests/test_torch_xlstm.py: never
 random (c, n, m)); the max's tie and the clamp's cut one step at a time;
 the saved states; the autograd Function's backward with the launches
-stood in by the plain versions; the launch plan and the cost.
+stood in by the plain versions; the launch plan and the cost; the
+backward cluster form's arithmetic (``slstm_cluster_bwd_torch``) against
+the plain version and the JAX package's autodiff; the form chooser.
 
 Tolerances: the plain version follows autograd op by op but adds a few
 gradients in another order (the max's two branches, the carries), so in
@@ -14,14 +16,25 @@ float32 it sits within rtol 1e-5 / atol 1e-5 of the largest gradient; in
 bfloat16 dwx and dr are rounded once from those float32 sums, so a
 rounding may land one bfloat16 step (2^-8 relative) apart.  The kernel
 against the plain version is a card test (tests/test_torch_gpu.py,
-chip_smoke.py phase 20) at ``kernel_bwd_tol``.
+chip_smoke.py phase 20) at ``kernel_bwd_tol``, and so is its CPU mirror
+here: the pieces and the grouping are the kernel's, the sums' order
+within an mma and exp / log from another library are not.
 """
+import dataclasses
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs.registry import get_config as jax_get_config
+from repro.configs.registry import reduced_config as jax_reduced
+from repro.models import xlstm as jx
+from repro_torch.configs.registry import get_config, reduced_config
 from repro_torch.kernels import factory
 from repro_torch.kernels import slstm_scan as ss
+from repro_torch.models import xlstm as tx
 
 torch.set_num_threads(1)
 
@@ -269,3 +282,112 @@ def test_xlstm_gradients_through_the_kernel_path(monkeypatch):
     got = grads()
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def _close_to(got, want, what):
+    for name, a, b in zip(("dwx", "dr", "dh0", "dc0", "dn0", "dm0"), got,
+                          want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        torch.testing.assert_close(a, b, **ss.kernel_bwd_tol(b),
+                                   msg=lambda m: f"{what} {name}: {m}")
+
+
+@pytest.mark.parametrize("warm", [0, 3], ids=["initial", "reached"])
+@pytest.mark.parametrize("shape", [
+    (2, 9, 4, 16),        # the reduced xlstm's heads: one block, one tile
+    (1, 1, 4, 64),        # S of 1: the gates from h0 alone
+    (6, 17, 1, 64),       # rows past one cluster's 4
+    (3, 37, 2, 128),
+    (2, 33, 4, 512),      # xlstm-1.3b's head: 16 blocks, 4 m-tiles a warp
+    (2, 512, 4, 64)],     # a long S
+    ids=str)
+def test_cluster_bwd_mirror_is_the_plain_backward(shape, warm):
+    """The backward cluster form's arithmetic (gates from h's two
+    bfloat16 pieces, dgates' two pieces against r, the warps' and the
+    blocks' partial sums in the kernel's order) within ``kernel_bwd_tol``
+    of the plain backward on the same saved forward."""
+    B, S, nh, dh = shape
+    wx, r, state = scan_inputs(B, S, nh, dh, torch.bfloat16, warm=warm)
+    grads = output_grads(B, S, nh * dh)
+    y, _, states = ss.slstm_states_torch(wx, r, *state)
+    args = (wx, r, *state, y, states, *grads)
+    _close_to(ss.slstm_cluster_bwd_torch(*args),
+              ss.slstm_scan_bwd_torch(*args), f"mirror at {shape}")
+
+
+@pytest.mark.parametrize("B,S,nh,dh", [(2, 24, 4, 16), (3, 17, 2, 64),
+                                       (1, 5, 4, 512)])
+def test_cluster_bwd_mirror_on_reduced_xlstm(B, S, nh, dh):
+    """The mirror on the reduced xlstm's sLSTM layer (its initial weights
+    in bfloat16, its initial state, then the state that scan left) and on
+    heads the cluster form takes: within ``kernel_bwd_tol`` of the plain
+    backward."""
+    cfg = dataclasses.replace(reduced_config(get_config("xlstm-1.3b")),
+                              d_model=nh * dh, n_heads=nh)
+    g = torch.Generator().manual_seed(B * S + dh)
+    p = tx.init_slstm_params(cfg, torch.bfloat16, g, "cpu")
+    x = torch.randn(B, S, cfg.d_model, generator=g).bfloat16()
+    wx = x @ p["w_gates"] + p["b_gates"]
+    st = tx.init_slstm_state(cfg, B, "cpu")
+    state = [st[k] for k in ("h", "c", "nn", "mm")]
+    grads = output_grads(B, S, cfg.d_model, seed=B + S)
+    for _ in range(2):
+        y, carry, states = ss.slstm_states_torch(wx, p["r_gates"], *state)
+        args = (wx, p["r_gates"], *state, y, states, *grads)
+        _close_to(ss.slstm_cluster_bwd_torch(*args),
+                  ss.slstm_scan_bwd_torch(*args), f"reduced at {B, S}")
+        state = list(carry)
+
+
+@pytest.mark.parametrize("B,S,nh,dh", [(2, 7, 2, 64), (2, 32, 4, 16)])
+def test_cluster_bwd_mirror_matches_jax_autodiff(B, S, nh, dh):
+    """The mirror against ``jax.vjp`` of the JAX package's sLSTM scan
+    (``models.xlstm._slstm_scan``: per-step and chunked lax.scan, r as
+    float32 of the same bfloat16 values), from a reached state, with the
+    same output gradients: within ``kernel_bwd_tol``."""
+    wx, r, state = scan_inputs(B, S, nh, dh, torch.bfloat16)
+    wx = wx.float()
+    grads = output_grads(B, S, nh * dh)
+    cfg = dataclasses.replace(jax_reduced(jax_get_config("xlstm-1.3b")),
+                              d_model=nh * dh, n_heads=nh)
+
+    def scan(wx, r, h, c, n, m):
+        y, st = jx._slstm_scan(cfg, {"r_gates": r}, wx,
+                               {"h": h, "c": c, "nn": n, "mm": m})
+        return y, st["h"], st["c"], st["nn"], st["mm"]
+    prims = [jnp.asarray(t.float().numpy()) for t in (wx, r, *state)]
+    _, vjp = jax.vjp(scan, *prims)
+    want = [torch.from_numpy(np.array(t)) for t in
+            vjp(tuple(jnp.asarray(t.numpy()) for t in grads))]
+    y, _, states = ss.slstm_states_torch(wx, r, *state)
+    got = list(ss.slstm_cluster_bwd_torch(wx, r, *state, y, states, *grads))
+    for name, a, b in zip(("dwx", "dr", "dh0", "dc0", "dn0", "dm0"), got,
+                          want):
+        torch.testing.assert_close(a.float(), b, **ss.kernel_bwd_tol(a),
+                                   msg=lambda m: f"{name}: {m}")
+
+
+def test_cluster_bwd_mirror_refuses_float32_weights():
+    wx, r, state = scan_inputs(1, 2, 1, 64, torch.float32)
+    y, _, states = ss.slstm_states_torch(wx, r, *state)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ss.slstm_cluster_bwd_torch(wx, r, *state, y, states,
+                                   *output_grads(1, 2, 64))
+
+
+@pytest.mark.parametrize("dtype,B,nh,dh,want", [
+    (torch.bfloat16, 2, 4, 512, "cluster"),   # xlstm-1.3b's training scan
+    (torch.bfloat16, 1, 4, 64, "cluster"),
+    (torch.bfloat16, 17, 2, 128, "cluster"),  # rows past 16: more clusters
+    (torch.bfloat16, 4 * 65535, 1, 64, "cluster"),
+    (torch.bfloat16, 4 * 65535 + 1, 1, 64, "grid"),  # past the grid's rows
+    (torch.float32, 2, 4, 512, "grid"),       # float32 r: the grid form
+    (torch.bfloat16, 2, 4, 16, "grid"),       # the reduced xlstm's heads
+    (torch.bfloat16, 2, 4, 96, "grid"),       # not a multiple of 64
+    (torch.bfloat16, 2, 4, 1024, "grid"),     # 32 blocks: past a cluster
+    (torch.float16, 2, 4, 512, "grid")])
+def test_slstm_scan_bwd_form(dtype, B, nh, dh, want):
+    """The backward's form is a function of the shape: the cluster form
+    where the forward's runs (bfloat16, dh a multiple of 64 up to 512),
+    a grid row of clusters a ``BWD_ROWS`` rows; the grid form else."""
+    assert ss.bwd_form(dtype, B, nh, dh) == want

@@ -17,7 +17,13 @@ their paths' shapes (``CASES``):
 * ``flash_attention_bwd`` in bfloat16, causal, at qwen2-0.5b's training
   layer (4, 4,096, 14, 2, 64) and yi-6b's head (1, 4,096, 32, 4, 128),
   on the tree's own forward kernel's output and logsumexp (three kernels
-  a call, their device times added).
+  a call, their device times added);
+* ``gmm_bwd`` in bfloat16 at moonshot's two training products, (64, 960,
+  2,048, 1,408) and (64, 960, 1,408, 2,048) (a tree's kernels a call:
+  one in the wgmma form, two in the WMMA form, their device times added);
+* ``slstm_scan_bwd`` in bfloat16 at xlstm-1.3b's training scan, (2,
+  4,096, 4 heads of 512), on the saved states of the tree's own forward
+  kernel (one kernel a call in either form).
 
     python3 tools/turns.py [--only TEXT ...] TREE [TREE ...]
 
@@ -37,7 +43,8 @@ and its own library: CUDA events with L2 flushed before each launch
 (``device_ms``: its dirty lines are written back while the kernel reads)
 and by reading it (``clean_device_ms``), each result held to the plain
 version (bit for bit, Eq. 1 at float32 rtol 1e-5 / atol 1e-6, the
-attention's gradient by ``flash_attention.bwd_close``).  One JSON
+attention's gradient by ``flash_attention.bwd_close``, the gmm and sLSTM
+gradients by their modules' kernel tolerances, ``grads_close``).  One JSON
 line a tree, in the order given, with the profiler traces taken again
 (``retakes``); all of them, with the card's name and power limit, in
 chiprun_out/turns.json.
@@ -64,11 +71,34 @@ AGG_SHAPES = {"(32, 64, 2410)": (32, 64, 2410), "(64, 2410)": (1, 64, 2410),
 
 BWD_SHAPES = {"(4, 4096, 14, 2, 64)": (4, 4096, 14, 2, 64),
               "(1, 4096, 32, 4, 128)": (1, 4096, 32, 4, 128)}
+GMM_BWD_SHAPES = {"(64, 960, 2048, 1408)": (64, 960, 2048, 1408),
+                  "(64, 960, 1408, 2048)": (64, 960, 1408, 2048)}
+SCAN_BWD_SHAPE = (2, 4096, 4, 512)          # B, S, nh, dh
+
+
+def grads_close(mod, got, want) -> bool:
+    """Each gradient of ``got`` within its module's kernel tolerance of
+    the plain version's (``kernel_bwd_tol``, else ``kernel_tol``)."""
+    tol = getattr(mod, "kernel_bwd_tol", None) or mod.kernel_tol
+    try:
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(), **tol(b))
+    except AssertionError:
+        return False
+    return True
+
+
+def gmm_bwd_kernels(kernel) -> int:
+    """Device kernels of one gmm_bwd call at the training shapes: one in
+    the wgmma form, a dx and a dw product in the trees before it."""
+    return 1 if getattr(kernel, "last_form", None) == "wgmma" else 2
+
 
 # label -> (module of repro_torch.kernels, wrapper, tolerance against the
 # plain version (None: bit for bit; a string: the module's function that
-# holds (got, want)), a name fragment of its kernels in a trace: this
-# tree's and those they replaced, the launches of them a call)
+# holds (got, want); a function of (module, got, want)), a name fragment
+# of its kernels in a trace: this tree's and those they replaced, the
+# launches of them a call (or a function of the wrapper after a call))
 CASES = {
     "stepped seal": ("batch_seal", "batch_seal", None, "batch_seal", 1),
     "fused roots": ("batch_seal", "batch_seal", None, "batch_seal", 1),
@@ -86,6 +116,10 @@ CASES = {
     **{f"flash_attention_bwd {shape}": (
         "flash_attention", "flash_attention_bwd", "bwd_close", "attn_bwd_",
         3) for shape in BWD_SHAPES},
+    **{f"gmm_bwd {shape}": ("gmm", "gmm_bwd", grads_close, "gmm_bwd_",
+                            gmm_bwd_kernels) for shape in GMM_BWD_SHAPES},
+    f"slstm_scan_bwd {SCAN_BWD_SHAPE}": (
+        "slstm_scan", "slstm_scan_bwd", grads_close, "slstm_bwd_", 1),
 }
 FROM_WORKLOAD = ("stepped seal", "fused roots", "fused seal digests",
                  "fabric roots", "fabric seal digests")
@@ -126,6 +160,28 @@ def drawn(label: str, dev) -> tuple:
     """The arguments of a case not taken from the workload, drawn on the
     card from the case's own seed (the same in every process)."""
     g = torch.Generator(device=dev).manual_seed(list(CASES).index(label))
+    if label.startswith("gmm_bwd"):
+        E, C, d, f = GMM_BWD_SHAPES[label.removeprefix("gmm_bwd ")]
+        return tuple(torch.randn(s, generator=g, device=dev,
+                                 dtype=torch.bfloat16)
+                     for s in ((E, C, d), (E, d, f), (E, C, f)))
+    if label.startswith("slstm_scan_bwd"):
+        from repro_torch.kernels import slstm_scan as ss
+        B, S, nh, dh = SCAN_BWD_SHAPE
+        d = nh * dh
+        wx = (0.5 * torch.randn(B, S + 5, 4 * d, generator=g, device=dev)
+              ).bfloat16()
+        r = (torch.randn(nh, dh, 4 * dh, generator=g, device=dev)
+             * dh ** -0.5).bfloat16()
+        state = [torch.zeros(B, d, device=dev) for _ in range(3)] + \
+            [torch.full((B, d), -1e30, device=dev)]
+        state = list(ss.slstm_scan_torch(wx[:, :5], r, *state)[1])
+        wx = wx[:, 5:].contiguous()
+        states = torch.empty(B, 3, S, d, device=dev)
+        y, _ = ss._launch(wx, r, *state, states=states)
+        grads = [torch.randn(s, generator=g, device=dev)
+                 for s in ((B, S, d),) + ((B, d),) * 4]
+        return (wx, r, *state, y, states, *grads)
     if label.startswith("flash_attention_bwd"):
         from repro_torch.kernels import flash_attention as fa
         B, S, H, Hkv, dh = BWD_SHAPES[label.removeprefix(
@@ -170,7 +226,11 @@ def time_tree(tree: Path, labels: list, dev) -> dict:
                       for a in captured[label])
                 if label in FROM_WORKLOAD else drawn(label, dev))
         got, want = kernel(*args), plain(*args)
-        if isinstance(tol, str):
+        if callable(tol):
+            if not tol(mod, got, want):
+                raise AssertionError(f"{tree}: {label} is not within the "
+                                     f"kernel tolerance of plain")
+        elif isinstance(tol, str):
             if not getattr(mod, tol)(got, want):
                 raise AssertionError(f"{tree}: {label} is not {tol} plain")
         elif tol:
@@ -178,14 +238,19 @@ def time_tree(tree: Path, labels: list, dev) -> dict:
         elif not torch.equal(got, want):
             raise AssertionError(f"{tree}: {label} differs from plain")
         del got, want
-        row[label] = {"ms": cs.timed_ms(lambda: kernel(*args), 50, flush),
+        if callable(per_call):
+            per_call = per_call(kernel)
+        # the gradients take milliseconds a call: fewer launches
+        n = 5 if label.startswith(("gmm_bwd", "slstm_scan_bwd")) else 50
+        row[label] = {"ms": cs.timed_ms(lambda: kernel(*args), n, flush),
                       "device_ms": cs.device_ms(lambda: kernel(*args),
-                                                fragment, 20, flush,
+                                                fragment, min(n, 20), flush,
                                                 per_call=per_call),
                       "clean_device_ms": cs.device_ms(
-                          lambda: kernel(*args), fragment, 20, flush,
+                          lambda: kernel(*args), fragment, min(n, 20), flush,
                           clean=True, per_call=per_call)}
-        if label.startswith("flash_attention_bwd"):
+        if label.startswith(("flash_attention_bwd", "gmm_bwd",
+                             "slstm_scan_bwd")):
             row[label]["form"] = getattr(kernel, "last_form", None)
     row["retakes"] = cs.RETAKES
     return row
