@@ -7,8 +7,10 @@ decode of yi-6b, moonshot-v1-16b-a3b and xlstm-1.3b at full width), the
 object ledger with its agent path (the default ``AutoDFL()``), the
 sharded rollup fabric, the admission-controlled node service, token-LM
 training (a qwen2-0.5b step at full width and the rollup FL round), the
-paper's LeNet-5 Fig. 3 run, and MoE / xLSTM training through the gmm and
-slstm_scan backward kernels.
+paper's LeNet-5 Fig. 3 run, MoE / xLSTM training through the gmm and
+slstm_scan backward kernels, and serving jamba's hybrid Mamba / MoE stack
+(its first five layers at full width, through the ssm_scan kernel) and
+qwen2-vl's backbone on embeddings with M-RoPE (cut in depth).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -318,8 +320,37 @@ Phases, each printing its result on a line of its own:
                (reckon_layers) and of xlstm-1.3b at full depth: launch
                counts from 0, loss, tokens/s, peak memory, device busy
                share and each kernel's share; (d) ``python -m
-               repro_torch.launch.train`` for xlstm-1.3b and for moonshot
-               cut to the depth a round holds.
+               repro_torch.launch.train`` for xlstm-1.3b cut to one period
+               of its pattern (8 layers) and for moonshot cut to the depth
+               a round holds.
+ 21. hybrid/vlm — (a) ssm_scan (csrc/ssm.cu, the Mamba's selective scan)
+               against its plain version within ssm_scan.kernel_tol at S
+               1, 37, 128, 256 and 300, from zeros and from a state, x in
+               float32 and bfloat16, di 256 and 200, one launch a call; a
+               call where autograd records raises (no backward kernel yet)
+               and launches nothing; at jamba's prefill (4, 4,096, 16,384,
+               16) held to the plain version and timed by CUDA events and
+               the profiler beside its bound (ssm_scan.bound_ms: the
+               exponentials on the SFUs), the plain loop and a decode step;
+               gmm at jamba's expert products (16 experts, C 2,560, d and f
+               8,192 / 24,576; the decode's C 8) in the wgmma and stream
+               forms against its plain version, timed beside torch.bmm;
+               (b) the reduced jamba (Mamba, MoE, attention) three ways
+               layer by layer on the CPU's activations, and the reduced
+               qwen2-vl three ways whole on embeddings with three distinct
+               position streams, float32 and bfloat16, within LM_TOL; (c)
+               jamba-1.5-large-398b's first 5 of 72 layers at full width
+               (24.1 B parameters, every kind of layer it has) through
+               phase 10's steps: prefill against 64 decode steps, the
+               prefill of 4 x 4,096 with launch counts from 0 (ssm_scan 4,
+               gmm 6, flash_attention 1), 32 decode steps at 4 x 4,128,
+               the device shares, the serve loop through generate; (d)
+               qwen2-vl-72b at full width cut to the depth the card holds
+               (reckon_layers at 2 bytes a parameter): prefill against 64
+               decode steps on text positions, the prefill of 4 x 4,096
+               embeddings (1,024 text, a 32 x 32 patch grid, 2,048 text)
+               with its flash_attention launches counted, 32 decode steps
+               at 4 x 4,128, the device shares.
 
 Then one JSON line lists every kernel with its launches on its path, the
 card's name and power limit follow on a line of their own, and the last
@@ -2114,7 +2145,7 @@ def profile_share(fn, kernels=(("attention", "flash_attention_"),),
 # gmm_wgmma_kernel, gmm_stream_kernel and gmm_split_sum_kernel, ...;
 # slstm_scan_kernel and slstm_cluster_kernel)
 LM_KERNELS = {"flash_attention": "flash_attention_", "gmm": "::gmm_",
-              "slstm_scan": "slstm_"}
+              "slstm_scan": "slstm_", "ssm_scan": "ssm_scan_kernel"}
 # the form each serving kernel must take at full width: the prefill's and
 # the decode's (flash_attention runs in the prefill only)
 LM_FORMS = {"prefill": {"flash_attention": "wgmma", "gmm": "wgmma",
@@ -2129,7 +2160,8 @@ def lm_launches_expected(cfg) -> dict:
     specs = tt.block_specs(cfg) * cfg.n_periods
     return {"flash_attention": sum(m == "attn" for m, _ in specs),
             "gmm": 3 * sum(f == "moe" for _, f in specs),
-            "slstm_scan": sum(m == "slstm" for m, _ in specs)}
+            "slstm_scan": sum(m == "slstm" for m, _ in specs),
+            "ssm_scan": sum(m == "mamba" for m, _ in specs)}
 
 
 def counted_prefill(model, params, tokens, timed_batch: int,
@@ -2180,7 +2212,8 @@ def counted_prefill(model, params, tokens, timed_batch: int,
 
 
 def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
-            decode=DECODE, check_dtype=None, count: bool = False) -> dict:
+            decode=DECODE, check_dtype=None, count: bool = False,
+            cfg=None) -> dict:
     """``arch`` at full width and depth, bfloat16, weights drawn on the
     card: a 64-token prompt through prefill and through 64 decode steps
     (held to each other, in ``check_dtype`` if given, with weights of that
@@ -2193,18 +2226,21 @@ def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
     prefill emits none: its decode starts from the initial state, as in
     the JAX package) and ``decode["steps"]`` decode steps; the device
     shares under the profiler; then the serve loop of
-    launch/serve_model.py at its defaults for ``arch``.  Returns the
-    launch counts of the prefill."""
+    launch/serve_model.py at its defaults for ``arch`` (for a ``cfg`` cut
+    in depth, its ``generate`` on the cut model, at the same defaults).
+    Returns the launch counts of the prefill."""
     import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gm
     from repro_torch.kernels import slstm_scan as ss
+    from repro_torch.kernels import ssm_scan as sm
     from repro_torch.launch import serve_model
     from repro_torch.models.model import build_model
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = cfg or full
     wrappers = {"flash_attention": fa.flash_attention, "gmm": gm.gmm,
-                "slstm_scan": ss.slstm_scan}
+                "slstm_scan": ss.slstm_scan, "ssm_scan": sm.ssm_scan}
     formed = (fa.flash_attention, gm.gmm, ss.slstm_scan)  # with forms
     expected = lm_launches_expected(cfg)
 
@@ -2219,7 +2255,8 @@ def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
                 raise AssertionError(f"the {arch} {stage} ran {name} in the "
                                      f"forms {got}, not {want}")
         return taken
-    tag = {"dense": "lm", "moe": "moe", "ssm": "xlstm"}[cfg.family]
+    tag = {"dense": "lm", "moe": "moe", "ssm": "xlstm",
+           "hybrid": "jamba"}[cfg.family]
     g = torch.Generator().manual_seed(2)
     model = build_model(cfg, dev)
     torch.cuda.synchronize()
@@ -2376,7 +2413,19 @@ def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
     torch.cuda.empty_cache()
 
     # d. the serve loop at its defaults (batch 4, prompt 8, 8 tokens)
-    served = serve_model.main(["--arch", arch])
+    if cfg.n_layers == full.n_layers:
+        served = serve_model.main(["--arch", arch])
+    else:
+        params = model.init_params(0)
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                    (4, 8))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = serve_model.generate(model, params, prompts, 8)
+        seconds = time.perf_counter() - t0
+        served = {"tokens": ids, "seconds": seconds,
+                  "tokens_per_s": 4 * 16 / seconds}
+        del params
     torch.cuda.empty_cache()
     log(f"{tag}: serve_model at its defaults ({arch}, batch 4, prompt 8, 8 "
         f"tokens): {served['tokens_per_s']} tokens/s over "
@@ -2632,9 +2681,14 @@ def mixer_stage(cfg, blk, x, positions=None, state=None, pos=None):
     or the layer's new state (decode; an attention layer's caches are the
     views in ``state``, written in place)."""
     from repro_torch.models import attention as at
+    from repro_torch.models import mamba as mb
     from repro_torch.models import xlstm as xl
     from repro_torch.models.layers import apply_norm
     mixer = blk.spec[0]
+    if mixer == "mamba":
+        delta, new = mb.mamba_block(cfg, blk.mamba, apply_norm(cfg, x, blk.ln),
+                                    state)
+        return x + delta, new
     if mixer == "attn":
         h = apply_norm(cfg, x, blk.ln)
         if state is None:
@@ -4862,8 +4916,10 @@ MOONSHOT_GMM_TRAIN = [(64, 960, 2048, 1408), (64, 960, 1408, 2048)]
 # xlstm-1.3b's sLSTM scan at LM_TRAIN (bfloat16: the cluster form's
 # forward, whose states the backward takes)
 XLSTM_SCAN_TRAIN = dict(B=2, S=4096, nh=4, dh=512)
-# the launcher's runs: 2 rounds of H 2 local steps, 2 x 1,024 tokens
+# the launcher's runs: 2 rounds of H 2 local steps, 2 x 1,024 tokens;
+# xlstm-1.3b's cut to one period of its block pattern
 LAUNCH_TRAIN = dict(rounds=2, seq=1024, batch=2)
+XLSTM_LAUNCH_LAYERS = 8
 # reduced MoE / xLSTM value_and_grad through the backward kernels against
 # the same step with the plain versions (float32, both on the card): the
 # loss within rtol 1e-5; each gradient leaf within 1e-3 of its own norm
@@ -5542,10 +5598,483 @@ def lenet_train_main(dev, smi: str) -> tuple:
                               ROUND_BYTES, total)
     log(f"train: moonshot-v1-16b-a3b cut to {round_cut['layers']} layers "
         f"for the launcher's round: {json.dumps(round_cut)}")
-    launch_train(smi, "xlstm-1.3b")
+    # xlstm-1.3b's launcher cut to one period of its pattern (7 mLSTM and
+    # 1 sLSTM layer, as every period): its full 48 layers took 36-50 s of
+    # host-bound rounds, where the full-depth step above already runs
+    launch_train(smi, "xlstm-1.3b", XLSTM_LAUNCH_LAYERS)
     launch_train(smi, "moonshot-v1-16b-a3b", round_cut["layers"])
     log(f"lenet/train: phase 20 in {time.perf_counter() - t0:.1f} s")
     return list(rows), fig3_launches, launches
+
+
+# -- phase 21: jamba's hybrid Mamba / MoE stack and the VLM's backbone --------
+
+# ssm_scan's grid, (B, S, di, h0, dtype): the CPU tests' S (1, 37, 128,
+# 256, 300), from zeros and from a state, float32 and bfloat16; di 200 is
+# a block of 128 channels 56 short
+SSM_GRID = [(B, S, di, h0, dtype)
+            for S in (1, 37, 128, 256, 300) for h0 in (False, True)
+            for dtype in ("float32", "bfloat16")
+            for B, di in ((2, 256), (3, 200))]
+# ssm_scan at jamba's prefill (4 x 4,096 tokens, d_inner 16,384, d_state 16)
+JAMBA_SCAN = dict(B=4, S=4096, di=16384, ds=16)
+# jamba cut to its first five layers (configs/jamba_1p5_large.py's
+# pattern: Mamba + dense, Mamba + MoE, Mamba + dense, Mamba + MoE,
+# attention + dense; every kind of layer it has, 24.1 B parameters, 48.2
+# GB in bfloat16; its smallest legal stack, one 8-layer period, is 45.3 B,
+# over the card's 80 GB); prefill and decode at phase 13's cuts
+JAMBA_LAYERS = 5
+JAMBA_PREFILL = dict(batch=4, seq=4096)
+JAMBA_DECODE = dict(batch=4, max_len=4128, steps=32)
+# qwen2-vl-72b's prefill: 1,024 text tokens, a 32 x 32 patch grid, 2,048
+# text tokens (4 x 4,096 embeddings), then decode at 4 x 4,128; cut to the
+# depth the card holds in bfloat16 (reckon_layers at 2 bytes a parameter)
+VLM_PREFILL = dict(batch=4, text=1024, grid=32, tail=2048)
+# jamba's expert products (E, C, d, f) at JAMBA_PREFILL (moe.capacity: 640
+# rows an expert a 4,096-token sequence, the 4 sequences folded into C),
+# gate / up then down, and at a decode step (capacity 8 for 4 tokens):
+# widths new to gmm's wgmma and stream forms (f 24,576; d up to 24,576)
+JAMBA_GMM = [(16, 2560, 8192, 24576), (16, 2560, 24576, 8192)]
+JAMBA_GMM_DECODE = [(16, 8, 8192, 24576), (16, 8, 24576, 8192)]
+# gmm.kernel_tol's atol, 1e-5 of the largest output, holds two float32
+# sums of up to 2,048 terms (moonshot's d and f) taken in other orders;
+# their rounding drift grows as the square root of the sum's length, so
+# at jamba's d of 8,192 and 24,576 the check scales it by sqrt(d / 2,048)
+# (at d 24,576 the unscaled bound missed 3 of 335M outputs, 8.4e-5 against
+# 6.3e-5); each such check also logs both sides' distance from a float64
+# product on one expert
+GMM_TOL_DEPTH = 2048
+VLM_DECODE = dict(batch=4, max_len=4128, steps=32)
+SERVE_BYTES = 2
+
+
+def ssm_inputs(B, S, di, ds, dtype, h0, gen, dev) -> tuple:
+    """ssm_scan's arguments drawn on the card from ``gen``: x ~ N(0, 1) in
+    ``dtype``; dt_pre ~ N(-1, 1) (softplus from about 0.05 to 2); B, C ~
+    N(0, 1); A_log log(1 .. ds) and D 1, each perturbed; h0 ~ N(0, 0.25)
+    or None."""
+    f32 = dict(device=dev, generator=gen)
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    a_log = torch.log(torch.arange(1, ds + 1, device=dev,
+                                   dtype=torch.float32)).expand(di, ds)
+    return (torch.randn(B, S, di, **f32).to(dtype),
+            torch.randn(B, S, di, **f32) - 1.0,
+            0.5 * torch.randn(di, **f32),
+            torch.randn(B, S, ds, **f32), torch.randn(B, S, ds, **f32),
+            a_log + 0.2 * torch.randn(di, ds, **f32),
+            1.0 + 0.2 * torch.randn(di, **f32),
+            0.5 * torch.randn(B, di, ds, **f32) if h0 else None)
+
+
+def ssm_held(got, want, what: str) -> float:
+    """ssm_scan's (out, h) within its tolerance of the plain version's;
+    the largest |kernel - plain|."""
+    from repro_torch.kernels import ssm_scan as sm
+    err = 0.0
+    for name, a, b in (("out", *[t[0] for t in (got, want)]),
+                       ("h", *[t[1] for t in (got, want)])):
+        torch.testing.assert_close(a.float(), b.float(),
+                                   **sm.kernel_tol(b),
+                                   msg=lambda m: f"ssm_scan {what} {name}: "
+                                   f"{m}")
+        err = max(err, float((a.float() - b.float()).abs().max()))
+    return err
+
+
+def check_ssm_scan(dev) -> dict:
+    """(a) ssm_scan (csrc/ssm.cu) against its plain version on SSM_GRID,
+    one launch a call; a call where autograd records raises, launching
+    nothing; then at jamba's prefill (JAMBA_SCAN, bfloat16 x), timed by
+    CUDA events and the profiler's device time beside its bound
+    (ssm_scan.bound_ms), the plain version and a decode step (S = 1).
+    Returns the kernels line's row."""
+    from repro_torch.kernels import ssm_scan as sm
+    gen = torch.Generator(device=dev).manual_seed(21)
+    err = {}
+    for B, S, di, h0, dtype in SSM_GRID:
+        args = ssm_inputs(B, S, di, sm.DS, dtype, h0, gen, dev)
+        before = sm.ssm_scan.launches
+        got = sm.ssm_scan(*args)
+        if sm.ssm_scan.launches != before + 1:
+            raise AssertionError(f"ssm_scan at {(B, S, di)} launched "
+                                 f"{sm.ssm_scan.launches - before} times")
+        e = ssm_held(got, sm.ssm_scan_torch(*args),
+                     f"at {(B, S, di)} h0 {h0} {dtype}")
+        err[dtype] = max(err.get(dtype, 0.0), e)
+    torch.cuda.synchronize()
+    args = ssm_inputs(2, 37, 256, sm.DS, "float32", True, gen, dev)
+    args[0].requires_grad_()
+    before = sm.ssm_scan.launches
+    try:
+        sm.ssm_scan(*args)
+    except NotImplementedError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("ssm_scan ran where autograd records")
+    if sm.ssm_scan.launches != before:
+        raise AssertionError("ssm_scan launched where autograd records")
+    log(f"ssm kernels: ssm_scan within ssm_scan.kernel_tol of plain on "
+        f"{len(SSM_GRID)} inputs (S 1-300, from zeros and from a state, di "
+        f"256 and 200; float32 {json.dumps(sm.KERNEL_TOL)}, bfloat16 rtol "
+        f"2^-7), one launch a call; largest |kernel - plain| by dtype "
+        f"{json.dumps(err)}; a call where autograd records raises, nothing "
+        f"launched: {refused!r}")
+
+    L = JAMBA_SCAN
+    args = ssm_inputs(L["B"], L["S"], L["di"], L["ds"], torch.bfloat16,
+                      False, gen, dev)
+    got = sm.ssm_scan(*args)
+    want = sm.ssm_scan_torch(*args)
+    scan_err = ssm_held(got, want, f"at {L}")
+    median = float(want[0].float().abs().median())
+    del got, want
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
+    one = ssm_inputs(L["B"], 1, L["di"], L["ds"], torch.bfloat16, True, gen,
+                     dev)
+    bound = sm.bound_ms(*args)
+    row = {"name": "ssm_scan", "shape": list(L.values()),
+           "max_abs_err": scan_err, "median_abs": median,
+           "ms": timed_ms(lambda: sm.ssm_scan(*args), 5, flush),
+           "device_ms": device_ms(lambda: sm.ssm_scan(*args),
+                                  "ssm_scan_kernel", 5, flush),
+           "decode_ms": timed_ms(lambda: sm.ssm_scan(*one), 20, flush),
+           "plain_ms": timed_ms(lambda: sm.ssm_scan_torch(*args), 1, flush),
+           "library_ms": None, "bound_ms": bound["bound_ms"],
+           "bound_by": bound["bound_by"],
+           "bound_parts_ms": {k: bound[k] for k in ("exps_ms", "flops_ms",
+                                                    "bytes_ms")},
+           "decode_bound_ms": sm.bound_ms(*one)["bound_ms"]}
+    row["us_per_step"] = row["ms"] * 1e3 / L["S"]
+    log(f"kernel ssm_scan at {row['shape']} (jamba's prefill: bfloat16 x, "
+        f"float32 dt_pre, B, C and state): {row['ms']:.6f} ms by events, "
+        f"device {row['device_ms']:.6f} ms (bound {row['bound_ms']:.6f} ms, "
+        f"{row['bound_by']}: exponentials on the SFUs "
+        f"{bound['exps_ms']:.6f}, float32 FLOPs {bound['flops_ms']:.6f}, "
+        f"bytes {bound['bytes_ms']:.6f}); a decode step (S = 1) "
+        f"{row['decode_ms']:.6f} ms (bound {row['decode_bound_ms']:.6f}); "
+        f"plain {row['plain_ms']:.6f} ms (a step-by-step loop), no PyTorch "
+        f"call computes it; |kernel - plain| {scan_err} (median |out| "
+        f"{median})")
+    return row
+
+
+def check_jamba_gmm(dev) -> list:
+    """(a) gmm at jamba's expert products (JAMBA_GMM, JAMBA_GMM_DECODE),
+    bfloat16: in the form gmm.form names (wgmma in the prefill, stream in
+    the decode), within gmm.kernel_tol of its plain version, its atol
+    scaled to the sum's length (GMM_TOL_DEPTH), timed beside its bound and
+    torch.bmm.  Returns the rows."""
+    from repro_torch.kernels import gmm as gm
+    gd = torch.Generator(device=dev).manual_seed(22)
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
+    rows = []
+    for label, shapes, want_form in (("prefill", JAMBA_GMM, "wgmma"),
+                                     ("decode", JAMBA_GMM_DECODE, "stream")):
+        for E, C, d, f in shapes:
+            xe = torch.randn(E, C, d, device=dev, generator=gd).to(
+                torch.bfloat16)
+            w = (torch.randn(E, d, f, device=dev, generator=gd)
+                 * d ** -0.5).to(torch.bfloat16)
+            got = gm.gmm(xe, w)
+            if gm.gmm.last_form != want_form:
+                raise AssertionError(f"gmm at {(E, C, d, f)} ran the "
+                                     f"{gm.gmm.last_form} form")
+            want = gm.gmm_torch(xe, w)
+            tol = gm.kernel_tol(want)
+            tol["atol"] *= max(1.0, (d / GMM_TOL_DEPTH) ** 0.5)
+            torch.testing.assert_close(
+                got.float(), want.float(), **tol,
+                msg=lambda m, s=(E, C, d, f): f"gmm at {s}: {m}")
+            exact = xe[0].double() @ w[0].double()
+            row = {"shape": [E, C, d, f], "path": label, "form": want_form,
+                   "max_abs_err": float((got.float() - want.float()).abs()
+                                        .max()),
+                   "atol": tol["atol"],
+                   "median_abs": float(want.float().abs().median()),
+                   "expert0_from_float64": {
+                       "kernel": float((got[0].double() - exact).abs()
+                                       .max()),
+                       "plain": float((want[0].double() - exact).abs()
+                                      .max())}}
+            del got, want, exact
+            cb = cost_bound("gmm", xe, w)
+            row.update(ms=timed_ms(lambda: gm.gmm(xe, w), 3, flush),
+                       library_ms=timed_ms(lambda: torch.bmm(xe, w), 3,
+                                           flush),
+                       bound_ms=cb["bound_ms"], bound_by=cb["bound_by"])
+            rows.append(row)
+            del xe, w
+    log(f"jamba kernels: gmm at jamba's expert products on "
+        f"{torch.cuda.get_device_name(0)}, within gmm.kernel_tol of plain "
+        f"(atol x sqrt(d / {GMM_TOL_DEPTH})): "
+        f"{json.dumps(rows)}")
+    return rows
+
+
+def mrope_positions(B, text, grid, tail, dev) -> torch.Tensor:
+    """(3, B, text + grid^2 + tail) int32 M-RoPE positions: ``text`` text
+    tokens, a ``grid`` x ``grid`` patch grid (t fixed at the grid's start,
+    h its row, w its column), ``tail`` text tokens, each stream going on
+    from its largest position so far plus one (as qwen2-vl numbers
+    them)."""
+    t = torch.arange(text, dtype=torch.int32)
+    r = torch.arange(grid, dtype=torch.int32)
+    gt = torch.full((grid * grid,), text, dtype=torch.int32)
+    gh = (text + r).repeat_interleave(grid)
+    gw = (text + r).repeat(grid)
+    after = text + grid + torch.arange(tail, dtype=torch.int32)
+    pos = torch.stack([torch.cat([t, gt, after]), torch.cat([t, gh, after]),
+                       torch.cat([t, gw, after])])
+    return pos[:, None].expand(3, B, pos.shape[1]).contiguous().to(dev)
+
+
+def vlm_three_ways(dev, cfg, host, what) -> dict:
+    """The reduced qwen2-vl three ways (card with the kernel, card with
+    the plain version forced, CPU) on one set of weights: prefill logits
+    and caches on embeddings with three distinct position streams, then
+    three decode steps' logits, within LM_TOL."""
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.model import build_model
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(7)
+    pos = mrope_positions(2, 9, 6, 13, cpu)
+    S = pos.shape[-1]
+    emb = torch.randn(2, S + 3, cfg.d_model, generator=g).to(
+        getattr(torch, cfg.dtype))
+    outs = {}
+    for label, device, impl in (("card, kernel", dev, None),
+                                ("card, plain", dev, "torch"),
+                                ("cpu", cpu, None)):
+        with kernel_impl(impl):
+            model = build_model(cfg, device)
+            params = tt.params_from_numpy(cfg, host, device=device,
+                                          dtype=cfg.dtype)
+            logits, caches = model.prefill(params, {
+                "embeds": emb[:, :S], "positions": pos})
+            state = model.init_decode_state(2, S + 3)
+            for kv in ("k", "v"):
+                state["b0"][kv][:, :, :S] = caches["b0"][kv]
+            steps = []
+            for t in range(S, S + 3):
+                step, state = model.decode(params, state, {
+                    "embeds": emb[:, t:t + 1], "pos": t})
+                steps.append(step)
+        outs[label] = [logits, caches["b0"]["k"], caches["b0"]["v"], *steps]
+    gaps = {}
+    for label in ("card, kernel", "card, plain"):
+        for got, want in zip(outs[label], outs["cpu"]):
+            torch.testing.assert_close(got.cpu().float(), want.float(),
+                                       **LM_TOL[cfg.dtype],
+                                       msg=lambda m, lb=label:
+                                       f"{what} {lb}: {m}")
+        gaps[label] = max(float((a.cpu().float() - b.float()).abs().max())
+                          for a, b in zip(outs[label], outs["cpu"]))
+    return gaps
+
+
+def hybrid_vlm_agree(dev) -> None:
+    """(b) The reduced jamba (one 8-layer period: Mamba, MoE, attention)
+    and qwen2-vl, float32 and bfloat16, card against CPU on one set of
+    weights: jamba three ways layer by layer on the CPU's activations
+    (``layerwise``: the Mamba's conv and SSM states held in decode, the
+    MoE's routing first), qwen2-vl three ways whole (two dense layers, as
+    lm_agree holds the dense stacks)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import ssm_scan as sm
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.model import build_model
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(8)
+    for arch in ("jamba-1.5-large-398b", "qwen2-vl-72b"):
+        for dt in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                                      dtype=dt)
+            host = tt.params_to_numpy(build_model(cfg, cpu).init_params(0))
+            what = f"hybrid/vlm agree {arch} {dt}"
+            if arch == "qwen2-vl-72b":
+                gaps = vlm_three_ways(dev, cfg, host, what)
+                log(f"{what} (embeddings, three distinct position streams): "
+                    f"largest |card - CPU| {json.dumps(gaps)} (tolerance "
+                    f"{json.dumps(LM_TOL[dt])})")
+                continue
+            ref = tt.params_from_numpy(cfg, host, device=cpu, dtype=dt)
+            toks = torch.randint(0, cfg.vocab_size, (2, 73), generator=g)
+            gaps, launched = {}, {}
+            for label, impl in (("card, kernel", None),
+                                ("card, plain", "torch")):
+                before = sm.ssm_scan.launches, gm.gmm.launches
+                with kernel_impl(impl):
+                    card = tt.params_from_numpy(cfg, host, device=dev,
+                                                dtype=dt)
+                    gaps[label] = layerwise(cfg, ref, card, toks, dev,
+                                            f"{what} {label}")
+                launched[label] = [sm.ssm_scan.launches - before[0],
+                                   gm.gmm.launches - before[1]]
+            if not all(launched["card, kernel"]) or \
+                    any(launched["card, plain"]):
+                raise AssertionError(f"{what}: ssm_scan, gmm launches "
+                                     f"{launched}")
+            log(f"{what} (layer by layer on the CPU's activations): largest "
+                f"|card - CPU| {json.dumps(gaps)} (tolerance "
+                f"{json.dumps(LM_TOL[dt])}); ssm_scan, gmm launches "
+                f"{json.dumps(launched)}")
+
+
+def vlm_main(dev, smi: str) -> dict:
+    """(d) qwen2-vl-72b at full width, bfloat16, cut to the depth the card
+    holds (reckon_layers at SERVE_BYTES a parameter), weights drawn on the
+    card: 64 text embeddings (the three streams equal) through prefill and
+    through 64 decode steps, held at PREFILL_DECODE_TOL; the prefill of
+    VLM_PREFILL (a text prefix, a patch grid, text: the three streams
+    differ), flash_attention's launches counted from 0, all in the wgmma
+    form; VLM_DECODE's steps from its caches on random embeddings; peak
+    memory; the device shares under the profiler.  Returns the prefill's
+    launches."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import positions_for
+    from repro_torch.models.model import build_model
+    full = get_config("qwen2-vl-72b")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    cut = reckon_layers(full, VLM_PREFILL["batch"], SERVE_BYTES, total)
+    cfg = dataclasses.replace(full, n_layers=cut["layers"])
+    model = build_model(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init_params(0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"vlm: {cfg.name} cut to {cfg.n_layers} of {full.n_layers} layers "
+        f"(reckon_layers at {SERVE_BYTES} bytes a parameter: "
+        f"{json.dumps(cut)}), d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"(kv {cfg.n_kv_heads}), d_ff {cfg.d_ff}, M-RoPE: {n_params} "
+        f"parameters, {2 * n_params / 1e9:.3f} GB in bfloat16, drawn on the "
+        f"card in {time.perf_counter() - t0:.3f} s")
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def embeds(B, S):
+        return torch.randn(B, S, cfg.d_model, device=dev,
+                           generator=g).to(torch.bfloat16)
+
+    # prefill against decode on text positions (the streams equal)
+    emb = embeds(1, 64)
+    last, caches = model.prefill(params, {
+        "embeds": emb, "positions": positions_for(cfg, 1, 64, device=dev)})
+    state = model.init_decode_state(1, 64)
+    for t in range(64):
+        step, state = model.decode(params, state, {"embeds": emb[:, t:t + 1],
+                                                   "pos": t})
+    torch.cuda.synchronize()
+    torch.testing.assert_close(step.float(), last.float(),
+                               **PREFILL_DECODE_TOL)
+    for b, kv in caches.items():
+        torch.testing.assert_close(state[b]["k"].float(), kv["k"].float(),
+                                   **PREFILL_DECODE_TOL)
+    log(f"vlm: prefill against 64 decode steps on text positions at full "
+        f"width (bfloat16): largest |logit gap| "
+        f"{float((step.float() - last.float()).abs().max())} (tolerance "
+        f"{json.dumps(PREFILL_DECODE_TOL)}), argmax agrees: "
+        f"{bool((step.argmax(-1) == last.argmax(-1)).all())}; K caches held")
+    del last, caches, state, step
+
+    P = VLM_PREFILL
+    B = P["batch"]
+    pos = mrope_positions(B, P["text"], P["grid"], P["tail"], dev)
+    S = pos.shape[-1]
+    if len({tuple(p) for p in pos[:, 0].tolist()}) != 3:
+        raise AssertionError("the prefill's three position streams are equal")
+    emb = embeds(B, S)
+    fa.flash_attention.launches = 0
+    fa.flash_attention.form_launches = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, {"embeds": emb, "positions": pos})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = {"flash_attention": fa.flash_attention.launches}
+    forms = dict(fa.flash_attention.form_launches)
+    if launches["flash_attention"] != cfg.n_layers or \
+            forms != {"wgmma": cfg.n_layers} or \
+            tuple(logits.shape) != (B, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"the vlm prefill launched {launches} in the "
+                             f"forms {forms}, logits {tuple(logits.shape)}")
+    D = VLM_DECODE
+    state = model.init_decode_state(D["batch"], D["max_len"])
+    for b, kv in caches.items():
+        for name in ("k", "v"):
+            state[b][name][:, :, :S] = kv[name]
+    del caches
+    steps = embeds(B, D["steps"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(D["steps"]):
+        logits, state = model.decode(params, state, {
+            "embeds": steps[:, t:t + 1], "pos": S + t})
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("the vlm decode gave non-finite logits")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    def decode_steps(n=8):
+        for t in range(min(n, D["steps"])):
+            model.decode(params, state, {"embeds": steps[:, t:t + 1],
+                                         "pos": S + t})
+    shares = (("flash_attention", LM_KERNELS["flash_attention"]),)
+    traced_decode = profile_share(decode_steps, shares)
+    del state
+    traced_prefill = profile_share(lambda: model.prefill(
+        params, {"embeds": emb, "positions": pos}), shares)
+    stats = {"layers": cfg.n_layers, "prefill_s": prefill_s,
+             "prefill_tokens_per_s": B * S / prefill_s,
+             "decode_ms_per_step": decode_s / D["steps"] * 1e3,
+             "decode_tokens_per_s": D["batch"] * D["steps"] / decode_s,
+             "peak_device_memory_GiB": peak, "prefill_launches": launches,
+             "forms": forms}
+    log(f"vlm: prefill {B} x {S} embeddings ({P['text']} text, a "
+        f"{P['grid']} x {P['grid']} patch grid, {P['tail']} text; its wall "
+        f"is the time to first token) and {D['steps']} decode steps at "
+        f"{D['batch']} x {D['max_len']} on {smi}: {json.dumps(stats)}")
+    log(f"vlm profile: prefill {json.dumps(traced_prefill)}")
+    log(f"vlm profile: 8 more decode steps {json.dumps(traced_decode)}")
+    del params, emb, steps
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hybrid_vlm_main(dev, smi: str) -> tuple:
+    """Phase 21: (a) ssm_scan against its plain version, timed, and gmm
+    at jamba's expert products; (b) the
+    reduced jamba and qwen2-vl card == CPU; (c) jamba's first
+    JAMBA_LAYERS layers at full width through lm_main (prefill launches
+    from 0: ssm_scan 4, gmm 6, flash_attention 1; decode; the serve loop
+    through generate); (d) qwen2-vl cut to the card's depth.  Returns
+    (the kernels line's row, jamba's prefill launches)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import block_specs
+    t0 = time.perf_counter()
+    row = check_ssm_scan(dev)
+    check_jamba_gmm(dev)
+    torch.cuda.empty_cache()
+    hybrid_vlm_agree(dev)
+    jamba = get_config("jamba-1.5-large-398b")
+    cut = dataclasses.replace(jamba, n_layers=JAMBA_LAYERS,
+                              block_pattern=jamba.pattern[:JAMBA_LAYERS])
+    log(f"jamba: {jamba.name} cut to its first {JAMBA_LAYERS} of "
+        f"{jamba.n_layers} layers, {block_specs(cut)}: the block pattern's "
+        f"first {JAMBA_LAYERS} positions, every kind of layer it has")
+    launches = lm_main(dev, smi, jamba.name, JAMBA_PREFILL, JAMBA_DECODE,
+                       cfg=cut)
+    torch.cuda.empty_cache()
+    vlm_main(dev, smi)
+    log(f"hybrid/vlm: phase 21 in {time.perf_counter() - t0:.1f} s")
+    return row, launches
 
 
 def main() -> int:
@@ -5756,6 +6285,16 @@ def main() -> int:
     launches.update(lm_launches)
     source_rows += new_rows
 
+    # 21. jamba and the VLM: (a) ssm_scan against its plain version,
+    # timed; (b) the reduced jamba and qwen2-vl card == CPU; (c) jamba's
+    # first 5 layers at full width (launch counts from 0, ssm_scan's added
+    # to the kernels line), decode, the serve loop; (d) qwen2-vl cut to
+    # the depth the card holds
+    torch.cuda.empty_cache()
+    ssm_row, jamba_launches = hybrid_vlm_main(dev, smi)
+    launches["ssm_scan"] = jamba_launches["ssm_scan"]
+    source_rows.append(ssm_row)
+
     replaces = {"rollup_digest": "src/repro/kernels/rollup_digest.py:16",
                 "rollup_chunk_digests":
                     "src/repro/kernels/rollup_digest.py:76",
@@ -5777,13 +6316,15 @@ def main() -> int:
                 "slstm_scan_bwd": "src/repro/kernels/slstm_scan.py:25",
                 # no Pallas form: _lane_fold, the jnp program of
                 # shard_seal_jax and shard_seal_shard_map
-                "shard_seal": "src/repro/kernels/shard_lanes.py:79"}
+                "shard_seal": "src/repro/kernels/shard_lanes.py:79",
+                # no Pallas form: the associative scan of mamba_mix
+                "ssm_scan": "src/repro/models/mamba.py:46"}
     sources = {"weighted_agg": "fl.cu", "model_distance": "fl.cu",
                "block_pack": "pack.cu", "flash_attention": "attn.cu",
                "flash_attention_bwd": "attn_bwd.cu",
                "gmm": "moe.cu", "slstm_scan": "slstm.cu",
                "gmm_bwd": "moe_bwd.cu", "slstm_scan_bwd": "slstm_bwd.cu",
-               "shard_seal": "shard.cu"}
+               "shard_seal": "shard.cu", "ssm_scan": "ssm.cu"}
     kernels = []
     for row in source_rows:
         name = row["name"]

@@ -88,6 +88,10 @@ _SIGNATURES = {
     "slstm_bwd_cluster_capacity": (_D, _I, _I, _I, _P, _P),
     # (device, B, nh, dh, out int, stream)
     "slstm_cluster_capacity": (_D, _I, _I, _I, _P, _P),
+    # csrc/ssm.cu: (device, x, dt_pre, dt_bias, Bm, Cm, A_log, D, h0 or
+    # null, B, S, di, ds, dtype flag, out, h, stream)
+    "ssm_scan": (_D, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
+                 _P, _P),
 }
 
 _LIB = None

@@ -31,8 +31,9 @@ rounding; so do ``flash_attention`` (the prefill's causal GQA attention,
 ``gmm_bwd`` (``(xe, w, dy)`` -> ``(dx, dw)``), and ``slstm_scan`` (the
 sLSTM time scan, ``(wx, r_gates, h, c, n, m)``) and its gradient
 ``slstm_scan_bwd`` (the saved forward and the outputs' gradients ->
-``(dwx, dr_gates, dh0, dc0, dn0, dm0)``).  Every impl returns its
-result on the input's device.
+``(dwx, dr_gates, dh0, dc0, dn0, dm0)``), and ``ssm_scan`` (the Mamba
+selective scan, ``(x, dt_pre, dt_bias, Bm, Cm, A_log, D, h0)`` -> ``(out,
+h)``).  Every impl returns its result on the input's device.
 
 Work: every op registers one pure ``cost(*args, **kw) -> (flops,
 bytes)``, its work at those arguments whatever implements it (``kernel_cost``;
@@ -116,6 +117,7 @@ def _load() -> None:
     from repro_torch.kernels import rollup_digest as rd
     from repro_torch.kernels import shard_lanes as sl
     from repro_torch.kernels import slstm_scan as ss
+    from repro_torch.kernels import ssm_scan as sm
     from repro_torch.kernels import weighted_agg as wa
     for op, plain, wrapper, cost in (
             ("batch_seal", bs.batch_seal_torch, bs.batch_seal,
@@ -143,7 +145,8 @@ def _load() -> None:
             ("slstm_scan", ss.slstm_scan_torch, ss.slstm_scan,
              ss.slstm_scan_cost),
             ("slstm_scan_bwd", ss.slstm_scan_bwd_torch, ss.slstm_scan_bwd,
-             ss.slstm_scan_bwd_cost)):
+             ss.slstm_scan_bwd_cost),
+            ("ssm_scan", sm.ssm_scan_torch, sm.ssm_scan, sm.ssm_scan_cost)):
         register_kernel(op, "torch", plain)
         register_kernel(op, "cuda", wrapper, default=True)
         register_cost(op, cost)

@@ -1,9 +1,10 @@
-"""Grouped-query attention of the token LMs: the prefill path and the
+"""Grouped-query attention of the decoder LMs: the prefill path and the
 KV-cache decode path, with the JAX package's layouts and casts.
 
   * Prefill (``attention_block``): projections, optional QKV bias and QK
-    norm, RoPE, then the factory's ``flash_attention`` op (the CUDA kernel
-    on the card) for every sequence length, and the output projection.
+    norm, RoPE (or M-RoPE on (3, B, S) positions), then the factory's
+    ``flash_attention`` op (the CUDA kernel on the card) for every
+    sequence length, and the output projection.
     The JAX package takes a dense path up to ``2 * chunk`` tokens and a
     blocked one beyond; both compute this same function.
   * Decode (``decode_attention_block``): one new token against a
@@ -23,7 +24,8 @@ from typing import Dict, Mapping
 import torch
 
 from repro_torch.kernels.factory import get_kernel
-from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
+                                       rms_norm)
 
 NEG_INF = -1e30
 
@@ -64,8 +66,8 @@ def _project_qkv(cfg, p: Mapping[str, torch.Tensor], x: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     elif cfg.rope_variant == "mrope":
-        raise NotImplementedError("M-RoPE comes with the VLM slice "
-                                  "(ROADMAP.md queue 1 item 10(e))")
+        q = apply_mrope(q, positions, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -94,10 +96,13 @@ def decode_attention_block(cfg, p: Mapping[str, torch.Tensor],
                            x: torch.Tensor, cache_k: torch.Tensor,
                            cache_v: torch.Tensor, pos: int) -> torch.Tensor:
     """One-token decode: x (B, 1, d); cache_{k,v} (B, S_max, Hkv, dh),
-    written at ``pos`` in place.  Returns out (B, 1, d)."""
+    written at ``pos`` in place.  Returns out (B, 1, d).  The token's
+    position is ``pos``, in all three streams under M-RoPE (the JAX
+    package's decode)."""
     B = x.shape[0]
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    shape = (3, B, 1) if cfg.rope_variant == "mrope" else (B, 1)
+    positions = torch.full(shape, pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(cfg, p, x, positions)
     cache_k[:, pos] = k[:, 0]
     cache_v[:, pos] = v[:, 0]

@@ -1,9 +1,9 @@
 """Common layers of the token LMs: initializers, norms, the SwiGLU MLP and
 rotary embeddings, with the JAX package's layouts and casts.
 
-Norms and RoPE compute in float32 and cast back to the input's dtype;
-matrices are stored ``(in, out)``, so a projection is ``x @ w``.
-(``apply_mrope`` comes with the VLM slice, ROADMAP.md queue 1 item 10(e).)
+Norms, RoPE and M-RoPE (qwen2-vl's three position streams) compute in
+float32 and cast back to the input's dtype; matrices are stored ``(in,
+out)``, so a projection is ``x @ w``.
 """
 from __future__ import annotations
 
@@ -81,11 +81,9 @@ def _rope_inv(head_dim: int, theta: float, device: torch.device):
     return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, dh); positions: (B, S) int."""
-    inv = _rope_inv(x.shape[-1], theta, x.device)
-    ang = positions.to(torch.float32)[..., None] * inv       # (B, S, dh/2)
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, dh) rotated by the angles ``ang`` (B, S, dh/2): its two
+    halves as the real and imaginary parts, in float32."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
@@ -93,12 +91,49 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, dh); positions: (B, S) int."""
+    inv = _rope_inv(x.shape[-1], theta, x.device)
+    return _rotate(x, positions.to(torch.float32)[..., None] * inv)
+
+
+def mrope_sections(head_dim: int, sections=(16, 24, 24)) -> list:
+    """M-RoPE's frequency bands a stream (temporal, height, width):
+    ``sections`` are halves of qwen2-vl's dh / 2 = 64, scaled to
+    ``head_dim`` (each at least 1); the third takes the rest."""
+    half = head_dim // 2
+    base = sum(sections)
+    sec = [max(1, (s * half) // base) for s in sections]
+    sec[2] = half - sec[0] - sec[1]
+    return sec
+
+
+@functools.lru_cache(maxsize=32)
+def _mrope_streams(head_dim: int, device: torch.device) -> torch.Tensor:
+    """(dh/2,) int64: the position stream that drives each band."""
+    return torch.cat([torch.full((n,), i, dtype=torch.int64)
+                      for i, n in enumerate(mrope_sections(head_dim))]
+                     ).to(device)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """M-RoPE (qwen2-vl): x (B, S, H, dh); positions3 (3, B, S) int, the
+    temporal, height and width streams, each driving its
+    ``mrope_sections`` of the frequencies."""
+    inv = _rope_inv(x.shape[-1], theta, x.device)
+    stream = _mrope_streams(x.shape[-1], x.device)
+    pos = positions3.to(torch.float32)[stream].movedim(0, -1)  # (B, S, dh/2)
+    return _rotate(x, pos * inv)
+
+
 def positions_for(cfg, batch: int, seq: int, offset: int = 0,
                   device=None) -> torch.Tensor:
-    """(batch, seq) int32 positions ``offset .. offset + seq - 1`` (the
-    token LMs' branch; M-RoPE's three streams wait for the VLM slice)."""
-    if cfg.rope_variant == "mrope":
-        raise NotImplementedError("M-RoPE positions come with the VLM slice "
-                                  "(ROADMAP.md queue 1 item 10(e))")
+    """(batch, seq) int32 positions ``offset .. offset + seq - 1``; for
+    M-RoPE the same in each of the three streams, (3, batch, seq)."""
     pos = torch.arange(seq, dtype=torch.int32, device=device) + offset
-    return pos[None, :].expand(batch, seq)
+    pos = pos[None, :].expand(batch, seq)
+    if cfg.rope_variant == "mrope":
+        return pos[None].expand(3, batch, seq)
+    return pos

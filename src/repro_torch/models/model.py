@@ -1,5 +1,6 @@
-"""Model facade over the token-LM family (dense attention, MoE and xLSTM
-stacks), in the JAX package's interface:
+"""Model facade over the decoder LMs (dense attention, MoE, xLSTM, jamba's
+hybrid Mamba / attention stack with MoE layers, and qwen2-vl's backbone on
+precomputed embeddings), in the JAX package's interface:
 
     model = build_model(cfg)                  # on the card; device="cpu"
     params = model.init_params(0)             # a TransformerLM module
@@ -10,12 +11,14 @@ stacks), in the JAX package's interface:
     state = model.init_decode_state(batch_size, max_len)
     logits, state = model.decode(params, state, {"tokens": tok, "pos": t})
 
-``loss`` takes the module or a flat dict of its weights
-(``train_params``), which autograd differentiates (``launch/steps.py``);
-the module is frozen for serving.  The port runs one card with no mesh:
-the JAX facade's ``ctx is None`` branch.  Meshes and sharding are
-ROADMAP.md queue 1 item 10(f); Mamba (and jamba), whisper and the VLM's
-embeds input are item 10(e), and their configs raise
+For an ``embeds`` config (qwen2-vl) a batch holds ``embeds`` (B, S, d)
+and ``positions`` (3, B, S) instead of ``tokens``, and a decode step
+``embeds`` (B, 1, d) and ``pos``.  ``loss`` takes the module or a flat
+dict of its weights (``train_params``), which autograd differentiates
+(``launch/steps.py``); the module is frozen for serving.  The port runs
+one card with no mesh: the JAX facade's ``ctx is None`` branch.  Meshes
+and sharding are ROADMAP.md queue 1 item 10(f); whisper (the
+encoder-decoder on audio) is item 10(e), and its config raises
 ``NotImplementedError`` here.
 
 The conv family (``lenet5``, the paper's FL workload) is the JAX facade's
@@ -48,12 +51,11 @@ class Model:
         return transformer.init_params(self.cfg, g, dtype, self.device)
 
     def _tokens(self, batch):
-        out = dict(batch, tokens=torch.as_tensor(batch["tokens"],
-                                                 device=self.device))
-        if "labels" in batch:
-            out["labels"] = torch.as_tensor(batch["labels"],
-                                            device=self.device)
-        return out
+        """``batch`` with its arrays (tokens, labels, embeds, positions) as
+        tensors on the model's device."""
+        return {k: v if k == "pos" else torch.as_tensor(v,
+                                                        device=self.device)
+                for k, v in batch.items()}
 
     def _params(self, params):
         return transformer.params_view(self.cfg, params) \

@@ -1,12 +1,15 @@
-"""Decoder-only token LM: stacks of attention (``attn``), mLSTM and sLSTM
+"""Decoder-only LM: stacks of attention (``attn``), Mamba, mLSTM and sLSTM
 mixers with a SwiGLU ``dense`` FFN, an MoE FFN or none, per the config's
-block pattern, for forward, prefill and decode.
+block pattern, for forward, prefill and decode, on tokens or (the VLM's
+backbone) on precomputed embeddings.
 
-The weights live in a :class:`TransformerLM` module: the embedding table,
-a ``ModuleList`` of :class:`Block` s and the final norm and LM head, all
-stored ``(in, out)`` as in the JAX package.  A block holds one mixer
-(``ln`` and the ``attn`` ParameterDict; or the ``mlstm`` or ``slstm``
-ParameterDict, which carry their own norms and FFN) and one FFN (``ln2``
+The weights live in a :class:`TransformerLM` module: the embedding table
+(none where the config's ``input_mode`` is ``embeds``), a ``ModuleList``
+of :class:`Block` s and the final norm and LM head, all stored ``(in,
+out)`` as in the JAX package.  A block holds one mixer (``ln`` and the
+``attn`` or ``mamba`` ParameterDict, the Mamba's ``A_log`` and ``D``
+float32 in every model dtype; or the ``mlstm`` or ``slstm`` ParameterDict,
+which carry their own norms and FFN) and one FFN (``ln2``
 and ``wi_gate``, ``wi_up``, ``w_down``; or ``ln2`` and the MoE's
 ``router``, float32 in every model dtype, ``moe_wg``, ``moe_wu``,
 ``moe_wo``; or none), as ``block_specs`` gives them.  Layer ``l`` is
@@ -15,10 +18,17 @@ len(pattern) + i``; the JAX package's parameters stack the periods instead
 (``params["periods"]["b{i}"]``), and ``params_from_numpy`` /
 ``params_to_numpy`` carry them across.  Decode state keeps the JAX layout,
 stacked over periods and updated in place: ``{"k", "v": (n_periods, B,
-S_max, Hkv, dh)}`` for attention, ``{"C", "n", "m"}`` for mLSTM and
-``{"h", "c", "nn", "mm"}`` for sLSTM (float32).  Prefill returns the
-attention blocks' caches only, as the JAX prefill does: it emits no
-recurrent state.
+S_max, Hkv, dh)}`` for attention, ``{"conv", "ssm"}`` for Mamba (the conv
+state in the model's dtype, the SSM state float32), ``{"C", "n", "m"}``
+for mLSTM and ``{"h", "c", "nn", "mm"}`` for sLSTM (float32).  Prefill
+returns the attention blocks' caches only, as the JAX prefill does: it
+emits no recurrent state.
+
+With ``input_mode == "embeds"`` (qwen2-vl: the vision frontend is a stub)
+a batch carries ``embeds`` (B, S, d) and ``positions``, (3, B, S) for
+M-RoPE's temporal, height and width streams, instead of ``tokens``; a
+decode step carries ``embeds`` (B, 1, d), and its position is ``pos`` in
+all three streams, as in the JAX package.
 
 Training differentiates a flat dict of the weights instead, keyed as
 ``named_parameters`` names them (``train_params``; ``params_view`` gives
@@ -34,8 +44,8 @@ every pattern of one block.  ``flat_to_numpy`` gives a flat dict (the
 gradients) back in the JAX layout, and ``param_groups`` names each key's
 JAX leaf for adafactor.
 
-Mamba blocks (and with them jamba) raise ``NotImplementedError`` naming
-ROADMAP.md queue 1 item 10(e), as do whisper, the VLM and LeNet.
+The encoder-decoder (whisper, audio inputs) raises ``NotImplementedError``
+naming ROADMAP.md queue 1 item 10(e).
 """
 from __future__ import annotations
 
@@ -53,16 +63,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ATTN, MAMBA, MLSTM, SLSTM
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (apply_norm, dense_init, positions_for,
                                        swiglu)
 
 State = Dict[str, Dict[str, torch.Tensor]]
-
-_UNPORTED = {
-    MAMBA: "the Mamba block (ROADMAP.md queue 1 item 10(e))",
-}
 
 
 def block_specs(cfg):
@@ -90,15 +97,10 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder (whisper) "
                                   f"is not ported yet (ROADMAP.md queue 1 "
                                   f"item 10(e))")
-    if cfg.input_mode != "tokens":
+    if cfg.input_mode not in ("tokens", "embeds"):
         raise NotImplementedError(f"{cfg.name}: {cfg.input_mode} inputs are "
                                   f"not ported yet (ROADMAP.md queue 1 item "
                                   f"10(e))")
-    for mixer, ffn in block_specs(cfg):
-        for kind in (mixer, ffn):
-            if kind in _UNPORTED:
-                raise NotImplementedError(f"{cfg.name}: {_UNPORTED[kind]} is "
-                                          f"not ported yet")
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -119,6 +121,10 @@ class Block(nn.Module):
         if mixer == ATTN:
             self.ln = param(torch.ones(d, dtype=dtype, device=device))
             self.attn = nn.ParameterDict(attn.init_attn_params(
+                cfg, dtype, generator, device))
+        elif mixer == MAMBA:
+            self.ln = param(torch.ones(d, dtype=dtype, device=device))
+            self.mamba = nn.ParameterDict(mamba_mod.init_mamba_params(
                 cfg, dtype, generator, device))
         elif mixer == MLSTM:
             self.mlstm = nn.ParameterDict(xlstm_mod.init_mlstm_params(
@@ -150,10 +156,11 @@ class Block(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """The weights of a token LM.  With a ``generator`` they are drawn on
+    """The weights of an LM.  With a ``generator`` they are drawn on
     ``device`` (truncated normals, fan-in scaled; norms ones, biases
-    zeros, the sLSTM's and mLSTM's forget biases 3); without one they are
-    left uninitialised for loading."""
+    zeros, the sLSTM's and mLSTM's forget biases 3, the Mamba's A_log
+    log(1 .. ds) and D ones); without one they are left uninitialised for
+    loading.  ``embed`` is None for an ``embeds`` config."""
 
     def __init__(self, cfg, dtype=None, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -172,7 +179,8 @@ class TransformerLM(nn.Module):
             for _, _, i in _layer_items(cfg))
         d, vocab = cfg.d_model, cfg.vocab_size
         self.embed = nn.Parameter(dense_init((vocab, d), dtype, generator,
-                                             dev))
+                                             dev)) \
+            if cfg.input_mode == "tokens" else None
         self.final_norm = nn.Parameter(torch.ones(d, dtype=dtype, device=dev))
         self.head_w = nn.Parameter(dense_init((d, vocab), dtype, generator,
                                               dev))
@@ -234,7 +242,8 @@ def params_from_numpy(cfg, tree, device=None, dtype=None) -> TransformerLM:
                     put(leaf, src[name][sub][j])
             else:
                 put(t, src[name][j])
-    put(model.embed, tree["embed"]["table"])
+    if model.embed is not None:
+        put(model.embed, tree["embed"]["table"])
     put(model.final_norm, tree["final_norm"])
     put(model.head_w, tree["head_w"])
     return model
@@ -281,9 +290,11 @@ def flat_to_numpy(cfg, flat: Dict[str, torch.Tensor]):
         periods[f"b{i}"] = stack([_block_tree(flat, layer)
                                   for layer, _, pi in _layer_items(cfg)
                                   if pi == i])
-    return {"periods": periods, "final_norm": host(flat["final_norm"]),
-            "head_w": host(flat["head_w"]),
-            "embed": {"table": host(flat["embed"])}}
+    out = {"periods": periods, "final_norm": host(flat["final_norm"]),
+           "head_w": host(flat["head_w"])}
+    if "embed" in flat:
+        out["embed"] = {"table": host(flat["embed"])}
+    return out
 
 
 def param_groups(cfg, flat) -> Dict[str, Tuple[str, Optional[int]]]:
@@ -316,7 +327,8 @@ def params_view(cfg, flat: Dict[str, torch.Tensor]):
     specs = block_specs(cfg)
     blocks = [types.SimpleNamespace(spec=specs[i], **_block_tree(flat, layer))
               for layer, _, i in _layer_items(cfg)]
-    return types.SimpleNamespace(cfg=cfg, blocks=blocks, embed=flat["embed"],
+    return types.SimpleNamespace(cfg=cfg, blocks=blocks,
+                                 embed=flat.get("embed"),
                                  final_norm=flat["final_norm"],
                                  head_w=flat["head_w"],
                                  device=flat["head_w"].device)
@@ -350,6 +362,9 @@ def apply_block_train(cfg, bp: Block, x: torch.Tensor,
         delta, (k, v) = attn.attention_block(cfg, bp.attn, h, positions,
                                              return_cache=True)
         cache = {"k": k, "v": v}
+    elif mixer == MAMBA:
+        delta, _ = mamba_mod.mamba_block(cfg, bp.mamba,
+                                         apply_norm(cfg, x, bp.ln))
     elif mixer == MLSTM:
         delta, _ = xlstm_mod.mlstm_block(cfg, bp.mlstm, x)
     else:
@@ -371,9 +386,13 @@ def apply_block_decode(cfg, bp: Block, x: torch.Tensor,
         delta = attn.decode_attention_block(cfg, bp.attn, h, state["k"],
                                             state["v"], pos)
     else:
-        block = xlstm_mod.mlstm_block if mixer == MLSTM \
-            else xlstm_mod.slstm_block
-        delta, new = block(cfg, getattr(bp, mixer), x, state)
+        if mixer == MAMBA:
+            delta, new = mamba_mod.mamba_block(
+                cfg, bp.mamba, apply_norm(cfg, x, bp.ln), state)
+        else:
+            block = xlstm_mod.mlstm_block if mixer == MLSTM \
+                else xlstm_mod.slstm_block
+            delta, new = block(cfg, getattr(bp, mixer), x, state)
         for name, t in new.items():
             state[name].copy_(t)
     return _apply_ffn(cfg, bp, x + delta, single=True)
@@ -383,6 +402,12 @@ def apply_block_decode(cfg, bp: Block, x: torch.Tensor,
 # Forward passes
 # ---------------------------------------------------------------------------
 def embed_inputs(cfg, params: TransformerLM, batch):
+    """(x (B, S, d), positions): the embeddings of ``batch["tokens"]`` and
+    their positions 0 .. S - 1; for an ``embeds`` config
+    ``batch["embeds"]`` (in the model's dtype) and ``batch["positions"]``
+    as they come."""
+    if cfg.input_mode == "embeds":
+        return batch["embeds"].to(params.head_w.dtype), batch["positions"]
     tokens = batch["tokens"]
     x = F.embedding(tokens, params.embed)
     positions = positions_for(cfg, tokens.shape[0], tokens.shape[1],
@@ -444,7 +469,8 @@ def init_decode_state(cfg, batch: int, max_len: int, dtype=None,
                       device=None) -> State:
     """The initial decode state, stacked per period as the JAX package
     stacks it: zero KV caches in ``dtype`` (default: the config's) for
-    attention, the initial float32 mLSTM / sLSTM states."""
+    attention, the Mamba's zero conv state in ``dtype`` and SSM state in
+    float32, the initial float32 mLSTM / sLSTM states."""
     dtype = _torch_dtype(dtype or cfg.dtype)
     dev = resolve_device(device)
     P = cfg.n_periods
@@ -452,6 +478,9 @@ def init_decode_state(cfg, batch: int, max_len: int, dtype=None,
     def one(mixer):
         if mixer == ATTN:
             return attn.init_kv_cache(cfg, batch, max_len, P, dtype, dev)
+        if mixer == MAMBA:
+            return _stacked(mamba_mod.init_mamba_state(cfg, batch, dtype,
+                                                       dev), P)
         if mixer == MLSTM:
             return _stacked(xlstm_mod.init_mlstm_state(cfg, batch, dev), P)
         return _stacked(xlstm_mod.init_slstm_state(cfg, batch, dev), P)
@@ -462,11 +491,15 @@ def init_decode_state(cfg, batch: int, max_len: int, dtype=None,
 
 def decode_step(cfg, params: TransformerLM, state: State, batch):
     """One-token decode.  batch: ``{"tokens": (B, 1), "pos": int}`` (the
-    write index).  Returns (logits (B, V), state), the state written in
-    place; the state comes back so that ``Model.decode`` keeps the JAX
+    write index), or ``{"embeds": (B, 1, d), "pos": int}`` for an
+    ``embeds`` config.  Returns (logits (B, V), state), the state written
+    in place; the state comes back so that ``Model.decode`` keeps the JAX
     package's signature."""
     pos = int(batch["pos"])
-    x = F.embedding(batch["tokens"], params.embed)
+    if cfg.input_mode == "embeds":
+        x = batch["embeds"].to(params.head_w.dtype)
+    else:
+        x = F.embedding(batch["tokens"], params.embed)
     for layer, j, i in _layer_items(cfg):
         layer_state = {k: v[j] for k, v in state[f"b{i}"].items()}
         x = apply_block_decode(cfg, params.blocks[layer], x, layer_state,
@@ -481,7 +514,7 @@ def prefill(cfg, params: TransformerLM, batch):
     attention positions of the pattern, in the decode state's layout with
     S_max = S; empty for a recurrent-only stack)."""
     x, positions = embed_inputs(cfg, params, batch)
-    B, S = batch["tokens"].shape
+    B, S = x.shape[:2]
     caches = {f"b{i}": attn.init_kv_cache(cfg, B, S, cfg.n_periods, x.dtype,
                                           x.device)
               for i, (mixer, _) in enumerate(block_specs(cfg))

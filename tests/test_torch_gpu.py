@@ -46,7 +46,12 @@ device kernel a call, equal to one ``batch_seal`` a lane and to its
 mesh impl, and the 2-shard fabric's node path on the card against the
 CPU (its fused twin in two ``shard_seal`` launches); the node service
 (``repro_torch.serve``) on the vector and the 2-shard fabric backends on
-the card against the CPU, replayed by ``replay_ops``.
+the card against the CPU, replayed by ``replay_ops``; the Mamba's ``ssm_scan`` kernel
+against its plain version (``ssm_scan.kernel_tol``: rtol/atol 1e-4, one
+bfloat16 step for a bfloat16 output) at S 1 to 300, from zeros and from a
+state, di of 256 and 200 (a block 56 channels short), one launch a call,
+refusing autograd, another ds and a di off 16-byte rows; and the reduced
+jamba and qwen2-vl on the card against the CPU.
 
 Marked ``gpu``: they skip where no CUDA device is present (the skip is
 decided in the fixture, so every worker collects the same tests).  This
@@ -67,6 +72,7 @@ from repro_torch.kernels import gmm as gm
 from repro_torch.kernels import model_distance as md
 from repro_torch.kernels import rollup_digest as rd
 from repro_torch.kernels import slstm_scan as ss
+from repro_torch.kernels import ssm_scan as sm
 from repro_torch.kernels import weighted_agg as wa
 
 CHUNK = 2048
@@ -1553,3 +1559,44 @@ def test_sanitized_node_run_on_card(cuda, fused, monkeypatch):
     with pytest.raises(SanitizeViolation) as exc:
         c.seal()
     assert exc.value.rule == "R001"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("S", [1, 37, 128, 256, 300])
+def test_ssm_scan_kernel(cuda, S, h0, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    for B, di in ((2, 256), (3, 200)):
+        args = chip_smoke.ssm_inputs(B, S, di, sm.DS, dtype, h0, gen, cuda)
+        before = sm.ssm_scan.launches
+        got = sm.ssm_scan(*args)
+        assert sm.ssm_scan.launches == before + 1
+        assert got[0].dtype == args[0].dtype and got[1].shape == (B, di,
+                                                                  sm.DS)
+        chip_smoke.ssm_held(got, sm.ssm_scan_torch(*args), f"at {(B, S, di)}")
+
+
+@pytest.mark.gpu
+def test_ssm_scan_kernel_refuses(cuda):
+    """No backward kernel yet: a call where autograd records raises and
+    launches nothing (no fallback); nor another state size or a di off
+    16-byte rows."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    args = chip_smoke.ssm_inputs(2, 9, 64, sm.DS, "float32", True, gen, cuda)
+    args[3].requires_grad_()
+    before = sm.ssm_scan.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        sm.ssm_scan(*args)
+    assert sm.ssm_scan.launches == before
+    with pytest.raises(ValueError, match="built for ds"):
+        sm.ssm_scan(*chip_smoke.ssm_inputs(2, 9, 64, 8, "float32", False,
+                                           gen, cuda))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        sm.ssm_scan(*chip_smoke.ssm_inputs(2, 9, 60, sm.DS, "float32",
+                                           False, gen, cuda))
+
+
+@pytest.mark.gpu
+def test_reduced_jamba_and_vlm_on_card_match_cpu(cuda):
+    chip_smoke.hybrid_vlm_agree(cuda)

@@ -23,7 +23,10 @@ their paths' shapes (``CASES``):
   one in the wgmma form, two in the WMMA form, their device times added);
 * ``slstm_scan_bwd`` in bfloat16 at xlstm-1.3b's training scan, (2,
   4,096, 4 heads of 512), on the saved states of the tree's own forward
-  kernel (one kernel a call in either form).
+  kernel (one kernel a call in either form);
+* ``ssm_scan`` at jamba's prefill (4, 4,096, d_inner 16,384, d_state
+  16), bfloat16 x, from zeros (chip_smoke.ssm_inputs; a tree before the
+  Mamba port has no such case).
 
     python3 tools/turns.py [--only TEXT ...] TREE [TREE ...]
 
@@ -44,7 +47,8 @@ and its own library: CUDA events with L2 flushed before each launch
 and by reading it (``clean_device_ms``), each result held to the plain
 version (bit for bit, Eq. 1 at float32 rtol 1e-5 / atol 1e-6, the
 attention's gradient by ``flash_attention.bwd_close``, the gmm and sLSTM
-gradients by their modules' kernel tolerances, ``grads_close``).  One JSON
+gradients and the Mamba scan by their modules' kernel tolerances,
+``grads_close``).  One JSON
 line a tree, in the order given, with the profiler traces taken again
 (``retakes``); all of them, with the card's name and power limit, in
 chiprun_out/turns.json.
@@ -74,6 +78,7 @@ BWD_SHAPES = {"(4, 4096, 14, 2, 64)": (4, 4096, 14, 2, 64),
 GMM_BWD_SHAPES = {"(64, 960, 2048, 1408)": (64, 960, 2048, 1408),
                   "(64, 960, 1408, 2048)": (64, 960, 1408, 2048)}
 SCAN_BWD_SHAPE = (2, 4096, 4, 512)          # B, S, nh, dh
+SSM_SHAPE = (4, 4096, 16384, 16)            # B, S, di, ds
 
 
 def grads_close(mod, got, want) -> bool:
@@ -120,6 +125,8 @@ CASES = {
                             gmm_bwd_kernels) for shape in GMM_BWD_SHAPES},
     f"slstm_scan_bwd {SCAN_BWD_SHAPE}": (
         "slstm_scan", "slstm_scan_bwd", grads_close, "slstm_bwd_", 1),
+    f"ssm_scan {SSM_SHAPE}": ("ssm_scan", "ssm_scan", grads_close,
+                              "ssm_scan_kernel", 1),
 }
 FROM_WORKLOAD = ("stepped seal", "fused roots", "fused seal digests",
                  "fabric roots", "fabric seal digests")
@@ -182,6 +189,10 @@ def drawn(label: str, dev) -> tuple:
         grads = [torch.randn(s, generator=g, device=dev)
                  for s in ((B, S, d),) + ((B, d),) * 4]
         return (wx, r, *state, y, states, *grads)
+    if label.startswith("ssm_scan"):
+        import chip_smoke as cs
+        B, S, di, ds = SSM_SHAPE
+        return cs.ssm_inputs(B, S, di, ds, torch.bfloat16, False, g, dev)
     if label.startswith("flash_attention_bwd"):
         from repro_torch.kernels import flash_attention as fa
         B, S, H, Hkv, dh = BWD_SHAPES[label.removeprefix(
