@@ -8,8 +8,9 @@ object ledger with its agent path (the default ``AutoDFL()``), the
 sharded rollup fabric, the admission-controlled node service, token-LM
 training (a qwen2-0.5b step at full width and the rollup FL round), the
 paper's LeNet-5 Fig. 3 run, MoE / xLSTM training through the gmm and
-slstm_scan backward kernels, and serving jamba's hybrid Mamba / MoE stack
+slstm_scan backward kernels, serving jamba's hybrid Mamba / MoE stack
 (its first five layers at full width, through the ssm_scan kernel) and
+training it (its first layer, through the ssm_scan_bwd kernel), and
 qwen2-vl's backbone on embeddings with M-RoPE (cut in depth).
 
     python3 chip_smoke.py            # from the root of a checkout
@@ -326,12 +327,17 @@ Phases, each printing its result on a line of its own:
  21. hybrid/vlm — (a) ssm_scan (csrc/ssm.cu, the Mamba's selective scan)
                against its plain version within ssm_scan.kernel_tol at S
                1, 37, 128, 256 and 300, from zeros and from a state, x in
-               float32 and bfloat16, di 256 and 200, one launch a call; a
-               call where autograd records raises (no backward kernel yet)
-               and launches nothing; at jamba's prefill (4, 4,096, 16,384,
-               16) held to the plain version and timed by CUDA events and
-               the profiler beside its bound (ssm_scan.bound_ms: the
-               exponentials on the SFUs), the plain loop and a decode step;
+               float32 and bfloat16, di 256 and 200, one launch a call;
+               on the same inputs its saved states (where autograd
+               records) and ssm_scan_bwd (csrc/ssm_bwd.cu) against theirs
+               (ssm_scan.kernel_bwd_tol), two launches bit-equal; at
+               jamba's prefill (4, 4,096, 16,384, 16) held to the plain
+               version and timed by CUDA events and the profiler beside
+               its bound (ssm_scan.bound_ms: the exponentials on the
+               SFUs), the plain loop and a decode step (the median and
+               spread of 24 calls' device time); ssm_scan_bwd at jamba's
+               training scan (2, 4,096, 16,384, 16) held to the plain
+               backward and timed beside bwd_bound_ms;
                gmm at jamba's expert products (16 experts, C 2,560, d and f
                8,192 / 24,576; the decode's C 8) in the wgmma and stream
                forms against its plain version, timed beside torch.bmm;
@@ -350,7 +356,15 @@ Phases, each printing its result on a line of its own:
                decode steps on text positions, the prefill of 4 x 4,096
                embeddings (1,024 text, a 32 x 32 patch grid, 2,048 text)
                with its flash_attention launches counted, 32 decode steps
-               at 4 x 4,128, the device shares.
+               at 4 x 4,128, the device shares; (e) the reduced jamba's
+               value_and_grad through the kernels == the plain step on the
+               card (and its loss the CPU's), then one adafactor
+               build_train_step step of jamba at full width on 2 x 4,096
+               tokens, cut to the first positions of its block pattern the
+               card holds (reckon_prefix: its first layer, Mamba + dense):
+               launch counts from 0 (ssm_scan_bwd 1, ssm_scan 2 under
+               remat "full"), loss, tokens/s, peak memory, the device
+               shares.
 
 Then one JSON line lists every kernel with its launches on its path, the
 card's name and power limit follow on a line of their own, and the last
@@ -486,7 +500,7 @@ RETAKES: list = []
 
 
 def device_ms(fn, fragment: str, iters: int, flush: torch.Tensor,
-              clean: bool = False, per_call: int = 1) -> float:
+              clean: bool = False, per_call: int = 1, spans: bool = False):
     """The kernel's own device time: the mean over ``iters`` launches of
     ``fn`` (L2 evicted before each) of the device spans whose names hold
     ``fragment`` in a torch.profiler trace, read by name as fl_profile
@@ -498,7 +512,8 @@ def device_ms(fn, fragment: str, iters: int, flush: torch.Tensor,
     numbers).  The L2 is evicted by writing ``flush`` (its dirty
     lines are written back while the kernel reads), or with ``clean`` by
     reading it.  ``per_call``: launches of the kernel in one call of
-    ``fn`` (their device times add up)."""
+    ``fn`` (their device times add up).  ``spans``: the list of each
+    call's device ms, in launch order, instead of their mean."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -519,19 +534,22 @@ def device_ms(fn, fragment: str, iters: int, flush: torch.Tensor,
             torch.cuda.synchronize()
         device = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
-        spans = [e.time_range.end - e.time_range.start for e in device
-                 if fragment in e.name]
-        if len(spans) == iters * per_call:
+        named = sorted((e.time_range.start, e.time_range.end)
+                       for e in device if fragment in e.name)
+        if len(named) == iters * per_call:
             break
         RETAKES.append({"fragment": fragment, "launches": iters * per_call,
-                        "spans": len(spans), "device_spans": len(device)})
-        log(f"device_ms: {len(spans)} device spans named {fragment!r} in "
+                        "spans": len(named), "device_spans": len(device)})
+        log(f"device_ms: {len(named)} device spans named {fragment!r} in "
             f"{iters * per_call} launches ({len(device)} device spans in "
             f"all); tracing them again")
-    if len(spans) != iters * per_call:
-        raise AssertionError(f"{len(spans)} device spans named {fragment!r} "
+    if len(named) != iters * per_call:
+        raise AssertionError(f"{len(named)} device spans named {fragment!r} "
                              f"in {iters * per_call} launches")
-    return sum(spans) / iters / 1e3
+    calls = [sum(end - start for start, end in
+                 named[i * per_call:(i + 1) * per_call]) / 1e3
+             for i in range(iters)]
+    return calls if spans else sum(calls) / iters
 
 
 # the fold kernels timed by device_ms too, by their names in a trace
@@ -4904,6 +4922,11 @@ LM_TRAIN = dict(batch=2, seq=4096)
 # parameter); bytes a logit takes in a step (the float32 logits and their
 # gradient, the bfloat16 head output)
 ADAMW_STEP_BYTES = 14
+# bytes a parameter holds through one adafactor step (jamba's optimizer):
+# the bfloat16 weight, its gradient and the new weight; the factored
+# second moments are rows and columns, and the one leaf's float32
+# temporaries are reckoned apart (reckon_prefix)
+ADAFACTOR_STEP_BYTES = 6
 ROUND_BYTES = 34
 LOGIT_BYTES = 10
 # the share of the card a reckoned depth may fill: the rest is left for
@@ -4952,6 +4975,38 @@ def reckon_layers(cfg, tokens: int, per_param: float, total: int) -> dict:
             "per_layer_params": per_layer, "base_bytes": base,
             "reckoned_bytes": base + layers * per_layer * per_param,
             "card_bytes": total}
+
+
+def reckon_prefix(cfg, tokens: int, per_param: float, total: int) -> dict:
+    """The depth of ``cfg`` one card of ``total`` bytes holds for a train
+    step when the stack is cut to the first L positions of its block
+    pattern (no period rule, as phase 21 cuts jamba): the largest L whose
+    parameters (``param_count`` of the cut, embedding and head included)
+    at ``per_param`` bytes, ``tokens`` logits at LOGIT_BYTES and one
+    float32 copy of the cut's largest weight (the optimizer's temporaries
+    of one leaf) fit in CARD_SHARE of the card."""
+    import dataclasses
+    from repro_torch.models import transformer as tt
+    rows = []
+    for L in range(1, cfg.n_layers + 1):
+        cut = dataclasses.replace(cfg, n_layers=L,
+                                  block_pattern=cfg.pattern[:L])
+        moe = any(f == "moe" for _, f in tt.block_specs(cut))
+        d, v = cfg.d_model, cfg.vocab_size
+        leaf = max(v * d, d * cfg.d_ff,
+                   cfg.moe.n_experts * d * cfg.moe.expert_d_ff if moe else 0)
+        need = (cut.param_count() * per_param + tokens * v * LOGIT_BYTES
+                + 4 * leaf)
+        rows.append({"layers": L, "params": cut.param_count(),
+                     "largest_leaf": leaf, "bytes": need})
+        if need > CARD_SHARE * total:
+            break
+    fits = [r for r in rows if r["bytes"] <= CARD_SHARE * total]
+    if not fits:
+        raise AssertionError(f"{cfg.name}: {total} bytes hold no layer "
+                             f"({rows})")
+    return {"layers": fits[-1]["layers"], "card_bytes": total,
+            "share": CARD_SHARE, "per_param": per_param, "tried": rows}
 
 
 def fig3_world(dev, rollup: bool) -> dict:
@@ -5387,9 +5442,15 @@ def scan_bwd_case(dev, B, S, nh, dh, dtype, g) -> tuple:
     return max(errs), args
 
 
-def train_agree(dev) -> None:
-    """The reduced moonshot and xlstm, float32, one set of weights:
-    value_and_grad on the card through gmm_bwd and slstm_scan_bwd held to
+TRAIN_AGREE_ARCHS = {"moonshot-v1-16b-a3b": ("gmm_bwd",),
+                     "xlstm-1.3b": ("slstm_scan_bwd",)}
+
+
+def train_agree(dev, archs=TRAIN_AGREE_ARCHS) -> None:
+    """The reduced ``archs`` (moonshot and xlstm in phase 20, jamba in
+    phase 21; each with the backward kernels its step must launch, every
+    one at least once), float32, one set of weights: value_and_grad on the
+    card through gmm_bwd, slstm_scan_bwd and ssm_scan_bwd held to
     the same step on the card with the plain versions forced (the loss
     within rtol 1e-5, each gradient within TRAIN_AGREE_GRAD_REL of its
     leaf's norm plus TRAIN_AGREE_GRAD_ABS of the whole gradient's), and
@@ -5400,15 +5461,17 @@ def train_agree(dev) -> None:
     from repro_torch.configs.registry import get_config, reduced_config
     from repro_torch.kernels import gmm as gm
     from repro_torch.kernels import slstm_scan as ss
+    from repro_torch.kernels import ssm_scan as sm
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.models.model import build_model
+    bwd = (gm.gmm_bwd, ss.slstm_scan_bwd, sm.ssm_scan_bwd)
 
     def gaps(got, want):
         whole = float(torch.sqrt(sum(w.square().sum()
                                      for w in want.values())))
         return whole, {k: float((got[k].cpu() - w.cpu()).norm())
                        for k, w in want.items()}
-    for arch in ("moonshot-v1-16b-a3b", "xlstm-1.3b"):
+    for arch, must in archs.items():
         cfg = dataclasses.replace(reduced_config(get_config(arch)),
                                   dtype="float32")
         host = build_model(cfg, "cpu")
@@ -5417,11 +5480,14 @@ def train_agree(dev) -> None:
         cpu_loss, cpu_grads = value_and_grad(host, params, batch)
         card = build_model(cfg, dev)
         on_card = {k: v.to(dev) for k, v in params.items()}
-        before = gm.gmm_bwd.launches + ss.slstm_scan_bwd.launches
+        before = [fn.launches for fn in bwd]
         loss, got = value_and_grad(card, on_card, batch)
-        if gm.gmm_bwd.launches + ss.slstm_scan_bwd.launches == before:
-            raise AssertionError(f"train agree {arch}: no backward kernel "
-                                 f"launched")
+        launched = {fn.__name__: fn.launches - b for fn, b in
+                    zip(bwd, before)}
+        idle = [name for name in must if not launched[name]]
+        if idle:
+            raise AssertionError(f"train agree {arch}: {idle} not launched "
+                                 f"({json.dumps(launched)})")
         with kernel_impl("torch"):
             plain_loss, want = value_and_grad(card, on_card, batch)
         for ref, what in ((plain_loss, "the card's plain step"),
@@ -5440,7 +5506,8 @@ def train_agree(dev) -> None:
                                  f"{[gap[k] for k in off]} (whole "
                                  f"gradient's norm {whole})")
         cpu_whole, cpu_gap = gaps(got, cpu_grads)
-        log(f"train agree: reduced {arch} value_and_grad, kernels == plain "
+        log(f"train agree: reduced {arch} value_and_grad through "
+            f"{json.dumps(launched)} backward launches, kernels == plain "
             f"versions on the card (loss {float(loss):.6f}, plain "
             f"{float(plain_loss):.6f}, CPU {float(cpu_loss):.6f}; largest "
             f"gradient gap {max(gap.values()):.3e}, "
@@ -5451,26 +5518,31 @@ def train_agree(dev) -> None:
 
 
 def lm_train_step(dev, smi: str, arch: str, layers=None,
-                  steps=None) -> dict:
+                  steps=None, cfg=None) -> dict:
     """(c) One build_train_step step of ``arch`` at full width (``layers``:
-    a depth cut) on LM_TRAIN tokens (adamw, the config's remat): launch
-    counts from 0 (every MoE layer's three gmm_bwd launches, every sLSTM
-    layer's slstm_scan_bwd launch a MAX_BATCH rows), the loss finite and
+    a depth cut; ``cfg``: a config cut already) on LM_TRAIN tokens (the
+    config's optimizer and remat): launch counts from 0 (every MoE layer's
+    three gmm_bwd launches, every sLSTM layer's slstm_scan_bwd launch a
+    MAX_BATCH rows, every Mamba layer's one ssm_scan_bwd and, under remat
+    "full", two ssm_scan: the forward and its replay), the loss finite and
     near ln(vocab), the seconds of ``steps`` more steps (default 2),
     tokens/s, peak memory, the device busy share and each kernel's share
     (torch.profiler, the device traced alone)."""
     import dataclasses
+    from repro_torch.configs.base import MAMBA
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gm
     from repro_torch.kernels import slstm_scan as ss
+    from repro_torch.kernels import ssm_scan as sm
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models import transformer as tt
     from repro_torch.models.model import build_model
     from repro_torch.optim.optimizers import make_optimizer, spec_for_config
-    cfg = get_config(arch)
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if cfg is None:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
     model = build_model(cfg, dev)
     params = model.train_params(model.init_params(0))
     n_params = sum(p.numel() for p in params.values())
@@ -5483,6 +5555,7 @@ def lm_train_step(dev, smi: str, arch: str, layers=None,
     wrappers = {"gmm": gm.gmm, "gmm_bwd": gm.gmm_bwd,
                 "slstm_scan": ss.slstm_scan,
                 "slstm_scan_bwd": ss.slstm_scan_bwd,
+                "ssm_scan": sm.ssm_scan, "ssm_scan_bwd": sm.ssm_scan_bwd,
                 "flash_attention": fa.flash_attention,
                 "flash_attention_bwd": fa.flash_attention_bwd}
     for fn in wrappers.values():
@@ -5498,9 +5571,14 @@ def lm_train_step(dev, smi: str, arch: str, layers=None,
     specs = tt.block_specs(cfg) * cfg.n_periods
     scan_form = ss.bwd_form(getattr(torch, cfg.dtype), B, cfg.n_heads,
                             cfg.d_model // cfg.n_heads)
+    n_mamba = sum(m == MAMBA for m, _ in specs)
     want = {"gmm_bwd": 3 * sum(f == "moe" for _, f in specs),
             "slstm_scan_bwd": sum(m == "slstm" for m, _ in specs)
-            * (1 if scan_form == "cluster" else -(-B // ss.MAX_BATCH))}
+            * (1 if scan_form == "cluster" else -(-B // ss.MAX_BATCH)),
+            "ssm_scan_bwd": n_mamba}
+    if cfg.sharding.remat in ("none", "full"):
+        want["ssm_scan"] = n_mamba * (2 if cfg.sharding.remat == "full"
+                                      else 1)
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"{arch} train step launched {launches}, "
                              f"expected {want}")
@@ -5519,10 +5597,12 @@ def lm_train_step(dev, smi: str, arch: str, layers=None,
     prof = profile_share(lambda: step(params, state, batch), kernels=(
         ("gmm_bwd", "gmm_bwd_"), ("slstm_scan_bwd", "slstm_bwd_"),
         ("gmm_fwd", "gmm_wgmma"), ("slstm_scan_fwd", "slstm_cluster"),
+        ("ssm_scan_fwd", "ssm_scan_kernel"), ("ssm_scan_bwd", "ssm_bwd_"),
         ("attention_fwd", "flash_attention_"),
         ("attention_bwd", "attn_bwd_")), cpu=False)
     step_s = sum(walls) / len(walls)
     out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "optimizer": cfg.optimizer, "remat": cfg.sharding.remat,
            "tokens": B * S, "loss": loss, "ln_vocab": ln_v,
            "first_step_s": first_s, "step_s": walls,
            "tokens_per_s": B * S / step_s, "peak_gib": peak,
@@ -5618,6 +5698,10 @@ SSM_GRID = [(B, S, di, h0, dtype)
             for B, di in ((2, 256), (3, 200))]
 # ssm_scan at jamba's prefill (4 x 4,096 tokens, d_inner 16,384, d_state 16)
 JAMBA_SCAN = dict(B=4, S=4096, di=16384, ds=16)
+# its backward at jamba's training scan (LM_TRAIN's 2 x 4,096 tokens)
+JAMBA_TRAIN_SCAN = dict(B=2, S=4096, di=16384, ds=16)
+# decode steps (S = 1) whose device times give the median and spread
+SSM_DECODE_CALLS = 24
 # jamba cut to its first five layers (configs/jamba_1p5_large.py's
 # pattern: Mamba + dense, Mamba + MoE, Mamba + dense, Mamba + MoE,
 # attention + dense; every kind of layer it has, 24.1 B parameters, 48.2
@@ -5681,44 +5765,85 @@ def ssm_held(got, want, what: str) -> float:
     return err
 
 
-def check_ssm_scan(dev) -> dict:
+def ssm_bwd_case(args, gen, dev, what: str, dh_last: bool = True) -> tuple:
+    """ssm_scan_bwd on the card at ``args`` (the forward's arguments): the
+    forward kernel's saved states held to ssm_checkpoints_torch within
+    ssm_scan.KERNEL_TOL, random output gradients (and the last state's,
+    with ``dh_last``), the kernel against the plain backward within
+    ssm_scan.kernel_bwd_tol, one launch a call, two launches bit-equal.
+    Returns (largest |kernel - plain|, the backward's arguments)."""
+    from repro_torch.kernels import ssm_scan as sm
+    x = args[0]
+    B, S, di = x.shape
+    _, _, ckpt = sm._launch(*args, ckpt=True)
+    want_ck = sm.ssm_checkpoints_torch(*args[:4], args[5], args[7])
+    torch.testing.assert_close(ckpt, want_ck, **sm.KERNEL_TOL,
+                               msg=lambda m: f"ssm_scan saved states {what}:"
+                               f" {m}")
+    dout = torch.randn(B, S, di, device=dev, generator=gen).to(x.dtype)
+    dh = torch.randn(B, di, sm.DS, device=dev, generator=gen) \
+        if dh_last else None
+    bwd = (*args, ckpt, dout, dh)
+    before = sm.ssm_scan_bwd.launches
+    got, again = sm.ssm_scan_bwd(*bwd), sm.ssm_scan_bwd(*bwd)
+    if sm.ssm_scan_bwd.launches != before + 2:
+        raise AssertionError(f"ssm_scan_bwd {what}: "
+                             f"{sm.ssm_scan_bwd.launches - before} launches "
+                             f"in two calls")
+    want = sm.ssm_scan_bwd_torch(*bwd)
+    err = 0.0
+    for a, b, name in zip(got, want, ("dx", "ddt_pre", "ddt_bias", "dBm",
+                                      "dCm", "dA_log", "dD", "dh0")):
+        if b is None:
+            if a is not None:
+                raise AssertionError(f"ssm_scan_bwd {what}: a dh0 without "
+                                     f"h0")
+            continue
+        torch.testing.assert_close(
+            a, b, **sm.kernel_bwd_tol(b),
+            msg=lambda m: f"ssm_scan_bwd {name} {what}: {m}")
+        err = max(err, float((a.float() - b.float()).abs().max()))
+    if not all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(got, again)):
+        raise AssertionError(f"ssm_scan_bwd {what}: two launches differ")
+    return err, bwd
+
+
+def check_ssm_scan(dev) -> tuple:
     """(a) ssm_scan (csrc/ssm.cu) against its plain version on SSM_GRID,
-    one launch a call; a call where autograd records raises, launching
-    nothing; then at jamba's prefill (JAMBA_SCAN, bfloat16 x), timed by
-    CUDA events and the profiler's device time beside its bound
-    (ssm_scan.bound_ms), the plain version and a decode step (S = 1).
-    Returns the kernels line's row."""
+    one launch a call, and its saved states (where autograd records) and
+    ssm_scan_bwd (csrc/ssm_bwd.cu) against theirs on the same inputs;
+    then at jamba's prefill (JAMBA_SCAN, bfloat16 x), timed by CUDA events
+    and the profiler's device time beside its bound (ssm_scan.bound_ms),
+    the plain version and a decode step (S = 1: the median and spread of
+    the device time of SSM_DECODE_CALLS calls), and the backward at
+    jamba's training scan (JAMBA_TRAIN_SCAN) beside bwd_bound_ms and the
+    plain backward.  Returns the kernels line's two rows."""
     from repro_torch.kernels import ssm_scan as sm
     gen = torch.Generator(device=dev).manual_seed(21)
-    err = {}
+    err, bwd_err = {}, {}
     for B, S, di, h0, dtype in SSM_GRID:
         args = ssm_inputs(B, S, di, sm.DS, dtype, h0, gen, dev)
+        what = f"at {(B, S, di)} h0 {h0} {dtype}"
         before = sm.ssm_scan.launches
         got = sm.ssm_scan(*args)
         if sm.ssm_scan.launches != before + 1:
             raise AssertionError(f"ssm_scan at {(B, S, di)} launched "
                                  f"{sm.ssm_scan.launches - before} times")
-        e = ssm_held(got, sm.ssm_scan_torch(*args),
-                     f"at {(B, S, di)} h0 {h0} {dtype}")
+        e = ssm_held(got, sm.ssm_scan_torch(*args), what)
         err[dtype] = max(err.get(dtype, 0.0), e)
+        e, _ = ssm_bwd_case(args, gen, dev, what, dh_last=h0)
+        bwd_err[dtype] = max(bwd_err.get(dtype, 0.0), e)
     torch.cuda.synchronize()
-    args = ssm_inputs(2, 37, 256, sm.DS, "float32", True, gen, dev)
-    args[0].requires_grad_()
-    before = sm.ssm_scan.launches
-    try:
-        sm.ssm_scan(*args)
-    except NotImplementedError as exc:
-        refused = str(exc)
-    else:
-        raise AssertionError("ssm_scan ran where autograd records")
-    if sm.ssm_scan.launches != before:
-        raise AssertionError("ssm_scan launched where autograd records")
     log(f"ssm kernels: ssm_scan within ssm_scan.kernel_tol of plain on "
         f"{len(SSM_GRID)} inputs (S 1-300, from zeros and from a state, di "
         f"256 and 200; float32 {json.dumps(sm.KERNEL_TOL)}, bfloat16 rtol "
         f"2^-7), one launch a call; largest |kernel - plain| by dtype "
-        f"{json.dumps(err)}; a call where autograd records raises, nothing "
-        f"launched: {refused!r}")
+        f"{json.dumps(err)}; its saved states within KERNEL_TOL of "
+        f"ssm_checkpoints_torch, and ssm_scan_bwd within "
+        f"ssm_scan.kernel_bwd_tol ({json.dumps(sm.KERNEL_BWD_TOL)}) of the "
+        f"plain backward on them, one launch a call, two launches bit-equal;"
+        f" largest |kernel - plain| by dtype {json.dumps(bwd_err)}")
 
     L = JAMBA_SCAN
     args = ssm_inputs(L["B"], L["S"], L["di"], L["ds"], torch.bfloat16,
@@ -5732,12 +5857,17 @@ def check_ssm_scan(dev) -> dict:
     one = ssm_inputs(L["B"], 1, L["di"], L["ds"], torch.bfloat16, True, gen,
                      dev)
     bound = sm.bound_ms(*args)
+    decode = device_ms(lambda: sm.ssm_scan(*one), "ssm_scan_kernel",
+                       SSM_DECODE_CALLS, flush, spans=True)
     row = {"name": "ssm_scan", "shape": list(L.values()),
            "max_abs_err": scan_err, "median_abs": median,
            "ms": timed_ms(lambda: sm.ssm_scan(*args), 5, flush),
            "device_ms": device_ms(lambda: sm.ssm_scan(*args),
                                   "ssm_scan_kernel", 5, flush),
            "decode_ms": timed_ms(lambda: sm.ssm_scan(*one), 20, flush),
+           "decode_device_ms": {
+               "median": float(np.median(decode)), "min": min(decode),
+               "max": max(decode), "calls": len(decode)},
            "plain_ms": timed_ms(lambda: sm.ssm_scan_torch(*args), 1, flush),
            "library_ms": None, "bound_ms": bound["bound_ms"],
            "bound_by": bound["bound_by"],
@@ -5751,11 +5881,45 @@ def check_ssm_scan(dev) -> dict:
         f"{row['bound_by']}: exponentials on the SFUs "
         f"{bound['exps_ms']:.6f}, float32 FLOPs {bound['flops_ms']:.6f}, "
         f"bytes {bound['bytes_ms']:.6f}); a decode step (S = 1) "
-        f"{row['decode_ms']:.6f} ms (bound {row['decode_bound_ms']:.6f}); "
-        f"plain {row['plain_ms']:.6f} ms (a step-by-step loop), no PyTorch "
-        f"call computes it; |kernel - plain| {scan_err} (median |out| "
-        f"{median})")
-    return row
+        f"{row['decode_ms']:.6f} ms by events, device "
+        f"{json.dumps(row['decode_device_ms'])} (bound "
+        f"{row['decode_bound_ms']:.6f}); plain {row['plain_ms']:.6f} ms (a "
+        f"step-by-step loop), no PyTorch call computes it; |kernel - plain| "
+        f"{scan_err} (median |out| {median})")
+    del args, one
+
+    T = JAMBA_TRAIN_SCAN
+    args = ssm_inputs(T["B"], T["S"], T["di"], T["ds"], torch.bfloat16,
+                      False, gen, dev)
+    bwd_err, bwd = ssm_bwd_case(args, gen, dev, f"at {T}", dh_last=False)
+    kernel = lambda: sm.ssm_scan_bwd(*bwd)
+    bound = sm.bwd_bound_ms(*bwd)
+    bwd_row = {"name": "ssm_scan_bwd", "shape": list(T.values()),
+               "max_abs_err": bwd_err,
+               "ms": timed_ms(kernel, 3, flush),
+               # the reverse scan and the fixed-order sums: two kernels
+               "device_ms": device_ms(kernel, "ssm_bwd_", 3, flush,
+                                      per_call=2),
+               "sum_device_ms": device_ms(kernel, "ssm_bwd_sum", 3, flush),
+               # one call by events: the plain reverse loop
+               "plain_ms": once_ms(lambda: sm.ssm_scan_bwd_torch(*bwd)),
+               "library_ms": None, "bound_ms": bound["bound_ms"],
+               "bound_by": bound["bound_by"],
+               "bound_parts_ms": {k: bound[k] for k in (
+                   "exps_ms", "flops_ms", "bytes_ms")},
+               "forward_with_states_ms": timed_ms(
+                   lambda: sm._launch(*args, ckpt=True), 3, flush)}
+    log(f"kernel ssm_scan_bwd at {bwd_row['shape']} (jamba's training scan,"
+        f" bfloat16 x and dout, on the forward kernel's saved states): "
+        f"{bwd_row['ms']:.6f} ms by events, device "
+        f"{bwd_row['device_ms']:.6f} ms (of it the sums "
+        f"{bwd_row['sum_device_ms']:.6f}; bound {bwd_row['bound_ms']:.6f} "
+        f"ms, {bwd_row['bound_by']}: {json.dumps(bwd_row['bound_parts_ms'])}"
+        f"); plain {bwd_row['plain_ms']:.6f} ms, no PyTorch call computes "
+        f"it; the forward saving its states "
+        f"{bwd_row['forward_with_states_ms']:.6f} ms; |kernel - plain| "
+        f"{bwd_err}")
+    return row, bwd_row
 
 
 def check_jamba_gmm(dev) -> list:
@@ -6047,19 +6211,42 @@ def vlm_main(dev, smi: str) -> dict:
     return launches
 
 
+def jamba_train_main(dev, smi: str, jamba) -> dict:
+    """(e) jamba's training: the reduced jamba's value_and_grad through the
+    kernels == the plain step on the card (train_agree), then one adafactor
+    step of jamba at full width, cut to the depth reckon_prefix gives (its
+    first layers, the block pattern's first positions), on LM_TRAIN tokens
+    (lm_train_step: launch counts from 0).  Returns the step's record."""
+    import dataclasses
+    from repro_torch.models.transformer import block_specs
+    train_agree(dev, {jamba.name: ("ssm_scan_bwd", "gmm_bwd")})
+    total = torch.cuda.get_device_properties(dev).total_memory
+    cut = reckon_prefix(jamba, LM_TRAIN["batch"] * LM_TRAIN["seq"],
+                        ADAFACTOR_STEP_BYTES, total)
+    log(f"train: {jamba.name} cut to its first {cut['layers']} of "
+        f"{jamba.n_layers} layers for one {jamba.optimizer} step at "
+        f"{LM_TRAIN['batch']} x {LM_TRAIN['seq']}: {json.dumps(cut)}")
+    cfg = dataclasses.replace(jamba, n_layers=cut["layers"],
+                              block_pattern=jamba.pattern[:cut["layers"]])
+    log(f"train: {jamba.name}'s cut stack {block_specs(cfg)}")
+    return lm_train_step(dev, smi, jamba.name, cfg=cfg)
+
+
 def hybrid_vlm_main(dev, smi: str) -> tuple:
-    """Phase 21: (a) ssm_scan against its plain version, timed, and gmm
-    at jamba's expert products; (b) the
+    """Phase 21: (a) ssm_scan and ssm_scan_bwd against their plain
+    versions, timed, and gmm at jamba's expert products; (b) the
     reduced jamba and qwen2-vl card == CPU; (c) jamba's first
     JAMBA_LAYERS layers at full width through lm_main (prefill launches
     from 0: ssm_scan 4, gmm 6, flash_attention 1; decode; the serve loop
-    through generate); (d) qwen2-vl cut to the card's depth.  Returns
-    (the kernels line's row, jamba's prefill launches)."""
+    through generate); (d) qwen2-vl cut to the card's depth; (e) jamba's
+    training (jamba_train_main).  Returns (the kernels line's two rows,
+    jamba's prefill launches, its train step's launches)."""
     import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.models.transformer import block_specs
     t0 = time.perf_counter()
-    row = check_ssm_scan(dev)
+    rows = check_ssm_scan(dev)
+    torch.cuda.empty_cache()
     check_jamba_gmm(dev)
     torch.cuda.empty_cache()
     hybrid_vlm_agree(dev)
@@ -6073,8 +6260,10 @@ def hybrid_vlm_main(dev, smi: str) -> tuple:
                        cfg=cut)
     torch.cuda.empty_cache()
     vlm_main(dev, smi)
+    torch.cuda.empty_cache()
+    train = jamba_train_main(dev, smi, jamba)
     log(f"hybrid/vlm: phase 21 in {time.perf_counter() - t0:.1f} s")
-    return row, launches
+    return list(rows), launches, train["launches"]
 
 
 def main() -> int:
@@ -6285,15 +6474,18 @@ def main() -> int:
     launches.update(lm_launches)
     source_rows += new_rows
 
-    # 21. jamba and the VLM: (a) ssm_scan against its plain version,
-    # timed; (b) the reduced jamba and qwen2-vl card == CPU; (c) jamba's
-    # first 5 layers at full width (launch counts from 0, ssm_scan's added
-    # to the kernels line), decode, the serve loop; (d) qwen2-vl cut to
-    # the depth the card holds
+    # 21. jamba and the VLM: (a) ssm_scan and ssm_scan_bwd against their
+    # plain versions, timed; (b) the reduced jamba and qwen2-vl card ==
+    # CPU; (c) jamba's first 5 layers at full width (launch counts from 0,
+    # ssm_scan's added to the kernels line), decode, the serve loop; (d)
+    # qwen2-vl cut to the depth the card holds; (e) jamba's training: the
+    # reduced one card == plain, one step of its first layer at full
+    # width (launch counts from 0, ssm_scan_bwd's to the kernels line)
     torch.cuda.empty_cache()
-    ssm_row, jamba_launches = hybrid_vlm_main(dev, smi)
+    ssm_rows, jamba_launches, jamba_train = hybrid_vlm_main(dev, smi)
     launches["ssm_scan"] = jamba_launches["ssm_scan"]
-    source_rows.append(ssm_row)
+    launches["ssm_scan_bwd"] = jamba_train["ssm_scan_bwd"]
+    source_rows += ssm_rows
 
     replaces = {"rollup_digest": "src/repro/kernels/rollup_digest.py:16",
                 "rollup_chunk_digests":
@@ -6317,14 +6509,18 @@ def main() -> int:
                 # no Pallas form: _lane_fold, the jnp program of
                 # shard_seal_jax and shard_seal_shard_map
                 "shard_seal": "src/repro/kernels/shard_lanes.py:79",
-                # no Pallas form: the associative scan of mamba_mix
-                "ssm_scan": "src/repro/models/mamba.py:46"}
+                # no Pallas form: the associative scan of mamba_mix,
+                # and its gradient, which the JAX package derives by
+                # autodiff
+                "ssm_scan": "src/repro/models/mamba.py:46",
+                "ssm_scan_bwd": "src/repro/models/mamba.py:46"}
     sources = {"weighted_agg": "fl.cu", "model_distance": "fl.cu",
                "block_pack": "pack.cu", "flash_attention": "attn.cu",
                "flash_attention_bwd": "attn_bwd.cu",
                "gmm": "moe.cu", "slstm_scan": "slstm.cu",
                "gmm_bwd": "moe_bwd.cu", "slstm_scan_bwd": "slstm_bwd.cu",
-               "shard_seal": "shard.cu", "ssm_scan": "ssm.cu"}
+               "shard_seal": "shard.cu", "ssm_scan": "ssm.cu",
+               "ssm_scan_bwd": "ssm_bwd.cu"}
     kernels = []
     for row in source_rows:
         name = row["name"]
@@ -6336,7 +6532,9 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
-            "library_ms": row.get("library_ms")})
+            "library_ms": row.get("library_ms"),
+            **({"decode_device_ms": row["decode_device_ms"]}
+               if "decode_device_ms" in row else {})})
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise AssertionError(f"a main path never launched {missing}")

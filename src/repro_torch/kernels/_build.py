@@ -89,9 +89,15 @@ _SIGNATURES = {
     # (device, B, nh, dh, out int, stream)
     "slstm_cluster_capacity": (_D, _I, _I, _I, _P, _P),
     # csrc/ssm.cu: (device, x, dt_pre, dt_bias, Bm, Cm, A_log, D, h0 or
-    # null, B, S, di, ds, dtype flag, out, h, stream)
+    # null, B, S, di, ds, dtype flag, out, h, saved states or null, stream)
     "ssm_scan": (_D, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
-                 _P, _P),
+                 _P, _P, _P),
+    # csrc/ssm_bwd.cu: (device, x, dt_pre, dt_bias, Bm, Cm, A_log, D, saved
+    # states, dout, dh_last or null, B, S, di, ds, dtype flag, partial sums
+    # of dBm / dCm, of the per-channel gradients, dx, ddt_pre, dBm, dCm,
+    # dA_log, dD, ddt_bias, dh0 or null, stream)
+    "ssm_scan_bwd": (_D, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                     _I, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
 }
 
 _LIB = None

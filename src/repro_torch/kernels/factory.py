@@ -33,7 +33,9 @@ sLSTM time scan, ``(wx, r_gates, h, c, n, m)``) and its gradient
 ``slstm_scan_bwd`` (the saved forward and the outputs' gradients ->
 ``(dwx, dr_gates, dh0, dc0, dn0, dm0)``), and ``ssm_scan`` (the Mamba
 selective scan, ``(x, dt_pre, dt_bias, Bm, Cm, A_log, D, h0)`` -> ``(out,
-h)``).  Every impl returns its result on the input's device.
+h)``) and its gradient ``ssm_scan_bwd`` (those, the forward's saved
+states and the outputs' gradients -> ``(dx, ddt_pre, ddt_bias, dBm, dCm,
+dA_log, dD, dh0)``).  Every impl returns its result on the input's device.
 
 Work: every op registers one pure ``cost(*args, **kw) -> (flops,
 bytes)``, its work at those arguments whatever implements it (``kernel_cost``;
@@ -146,7 +148,9 @@ def _load() -> None:
              ss.slstm_scan_cost),
             ("slstm_scan_bwd", ss.slstm_scan_bwd_torch, ss.slstm_scan_bwd,
              ss.slstm_scan_bwd_cost),
-            ("ssm_scan", sm.ssm_scan_torch, sm.ssm_scan, sm.ssm_scan_cost)):
+            ("ssm_scan", sm.ssm_scan_torch, sm.ssm_scan, sm.ssm_scan_cost),
+            ("ssm_scan_bwd", sm.ssm_scan_bwd_torch, sm.ssm_scan_bwd,
+             sm.ssm_scan_bwd_cost)):
         register_kernel(op, "torch", plain)
         register_kernel(op, "cuda", wrapper, default=True)
         register_cost(op, cost)

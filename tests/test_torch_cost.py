@@ -465,7 +465,7 @@ def test_cost_gives_the_hand_bound(op, args):
 
 def test_every_op_has_a_cost():
     ops = set(factory._REGISTRY)
-    assert ops == set(factory._COSTS) and len(ops) == 15
+    assert ops == set(factory._COSTS) and len(ops) == 16
     for op in ops:
         for impl in factory.available_impls(op):
             assert hasattr(factory.get_kernel(op, impl), "__wrapped__"), \

@@ -50,8 +50,12 @@ the card against the CPU, replayed by ``replay_ops``; the Mamba's ``ssm_scan`` k
 against its plain version (``ssm_scan.kernel_tol``: rtol/atol 1e-4, one
 bfloat16 step for a bfloat16 output) at S 1 to 300, from zeros and from a
 state, di of 256 and 200 (a block 56 channels short), one launch a call,
-refusing autograd, another ds and a di off 16-byte rows; and the reduced
-jamba and qwen2-vl on the card against the CPU.
+refusing another ds and a di off 16-byte rows; its backward kernel
+``ssm_scan_bwd`` against the plain backward on the forward's saved states
+(``ssm_scan.kernel_bwd_tol``), one launch a call, two launches bit-equal,
+and autograd through ``ssm_scan`` on the card against autograd through
+the plain version; and the reduced jamba and qwen2-vl on the card against
+the CPU.
 
 Marked ``gpu``: they skip where no CUDA device is present (the skip is
 decided in the fixture, so every worker collects the same tests).  This
@@ -1578,23 +1582,67 @@ def test_ssm_scan_kernel(cuda, S, h0, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("S", [1, 16, 37, 128, 300])
+def test_ssm_scan_bwd_kernel(cuda, S, h0, dtype):
+    """The backward kernel against the plain backward on the forward
+    kernel's saved states (themselves within KERNEL_TOL of
+    ssm_checkpoints_torch), at S of 1, one chunk, chunks with a tail; di
+    of 256 and 200 (a block 56 channels short); within
+    ``sm.kernel_bwd_tol``, one launch a call, two launches bit-equal
+    (chip_smoke.ssm_bwd_case)."""
+    gen = torch.Generator(device=cuda).manual_seed(S + 2 * h0)
+    for B, di in ((2, 256), (3, 200)):
+        args = chip_smoke.ssm_inputs(B, S, di, sm.DS, dtype, h0, gen, cuda)
+        chip_smoke.ssm_bwd_case(args, gen, cuda, f"at {(B, S, di)}",
+                                dh_last=h0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_ssm_scan_autograd_on_card(cuda):
+    """Where autograd records on the card, ``ssm_scan`` launches the
+    forward kernel once (saving its states) and ``backward`` the
+    ``ssm_scan_bwd`` kernel once; the gradients of every input, h0's
+    included, within ``kernel_bwd_tol`` of autograd through the plain
+    version."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    args = chip_smoke.ssm_inputs(2, 45, 64, sm.DS, "float32", True, gen,
+                                 cuda)
+    leaves = [a.clone().requires_grad_() for a in args]
+    ref = [a.clone().requires_grad_() for a in args]
+    fwd, bwd = sm.ssm_scan.launches, sm.ssm_scan_bwd.launches
+    out, h = sm.ssm_scan(*leaves)
+    assert sm.ssm_scan.launches == fwd + 1
+    (out.square().sum() + h.sum()).backward()
+    assert sm.ssm_scan_bwd.launches == bwd + 1
+    o2, h2 = sm.ssm_scan_torch(*ref)
+    (o2.square().sum() + h2.sum()).backward()
+    for a, b in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, b.grad, **sm.kernel_bwd_tol(b.grad))
+
+
+@pytest.mark.gpu
 def test_ssm_scan_kernel_refuses(cuda):
-    """No backward kernel yet: a call where autograd records raises and
-    launches nothing (no fallback); nor another state size or a di off
-    16-byte rows."""
+    """No fallback: another state size or a di off 16-byte rows is
+    refused, by the forward and by the backward."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    args = chip_smoke.ssm_inputs(2, 9, 64, sm.DS, "float32", True, gen, cuda)
-    args[3].requires_grad_()
-    before = sm.ssm_scan.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sm.ssm_scan(*args)
-    assert sm.ssm_scan.launches == before
     with pytest.raises(ValueError, match="built for ds"):
         sm.ssm_scan(*chip_smoke.ssm_inputs(2, 9, 64, 8, "float32", False,
                                            gen, cuda))
     with pytest.raises(ValueError, match="multiple of 8"):
         sm.ssm_scan(*chip_smoke.ssm_inputs(2, 9, 60, sm.DS, "float32",
                                            False, gen, cuda))
+    before = sm.ssm_scan_bwd.launches
+    for ds, di, match in ((8, 64, "built for ds"), (sm.DS, 60,
+                                                    "multiple of 8")):
+        args = chip_smoke.ssm_inputs(2, 9, di, ds, "float32", False, gen,
+                                     cuda)
+        ckpt = torch.zeros(2, 1, di, ds, device=cuda)
+        with pytest.raises(ValueError, match=match):
+            sm.ssm_scan_bwd(*args, ckpt, torch.ones_like(args[0]), None)
+    assert sm.ssm_scan_bwd.launches == before
 
 
 @pytest.mark.gpu

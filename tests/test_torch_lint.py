@@ -44,7 +44,7 @@ FACTORY_OPS = {
     "batch_seal", "rollup_digest", "rollup_chunk_digests", "dirty_fold",
     "weighted_agg", "model_distance", "block_pack", "flash_attention",
     "flash_attention_bwd", "gmm", "gmm_bwd", "slstm_scan", "slstm_scan_bwd",
-    "shard_seal", "ssm_scan"}
+    "shard_seal", "ssm_scan", "ssm_scan_bwd"}
 
 
 def _run_cli(*args):

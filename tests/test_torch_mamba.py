@@ -25,9 +25,10 @@ attention layer) on the CPU against the JAX package.
     bfloat16: loss rtol 1e-2, the whole gradient no farther from the
     float32 one than 1.5x the JAX package's bfloat16 gradient, as the
     xLSTM stack's).
-  * The wrapper: the plain version for CPU tensors; elsewhere it refuses
-    autograd (no backward kernel yet, no fallback) and a state size it
-    was not built for.
+  * The wrapper: the plain version for CPU tensors; elsewhere the kernel
+    (through the autograd Function where autograd records) or a refusal
+    of a state size or a width it was not built for, no fallback.
+    tests/test_torch_ssm_bwd.py holds the gradient.
 
 tests/test_torch_transformer.py runs the serve loop's ids against the JAX
 loop's, decoding against the forward and the parameter tree's round trip
@@ -154,23 +155,32 @@ def _meta_args(ds=sm.DS, grad=False, B=2, S=5, di=16):
 
 
 def test_ssm_scan_refuses_off_the_cpu(monkeypatch):
-    """Off the CPU the wrapper launches the kernel or raises: where
-    autograd records it raises NotImplementedError naming the backward
-    kernel's ROADMAP.md entry before anything launches (no fallback to the
-    plain version); a state size the kernel was not built for, and a di
-    off its 16-byte rows, are refused too.  Meta tensors stand in for the
+    """Off the CPU the wrapper launches the kernel or raises, with no
+    fallback to the plain version: where autograd records the call goes
+    through the autograd Function ``_KernelSsm``, whose forward reaches
+    the launch's CUDA check (nothing is raised about a missing backward);
+    without autograd it is the launch alone.  A state size the kernels
+    were not built for, and a di off their 16-byte rows, are refused by
+    the forward and by the backward.  Meta tensors stand in for the
     card's: they reach the same checks."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="CUDA") as exc:
         sm.ssm_scan(*_meta_args(grad=True))
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+    names = [entry.name for entry in exc.traceback]
+    assert "forward" in names and names[-2:] == ["_launch", "check_cuda"]
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA") as exc:
         sm.ssm_scan(*_meta_args(grad=True))
+    assert "forward" not in [entry.name for entry in exc.traceback]
     with pytest.raises(ValueError, match="CUDA"):
         sm.ssm_scan(*_meta_args())
     monkeypatch.setattr(sm, "check_cuda", lambda *t: torch.device("cuda"))
-    with pytest.raises(ValueError, match="built for ds = 16"):
-        sm.ssm_scan(*_meta_args(ds=8))
-    with pytest.raises(ValueError, match="multiple of 8"):
-        sm.ssm_scan(*_meta_args(di=12))
+    for ds, di, match in ((8, 16, "built for ds = 16"),
+                          (sm.DS, 12, "multiple of 8")):
+        args = _meta_args(ds=ds, di=di)
+        with pytest.raises(ValueError, match=match):
+            sm.ssm_scan(*args)
+        ckpt = torch.empty(2, 1, di, ds, device="meta")
+        with pytest.raises(ValueError, match=match):
+            sm.ssm_scan_bwd(*args, None, ckpt, torch.empty_like(args[0]))
 
 
 @pytest.mark.parametrize("dt", [F32, BF16])

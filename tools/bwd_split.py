@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of the two backward kernels goes: each timed whole and
-in trial builds that leave one part out, at the training shapes.
+"""Where the time of the hand-written backward kernels and the Mamba scan
+goes: each timed whole, in trial builds that leave one part out, and in
+variants that compute the same result another way, at the training (or
+prefill) shapes.
 
 ``gmm`` (``csrc/moe_bwd.cu``, the wgmma form, at moonshot's two training
 products, (64, 960, 2,048, 1,408) and (64, 960, 1,408, 2,048)):
@@ -35,13 +37,29 @@ training scan, (2, 4,096, 2,048, 4 heads)):
                  their m-tiles of the gates' product to warps 4-7 (3 in
                  the tree)
 
-The trial builds but lend2 and lend4 compute wrong results and serve for
-timing only.  They are made at run time from the sources by text edits,
-each compiled alone with nvcc into ``build/bwd_split/``; nothing of them
-is kept in the source.  Each build is timed with CUDA events, L2 flushed
-before every launch, in turns (whole, trials, trials reversed, whole).
+``ssm`` (``csrc/ssm.cu``, the selective scan, at jamba's prefill (4,
+4,096, 16,384, 16) in bfloat16 from zeros) and ``ssm_bwd``
+(``csrc/ssm_bwd.cu``, its gradient, at jamba's training scan (2, 4,096,
+16,384, 16), on the saved states of this tree's forward kernel): the
+layouts the kernels were chosen from (threads a channel, channels a block,
+blocks an SM, steps a tile), other forms of the step (y as a tree or two
+chains, the softplus by ``log1pf`` or a lower-degree polynomial, the next
+step's decays first) and a share of the decays on the FMA pipes by range
+reduction and a polynomial (``EX2_FMA``); and trials named ``trial_*``.
+The two kernels' builds take ``ssm.cuh`` inlined, so that an edit may
+change it too; besides the events, they are timed by the profiler's
+device time (``chip_smoke.device_ms``), and their rows carry the bound
+(``ssm_scan.bound_ms`` / ``bwd_bound_ms``; for a variant with decays on
+the FMA pipes, ``ssm_bound_both_pipes`` too).
 
-    python3 tools/bwd_split.py [gmm|slstm ...]   # default: both
+The trial builds compute wrong results and serve for timing only; every
+other build is held to the plain version within the kernel's tolerance.
+They are made at run time from the sources by text edits, each compiled
+alone with nvcc into ``build/bwd_split/``; nothing of them is kept in the
+source.  Each build is timed with CUDA events, L2 flushed before every
+launch, in turns (whole, the others, the others reversed, whole).
+
+    python3 tools/bwd_split.py [gmm|slstm|ssm|ssm_bwd ...]   # default: all
 
 Prints one JSON line a kernel and shape (with the card's name and power
 limit) and writes them to ``chiprun_out/bwd_split.json``.
@@ -63,7 +81,11 @@ sys.path.insert(0, str(ROOT))
 
 GMM_SHAPES = [(64, 960, 2048, 1408), (64, 960, 1408, 2048)]
 SLSTM_SHAPE = dict(B=2, S=4096, nh=4, dh=512)
-ITERS = {"gmm": 10, "slstm": 3}
+SSM_SHAPE = (4, 4096, 16384, 16)        # jamba's prefill
+SSM_BWD_SHAPE = (2, 4096, 16384, 16)    # jamba's training scan
+ITERS = {"gmm": 10, "slstm": 3, "ssm": 10, "ssm_bwd": 5}
+# FMA-pipe operations of EX2_FMA's exponential (its eight floating ones)
+EX2_FMA_OPS = 8
 
 GMM_STORE = ("        hopper::tma_store_3d(map, ep + b * kWBox, w.n0 + 64 * b,"
              " m0, w.e);\n")
@@ -135,6 +157,234 @@ SLSTM_GATES_SUM = """          for (int w = 0; w < min(8, nmt); ++w) {
 SKELETON = [*SLSTM_NO_GATES, (SLSTM_MOVM, SLSTM_NO_MOVM),
             (SLSTM_CHAIN_MMA, ""), *SLSTM_NO_EXCHANGE,
             (SLSTM_CELL, SLSTM_NO_CELL)]
+# the Mamba scan (ssm.cu with ssm.cuh inlined)
+SSM_STEP_LOOP = """for (int n = 0; n < kDs; ++n) {
+const float decay = ex2(dt * a[n]);
+h[n] = fmaf(decay, h[n], dtx * brow[n]);
+y = fmaf(h[n], crow[n], y);
+}"""
+SSM_DECAY = "const float decay = ex2(dt * a[n]);"
+SSM_WHOLE_TILE = """#pragma unroll
+for (int k = 0; k < kTile; ++k) {
+const float v = cur.dt[k][chl] + bias;
+step(k, softplus_of(v, exp_neg_abs(v)));
+}"""
+SSM_POLY8 = """float q = 0.0051859976f;
+q = fmaf(q, e, -0.029210234f);
+q = fmaf(q, e, 0.07754031f);
+q = fmaf(q, e, -0.13583934f);
+q = fmaf(q, e, 0.1905595f);
+q = fmaf(q, e, -0.24825647f);
+q = fmaf(q, e, 0.3331601f);
+q = fmaf(q, e, -0.49999255f);
+q = fmaf(q, e, 0.99999994f);"""
+SSM_SOFTPLUS_RETURN = "return fmaf(e, q, fmaxf(v, 0.f));"
+# 2^x for x <= 0 on the FMA pipes: x = i + f, i by the 1.5 2^23 rounding
+# trick, f in [-0.5, 0.5]; 2^f by a degree-5 polynomial (least squares on
+# Chebyshev nodes, within 2.2e-7 relative in float32, ex2.approx's 2 ulp);
+# 2^i added to its exponent bits; x below -125 taken as -125 (a decay under
+# 2^-125, where ex2.approx.ftz flushes under 2^-126).  Eight floating
+# operations on the FMA pipes, a shift and an integer add.
+EX2_FMA = """using namespace ssm;
+
+__device__ __forceinline__ float ex2_fma(float x) {
+  x = fmaxf(x, -125.f);
+  const float t = x + 12582912.f;
+  const float f = x - (t - 12582912.f);
+  float p = 0.0013266970636f;
+  p = fmaf(p, f, 0.0096754599362f);
+  p = fmaf(p, f, 0.0555074252188f);
+  p = fmaf(p, f, 0.2402212172747f);
+  p = fmaf(p, f, 0.6931469440460f);
+  p = fmaf(p, f, 1.0000001192093f);
+  return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
+}
+"""
+
+
+def ssm_fma_decays(which: str) -> list:
+    """The decays of the states n where ``which`` holds (a C expression
+    of the unrolled n) on the FMA pipes, the others on the SFU."""
+    return [("using namespace ssm;", EX2_FMA),
+            (SSM_DECAY, f"const float decay = ({which}) ? "
+                        f"ex2_fma(dt * a[n]) : ex2(dt * a[n]);")]
+
+
+def ssm_layout(threads=None, min_blocks=None, tile=None) -> list:
+    """Another block (threads, a channel each), launch bound or tile."""
+    return ([("constexpr int kThreads = 64;",
+              f"constexpr int kThreads = {threads};")] if threads else []) + \
+        ([("constexpr int kMinBlocks = 8;",
+           f"constexpr int kMinBlocks = {min_blocks};")]
+         if min_blocks else []) + \
+        ([("constexpr int kTile = 16;", f"constexpr int kTile = {tile};")]
+         if tile else [])
+
+
+def ssm_lanes(lanes: int, min_blocks: int) -> list:
+    """A channel's states split over ``lanes`` threads of one warp, each
+    with kDs / lanes of them; y joined by shuffles; lane p of a channel
+    takes the softplus of the tile's steps i lanes + p and shuffles them
+    to the others."""
+    own = "(kDs / kLanes)"
+    return ssm_layout(min_blocks=min_blocks) + [
+        ("constexpr int kChannels = kThreads;",
+         f"constexpr int kLanes = {lanes};\n"
+         "constexpr int kChannels = kThreads / kLanes;"),
+        ("const int chl = tid;",
+         "const int chl = tid / kLanes, part = tid % kLanes;\n"
+         "const int base = (tid & 31) & ~(kLanes - 1);"),
+        ("const int64_t state0 = (b * di + c) * kDs;",
+         f"const int64_t state0 = (b * di + c) * kDs + part * {own};"),
+        ("""for (int n = 0; n < kDs; ++n) {
+a[n] = live ? -expf(a_log[c * kDs + n]) * kLog2e : 0.f;""",
+         f"""for (int n = 0; n < {own}; ++n) {{
+a[n] = live ? -expf(a_log[c * kDs + part * {own} + n]) * kLog2e : 0.f;"""),
+        ("""for (int i = 0; i < kDs / 4; ++i) {
+sm.ck[k / kChunk][chl][ck_piece(chl, i)] =""",
+         f"""for (int i = 0; i < {own} / 4; ++i) {{
+sm.ck[k / kChunk][chl][ck_piece(chl, part * {own} / 4 + i)] ="""),
+        ("""const float* brow = &cur.bc[k][0];
+const float* crow = &cur.bc[k][kDs];""",
+         f"""const float* brow = &cur.bc[k][part * {own}];
+const float* crow = &cur.bc[k][kDs + part * {own}];"""),
+        (SSM_STEP_LOOP, SSM_STEP_LOOP.replace("n < kDs", f"n < {own}")),
+        ("sm.out[k][chl] = from_float<T>(fmaf(dskip, xv, y));",
+         """#pragma unroll
+for (int o = kLanes / 2; o > 0; o /= 2) {
+  y += __shfl_xor_sync(0xffffffffu, y, o);
+}
+if (part == 0) sm.out[k][chl] = from_float<T>(fmaf(dskip, xv, y));"""),
+        (SSM_WHOLE_TILE, """float sp[kTile / kLanes];
+#pragma unroll
+for (int i = 0; i < kTile / kLanes; ++i) {
+  const float v = cur.dt[i * kLanes + part][chl] + bias;
+  sp[i] = softplus_of(v, exp_neg_abs(v));
+}
+#pragma unroll
+for (int k = 0; k < kTile; ++k) {
+  step(k, __shfl_sync(0xffffffffu, sp[k / kLanes], base | (k % kLanes)));
+}"""),
+        ("for (int n = 0; n < kDs; ++n) h_last[state0 + n] = h[n];",
+         f"for (int n = 0; n < {own}; ++n) h_last[state0 + n] = h[n];"),
+    ]
+
+
+SSM_VARIANTS = {
+    "whole": [],
+    "decays_fma_2of16": ssm_fma_decays("n % 8 == 7"),
+    "decays_fma_3of16": ssm_fma_decays("n % 5 == 4"),
+    "decays_fma_4of16": ssm_fma_decays("n % 4 == 3"),
+    "lanes2_16blocks": ssm_lanes(2, 16),
+    "lanes4_24blocks": ssm_lanes(4, 24),
+    "channels32": ssm_layout(threads=32, min_blocks=16),
+    "channels128": ssm_layout(threads=128, min_blocks=4),
+    "blocks6": ssm_layout(min_blocks=6),
+    "tile32": ssm_layout(tile=32),
+    "y_tree": [(SSM_STEP_LOOP, """float p[kDs];
+#pragma unroll
+for (int n = 0; n < kDs; ++n) {
+  const float decay = ex2(dt * a[n]);
+  h[n] = fmaf(decay, h[n], dtx * brow[n]);
+  p[n] = h[n] * crow[n];
+}
+#pragma unroll
+for (int w = 1; w < kDs; w *= 2) {
+#pragma unroll
+  for (int n = 0; n + w < kDs; n += 2 * w) p[n] += p[n + w];
+}
+y = p[0];""")],
+    "y_two_chains": [(SSM_STEP_LOOP, """float y2 = 0.f;
+#pragma unroll
+for (int n = 0; n < kDs; ++n) {
+  const float decay = ex2(dt * a[n]);
+  h[n] = fmaf(decay, h[n], dtx * brow[n]);
+  if (n % 2) y2 = fmaf(h[n], crow[n], y2);
+  else y = fmaf(h[n], crow[n], y);
+}
+y += y2;""")],
+    "next_decays_first": [
+        ("const auto step = [&](int k, float dt) {",
+         "const auto step = [&](int k, float dt, const float* pre) {"),
+        (SSM_DECAY, "const float decay = pre ? pre[n] : ex2(dt * a[n]);"),
+        ("""for (int k = 0; k < S - t0; ++k) {
+const float v = cur.dt[k][chl] + bias;
+step(k, softplus_of(v, exp_neg_abs(v)));""",
+         """for (int k = 0; k < S - t0; ++k) {
+  const float v = cur.dt[k][chl] + bias;
+  step(k, softplus_of(v, exp_neg_abs(v)), nullptr);"""),
+        (SSM_WHOLE_TILE, """float dcur[kDs], dnext[kDs];
+const float v0 = cur.dt[0][chl] + bias;
+float dtc = softplus_of(v0, exp_neg_abs(v0));
+#pragma unroll
+for (int n = 0; n < kDs; ++n) dcur[n] = ex2(dtc * a[n]);
+#pragma unroll
+for (int k = 0; k < kTile; ++k) {
+  float dtn = 0.f;
+  if (k + 1 < kTile) {
+    const float v = cur.dt[k + 1][chl] + bias;
+    dtn = softplus_of(v, exp_neg_abs(v));
+#pragma unroll
+    for (int n = 0; n < kDs; ++n) dnext[n] = ex2(dtn * a[n]);
+  }
+  step(k, dtc, dcur);
+#pragma unroll
+  for (int n = 0; n < kDs; ++n) dcur[n] = dnext[n];
+  dtc = dtn;
+}""")],
+    # log1p(e) / e on [0, 1] by lower degrees (Chebyshev least squares;
+    # within 6.1e-7 and 3.1e-6 of log1p relative), or log1pf itself
+    "log1p_degree7": [(SSM_POLY8, """float q = -0.008466253f;
+q = fmaf(q, e, 0.043658514f);
+q = fmaf(q, e, -0.10679787f);
+q = fmaf(q, e, 0.17659733f);
+q = fmaf(q, e, -0.24453324f);
+q = fmaf(q, e, 0.3326524f);
+q = fmaf(q, e, -0.49996355f);
+q = fmaf(q, e, 0.9999995f);""")],
+    "log1p_degree6": [(SSM_POLY8, """float q = 0.014026629f;
+q = fmaf(q, e, -0.065769143f);
+q = fmaf(q, e, 0.14810520f);
+q = fmaf(q, e, -0.23417252f);
+q = fmaf(q, e, 0.33078748f);
+q = fmaf(q, e, -0.49982542f);
+q = fmaf(q, e, 0.99999708f);""")],
+    "log1pf": [(SSM_POLY8, ""),
+               (SSM_SOFTPLUS_RETURN, "return fmaxf(v, 0.f) + log1pf(e);")],
+    # trials (wrong results)
+    "trial_decays_fma_pipe": [(SSM_DECAY,
+                               "const float decay = fmaf(dt, a[n], 1.f);")],
+    "trial_half_decays_fma_pipe": [(
+        SSM_DECAY, "const float decay = n < kDs / 2 ? ex2(dt * a[n])\n"
+                   "                                : fmaf(dt, a[n], 1.f);")],
+    "trial_decays_twice_sfu": [(
+        SSM_DECAY, "const float decay = ex2(dt * a[n]) * "
+                   "ex2(dt * a[n] * 0.5f);")],
+    "trial_no_softplus": [(SSM_POLY8, ""),
+                          (SSM_SOFTPLUS_RETURN, "return v;")],
+    "trial_bc_registers": [("""const float* brow = &cur.bc[k][0];
+const float* crow = &cur.bc[k][kDs];""", """const float* brow = a;
+const float* crow = a;""")],
+}
+# the gradient (ssm_bwd.cu with ssm.cuh inlined)
+SSM_BWD_RECOMPUTE = """hist[k + 1][n] = fmaf(ex2(dt * a2[n]), hist[k][n],
+dtx * brow[n]);"""
+SSM_BWD_VARIANTS = {
+    "whole": [],
+    "blocks3": [("constexpr int kMinBlocks = 2;",
+                 "constexpr int kMinBlocks = 3;")],
+    "channels32": [("constexpr int kThreads = 256;",
+                    "constexpr int kThreads = 128;"),
+                   ("constexpr int kMinBlocks = 2;",
+                    "constexpr int kMinBlocks = 4;")],
+    "trial_decays_fma_pipe": [("ex2(dt * a2[n])", "fmaf(dt, a2[n], 1.f)",
+                               2)],
+    "trial_no_channel_sums": [(
+        "sm.red[warp][k][lane] = reduce_scatter8(v, lane);",
+        "sm.red[warp][k][lane] = v[0] + v[7];")],
+    "trial_no_recompute": [(SSM_BWD_RECOMPUTE,
+                            "hist[k + 1][n] = hist[k][n] + dtx;")],
+}
 # {kernel: (source, {variant: [(text, its replacement)]})}
 VARIANTS = {
     "gmm": ("moe_bwd.cu", {
@@ -161,35 +411,55 @@ VARIANTS = {
                                     (SLSTM_CELL_BODY, SLSTM_NO_CELL_BODY),
                                     *SLSTM_STORE, (SLSTM_FETCH, ""),
                                     (SLSTM_SLOT_WAIT, "")],
-    }),
+    }),    "ssm": ("ssm.cu", SSM_VARIANTS),
+    "ssm_bwd": ("ssm_bwd.cu", SSM_BWD_VARIANTS),
 }
-# the builds that compute the gradient: held to the plain version
-CORRECT = {"whole", "lend2", "lend4"}
-LAUNCHER = {"gmm": "moe_gmm_bwd", "slstm": "slstm_scan_bwd"}
+# the builds that compute the result: held to the plain version
+CORRECT = {"gmm": {"whole"}, "slstm": {"whole", "lend2", "lend4"},
+           **{k: {n for n in VARIANTS[k][1] if not n.startswith("trial_")}
+              for k in ("ssm", "ssm_bwd")}}
+LAUNCHER = {"gmm": "moe_gmm_bwd", "slstm": "slstm_scan_bwd",
+            "ssm": "ssm_scan", "ssm_bwd": "ssm_scan_bwd"}
 # the kernel of each whose ptxas lines are kept
-ENTRY = {"gmm": "gmm_bwd_wgmma_kernel", "slstm": "slstm_bwd_cluster_kernel"}
+ENTRY = {"gmm": "gmm_bwd_wgmma_kernel", "slstm": "slstm_bwd_cluster_kernel",
+         "ssm": "ssm_scan_kernel", "ssm_bwd": "ssm_bwd_kernel"}
+# the kernels whose builds take ssm.cuh inlined; their device spans'
+# names and launches a call (chip_smoke.device_ms)
+INLINE = {"ssm", "ssm_bwd"}
+DEVICE = {"ssm": ("ssm_scan_kernel", 1), "ssm_bwd": ("ssm_bwd_", 2)}
 
 
-def edit(src: str, old: str, new: str) -> str:
-    """``src`` with ``old`` (one occurrence, matched line by line whatever
-    its indentation) replaced by ``new``, shifted as ``old`` was."""
+def edit(src: str, old: str, new: str, count: int = 1) -> str:
+    """``src`` with ``old`` (``count`` occurrences, matched line by line
+    whatever its indentation) replaced by ``new``, shifted as ``old``
+    was."""
     olines = old.rstrip("\n").split("\n")
     pattern = "\n".join(("([ \t]*)" if i == 0 else "[ \t]*")
                         + re.escape(ln.lstrip()) for i, ln in enumerate(olines))
     found = list(re.finditer(pattern, src))
-    if len(found) != 1:
-        raise RuntimeError(f"the edit's text occurs {len(found)} times: "
-                           f"{olines[0]!r}")
-    start, end = found[0].span()
-    shift = len(found[0].group(1)) - (len(olines[0])
-                                      - len(olines[0].lstrip()))
-    if not new.strip():                 # drop the lines
-        return src[:start] + src[end + (src[end:end + 1] == "\n"):]
-    lines = [ln if not ln.strip() else
-             " " * shift + ln if shift >= 0 else ln[min(-shift, len(ln)
-                                                      - len(ln.lstrip())):]
-             for ln in new.rstrip("\n").split("\n")]
-    return src[:start] + "\n".join(lines) + src[end:]
+    if len(found) != count:
+        raise RuntimeError(f"the edit's text occurs {len(found)} times, "
+                           f"not {count}: {olines[0]!r}")
+    for match in reversed(found):
+        start, end = match.span()
+        shift = len(match.group(1)) - (len(olines[0])
+                                       - len(olines[0].lstrip()))
+        if not new.strip():             # drop the lines
+            src = src[:start] + src[end + (src[end:end + 1] == "\n"):]
+            continue
+        lines = [ln if not ln.strip() else
+                 " " * shift + ln if shift >= 0 else
+                 ln[min(-shift, len(ln) - len(ln.lstrip())):]
+                 for ln in new.rstrip("\n").split("\n")]
+        src = src[:start] + "\n".join(lines) + src[end:]
+    return src
+
+
+def inline_header(text: str, csrc: Path) -> str:
+    """``text`` with its ``#include "ssm.cuh"`` replaced by the header's
+    lines (``#pragma once`` left out), so that an edit reaches both."""
+    header = (csrc / "ssm.cuh").read_text().replace("#pragma once\n", "")
+    return text.replace('#include "ssm.cuh"\n', header)
 
 
 def build(out_dir: Path, kernels) -> dict:
@@ -201,10 +471,12 @@ def build(out_dir: Path, kernels) -> dict:
     for kernel in kernels:
         source, variants = VARIANTS[kernel]
         text = (_build.CSRC / source).read_text()
+        if kernel in INLINE:
+            text = inline_header(text, _build.CSRC)
         for name, edits in variants.items():
             src = text
-            for old, new in edits:
-                src = edit(src, old, new)
+            for old, new, *count in edits:
+                src = edit(src, old, new, *count)
             sources[kernel, name] = src
     procs = {}
     for (kernel, name), src in sources.items():
@@ -312,15 +584,107 @@ def slstm_case(dev, seed):
     return run, check
 
 
+def ssm_case(dev, seed):
+    """``gmm_case`` for the scan at SSM_SHAPE (chip_smoke.ssm_inputs,
+    bfloat16 x, from zeros), and its bounds."""
+    import chip_smoke as cs
+    from repro_torch.kernels import ssm_scan as sm
+    from repro_torch.kernels.weighted_agg import DTYPE_FLAG
+    B, S, di, ds = SSM_SHAPE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    args = cs.ssm_inputs(B, S, di, ds, torch.bfloat16, False, g, dev)
+    x, *rest = args[:7]
+    out = torch.empty_like(x)
+    h = torch.empty(B, di, ds, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(fn):
+        rc = fn(dev.index or 0, x.data_ptr(), *(t.data_ptr() for t in rest),
+                None, B, S, di, ds, DTYPE_FLAG[x.dtype], out.data_ptr(),
+                h.data_ptr(), None, stream)
+        if rc:
+            raise RuntimeError(f"ssm_scan failed ({rc})")
+
+    want = sm.ssm_scan_torch(*args)
+    bounds = {"bound_ms": sm.bound_ms(*args)["bound_ms"],
+              "bound_both_pipes_ms": ssm_bound_both_pipes(args)}
+    return run, lambda name: cs.ssm_held((out, h), want, f"ssm {name}"), \
+        bounds
+
+
+def ssm_bwd_case(dev, seed):
+    """``ssm_case`` for the gradient at SSM_BWD_SHAPE: the tree's forward
+    kernel's saved states, random output gradients, the outputs and
+    scratch as the wrapper allocates them (ssm_scan._launch_bwd)."""
+    import chip_smoke as cs
+    from repro_torch.kernels import ssm_scan as sm
+    from repro_torch.kernels.weighted_agg import DTYPE_FLAG
+    B, S, di, ds = SSM_BWD_SHAPE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    args = cs.ssm_inputs(B, S, di, ds, torch.bfloat16, False, g, dev)
+    _, _, ckpt = sm._launch(*args, ckpt=True)
+    dout = torch.randn(B, S, di, generator=g, device=dev).bfloat16()
+    want = sm.ssm_scan_bwd_torch(*args, ckpt, dout, None)
+    f32 = dict(dtype=torch.float32, device=dev)
+    part_bc = torch.empty(B, S, -(-di // 32), 2 * ds, **f32)  # any block
+    part_ch = torch.empty(B, di, ds + 2, **f32)
+    dx = torch.empty_like(args[0])
+    outs = [torch.empty(B, S, di, **f32), torch.empty(B, S, ds, **f32),
+            torch.empty(B, S, ds, **f32), torch.empty(di, ds, **f32),
+            torch.empty(di, **f32), torch.empty(di, **f32)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(fn):
+        rc = fn(dev.index or 0, args[0].data_ptr(),
+                *(t.data_ptr() for t in args[1:7]), ckpt.data_ptr(),
+                dout.data_ptr(), None, B, S, di, ds,
+                DTYPE_FLAG[args[0].dtype], part_bc.data_ptr(),
+                part_ch.data_ptr(), dx.data_ptr(),
+                *(t.data_ptr() for t in outs), None, stream)
+        if rc:
+            raise RuntimeError(f"ssm_scan_bwd failed ({rc})")
+
+    def check(name):
+        got = (dx, outs[0], outs[5], outs[1], outs[2], outs[3], outs[4])
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(),
+                                       **sm.kernel_bwd_tol(b),
+                                       msg=lambda m: f"ssm_bwd {name}: {m}")
+        return max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(got, want))
+    return run, check, {"bound_ms": sm.bwd_bound_ms(*args, ckpt,
+                                                     dout)["bound_ms"]}
+
+
+def ssm_bound_both_pipes(args) -> float:
+    """ssm_scan's bound where a decay may go to the SFU or, at
+    ``EX2_FMA_OPS`` operations, to the FMA pipes beside the step's float32
+    FLOPs (at 2 an FMA-pipe operation), split as takes least; or the
+    bytes, the larger."""
+    from repro_torch.kernels import ssm_scan as sm
+    per_s = sm.SM_COUNT * sm.BOOST_HZ               # SM clocks a second
+    fma_lanes = sm.CUDA_CORE_FLOPS / 2 / per_s      # 128 an SM a clock
+    exps = sm.exp_count(args[0], args[5])
+    flops, n_bytes = sm.ssm_scan_cost(*args)
+    fma_ops = flops / 2
+    ops_s = max(fma_ops / (fma_lanes * per_s),
+                min(exps / (sm.SFU_PER_CLOCK * per_s),
+                    (fma_ops + EX2_FMA_OPS * exps)
+                    / ((fma_lanes + sm.SFU_PER_CLOCK * EX2_FMA_OPS)
+                       * per_s)))
+    return max(ops_s, n_bytes / sm.HBM_BYTES_PER_S) * 1e3
+
+
 def time_builds(kernel, label, libs, run, check, flush) -> dict:
     names = list(VARIANTS[kernel][1])
     err = {}
     for name in names:                  # warm up; the error of the correct
         run(libs[kernel, name][0])
         torch.cuda.synchronize()
-        if name in CORRECT:
+        if name in CORRECT[kernel]:
             err[name] = check(name)
     ms = {name: [] for name in names}
+    device = {name: [] for name in names}
     for name in names + names[::-1]:
         events = [(torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True))
@@ -332,12 +696,21 @@ def time_builds(kernel, label, libs, run, check, flush) -> dict:
             end.record()
         torch.cuda.synchronize()
         ms[name] += [s.elapsed_time(e) for s, e in events]
+        if kernel in DEVICE:
+            from chip_smoke import device_ms
+            fragment, per_call = DEVICE[kernel]
+            device[name].append(device_ms(
+                lambda: run(libs[kernel, name][0]), fragment, ITERS[kernel],
+                flush, per_call=per_call))
     mean = {name: sum(v) / len(v) for name, v in ms.items()}
-    return {"kernel": kernel, "shape": label, "ms": mean,
-            "saved_ms": {k: mean["whole"] - v for k, v in mean.items()
-                         if k != "whole"},
-            "max_abs_err": err, "runs": ms,
-            "ptxas": {name: libs[kernel, name][1] for name in names}}
+    row = {"kernel": kernel, "shape": label, "ms": mean,
+           "saved_ms": {k: mean["whole"] - v for k, v in mean.items()
+                        if k != "whole"},
+           "max_abs_err": err, "runs": ms,
+           "ptxas": {name: libs[kernel, name][1] for name in names}}
+    if kernel in DEVICE:
+        row["device_ms"] = device
+    return row
 
 
 def main(argv) -> int:
@@ -358,12 +731,21 @@ def main(argv) -> int:
     if "slstm" in kernels:
         cases.append(("slstm", list(SLSTM_SHAPE.values()),
                       *slstm_case(dev, 7)))
-    for kernel, label, run, check in cases:
+    if "ssm" in kernels:
+        cases.append(("ssm", list(SSM_SHAPE), *ssm_case(dev, 0)))
+    if "ssm_bwd" in kernels:
+        cases.append(("ssm_bwd", list(SSM_BWD_SHAPE), *ssm_bwd_case(dev, 1)))
+    for kernel, label, run, check, *bounds in cases:
         row = time_builds(kernel, label, libs, run, check, flush)
+        for extra in bounds:
+            row.update(extra)
         if kernel == "slstm":
             row["us_per_step"] = {k: v * 1e3 / SLSTM_SHAPE["S"]
                                   for k, v in row["ms"].items()}
         row["card"] = card
+        if kernel in DEVICE:
+            from chip_smoke import RETAKES
+            row["retakes"] = list(RETAKES)
         line = json.dumps(row)
         print(line, flush=True)
         lines.append(line)

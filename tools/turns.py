@@ -26,7 +26,11 @@ their paths' shapes (``CASES``):
   kernel (one kernel a call in either form);
 * ``ssm_scan`` at jamba's prefill (4, 4,096, d_inner 16,384, d_state
   16), bfloat16 x, from zeros (chip_smoke.ssm_inputs; a tree before the
-  Mamba port has no such case).
+  Mamba port has no such case);
+* ``ssm_scan_bwd`` at jamba's training scan (2, 4,096, 16,384, 16),
+  bfloat16 x and dout, on the saved states of the tree's own forward
+  kernel (two kernels a call, their device times added; a tree before the
+  gradient kernel has no such case, and its row says so).
 
     python3 tools/turns.py [--only TEXT ...] TREE [TREE ...]
 
@@ -79,6 +83,7 @@ GMM_BWD_SHAPES = {"(64, 960, 2048, 1408)": (64, 960, 2048, 1408),
                   "(64, 960, 1408, 2048)": (64, 960, 1408, 2048)}
 SCAN_BWD_SHAPE = (2, 4096, 4, 512)          # B, S, nh, dh
 SSM_SHAPE = (4, 4096, 16384, 16)            # B, S, di, ds
+SSM_BWD_SHAPE = (2, 4096, 16384, 16)
 
 
 def grads_close(mod, got, want) -> bool:
@@ -87,6 +92,8 @@ def grads_close(mod, got, want) -> bool:
     tol = getattr(mod, "kernel_bwd_tol", None) or mod.kernel_tol
     try:
         for a, b in zip(got, want):
+            if a is None and b is None:         # no such gradient
+                continue
             torch.testing.assert_close(a.float(), b.float(), **tol(b))
     except AssertionError:
         return False
@@ -127,6 +134,8 @@ CASES = {
         "slstm_scan", "slstm_scan_bwd", grads_close, "slstm_bwd_", 1),
     f"ssm_scan {SSM_SHAPE}": ("ssm_scan", "ssm_scan", grads_close,
                               "ssm_scan_kernel", 1),
+    f"ssm_scan_bwd {SSM_BWD_SHAPE}": ("ssm_scan", "ssm_scan_bwd",
+                                      grads_close, "ssm_bwd_", 2),
 }
 FROM_WORKLOAD = ("stepped seal", "fused roots", "fused seal digests",
                  "fabric roots", "fabric seal digests")
@@ -189,6 +198,14 @@ def drawn(label: str, dev) -> tuple:
         grads = [torch.randn(s, generator=g, device=dev)
                  for s in ((B, S, d),) + ((B, d),) * 4]
         return (wx, r, *state, y, states, *grads)
+    if label.startswith("ssm_scan_bwd"):
+        import chip_smoke as cs
+        from repro_torch.kernels import ssm_scan as sm
+        B, S, di, ds = SSM_BWD_SHAPE
+        args = cs.ssm_inputs(B, S, di, ds, torch.bfloat16, False, g, dev)
+        _, _, ckpt = sm._launch(*args, ckpt=True)
+        dout = torch.randn(B, S, di, generator=g, device=dev).bfloat16()
+        return (*args, ckpt, dout, None)
     if label.startswith("ssm_scan"):
         import chip_smoke as cs
         B, S, di, ds = SSM_SHAPE
@@ -232,6 +249,9 @@ def time_tree(tree: Path, labels: list, dev) -> dict:
     for label in labels:
         module, op, tol, fragment, per_call = CASES[label]
         mod = importlib.import_module(f"repro_torch.kernels.{module}")
+        if not hasattr(mod, op):             # a tree before this kernel
+            row[label] = None
+            continue
         kernel, plain = getattr(mod, op), getattr(mod, f"{op}_torch")
         args = (tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
                       for a in captured[label])
@@ -252,7 +272,8 @@ def time_tree(tree: Path, labels: list, dev) -> dict:
         if callable(per_call):
             per_call = per_call(kernel)
         # the gradients take milliseconds a call: fewer launches
-        n = 5 if label.startswith(("gmm_bwd", "slstm_scan_bwd")) else 50
+        n = 5 if label.startswith(("gmm_bwd", "slstm_scan_bwd",
+                                   "ssm_scan_bwd")) else 50
         row[label] = {"ms": cs.timed_ms(lambda: kernel(*args), n, flush),
                       "device_ms": cs.device_ms(lambda: kernel(*args),
                                                 fragment, min(n, 20), flush,
