@@ -4954,6 +4954,15 @@ XLSTM_LAUNCH_LAYERS = 8
 # float64's)
 TRAIN_AGREE_GRAD_REL = 1e-3
 TRAIN_AGREE_GRAD_ABS = 1e-5
+# xlstm_float64: the card's float32 gradient may sit from float64 (a
+# layer's distance over its float64 norm) at most this many times as far
+# as the CPU's float32 gradient does, or the floor where the CPU's is
+# closer.  Float32 drift through the reduced stack is of this order on
+# both (1.1e-3 on the host of an earlier card run, ROADMAP.md fault 7; a
+# CPU's float32 sits 3e-5 to 4e-3 from float64 by its BLAS); a fault of
+# the port would sit far beyond it
+XLSTM_F64_FACTOR = 2.0
+XLSTM_F64_FLOOR = 1e-3
 
 
 def reckon_layers(cfg, tokens: int, per_param: float, total: int) -> dict:
@@ -5517,8 +5526,103 @@ def train_agree(dev, archs=TRAIN_AGREE_ARCHS) -> None:
             f"{max(cpu_gap.values()) / cpu_whole:.3e} of the whole")
 
 
+class _Float64Torch:
+    """``torch`` with ``float32`` read as ``float64``: a module whose
+    global ``torch`` is this computes in float64 where it names float32
+    (the models' internal casts), for a float64 reference on the CPU."""
+
+    def __init__(self, real):
+        self._real = real
+
+    def __getattr__(self, name):
+        return self._real.float64 if name == "float32" \
+            else getattr(self._real, name)
+
+
+# the modules of the xLSTM stack's step that name float32
+FLOAT64_MODULES = ("repro_torch.models.xlstm", "repro_torch.models.layers",
+                   "repro_torch.models.transformer",
+                   "repro_torch.models.model", "repro_torch.launch.steps",
+                   "repro_torch.kernels.slstm_scan")
+
+
+@contextlib.contextmanager
+def float64_models():
+    """FLOAT64_MODULES computing in float64 inside the block."""
+    import importlib
+    mods = [importlib.import_module(n) for n in FLOAT64_MODULES]
+    real = [m.torch for m in mods]
+    for m in mods:
+        m.torch = _Float64Torch(torch)
+    try:
+        yield
+    finally:
+        for m, t in zip(mods, real):
+            m.torch = t
+
+
+def xlstm_float64(dev) -> dict:
+    """The reduced xlstm's gradient (TRAIN_AGREE's float32 weights and
+    batch) on the card, through the kernels and through the plain
+    versions, and on the CPU in float32, each against the same step on
+    the CPU in float64 (float64_models), layer by layer: each layer's
+    leaves' distance over their float64 norm, and the whole gradient's.
+    Holds the card within XLSTM_F64_FACTOR of the CPU's float32 distance,
+    layer by layer and whole (ROADMAP.md section 3, fault 7)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(reduced_config(get_config("xlstm-1.3b")),
+                              dtype="float32")
+    host = build_model(cfg, "cpu")
+    params = host.train_params(host.init_params(0))
+    batch = token_batch(cfg.vocab_size, (2, 32), 20, "cpu")
+    _, cpu32 = value_and_grad(host, params, batch)
+    with float64_models():
+        m64 = build_model(dataclasses.replace(cfg, dtype="float64"), "cpu")
+        _, g64 = value_and_grad(m64, {k: v.double() for k, v in
+                                      params.items()}, batch)
+    card = build_model(cfg, dev)
+    on_card = {k: v.to(dev) for k, v in params.items()}
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    _, kern = value_and_grad(card, on_card, card_batch)
+    with kernel_impl("torch"):
+        _, plain = value_and_grad(card, on_card, card_batch)
+
+    def layer(key):
+        return ".".join(key.split(".")[:2]) if key.startswith("blocks.") \
+            else key
+
+    def rel(got) -> dict:
+        sums = {}
+        for k, w in g64.items():
+            d = float((got[k].cpu().double() - w).square().sum())
+            acc = sums.setdefault(layer(k), [0.0, 0.0])
+            acc[0] += d
+            acc[1] += float(w.square().sum())
+        out = {name: (d / n) ** 0.5 if n else 0.0
+               for name, (d, n) in sums.items()}
+        out["whole"] = (sum(d for d, _ in sums.values())
+                        / sum(n for _, n in sums.values())) ** 0.5
+        return out
+    dist = {"cpu_float32": rel(cpu32), "card_kernels": rel(kern),
+            "card_plain": rel(plain)}
+    floor = XLSTM_F64_FLOOR
+    off = [(who, name) for who in ("card_kernels", "card_plain")
+           for name, v in dist[who].items()
+           if v > XLSTM_F64_FACTOR * max(dist["cpu_float32"][name], floor)]
+    log(f"train: reduced xlstm's gradient against float64 on the CPU, each "
+        f"layer's distance over its float64 norm: {json.dumps(dist)}")
+    if off:
+        raise AssertionError(f"xlstm float64: the card's gradient sits more "
+                             f"than {XLSTM_F64_FACTOR}x the CPU float32's "
+                             f"distance from float64 at {off}")
+    return dist
+
+
 def lm_train_step(dev, smi: str, arch: str, layers=None,
-                  steps=None, cfg=None) -> dict:
+                  steps=None, cfg=None, probe=None) -> dict:
     """(c) One build_train_step step of ``arch`` at full width (``layers``:
     a depth cut; ``cfg``: a config cut already) on LM_TRAIN tokens (the
     config's optimizer and remat): launch counts from 0 (every MoE layer's
@@ -5609,6 +5713,8 @@ def lm_train_step(dev, smi: str, arch: str, layers=None,
            "launches": launches, "profile": prof}
     log(f"train: {arch} step at {B} x {S}, {cfg.n_layers} layers, on {smi}: "
         f"{json.dumps(out)}")
+    if probe is not None:
+        out["probe"] = probe(step, params, state, batch)
     del params, state, model, met
     torch.cuda.empty_cache()
     return out
@@ -5661,6 +5767,7 @@ def lenet_train_main(dev, smi: str) -> tuple:
     rows = check_train_kernels(dev)
     torch.cuda.empty_cache()
     train_agree(dev)
+    xlstm_float64(dev)
     total = torch.cuda.get_device_properties(dev).total_memory
     moonshot = get_config("moonshot-v1-16b-a3b")
     step_cut = reckon_layers(moonshot, LM_TRAIN["batch"] * LM_TRAIN["seq"],
@@ -5908,7 +6015,14 @@ def check_ssm_scan(dev) -> tuple:
                "bound_parts_ms": {k: bound[k] for k in (
                    "exps_ms", "flops_ms", "bytes_ms")},
                "forward_with_states_ms": timed_ms(
-                   lambda: sm._launch(*args, ckpt=True), 3, flush)}
+                   lambda: sm._launch(*args, ckpt=True), 3, flush),
+               # the forward saving every CHUNK-th state, as training runs
+               # it, and serving (no states) at this shape
+               "forward_with_states_device_ms": device_ms(
+                   lambda: sm._launch(*args, ckpt=True), "ssm_scan_kernel",
+                   3, flush),
+               "forward_device_ms": device_ms(
+                   lambda: sm._launch(*args), "ssm_scan_kernel", 3, flush)}
     log(f"kernel ssm_scan_bwd at {bwd_row['shape']} (jamba's training scan,"
         f" bfloat16 x and dout, on the forward kernel's saved states): "
         f"{bwd_row['ms']:.6f} ms by events, device "
@@ -5916,8 +6030,10 @@ def check_ssm_scan(dev) -> tuple:
         f"{bwd_row['sum_device_ms']:.6f}; bound {bwd_row['bound_ms']:.6f} "
         f"ms, {bwd_row['bound_by']}: {json.dumps(bwd_row['bound_parts_ms'])}"
         f"); plain {bwd_row['plain_ms']:.6f} ms, no PyTorch call computes "
-        f"it; the forward saving its states "
-        f"{bwd_row['forward_with_states_ms']:.6f} ms; |kernel - plain| "
+        f"it; the forward saving every {sm.CHUNK}th state "
+        f"{bwd_row['forward_with_states_ms']:.6f} ms, device "
+        f"{bwd_row['forward_with_states_device_ms']:.6f} (without "
+        f"{bwd_row['forward_device_ms']:.6f}); |kernel - plain| "
         f"{bwd_err}")
     return row, bwd_row
 
@@ -6229,7 +6345,101 @@ def jamba_train_main(dev, smi: str, jamba) -> dict:
     cfg = dataclasses.replace(jamba, n_layers=cut["layers"],
                               block_pattern=jamba.pattern[:cut["layers"]])
     log(f"train: {jamba.name}'s cut stack {block_specs(cfg)}")
-    return lm_train_step(dev, smi, jamba.name, cfg=cfg)
+    return lm_train_step(dev, smi, jamba.name, cfg=cfg,
+                         probe=lambda *a: ssm_step_gap(dev, smi, *a))
+
+
+@contextlib.contextmanager
+def sm_clocks(period_ms: int = 50):
+    """The card's SM clock (MHz) and power draw (W) sampled by
+    ``nvidia-smi --loop-ms`` while the block runs: yields a dict that holds
+    their medians, extremes and count afterwards."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", f"--loop-ms={period_ms}"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    out = {}
+    try:
+        yield out
+    finally:
+        proc.terminate()
+        text = proc.communicate(timeout=30)[0]
+    rows = [ln.split(",") for ln in text.strip().splitlines()
+            if ln.count(",") == 1]
+    for i, key in enumerate(("sm_mhz", "power_w")):
+        vals = [float(r[i]) for r in rows if r[i].strip()
+                .replace(".", "", 1).isdigit()]
+        if vals:
+            out[key] = {"median": float(np.median(vals)), "min": min(vals),
+                        "max": max(vals), "samples": len(vals)}
+
+
+def ssm_step_gap(dev, smi: str, step, params, state, batch) -> dict:
+    """(e) Why ssm_scan_bwd takes longer inside jamba's train step than
+    alone: its arguments in one step captured (copies with their strides;
+    dtypes, shapes, strides and alignment logged), its device time in a
+    profiled step, then the kernel alone (L2 evicted before each launch)
+    on those arguments and on ssm_inputs' draws of their shapes and
+    dtypes, the SM clock and power sampled (sm_clocks) through each."""
+    from repro_torch.kernels import factory
+    from repro_torch.kernels import ssm_scan as sm
+    factory.get_kernel("ssm_scan_bwd")           # the registry loaded
+    table, impl = factory._REGISTRY["ssm_scan_bwd"], \
+        factory._DEFAULTS["ssm_scan_bwd"]
+    inner, seen = table[impl], []
+
+    def capture(*args):
+        if not seen:
+            seen.append(tuple(
+                None if a is None else torch.empty_strided(
+                    a.shape, a.stride(), dtype=a.dtype,
+                    device=a.device).copy_(a) for a in args))
+        return inner(*args)
+    table[impl] = capture
+    try:
+        step(params, state, batch)
+    finally:
+        table[impl] = inner
+    torch.cuda.synchronize()
+    args = seen[0]
+    names = ("x", "dt_pre", "dt_bias", "Bm", "Cm", "A_log", "D", "h0",
+             "ckpt", "dout", "dh_last")
+    desc = {n: None if a is None else {
+        "dtype": str(a.dtype).removeprefix("torch."),
+        "shape": list(a.shape), "stride": list(a.stride()),
+        "contiguous": a.is_contiguous(), "align16": a.data_ptr() % 16 == 0}
+        for n, a in zip(names, args)}
+    with sm_clocks() as clk_step:
+        prof = profile_share(lambda: [step(params, state, batch)
+                                      for _ in range(3)],
+                             kernels=(("ssm_scan_bwd", "ssm_bwd_"),),
+                             cpu=False)
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
+    with sm_clocks() as clk_alone:
+        alone = device_ms(lambda: sm.ssm_scan_bwd(*args), "ssm_bwd_", 20,
+                          flush, per_call=2)
+    x = args[0]
+    B, S, di = x.shape
+    g = torch.Generator(device=dev).manual_seed(32)
+    drawn = ssm_inputs(B, S, di, sm.DS, x.dtype, args[7] is not None, g,
+                       dev)
+    _, _, ckpt = sm._launch(*drawn, ckpt=True)
+    bwd = (*drawn, ckpt, torch.randn(B, S, di, device=dev,
+                                     generator=g).to(x.dtype),
+           None if args[10] is None else torch.zeros_like(args[10]))
+    with sm_clocks() as clk_drawn:
+        alone_drawn = device_ms(lambda: sm.ssm_scan_bwd(*bwd), "ssm_bwd_",
+                                20, flush, per_call=2)
+    out = {"in_step_ms": prof["ssm_scan_bwd_s"] * 1e3 / 3,
+           "alone_on_step_args_ms": alone, "alone_on_draws_ms": alone_drawn,
+           "clocks": {"steps": clk_step, "alone": clk_alone,
+                      "draws": clk_drawn},
+           "args": desc}
+    log(f"train: ssm_scan_bwd in jamba's step and alone on {smi}: "
+        f"{json.dumps(out)}")
+    del args, seen, drawn, bwd, ckpt, flush
+    torch.cuda.empty_cache()
+    return out
 
 
 def hybrid_vlm_main(dev, smi: str) -> tuple:

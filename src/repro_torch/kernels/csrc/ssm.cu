@@ -51,6 +51,8 @@
 // a tree, and a share of the decays on the FMA pipes (an exponential
 // there takes some ten issue slots, where the SFU's takes one).
 
+#include <cstddef>
+
 #include "ssm.cuh"
 
 namespace {
@@ -125,7 +127,10 @@ __device__ __forceinline__ void load_tile(Tile<T>& tile, const T* x,
   copy_bc<kTile, kThreads>(tile.bc, bm, cm, row0, t0, S, tid);
 }
 
-template <typename T>
+// kSave: the states entering the chunks are written to ckpt (training);
+// without it (serving) the tile's steps hold no test for them, and the
+// launch leaves the staging space out of the block's shared memory
+template <typename T, bool kSave>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 ssm_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt_pre,
                 const float* __restrict__ dt_bias,
@@ -174,7 +179,7 @@ ssm_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt_pre,
     // step k of the tile with its dt: the state entering a chunk staged
     // for ckpt, then the update and y
     const auto step = [&](int k, float dt) {
-      if (k % kChunk == 0 && ckpt != nullptr) {
+      if (kSave && k % kChunk == 0) {
 #pragma unroll
         for (int i = 0; i < kDs / 4; ++i) {
           sm.ck[k / kChunk][chl][ck_piece(chl, i)] =
@@ -210,12 +215,37 @@ ssm_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt_pre,
     __syncthreads();                 // tile j read, its outputs staged
     store_rows<kTile, kChannels, kThreads>(out, &sm.out[0][0], row0, t0, S,
                                            c0, di, tid);
-    if (ckpt != nullptr) store_ck(sm, ckpt, b, n_ck, t0, S, c0, di, tid);
+    if (kSave) store_ck(sm, ckpt, b, n_ck, t0, S, c0, di, tid);
   }
   if (live) {
 #pragma unroll
     for (int n = 0; n < kDs; ++n) h_last[state0 + n] = h[n];
   }
+}
+
+template <typename T, bool kSave>
+int launch_scan(const void* x, const float* dt_pre, const float* dt_bias,
+                const float* bm, const float* cm, const float* a_log,
+                const float* d_skip, const float* h0, int64_t B, int64_t S,
+                int64_t di, void* out, float* h_last, float* ckpt,
+                cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned>((di + kChannels - 1) / kChannels),
+                  static_cast<unsigned>(B));
+  const int smem = static_cast<int>(kSave ? sizeof(Smem<T>)
+                                          : offsetof(Smem<T>, ck));
+  const auto kernel = ssm_scan_kernel<T, kSave>;
+  if (cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) {
+    return static_cast<int>(e);
+  }
+  // every block of the grid resident at once wants most of the SM's
+  // 256 KB as shared memory
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(x), dt_pre, dt_bias, bm, cm, a_log, d_skip, h0,
+      S, di, static_cast<T*>(out), h_last, ckpt);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -224,23 +254,13 @@ int launch_scan(const void* x, const float* dt_pre, const float* dt_bias,
                 const float* d_skip, const float* h0, int64_t B, int64_t S,
                 int64_t di, void* out, float* h_last, float* ckpt,
                 cudaStream_t st) {
-  const dim3 grid(static_cast<unsigned>((di + kChannels - 1) / kChannels),
-                  static_cast<unsigned>(B));
-  const int smem = static_cast<int>(sizeof(Smem<T>));
-  if (cudaError_t e = cudaFuncSetAttribute(
-          ssm_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          smem)) {
-    return static_cast<int>(e);
-  }
-  // every block of the grid resident at once wants most of the SM's
-  // 256 KB as shared memory
-  cudaFuncSetAttribute(ssm_scan_kernel<T>,
-                       cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxShared);
-  ssm_scan_kernel<T><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(x), dt_pre, dt_bias, bm, cm, a_log, d_skip, h0,
-      S, di, static_cast<T*>(out), h_last, ckpt);
-  return static_cast<int>(cudaGetLastError());
+  return ckpt != nullptr
+             ? launch_scan<T, true>(x, dt_pre, dt_bias, bm, cm, a_log,
+                                    d_skip, h0, B, S, di, out, h_last, ckpt,
+                                    st)
+             : launch_scan<T, false>(x, dt_pre, dt_bias, bm, cm, a_log,
+                                     d_skip, h0, B, S, di, out, h_last,
+                                     ckpt, st);
 }
 
 }  // namespace

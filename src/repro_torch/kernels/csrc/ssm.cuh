@@ -6,7 +6,8 @@
 // writes h as it enters every kChunk-th step, ckpt (B, ceil(S / kChunk),
 // di, kDs) float32, ckpt[b, j] the state before step j kChunk (h0, or
 // zeros, for j = 0).  The backward restarts each chunk's recurrence from
-// its entry.
+// its entry and keeps the chunk's states in registers, which a spacing of
+// 8 lets fit (16 steps of a thread's 16 pairs would not).
 
 #pragma once
 
@@ -17,7 +18,7 @@
 namespace ssm {
 
 constexpr int kDs = 16;            // states a channel (ssm_scan.DS)
-constexpr int kChunk = 16;         // steps between saved states (CHUNK)
+constexpr int kChunk = 8;          // steps between saved states (CHUNK)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 

@@ -52,17 +52,22 @@ writes the state entering every ``CHUNK``-th step, ``ckpt`` (B, ceil(S /
 CHUNK), di, ds) float32 (``ssm_checkpoints_torch`` is its plain version);
 the backward kernel walks the chunks from the last, recomputes each
 chunk's states from its entry into registers, and runs the recurrence
-back (``ssm_scan_bwd_torch`` spells out the formulas), ``BWD_LANES``
-threads a (batch row, channel) and ``BWD_CHANNELS`` channels a block.
-The sums over the channels (dBm, dCm) go out as per-block partials and
-the sums over the batch rows (dA_log, dD, ddt_bias) as per-row partials,
-both added in a fixed order by a second small kernel: no atomics, two
-launches bit-equal.  Bound (``bwd_bound_ms``): what the gradient itself
-needs from the saved states, whatever the kernel does: each decay and the
-softplus's exponential once, the step back's float32 FLOPs, its inputs
-read and outputs written once (not the kernel's recomputed states, second
-decays or partial sums), the largest.  On the CPU autograd differentiates
-the plain loop.
+back (``ssm_scan_bwd_torch`` spells out the formulas).  A thread takes
+``BWD_THREAD_CHANNELS`` channels of one batch row by ``DS / BWD_LANES``
+states, so that the sums over the states (u, the A·q sum) and over the
+channels (dBm, dCm) begin in its registers; ``BWD_LANES`` threads share a
+channel and ``BWD_CHANNELS`` channels a block.  The channel sums go out as
+per-block partials and the sums over the batch rows (dA_log, dD,
+ddt_bias) as per-row partials, both added in a fixed order by a second
+small kernel: no atomics, two launches bit-equal.  The spacing ``CHUNK``
+is the backward's: 8 steps of a thread's 16 (channel, state) pairs fit its
+registers, 16 would not.  Bound (``bwd_bound_ms``): what the gradient
+itself needs from saved states, whatever the kernel does: each decay and
+the softplus's exponential once, the step back's float32 FLOPs, its
+inputs read and outputs written once, the saved states at a spacing of
+``BOUND_CHUNK`` (not the kernel's denser spacing, recomputed states,
+second decays or partial sums), the largest.  On the CPU autograd
+differentiates the plain loop.
 """
 from __future__ import annotations
 
@@ -76,11 +81,19 @@ from repro_torch.kernels.rollup_digest import check_cuda
 from repro_torch.kernels.weighted_agg import DTYPE_FLAG
 
 DS = 16                             # csrc/ssm.cuh kDs: the state size built
-CHUNK = 16                          # steps between saved states, kChunk
+CHUNK = 8                           # steps between saved states, kChunk
+# the spacing of saved states that the backward's bound counts (the
+# first backward kernel's); the kernel's denser CHUNK is its design's
+# cost, not the gradient's
+BOUND_CHUNK = 16
 CHANNELS = 64                       # csrc/ssm.cu kChannels, a block's
 TILE = 16                           # steps a tile, kTile
-BWD_LANES = 4                       # csrc/ssm_bwd.cu kLanes
-BWD_CHANNELS = 256 // BWD_LANES     # channels a backward block, kChannels
+# csrc/ssm_bwd.cu's layout: threads a channel (kGroups), channels a thread
+# (kCh), warps a block (kWarps), channels a block (kChannels)
+BWD_LANES = 4
+BWD_THREAD_CHANNELS = 4
+BWD_WARPS = 2
+BWD_CHANNELS = BWD_WARPS * 32 // BWD_LANES * BWD_THREAD_CHANNELS
 ALIGN = 8                           # di a multiple of this (16-byte rows)
 # float32 operations a (b, t, channel, state): the decay's product,
 # dt·x times B, the update's multiply-add, and h·C's multiply-add
@@ -212,16 +225,18 @@ def ssm_scan_bwd_cost(x, dt_pre, dt_bias, Bm, Cm, A_log, D, h0, ckpt, dout,
                       dh_last) -> Tuple[int, int]:
     """(FLOPs, bytes) the gradient needs: ``BWD_FLOPS_PER_STATE`` float32
     operations a (b, t, channel, state); x, dt_pre, dout, Bm, Cm, the
-    saved states (``ckpt``, its shape as given), the weights, h0 and
-    dh_last read once; dx, ddt_pre, dBm, dCm, the weights' gradients and
-    dh0 written once.  The kernel's partial sums (268 MB at jamba's
-    training scan) are its design's and not counted."""
+    saved states at a spacing of ``BOUND_CHUNK`` (537 MB at jamba's
+    training scan; the kernel's ``ckpt``, at ``CHUNK``, is twice that),
+    the weights, h0 and dh_last read once; dx, ddt_pre, dBm, dCm, the
+    weights' gradients and dh0 written once.  The kernel's partial sums
+    and its denser saved states are its design's and not counted."""
     B, S, di = x.shape
     ds = A_log.shape[-1]
     flops = BWD_FLOPS_PER_STATE * B * S * di * ds
     state = 4 * B * di * ds
+    saved = 4 * B * -(-S // BOUND_CHUNK) * di * ds
     n_bytes = (x.element_size() * B * S * di * 3 + 4 * B * S * di * 2
-               + 4 * B * S * ds * 4 + 4 * ckpt.numel()
+               + 4 * B * S * ds * 4 + saved
                + 2 * (4 * di * (ds + 2) + dt_bias.element_size() * di)
                + state * ((2 if h0 is not None else 0)
                           + (1 if dh_last is not None else 0)))
@@ -401,6 +416,14 @@ def _launch(x, dt_pre, dt_bias, Bm, Cm, A_log, D, h0, ckpt: bool = False):
     return (out, h, saved) if ckpt else (out, h)
 
 
+def bwd_scratch_shapes(B: int, S: int, di: int) -> dict:
+    """The backward kernel's float32 scratch: ``part_bc``, each block's
+    dBm | dCm terms a step (a block takes ``BWD_CHANNELS`` channels), and
+    ``part_ch``, each row's dA, dD and ddt_bias terms a channel."""
+    return {"part_bc": (B, S, -(-di // BWD_CHANNELS), 2 * DS),
+            "part_ch": (B, di, DS + 2)}
+
+
 def _launch_bwd(x, dt_pre, dt_bias, Bm, Cm, A_log, D, h0, ckpt, dout,
                 dh_last):
     """``csrc/ssm_bwd.cu`` on CUDA tensors (its two kernels counted as one
@@ -420,9 +443,9 @@ def _launch_bwd(x, dt_pre, dt_bias, Bm, Cm, A_log, D, h0, ckpt, dout,
     dout = _aligned(dout.to(x.dtype))
     args = [_f32(t) for t in (dt_pre, dt_bias, Bm, Cm, A_log, D, ckpt)]
     dh_last = _f32(dh_last) if dh_last is not None else None
-    blocks = -(-di // BWD_CHANNELS)
-    part_bc = torch.empty(B, S, blocks, 2 * DS, **f32)
-    part_ch = torch.empty(B, di, DS + 2, **f32)
+    scratch = bwd_scratch_shapes(B, S, di)
+    part_bc = torch.empty(scratch["part_bc"], **f32)
+    part_ch = torch.empty(scratch["part_ch"], **f32)
     dx = torch.empty_like(x)
     outs = [torch.empty(B, S, di, **f32), torch.empty(B, S, DS, **f32),
             torch.empty(B, S, DS, **f32), torch.empty(di, DS, **f32),

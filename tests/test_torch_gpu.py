@@ -1584,12 +1584,12 @@ def test_ssm_scan_kernel(cuda, S, h0, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("h0", [False, True])
-@pytest.mark.parametrize("S", [1, 16, 37, 128, 300])
+@pytest.mark.parametrize("S", [1, 8, 16, 37, 128, 300])
 def test_ssm_scan_bwd_kernel(cuda, S, h0, dtype):
     """The backward kernel against the plain backward on the forward
     kernel's saved states (themselves within KERNEL_TOL of
-    ssm_checkpoints_torch), at S of 1, one chunk, chunks with a tail; di
-    of 256 and 200 (a block 56 channels short); within
+    ssm_checkpoints_torch), at S of 1, one chunk, two, chunks with a
+    tail; di of 256 and 200 (a block of 64 channels 56 short); within
     ``sm.kernel_bwd_tol``, one launch a call, two launches bit-equal
     (chip_smoke.ssm_bwd_case)."""
     gen = torch.Generator(device=cuda).manual_seed(S + 2 * h0)

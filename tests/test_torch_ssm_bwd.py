@@ -24,12 +24,19 @@
     another order, so a rounding may land a step or two apart);
   * the saved states, the cost and bound of the gradient at jamba's
     training scan from meta tensors, and the wrapper's contract off the
-    CPU.
+    CPU;
+  * the Python mirrors of the kernels' layout against the constants of
+    ``csrc/ssm.cuh``, ``ssm.cu`` and ``ssm_bwd.cu`` (the saved-state
+    spacing, a backward thread's channels and states, a block's
+    channels), and the scratch the launcher allocates for the backward
+    (``part_bc``, ``part_ch``) at the shapes those constants give.
 
 The kernel against the plain version is a card test
 (tests/test_torch_gpu.py, chip_smoke.py phase 21) at ``kernel_bwd_tol``.
 """
+import re
 import types
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -267,7 +274,11 @@ def test_ssm_scan_bwd_bound_at_jambas_training_scan():
     flops, n_bytes = sm.ssm_scan_bwd_cost(*args)
     assert sm.BWD_FLOPS_PER_STATE == 16
     assert flops == sm.BWD_FLOPS_PER_STATE * B * S * di * sm.DS
-    assert 4 * args[8].numel() == 536_870_912
+    # the saved states the bound counts: every 16th step's, whatever
+    # spacing the kernel saves at (CHUNK; its denser states are its cost)
+    assert sm.BOUND_CHUNK == 16
+    assert 4 * B * -(-S // sm.BOUND_CHUNK) * di * sm.DS == 536_870_912
+    assert 4 * args[8].numel() == 536_870_912 * sm.BOUND_CHUNK // sm.CHUNK
     assert 2.41e9 < n_bytes < 2.43e9
     b = sm.bwd_bound_ms(*args)
     assert b["bound_by"] == "bytes" and b["bound_ms"] == b["bytes_ms"]
@@ -277,3 +288,88 @@ def test_ssm_scan_bwd_bound_at_jambas_training_scan():
     # the factory's registered cost is this one
     assert factory.kernel_cost("ssm_scan_bwd")(*args) == (flops, n_bytes)
 
+
+
+CSRC = Path(sm.__file__).parent / "csrc"
+
+
+def _constexprs(*sources) -> dict:
+    """The namespace-level integer ``constexpr`` constants of ``sources``
+    (in ``csrc/``, read in order, a later one seeing the earlier ones'),
+    evaluated as Python integers."""
+    env = {}
+    for name in sources:
+        text = (CSRC / name).read_text()
+        for m in re.finditer(r"^constexpr int (\w+) = ([^;]+);", text,
+                             re.M):
+            env[m.group(1)] = eval(m.group(2).replace("/", "//"),
+                                   {"__builtins__": {}}, dict(env))
+    return env
+
+
+def test_layout_mirrors_match_the_source():
+    """ssm_scan's constants are the kernels': the state size and the
+    saved-state spacing (ssm.cuh), the forward's block and tile (ssm.cu),
+    the backward's threads a channel, channels a thread, warps and
+    channels a block (ssm_bwd.cu), and the scratch shapes that follow."""
+    head = _constexprs("ssm.cuh")
+    fwd = _constexprs("ssm.cuh", "ssm.cu")
+    bwd = _constexprs("ssm.cuh", "ssm_bwd.cu")
+    assert (head["kDs"], head["kChunk"]) == (sm.DS, sm.CHUNK)
+    assert (fwd["kChannels"], fwd["kTile"]) == (sm.CHANNELS, sm.TILE)
+    assert fwd["kTile"] % head["kChunk"] == 0
+    assert (bwd["kGroups"], bwd["kCh"], bwd["kWarps"], bwd["kChannels"]) \
+        == (sm.BWD_LANES, sm.BWD_THREAD_CHANNELS, sm.BWD_WARPS,
+            sm.BWD_CHANNELS)
+    assert bwd["kK"] == sm.CHUNK
+    assert bwd["kSt"] * bwd["kGroups"] == sm.DS
+    # a thread owns one channel of its block for the per-channel work
+    assert bwd["kChannels"] == bwd["kThreads"]
+    assert sm.bwd_scratch_shapes(2, 4096, 16384) == {
+        "part_bc": (2, 4096, 16384 // bwd["kChannels"], bwd["kSums"]),
+        "part_ch": (2, 16384, bwd["kPartCh"])}
+
+
+@pytest.mark.parametrize("B,S,di", [(2, 37, 200), (1, 8, 64), (3, 1, 72),
+                                    (2, 0, 128)])
+def test_launcher_allocates_the_scratch_the_kernel_takes(B, S, di,
+                                                         monkeypatch):
+    """``_launch_bwd`` hands the kernel part_bc (B, S, ceil(di /
+    kChannels), 2 ds) and part_ch (B, di, ds + 2) float32, in the places
+    of its C signature, and every output at its shape: the launch stood
+    in by a recorder on CPU tensors."""
+    bwd = _constexprs("ssm.cuh", "ssm_bwd.cu")
+    made, calls = [], []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        made.append(t)
+        return t
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    monkeypatch.setattr(sm, "check_cuda", lambda *ts: ts[0].device)
+    monkeypatch.setattr(sm._build, "launch",
+                        lambda name, dev, *args: calls.append((name, args)))
+    g = np.random.default_rng(B * 1000 + S)
+    args = scan_inputs(B, S, di, torch.bfloat16, True, g)
+    ckpt = torch.zeros(B, sm.n_chunks(S), di, sm.DS)
+    dout = torch.zeros(B, S, di, dtype=torch.bfloat16)
+    got = sm._launch_bwd(*args, ckpt, dout, torch.zeros(B, di, sm.DS))
+    assert [name for name, _ in calls] == ["ssm_scan_bwd"]
+    ptrs = calls[0][1]
+    by_ptr = {t.data_ptr(): t for t in made if t.numel()}
+    assert ptrs[10:15] == (B, S, di, sm.DS, 1)
+    scratch = {"part_bc": (B, S, -(-di // bwd["kChannels"]), bwd["kSums"]),
+               "part_ch": (B, di, bwd["kPartCh"])}
+    for at, (name, shape) in zip((15, 16), scratch.items()):
+        t = by_ptr.get(ptrs[at])
+        if t is None:                       # an empty tensor (S = 0)
+            assert 0 in shape
+            continue
+        assert tuple(t.shape) == shape and t.dtype == torch.float32, name
+    dx, ddt_pre, ddt_bias, dBm, dCm, dA_log, dD, dh0 = got
+    assert dx.shape == (B, S, di) and dx.dtype == torch.bfloat16
+    assert ddt_pre.shape == (B, S, di) and dBm.shape == dCm.shape \
+        == (B, S, sm.DS)
+    assert dA_log.shape == (di, sm.DS) and dD.shape == ddt_bias.shape \
+        == (di,) and dh0.shape == (B, di, sm.DS)

@@ -38,19 +38,24 @@ training scan, (2, 4,096, 2,048, 4 heads)):
                  the tree)
 
 ``ssm`` (``csrc/ssm.cu``, the selective scan, at jamba's prefill (4,
-4,096, 16,384, 16) in bfloat16 from zeros) and ``ssm_bwd``
+4,096, 16,384, 16) in bfloat16 from zeros): the layouts the kernel was
+chosen from (threads a channel, channels a block, blocks an SM, steps a
+tile), other forms of the step (y as a tree or two chains, the softplus
+by ``log1pf`` or a lower-degree polynomial, the next step's decays first)
+and a share of the decays on the FMA pipes by range reduction and a
+polynomial (``EX2_FMA``); and trials named ``trial_*``.  ``ssm_bwd``
 (``csrc/ssm_bwd.cu``, its gradient, at jamba's training scan (2, 4,096,
-16,384, 16), on the saved states of this tree's forward kernel): the
-layouts the kernels were chosen from (threads a channel, channels a block,
-blocks an SM, steps a tile), other forms of the step (y as a tree or two
-chains, the softplus by ``log1pf`` or a lower-degree polynomial, the next
-step's decays first) and a share of the decays on the FMA pipes by range
-reduction and a polynomial (``EX2_FMA``); and trials named ``trial_*``.
-The two kernels' builds take ``ssm.cuh`` inlined, so that an edit may
-change it too; besides the events, they are timed by the profiler's
-device time (``chip_smoke.device_ms``), and their rows carry the bound
-(``ssm_scan.bound_ms`` / ``bwd_bound_ms``; for a variant with decays on
-the FMA pipes, ``ssm_bound_both_pipes`` too).
+16,384, 16), on the saved states of this tree's forward kernel): blocks
+of 1 and 4 warps beside the 2 of the source, and trials that leave out
+one part (the recomputed states' decays, the step back's decays or the
+whole step back, dB's and dC's terms, the shuffles of u and the A q sum,
+the owner's outputs, the conversion's exponentials, the step loops'
+shared-memory loads, the sums after the chunk, the copies after the first
+chunk) or halve the blocks an SM.  The two kernels' builds take ``ssm.cuh``
+inlined, so that an edit may change it too; besides the events, they are
+timed by the profiler's device time (``chip_smoke.device_ms``), and their
+rows carry the bound (``ssm_scan.bound_ms`` / ``bwd_bound_ms``; for
+``ssm``, ``ssm_bound_both_pipes`` too).
 
 The trial builds compute wrong results and serve for timing only; every
 other build is held to the plain version within the kernel's tolerance.
@@ -367,23 +372,110 @@ const float* crow = &cur.bc[k][kDs];""", """const float* brow = a;
 const float* crow = a;""")],
 }
 # the gradient (ssm_bwd.cu with ssm.cuh inlined)
-SSM_BWD_RECOMPUTE = """hist[k + 1][n] = fmaf(ex2(dt * a2[n]), hist[k][n],
-dtx * brow[n]);"""
+SSM_BWD_FWD_STEP = """h[j][n] = fmaf(ex2(comp(dt4, j) * a2[j][n]), h[j][n],
+comp(dx4, j) * comp(b4, n));
+dc[n] = fmaf(comp(dy4, j), h[j][n], dc[n]);"""
+SSM_BWD_FWD_DECAY = \
+    "h[j][n] = fmaf(ex2(comp(dt4, j) * a2[j][n]), h[j][n],"
+SSM_BWD_DECAY = "const float decay = ex2(comp(dt4, j) * a2[j][n]);"
+SSM_BWD_STATE_SUMS = """const bool hi = lane & 2, lo = lane & 1;
+float u2[2], s2[2];
+#pragma unroll
+for (int m = 0; m < 2; ++m) {
+u2[m] = (hi ? u[m + 2] : u[m])
++ __shfl_xor_sync(0xffffffffu, hi ? u[m] : u[m + 2], 2);
+s2[m] = (hi ? s[m + 2] : s[m])
++ __shfl_xor_sync(0xffffffffu, hi ? s[m] : s[m + 2], 2);
+}
+const float uo = (lo ? u2[1] : u2[0])
++ __shfl_xor_sync(0xffffffffu, lo ? u2[0] : u2[1],
+1);
+const float so = (lo ? s2[1] : s2[0])
++ __shfl_xor_sync(0xffffffffu, lo ? s2[0] : s2[1],
+1);"""
+SSM_BWD_DC_STORE = """sm.red[warp][k][q][((q & 1) ^ 1) * kGroups + p] =
+make_float4(dc[0], dc[1], dc[2], dc[3]);"""
+SSM_BWD_DB_STORE = """sm.red[warp][k][q][(q & 1) * kGroups + p] =
+make_float4(db[0], db[1], db[2], db[3]);"""
+SSM_BWD_OWNER = """const float ddtp = fmaf(to_float(cur.x[k][tid]), uo, so * kLn2)
+* sm.sg[k][tid];
+sm.dx[k][tid] = from_float<T>(fmaf(sm.dt[k][tid], uo,
+dskip * sm.dy[k][tid]));
+sm.ddt[k][tid] = ddtp;
+dbias += ddtp;"""
+SSM_BWD_CONVERT = """const float e = exp_neg_abs(v);
+const float r = __fdividef(1.f, 1.f + e);
+const float dt = softplus_of(v, e);"""
+SSM_BWD_LOADS = [
+    ("const float4 dt4 = ld4(&sm.dt[k][cb]);",
+     "const float4 dt4 = make_float4(a2[0][k & 3], a2[1][1], a2[2][2], "
+     "a2[3][3]);", 2),
+    ("const float4 dx4 = ld4(&sm.dtx[k][cb]);",
+     "const float4 dx4 = make_float4(a2[1][k & 3], a2[2][1], a2[3][2], "
+     "a2[0][3]);", 2),
+    ("const float4 dy4 = ld4(&sm.dy[k][cb]);",
+     "const float4 dy4 = make_float4(a2[2][k & 3], a2[3][1], a2[0][2], "
+     "a2[1][3]);", 2),
+    ("const float4 b4 = ld4(&cur.bc[k][kSt * p]);",
+     "const float4 b4 = make_float4(a2[3][k & 3], a2[0][1], a2[1][2], "
+     "a2[2][3]);", 2),
+    ("const float4 c4 = ld4(&cur.bc[k][kDs + kSt * p]);",
+     "const float4 c4 = make_float4(a2[0][k & 3], a2[2][1], a2[1][2], "
+     "a2[3][3]);")]
+
+
+def ssm_bwd_layout(warps: int, min_blocks: int) -> list:
+    """Another block: ``warps`` warps (32 channels each), the launch bound
+    at ``min_blocks`` blocks an SM."""
+    return [("constexpr int kWarps = 2;", f"constexpr int kWarps = {warps};"),
+            ("constexpr int kMinBlocks = 4;",
+             f"constexpr int kMinBlocks = {min_blocks};")]
+
+
 SSM_BWD_VARIANTS = {
     "whole": [],
-    "blocks3": [("constexpr int kMinBlocks = 2;",
-                 "constexpr int kMinBlocks = 3;")],
-    "channels32": [("constexpr int kThreads = 256;",
-                    "constexpr int kThreads = 128;"),
-                   ("constexpr int kMinBlocks = 2;",
-                    "constexpr int kMinBlocks = 4;")],
-    "trial_decays_fma_pipe": [("ex2(dt * a2[n])", "fmaf(dt, a2[n], 1.f)",
-                               2)],
-    "trial_no_channel_sums": [(
-        "sm.red[warp][k][lane] = reduce_scatter8(v, lane);",
-        "sm.red[warp][k][lane] = v[0] + v[7];")],
-    "trial_no_recompute": [(SSM_BWD_RECOMPUTE,
-                            "hist[k + 1][n] = hist[k][n] + dtx;")],
+    "warps1": ssm_bwd_layout(1, 8),
+    "warps4": ssm_bwd_layout(4, 2),
+    # the recomputed states without their decays (h = A h + dt x B)
+    "trial_recompute_no_sfu": [(SSM_BWD_FWD_DECAY,
+                                "h[j][n] = fmaf(a2[j][n], h[j][n],")],
+    # the step back's decays not taken (the carry scaled by A log2 e)
+    "trial_step_back_no_sfu": [(SSM_BWD_DECAY,
+                                "const float decay = a2[j][n];")],
+    # dB's and dC's terms neither taken nor staged (the sums after the
+    # chunk add what shared memory holds)
+    "trial_no_channel_sums": [(SSM_BWD_DC_STORE, ""),
+                              (SSM_BWD_DB_STORE, "")],
+    # u and the A q sum over the thread's states only (no shuffles)
+    "trial_no_state_sums": [(SSM_BWD_STATE_SUMS,
+                             "const float uo = u[0] + u[1] + u[2] + u[3];\n"
+                             "const float so = s[0] + s[1] + s[2] + s[3];")],
+    # the step back left out (the forward's dC terms stay)
+    "trial_forward_only": [("for (int k = kK - 1; k >= 0; --k) {",
+                            "for (int k = kK - 1; k >= kK; --k) {")],
+    # the recomputed states as one add each (loads and stores stay)
+    "trial_light_forward": [(SSM_BWD_FWD_STEP, """h[j][n] += comp(dx4, j);
+dc[n] += h[j][n];""")],
+    # the owner's dx, ddt_pre and ddt_bias left out
+    "trial_no_owner": [(SSM_BWD_OWNER, "dbias += uo + so;")],
+    # the softplus, sigmoid and reciprocal left out of the conversion
+    "trial_light_conversion": [(SSM_BWD_CONVERT,
+                                "const float e = v, r = v, dt = v;")],
+    # the step loops' loads of the per-channel values, B and C left out
+    "trial_no_step_loads": SSM_BWD_LOADS,
+    # the sums of dB's and dC's terms after the chunk left out
+    "trial_no_chunk_sums": [(
+        "for (int e = tid; e < kK * kPieces; e += kThreads) {",
+        "for (int e = tid; e < 0; e += kThreads) {")],
+    # the copies of every chunk but the first left out
+    "trial_no_refill": [("""if (jc > 0) {
+load_chunk(sm.tile[(i + 1) & 1], x, dt_pre, dy, bm, cm, ckpt, b, n_ck,""",
+                         """if (false) {
+load_chunk(sm.tile[(i + 1) & 1], x, dt_pre, dy, bm, cm, ckpt, b, n_ck,""")],
+    # 64 KB more shared memory a block: 2 blocks (4 warps) an SM
+    "trial_half_occupancy": [(
+        "const int smem = static_cast<int>(sizeof(BwdSmem<T>));",
+        "const int smem = static_cast<int>(sizeof(BwdSmem<T>)) + 65536;")],
 }
 # {kernel: (source, {variant: [(text, its replacement)]})}
 VARIANTS = {
@@ -626,8 +718,9 @@ def ssm_bwd_case(dev, seed):
     dout = torch.randn(B, S, di, generator=g, device=dev).bfloat16()
     want = sm.ssm_scan_bwd_torch(*args, ckpt, dout, None)
     f32 = dict(dtype=torch.float32, device=dev)
-    part_bc = torch.empty(B, S, -(-di // 32), 2 * ds, **f32)  # any block
-    part_ch = torch.empty(B, di, ds + 2, **f32)
+    # part_bc for a block of one warp (32 channels), the smallest variant
+    part_bc = torch.empty(B, S, -(-di // 32), 2 * ds, **f32)
+    part_ch = torch.empty(sm.bwd_scratch_shapes(B, S, di)["part_ch"], **f32)
     dx = torch.empty_like(args[0])
     outs = [torch.empty(B, S, di, **f32), torch.empty(B, S, ds, **f32),
             torch.empty(B, S, ds, **f32), torch.empty(di, ds, **f32),
