@@ -11,7 +11,9 @@ paper's LeNet-5 Fig. 3 run, MoE / xLSTM training through the gmm and
 slstm_scan backward kernels, serving jamba's hybrid Mamba / MoE stack
 (its first five layers at full width, through the ssm_scan kernel) and
 training it (its first layer, through the ssm_scan_bwd kernel), and
-qwen2-vl's backbone on embeddings with M-RoPE (cut in depth).
+qwen2-vl's backbone on embeddings with M-RoPE (cut in depth), and
+whisper-medium's encoder-decoder at full size (served and one training
+step, its cross attention through the attention kernels at Sq != Skv).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -365,6 +367,31 @@ Phases, each printing its result on a line of its own:
                launch counts from 0 (ssm_scan_bwd 1, ssm_scan 2 under
                remat "full"), loss, tokens/s, peak memory, the device
                shares.
+ 22. whisper — (a) flash_attention and flash_attention_bwd at Sq != Skv
+               (whisper's cross attention) against their plain versions
+               in both forms: the cross attention at (8, 4,096, 1,500),
+               (8, 448, 1,500), the decode step's (8, 1, 1,500) and tails
+               (2, 4,096, 129) / (2, 129, 4,096), the encoder's (8, 1,500,
+               1,500), the backward at (4, 4,096, 1,500) and the tails,
+               two launches bit-equal; a causal Sq != Skv call raises in
+               the wrapper and the C launcher; timed at whisper-medium's
+               heads (16 of 64) by CUDA events and device time beside the
+               bound and SDPA; (b) the reduced whisper (2 + 2 layers) card
+               with the kernels against the CPU in float32 and bfloat16:
+               logits, loss, every gradient, 4 decode steps, launches by
+               kind; (c) prefill against decode in float32 on the card;
+               (d) whisper-medium at full width and depth (1.05 B
+               parameters, bfloat16): the prefill of 8 x 4,096 tokens over
+               8 x 1,500 frames with 72 flash_attention launches counted
+               from 0 (24 of each kind: the encoder's square, the
+               decoder's causal and cross, all wgmma), ek / ev filled
+               from the encoder and 32 decode steps at 8 x 4,128, time to
+               first token, decode ms a step, peak memory, busy share and
+               the attention's device time by kind; (e) one adamw step
+               of it on 4 x 4,096 tokens over 4 x 1,500 frames (remat
+               "dots"): launches by kind (flash_attention_bwd 24 cross),
+               the loss near ln(vocab), the weights moved, step seconds,
+               tokens/s, peak memory, the shares.
 
 Then one JSON line lists every kernel with its launches on its path, the
 card's name and power limit follow on a line of their own, and the last
@@ -1891,7 +1918,7 @@ PREFILL_DECODE_TOL = dict(rtol=0.15, atol=0.15)
 PREFILL_DECODE_TOL_F32 = dict(rtol=1e-2, atol=1e-2)
 
 
-def sdpa(q, k, v):
+def sdpa(q, k, v, causal: bool = True):
     """One PyTorch call for the same function (the yardstick; the port
     never calls it): flash or memory-efficient backends only, so that it
     never materialises the scores."""
@@ -1901,7 +1928,7 @@ def sdpa(q, k, v):
                       SDPBackend.CUDNN_ATTENTION]):
         return torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True).transpose(1, 2)
+            is_causal=causal, enable_gqa=True).transpose(1, 2)
 
 
 def plain_rows(q, k, v, r0: int, r1: int) -> torch.Tensor:
@@ -2131,12 +2158,15 @@ def lm_agree(dev) -> None:
 
 
 def profile_share(fn, kernels=(("attention", "flash_attention_"),),
-                  cpu: bool = True) -> dict:
+                  cpu: bool = True, kinds=None) -> dict:
     """``fn`` under torch.profiler: the union of its device intervals over
     the traced wall, the part of it in each of ``kernels`` ((label, name
     fragment) pairs), and the kernels that take the most device time.
     ``cpu`` False traces the device alone (a trace of millions of host
-    ops takes minutes to read)."""
+    ops takes minutes to read).  ``kinds`` (a fragment and the label of
+    each of its launches in launch order) splits that kernel's time by
+    label."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA]
     if cpu:
@@ -2153,6 +2183,20 @@ def profile_share(fn, kernels=(("attention", "flash_attention_"),),
         us = sum(t for name, t in by_name.items() if fragment in name)
         out[f"{label}_s"] = us / 1e6
         out[f"{label}_share"] = us / busy_us if busy_us else None
+    if kinds is not None:
+        fragment, order = kinds
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and fragment in e.name)
+        if len(spans) == len(order):
+            for (start, end), label in zip(spans, order):
+                out[f"{label}_s"] = out.get(f"{label}_s", 0.0) \
+                    + (end - start) / 1e6
+            for label in set(order):
+                out[f"{label}_share"] = out[f"{label}_s"] * 1e6 / busy_us
+        else:
+            out["kinds"] = f"{len(spans)} of {len(order)} spans traced"
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out["top_s"] = {name[:60]: us / 1e6 for name, us in top}
     return out
@@ -4461,11 +4505,11 @@ TRAIN_LOSS_RTOL = 2e-3
 TRAIN_GRAD_REL = 5e-2
 
 
-def sdpa_bwd(q, k, v, do):
+def sdpa_bwd(q, k, v, do, causal: bool = True):
     """SDPA's backward on one forward of it (the yardstick; the port
     never calls it): a function that computes dq, dk, dv."""
     qt, kt, vt = (t.detach().requires_grad_() for t in (q, k, v))
-    out = sdpa(qt, kt, vt)
+    out = sdpa(qt, kt, vt, causal)
     return lambda: torch.autograd.grad(out, (qt, kt, vt), do,
                                        retain_graph=True)
 
@@ -6476,6 +6520,556 @@ def hybrid_vlm_main(dev, smi: str) -> tuple:
     return list(rows), launches, train["launches"]
 
 
+# -- phase 22: whisper's encoder-decoder ---------------------------------------
+
+# whisper-medium's attention: 16 heads of 64 on 16 kv heads, bfloat16 (the
+# wgmma form; float32 takes the CUDA-core form), 1,500 encoder frames
+WHISPER_HEADS = dict(H=16, Hkv=16, dh=64)
+WHISPER_FRAMES = 1500
+# (B, Sq, Skv) of the cross attention: phase 22's serving prefill (8 x
+# 4,096 tokens), whisper's own text context (448), the decode step (1), and
+# tails on both sides; the encoder's (square, not causal); the decoder's
+# self attention (causal); (B, Sq, Skv, causal) of the backward: the
+# training step's cross, tails, the decode step's shape, and the training
+# step's encoder (square) and decoder self (causal) backward
+WHISPER_CROSS = [(8, 4096, 1500), (8, 448, 1500), (8, 1, 1500),
+                 (2, 4096, 129), (2, 129, 4096)]
+WHISPER_ENC = (8, 1500, 1500)
+WHISPER_SELF = (8, 4096, 4096)
+WHISPER_BWD = [(4, 4096, 1500, False), (2, 4096, 129, False),
+                     (2, 129, 4096, False), (8, 1, 1500, False),
+                     (4, 1500, 1500, False), (4, 4096, 4096, True)]
+# phase 22's cuts, as phase 10's for yi-6b: prefill_32k 32 x 32,768 ->
+# 8 x 4,096 decoder tokens over 8 x 1,500 frames, decode_32k 128 x 32,768
+# -> 8 x 4,128; train_4k 256 x 4,096 -> 4 x 4,096 over 4 x 1,500 frames
+WHISPER_PREFILL = dict(batch=8, seq=4096)
+WHISPER_DECODE = dict(batch=8, max_len=4128, steps=32)
+WHISPER_TRAIN = dict(batch=4, seq=4096)
+# the reduced whisper card against CPU: float32 as tests/test_torch_gpu.py
+# holds it (sums in another order, the kernel's exp against torch's);
+# bfloat16 as tests/test_torch_encdec.py holds the port to JAX (logits a
+# few bfloat16 steps, the loss within 1e-2, each gradient leaf within 5e-2
+# of its norm)
+WHISPER_AGREE = {"float32": dict(rtol=1e-4, atol=1e-4, loss=1e-5),
+                 "bfloat16": dict(rtol=2e-2, atol=6e-2, loss=1e-2,
+                                  grad_rel=5e-2)}
+
+
+def whisper_qkv(B, Sq, Skv, dtype, g, dev, do: bool = False):
+    """q (B, Sq, 16, 64), k and v (B, Skv, 16, 64) (and dO shaped as q)
+    drawn on the host from ``g``."""
+    H, Hkv, dh = WHISPER_HEADS.values()
+    shapes = [(B, Sq, H, dh), (B, Skv, Hkv, dh), (B, Skv, Hkv, dh)]
+    if do:
+        shapes.append((B, Sq, H, dh))
+    return [torch.randn(*sh, generator=g).to(dev, dtype) for sh in shapes]
+
+
+def plain_by_batch(fn, *args):
+    """The plain version ``fn`` one batch row at a time, its outputs
+    joined along the batch: the same function where the whole batch's
+    (Sq, Skv) float32 scores need tens of GiB."""
+    outs = [fn(*(a[b:b + 1] if torch.is_tensor(a) else a for a in args))
+            for b in range(args[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def check_cross_attention(dev) -> dict:
+    """(a) flash_attention and flash_attention_bwd against their plain
+    versions at whisper-medium's shapes, both forms (bfloat16: wgmma;
+    float32: simt): the cross attention at WHISPER_CROSS, the encoder's
+    square attention, the backward at WHISPER_BWD (cross, square and
+    causal; two launches bit-equal); a causal call with Sq != Skv raises
+    in the wrapper and in the C launcher.  Then the wgmma form timed at
+    whisper-medium's shapes (CUDA events, L2 flushed, and the profiler's
+    device time) beside its bound, the plain version and SDPA (its
+    backward for the backward), the decoder's self attention held to its
+    plain version before it is timed."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator().manual_seed(22)
+    f32, bf16 = torch.float32, torch.bfloat16
+    err, kinds = {}, {}
+    for B, Sq, Skv in WHISPER_CROSS + [WHISPER_ENC]:
+        for dtype in (bf16, f32):
+            q, k, v = whisper_qkv(B, Sq, Skv, dtype, g, dev)
+            before = dict(fa.flash_attention.kind_launches)
+            got = fa.flash_attention(q, k, v, causal=False)
+            if fa.flash_attention.last_form != fa.form(dtype, q.shape[3]):
+                raise AssertionError(f"flash_attention at {(B, Sq, Skv)} "
+                                     f"{dtype} ran form "
+                                     f"{fa.flash_attention.last_form}")
+            what = fa.kind(Sq, Skv, False)
+            if fa.flash_attention.kind_launches.get(what, 0) \
+                    != before.get(what, 0) + 1:
+                raise AssertionError(f"flash_attention at {(B, Sq, Skv)} "
+                                     f"was not counted as {what}")
+            h = held(got, fa.flash_attention_torch(q, k, v, False),
+                     f"at {(B, Sq, Skv)} {dtype}")
+            err[f"{[B, Sq, Skv]} {str(dtype)[6:]}"] = h["max_abs_err"]
+            kinds[what] = kinds.get(what, 0) + 1
+            del q, k, v, got
+    bwd_err = {}
+    for B, Sq, Skv, causal in WHISPER_BWD:
+        for dtype in (bf16, f32):
+            q, k, v, do = whisper_qkv(B, Sq, Skv, dtype, g, dev, do=True)
+            o, lse = fa._launch(q, k, v, causal, lse=True)
+            want = plain_by_batch(fa.flash_attention_bwd_torch, q, k, v, o,
+                                  lse, do, causal)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+            what = f"{[B, Sq, Skv]} {str(dtype)[6:]}" \
+                + (" causal" if causal else "")
+            if fa.flash_attention_bwd.last_form != fa.form(dtype, 64):
+                raise AssertionError(f"flash_attention_bwd {what} ran form "
+                                     f"{fa.flash_attention_bwd.last_form}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"flash_attention_bwd {what}: two "
+                                     f"launches differ")
+            errs = [float((a.float() - w.float()).abs().max())
+                    for a, w in zip(got, want)]
+            if not fa.bwd_close(got, want):
+                raise AssertionError(f"flash_attention_bwd {what}: dq, dk, "
+                                     f"dv off by {errs}, tolerance "
+                                     f"{fa.BWD_TOL[dtype]}")
+            bwd_err[what] = max(errs)
+            del q, k, v, do, o, lse, want, got, again
+    q, k, v = whisper_qkv(1, 3, 5, bf16, g, dev)
+    try:
+        fa.flash_attention(q, k, v, causal=True)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a causal flash_attention with Sq != Skv ran")
+    out = torch.empty_like(q)
+    try:
+        _build.launch("attn_flash_attention", dev, q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), 1, 3, 5, 16, 16, 64, 0.125,
+                      1, 1, 1, out.data_ptr(), None)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("attn_flash_attention took a causal launch "
+                             "with Sq != Skv")
+    torch.cuda.synchronize()
+    log(f"cross attention: flash_attention within KERNEL_TOL of plain at "
+        f"{len(err)} inputs ({json.dumps(kinds)} by kind, both forms), "
+        f"flash_attention_bwd within BWD_TOL and bit-equal across two "
+        f"launches at {len(bwd_err)}; a causal call with Sq != Skv raised "
+        f"in the wrapper and was refused by the launcher; largest |kernel "
+        f"- plain| {json.dumps(err)}; backward {json.dumps(bwd_err)}")
+
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.int32, device=dev)
+    rows = {}
+    for label, (B, Sq, Skv), causal in (
+            ("cross", WHISPER_CROSS[0], False),
+            ("cross_text", WHISPER_CROSS[1], False),
+            ("cross_decode", WHISPER_CROSS[2], False),
+            ("encoder", WHISPER_ENC, False), ("self", WHISPER_SELF, True)):
+        q, k, v = whisper_qkv(B, Sq, Skv, bf16, g, dev)
+        kernel = lambda: fa.flash_attention(q, k, v, causal=causal)
+        if label == "self":
+            err[f"{[B, Sq, Skv]} bfloat16 causal"] = held(
+                kernel(), plain_by_batch(fa.flash_attention_torch, q, k, v,
+                                         True),
+                f"at {(B, Sq, Skv)} bfloat16 causal")["max_abs_err"]
+        row = {"shape": [B, Sq, Skv, *WHISPER_HEADS.values()],
+               "causal": causal,
+               "ms": timed_ms(kernel, 5, flush),
+               "device_ms": device_ms(kernel, "flash_attention_", 5, flush),
+               "library_ms": timed_ms(lambda: sdpa(q, k, v, causal), 5,
+                                      flush),
+               **cost_bound("flash_attention", q, k, v, causal)}
+        row["max_abs_err"] = err[f"{[B, Sq, Skv]} bfloat16"
+                                 + (" causal" if causal else "")]
+        if label == "cross":
+            row["plain_ms"] = timed_ms(
+                lambda: fa.flash_attention_torch(q, k, v, False), 2, flush)
+        rows[label] = row
+        log(f"kernel flash_attention {label} at {row['shape']} (bfloat16, "
+            f"{'causal' if causal else 'not causal'}, wgmma): "
+            f"{row['ms']:.6f} ms, device {row['device_ms']:.6f} ms (bound "
+            f"{row['bound_ms']:.6f} ms, {row['bound_by']}), SDPA "
+            f"{row['library_ms']:.6f} ms, |kernel - plain| "
+            f"{row['max_abs_err']}"
+            + (f", plain {row['plain_ms']:.6f} ms" if "plain_ms" in row
+               else ""))
+        del q, k, v
+    B, Sq, Skv, _ = WHISPER_BWD[0]
+    q, k, v, do = whisper_qkv(B, Sq, Skv, bf16, g, dev, do=True)
+    o, lse = fa._launch(q, k, v, False, lse=True)
+    kernel = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, False)
+    row = {"shape": [B, Sq, Skv, *WHISPER_HEADS.values()],
+           "max_abs_err": bwd_err[f"{[B, Sq, Skv]} bfloat16"],
+           "ms": timed_ms(kernel, 3, flush),
+           "device_ms": device_ms(kernel, "attn_bwd_", 3, flush, per_call=3),
+           "plain_ms": timed_ms(lambda: fa.flash_attention_bwd_torch(
+               q, k, v, o, lse, do, False), 2, flush),
+           "library_ms": timed_ms(sdpa_bwd(q, k, v, do, False), 3, flush),
+           **cost_bound("flash_attention_bwd", q, k, v, o, lse, do, False)}
+    rows["cross_bwd"] = row
+    log(f"kernel flash_attention_bwd cross at {row['shape']} (bfloat16, not "
+        f"causal, wgmma): {row['ms']:.6f} ms, device {row['device_ms']:.6f} "
+        f"ms (bound {row['bound_ms']:.6f} ms, {row['bound_by']}), plain "
+        f"{row['plain_ms']:.6f} ms, SDPA backward {row['library_ms']:.6f} ms")
+    return rows
+
+
+def whisper_batch(cfg, B: int, S: int, seed: int, dev) -> dict:
+    """Frames (B, enc_seq, d) in the model's dtype and tokens / labels (B,
+    S), drawn on the host from ``seed``."""
+    g = np.random.default_rng(seed)
+    toks = g.integers(0, cfg.vocab_size, (B, S + 1))
+    audio = g.standard_normal((B, cfg.enc_seq, cfg.d_model),
+                              dtype=np.float32)
+    return {"audio_embeds": torch.from_numpy(audio).to(
+                dev, getattr(torch, cfg.dtype)),
+            "tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32,
+                                      device=dev),
+            "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32,
+                                      device=dev)}
+
+
+def whisper_cross_state(model, params, state, audio):
+    """``state``'s ek / ev written from the encoder output of ``audio``
+    (encode, then encode_cross_kv a decoder layer): the JAX prefill leaves
+    them zero, so a serve drive fills them this way."""
+    from repro_torch.models import attention as t_attn
+    from repro_torch.models import encdec
+    enc = encdec.encode(model.cfg, params, audio)
+    for layer, bp in enumerate(params.blocks):
+        state["ek"][layer], state["ev"][layer] = t_attn.encode_cross_kv(
+            model.cfg, bp.xattn, enc)
+    return state
+
+
+def whisper_agree(dev, remat=None) -> None:
+    """(b) The reduced whisper on the card with the kernels against the
+    CPU with the plain versions, one set of weights, float32 and
+    bfloat16: forward logits, loss and every gradient (decoder layers
+    checkpointed by ``remat``, default the reduced config's ``none``) and
+    4 decode steps from ek / ev filled by the encoder (WHISPER_AGREE);
+    the card's launches counted by kind (cross among them).  (c) In
+    float32 on the card, prefill against decode: the decode state's ek /
+    ev from the encoder, token by token, each position's logits the
+    one-shot forward's (rtol / atol 1e-4); Model.prefill the forward's last
+    logits and no state."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import encdec
+    from repro_torch.models.model import build_model
+    cpu = torch.device("cpu")
+    for dt, tol in WHISPER_AGREE.items():
+        cfg = dataclasses.replace(reduced_config(get_config(
+            "whisper-medium")), dtype=dt)
+        host = encdec.params_to_numpy(build_model(cfg, cpu).init_params(0))
+        outs = {}
+        for label, device in (("card", dev), ("cpu", cpu)):
+            model = build_model(cfg, device)
+            params = encdec.params_from_numpy(cfg, host, device=device,
+                                              dtype=dt)
+            batch = whisper_batch(cfg, 2, 24, 22, device)
+            fa.flash_attention.kind_launches = {}
+            fa.flash_attention_bwd.kind_launches = {}
+            logits = model.forward(params, batch)
+            loss, grads = value_and_grad(model, model.train_params(params),
+                                         batch, remat)
+            kinds = (dict(fa.flash_attention.kind_launches),
+                     dict(fa.flash_attention_bwd.kind_launches))
+            state = whisper_cross_state(model, params,
+                                        model.init_decode_state(2, 4),
+                                        batch["audio_embeds"])
+            steps = []
+            for t in range(4):
+                step, state = model.decode(params, state, {
+                    "tokens": batch["tokens"][:, t:t + 1], "pos": t})
+                steps.append(step)
+            outs[label] = (logits, loss, grads, steps, kinds)
+        card, ref = outs["card"], outs["cpu"]
+        # the forward and the loss's forward, the decoder's attention
+        # again in the backward under a remat other than "none" (the
+        # encoder is not checkpointed); one backward
+        e, n = cfg.n_enc_layers, cfg.n_layers
+        d = n * (3 if (remat or cfg.sharding.remat) != "none" else 2)
+        if card[4] != ({"square": 2 * e, "causal": d, "cross": d},
+                       {"square": e, "causal": n, "cross": n}):
+            raise AssertionError(f"whisper agree {dt}: the card launched "
+                                 f"{card[4]} by kind")
+        gaps = {}
+        for what, a, b in [("logits", card[0], ref[0])] + [
+                (f"decode {t}", x, y) for t, (x, y)
+                in enumerate(zip(card[3], ref[3]))]:
+            torch.testing.assert_close(
+                a.cpu().float(), b.float(), rtol=tol["rtol"],
+                atol=tol["atol"], msg=lambda m, w=what: f"whisper agree {dt} "
+                f"{w}: {m}")
+            gaps[what] = float((a.cpu().float() - b.float()).abs().max())
+        lc, lr = float(card[1]), float(ref[1])
+        if abs(lc - lr) > tol["loss"] * abs(lr):
+            raise AssertionError(f"whisper agree {dt}: loss {lc} against "
+                                 f"{lr}")
+        worst = {}
+        for k, w in ref[2].items():
+            got, w = card[2][k].cpu().float(), w.float()
+            if "grad_rel" in tol:
+                rel = float((got - w).norm() / w.norm().clamp_min(1e-30))
+                ok = rel <= tol["grad_rel"] if w.any() else not got.any()
+                worst[k] = rel
+            else:
+                ok = bool(((got - w).abs() <= tol["rtol"] * w.abs()
+                           + tol["atol"] * w.abs().max()).all())
+                worst[k] = float((got - w).abs().max())
+            if not ok:
+                raise AssertionError(f"whisper agree {dt}: gradient {k} off "
+                                     f"the CPU's ({worst[k]})")
+        top = max(worst, key=worst.get)
+        log(f"whisper agree {dt}, remat {remat}: card (kernels, launches "
+            f"by kind "
+            f"{json.dumps(card[4])}) against CPU: largest |gap| "
+            f"{json.dumps(gaps)}, loss {lc} / {lr}, largest gradient gap "
+            f"{top} {worst[top]} ({json.dumps(tol)})")
+
+    # (c) prefill against decode, float32 on the card
+    cfg = dataclasses.replace(reduced_config(get_config("whisper-medium")),
+                              dtype="float32")
+    model = build_model(cfg, dev)
+    params = model.init_params(0)
+    batch = whisper_batch(cfg, 2, 16, 23, dev)
+    want = model.forward(params, batch)
+    last, none = model.prefill(params, batch)
+    if none is not None or not torch.equal(last, want[:, -1]):
+        raise AssertionError("whisper prefill is not (forward[:, -1], None)")
+    state = whisper_cross_state(model, params,
+                                model.init_decode_state(2, 16),
+                                batch["audio_embeds"])
+    gap = 0.0
+    for t in range(16):
+        step, state = model.decode(params, state, {
+            "tokens": batch["tokens"][:, t:t + 1], "pos": t})
+        torch.testing.assert_close(step, want[:, t], rtol=1e-4, atol=1e-4)
+        gap = max(gap, float((step - want[:, t]).abs().max()))
+    log(f"whisper prefill against decode (reduced, float32, card): 16 "
+        f"positions, largest |logit gap| {gap} (rtol / atol 1e-4); prefill "
+        f"== (forward[:, -1], None)")
+
+
+def whisper_serve(dev, smi: str) -> dict:
+    """(d) whisper-medium at full width and depth, bfloat16, weights drawn
+    on the card from seed 0: the prefill of WHISPER_PREFILL tokens over 8
+    x 1,500 frames (the JAX facade's: the whole forward, the last logits,
+    no state) with the flash_attention launches counted from 0 by kind
+    (24 square in the encoder, 24 causal and 24 cross in the decoder, all
+    wgmma); then ek / ev filled from the encoder and WHISPER_DECODE's
+    decode steps at a 4,128-long cache (its first 4,096 positions zero:
+    the JAX prefill returns no state), the cross attention at Sq = 1;
+    time to first token, prefill tokens/s, decode ms a step, peak memory,
+    the device busy share and flash_attention's device time by kind.
+    Returns the prefill's launch count."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import build_model
+    cfg = get_config("whisper-medium")
+    model = build_model(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init_params(0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"whisper: {cfg.name} {cfg.n_enc_layers} + {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.enc_seq} frames: "
+        f"{n_params} parameters ({cfg.param_count()} by the config), "
+        f"{2 * n_params / 1e9:.3f} GB in bfloat16, drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    B, S = WHISPER_PREFILL["batch"], WHISPER_PREFILL["seq"]
+    warm = whisper_batch(cfg, 1, 64, 1, dev)
+    model.prefill(params, warm)
+    batch = whisper_batch(cfg, B, S, 2, dev)
+    del batch["labels"]
+    fa.flash_attention.launches = 0
+    fa.flash_attention.form_launches = {}
+    fa.flash_attention.kind_launches = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, none = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    kinds = dict(fa.flash_attention.kind_launches)
+    forms = dict(fa.flash_attention.form_launches)
+    n = cfg.n_layers
+    want = {"square": cfg.n_enc_layers, "causal": n, "cross": n}
+    if kinds != want or forms != {"wgmma": launches}:
+        raise AssertionError(f"whisper prefill launched flash_attention "
+                             f"{kinds} by kind, {forms} by form, not {want} "
+                             f"wgmma")
+    if none is not None or tuple(logits.shape) != (B, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"whisper prefill gave {tuple(logits.shape)} "
+                             f"and {type(none)}")
+    prefill_peak = torch.cuda.max_memory_allocated() / 2**30
+
+    D = WHISPER_DECODE
+    state = whisper_cross_state(model, params, model.init_decode_state(
+        D["batch"], D["max_len"]), batch["audio_embeds"])
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    fa.flash_attention.kind_launches = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(S, S + D["steps"]):
+        logits, state = model.decode(params, state, {"tokens": tok,
+                                                     "pos": t})
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_kinds = dict(fa.flash_attention.kind_launches)
+    if decode_kinds != {"cross": n * D["steps"]} \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"whisper decode launched {decode_kinds} by "
+                             f"kind")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    def decode_steps(k=8):
+        nonlocal state, tok
+        for t in range(S, S + k):          # rewrites the first steps
+            out, state = model.decode(params, state, {"tokens": tok,
+                                                      "pos": t})
+            tok = out.argmax(-1).to(torch.int32)[:, None]
+    traced_decode = profile_share(decode_steps, (), cpu=False, kinds=(
+        "flash_attention_", ["attention_cross"] * 8 * n))
+    del state
+    traced_prefill = profile_share(
+        lambda: model.prefill(params, batch), (), cpu=False,
+        kinds=("flash_attention_", ["attention_square"] * cfg.n_enc_layers
+               + ["attention_causal", "attention_cross"] * n))
+    stats = {"prefill_s": prefill_s, "prefill_tokens_per_s": B * S
+             / prefill_s, "prefill_frames": [B, cfg.enc_seq],
+             "decode_ms_per_step": decode_s / D["steps"] * 1e3,
+             "decode_tokens_per_s": D["batch"] * D["steps"] / decode_s,
+             "prefill_peak_GiB": prefill_peak, "peak_device_memory_GiB": peak,
+             "prefill_launches": launches, "prefill_kinds": kinds,
+             "decode_kinds": decode_kinds, "forms": forms}
+    log(f"whisper: prefill {B} x {S} tokens over {B} x {cfg.enc_seq} frames "
+        f"(its wall is the time to first token) and {D['steps']} decode "
+        f"steps at {D['batch']} x {D['max_len']} on {smi}: "
+        f"{json.dumps(stats)}")
+    log(f"whisper profile: prefill {json.dumps(traced_prefill)}")
+    log(f"whisper profile: 8 more decode steps {json.dumps(traced_decode)}")
+    del params, batch, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def whisper_train(dev, smi: str) -> int:
+    """(e) One adamw build_train_step step of whisper-medium at full width
+    and depth on WHISPER_TRAIN tokens over 4 x 1,500 frames, remat "dots"
+    (the config's): launch counts from 0 by kind (flash_attention: 24
+    square, 48 causal and 48 cross, the decoder's forward and its replay;
+    flash_attention_bwd: 24 of each kind, all wgmma), the loss finite and
+    near ln(vocab), the weights moved; the seconds of two more steps,
+    tokens/s, peak memory, the device busy share and each attention
+    kernel's share.  Returns flash_attention_bwd's launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import OptimizerSpec, make_optimizer
+    cfg = get_config("whisper-medium")
+    model = build_model(cfg, dev)
+    params = model.train_params(model.init_params(0))
+    opt = make_optimizer(OptimizerSpec(name="adamw"),
+                         groups=model.param_groups(params))
+    state = opt.init(params)
+    B, S = WHISPER_TRAIN["batch"], WHISPER_TRAIN["seq"]
+    batch = whisper_batch(cfg, B, S, 3, dev)
+    step = build_train_step(model, opt)
+    wrappers = (fa.flash_attention, fa.flash_attention_bwd)
+    for fn in wrappers:
+        fn.launches = 0
+        fn.form_launches = {}
+        fn.kind_launches = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new_p, _, met = step(params, state, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {"flash_attention": wrappers[0].launches,
+                "flash_attention_bwd": wrappers[1].launches}
+    n, e = cfg.n_layers, cfg.n_enc_layers
+    replay = 1 if cfg.sharding.remat == "none" else 2
+    want = ({"square": e, "causal": n * replay, "cross": n * replay},
+            {"square": e, "causal": n, "cross": n})
+    got = tuple(dict(fn.kind_launches) for fn in wrappers)
+    forms = tuple(dict(fn.form_launches) for fn in wrappers)
+    if got != want or forms != tuple({"wgmma": fn.launches}
+                                     for fn in wrappers):
+        raise AssertionError(f"whisper train step launched {got} by kind, "
+                             f"{forms} by form, not {want}")
+    loss = float(met["loss"])
+    ln_v = float(np.log(cfg.vocab_size))
+    if not np.isfinite(loss) or abs(loss - ln_v) > 2.0:
+        raise AssertionError(f"whisper train step loss {loss}, ln(vocab) "
+                             f"{ln_v}")
+    unmoved = sorted(k for k in params if torch.equal(new_p[k], params[k]))
+    # every matrix moves but wi_up, which nothing reads (its gradient is
+    # zero; weight decay alone stays under half a bfloat16 step), as do
+    # the norm scales at 1 (lr 1e-3 is under half a bfloat16 step there)
+    stuck = [k for k in unmoved if params[k].dim() >= 2 and "wi_up" not in k]
+    if stuck:
+        raise AssertionError(f"whisper train step left {stuck[:8]} "
+                             f"({len(stuck)} matrices) where they were")
+    del new_p
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    prof = profile_share(lambda: step(params, state, batch), kernels=(
+        ("attention_fwd", "flash_attention_"),
+        ("attention_bwd", "attn_bwd_")), cpu=False)
+    step_s = sum(walls) / len(walls)
+    out = {"arch": cfg.name, "params": sum(p.numel()
+                                           for p in params.values()),
+           "optimizer": "adamw", "remat": cfg.sharding.remat,
+           "tokens": B * S, "frames": B * cfg.enc_seq, "loss": loss,
+           "ln_vocab": ln_v, "first_step_s": first_s, "step_s": walls,
+           "tokens_per_s": B * S / step_s, "peak_gib": peak,
+           "weights_moved": [len(params) - len(unmoved), len(params)],
+           "launches": launches,
+           "kinds": got, "profile": prof}
+    log(f"train: whisper-medium step at {B} x {S} tokens over {B} x "
+        f"{cfg.enc_seq} frames on {smi}: {json.dumps(out)}")
+    del params, state, model, met
+    torch.cuda.empty_cache()
+    return launches["flash_attention_bwd"]
+
+
+def whisper_main(dev, smi: str) -> tuple:
+    """Phase 22: (a) the attention kernels at Sq != Skv against their
+    plain versions, timed; (b) the reduced whisper card == CPU and (c)
+    prefill == decode; (d) whisper-medium served at full size; (e) one
+    adamw step of it.  Returns (the timed rows, the prefill's
+    flash_attention launches, the train step's flash_attention_bwd
+    launches)."""
+    t0 = time.perf_counter()
+    rows = check_cross_attention(dev)
+    torch.cuda.empty_cache()
+    whisper_agree(dev)
+    serve_launches = whisper_serve(dev, smi)
+    bwd_launches = whisper_train(dev, smi)
+    log(f"whisper: phase 22 in {time.perf_counter() - t0:.1f} s")
+    return rows, serve_launches, bwd_launches
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -6697,6 +7291,17 @@ def main() -> int:
     launches["ssm_scan_bwd"] = jamba_train["ssm_scan_bwd"]
     source_rows += ssm_rows
 
+    # 22. whisper's encoder-decoder: (a) the attention kernels at Sq !=
+    # Skv against their plain versions, timed; (b) the reduced whisper
+    # card == CPU, (c) prefill == decode; (d) whisper-medium served at
+    # full size (its prefill's flash_attention launches, counted from 0,
+    # added to the kernels line); (e) one adamw step of it (its
+    # flash_attention_bwd launches added)
+    torch.cuda.empty_cache()
+    cross_rows, whisper_fwd, whisper_bwd = whisper_main(dev, smi)
+    launches["flash_attention"] += whisper_fwd
+    launches["flash_attention_bwd"] += whisper_bwd
+
     replaces = {"rollup_digest": "src/repro/kernels/rollup_digest.py:16",
                 "rollup_chunk_digests":
                     "src/repro/kernels/rollup_digest.py:76",
@@ -6760,6 +7365,8 @@ def main() -> int:
         f"{json.dumps(attn_row['moonshot'])}")
     log(f"gmm at moonshot's other products: {json.dumps(gmm_rows[1:])}")
     log(f"flash_attention_bwd at yi-6b's head: {json.dumps(bwd_row['yi'])}")
+    log(f"flash_attention at whisper-medium's shapes: "
+        f"{json.dumps(cross_rows)}")
     log(f"gmm_bwd at moonshot's down product: "
         f"{json.dumps(new_rows[0]['down'])}")
 

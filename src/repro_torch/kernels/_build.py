@@ -59,14 +59,14 @@ _SIGNATURES = {
     # csrc/pack.cu: (device, tmax, gcum, N, times, n_vis, B, gas_limit,
     # ptr0, wide table, table, stops, stream)
     "pack_block_pack": (_D, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P, _P, _P),
-    # csrc/attn.cu: (device, q, k, v, B, S, H, Hkv, dh, scale, causal,
-    # dtype flag, form, out, lse or null, stream)
-    "attn_flash_attention": (_D, _P, _P, _P, _I, _I, _I, _I, _I, _R, _F, _F,
-                             _F, _P, _P, _P),
-    # csrc/attn_bwd.cu: (device, q, k, v, o, dO, lse, B, S, H, Hkv, dh,
-    # scale, causal, dtype flag, form, rows scratch, dq, dk, dv, stream)
+    # csrc/attn.cu: (device, q, k, v, B, Sq, Skv, H, Hkv, dh, scale,
+    # causal, dtype flag, form, out, lse or null, stream)
+    "attn_flash_attention": (_D, _P, _P, _P, _I, _I, _I, _I, _I, _I, _R, _F,
+                             _F, _F, _P, _P, _P),
+    # csrc/attn_bwd.cu: (device, q, k, v, o, dO, lse, B, Sq, Skv, H, Hkv,
+    # dh, scale, causal, dtype flag, form, rows scratch, dq, dk, dv, stream)
     "attn_flash_attention_bwd": (_D, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _I, _R, _F, _F, _F, _P, _P, _P, _P, _P),
+                                 _I, _I, _R, _F, _F, _F, _P, _P, _P, _P, _P),
     # csrc/moe.cu: (device, x, w, E, C, d, f, dtype flag, form, partial
     # sums, out, stream)
     "moe_gmm": (_D, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P),

@@ -1,14 +1,17 @@
 // Hopper (sm_90a) kernels of the model substrate's prefill: causal or
 // non-causal attention with an online softmax and grouped-query heads.
 //
-//   q (B, S, H, dh), k and v (B, S, Hkv, dh), row-major, float32 or
-//   bfloat16 (dtype flag 0 or 1)  ->  o (B, S, H, dh) in q's dtype
+//   q (B, Sq, H, dh), k and v (B, Skv, Hkv, dh), row-major, float32 or
+//   bfloat16 (dtype flag 0 or 1)  ->  o (B, Sq, H, dh) in q's dtype
 //
 //   o[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, hk] * scale) v[b, j, hk]
 //
 // with hk = h / (H / Hkv), scores and sums in float32, masked scores set to
 // -1e30 (causal: j > i) and the result divided by max(l, 1e-30), as
-// ref.flash_attention_ref computes it.  One launcher with a plain C
+// ref.flash_attention_ref computes it.  Sq and Skv may differ (whisper's
+// cross attention: the decoder's tokens against the encoder's frames) where
+// the attention is not causal; a causal launch needs Sq == Skv.  Query rows
+// are bounded by Sq, key tiles and the key mask by Skv.  One launcher with a plain C
 // interface (loaded with ctypes by src/repro_torch/kernels/_build.py); it
 // takes the device index, raw device pointers, the sizes, the scale, the
 // causal and dtype flags, the form (kernels/flash_attention.py's `form`)
@@ -19,18 +22,18 @@
 // and carried the softmax state in VMEM scratch; here one thread block owns
 // one query tile of one (batch, head) and walks the kv tiles itself,
 // skipping the causal tiles past the diagonal and reading the kv head in
-// place from the (B, S, Hkv, dh) layout (no repeat, no transposed copy).
-// Bound: operations, 4 B H S^2 dh (halved when causal) against the bytes
-// of q, k, v and o.  Two forms:
+// place from the (B, Skv, Hkv, dh) layout (no repeat, no transposed copy).
+// Bound: operations, 4 B H Sq Skv dh (halved when causal) against the
+// bytes of q, k, v and o.  Two forms:
 //
 //   * flash_attention_wgmma_kernel: bfloat16, dh 64 or 128 (the serving
 //     paths).  A block owns 128 query rows: a producer warpgroup (one
 //     thread issues) loads Q once and streams K and V tiles of 64 keys by
-//     TMA (4-D tensor maps over q and k, v, 64-value boxes under the
-//     128-byte swizzle; rows past S read as zeros) through a 4-stage ring;
+//     TMA (4-D tensor maps over q (Sq rows) and k, v (Skv rows), 64-value
+//     boxes under the 128-byte swizzle; rows past either read as zeros) through a 4-stage ring;
 //     two consumer warpgroups of 64 rows each compute S = Q.K^T with wgmma
 //     into float32 registers, the online softmax there (base 2, ex2 on the
-//     SFU, masking only on the diagonal tile and the S tail), and O += P.V
+//     SFU, masking only on the diagonal tile and the Skv tail), and O += P.V
 //     as two wgmmas with P from registers: P's bfloat16 rounding and the
 //     bfloat16 rounding of what it left, so that P keeps about 16 bits (one
 //     rounding of P would put each output some 2^-9 of |o| off; the Pallas
@@ -47,8 +50,9 @@
 //     and output columns tx + 16c.  Q and K are staged d-major
 //     (q[d][row]), so the Q.K^T loop reads one float4 of each per d without
 //     bank conflicts; V is staged row-major.  The probabilities go through
-//     shared memory (over K's tile) to the P.V product.  Tiles past S and
-//     columns past dh are staged as zeros, and keys past S are masked.
+//     shared memory (over K's tile) to the P.V product.  Tiles past Sq or
+//     Skv and columns past dh are staged as zeros, and keys past Skv are
+//     masked.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -85,8 +89,8 @@ template <typename T, int DHP>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
-                       float* __restrict__ lse, int S, int H, int Hkv, int dh,
-                       float scale, int causal) {
+                       float* __restrict__ lse, int Sq, int Skv, int H,
+                       int Hkv, int dh, float scale, int causal) {
   constexpr int kCols = DHP / 16;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                    // [DHP][kRows]
@@ -94,19 +98,19 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ks = vs + DHP * kKeys;        // [DHP][kKeys], then ps
   float* ps = ks;                      // [kRows][kPRow]
 
-  const int n_tiles = (S + kRows - 1) / kRows;
+  const int n_tiles = (Sq + kRows - 1) / kRows;
   const int q0 = (n_tiles - 1 - static_cast<int>(blockIdx.x)) * kRows;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int hk = h / (H / Hkv);
   const int64_t q_stride = static_cast<int64_t>(H) * dh;
   const int64_t kv_stride = static_cast<int64_t>(Hkv) * dh;
-  const T* qb = q + (static_cast<int64_t>(b) * S + q0) * q_stride
+  const T* qb = q + (static_cast<int64_t>(b) * Sq + q0) * q_stride
                 + static_cast<int64_t>(h) * dh;
-  const int64_t kv_base = static_cast<int64_t>(b) * S * kv_stride
+  const int64_t kv_base = static_cast<int64_t>(b) * Skv * kv_stride
                           + static_cast<int64_t>(hk) * dh;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  stage<T, DHP, true>(qb, q_stride, min(kRows, S - q0), dh, qs);
+  stage<T, DHP, true>(qb, q_stride, min(kRows, Sq - q0), dh, qs);
 
   float acc[4][kCols];
   float m[4], l[4];
@@ -119,11 +123,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // causal: the tiles up to the one holding the block's last row
-  const int n_kv = (S + kKeys - 1) / kKeys;
+  const int n_kv = (Skv + kKeys - 1) / kKeys;
   const int end = causal ? min(n_kv, (q0 + kRows - 1) / kKeys + 1) : n_kv;
   for (int kt = 0; kt < end; ++kt) {
     const int k0 = kt * kKeys;
-    const int rows = min(kKeys, S - k0);
+    const int rows = min(kKeys, Skv - k0);
     __syncthreads();                   // the last tile's ps and vs are read
     stage<T, DHP, true>(k + kv_base + k0 * kv_stride, kv_stride, rows, dh,
                         ks);
@@ -160,7 +164,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx * 4 + j;
-        const bool live = col < S && (!causal || col <= row);
+        const bool live = col < Skv && (!causal || col <= row);
         s[i][j] = live ? s[i][j] * scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -170,7 +174,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx * 4 + j;
-        const bool live = col < S && (!causal || col <= row);
+        const bool live = col < Skv && (!causal || col <= row);
         s[i][j] = live ? expf(s[i][j] - m_new) : 0.f;
         sum += s[i][j];
       }
@@ -216,12 +220,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     if (lse != nullptr && tx == 0) {   // the row's logsumexp, for autograd
-      lse[(static_cast<int64_t>(b) * H + h) * S + row] = m[i] + logf(l[i]);
+      lse[(static_cast<int64_t>(b) * H + h) * Sq + row] = m[i] + logf(l[i]);
     }
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + (static_cast<int64_t>(b) * S + row) * q_stride
+    T* orow = o + (static_cast<int64_t>(b) * Sq + row) * q_stride
               + static_cast<int64_t>(h) * dh;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -233,8 +237,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DHP>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int64_t B, int64_t S, int64_t H, int64_t Hkv, int64_t dh,
-           float scale, int causal, cudaStream_t st) {
+           int64_t B, int64_t Sq, int64_t Skv, int64_t H, int64_t Hkv,
+           int64_t dh, float scale, int causal, cudaStream_t st) {
   constexpr size_t smem = smem_bytes<DHP>();
   if (cudaError_t e = cudaFuncSetAttribute(
           flash_attention_kernel<T, DHP>,
@@ -242,13 +246,13 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
           static_cast<int>(smem))) {
     return static_cast<int>(e);
   }
-  const dim3 grid(static_cast<unsigned>((S + kRows - 1) / kRows),
+  const dim3 grid(static_cast<unsigned>((Sq + kRows - 1) / kRows),
                   static_cast<unsigned>(B * H));
   flash_attention_kernel<T, DHP><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, static_cast<int>(S),
-      static_cast<int>(H), static_cast<int>(Hkv), static_cast<int>(dh),
-      scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse,
+      static_cast<int>(Sq), static_cast<int>(Skv), static_cast<int>(H),
+      static_cast<int>(Hkv), static_cast<int>(dh), scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -283,8 +287,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap kmap,
                              const __grid_constant__ CUtensorMap vmap,
                              __nv_bfloat16* __restrict__ o,
-                             float* __restrict__ lse, int S, int H, int Hkv,
-                             float scale_log2, int causal) {
+                             float* __restrict__ lse, int Sq, int Skv,
+                             int H, int Hkv, float scale_log2, int causal) {
   constexpr int kBoxes = DH / 64;      // 64-value boxes across a head
   constexpr int kQBox = kFM * 128;     // bytes of a box of Q
   constexpr int kKBox = kFN * 128;     // bytes of a box of K or V
@@ -299,13 +303,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   uint64_t* v_full = k_full + kFStages;
   uint64_t* empty = v_full + kFStages;
 
-  const int n_tiles = (S + kFM - 1) / kFM;
+  const int n_tiles = (Sq + kFM - 1) / kFM;
   const int q_tile = n_tiles - 1 - static_cast<int>(blockIdx.x);
   const int q0 = q_tile * kFM;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int hk = h / (H / Hkv);
   // causal: the kv tiles up to the one holding the block's last row
-  const int n_kv = (S + kFN - 1) / kFN;
+  const int n_kv = (Skv + kFN - 1) / kFN;
   const int end = causal ? min(n_kv, (q0 + kFM - 1) / kFN + 1) : n_kv;
   // warp-uniform to the compiler (a shuffle), so that the roles' branches
   // take setmaxnreg's register counts
@@ -418,16 +422,16 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (kt == end) break;
 
     // online softmax in base 2, on both of this thread's rows (4 threads
-    // share a row): masking only on the diagonal tile and the S tail;
+    // share a row): masking only on the diagonal tile and the Skv tail;
     // p = 2^(s scale log2(e) - m), m the running max in those units
     const int k0 = kt * kFN;
-    if (k0 + kFN > S || (causal && k0 + kFN - 1 > q0)) {
+    if (k0 + kFN > Skv || (causal && k0 + kFN - 1 > q0)) {
 #pragma unroll
       for (int j = 0; j < kFN / 8; ++j) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int row = r0 + 8 * (i / 2), col = k0 + 8 * j + cq + i % 2;
-          if (col >= S || (causal && col > row)) sc[4 * j + i] = kNegInf;
+          if (col >= Skv || (causal && col > row)) sc[4 * j + i] = kNegInf;
         }
       }
     }
@@ -479,7 +483,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     }
   }
 
-  // o = acc / l, rounded once; rows past S are not written
+  // o = acc / l, rounded once; rows past Sq are not written
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     float lsum = l[hr];
@@ -487,13 +491,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     lsum += __shfl_xor_sync(~0u, lsum, 2);
     const float inv = 1.f / fmaxf(lsum, 1e-30f);
     const int row = r0 + 8 * hr;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     if (lse != nullptr && t % 4 == 0) {  // the row's logsumexp, natural log
-      lse[(static_cast<int64_t>(b) * H + h) * S + row] =
+      lse[(static_cast<int64_t>(b) * H + h) * Sq + row] =
           (m[hr] + log2f(lsum)) * kLn2;
     }
     __nv_bfloat16* orow =
-        o + ((static_cast<int64_t>(b) * S + row) * H + h) * DH + cq;
+        o + ((static_cast<int64_t>(b) * Sq + row) * H + h) * DH + cq;
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
@@ -505,18 +509,18 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <int DH>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 float* lse, int64_t B, int64_t S, int64_t H, int64_t Hkv,
-                 float scale, int causal, cudaStream_t st) {
+                 float* lse, int64_t B, int64_t Sq, int64_t Skv, int64_t H,
+                 int64_t Hkv, float scale, int causal, cudaStream_t st) {
   CUtensorMap qmap, kmap, vmap;
   const uint64_t e = 2;                // bytes of a bfloat16
   const uint64_t qdims[4] = {DH, static_cast<uint64_t>(H),
-                             static_cast<uint64_t>(S),
+                             static_cast<uint64_t>(Sq),
                              static_cast<uint64_t>(B)};
-  const uint64_t qstr[3] = {DH * e, H * DH * e, S * H * DH * e};
+  const uint64_t qstr[3] = {DH * e, H * DH * e, Sq * H * DH * e};
   const uint64_t kdims[4] = {DH, static_cast<uint64_t>(Hkv),
-                             static_cast<uint64_t>(S),
+                             static_cast<uint64_t>(Skv),
                              static_cast<uint64_t>(B)};
-  const uint64_t kstr[3] = {DH * e, Hkv * DH * e, S * Hkv * DH * e};
+  const uint64_t kstr[3] = {DH * e, Hkv * DH * e, Skv * Hkv * DH * e};
   const uint32_t qbox[4] = {64, 1, kFM, 1}, kbox[4] = {64, 1, kFN, 1};
   if (int rc = hopper::make_map(&qmap, q, 4, qdims, qstr, qbox, true)) {
     return rc;
@@ -534,27 +538,27 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
           static_cast<int>(smem))) {
     return static_cast<int>(err);
   }
-  const dim3 grid(static_cast<unsigned>((S + kFM - 1) / kFM),
+  const dim3 grid(static_cast<unsigned>((Sq + kFM - 1) / kFM),
                   static_cast<unsigned>(B * H));
   flash_attention_wgmma_kernel<DH><<<grid, kFThreads, smem, st>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse,
-      static_cast<int>(S), static_cast<int>(H), static_cast<int>(Hkv),
-      scale * kLog2e, causal);
+      static_cast<int>(Sq), static_cast<int>(Skv), static_cast<int>(H),
+      static_cast<int>(Hkv), scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
-             int64_t B, int64_t S, int64_t H, int64_t Hkv, int64_t dh,
-             float scale, int causal, cudaStream_t st) {
-  if (dh <= 32) return launch<T, 32>(q, k, v, o, lse, B, S, H, Hkv, dh,
+             int64_t B, int64_t Sq, int64_t Skv, int64_t H, int64_t Hkv,
+             int64_t dh, float scale, int causal, cudaStream_t st) {
+  if (dh <= 32) return launch<T, 32>(q, k, v, o, lse, B, Sq, Skv, H, Hkv, dh,
                                      scale, causal, st);
-  if (dh <= 64) return launch<T, 64>(q, k, v, o, lse, B, S, H, Hkv, dh,
+  if (dh <= 64) return launch<T, 64>(q, k, v, o, lse, B, Sq, Skv, H, Hkv, dh,
                                      scale, causal, st);
-  if (dh <= 80) return launch<T, 80>(q, k, v, o, lse, B, S, H, Hkv, dh,
+  if (dh <= 80) return launch<T, 80>(q, k, v, o, lse, B, Sq, Skv, H, Hkv, dh,
                                      scale, causal, st);
-  return launch<T, 128>(q, k, v, o, lse, B, S, H, Hkv, dh, scale, causal,
-                        st);
+  return launch<T, 128>(q, k, v, o, lse, B, Sq, Skv, H, Hkv, dh, scale,
+                        causal, st);
 }
 
 }  // namespace
@@ -565,18 +569,21 @@ extern "C" {
 // kernels/flash_attention.py's `form`): 0 = flash_attention_kernel, any
 // dtype and dh; 1 = flash_attention_wgmma_kernel, bfloat16 with dh 64 or
 // 128.  Needs contiguous tensors on 16-byte boundaries, 0 < dh <= 128
-// with dh a multiple of 8, H a multiple of Hkv, B * H <= 65535 and S <
-// 2^31 (the wrapper checks).  lse: null, or (B, H, S) float32 that takes
-// each row's logsumexp of the scaled scores (natural log), which the
-// backward (attn_bwd.cu) reads; serving passes null and writes nothing more.
+// with dh a multiple of 8, H a multiple of Hkv, B * H <= 65535, Sq and Skv
+// < 2^31, and Sq == Skv where causal (the wrapper checks; a causal launch
+// with Sq != Skv is refused, not masked on some convention).  lse: null,
+// or (B, H, Sq) float32 that takes each row's logsumexp of the scaled
+// scores (natural log), which the backward (attn_bwd.cu) reads; serving
+// passes null and writes nothing more.
 int attn_flash_attention(int device, const void* q, const void* k,
-                         const void* v, int64_t B, int64_t S, int64_t H,
-                         int64_t Hkv, int64_t dh, float scale, int causal,
-                         int dtype, int form, void* o, void* lse,
+                         const void* v, int64_t B, int64_t Sq, int64_t Skv,
+                         int64_t H, int64_t Hkv, int64_t dh, float scale,
+                         int causal, int dtype, int form, void* o, void* lse,
                          void* stream) {
   if (cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
-  if (B < 1 || S < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || dh < 1
-      || dh > 128 || dh % 8 != 0 || B * H > 65535 || S > 0x7fffffff
+  if (B < 1 || Sq < 1 || Skv < 1 || H < 1 || Hkv < 1 || H % Hkv != 0
+      || dh < 1 || dh > 128 || dh % 8 != 0 || B * H > 65535
+      || Sq > 0x7fffffff || Skv > 0x7fffffff || (causal && Sq != Skv)
       || (dtype != 0 && dtype != 1) || (form != 0 && form != 1)
       || (form == 1 && (dtype != 1 || (dh != 64 && dh != 128)))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -584,17 +591,17 @@ int attn_flash_attention(int device, const void* q, const void* k,
   const auto st = static_cast<cudaStream_t>(stream);
   const auto l = static_cast<float*>(lse);
   if (form == 1) {
-    return dh == 64 ? launch_wgmma<64>(q, k, v, o, l, B, S, H, Hkv, scale,
-                                       causal, st)
-                    : launch_wgmma<128>(q, k, v, o, l, B, S, H, Hkv, scale,
-                                        causal, st);
+    return dh == 64 ? launch_wgmma<64>(q, k, v, o, l, B, Sq, Skv, H, Hkv,
+                                       scale, causal, st)
+                    : launch_wgmma<128>(q, k, v, o, l, B, Sq, Skv, H, Hkv,
+                                        scale, causal, st);
   }
   if (dtype == 0) {
-    return dispatch<float>(q, k, v, o, l, B, S, H, Hkv, dh, scale, causal,
-                           st);
+    return dispatch<float>(q, k, v, o, l, B, Sq, Skv, H, Hkv, dh, scale,
+                           causal, st);
   }
-  return dispatch<__nv_bfloat16>(q, k, v, o, l, B, S, H, Hkv, dh, scale,
-                                 causal, st);
+  return dispatch<__nv_bfloat16>(q, k, v, o, l, B, Sq, Skv, H, Hkv, dh,
+                                 scale, causal, st);
 }
 
 }  // extern "C"

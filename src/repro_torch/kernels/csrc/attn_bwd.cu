@@ -1,16 +1,20 @@
 // Hopper (sm_90a) backward of the model substrate's attention (attn.cu):
 // the gradients of causal or non-causal grouped-query attention,
 //
-//   q (B, S, H, dh), k, v (B, S, Hkv, dh), o and dO (B, S, H, dh), lse
-//   (B, H, S) float32 (the forward's per-row logsumexp of the scaled
-//   scores)  ->  dq (B, S, H, dh), dk and dv (B, S, Hkv, dh) in q's dtype
+//   q (B, Sq, H, dh), k, v (B, Skv, Hkv, dh), o and dO (B, Sq, H, dh), lse
+//   (B, H, Sq) float32 (the forward's per-row logsumexp of the scaled
+//   scores)  ->  dq (B, Sq, H, dh), dk and dv (B, Skv, Hkv, dh) in q's
+//   dtype
 //
-// with P = exp(q.k^T scale - lse) (masked scores: causal j > i, and keys or
-// rows past S, give 0), D = rowsum(dO o), dS = P (dP - D), dP = dO.v^T:
+// with P = exp(q.k^T scale - lse) (masked scores: causal j > i, keys past
+// Skv and rows past Sq, give 0), D = rowsum(dO o), dS = P (dP - D), dP =
+// dO.v^T:
 //
 //   dv = P^T dO,  dq = scale dS k,  dk = scale dS^T q,
 //
 // dk and dv summed over the H / Hkv query heads that read each kv head.
+// Sq and Skv may differ where the attention is not causal (whisper's cross
+// attention); a causal launch needs Sq == Skv.
 // Sums are float32; each output is rounded once to the input's dtype.  No
 // atomics: every sum runs in a fixed order, so two launches give the same
 // bits.  One launcher with a plain C interface (loaded with ctypes by
@@ -18,20 +22,21 @@
 // in one of two forms (the forward's `form`):
 //
 //   1. attn_bwd_rows_kernel: D for every (b, h, row), a warp four rows,
-//      and the wgmma form's base-2 logsumexp, padded past S.
+//      and the wgmma form's base-2 logsumexp, padded past Sq.
 //   2. the dQ pass, one block per query tile of one (b, h), walking the key
-//      tiles up to the diagonal: S = q.k^T and dP = dO.v^T recomputed, dS,
-//      dq += dS.k.
+//      tiles of Skv (up to the diagonal when causal): S = q.k^T and dP =
+//      dO.v^T recomputed, dS, dq += dS.k.
 //   3. the dK/dV pass, one block per key tile of one (b, kv head) with K and
-//      V staged once, walking the query tiles from the diagonal on for each
-//      of the group's query heads: S^T, dP^T, P^T, dS^T, dv += P^T.dO and
-//      dk += dS^T.q.  Summing the group inside the block needs no atomics.
+//      V staged once, walking the query tiles of Sq (from the diagonal on
+//      when causal) for each of the group's query heads: S^T, dP^T, P^T,
+//      dS^T, dv += P^T.dO and dk += dS^T.q.  Summing the group inside the
+//      block needs no atomics.
 //
 // The JAX package has no backward kernel: it trains through jnp attention
 // (src/repro/models/attention.py:77-162), whose gradient XLA derives; this
 // is the gradient of the port's forward kernel, which replaces the Pallas
 // `_kernel` of src/repro/kernels/flash_attention.py:25.  Bound: operations,
-// the five products 10 B H S^2 dh (halved when causal) against the bytes of
+// the five products 10 B H Sq Skv dh (halved when causal) against the bytes of
 // q, k, v, o, dO and the three gradients.  Both forms recompute S and dP in
 // both passes (seven products; the wgmma form's split below makes ten).
 // The forms:
@@ -39,20 +44,21 @@
 //   * wgmma (attn_bwd_dq_wgmma_kernel, attn_bwd_dkdv_wgmma_kernel):
 //     bfloat16, dh 64 or 128, every product on the tensor cores.  A
 //     producer thread streams 64-row tiles by TMA (4-D tensor maps over the
-//     (B, S, heads, dh) layouts read in place, 64-value boxes under the
-//     128-byte swizzle, rows past S read as zeros; the tile's lse and D by
+//     (B, Sq or Skv, heads, dh) layouts read in place, 64-value boxes under
+//     the 128-byte swizzle, rows past Sq or Skv read as zeros; the tile's lse and D by
 //     1-D bulk copies of the padded rows) through a 4-stage ring; each
 //     consumer warpgroup owns 64 keys (dK/dV) or 64 query rows (dQ) and
 //     runs the two score products with both operands in shared memory
 //     (K-major), P and dS in float32 registers (ex2 on the SFU, masking
-//     only on the diagonal tile and the key tail), then the accumulating
+//     only on the diagonal tile and the Skv tail), then the accumulating
 //     products with A from registers and B the streamed tile read
 //     N-major.  P and dS enter those as the forward's P does, in two
 //     bfloat16 pieces (the rounding and the rounding of what it left, two
 //     products each): one rounding (2^-9 of each term) put dv past BWD_TOL
 //     at S = 4,095, and dq and dk at S = 65, where the sum of dS's terms
-//     cancels (each row's dS sums to 0).  Rows past S carry lse = +inf, so
-//     their P is 0 with no mask.  dK/dV blocks take two warpgroups (128
+//     cancels (each row's dS sums to 0).  Rows past Sq carry lse = +inf, so
+//     their P is 0 with no mask; keys past Skv read as zeros in the dK/dV
+//     pass and are never written.  dK/dV blocks take two warpgroups (128
 //     keys) at dh 64 and one at dh 128, where dK and dV alone hold 128
 //     float32 registers a thread (a 384-thread launch caps ptxas at 168).
 //     dQ blocks take two (128 rows).
@@ -83,8 +89,9 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
 
 // The rows' pass over (B, H, Sp): D[b, h, i] = sum_d dO[b, i, h, d]
 // o[b, i, h, d] into out[n + r] and lse[b, h, i] log2(e) into out[r] (the
-// wgmma form's base-2 logsumexp), r = (b H + h) Sp + i, n = B H Sp; rows
-// past S (i >= S, Sp > S) take D = 0 and lse = +inf, so that their P is 0.
+// wgmma form's base-2 logsumexp), r = (b H + h) Sp + i, n = B H Sp; S is
+// the query rows (Sq), and rows past it (i >= S, Sp > S) take D = 0 and
+// lse = +inf, so that their P is 0.
 // blockIdx.y is b H + h; a warp takes kRowsWarp rows, their loads in
 // flight together.
 constexpr int kRowsWarp = 4;
@@ -179,20 +186,20 @@ __device__ __forceinline__ void score_tiles(const float* __restrict__ qs,
   }
 }
 
-// P and dS from the scores: rows q0 + 4 ty + i, keys k0 + 4 tx + j; lse and
-// D of the tile's rows in ls and ds
+// P and dS from the scores: rows q0 + 4 ty + i (of Sq), keys k0 + 4 tx + j
+// (of Skv); lse and D of the tile's rows in ls and ds
 __device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4],
                                       const float* __restrict__ ls,
                                       const float* __restrict__ ds, int q0,
-                                      int k0, int ty, int tx, int S,
-                                      float scale, int causal) {
+                                      int k0, int ty, int tx, int Sq,
+                                      int Skv, float scale, int causal) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = k0 + tx * 4 + j;
-      const bool live = row < S && col < S && (!causal || col <= row);
+      const bool live = row < Sq && col < Skv && (!causal || col <= row);
       const float p = live ? expf(fmaf(s[i][j], scale, -ls[ty * 4 + i]))
                            : 0.f;
       s[i][j] = p;
@@ -211,7 +218,7 @@ __device__ __forceinline__ void put_tile(float* __restrict__ ps,
   }
 }
 
-// the rows' lse and D into shared memory (0 past S)
+// the rows' lse and D into shared memory (0 past the S = Sq rows)
 __device__ __forceinline__ void stage_rows(const float* __restrict__ lse,
                                            const float* __restrict__ delta,
                                            int64_t base, int q0, int S,
@@ -236,8 +243,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dout,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dq, int S,
-                   int H, int Hkv, int dh, float scale, int causal) {
+                   const float* __restrict__ delta, T* __restrict__ dq,
+                   int Sq, int Skv, int H, int Hkv, int dh, float scale,
+                   int causal) {
   constexpr int kCols = DHP / 16;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                    // q   [DHP][kRows]
@@ -250,21 +258,21 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ds = ls + kRows;              // D   [kRows]
 
   // the heaviest (last) query tiles first
-  const int n_tiles = (S + kRows - 1) / kRows;
+  const int n_tiles = (Sq + kRows - 1) / kRows;
   const int q0 = (n_tiles - 1 - static_cast<int>(blockIdx.x)) * kRows;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int hk = h / (H / Hkv);
   const int64_t q_stride = static_cast<int64_t>(H) * dh;
   const int64_t kv_stride = static_cast<int64_t>(Hkv) * dh;
-  const int64_t q_off = (static_cast<int64_t>(b) * S + q0) * q_stride
+  const int64_t q_off = (static_cast<int64_t>(b) * Sq + q0) * q_stride
                         + static_cast<int64_t>(h) * dh;
-  const int64_t kv_base = static_cast<int64_t>(b) * S * kv_stride
+  const int64_t kv_base = static_cast<int64_t>(b) * Skv * kv_stride
                           + static_cast<int64_t>(hk) * dh;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  stage<T, DHP, true>(q + q_off, q_stride, min(kRows, S - q0), dh, qs);
-  stage<T, DHP, true>(dout + q_off, q_stride, min(kRows, S - q0), dh, gs);
-  stage_rows(lse, delta, (static_cast<int64_t>(b) * H + h) * S, q0, S, ls,
+  stage<T, DHP, true>(q + q_off, q_stride, min(kRows, Sq - q0), dh, qs);
+  stage<T, DHP, true>(dout + q_off, q_stride, min(kRows, Sq - q0), dh, gs);
+  stage_rows(lse, delta, (static_cast<int64_t>(b) * H + h) * Sq, q0, Sq, ls,
              ds);
 
   float acc[4][kCols];
@@ -273,11 +281,11 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
-  const int n_kv = (S + kKeys - 1) / kKeys;
+  const int n_kv = (Skv + kKeys - 1) / kKeys;
   const int end = causal ? min(n_kv, (q0 + kRows - 1) / kKeys + 1) : n_kv;
   for (int kt = 0; kt < end; ++kt) {
     const int k0 = kt * kKeys;
-    const int rows = min(kKeys, S - k0);
+    const int rows = min(kKeys, Skv - k0);
     const T* kb = k + kv_base + k0 * kv_stride;
     __syncthreads();                   // the last tile's kr and ps are read
     stage<T, DHP, true>(kb, kv_stride, rows, dh, ks);
@@ -288,7 +296,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     float s[4][4], dp[4][4];
     score_tiles<DHP>(qs, gs, ks, vs, ty, tx, s, dp);
-    probs(s, dp, ls, ds, q0, k0, ty, tx, S, scale, causal);
+    probs(s, dp, ls, ds, q0, k0, ty, tx, Sq, Skv, scale, causal);
     put_tile(ps, dp, ty, tx);
     __syncthreads();
 
@@ -321,8 +329,8 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
-    if (row >= S) continue;
-    T* out = dq + (static_cast<int64_t>(b) * S + row) * q_stride
+    if (row >= Sq) continue;
+    T* out = dq + (static_cast<int64_t>(b) * Sq + row) * q_stride
              + static_cast<int64_t>(h) * dh;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -338,8 +346,8 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int H, int Hkv, int dh,
-                     float scale, int causal) {
+                     T* __restrict__ dv, int Sq, int Skv, int H, int Hkv,
+                     int dh, float scale, int causal) {
   constexpr int kCols = DHP / 16;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                    // k   [DHP][kKeys]
@@ -358,12 +366,12 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rep = H / Hkv;
   const int64_t q_stride = static_cast<int64_t>(H) * dh;
   const int64_t kv_stride = static_cast<int64_t>(Hkv) * dh;
-  const int64_t kv_off = (static_cast<int64_t>(b) * S + k0) * kv_stride
+  const int64_t kv_off = (static_cast<int64_t>(b) * Skv + k0) * kv_stride
                          + static_cast<int64_t>(hk) * dh;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  stage<T, DHP, true>(k + kv_off, kv_stride, min(kKeys, S - k0), dh, ks);
-  stage<T, DHP, true>(v + kv_off, kv_stride, min(kKeys, S - k0), dh, vs);
+  stage<T, DHP, true>(k + kv_off, kv_stride, min(kKeys, Skv - k0), dh, ks);
+  stage<T, DHP, true>(v + kv_off, kv_stride, min(kKeys, Skv - k0), dh, vs);
 
   float dka[4][kCols], dva[4][kCols];  // keys k0 + 4 ty + i, cols tx + 16 c
 #pragma unroll
@@ -371,26 +379,26 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kCols; ++c) dka[i][c] = dva[i][c] = 0.f;
   }
-  const int n_q = (S + kRows - 1) / kRows;
+  const int n_q = (Sq + kRows - 1) / kRows;
   const int first = causal ? k0 / kRows : 0;
   for (int h = hk * rep; h < (hk + 1) * rep; ++h) {
     for (int qt = first; qt < n_q; ++qt) {
       const int q0 = qt * kRows;
-      const int rows = min(kRows, S - q0);
-      const int64_t q_off = (static_cast<int64_t>(b) * S + q0) * q_stride
+      const int rows = min(kRows, Sq - q0);
+      const int64_t q_off = (static_cast<int64_t>(b) * Sq + q0) * q_stride
                             + static_cast<int64_t>(h) * dh;
       __syncthreads();                 // the last tile's operands are read
       stage<T, DHP, true>(q + q_off, q_stride, rows, dh, qs);
       stage<T, DHP, true>(dout + q_off, q_stride, rows, dh, gs);
       stage<T, DHP, false>(q + q_off, q_stride, rows, dh, qr);
       stage<T, DHP, false>(dout + q_off, q_stride, rows, dh, gr);
-      stage_rows(lse, delta, (static_cast<int64_t>(b) * H + h) * S, q0, S,
+      stage_rows(lse, delta, (static_cast<int64_t>(b) * H + h) * Sq, q0, Sq,
                  ls, ds);
       __syncthreads();
 
       float s[4][4], dp[4][4];
       score_tiles<DHP>(qs, gs, ks, vs, ty, tx, s, dp);
-      probs(s, dp, ls, ds, q0, k0, ty, tx, S, scale, causal);
+      probs(s, dp, ls, ds, q0, k0, ty, tx, Sq, Skv, scale, causal);
       put_tile(ps, s, ty, tx);         // P
       __syncthreads();
       // dv += P^T . dO: this thread's keys are columns 4 ty.. of P
@@ -430,8 +438,8 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty * 4 + i;
-    if (key >= S) continue;
-    const int64_t at = (static_cast<int64_t>(b) * S + key) * kv_stride
+    if (key >= Skv) continue;
+    const int64_t at = (static_cast<int64_t>(b) * Skv + key) * kv_stride
                        + static_cast<int64_t>(hk) * dh;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -447,8 +455,8 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DHP>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, float* rows, void* dq,
-               void* dk, void* dv, int64_t B, int64_t S, int64_t H,
-               int64_t Hkv, int64_t dh, float scale, int causal,
+               void* dk, void* dv, int64_t B, int64_t Sq, int64_t Skv,
+               int64_t H, int64_t Hkv, int64_t dh, float scale, int causal,
                cudaStream_t st) {
   constexpr size_t dq_bytes = dq_smem<DHP>();
   constexpr size_t dkdv_bytes = dkdv_smem<DHP>();
@@ -468,54 +476,56 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   const auto kt = static_cast<const T*>(k);
   const auto vt = static_cast<const T*>(v);
   const auto gt = static_cast<const T*>(dout);
-  // rows of (B, H, S): no padding
-  if (int rc = launch_rows<T>(o, dout, lse, B, S, S, H, static_cast<int>(dh),
-                              rows, st)) {
+  // rows of (B, H, Sq): no padding
+  if (int rc = launch_rows<T>(o, dout, lse, B, Sq, Sq, H,
+                              static_cast<int>(dh), rows, st)) {
     return rc;
   }
-  const float* delta = rows + B * H * S;
-  const unsigned tiles = static_cast<unsigned>((S + kRows - 1) / kRows);
-  attn_bwd_dq_kernel<T, DHP><<<dim3(tiles, static_cast<unsigned>(B * H)),
+  const float* delta = rows + B * H * Sq;
+  const unsigned q_tiles = static_cast<unsigned>((Sq + kRows - 1) / kRows);
+  const unsigned k_tiles = static_cast<unsigned>((Skv + kKeys - 1) / kKeys);
+  attn_bwd_dq_kernel<T, DHP><<<dim3(q_tiles, static_cast<unsigned>(B * H)),
                                kThreads, dq_bytes, st>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), static_cast<int>(S),
-      static_cast<int>(H), static_cast<int>(Hkv), static_cast<int>(dh),
-      scale, causal);
-  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-  attn_bwd_dkdv_kernel<T, DHP><<<dim3(tiles, static_cast<unsigned>(B * Hkv)),
-                                 kThreads, dkdv_bytes, st>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      static_cast<int>(S), static_cast<int>(H), static_cast<int>(Hkv),
+      qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), static_cast<int>(Sq),
+      static_cast<int>(Skv), static_cast<int>(H), static_cast<int>(Hkv),
       static_cast<int>(dh), scale, causal);
+  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  attn_bwd_dkdv_kernel<T, DHP>
+      <<<dim3(k_tiles, static_cast<unsigned>(B * Hkv)), kThreads, dkdv_bytes,
+         st>>>(qt, kt, vt, gt, lse, delta, static_cast<T*>(dk),
+               static_cast<T*>(dv), static_cast<int>(Sq),
+               static_cast<int>(Skv), static_cast<int>(H),
+               static_cast<int>(Hkv), static_cast<int>(dh), scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const float* lse, float* rows, void* dq,
-                 void* dk, void* dv, int64_t B, int64_t S, int64_t H,
-                 int64_t Hkv, int64_t dh, float scale, int causal,
+                 void* dk, void* dv, int64_t B, int64_t Sq, int64_t Skv,
+                 int64_t H, int64_t Hkv, int64_t dh, float scale, int causal,
                  cudaStream_t st) {
   if (dh <= 32) {
-    return launch_bwd<T, 32>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, S,
-                             H, Hkv, dh, scale, causal, st);
+    return launch_bwd<T, 32>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, Sq,
+                             Skv, H, Hkv, dh, scale, causal, st);
   }
   if (dh <= 64) {
-    return launch_bwd<T, 64>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, S,
-                             H, Hkv, dh, scale, causal, st);
+    return launch_bwd<T, 64>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, Sq,
+                             Skv, H, Hkv, dh, scale, causal, st);
   }
   if (dh <= 80) {
-    return launch_bwd<T, 80>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, S,
-                             H, Hkv, dh, scale, causal, st);
+    return launch_bwd<T, 80>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, Sq,
+                             Skv, H, Hkv, dh, scale, causal, st);
   }
-  return launch_bwd<T, 128>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, S,
-                            H, Hkv, dh, scale, causal, st);
+  return launch_bwd<T, 128>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, Sq,
+                            Skv, H, Hkv, dh, scale, causal, st);
 }
 
 // -- bfloat16, dh 64 or 128: TMA-fed wgmma -----------------------------------
 constexpr int kWT = 64;                // rows of a streamed tile (queries or
                                        // keys) and of a warpgroup's slice
 constexpr int kWStages = 4;
-constexpr int kPad = 128;              // the rows' pass pads S to this
+constexpr int kPad = 128;              // the rows' pass pads Sq to this
 
 // consumer warpgroups of a block (each owns 64 keys, or 64 query rows):
 // two where a thread's accumulators fit the 168 registers of a 384-thread
@@ -625,8 +635,8 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap vmap,
                            const float* __restrict__ rows,
                            __nv_bfloat16* __restrict__ dk,
-                           __nv_bfloat16* __restrict__ dv, int S, int Sp,
-                           int H, int Hkv, int BH, float scale_log2,
+                           __nv_bfloat16* __restrict__ dv, int Sq, int Skv,
+                           int Sp, int H, int Hkv, int BH, float scale_log2,
                            float scale, int causal) {
   constexpr int kG = kDkdvGroups<DH>;
   constexpr int kBoxes = DH / 64;      // 64-value boxes across a head
@@ -649,7 +659,7 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int k0 = static_cast<int>(blockIdx.y) * kG * kWT;
   const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
   const int rep = H / Hkv;
-  const int n_q = (S + kWT - 1) / kWT;
+  const int n_q = (Sq + kWT - 1) / kWT;
   const int first = causal ? k0 / kWT : 0;
   const int per_head = n_q - first;
   const int items = rep * per_head;
@@ -734,7 +744,7 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       hopper::fence_regs(st);
       hopper::fence_regs(dpt);
       // P^T = 2^(S^T scale log2(e) - lse log2(e)) (0 where the query
-      // precedes the key, on the diagonal tile; 0 past S, whose lse is
+      // precedes the key, on the diagonal tile; 0 past Sq, whose lse is
       // +inf), dS^T = P^T (dP^T - D)
       const bool diag = causal && q0 < my_k0 + kWT;
       const float* lq = ls + s * kWT;
@@ -781,12 +791,12 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     hopper::mbar_arrive(&empty[s]);
   }
 
-  // dk = scale dS^T.Q and dv, rounded once; keys past S are not written
+  // dk = scale dS^T.Q and dv, rounded once; keys past Skv are not written
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int key = kr + 8 * hr;
-    if (key >= S) continue;
-    const int64_t at = ((static_cast<int64_t>(b) * S + key) * Hkv + hk) * DH
+    if (key >= Skv) continue;
+    const int64_t at = ((static_cast<int64_t>(b) * Skv + key) * Hkv + hk) * DH
                        + cq;
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j) {
@@ -812,9 +822,9 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap,
                          const float* __restrict__ rows,
-                         __nv_bfloat16* __restrict__ dq, int S, int Sp, int H,
-                         int Hkv, int BH, float scale_log2, float scale,
-                         int causal) {
+                         __nv_bfloat16* __restrict__ dq, int Sq, int Skv,
+                         int Sp, int H, int Hkv, int BH, float scale_log2,
+                         float scale, int causal) {
   constexpr int kG = kDqGroups<DH>;
   constexpr int kRowsB = kG * kWT;     // query rows a block
   constexpr int kBoxes = DH / 64;
@@ -833,11 +843,11 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   uint64_t* empty = full + kWStages;
 
   // the heaviest (last) query blocks first
-  const int n_tiles = (S + kRowsB - 1) / kRowsB;
+  const int n_tiles = (Sq + kRowsB - 1) / kRowsB;
   const int q0 = (n_tiles - 1 - static_cast<int>(blockIdx.y)) * kRowsB;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int hk = h / (H / Hkv);
-  const int n_kv = (S + kWT - 1) / kWT;
+  const int n_kv = (Skv + kWT - 1) / kWT;
   const int end = causal ? min(n_kv, (q0 + kRowsB - 1) / kWT + 1) : n_kv;
   const int wg = __shfl_sync(~0u, static_cast<int>(threadIdx.x) / 128, 0);
   if (threadIdx.x == 0) {
@@ -915,16 +925,16 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       hopper::wgmma_wait<0>();
       hopper::fence_regs(sc);
       hopper::fence_regs(dp);
-      // P = 2^(S scale log2(e) - lse log2(e)), 0 past S and, on the
+      // P = 2^(S scale log2(e) - lse log2(e)), 0 past Skv and, on the
       // diagonal, where the key follows the row; dS = P (dP - D)
-      const bool edge = k0 + kWT > S || (causal && k0 + kWT > my_q0);
+      const bool edge = k0 + kWT > Skv || (causal && k0 + kWT > my_q0);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int col = k0 + 8 * j + cq + i % 2;
           float p = hopper::ex2(fmaf(sc[4 * j + i], scale_log2, -lr[i / 2]));
-          if (edge && (col >= S || (causal && col > r0 + 8 * (i / 2)))) {
+          if (edge && (col >= Skv || (causal && col > r0 + 8 * (i / 2)))) {
             p = 0.f;
           }
           dp[4 * j + i] = p * (dp[4 * j + i] - dr[i / 2]);
@@ -946,13 +956,13 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     hopper::mbar_arrive(&empty[s]);
   }
 
-  // dq = scale dS.K, rounded once; rows past S are not written
+  // dq = scale dS.K, rounded once; rows past Sq are not written
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = r0 + 8 * hr;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     __nv_bfloat16* out =
-        dq + ((static_cast<int64_t>(b) * S + row) * H + h) * DH + cq;
+        dq + ((static_cast<int64_t>(b) * Sq + row) * H + h) * DH + cq;
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
@@ -962,8 +972,9 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// bfloat16 tensor maps over (B, S, heads, DH), boxes of 64 values by `box`
-// rows, 128-byte swizzle; rows past S read as zeros
+// bfloat16 tensor maps over (B, S, heads, DH) (S the query rows Sq or the
+// keys Skv), boxes of 64 values by `box` rows, 128-byte swizzle; rows past
+// S read as zeros
 template <int DH>
 int head_map(CUtensorMap* map, const void* base, int64_t B, int64_t S,
              int64_t heads, uint32_t box) {
@@ -980,21 +991,21 @@ template <int DH>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const float* lse,
                      float* rows, void* dq, void* dk, void* dv, int64_t B,
-                     int64_t S, int64_t H, int64_t Hkv, float scale,
-                     int causal, cudaStream_t st) {
+                     int64_t Sq, int64_t Skv, int64_t H, int64_t Hkv,
+                     float scale, int causal, cudaStream_t st) {
   constexpr int kKeys = kDkdvGroups<DH> * kWT;
   constexpr int kRowsB = kDqGroups<DH> * kWT;
-  const int64_t Sp = (S + kPad - 1) / kPad * kPad;
+  const int64_t Sp = (Sq + kPad - 1) / kPad * kPad;
   CUtensorMap q_tile, g_tile, k_block, v_block, q_block, g_block, k_tile,
       v_tile;
-  if (int rc = head_map<DH>(&q_tile, q, B, S, H, kWT)) return rc;
-  if (int rc = head_map<DH>(&g_tile, dout, B, S, H, kWT)) return rc;
-  if (int rc = head_map<DH>(&k_block, k, B, S, Hkv, kKeys)) return rc;
-  if (int rc = head_map<DH>(&v_block, v, B, S, Hkv, kKeys)) return rc;
-  if (int rc = head_map<DH>(&q_block, q, B, S, H, kRowsB)) return rc;
-  if (int rc = head_map<DH>(&g_block, dout, B, S, H, kRowsB)) return rc;
-  if (int rc = head_map<DH>(&k_tile, k, B, S, Hkv, kWT)) return rc;
-  if (int rc = head_map<DH>(&v_tile, v, B, S, Hkv, kWT)) return rc;
+  if (int rc = head_map<DH>(&q_tile, q, B, Sq, H, kWT)) return rc;
+  if (int rc = head_map<DH>(&g_tile, dout, B, Sq, H, kWT)) return rc;
+  if (int rc = head_map<DH>(&k_block, k, B, Skv, Hkv, kKeys)) return rc;
+  if (int rc = head_map<DH>(&v_block, v, B, Skv, Hkv, kKeys)) return rc;
+  if (int rc = head_map<DH>(&q_block, q, B, Sq, H, kRowsB)) return rc;
+  if (int rc = head_map<DH>(&g_block, dout, B, Sq, H, kRowsB)) return rc;
+  if (int rc = head_map<DH>(&k_tile, k, B, Skv, Hkv, kWT)) return rc;
+  if (int rc = head_map<DH>(&v_tile, v, B, Skv, Hkv, kWT)) return rc;
   constexpr size_t dkdv_bytes = dkdv_wgmma_smem<DH>();
   constexpr size_t dq_bytes = dq_wgmma_smem<DH>();
   if (cudaError_t e = cudaFuncSetAttribute(
@@ -1009,29 +1020,30 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
           static_cast<int>(dq_bytes))) {
     return static_cast<int>(e);
   }
-  if (int rc = launch_rows<__nv_bfloat16>(o, dout, lse, B, S, Sp, H, DH,
+  if (int rc = launch_rows<__nv_bfloat16>(o, dout, lse, B, Sq, Sp, H, DH,
                                           rows, st)) {
     return rc;
   }
   const float scale_log2 = scale * kLog2e;
   attn_bwd_dq_wgmma_kernel<DH>
       <<<dim3(static_cast<unsigned>(B * H),
-              static_cast<unsigned>((S + kRowsB - 1) / kRowsB)),
+              static_cast<unsigned>((Sq + kRowsB - 1) / kRowsB)),
          (kDqGroups<DH> + 1) * 128, dq_bytes, st>>>(
           q_block, g_block, k_tile, v_tile, rows,
-          static_cast<__nv_bfloat16*>(dq), static_cast<int>(S),
-          static_cast<int>(Sp), static_cast<int>(H), static_cast<int>(Hkv),
-          static_cast<int>(B * H), scale_log2, scale, causal);
+          static_cast<__nv_bfloat16*>(dq), static_cast<int>(Sq),
+          static_cast<int>(Skv), static_cast<int>(Sp), static_cast<int>(H),
+          static_cast<int>(Hkv), static_cast<int>(B * H), scale_log2, scale,
+          causal);
   if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
   attn_bwd_dkdv_wgmma_kernel<DH>
       <<<dim3(static_cast<unsigned>(B * Hkv),
-              static_cast<unsigned>((S + kKeys - 1) / kKeys)),
+              static_cast<unsigned>((Skv + kKeys - 1) / kKeys)),
          (kDkdvGroups<DH> + 1) * 128, dkdv_bytes, st>>>(
           q_tile, g_tile, k_block, v_block, rows,
           static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-          static_cast<int>(S), static_cast<int>(Sp), static_cast<int>(H),
-          static_cast<int>(Hkv), static_cast<int>(B * H), scale_log2, scale,
-          causal);
+          static_cast<int>(Sq), static_cast<int>(Skv), static_cast<int>(Sp),
+          static_cast<int>(H), static_cast<int>(Hkv), static_cast<int>(B * H),
+          scale_log2, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1042,23 +1054,27 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dO and the gradients).
 // form (kernels/flash_attention.py's `form`, as the forward's): 0 = the
 // CUDA-core kernels, any dtype and dh; 1 = the wgmma kernels, bfloat16 with
-// dh 64 or 128.  lse: the forward's (B, H, S) float32 logsumexp; rows:
-// float32 scratch of 2 B H Sp, Sp = S for form 0 and S rounded up to 128
+// dh 64 or 128.  lse: the forward's (B, H, Sq) float32 logsumexp; rows:
+// float32 scratch of 2 B H Sp, Sp = Sq for form 0 and Sq rounded up to 128
 // for form 1 (bwd_rows in the wrapper).  Needs contiguous tensors on
 // 16-byte boundaries, 0 < dh <= 128 with dh a multiple of 8, H a multiple
-// of Hkv, B * H <= 65535 and S < 2^31 (the wrapper checks).
+// of Hkv, B * H <= 65535, Sq and Skv < 2^31, and Sq == Skv where causal
+// (the wrapper checks; a causal launch with Sq != Skv is refused).
 int attn_flash_attention_bwd(int device, const void* q, const void* k,
                              const void* v, const void* o, const void* dout,
-                             const void* lse, int64_t B, int64_t S,
-                             int64_t H, int64_t Hkv, int64_t dh, float scale,
-                             int causal, int dtype, int form, void* rows,
-                             void* dq, void* dk, void* dv, void* stream) {
+                             const void* lse, int64_t B, int64_t Sq,
+                             int64_t Skv, int64_t H, int64_t Hkv, int64_t dh,
+                             float scale, int causal, int dtype, int form,
+                             void* rows, void* dq, void* dk, void* dv,
+                             void* stream) {
   if (cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
-  if (B < 1 || S < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || dh < 1
-      || dh > 128 || dh % 8 != 0 || B * H > 65535 || S > 0x7fffffff
+  if (B < 1 || Sq < 1 || Skv < 1 || H < 1 || Hkv < 1 || H % Hkv != 0
+      || dh < 1 || dh > 128 || dh % 8 != 0 || B * H > 65535
+      || Sq > 0x7fffffff || Skv > 0x7fffffff || (causal && Sq != Skv)
       || (dtype != 0 && dtype != 1) || (form != 0 && form != 1)
       || (form == 1 && (dtype != 1 || (dh != 64 && dh != 128)
-                        || (S + kWT - 1) / kWT > 65535))) {
+                        || (Sq + kWT - 1) / kWT > 65535
+                        || (Skv + kWT - 1) / kWT > 65535))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto st = static_cast<cudaStream_t>(stream);
@@ -1066,18 +1082,18 @@ int attn_flash_attention_bwd(int device, const void* q, const void* k,
   const auto r = static_cast<float*>(rows);
   if (form == 1) {
     return dh == 64 ? launch_bwd_wgmma<64>(q, k, v, o, dout, l, r, dq, dk,
-                                           dv, B, S, H, Hkv, scale, causal,
-                                           st)
+                                           dv, B, Sq, Skv, H, Hkv, scale,
+                                           causal, st)
                     : launch_bwd_wgmma<128>(q, k, v, o, dout, l, r, dq, dk,
-                                            dv, B, S, H, Hkv, scale, causal,
-                                            st);
+                                            dv, B, Sq, Skv, H, Hkv, scale,
+                                            causal, st);
   }
   if (dtype == 0) {
-    return dispatch_bwd<float>(q, k, v, o, dout, l, r, dq, dk, dv, B, S, H,
-                               Hkv, dh, scale, causal, st);
+    return dispatch_bwd<float>(q, k, v, o, dout, l, r, dq, dk, dv, B, Sq,
+                               Skv, H, Hkv, dh, scale, causal, st);
   }
-  return dispatch_bwd<__nv_bfloat16>(q, k, v, o, dout, l, r, dq, dk, dv, B, S,
-                                     H, Hkv, dh, scale, causal, st);
+  return dispatch_bwd<__nv_bfloat16>(q, k, v, o, dout, l, r, dq, dk, dv, B,
+                                     Sq, Skv, H, Hkv, dh, scale, causal, st);
 }
 
 }  // extern "C"

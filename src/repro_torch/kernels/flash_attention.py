@@ -1,18 +1,23 @@
 """Causal or non-causal attention with grouped-query heads (the prefill's
-attention):
+and training's self attention, whisper's encoder and cross attention):
 
-    q (B, S, H, dh), k and v (B, S, Hkv, dh)  ->  (B, S, H, dh) in q's dtype
+    q (B, Sq, H, dh), k and v (B, Skv, Hkv, dh)  ->  (B, Sq, H, dh) in
+    q's dtype
 
 Query head h reads kv head ``h // (H // Hkv)``.  Scores are float32,
 scaled by ``dh ** -0.5``; masked scores (causal: key after query) are set
-to -1e30 before the softmax; float32 or bfloat16 in, any S.
+to -1e30 before the softmax; float32 or bfloat16 in, any Sq and Skv.  Sq
+and Skv differ only where the attention is not causal (cross attention:
+the decoder's tokens against the encoder's frames, the decode step's one
+token among them); a causal call with Sq != Skv raises.
 
 Kernel: replaces the Pallas ``_kernel`` of
 ``src/repro/kernels/flash_attention.py:25`` (``pallas_call`` at ``:87``),
 which asserts ``S % block_q == 0``; the CUDA kernels (``csrc/attn.cu``)
-mask the tails of their tiles instead.  Bound: operations, 4·B·H·S²·dh
-(halved when causal), against the bytes of q, k, v and the output.  Two
-forms, chosen by ``form`` from the dtype and dh:
+mask the tails of their tiles instead (query rows past Sq, keys past
+Skv).  Bound: operations, 4·B·H·Sq·Skv·dh (halved when causal), against
+the bytes of q, k, v and the output.  Two forms, chosen by ``form`` from
+the dtype and dh:
 
   * ``wgmma`` (bfloat16, dh 64 or 128: the serving paths): a block owns
     128 query rows of one (batch, head); a producer warpgroup streams K
@@ -26,7 +31,7 @@ forms, chosen by ``form`` from the dtype and dh:
 
 Both skip the causal tiles past the diagonal and read the kv head in
 place, with no repeat.  Where autograd records (``q``, ``k`` or ``v``
-requires grad), the forward also writes each row's logsumexp (B, H, S)
+requires grad), the forward also writes each row's logsumexp (B, H, Sq)
 float32, and the backward is ``flash_attention_bwd``: the kernels of
 ``csrc/attn_bwd.cu`` (a rows pass, D = rowsum(dO o); a dQ pass over the
 key tiles; a dK/dV pass over the query tiles and the group's heads; no
@@ -42,7 +47,9 @@ atomics, so two runs give the same bits), in the forward's two forms:
     that left).
   * ``simt`` (float32, other head widths): float32 on the CUDA cores.
 
-Serving passes no logsumexp and launches as before.
+Serving passes no logsumexp and launches as before.  Each wrapper counts
+its launches (``launches``), by form (``form_launches``) and by ``kind``
+(``kind_launches``: ``causal``, ``square`` or ``cross``).
 """
 from __future__ import annotations
 
@@ -90,13 +97,15 @@ def bwd_close(got, want) -> bool:
 
 def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True) -> Tuple[float, int]:
-    """(FLOPs, bytes) of the attention: the two products, 4·B·H·S²·dh
+    """(FLOPs, bytes) of the attention: the two products, 4·B·H·Sq·Skv·dh
     (halved when causal: the tiles past the diagonal are skipped); q, k,
-    v read once and the output written once."""
-    B, S, H, dh = q.shape
-    flops = 4 * B * H * S * S * dh / (2 if causal else 1)
-    n_bytes = q.element_size() * (2 * B * S * H * dh
-                                  + 2 * B * S * k.shape[2] * dh)
+    v read once and the output written once (q and the output at Sq, k
+    and v at Skv)."""
+    B, Sq, H, dh = q.shape
+    Skv = k.shape[1]
+    flops = 4 * B * H * Sq * Skv * dh / (2 if causal else 1)
+    n_bytes = q.element_size() * (2 * B * Sq * H * dh
+                                  + 2 * B * Skv * k.shape[2] * dh)
     return flops, n_bytes
 
 
@@ -104,8 +113,9 @@ def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True) -> torch.Tensor:
     """Plain version (``ref.flash_attention_ref``'s semantics): kv heads
-    repeated, float32 scores over the whole (S, S), mask, softmax, cast."""
-    _check_shapes(q, k, v)
+    repeated, float32 scores over the whole (Sq, Skv), mask, softmax,
+    cast."""
+    _check_shapes(q, k, v, causal)
     S, dh = q.shape[1], q.shape[3]
     n_rep = q.shape[2] // k.shape[2]
     k = k.repeat_interleave(n_rep, dim=2)
@@ -125,7 +135,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """The plain version for a CPU tensor, the CUDA kernel for a CUDA
     tensor; its backward the ``flash_attention_bwd`` kernel."""
-    _check_shapes(q, k, v)
+    _check_shapes(q, k, v, causal)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -137,14 +147,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_cost(q, k, v, o, lse, do,
                              causal: bool = True) -> Tuple[float, int]:
     """(FLOPs, bytes) of the attention's gradient: the five products (QKᵀ
-    recomputed, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K), 10·B·H·S²·dh (halved when
-    causal); q, k, v, o, dO and the logsumexp read once, dq, dk and dv
-    written once."""
-    B, S, H, dh = q.shape
-    flops = 10 * B * H * S * S * dh / (2 if causal else 1)
-    n_bytes = q.element_size() * 4 * (B * S * H * dh
-                                      + B * S * k.shape[2] * dh) \
-        + 4 * B * H * S
+    recomputed, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K), 10·B·H·Sq·Skv·dh (halved
+    when causal); q, k, v, o, dO and the logsumexp read once, dq, dk and
+    dv written once (q, o, dO, dq at Sq; k, v, dk, dv at Skv)."""
+    B, Sq, H, dh = q.shape
+    Skv = k.shape[1]
+    flops = 10 * B * H * Sq * Skv * dh / (2 if causal else 1)
+    n_bytes = q.element_size() * 4 * (B * Sq * H * dh
+                                      + B * Skv * k.shape[2] * dh) \
+        + 4 * B * H * Sq
     return flops, n_bytes
 
 
@@ -152,13 +163,13 @@ def flash_attention_bwd_cost(q, k, v, o, lse, do,
 def flash_attention_bwd_torch(q, k, v, o, lse, do, causal: bool = True):
     """Plain version of the gradient (q, k, v, the forward's output ``o``
     and ``lse``, the output's gradient ``do``) -> (dq, dk, dv) in q's
-    dtype: the full (S, S) float32 scores recomputed, masked and
+    dtype: the full (Sq, Skv) float32 scores recomputed, masked and
     softmaxed (``lse`` is the kernel's shortcut to P and is not read
     here), D = rowsum(dO·o) from the saved output as the kernel takes it,
     dS = P (dP - D), and dk, dv summed over each kv head's query heads."""
-    _check_shapes(q, k, v)
+    _check_shapes(q, k, v, causal)
     B, S, H, dh = q.shape
-    Hkv = k.shape[2]
+    Skv, Hkv = k.shape[1], k.shape[2]
     n_rep, scale = H // Hkv, dh ** -0.5
     f32 = torch.float32
     qf, of, gf = q.to(f32), o.to(f32), do.to(f32)
@@ -175,8 +186,8 @@ def flash_attention_bwd_torch(q, k, v, o, lse, do, causal: bool = True):
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
-    dk = dk.reshape(B, S, Hkv, n_rep, dh).sum(3)
-    dv = dv.reshape(B, S, Hkv, n_rep, dh).sum(3)
+    dk = dk.reshape(B, Skv, Hkv, n_rep, dh).sum(3)
+    dv = dv.reshape(B, Skv, Hkv, n_rep, dh).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -185,7 +196,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     """The gradient of ``flash_attention``: the plain version for CPU
     tensors, the ``csrc/attn_bwd.cu`` kernels (one count in ``launches``,
     in the form ``form`` gives) for CUDA tensors."""
-    _check_shapes(q, k, v)
+    _check_shapes(q, k, v, causal)
     if q.device.type == "cpu":
         return flash_attention_bwd_torch(q, k, v, o, lse, do, causal)
     return _launch_bwd(q, k, v, o, lse, do, causal)
@@ -194,11 +205,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
 flash_attention_bwd.launches = 0
 flash_attention_bwd.last_form = None    # the form of the latest launch
 flash_attention_bwd.form_launches = {}  # launches by form
+flash_attention_bwd.kind_launches = {}  # launches by kind
 
 
 flash_attention.launches = 0
 flash_attention.last_form = None    # the form of the latest launch
 flash_attention.form_launches = {}  # launches by form
+flash_attention.kind_launches = {}  # launches by kind
 
 # the forms, as csrc/attn.cu's and csrc/attn_bwd.cu's launchers number them
 FORMS = {"simt": 0, "wgmma": 1}
@@ -210,27 +223,41 @@ def form(dtype: torch.dtype, dh: int) -> str:
     return "wgmma" if dtype == torch.bfloat16 and dh in (64, 128) else "simt"
 
 
+def kind(Sq: int, Skv: int, causal: bool) -> str:
+    """What a launch attends: ``causal`` (self attention, Sq == Skv),
+    ``square`` (not causal, Sq == Skv: whisper's encoder) or ``cross``
+    (Sq != Skv: whisper's cross attention)."""
+    if causal:
+        return "causal"
+    return "square" if Sq == Skv else "cross"
+
+
 def bwd_rows(S: int, chosen: str) -> int:
-    """The rows a (b, h) takes in the backward's scratch: S for ``simt``,
-    S rounded up to 128 for ``wgmma`` (whose tiles bulk-copy the rows'
-    lse and D 64 or 128 at a time)."""
+    """The rows a (b, h) takes in the backward's scratch (S the query
+    rows, Sq): S for ``simt``, S rounded up to 128 for ``wgmma`` (whose
+    tiles bulk-copy the rows' lse and D 64 or 128 at a time)."""
     return -(-S // 128) * 128 if chosen == "wgmma" else S
 
 
-def _count(wrapper, chosen: str) -> None:
+def _count(wrapper, chosen: str, what: str) -> None:
     wrapper.launches += 1
     wrapper.last_form = chosen
     wrapper.form_launches[chosen] = wrapper.form_launches.get(chosen, 0) + 1
+    wrapper.kind_launches[what] = wrapper.kind_launches.get(what, 0) + 1
 
 
-def _check_shapes(q, k, v) -> None:
+def _check_shapes(q, k, v, causal: bool) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
-            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
             or k.shape[2] < 1 or q.shape[2] % k.shape[2]:
-        raise ValueError(f"flash_attention takes q (B, S, H, dh) and k, v "
-                         f"(B, S, Hkv, dh) with H a multiple of Hkv, got "
+        raise ValueError(f"flash_attention takes q (B, Sq, H, dh) and k, v "
+                         f"(B, Skv, Hkv, dh) with H a multiple of Hkv, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
+    if causal and k.shape[1] != q.shape[1]:
+        raise ValueError(f"causal flash_attention takes Sq == Skv (no mask "
+                         f"convention for Sq != Skv), got Sq {q.shape[1]}, "
+                         f"Skv {k.shape[1]}")
 
 
 def _on_16_bytes(t: torch.Tensor) -> torch.Tensor:
@@ -254,8 +281,9 @@ def _check_launch(q, k, v, what: str) -> torch.device:
 
 
 def _launch(q, k, v, causal: bool, lse: bool = False):
-    """(output, the rows' logsumexp (B, H, S) float32 or None)."""
+    """(output, the rows' logsumexp (B, H, Sq) float32 or None)."""
     dev = _check_launch(q, k, v, "flash_attention")
+    _check_shapes(q, k, v, causal)
     B, S, H, dh = q.shape
     q, k, v = _on_16_bytes(q), _on_16_bytes(k), _on_16_bytes(v)
     out = torch.empty_like(q)
@@ -264,21 +292,22 @@ def _launch(q, k, v, causal: bool, lse: bool = False):
     if out.numel():
         chosen = form(q.dtype, dh)
         _build.launch("attn_flash_attention", dev, q.data_ptr(),
-                      k.data_ptr(), v.data_ptr(), B, S, H, k.shape[2], dh,
-                      dh ** -0.5, int(causal), DTYPE_FLAG[q.dtype],
-                      FORMS[chosen], out.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), B, S, k.shape[1], H,
+                      k.shape[2], dh, dh ** -0.5, int(causal),
+                      DTYPE_FLAG[q.dtype], FORMS[chosen], out.data_ptr(),
                       rows.data_ptr() if lse else None)
-        _count(flash_attention, chosen)
+        _count(flash_attention, chosen, kind(S, k.shape[1], causal))
     return out, rows
 
 
 def _launch_bwd(q, k, v, o, lse, do, causal: bool):
     dev = _check_launch(q, k, v, "flash_attention_bwd")
+    _check_shapes(q, k, v, causal)
     B, S, H, dh = q.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or lse.shape != (B, H, S) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd takes o and do shaped as q "
-                         f"{tuple(q.shape)} and lse (B, H, S) float32, got "
+                         f"{tuple(q.shape)} and lse (B, H, Sq) float32, got "
                          f"{tuple(o.shape)}, {tuple(do.shape)}, "
                          f"{tuple(lse.shape)} {lse.dtype}")
     q, k, v, o = (_on_16_bytes(t) for t in (q, k, v, o))
@@ -291,11 +320,11 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool):
                            device=dev)
         _build.launch("attn_flash_attention_bwd", dev, q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                      do.data_ptr(), lse.data_ptr(), B, S, H, k.shape[2], dh,
-                      dh ** -0.5, int(causal), DTYPE_FLAG[q.dtype],
-                      FORMS[chosen], rows.data_ptr(), dq.data_ptr(),
-                      dk.data_ptr(), dv.data_ptr())
-        _count(flash_attention_bwd, chosen)
+                      do.data_ptr(), lse.data_ptr(), B, S, k.shape[1], H,
+                      k.shape[2], dh, dh ** -0.5, int(causal),
+                      DTYPE_FLAG[q.dtype], FORMS[chosen], rows.data_ptr(),
+                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+        _count(flash_attention_bwd, chosen, kind(S, k.shape[1], causal))
     return dq, dk, dv
 
 

@@ -53,7 +53,12 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
-    model = build_model(cfg, args.device)     # raises for what is unported
+    if cfg.input_mode != "tokens" or cfg.enc_dec or cfg.family == "conv":
+        # as the JAX launcher: whisper serves through Model (encode, then
+        # decode against the cross K / V), not this token loop
+        raise ValueError(f"{cfg.name}: the serving launcher drives "
+                         f"token-LM archs")
+    model = build_model(cfg, args.device)
 
     # reputation gate: requests from identities below R_min are rejected
     book = init_book(args.batch, device=model.device)

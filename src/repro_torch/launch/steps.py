@@ -18,12 +18,23 @@ import torch
 def value_and_grad(model, params: Dict[str, torch.Tensor], batch,
                    remat=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, gradients) of ``model.loss`` at ``params``, the gradients
-    keyed as ``params``; the weights themselves are not written."""
+    keyed as ``params``; the weights themselves are not written.  A
+    weight the loss does not reach raises, except an encoder-decoder's
+    ``encdec.unread`` weights (whisper's ``wi_up``), whose gradient is
+    zero, as JAX gives it."""
     leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
     with torch.enable_grad():
         loss = model.loss(leaves, batch, remat)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-    return loss.detach(), dict(zip(leaves, grads))
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+    missing = [k for k, g in zip(leaves, grads) if g is None]
+    if missing:
+        from repro_torch.models import encdec
+        if not (getattr(getattr(model, "cfg", None), "enc_dec", False)
+                and all(map(encdec.unread, missing))):
+            raise RuntimeError(f"the loss does not reach {missing}")
+    return loss.detach(), {k: torch.zeros_like(p) if g is None else g
+                           for (k, p), g in zip(leaves.items(), grads)}
 
 
 def build_train_step(model, opt):

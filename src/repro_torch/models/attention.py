@@ -1,5 +1,6 @@
 """Grouped-query attention of the decoder LMs: the prefill path and the
-KV-cache decode path, with the JAX package's layouts and casts.
+KV-cache decode path, with the JAX package's layouts and casts; and
+whisper's encoder (bidirectional) and cross attention.
 
   * Prefill (``attention_block``): projections, optional QKV bias and QK
     norm, RoPE (or M-RoPE on (3, B, S) positions), then the factory's
@@ -12,10 +13,17 @@ KV-cache decode path, with the JAX package's layouts and casts.
     by kv head, so the cache is not broadcast over the group.  The cache is
     updated in place (the JAX serve loop donates it).
 
+  * Whisper (``bidir_attention_block``, ``cross_attention_block``,
+    ``encode_cross_kv``): the encoder's self attention, unmasked and with
+    no RoPE, and the decoder's cross attention, its queries the decoder's
+    tokens (Sq) and its keys and values the encoder output's projections
+    (Skv = the encoder's frames, cached in the decode state), both through
+    the factory's ``flash_attention`` op with ``causal=False``: the
+    training forward, the prefill and the decode step's Sq = 1.
+
 The per-layer parameters ``p`` are a mapping of tensors (``wq``, ``wk``,
-``wv``, ``wo``; ``bq``, ``bk``, ``bv`` with ``qkv_bias``; ``q_norm``,
-``k_norm`` with ``qk_norm``).  Cross and bidirectional attention come
-with whisper (ROADMAP.md queue 1 item 10(e)).
+``wv``, ``wo``; ``bq``, ``bk``, ``bv`` with ``qkv_bias`` and not for cross
+attention; ``q_norm``, ``k_norm`` with ``qk_norm``).
 """
 from __future__ import annotations
 
@@ -32,14 +40,14 @@ NEG_INF = -1e30
 
 def init_attn_params(cfg, dtype: torch.dtype,
                      generator: torch.Generator | None,
-                     device) -> Dict[str, torch.Tensor]:
+                     device, cross: bool = False) -> Dict[str, torch.Tensor]:
     """Projections from ``dense_init`` (uninitialised with no generator),
-    biases zeros, QK norm scales ones."""
+    biases zeros (none for ``cross`` attention), QK norm scales ones."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     p = {name: dense_init(shape, dtype, generator, device)
          for name, shape in (("wq", (d, qd)), ("wk", (d, kvd)),
                              ("wv", (d, kvd)), ("wo", (qd, d)))}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros(qd, dtype=dtype, device=device)
         p["bk"] = torch.zeros(kvd, dtype=dtype, device=device)
         p["bv"] = torch.zeros(kvd, dtype=dtype, device=device)
@@ -50,7 +58,7 @@ def init_attn_params(cfg, dtype: torch.dtype,
 
 
 def _project_qkv(cfg, p: Mapping[str, torch.Tensor], x: torch.Tensor,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, rope: bool = True):
     B, S, _ = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
@@ -62,10 +70,10 @@ def _project_qkv(cfg, p: Mapping[str, torch.Tensor], x: torch.Tensor,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
-    if cfg.rope_variant == "rope":
+    if rope and cfg.rope_variant == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.rope_variant == "mrope":
+    elif rope and cfg.rope_variant == "mrope":
         q = apply_mrope(q, positions, cfg.rope_theta)
         k = apply_mrope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -115,3 +123,43 @@ def decode_attention_block(cfg, p: Mapping[str, torch.Tensor],
     attn = torch.softmax(s, dim=-1)
     o = torch.einsum("bkrs,bskd->bkrd", attn, cache_v.to(torch.float32))
     return o.reshape(B, 1, cfg.q_dim).to(x.dtype) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Whisper: the encoder's attention and the decoder's cross attention
+# ---------------------------------------------------------------------------
+def _output(cfg, p: Mapping[str, torch.Tensor], o: torch.Tensor):
+    """(B, S, H, dh) -> (B, S, d): the heads flattened, then ``wo``."""
+    B, S = o.shape[:2]
+    return o.reshape(B, S, cfg.q_dim) @ p["wo"]
+
+
+def cross_attention_block(cfg, p: Mapping[str, torch.Tensor],
+                          x: torch.Tensor, enc_k: torch.Tensor,
+                          enc_v: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) against the encoder's keys and values ``enc_k``,
+    ``enc_v`` (B, S_enc, Hkv, dh) (``encode_cross_kv``): no mask, the
+    output rounded once to x's dtype, then ``wo``."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    o = get_kernel("flash_attention")(q, enc_k, enc_v, causal=False)
+    return _output(cfg, p, o)
+
+
+def encode_cross_kv(cfg, p: Mapping[str, torch.Tensor],
+                    enc_out: torch.Tensor):
+    """The decoder's cross-attention K and V (B, S_enc, Hkv, dh) from the
+    encoder output (B, S_enc, d)."""
+    B, S, _ = enc_out.shape
+    shape = (B, S, cfg.n_kv_heads, cfg.head_dim)
+    return (enc_out @ p["wk"]).reshape(shape), \
+        (enc_out @ p["wv"]).reshape(shape)
+
+
+def bidir_attention_block(cfg, p: Mapping[str, torch.Tensor],
+                          x: torch.Tensor) -> torch.Tensor:
+    """The encoder's self attention: the projections with no RoPE, every
+    frame attending to every frame."""
+    q, k, v = _project_qkv(cfg, p, x, None, rope=False)
+    o = get_kernel("flash_attention")(q, k, v, causal=False)
+    return _output(cfg, p, o)

@@ -1,6 +1,7 @@
 """Model facade over the decoder LMs (dense attention, MoE, xLSTM, jamba's
 hybrid Mamba / attention stack with MoE layers, and qwen2-vl's backbone on
-precomputed embeddings), in the JAX package's interface:
+precomputed embeddings) and whisper's encoder-decoder, in the JAX
+package's interface:
 
     model = build_model(cfg)                  # on the card; device="cpu"
     params = model.init_params(0)             # a TransformerLM module
@@ -17,9 +18,14 @@ and ``positions`` (3, B, S) instead of ``tokens``, and a decode step
 dict of its weights (``train_params``), which autograd differentiates
 (``launch/steps.py``); the module is frozen for serving.  The port runs
 one card with no mesh: the JAX facade's ``ctx is None`` branch.  Meshes
-and sharding are ROADMAP.md queue 1 item 10(f); whisper (the
-encoder-decoder on audio) is item 10(e), and its config raises
-``NotImplementedError`` here.
+and sharding are ROADMAP.md queue 1 item 10(f).
+
+An ``enc_dec`` config (whisper) is the JAX facade's ``encdec`` branch:
+``init_params`` gives a ``models.encdec.EncDecLM``, a batch holds
+``audio_embeds`` (B, enc_seq, d) and ``tokens`` (and ``labels``), and
+``prefill`` returns the whole forward's last logits and ``None``, as the
+JAX facade does (no state: a decode state's ``ek`` / ``ev`` are filled by
+``encdec.encode`` and ``attention.encode_cross_kv``).
 
 The conv family (``lenet5``, the paper's FL workload) is the JAX facade's
 ``lenet`` branch: ``build_model`` returns a ``models.lenet.LeNet``, which
@@ -33,7 +39,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import lenet, transformer
+from repro_torch.models import encdec, lenet, transformer
 
 
 class Model:
@@ -41,14 +47,15 @@ class Model:
         transformer.check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._mod = encdec if cfg.enc_dec else transformer
 
-    def init_params(self, seed=0, dtype=None) -> transformer.TransformerLM:
+    def init_params(self, seed=0, dtype=None):
         """Weights drawn on the model's device from ``seed`` (an int, or a
         ``torch.Generator`` on that device), in ``dtype`` (default: the
-        config's)."""
+        config's): a ``TransformerLM``, or an ``EncDecLM``."""
         g = seed if isinstance(seed, torch.Generator) else \
             torch.Generator(device=self.device).manual_seed(int(seed))
-        return transformer.init_params(self.cfg, g, dtype, self.device)
+        return self._mod.init_params(self.cfg, g, dtype, self.device)
 
     def _tokens(self, batch):
         """``batch`` with its arrays (tokens, labels, embeds, positions) as
@@ -58,39 +65,46 @@ class Model:
                 for k, v in batch.items()}
 
     def _params(self, params):
-        return transformer.params_view(self.cfg, params) \
+        return self._mod.params_view(self.cfg, params) \
             if isinstance(params, dict) else params
 
     def train_params(self, params) -> dict:
         """The weights of ``params`` (a module) as the flat dict ``loss``
         differentiates."""
-        return transformer.train_params(params)
+        return self._mod.train_params(params)
 
     def param_groups(self, flat: dict) -> dict:
         """Each key's JAX leaf, for adafactor (``optim.make_optimizer``)."""
-        return transformer.param_groups(self.cfg, flat)
+        return self._mod.param_groups(self.cfg, flat)
 
     def loss(self, params, batch, remat=None) -> torch.Tensor:
         """Mean next-token cross entropy over ``batch`` (``tokens``,
-        ``labels``); each layer checkpointed by ``remat`` (default the
+        ``labels``; and ``audio_embeds`` for an encoder-decoder); each
+        (decoder) layer checkpointed by ``remat`` (default the
         config's)."""
-        return transformer.loss_fn(self.cfg, self._params(params),
-                                   self._tokens(batch), remat)
+        return self._mod.loss_fn(self.cfg, self._params(params),
+                                 self._tokens(batch), remat)
 
     def forward(self, params, batch, remat=None) -> torch.Tensor:
-        return transformer.forward(self.cfg, self._params(params),
-                                   self._tokens(batch), remat)
+        return self._mod.forward(self.cfg, self._params(params),
+                                 self._tokens(batch), remat)
 
     def prefill(self, params, batch):
+        if self._mod is encdec:
+            # the JAX facade's enc-dec prefill: the whole forward with no
+            # remat, the last logits, and no state
+            logits = encdec.forward(self.cfg, params, self._tokens(batch),
+                                    remat="none")
+            return logits[:, -1], None
         return transformer.prefill(self.cfg, params, self._tokens(batch))
 
     def decode(self, params, state, batch):
-        return transformer.decode_step(self.cfg, params, state,
-                                       self._tokens(batch))
+        return self._mod.decode_step(self.cfg, params, state,
+                                     self._tokens(batch))
 
     def init_decode_state(self, batch_size: int, max_len: int):
-        return transformer.init_decode_state(self.cfg, batch_size, max_len,
-                                             device=self.device)
+        return self._mod.init_decode_state(self.cfg, batch_size, max_len,
+                                           device=self.device)
 
 
 def build_model(cfg: ModelConfig, device=None):

@@ -44,8 +44,8 @@ every pattern of one block.  ``flat_to_numpy`` gives a flat dict (the
 gradients) back in the JAX layout, and ``param_groups`` names each key's
 JAX leaf for adafactor.
 
-The encoder-decoder (whisper, audio inputs) raises ``NotImplementedError``
-naming ROADMAP.md queue 1 item 10(e).
+The encoder-decoder (whisper, audio inputs) is ``models/encdec.py``'s
+``EncDecLM``, which ``models.model.Model`` builds for it.
 """
 from __future__ import annotations
 
@@ -88,19 +88,17 @@ def block_specs(cfg):
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a config the port does not run
-    yet.  The conv family (LeNet) runs, as ``models.lenet.LeNet``, which
-    ``models.model.build_model`` builds for it."""
+    """Raise ``NotImplementedError`` for a config the port does not run.
+    The conv family (LeNet) runs, as ``models.lenet.LeNet``, and the
+    encoder-decoder (whisper, ``audio`` inputs) as
+    ``models.encdec.EncDecLM``, which ``models.model`` builds for them."""
     if cfg.family == "conv":
         return
-    if cfg.enc_dec:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder (whisper) "
-                                  f"is not ported yet (ROADMAP.md queue 1 "
-                                  f"item 10(e))")
-    if cfg.input_mode not in ("tokens", "embeds"):
-        raise NotImplementedError(f"{cfg.name}: {cfg.input_mode} inputs are "
-                                  f"not ported yet (ROADMAP.md queue 1 item "
-                                  f"10(e))")
+    modes = ("audio",) if cfg.enc_dec else ("tokens", "embeds")
+    if cfg.input_mode not in modes:
+        raise NotImplementedError(f"{cfg.name}: {cfg.input_mode} inputs "
+                                  f"{'with' if cfg.enc_dec else 'without'} "
+                                  f"an encoder are not supported")
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -169,6 +167,10 @@ class TransformerLM(nn.Module):
             raise ValueError(f"{cfg.name} is a conv config: LeNet, which "
                              f"models.model.build_model builds "
                              f"(models/lenet.py), not a token LM")
+        if cfg.enc_dec:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: EncDecLM, "
+                             f"which models.model.build_model builds "
+                             f"(models/encdec.py), not a decoder-only LM")
         check_supported(cfg)
         self.cfg = cfg
         dtype = _torch_dtype(dtype or cfg.dtype)
@@ -256,10 +258,11 @@ def params_to_numpy(params: TransformerLM):
     return flat_to_numpy(params.cfg, train_params(params))
 
 
-def _block_tree(flat: Dict[str, torch.Tensor], layer: int) -> dict:
-    """Layer ``layer``'s entries of a flat dict in the per-block layout:
-    ``{name: tensor}``, a mixer's parameters as a nested dict."""
-    prefix, out = f"blocks.{layer}.", {}
+def _block_tree(flat: Dict[str, torch.Tensor], prefix: str) -> dict:
+    """The entries of a flat dict under ``prefix`` (``blocks.3.``) in the
+    per-block layout: ``{name: tensor}``, a mixer's parameters as a
+    nested dict."""
+    out = {}
     for key, t in flat.items():
         if key.startswith(prefix):
             *path, name = key[len(prefix):].split(".")
@@ -270,30 +273,34 @@ def _block_tree(flat: Dict[str, torch.Tensor], layer: int) -> dict:
     return out
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy, bfloat16 as float32."""
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.detach().cpu().numpy()
+
+
+def _stack(trees: list):
+    """Per-block trees (``_block_tree``) stacked leaf by leaf, as the JAX
+    package stacks a block's weights over the layers."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([tree[k] for tree in trees]) for k in trees[0]}
+    return np.stack([_host(t) for t in trees])
+
+
 def flat_to_numpy(cfg, flat: Dict[str, torch.Tensor]):
     """A flat dict keyed as ``named_parameters`` (the weights, or their
     gradients) as the JAX package's stacked tree of numpy arrays, bfloat16
     as float32."""
-    def host(t: torch.Tensor) -> np.ndarray:
-        if t.dtype == torch.bfloat16:
-            t = t.to(torch.float32)
-        return t.detach().cpu().numpy()
-
-    def stack(leaves: list):
-        if isinstance(leaves[0], dict):
-            return {k: stack([leaf[k] for leaf in leaves])
-                    for k in leaves[0]}
-        return np.stack([host(t) for t in leaves])
-
     periods = {}
     for i in range(len(block_specs(cfg))):
-        periods[f"b{i}"] = stack([_block_tree(flat, layer)
-                                  for layer, _, pi in _layer_items(cfg)
-                                  if pi == i])
-    out = {"periods": periods, "final_norm": host(flat["final_norm"]),
-           "head_w": host(flat["head_w"])}
+        periods[f"b{i}"] = _stack([_block_tree(flat, f"blocks.{layer}.")
+                                   for layer, _, pi in _layer_items(cfg)
+                                   if pi == i])
+    out = {"periods": periods, "final_norm": _host(flat["final_norm"]),
+           "head_w": _host(flat["head_w"])}
     if "embed" in flat:
-        out["embed"] = {"table": host(flat["embed"])}
+        out["embed"] = {"table": _host(flat["embed"])}
     return out
 
 
@@ -325,7 +332,8 @@ def params_view(cfg, flat: Dict[str, torch.Tensor]):
     :class:`TransformerLM` (``blocks[l].attn["wq"]``, ``embed``, ...), so
     that the forward differentiates the dict's tensors themselves."""
     specs = block_specs(cfg)
-    blocks = [types.SimpleNamespace(spec=specs[i], **_block_tree(flat, layer))
+    blocks = [types.SimpleNamespace(spec=specs[i],
+                                    **_block_tree(flat, f"blocks.{layer}."))
               for layer, _, i in _layer_items(cfg)]
     return types.SimpleNamespace(cfg=cfg, blocks=blocks,
                                  embed=flat.get("embed"),
@@ -451,14 +459,18 @@ def forward(cfg, params: TransformerLM, batch, remat=None) -> torch.Tensor:
     return x @ params.head_w
 
 
-def loss_fn(cfg, params: TransformerLM, batch, remat=None) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross entropy: float32 logsumexp of the logits
     minus the label's logit."""
-    logits = forward(cfg, params, batch, remat).to(torch.float32)
-    labels = batch["labels"].to(torch.int64)
+    logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    ll = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
     return torch.mean(lse - ll)
+
+
+def loss_fn(cfg, params: TransformerLM, batch, remat=None) -> torch.Tensor:
+    """``cross_entropy`` of the forward's logits and ``batch["labels"]``."""
+    return cross_entropy(forward(cfg, params, batch, remat), batch["labels"])
 
 
 def _stacked(state: Dict[str, torch.Tensor], n: int):

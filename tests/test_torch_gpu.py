@@ -54,8 +54,12 @@ refusing another ds and a di off 16-byte rows; its backward kernel
 ``ssm_scan_bwd`` against the plain backward on the forward's saved states
 (``ssm_scan.kernel_bwd_tol``), one launch a call, two launches bit-equal,
 and autograd through ``ssm_scan`` on the card against autograd through
-the plain version; and the reduced jamba and qwen2-vl on the card against
-the CPU.
+the plain version; the reduced jamba and qwen2-vl on the card against
+the CPU; and whisper's cross attention: the attention kernels at Sq !=
+Skv in both forms (the forward's logsumexp at Sq, the backward's dk and
+dv at Skv, a causal Sq != Skv refused by the wrappers and the C
+launchers), and the reduced whisper's forward, loss, gradients and a
+decode step on the card against the CPU.
 
 Marked ``gpu``: they skip where no CUDA device is present (the skip is
 decided in the fixture, so every worker collects the same tests).  This
@@ -1648,3 +1652,105 @@ def test_ssm_scan_kernel_refuses(cuda):
 @pytest.mark.gpu
 def test_reduced_jamba_and_vlm_on_card_match_cpu(cuda):
     chip_smoke.hybrid_vlm_agree(cuda)
+
+
+# ---------------------------------------------------------------------------
+# whisper: the attention kernels at Sq != Skv (cross attention)
+# ---------------------------------------------------------------------------
+CROSS_CASES = [
+    # whisper-medium's heads (16 of 64, bfloat16: the wgmma form) at its
+    # text context against its 1,500 frames, the decode step's Sq = 1,
+    # and tails on both sides
+    (2, 448, 1500, 16, 16, 64, torch.bfloat16),
+    (2, 1, 1500, 16, 16, 64, torch.bfloat16),
+    (2, 300, 129, 8, 2, 64, torch.bfloat16),
+    (2, 129, 300, 8, 2, 128, torch.bfloat16),
+    (1, 65, 4097, 4, 1, 64, torch.bfloat16),
+    (3, 7, 1, 4, 4, 128, torch.bfloat16),
+    # the CUDA-core form: float32, other head widths
+    (2, 300, 129, 8, 2, 64, torch.float32),
+    (2, 1, 1500, 4, 2, 16, torch.float32),
+    (1, 129, 65, 6, 3, 40, torch.bfloat16),
+    (2, 33, 7, 4, 1, 80, torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,dh,dtype", CROSS_CASES)
+def test_flash_attention_cross_kernel(cuda, B, Sq, Skv, H, Hkv, dh, dtype):
+    """The forward at Sq != Skv (not causal) against its plain version
+    (``KERNEL_TOL``), one launch in the form ``form`` gives, its
+    logsumexp (B, H, Sq) the plain scores'."""
+    g = torch.Generator().manual_seed(Sq * 7 + Skv + dh)
+    q = torch.randn(B, Sq, H, dh, generator=g).to(cuda, dtype)
+    k, v = (torch.randn(B, Skv, Hkv, dh, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=False)
+    assert fa.flash_attention.launches == before + 1
+    assert fa.flash_attention.last_form == fa.form(dtype, dh)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), fa.flash_attention_torch(
+        q, k, v, False).float(), **fa.KERNEL_TOL[dtype])
+    out, lse = fa._launch(q, k, v, False, lse=True)
+    assert torch.equal(out, got) and lse.shape == (B, H, Sq)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()
+                     .repeat_interleave(H // Hkv, 2)) * dh ** -0.5
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-5,
+                               atol=1e-5)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,dh,dtype", CROSS_CASES)
+def test_flash_attention_bwd_cross_kernel(cuda, B, Sq, Skv, H, Hkv, dh,
+                                          dtype):
+    """The backward at Sq != Skv against its plain version (``BWD_TOL``)
+    on the forward kernel's output and logsumexp: dq at Sq, dk and dv at
+    Skv, two launches bit-equal."""
+    g = torch.Generator().manual_seed(Sq + Skv * 3 + dh)
+    q, do = (torch.randn(B, Sq, H, dh, generator=g).to(cuda, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, Skv, Hkv, dh, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    o, lse = fa._launch(q, k, v, False, lse=True)
+    want = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, False)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, False)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, False)
+    assert fa.flash_attention_bwd.last_form == fa.form(dtype, dh)
+    for a, b_, w in zip(got, again, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.equal(a, b_)
+    assert fa.bwd_close(got, want), [float((a.float() - w.float()).abs().max())
+                                     for a, w in zip(got, want)]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_flash_attention_causal_cross_refused(cuda):
+    """A causal launch with Sq != Skv raises in the wrappers, and the C
+    launchers refuse one too (invalid value)."""
+    q = torch.zeros(1, 3, 2, 64, dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros(1, 5, 2, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        fa.flash_attention(q, k, k, causal=True)
+    from repro_torch.kernels import _build
+    out = torch.empty_like(q)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        _build.launch("attn_flash_attention", q.device, q.data_ptr(),
+                      k.data_ptr(), k.data_ptr(), 1, 3, 5, 2, 2, 64, 0.125,
+                      1, 1, 1, out.data_ptr(), None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", ["none", "dots"])
+def test_whisper_on_card_matches_cpu(cuda, remat):
+    """The reduced whisper on the card (encoder, causal and cross attention
+    through the kernels, the backward through flash_attention_bwd) against
+    the CPU's plain versions, float32 and bfloat16, decoder layers
+    checkpointed by ``remat``: forward, loss, gradients, launches by kind
+    and 4 decode steps from the encoder's ek / ev, at chip_smoke's
+    WHISPER_AGREE tolerances (float32: rtol 1e-4 / atol 1e-4, of each
+    leaf's largest value for the gradients); prefill against decode
+    (chip_smoke.whisper_agree)."""
+    chip_smoke.whisper_agree(cuda, remat)
+    torch.cuda.synchronize()

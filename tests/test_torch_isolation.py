@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package (the
 rollup node path, the sharded fabric, the FL protocol path with its object
-stack and agents, the token-LM serving path, the node service and the
-token-LM training path with its launcher all run without them), and its
+stack and agents, the token-LM serving path with whisper's
+encoder-decoder, the node service and the token-LM training path with
+its launcher all run without them), and its
 entry points run on the CUDA card unless the caller names the CPU.  The
 node service keeps every ledger op on the event loop's
 thread: no file of ``repro_torch/serve`` hands work to a thread."""
@@ -196,6 +197,25 @@ for arch in ("moonshot-v1-16b-a3b", "xlstm-1.3b"):
     out = serve_model.main(["--arch", arch, "--reduced", "--device", "cpu",
                             "--tokens", "3"])
     assert out["tokens"].shape == (4, 3)
+# whisper's encoder-decoder (the audio family): prefill, the cross K / V
+# filled from the encoder, one decode step, one train step's gradients
+import chip_smoke
+from repro_torch.launch.steps import value_and_grad
+cfg = reduced_config(get_config("whisper-medium"))
+model = build_model(cfg, "cpu")
+params = model.init_params(0)
+audio = torch.randn(2, cfg.enc_seq, cfg.d_model).to(torch.bfloat16)
+batch = {"audio_embeds": audio, "tokens": tokens, "labels": tokens}
+logits, none = model.prefill(params, batch)
+assert none is None and torch.isfinite(logits.float()).all()
+state = chip_smoke.whisper_cross_state(
+    model, params, model.init_decode_state(2, 4), audio)
+logits, state = model.decode(params, state, {"tokens": tokens[:, :1],
+                                             "pos": 0})
+assert torch.isfinite(logits.float()).all()
+loss, grads = value_and_grad(model, model.train_params(params), batch)
+assert torch.isfinite(loss) and sorted(grads) == sorted(
+    model.train_params(params))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -378,8 +398,10 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
         with pytest.raises((RuntimeError, ValueError)):
             fold(words, starts, [1, 1], [8, 8])
     cfg = reduced_config(get_config("yi-6b"))
+    whisper = reduced_config(get_config("whisper-medium"))
     for call in (lambda: Model(cfg),
                  lambda: build_model(cfg),
+                 lambda: build_model(whisper),
                  lambda: transformer.init_params(cfg, torch.Generator()),
                  lambda: transformer.init_decode_state(cfg, 2, 8),
                  lambda: serve_model.main(["--reduced"]),

@@ -268,11 +268,11 @@ def test_flash_attention_bwd_form(monkeypatch, dtype, dh, S, want):
     assert all(t.dtype == torch.float32 for t in scratch)
     (name, args), _ = calls
     assert name == "attn_flash_attention_bwd"
-    # (q, k, v, o, dO, lse, B, S, H, Hkv, dh, scale, causal, dtype, form,
-    # rows, dq, dk, dv)
-    assert args[6:11] == (B, S, H, Hkv, dh)
-    assert args[14] == fa.FORMS[want]
-    assert args[15] == scratch[0].data_ptr()
+    # (q, k, v, o, dO, lse, B, Sq, Skv, H, Hkv, dh, scale, causal, dtype,
+    # form, rows, dq, dk, dv)
+    assert args[6:12] == (B, S, S, H, Hkv, dh)
+    assert args[15] == fa.FORMS[want]
+    assert args[16] == scratch[0].data_ptr()
 
 
 def test_attention_block_backward_on_the_cpu_is_plain():

@@ -230,18 +230,30 @@ def test_serve_model_main_on_cpu(capsys):
 @pytest.mark.parametrize("arch,item", [
     ("moonshot-v1-16b-a3b", None), ("kimi-k2-1t-a32b", None),
     ("xlstm-1.3b", None), ("jamba-1.5-large-398b", None),
-    ("whisper-medium", "10(e)"), ("qwen2-vl-72b", None),
+    ("whisper-medium", None), ("qwen2-vl-72b", None),
     ("lenet5", None)])
 def test_unported_families_raise(arch, item):
-    """The family still to port (whisper) raises naming its ROADMAP.md
-    item; the MoE, xLSTM, hybrid (jamba) and VLM families, ported, build,
-    and LeNet's conv family builds a LeNet (tests/test_torch_lenet.py)."""
+    """A family still to port would raise naming its ROADMAP.md item (none
+    is left); the MoE, xLSTM, hybrid (jamba) and VLM families, ported,
+    build; LeNet's conv family builds a LeNet (tests/test_torch_lenet.py)
+    and whisper's encoder-decoder an EncDecLM
+    (tests/test_torch_encdec.py)."""
     cfg = reduced_config(REGISTRY[arch])
     if cfg.family == "conv":
         from repro_torch.models.lenet import LeNet
         model = build_model(cfg, "cpu")
         assert isinstance(model, LeNet) and model.cfg is cfg
         assert sorted(model.init_params(0)) == list(model.init_params(0))
+        return
+    if cfg.enc_dec:
+        from repro_torch.models.encdec import EncDecLM
+        model = build_model(cfg, "cpu")
+        params = model.init_params(0)
+        assert isinstance(params, EncDecLM) and model.cfg is cfg
+        assert len(params.blocks) == cfg.n_layers
+        assert len(params.enc_blocks) == cfg.n_enc_layers
+        with pytest.raises(ValueError, match="encdec"):
+            tt.TransformerLM(cfg, device="cpu")
         return
     if item is None:
         assert build_model(cfg, "cpu").cfg is cfg
