@@ -13,7 +13,9 @@ slstm_scan backward kernels, serving jamba's hybrid Mamba / MoE stack
 training it (its first layer, through the ssm_scan_bwd kernel), and
 qwen2-vl's backbone on embeddings with M-RoPE (cut in depth), and
 whisper-medium's encoder-decoder at full size (served and one training
-step, its cross attention through the attention kernels at Sq != Skv).
+step, its cross attention through the attention kernels at Sq != Skv),
+and the sharded steps on a one-rank mesh beside the dry run's sizing of
+cells no card holds.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -300,7 +302,7 @@ Phases, each printing its result on a line of its own:
                a score of 0 drops a trainer, distances and digest
                recomputed on the host; the reduced round card == CPU; (d)
                ``python -m repro_torch.launch.train --arch qwen2-0.5b
-               --rounds 2 --seq-len 1024`` as a process, and the reduced
+               --rounds 2 --seq-len 1024 --host-mesh`` as a process, and the reduced
                launcher resumed from a checkpoint == uninterrupted.
  20. lenet/train — (a) LeNet's forward card == CPU within float32
                tolerance (TF32 would miss it); the paper's Fig. 3 run
@@ -392,6 +394,29 @@ Phases, each printing its result on a line of its own:
                "dots"): launches by kind (flash_attention_bwd 24 cross),
                the loss near ln(vocab), the weights moved, step seconds,
                tokens/s, peak memory, the shares.
+ 23. mesh    — (a) on a one-rank nccl process group and a 1 x 1 ("data",
+               "model") DeviceMesh: qwen2-0.5b's build_cell train step
+               (4 x 4,096, adamw, 3 steps) and yi-6b's prefill (8 x
+               4,096) and one decode step (8 x 4,128 state), each against
+               the unsharded step on the same weights and batch,
+               bit-equal; flash_attention and flash_attention_bwd
+               launched from the MeshCtx.local regions (counted from 0,
+               added to the kernels line) and seen in the profiler's
+               kernel list; once (b) and (c) have ended, each step
+               timed both ways, the median of warm steps (DTensor's
+               cost on one card, with no other work on the host); (b)
+               in a process of
+               its own, the dry run of (a)'s train cell on a faked 1 x 1
+               mesh: its peak_bytes_est within 15 % of (a)'s
+               max_memory_allocated above the phase's start, its counted
+               FLOPs equal to counting() around (a)'s first real step,
+               its step-time lower bound beside the measured step; (c)
+               full-size cells no card holds, dry-run in processes of
+               their own on this host: kimi-k2-1t-a32b train_4k on the
+               2 x 16 x 16 mesh, jamba-1.5-large-398b prefill_32k,
+               qwen2-vl-72b decode_32k and xlstm-1.3b long_500k on 16 x
+               16: per-card peak, fits, FLOPs, bytes, collective bytes by
+               op, roofline terms, trace seconds; the phase under 150 s.
 
 Then one JSON line lists every kernel with its launches on its path, the
 card's name and power limit follow on a line of their own, and the last
@@ -4887,7 +4912,8 @@ def fl_round_main(dev, smi: str) -> None:
 
 def launcher_main(smi: str) -> None:
     """(d) ``python -m repro_torch.launch.train --arch qwen2-0.5b
-    --rounds 2 --seq-len 1024`` as a process on the card, its round lines;
+    --rounds 2 --seq-len 1024 --host-mesh`` as a process on the card (one
+    card's 1 x 1 mesh), its round lines;
     then the reduced launcher in this process: --rounds 2 with a
     checkpoint directory, continued to 4 with --resume, against an
     uninterrupted --rounds 4: rounds 2-3 print equal losses and digests."""
@@ -4897,7 +4923,7 @@ def launcher_main(smi: str) -> None:
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "qwen2-0.5b", "--rounds", "2", "--seq-len", "1024"],
+         "qwen2-0.5b", "--rounds", "2", "--seq-len", "1024", "--host-mesh"],
         capture_output=True, text=True, timeout=900, env=env, cwd=ROOT)
     wall = time.perf_counter() - t0
     if out.returncode != 0:
@@ -4911,10 +4937,11 @@ def launcher_main(smi: str) -> None:
     ck = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ck, ignore_errors=True)
     try:
-        full = train.main(["--reduced", "--rounds", "4"])
-        train.main(["--reduced", "--rounds", "2", "--ckpt-dir", str(ck)])
-        rest = train.main(["--reduced", "--rounds", "4", "--ckpt-dir",
-                           str(ck), "--resume"])
+        one = ["--reduced", "--host-mesh"]
+        full = train.main(one + ["--rounds", "4"])
+        train.main(one + ["--rounds", "2", "--ckpt-dir", str(ck)])
+        rest = train.main(one + ["--rounds", "4", "--ckpt-dir", str(ck),
+                                 "--resume"])
     finally:
         shutil.rmtree(ck, ignore_errors=True)
     key = [(ln["round"], ln["loss"], ln["digest"]) for ln in rest]
@@ -5772,7 +5799,7 @@ def launch_train(smi: str, arch: str, layers=None) -> None:
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
            "--rounds", str(LAUNCH_TRAIN["rounds"]), "--seq-len",
            str(LAUNCH_TRAIN["seq"]), "--local-batch",
-           str(LAUNCH_TRAIN["batch"])]
+           str(LAUNCH_TRAIN["batch"]), "--host-mesh"]
     if layers is not None:
         cmd += ["--layers", str(layers)]
     t0 = time.perf_counter()
@@ -7070,6 +7097,465 @@ def whisper_main(dev, smi: str) -> tuple:
     return rows, serve_launches, bwd_launches
 
 
+# -- phase 23: meshes on the card ----------------------------------------------
+
+# (a) the sharded steps on a one-rank mesh: qwen2-0.5b's train step at
+# phase 19's batch, 3 steps; yi-6b's prefill at phase 10's width and one
+# decode step on a state 32 tokens deeper
+MESH_TRAIN = dict(batch=4, seq=4096, steps=3)
+MESH_PREFILL = dict(batch=8, seq=4096)
+MESH_DECODE_LEN = 4128
+# (a)'s step times, taken once the dry runs have ended (DTensor's dispatch
+# is host work, which their processes would slow): each way `warm` untimed
+# steps, then the median of this many timed ones
+MESH_WARM = 1
+MESH_TIMED = dict(train=3, prefill=3, decode=7)
+# (b) the dry run's per-card peak held to the card's within this share
+MESH_PEAK_TOL = 0.15
+# (c) full-size cells no card holds, dry-run on this host: (arch, shape,
+# mesh).  yi-6b's rollup round on the multi-pod mesh (--fl-round) traced
+# past the phase's 150 s in its first run (H 8 steps of 32 trainers), so
+# it runs by hand (PERF.md section 5), not here
+MESH_CELLS = [("kimi-k2-1t-a32b", "train_4k", "multi"),
+              ("jamba-1.5-large-398b", "prefill_32k", "single"),
+              ("qwen2-vl-72b", "decode_32k", "single"),
+              ("xlstm-1.3b", "long_500k", "single")]
+MESH_PHASE_S = 150
+# the dry run of (a)'s train cell on a faked 1 x 1 mesh, in a process of
+# its own (the fake backend becomes its default group)
+MESH_DRYRUN = """
+import json, sys
+sys.path.insert(0, "src")
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.dryrun import run_cell
+rec = run_cell("qwen2-0.5b", "mesh_train", "1x1", False, device="cuda",
+               shape=ShapeConfig("mesh_train", {seq}, {batch}, "train"),
+               mesh_shape=(1, 1))
+print(json.dumps(rec))
+"""
+
+
+@contextlib.contextmanager
+def one_rank_group(backend: str = "nccl"):
+    """A process group of this process alone (a file:// rendezvous, no
+    port), destroyed on leaving."""
+    import tempfile
+
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(backend, init_method=f"file://{d}/pg",
+                                rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_train_agree(dev, cfg, batch: int, seq: int, steps: int,
+                     profile: bool = False) -> dict:
+    """``build_cell``'s train step on a one-rank ("data", "model") mesh
+    against ``build_train_step`` with no mesh, ``steps`` steps each from
+    the same weights (seed 0) and batch: every loss, gradient norm and
+    weight bit-equal (the local ops are the unsharded step's).  The
+    sharded run comes first, from the allocation at entry: its peak above
+    it through the first step (``peak_bytes``), that step's count
+    (``counted_flops``, ``analysis.hlo_cost.counting``) and the attention
+    kernels' launches in it; with ``profile`` the second sharded step
+    under torch.profiler (``profile_share``: the attention kernels'
+    device time, ``prof``).  No step is timed here (``mesh_seconds``
+    times them).  Needs a process group (``one_rank_group``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.analysis.hlo_cost import counting
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import build_cell, build_train_step, place
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import make_optimizer, spec_for_config
+    mesh = init_device_mesh(dev.type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+    cell = build_cell(cfg, ShapeConfig("mesh_train", seq, batch, "train"),
+                      mesh, stand_ins=False)
+    base = build_model(cfg, dev)
+    out = {}
+
+    groups = base.param_groups(base.params_shape())
+
+    def run(step, place_fn, count):
+        params = base.train_params(base.init_params(0))
+        opt = make_optimizer(spec_for_config(cfg), groups=groups)
+        args = place_fn((params, opt.init(params),
+                         token_batch(cfg.vocab_size, (batch, seq), 23, dev)))
+        del params
+        seen = []
+        for i in range(steps):
+            if count and i == 0:
+                fa.flash_attention.launches = 0
+                fa.flash_attention_bwd.launches = 0
+                with counting() as cost:
+                    new_p, new_o, met = step(*args)
+                _sync(dev)
+                out["counted_flops"] = cost.flops
+                out["launches"] = {
+                    "flash_attention": fa.flash_attention.launches,
+                    "flash_attention_bwd": fa.flash_attention_bwd.launches}
+                if dev.type == "cuda":
+                    out["peak_bytes"] = torch.cuda.max_memory_allocated() \
+                        - out["start_bytes"]
+            elif count and profile and i == 1:
+                res = []
+                out["prof"] = profile_share(
+                    lambda: res.append(step(*args)), cpu=False,
+                    kernels=(("attention_fwd", "flash_attention_"),
+                             ("attention_bwd", "attn_bwd_")))
+                new_p, new_o, met = res[0]
+            else:
+                new_p, new_o, met = step(*args)
+            args = (new_p, new_o, args[2])
+            seen.append((met["loss"], met["grad_norm"]))
+        return args[0], seen
+
+    _sync(dev)
+    out["start_bytes"] = 0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        out["start_bytes"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    ctx = cell.model.ctx
+    got_p, got_m = run(cell.step, lambda a: tuple(
+        place(ctx, t, s) for t, s in zip(a, cell.specs)), True)
+    got_p = {k: v.to_local() for k, v in got_p.items()}
+    got_m = [(a.to_local(), b.to_local()) for a, b in got_m]
+    opt = make_optimizer(spec_for_config(cfg), groups=groups)
+    want_p, want_m = run(build_train_step(base, opt), lambda a: a, False)
+    out["loss"] = [float(a) for a, _ in want_m]
+    out["equal"] = all(torch.equal(a, b) and torch.equal(c, d)
+                       for (a, c), (b, d) in zip(got_m, want_m)) \
+        and all(torch.equal(got_p[k], want_p[k]) for k in want_p)
+    out["max_abs_err"] = max(
+        float((got_p[k].float() - want_p[k].float()).abs().max())
+        for k in want_p)
+    return out
+
+
+def mesh_serve_agree(dev, cfg, batch: int, seq: int, depth: int) -> dict:
+    """``build_cell``'s prefill (batch x seq tokens) and one decode step
+    (on a ``depth``-deep state holding the prefill's caches, at ``pos`` =
+    seq) on a one-rank mesh against the unsharded model's on the same
+    weights: the last logits, caches, decode logits and state bit-equal,
+    and the attention's launches in the sharded prefill (``mesh_seconds``
+    times the steps).  Needs a process group."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import build_cell, place
+    from repro_torch.models.model import build_model
+    mesh = init_device_mesh(dev.type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+    pre = build_cell(cfg, ShapeConfig("mesh_prefill", seq, batch, "prefill"),
+                     mesh, stand_ins=False)
+    dec = build_cell(cfg, ShapeConfig("mesh_decode", depth, batch, "decode"),
+                     mesh, stand_ins=False)
+    ctx = pre.model.ctx
+    base = build_model(cfg, dev)
+    params = base.train_params(base.init_params(0))
+    toks = token_batch(cfg.vocab_size, (batch, seq + 1), 29, dev)["tokens"]
+    prompt, nxt = toks[:, :seq].contiguous(), toks[:, seq:].contiguous()
+    out = {}
+    d_params = place(ctx, params, pre.specs[0])
+    fa.flash_attention.launches = 0
+    s_logits, s_caches = pre.step(d_params, place(ctx, {"tokens": prompt},
+                                                  pre.specs[1]))
+    _sync(dev)
+    out["prefill_launches"] = fa.flash_attention.launches
+    u_logits, u_caches = base.prefill(params, {"tokens": prompt})
+
+    def state_from(caches):
+        st = base.init_decode_state(batch, depth)
+        for name, kv in caches.items():
+            for k, t in kv.items():
+                st[name][k][:, :, :seq] = t.to_local() \
+                    if hasattr(t, "to_local") else t
+        return st
+    s_state = place(ctx, state_from(s_caches), dec.specs[1])
+    u_state = state_from(u_caches)
+    batch_d = {"tokens": nxt, "pos": seq}
+    s_dec, _ = dec.step(d_params, s_state, place(ctx, batch_d, dec.specs[2]))
+    u_dec, _ = base.decode(params, u_state, batch_d)
+    local = {name: {k: t.to_local() for k, t in kv.items()}
+             for name, kv in s_state.items()}
+    out["equal"] = torch.equal(s_logits.to_local(), u_logits) and all(
+        torch.equal(s_caches[n][k].to_local(), u_caches[n][k])
+        for n in u_caches for k in u_caches[n]) and torch.equal(
+        s_dec.to_local(), u_dec) and all(
+        torch.equal(local[n][k], u_state[n][k])
+        for n in u_state for k in u_state[n])
+    out["max_abs_err"] = float((s_dec.to_local().float()
+                                - u_dec.float()).abs().max())
+    return out
+
+
+def _median_s(dev, fn, warm: int, n: int) -> dict:
+    """``fn`` called ``warm`` times untimed, then ``n`` times, each ended
+    by a synchronize: the median seconds and every sample."""
+    for _ in range(warm):
+        fn()
+    samples = []
+    for _ in range(n):
+        _sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        samples.append(time.perf_counter() - t0)
+    return {"median_s": float(np.median(samples)), "samples_s": samples}
+
+
+def mesh_seconds(dev, train_cfg, train_batch: int, train_seq: int,
+                 serve_cfg, batch: int, seq: int, depth: int,
+                 warm: int = MESH_WARM, timed=None) -> dict:
+    """Phase 23 (a)'s steps timed each way, the sharded (``build_cell`` on
+    a one-rank mesh) and the unsharded, one after the other on the same
+    weights and inputs: ``train_cfg``'s train step (carried from step to
+    step), ``serve_cfg``'s prefill of batch x seq tokens and its decode
+    step at ``pos`` = seq on a zero ``depth``-deep state (written in
+    place at one row each step); ``warm`` untimed calls, then the median
+    of ``timed[kind]`` (``MESH_TIMED``).  The difference is what DTensor
+    costs on one card.  Needs a process group."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import build_cell, build_train_step, place
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import make_optimizer, spec_for_config
+    timed = dict(MESH_TIMED, **(timed or {}))
+    mesh = init_device_mesh(dev.type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+    out = {}
+
+    cell = build_cell(train_cfg, ShapeConfig("mesh_train", train_seq,
+                                             train_batch, "train"),
+                      mesh, stand_ins=False)
+    base = build_model(train_cfg, dev)
+    groups = base.param_groups(base.params_shape())
+    for way in ("sharded", "unsharded"):
+        opt = make_optimizer(spec_for_config(train_cfg), groups=groups)
+        params = base.train_params(base.init_params(0))
+        args = [(params, opt.init(params),
+                 token_batch(train_cfg.vocab_size, (train_batch, train_seq),
+                             23, dev))]
+        del params
+        if way == "sharded":
+            step = cell.step
+            args[0] = tuple(place(cell.model.ctx, t, s)
+                            for t, s in zip(args[0], cell.specs))
+        else:
+            step = build_train_step(base, opt)
+
+        def one():
+            new_p, new_o, _ = step(*args[0])
+            args[0] = (new_p, new_o, args[0][2])
+        out[f"train_{way}"] = _median_s(dev, one, warm, timed["train"])
+        del args, step
+        torch.cuda.empty_cache()
+    del cell, base
+
+    pre = build_cell(serve_cfg, ShapeConfig("mesh_prefill", seq, batch,
+                                            "prefill"), mesh, stand_ins=False)
+    dec = build_cell(serve_cfg, ShapeConfig("mesh_decode", depth, batch,
+                                            "decode"), mesh, stand_ins=False)
+    ctx = pre.model.ctx
+    base = build_model(serve_cfg, dev)
+    params = base.train_params(base.init_params(0))
+    toks = token_batch(serve_cfg.vocab_size, (batch, seq + 1), 29,
+                       dev)["tokens"]
+    prompt, nxt = toks[:, :seq].contiguous(), toks[:, seq:].contiguous()
+    batch_d = {"tokens": nxt, "pos": seq}
+    d_params = place(ctx, params, pre.specs[0])
+    s_prompt = place(ctx, {"tokens": prompt}, pre.specs[1])
+    out["prefill_sharded"] = _median_s(
+        dev, lambda: pre.step(d_params, s_prompt), warm, timed["prefill"])
+    out["prefill_unsharded"] = _median_s(
+        dev, lambda: base.prefill(params, {"tokens": prompt}), warm,
+        timed["prefill"])
+    s_state = place(ctx, base.init_decode_state(batch, depth), dec.specs[1])
+    s_batch = place(ctx, batch_d, dec.specs[2])
+    out["decode_sharded"] = _median_s(
+        dev, lambda: dec.step(d_params, s_state, s_batch), warm,
+        timed["decode"])
+    del s_state
+    u_state = base.init_decode_state(batch, depth)
+    out["decode_unsharded"] = _median_s(
+        dev, lambda: base.decode(params, u_state, batch_d), warm,
+        timed["decode"])
+    return out
+
+
+def mesh_dryrun_procs() -> list:
+    """Start the dry runs of phase 23 (b) and (c), each in a process of
+    its own (the fake backend becomes its default group): (name, Popen,
+    its output file)."""
+    out_dir = ROOT / "results" / "dryrun_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [("b", subprocess.Popen(
+        [sys.executable, "-c", MESH_DRYRUN.format(**MESH_TRAIN)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True), None)]
+    for arch, shape, mesh in MESH_CELLS:
+        procs.append((f"{arch} {shape} {mesh}", subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--device", "cuda",
+             "--out", str(out_dir)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            out_dir / f"{arch}__{shape}__{mesh}.json"))
+    return procs
+
+
+def mesh_main(dev, smi: str) -> dict:
+    """Phase 23: (a) the sharded steps on a real one-rank mesh against the
+    unsharded steps; (b) the dry run of (a)'s train cell against the
+    card; (c) full-size cells no card holds, dry-run on this host.  The
+    dry runs' processes start first and run beside (a)'s checks, which
+    time nothing; (a)'s steps are timed once they have ended."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import HBM_BYTES
+    t0 = time.perf_counter()
+    procs = mesh_dryrun_procs()
+    results = {}
+    try:
+        with one_rank_group("nccl"):
+            train = mesh_train_agree(dev, get_config("qwen2-0.5b"),
+                                     **MESH_TRAIN, profile=True)
+            prof = train["prof"]
+            torch.cuda.empty_cache()
+            serve = mesh_serve_agree(dev, get_config("yi-6b"),
+                                     MESH_PREFILL["batch"],
+                                     MESH_PREFILL["seq"], MESH_DECODE_LEN)
+            torch.cuda.empty_cache()
+    finally:
+        for name, proc, path in procs:
+            try:
+                stdout, stderr = proc.communicate(
+                    timeout=max(1.0, MESH_PHASE_S - (time.perf_counter()
+                                                     - t0)))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+                results[name] = {"status": "timeout"}
+                continue
+            if path is None:
+                lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+                results[name] = json.loads(lines[-1]) if lines else {
+                    "status": "error", "error": stderr[-2000:]}
+            else:
+                results[name] = json.loads(path.read_text()) \
+                    if path.exists() else {"status": "error",
+                                           "error": stderr[-2000:]}
+    dry_s = time.perf_counter() - t0
+    total = get_config("qwen2-0.5b").n_layers
+    if not train["equal"] or not serve["equal"]:
+        raise AssertionError(
+            f"mesh: the one-rank mesh's steps differ from the unsharded "
+            f"ones (train max |err| {train['max_abs_err']}, decode "
+            f"{serve['max_abs_err']})")
+    want = {"flash_attention": 2 * total, "flash_attention_bwd": total}
+    if train["launches"] != want or serve["prefill_launches"] != \
+            get_config("yi-6b").n_layers:
+        raise AssertionError(f"mesh: the sharded steps launched "
+                             f"{train['launches']} and "
+                             f"{serve['prefill_launches']}")
+    if not (prof["attention_fwd_s"] > 0 and prof["attention_bwd_s"] > 0):
+        raise AssertionError(f"mesh: the profiler saw no attention "
+                             f"kernel in the sharded step: {prof}")
+    # (a)'s times, with the dry runs' processes ended
+    with one_rank_group("nccl"):
+        secs = mesh_seconds(dev, get_config("qwen2-0.5b"),
+                            MESH_TRAIN["batch"], MESH_TRAIN["seq"],
+                            get_config("yi-6b"), MESH_PREFILL["batch"],
+                            MESH_PREFILL["seq"], MESH_DECODE_LEN)
+    torch.cuda.empty_cache()
+
+    def pair(kind):
+        a, b = secs[f"{kind}_sharded"], secs[f"{kind}_unsharded"]
+        return (f"sharded {a['median_s']:.4f} s / unsharded "
+                f"{b['median_s']:.4f} s (medians of {len(a['samples_s'])} "
+                f"after {MESH_WARM} warm; DTensor's cost "
+                f"{a['median_s'] - b['median_s']:.4f} s; samples "
+                f"{[round(t, 4) for t in a['samples_s']]} / "
+                f"{[round(t, 4) for t in b['samples_s']]})")
+    log(f"mesh (a): qwen2-0.5b train {MESH_TRAIN['batch']} x "
+        f"{MESH_TRAIN['seq']} on a one-rank nccl mesh (1 x 1), "
+        f"{MESH_TRAIN['steps']} steps bit-equal to the unsharded "
+        f"steps (losses {train['loss']}); launches through the local "
+        f"regions {train['launches']}; attention device share "
+        f"{prof['attention_fwd_share']:.3f} forward, "
+        f"{prof['attention_bwd_share']:.3f} backward; step {pair('train')}; "
+        f"on {smi}")
+    log(f"mesh (a): yi-6b prefill {MESH_PREFILL['batch']} x "
+        f"{MESH_PREFILL['seq']} and a decode step at "
+        f"{MESH_PREFILL['batch']} x {MESH_DECODE_LEN} bit-equal to the "
+        f"unsharded model's ({serve['prefill_launches']} "
+        f"flash_attention launches); prefill {pair('prefill')}; decode "
+        f"{pair('decode')}; on {smi}")
+    # (b) the dry run against the card
+    rec = results.pop("b")
+    if rec.get("status") != "ok":
+        raise AssertionError(f"mesh (b): the dry run failed: {rec}")
+    est = rec["memory"]["peak_bytes_est"]
+    real = train["peak_bytes"]
+    share = abs(est - real) / real
+    step_s = secs["train_sharded"]["median_s"]
+    log(f"mesh (b): dry run of the train cell on a faked 1 x 1 mesh: "
+        f"peak_bytes_est {est} against the card's {real} above the phase's "
+        f"start ({share:.4f} off, limit {MESH_PEAK_TOL}); counted FLOPs "
+        f"{rec['walk']['flops']:.6e} against the real step's "
+        f"{train['counted_flops']:.6e}; roofline.step_time_lb_s "
+        f"{rec['roofline']['step_time_lb_s']:.6f} against the measured "
+        f"sharded step {step_s:.6f} (fraction "
+        f"{rec['roofline']['step_time_lb_s'] / step_s:.4f}); "
+        f"trace_s {rec['trace_s']}; on {smi}")
+    if share > MESH_PEAK_TOL:
+        raise AssertionError(f"mesh (b): the dry run's peak {est} is "
+                             f"{share:.3f} off the card's {real}")
+    if abs(rec["walk"]["flops"] - train["counted_flops"]) > \
+            1e-3 * train["counted_flops"]:
+        raise AssertionError(f"mesh (b): counted FLOPs {rec['walk']['flops']}"
+                             f" against the real step's "
+                             f"{train['counted_flops']}")
+    # (c) the full-size cells
+    for name, rec in results.items():
+        if rec.get("status") != "ok":
+            raise AssertionError(f"mesh (c): {name}: {rec.get('status')} "
+                                 f"{rec.get('error', '')[-1500:]}")
+        w, r, m = rec["walk"], rec["roofline"], rec["memory"]
+        log(f"mesh (c): {name}: {rec['n_chips']} cards, per-card peak "
+            f"{m['peak_bytes_est']} bytes ({m['peak_bytes_est'] / 2**30:.2f}"
+            f" GiB, fits {m['peak_bytes_est'] <= HBM_BYTES}), weights "
+            f"{m['weight_bytes']} bytes a card against "
+            f"{m['weight_bytes_even']:.0f} split evenly (x"
+            f"{m['weight_bytes_over_even']:.3f}), flops "
+            f"{w['flops']:.4e}, bytes {w['bytes']:.4e}, collective bytes "
+            f"{json.dumps(w['collectives'])}, roofline compute "
+            f"{r['compute_s']:.6f} s memory {r['memory_s']:.6f} s "
+            f"collective {r['collective_s']:.6f} s ({r['dominant']}), "
+            f"trace_s {rec['trace_s']}")
+    wall = time.perf_counter() - t0
+    log(f"mesh: phase 23 in {wall:.1f} s (limit {MESH_PHASE_S}): checks "
+        f"and dry runs {dry_s:.1f} s, then the timed steps "
+        f"{wall - dry_s:.1f} s")
+    if wall > MESH_PHASE_S:
+        raise AssertionError(f"mesh: phase 23 took {wall:.1f} s")
+    return {"flash_attention": train["launches"]["flash_attention"]
+            + serve["prefill_launches"],
+            "flash_attention_bwd": train["launches"]["flash_attention_bwd"]}
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -7301,6 +7787,19 @@ def main() -> int:
     cross_rows, whisper_fwd, whisper_bwd = whisper_main(dev, smi)
     launches["flash_attention"] += whisper_fwd
     launches["flash_attention_bwd"] += whisper_bwd
+
+    # 23. meshes: (a) qwen2-0.5b's train step (3 steps) and yi-6b's
+    # prefill and a decode step through build_cell on a one-rank nccl mesh,
+    # bit-equal to the unsharded steps, the attention kernels launched from
+    # the local regions (their launches added to the kernels line); (b)
+    # the dry run of the train cell on a faked 1 x 1 mesh against the
+    # card's peak and the real step's count; (c) full-size cells no card
+    # holds (kimi-k2 train_4k on 512 cards, jamba prefill_32k, qwen2-vl
+    # decode_32k, xlstm long_500k), dry-run
+    torch.cuda.empty_cache()
+    mesh_launches = mesh_main(dev, smi)
+    launches["flash_attention"] += mesh_launches["flash_attention"]
+    launches["flash_attention_bwd"] += mesh_launches["flash_attention_bwd"]
 
     replaces = {"rollup_digest": "src/repro/kernels/rollup_digest.py:16",
                 "rollup_chunk_digests":

@@ -7,7 +7,9 @@ with the HLO walker's conventions, unfused:
 
   * products (``mm``, ``bmm``, ``addmm``, ``baddbmm``, einsum's products,
     convolutions, SDPA): 2 · out elements · contracted size
-    (``torch.utils.flop_counter``'s formulas); bytes in + out
+    (``torch.utils.flop_counter``'s formulas); bytes in + out; their
+    FLOPs, with the factory kernels' registered ones, also in
+    ``dot_flops``
   * elementwise ops (aten's ``pointwise`` tag): 1 FLOP an output element,
     and for exp, log, tanh, sigmoid, sqrt, rsqrt, sin, cos, pow, erf (and
     expm1, log1p and the activations silu, gelu, softplus, elu) one
@@ -41,7 +43,22 @@ the plain ``flash_attention`` computes the whole S x S score matrix, the
 count takes the causal work.  The CUDA kernels launch through ``ctypes``,
 which no dispatch mode sees; this is how they are counted at all.
 
-``collective_*`` stay 0: the port is one process.
+Under a mesh (DTensor leaves, ``sharding/specs.py``) the count is of
+this rank: an op on DTensors is handed on (``NotImplemented``), so the
+count sees the local aten ops DTensor runs on this rank's shards, as the
+JAX walker sees one device's HLO.  The collectives those ops and the
+model's ``ctx.local`` regions issue (``_c10d_functional``'s
+``all_reduce``, ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+``all_to_all_single``) fill ``collective_bytes`` (each one's payload, the
+larger of its input and output), ``collective_wire_bytes`` (what a rank
+sends in a ring: ``2 (n - 1) / n`` of the payload for an all-reduce,
+``(n - 1) / n`` for the others, n the group's size), ``collectives``
+(payload by kind, named as the JAX walker names them) and
+``collective_counts``; their bytes are not memory bytes.  DTensor infers
+an op's global output shape by running it on global-shape fake tensors
+(``ShardingPropagator._propagate_tensor_meta_non_cached``); a count keeps
+those runs out of every active dispatch mode (``unseen_shape_inference``),
+so they are neither counted nor, in the dry run, tracked as memory.
 
     cost = analyze(fn, *args, **kw)          # run fn once, counted
     with counting() as cost:                 # or count any block
@@ -77,6 +94,13 @@ _SCATTERS = {"index_put_", "index_put", "_index_put_impl_", "index_add_",
              "index_add", "scatter_", "scatter", "scatter_add_",
              "scatter_add", "scatter_reduce_", "scatter_reduce",
              "index_copy_", "index_copy", "masked_scatter_"}
+#: the collectives (``_c10d_functional``), by the JAX walker's names
+_COLLECTIVES = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+                "all_gather_into_tensor": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_to_all_single": "all-to-all",
+                "broadcast": "collective-broadcast",
+                "broadcast_": "collective-broadcast"}
 #: (FLOPs, transcendentals) an input element of the fused aten ops
 _FUSED = {"_softmax": (5, 1), "_log_softmax": (5, 1),
           "_softmax_backward_data": (4, 0),
@@ -87,6 +111,7 @@ _FUSED = {"_softmax": (5, 1), "_log_softmax": (5, 1),
 @dataclasses.dataclass
 class CompCost:
     flops: float = 0.0
+    dot_flops: float = 0.0       # the products' and the kernels' FLOPs
     transcendentals: float = 0.0
     bytes: float = 0.0
     convert_bytes: float = 0.0   # dtype casts (bf16 <-> f32 and the like)
@@ -99,6 +124,7 @@ class CompCost:
 
     def add(self, other: "CompCost", mult: float = 1.0):
         self.flops += other.flops * mult
+        self.dot_flops += other.dot_flops * mult
         self.transcendentals += other.transcendentals * mult
         self.bytes += other.bytes * mult
         self.convert_bytes += other.convert_bytes * mult
@@ -129,9 +155,39 @@ def _shape_text(args) -> str:
                     for t in _tensors(args))
 
 
+def _group_size(func, args) -> int:
+    """The ranks of a ``_c10d_functional`` collective's group."""
+    name = func.overloadpacket.__name__
+    if name in ("all_gather_into_tensor", "reduce_scatter_tensor"):
+        return int(args[-2])
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(args[-1]).size()
+
+
+def _count_collective(cost: CompCost, func, args, out) -> None:
+    kind = _COLLECTIVES.get(func.overloadpacket.__name__)
+    if kind is None:                    # wait_tensor and the like
+        return
+    payload = max(sum(map(_nbytes, _tensors(args))),
+                  sum(map(_nbytes, _tensors(out))))
+    n = _group_size(func, args)
+    share = (n - 1) / n if n else 0.0
+    cost.collective_bytes += payload
+    cost.collective_wire_bytes += payload * (
+        2 * share if kind == "all-reduce" else
+        share if kind != "collective-broadcast" else 1.0)
+    cost.collectives[kind] = cost.collectives.get(kind, 0.0) + payload
+    cost.collective_counts[kind] = cost.collective_counts.get(kind, 0) + 1
+
+
 def _count_op(cost: CompCost, func, args, kwargs, out) -> None:
     """Add one dispatched aten op to ``cost`` (the module docstring's
     conventions)."""
+    if func.namespace in ("_c10d_functional", "c10d_functional"):
+        _count_collective(cost, func, args, out)
+        return
+    if func.namespace == "prim":        # queries: prim.device and the like
+        return
     name = func.overloadpacket.__name__
     if func.is_view or name in _VIEWS or name in _NO_BYTES:
         return
@@ -139,8 +195,9 @@ def _count_op(cost: CompCost, func, args, kwargs, out) -> None:
     in_b, out_b = sum(map(_nbytes, ins)), sum(map(_nbytes, outs))
     out_elems = sum(t.numel() for t in outs)
     if func.overloadpacket in flop_registry:
-        cost.flops += flop_registry[func.overloadpacket](
-            *args, **kwargs, out_val=out)
+        f = flop_registry[func.overloadpacket](*args, **kwargs, out_val=out)
+        cost.flops += f
+        cost.dot_flops += f
         cost.bytes += in_b + out_b
     elif name in _FILLS:
         cost.bytes += out_b
@@ -191,6 +248,11 @@ class _Counter(TorchDispatchMode):
         return out
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _DTENSOR is not None and any(issubclass(t, _DTENSOR)
+                                        for t in types):
+            # DTensor runs first and dispatches this rank's local ops,
+            # which come back through this mode
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if not self.paused:
@@ -216,19 +278,55 @@ class _Counter(TorchDispatchMode):
         call = f"{op} {_shape_text((args, kw))}"
         for c in chain:
             c.cost.flops += flops
+            c.cost.dot_flops += flops
             c.cost.bytes += n_bytes
             c.cost.custom_calls.append(call)
         return out
 
 
+#: ``torch.distributed.tensor.DTensor`` once a count has run (None where
+#: torch has no distributed package)
+_DTENSOR = None
+
+
+@contextlib.contextmanager
+def unseen_shape_inference():
+    """Within the block, DTensor's shape inference (its op run on
+    global-shape fake tensors) runs with the dispatch modes set aside, so
+    no count or memory tracker sees it."""
+    if not torch.distributed.is_available():
+        yield
+        return
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    from torch.utils._python_dispatch import _disable_current_modes
+    real = ShardingPropagator._propagate_tensor_meta_non_cached
+    if getattr(real, "_unseen", False):
+        yield
+        return
+
+    def quiet(self, op_schema):
+        with _disable_current_modes():
+            return real(self, op_schema)
+    quiet._unseen = True
+    ShardingPropagator._propagate_tensor_meta_non_cached = quiet
+    try:
+        yield
+    finally:
+        ShardingPropagator._propagate_tensor_meta_non_cached = real
+
+
 @contextlib.contextmanager
 def counting():
     """Count the work of the block: yields the ``CompCost`` it fills."""
+    global _DTENSOR
+    if _DTENSOR is None and torch.distributed.is_available():
+        from torch.distributed.tensor import DTensor
+        _DTENSOR = DTensor
     from repro_torch.kernels import factory
     counter = _Counter(factory._COUNTER)
     factory._COUNTER = counter
     try:
-        with counter:
+        with unseen_shape_inference(), counter:
             yield counter.cost
     finally:
         factory._COUNTER = counter.outer

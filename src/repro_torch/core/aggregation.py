@@ -9,8 +9,10 @@ order the JAX package's pytrees flatten them in.
 
 ``weighted_average_tree_mega`` is the cross-task megastep's form: T
 stacked trees merged in one task-axis ``weighted_agg`` launch, row t equal
-to ``weighted_average_tree`` on task t alone.  ``weighted_psum_tree`` (the
-mesh path) is not ported yet (ROADMAP.md).
+to ``weighted_average_tree`` on task t alone.  ``weighted_psum_tree`` is
+the mesh path's form (``fl/round.build_fl_round_cell``): each data-axis
+group holds one trainer's weights, and the merge is all-reduces over
+those groups, as the JAX package's ``weighted_psum_tree`` does.
 """
 from __future__ import annotations
 
@@ -81,3 +83,35 @@ def weighted_average_tree_mega(stacked_trees: Tree, scores: torch.Tensor,
         flat = tree_flat_stacked(stacked_trees, lead=2)
     return tree_unflat(weighted_average_flat(flat, scores), stacked_trees,
                        lead=2)
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over every rank of ``group`` (a process group, or
+    several, reduced one after another)."""
+    from torch.distributed import _functional_collectives as funcol
+    groups = tuple(group) if isinstance(group, (tuple, list)) else (group,)
+    for g in groups:
+        t = funcol.wait_tensor(funcol.all_reduce(t, "sum", g))
+    return t
+
+
+def weighted_psum_tree(local_tree: Tree, score: torch.Tensor,
+                       group) -> Tree:
+    """Mesh path of Eq. 1: ``local_tree`` is this rank's shards of its
+    trainer's weights, ``score`` that trainer's score (a 0-d tensor),
+    ``group`` the process group(s) whose ranks hold the other trainers
+    (the DP axes).  Returns sum(s·w) / max(sum(s), 1e-12): float32
+    all-reduces of ``x·s`` and of ``s``, cast back to each leaf's dtype;
+    the same on every rank of the group (the rollup's commit)."""
+    s = score.to(torch.float32)
+    denom = torch.clamp(_all_reduce(s, group), min=1e-12)
+    return {k: (_all_reduce(x.to(torch.float32) * s, group) / denom).to(
+        x.dtype) for k, x in local_tree.items()}
+
+
+def tree_sub(a: Tree, b: Tree) -> Tree:
+    return {k: a[k] - b[k] for k in a}
+
+
+def tree_add(a: Tree, b: Tree) -> Tree:
+    return {k: a[k] + b[k] for k in a}

@@ -191,6 +191,16 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (``FakeTensorMode``: shapes,
+    dtypes and a device, no storage).  The wrappers hand such tensors to
+    their kernels' fake forms, which allocate what a launch allocates
+    and launch nothing: the dry run's per-card memory and work
+    (``launch/dryrun.py``)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
 def launch(name: str, device: torch.device, *args: int) -> None:
     """Call launcher ``name`` on ``device``'s current stream; raise if the
     launch was refused (the C function returns ``cudaGetLastError()``)."""

@@ -45,6 +45,15 @@ wrapped by ``counted``: while a work counter is active
 aten ops inside it are not counted, so a program counts the same whether
 an op resolves to the CUDA kernel or to the plain version.  With no
 counter active the wrapper reads one module global and calls through.
+
+Fake forms: under ``FakeTensorMode`` (the dry run, ``launch/dryrun.py``)
+the model path's wrappers (``flash_attention``, ``gmm``, ``slstm_scan``,
+``ssm_scan`` and their gradients) take their kernel's route on fake
+tensors whatever their device, and the launch is replaced by its fake
+form: the same outputs, scratch and copies, and where autograd records
+the same saved tensors, allocated as fake tensors, and no launch and no
+launch count.  Their plain versions never run on fake tensors (the plain
+``flash_attention`` alone would build an S x S score matrix).
 """
 from __future__ import annotations
 

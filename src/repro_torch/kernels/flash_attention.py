@@ -136,7 +136,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The plain version for a CPU tensor, the CUDA kernel for a CUDA
     tensor; its backward the ``flash_attention_bwd`` kernel."""
     _check_shapes(q, k, v, causal)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not _build.is_fake(q):
         return flash_attention_torch(q, k, v, causal)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -197,7 +197,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     tensors, the ``csrc/attn_bwd.cu`` kernels (one count in ``launches``,
     in the form ``form`` gives) for CUDA tensors."""
     _check_shapes(q, k, v, causal)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not _build.is_fake(q):
         return flash_attention_bwd_torch(q, k, v, o, lse, do, causal)
     return _launch_bwd(q, k, v, o, lse, do, causal)
 
@@ -262,6 +262,8 @@ def _check_shapes(q, k, v, causal: bool) -> None:
 
 def _on_16_bytes(t: torch.Tensor) -> torch.Tensor:
     t = t.contiguous()
+    if _build.is_fake(t):                   # no address: taken as aligned
+        return t
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -281,7 +283,9 @@ def _check_launch(q, k, v, what: str) -> torch.device:
 
 
 def _launch(q, k, v, causal: bool, lse: bool = False):
-    """(output, the rows' logsumexp (B, H, Sq) float32 or None)."""
+    """(output, the rows' logsumexp (B, H, Sq) float32 or None); on fake
+    tensors the same allocations and no launch."""
+    fake = _build.is_fake(q)
     dev = _check_launch(q, k, v, "flash_attention")
     _check_shapes(q, k, v, causal)
     B, S, H, dh = q.shape
@@ -289,7 +293,7 @@ def _launch(q, k, v, causal: bool, lse: bool = False):
     out = torch.empty_like(q)
     rows = torch.empty(B, H, S, dtype=torch.float32, device=dev) \
         if lse else None
-    if out.numel():
+    if out.numel() and not fake:
         chosen = form(q.dtype, dh)
         _build.launch("attn_flash_attention", dev, q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), B, S, k.shape[1], H,
@@ -301,6 +305,7 @@ def _launch(q, k, v, causal: bool, lse: bool = False):
 
 
 def _launch_bwd(q, k, v, o, lse, do, causal: bool):
+    fake = _build.is_fake(q)
     dev = _check_launch(q, k, v, "flash_attention_bwd")
     _check_shapes(q, k, v, causal)
     B, S, H, dh = q.shape
@@ -318,6 +323,8 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool):
         # each row's D, and the wgmma form's base-2 logsumexp
         rows = torch.empty(2, B, H, bwd_rows(S, chosen), dtype=torch.float32,
                            device=dev)
+        if fake:
+            return dq, dk, dv
         _build.launch("attn_flash_attention_bwd", dev, q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       do.data_ptr(), lse.data_ptr(), B, S, k.shape[1], H,

@@ -112,7 +112,7 @@ def gmm(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The plain version for a CPU tensor, the CUDA kernel for a CUDA
     tensor; its backward the ``gmm_bwd`` kernel."""
     _check_shapes(xe, w)
-    if xe.device.type == "cpu":
+    if xe.device.type == "cpu" and not _build.is_fake(xe):
         return gmm_torch(xe, w)
     return _KernelGmm.apply(xe, w)
 
@@ -136,7 +136,7 @@ def gmm_bwd(xe: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
     ``csrc/moe_bwd.cu`` kernels (one count in ``launches``) for CUDA
     tensors.  Returns (dx, dw)."""
     _check_bwd_shapes(xe, w, dy)
-    if xe.device.type == "cpu":
+    if xe.device.type == "cpu" and not _build.is_fake(xe):
         return gmm_bwd_torch(xe, w, dy)
     return _launch_bwd(xe, w, dy)
 
@@ -227,6 +227,7 @@ def _check_bwd_shapes(xe, w, dy) -> None:
 
 
 def _launch(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    fake = _build.is_fake(xe)
     dev = check_cuda(xe, w)
     if xe.dtype not in DTYPE_FLAG or w.dtype != xe.dtype:
         raise TypeError(f"gmm takes float32 or bfloat16 of one dtype, got "
@@ -242,12 +243,14 @@ def _launch(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return out
     if d == 0:
         return out.zero_()
-    chosen = form(xe.dtype, C, d, f,
-                  xe.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    chosen = form(xe.dtype, C, d, f, fake or (
+        xe.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0))
     part = None
     if chosen == "stream":
         splits = -(-d // DECODE_SPLIT)
         part = torch.empty(splits, E, C, f, dtype=torch.float32, device=dev)
+    if fake:
+        return out
     _build.launch("moe_gmm", dev, xe.data_ptr(), w.data_ptr(), E, C, d, f,
                   DTYPE_FLAG[xe.dtype], FORMS[chosen],
                   part.data_ptr() if part is not None else None,
@@ -262,6 +265,7 @@ def _launch_bwd(xe: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
                 chunk: int | None = None):
     """(dx, dw) by ``csrc/moe_bwd.cu`` in the form ``bwd_form`` picks;
     ``chunk`` forces dw's rows a split (default ``bwd_chunk``)."""
+    fake = _build.is_fake(xe)
     dev = check_cuda(xe, w, dy)
     if xe.dtype not in DTYPE_FLAG or w.dtype != xe.dtype:
         raise TypeError(f"gmm_bwd takes float32 or bfloat16 of one dtype, "
@@ -278,8 +282,8 @@ def _launch_bwd(xe: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     if E == 0 or d == 0 or f == 0 or C == 0:
         # empty products: dx sums over f, dw over C
         return dx.zero_(), dw.zero_()
-    chosen = bwd_form(xe.dtype, d, f, all(t.data_ptr() % 16 == 0
-                                          for t in (xe, w, dy)))
+    chosen = bwd_form(xe.dtype, d, f, fake or all(t.data_ptr() % 16 == 0
+                                                  for t in (xe, w, dy)))
     chunk = bwd_chunk(E, C, d, f, chosen) if chunk is None else chunk
     splits = -(-C // chunk)
     if chunk < 1 or (chunk < C and chunk % 32) or E * splits > 65535:
@@ -288,6 +292,8 @@ def _launch_bwd(xe: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
                          f"{chunk} of C {C}, E {E}")
     part = torch.empty(splits, E, d, f, dtype=torch.float32, device=dev) \
         if splits > 1 else None
+    if fake:
+        return dx, dw
     _build.launch("moe_gmm_bwd", dev, xe.data_ptr(), w.data_ptr(),
                   dy.data_ptr(), E, C, d, f, DTYPE_FLAG[xe.dtype],
                   BWD_FORMS[chosen], chunk,

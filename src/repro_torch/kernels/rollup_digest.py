@@ -105,8 +105,11 @@ def xor_reduce(x: torch.Tensor) -> torch.Tensor:
 
 
 def check_cuda(*tensors: torch.Tensor) -> torch.device:
+    """The tensors' one device, a CUDA device: a kernel's launch takes
+    nothing else.  Fake tensors (the kernels' fake forms, which launch
+    nothing) may lie on any device."""
     dev = tensors[0].device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not _build.is_fake(tensors[0]):
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     for t in tensors[1:]:
         if t.device != dev:

@@ -458,7 +458,7 @@ def slstm_scan(wx: torch.Tensor, r_gates: torch.Tensor, h, c, n, m):
     """The plain version for a CPU tensor, the CUDA kernel for a CUDA
     tensor; its backward the ``slstm_scan_bwd`` kernel."""
     _check_shapes(wx, r_gates, h, c, n, m)
-    if wx.device.type == "cpu":
+    if wx.device.type == "cpu" and not _build.is_fake(wx):
         return slstm_scan_torch(wx, r_gates, h, c, n, m)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (wx, r_gates, h, c, n, m)):
@@ -476,7 +476,7 @@ def slstm_scan_bwd(wx, r_gates, h, c, n, m, y, states, dy, dhN, dcN, dnN,
     for CUDA tensors, then dr_gates by one batched matmul.  Returns (dwx,
     dr_gates, dh0, dc0, dn0, dm0)."""
     _check_shapes(wx, r_gates, h, c, n, m)
-    if wx.device.type == "cpu":
+    if wx.device.type == "cpu" and not _build.is_fake(wx):
         return slstm_scan_bwd_torch(wx, r_gates, h, c, n, m, y, states, dy,
                                     dhN, dcN, dnN, dmN)
     dgates, *dstate = _launch_bwd(wx, r_gates, h, c, n, m, y, states, dy,
@@ -628,6 +628,7 @@ def _ptr(t) -> int | None:
 
 
 def _launch_rows(wx, r_gates, h, c, n, m, states=None):
+    fake = _build.is_fake(wx)
     dev = check_cuda(wx, r_gates, h, c, n, m)
     if wx.dtype not in DTYPE_FLAG or r_gates.dtype != wx.dtype:
         raise TypeError(f"slstm_scan takes wx and r_gates in float32 or "
@@ -647,6 +648,8 @@ def _launch_rows(wx, r_gates, h, c, n, m, states=None):
     y = torch.empty(B, S, d, dtype=torch.float32, device=dev)
     out = [torch.empty(B, d, dtype=torch.float32, device=dev)
            for _ in range(4)]
+    if fake:
+        return y, tuple(out)
     _build.launch("slstm_scan", dev, wx.data_ptr(), r_gates.data_ptr(),
                   hbuf.data_ptr(), c.data_ptr(), n.data_ptr(), m.data_ptr(),
                   B, S, nh, dh, U, DTYPE_FLAG[wx.dtype], FORMS["grid"],
@@ -656,6 +659,7 @@ def _launch_rows(wx, r_gates, h, c, n, m, states=None):
 
 
 def _launch_cluster(wx, r_gates, h, c, n, m, states=None):
+    fake = _build.is_fake(wx)
     dev = check_cuda(wx, r_gates, h, c, n, m)
     B, S, _ = wx.shape
     nh, dh, _ = r_gates.shape
@@ -672,6 +676,8 @@ def _launch_cluster(wx, r_gates, h, c, n, m, states=None):
     y = torch.empty(B, S, d, dtype=torch.float32, device=dev)
     out = [torch.empty(B, d, dtype=torch.float32, device=dev)
            for _ in range(4)]
+    if fake:
+        return y, tuple(out)
     _build.launch("slstm_scan", dev, wx.data_ptr(), r_gates.data_ptr(),
                   h.data_ptr(), c.data_ptr(), n.data_ptr(), m.data_ptr(),
                   B, S, nh, dh, 0, DTYPE_FLAG[wx.dtype], FORMS["cluster"],
@@ -684,8 +690,9 @@ def _launch_bwd(wx, r_gates, h, c, n, m, y, states, dy, dhN, dcN, dnN, dmN):
     """(dgates (B, S, 4d) float32, dh0, dc0, dn0, dm0) by
     ``csrc/slstm_bwd.cu`` in the form ``bwd_form`` picks: one cluster-form
     launch, or a grid-form cooperative launch a ``MAX_BATCH`` rows."""
-    dev = check_cuda(wx, r_gates, h, c, n, m, y, states, dy, dhN, dcN, dnN,
-                     dmN)
+    fake = _build.is_fake(wx)
+    dev = check_cuda(
+        wx, r_gates, h, c, n, m, y, states, dy, dhN, dcN, dnN, dmN)
     if wx.dtype not in DTYPE_FLAG or r_gates.dtype != wx.dtype:
         raise TypeError(f"slstm_scan_bwd takes wx and r_gates in float32 or "
                         f"bfloat16 of one dtype, got {wx.dtype}, "
@@ -710,6 +717,11 @@ def _launch_bwd(wx, r_gates, h, c, n, m, y, states, dy, dhN, dcN, dnN, dmN):
     wx, r_gates = wx.contiguous(), r_gates.contiguous()
     ins = [t.contiguous() for t in (h, c, n, m, y, states)]
     outs = [torch.empty(B, d, **f32) for _ in range(4)]
+    if fake:
+        if chosen != "cluster":
+            U, _ = bwd_plan(min(B, MAX_BATCH), dh)
+            torch.empty(2, d // U, min(B, MAX_BATCH), dh, **f32)
+        return (dgates, *outs)
     if chosen == "cluster":
         # the bulk copies read every input from 16-byte boundaries
         wx, *ins = [t if t.data_ptr() % 16 == 0 else t.clone()

@@ -379,12 +379,13 @@ def _refuse(x, A_log) -> None:
 
 def _f32(t):
     """float32, contiguous, on a 16-byte boundary (the kernels' copies)."""
-    t = t.to(torch.float32).contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return _aligned(t.to(torch.float32))
 
 
 def _aligned(t):
     t = t.contiguous()
+    if _build.is_fake(t):                   # no address: taken as aligned
+        return t
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -395,9 +396,11 @@ def _ptr(t) -> int | None:
 def _launch(x, dt_pre, dt_bias, Bm, Cm, A_log, D, h0, ckpt: bool = False):
     """One launch of ``csrc/ssm.cu``'s kernel on CUDA tensors: (out, h),
     and with ``ckpt`` the saved states (B, ceil(S / CHUNK), di, ds)
-    float32 too."""
-    dev = check_cuda(x, dt_pre, dt_bias, Bm, Cm, A_log, D,
-                     *([h0] if h0 is not None else []))
+    float32 too; on fake tensors the same allocations and no launch."""
+    fake = _build.is_fake(x)
+    dev = check_cuda(
+        x, dt_pre, dt_bias, Bm, Cm, A_log, D,
+        *([h0] if h0 is not None else []))
     _refuse(x, A_log)
     B, S, di = x.shape
     x = _aligned(x)
@@ -407,7 +410,7 @@ def _launch(x, dt_pre, dt_bias, Bm, Cm, A_log, D, h0, ckpt: bool = False):
     h = torch.empty(B, di, DS, dtype=torch.float32, device=dev)
     saved = torch.empty(B, n_chunks(S), di, DS, dtype=torch.float32,
                         device=dev) if ckpt else None
-    if B and di:
+    if B and di and not fake:
         _build.launch("ssm_scan", dev, x.data_ptr(),
                       *(t.data_ptr() for t in args), _ptr(h0), B, S, di,
                       DS, DTYPE_FLAG[x.dtype], out.data_ptr(), h.data_ptr(),
@@ -428,9 +431,12 @@ def _launch_bwd(x, dt_pre, dt_bias, Bm, Cm, A_log, D, h0, ckpt, dout,
                 dh_last):
     """``csrc/ssm_bwd.cu`` on CUDA tensors (its two kernels counted as one
     launch): (dx in x's dtype, ddt_pre, ddt_bias, dBm, dCm, dA_log, dD
-    float32, dh0 float32 or None)."""
-    dev = check_cuda(x, dt_pre, dt_bias, Bm, Cm, A_log, D, ckpt, dout,
-                     *(t for t in (h0, dh_last) if t is not None))
+    float32, dh0 float32 or None); on fake tensors the same allocations
+    and no launch."""
+    fake = _build.is_fake(x)
+    dev = check_cuda(
+        x, dt_pre, dt_bias, Bm, Cm, A_log, D, ckpt, dout,
+        *(t for t in (h0, dh_last) if t is not None))
     _refuse(x, A_log)
     B, S, di = x.shape
     if tuple(ckpt.shape) != (B, n_chunks(S), di, DS) or \
@@ -451,6 +457,9 @@ def _launch_bwd(x, dt_pre, dt_bias, Bm, Cm, A_log, D, h0, ckpt, dout,
             torch.empty(B, S, DS, **f32), torch.empty(di, DS, **f32),
             torch.empty(di, **f32), torch.empty(di, **f32)]
     dh0 = torch.empty(B, di, DS, **f32) if h0 is not None else None
+    if fake:
+        ddt_pre, dBm, dCm, dA_log, dD, ddt_bias = outs
+        return dx, ddt_pre, ddt_bias, dBm, dCm, dA_log, dD, dh0
     _build.launch("ssm_scan_bwd", dev, x.data_ptr(),
                   *(t.data_ptr() for t in args), dout.data_ptr(),
                   _ptr(dh_last), B, S, di, DS, DTYPE_FLAG[x.dtype],
@@ -493,7 +502,7 @@ def ssm_scan(x, dt_pre, dt_bias, Bm, Cm, A_log, D,
     ``_KernelSsm`` (the saved states, and the ``ssm_scan_bwd`` kernel as
     its backward)."""
     _check_shapes(x, dt_pre, dt_bias, Bm, Cm, A_log, D, h0)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not _build.is_fake(x):
         return ssm_scan_torch(x, dt_pre, dt_bias, Bm, Cm, A_log, D, h0)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
@@ -510,7 +519,7 @@ def ssm_scan_bwd(x, dt_pre, dt_bias, Bm, Cm, A_log, D, h0, ckpt, dout,
     tensors.  Returns (dx, ddt_pre, ddt_bias, dBm, dCm, dA_log, dD, dh0)
     as ``ssm_scan_bwd_torch`` does."""
     _check_shapes(x, dt_pre, dt_bias, Bm, Cm, A_log, D, h0)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not _build.is_fake(x):
         return ssm_scan_bwd_torch(x, dt_pre, dt_bias, Bm, Cm, A_log, D, h0,
                                   ckpt, dout, dh_last)
     dx, ddt_pre, ddt_bias, dBm, dCm, dA_log, dD, dh0 = _launch_bwd(

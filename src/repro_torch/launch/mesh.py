@@ -1,17 +1,23 @@
-"""The ledger fabric's device mesh: K shard lanes over the local cards.
+"""The port's device meshes, and the card's constants for the roofline.
 
-The JAX package shards the fabric's lane rows over a 1-D ``("shard",)``
-device mesh (``src/repro/launch/mesh.py``).  A ``torch.distributed``
-``DeviceMesh`` needs an initialised process group, and the port runs as
-one process, so the shard mesh here is a plain frozen record: the axis
-name and the devices, in order.  One H100 is a one-device mesh.
+  * The ledger fabric's shard mesh (``make_shard_mesh``): K shard lanes
+    over the local cards, a plain frozen record (the axis name and the
+    devices, in order), as the fabric runs in one process.  One H100 is
+    a one-device mesh.
+  * The model substrate's meshes, ``("data", "model")`` or ``("pod",
+    "data", "model")``: a ``torch.distributed`` ``DeviceMesh`` over the
+    default process group, one rank a card.  ``make_production_mesh``
+    builds the JAX package's 16 x 16 (256 cards) or 2 x 16 x 16 (512
+    cards) over a group of that size: the ``fake`` backend in the dry
+    run (``launch/dryrun.py``), or the group ``torchrun`` set up.
+    ``make_train_mesh(data, model)`` does the same over ``data x model``
+    ranks.  Either raises, naming the world size it found, where the
+    group is missing or of another size.  The 1 x 1 meshes need no
+    process group: with none initialised they are a :class:`TrainMesh`
+    record of one device, as the one-card launcher runs them.
 
-The model substrate's meshes (``make_host_mesh``, ``make_production_mesh``)
-are the same kind of record with the axes ``("data", "model")``, both of
-size 1: the port trains on one card, so the training launcher runs T = 1
-trainer.  The JAX package's 16 x 16 (or 2 x 16 x 16 multi-pod) meshes, and
-any mesh wider than the local cards, raise: they need the sharded model
-(ROADMAP.md queue 1 item 10(f)).
+``mesh_shape`` and ``mesh_device`` read either kind.  Building a mesh
+never touches a card before it is asked for one.
 """
 from __future__ import annotations
 
@@ -23,6 +29,29 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.sharding.specs import SHARD_LANE_AXIS
+
+# NVIDIA H100 SXM5 80GB, per card, for the dry run's roofline
+# (``launch/dryrun.py``).  The names are the JAX package's, so the two dry
+# runs read alike; none of the figures is the TPU's.
+#: dense bfloat16 tensor-core peak, FLOP/s (NVIDIA H100 datasheet, SXM5,
+#: without sparsity), as ``chip_smoke.BF16_TENSOR_FLOPS`` has it
+PEAK_FLOPS_BF16 = 989e12
+#: device memory rate, bytes/s (NVIDIA H100 datasheet, SXM5 HBM3), as
+#: ``chip_smoke.HBM_BYTES_PER_S`` has it
+HBM_BW = 3.35e12
+#: bytes a card crosses to another card of its group a second: one
+#: 400 Gb/s NDR InfiniBand link a card (NVIDIA ConnectX-7 datasheet).
+#: Both production meshes span nodes of 8 cards, so a ``model`` group of
+#: 16 crosses a node boundary and runs at the network's rate, not
+#: NVLink's 450 GB/s a direction
+ICI_BW = 50e9
+#: device memory, bytes: ``torch.cuda.get_device_properties(0)
+#: .total_memory`` read on an NVIDIA H100 80GB HBM3 (700.00 W power limit)
+HBM_BYTES = 85_017_493_504
+
+#: the production meshes: (shape, axis names) by ``multi_pod``
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,8 +90,8 @@ def make_shard_mesh(max_devices: Optional[int] = None, *,
 
 @dataclasses.dataclass(frozen=True)
 class TrainMesh:
-    """The training launcher's mesh: ``shape`` maps each axis name to its
-    size, ``devices`` are its members."""
+    """The 1 x 1 mesh with no process group: ``shape`` maps each axis
+    name to its size, ``devices`` are its members."""
 
     shape: Dict[str, int]
     devices: Tuple[torch.device, ...]
@@ -72,29 +101,63 @@ class TrainMesh:
         return len(self.devices)
 
 
-def make_train_mesh(data: int = 1, model: int = 1, *,
-                    device=None) -> TrainMesh:
-    """A ``("data", "model")`` mesh on one device (the card unless
-    named); wider meshes raise (ROADMAP.md queue 1 item 10(f))."""
-    if data * model != 1:
-        raise NotImplementedError(
-            f"a {data} x {model} training mesh needs the sharded model and "
-            f"one process a card (ROADMAP.md queue 1 item 10(f)); the port "
-            f"trains on one device")
-    return TrainMesh({"data": 1, "model": 1}, (resolve_device(device),))
+def mesh_shape(mesh) -> Dict[str, int]:
+    """``{axis: size}`` of a ``DeviceMesh`` or a :class:`TrainMesh`."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.shape))
+    return dict(mesh.shape)
 
 
-def make_host_mesh(device=None) -> TrainMesh:
+def mesh_device(mesh) -> torch.device:
+    """The device this process's rank of ``mesh`` runs on."""
+    if isinstance(mesh, TrainMesh):
+        return mesh.devices[0]
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _device_mesh(shape: Tuple[int, ...], names: Tuple[str, ...], device):
+    """A ``DeviceMesh`` of ``shape`` over the default process group, whose
+    world size must be the product of ``shape``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = resolve_device(device)
+    want = 1
+    for n in shape:
+        want *= n
+    world = dist.get_world_size() if dist.is_initialized() else None
+    if world != want:
+        found = "no process group" if world is None \
+            else f"a process group of world size {world}"
+        raise RuntimeError(
+            f"a {' x '.join(map(str, shape))} mesh {names} needs a process "
+            f"group of world size {want} (one rank a card: torchrun, or the "
+            f"dry run's fake backend); found {found}")
+    return init_device_mesh(dev.type, shape, mesh_dim_names=names)
+
+
+def make_train_mesh(data: int = 1, model: int = 1, *, device=None):
+    """A ``("data", "model")`` mesh: the 1 x 1 :class:`TrainMesh` on one
+    device (the card unless named) where no process group is set up, a
+    ``DeviceMesh`` over the default group (of world size ``data x
+    model``) otherwise."""
+    import torch.distributed as dist
+    if data * model == 1 and not dist.is_initialized():
+        return TrainMesh({"data": 1, "model": 1}, (resolve_device(device),))
+    return _device_mesh((data, model), ("data", "model"), device)
+
+
+def make_host_mesh(device=None):
     """The 1 x 1 mesh (the JAX package's CPU smoke mesh)."""
     return make_train_mesh(device=device)
 
 
-def make_production_mesh(*, multi_pod: bool = False,
-                         device=None) -> TrainMesh:
-    """One card's answer to the JAX package's production mesh: 1 x 1.
-    ``multi_pod`` raises (ROADMAP.md queue 1 item 10(f))."""
-    if multi_pod:
-        raise NotImplementedError(
-            "the multi-pod mesh (2 x 16 x 16) needs the sharded model "
-            "across hosts (ROADMAP.md queue 1 item 10(f))")
-    return make_train_mesh(device=device)
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The JAX package's production mesh as a ``DeviceMesh``: 16 x 16
+    ``("data", "model")`` (256 cards), or with ``multi_pod`` 2 x 16 x 16
+    ``("pod", "data", "model")`` (512 cards), over the default process
+    group, which must be of that size."""
+    shape, names = PRODUCTION[multi_pod]
+    return _device_mesh(shape, names, device)

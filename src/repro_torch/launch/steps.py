@@ -1,18 +1,35 @@
-"""The training step of the model substrate.
+"""The training step of the model substrate, and the dry run's cells.
 
 ``build_train_step(model, opt)`` returns ``train_step(params, opt_state,
 batch) -> (params, opt_state, {"loss", "grad_norm"})`` over a flat dict of
 weights (``Model.train_params``), as the JAX package's
 ``build_train_step`` does over its tree.  PyTorch runs eagerly: the step
-is a function, not a jitted cell.  ``build_cell`` and
-``opt_state_pspecs`` serve the JAX package's dry-run and wait for the
-meshes (ROADMAP.md queue 1 item 10(f)).
+is a function, not a jitted cell.
+
+A *cell* is (architecture x input shape x mesh).  ``build_cell(cfg,
+shape, mesh)`` gives its step over DTensor leaves laid out by the
+model's specs (``Model.params_pspecs``, ``opt_state_pspecs``,
+``Model.input_pspecs``, ``Model.decode_state_pspecs``), in the JAX
+package's three kinds:
+
+  * ``train``: ``build_train_step`` on the flat dict of weights;
+  * ``prefill``: ``(params, batch) -> (last logits, caches)``;
+  * ``decode``: ``(params, state, batch) -> (logits, state)``, one token
+    written into the seq_len-deep state in place at the host ``pos``
+    ``seq_len - 1``, as the port's decode does.
+
+``Cell.args`` are stand-ins: each leaf a DTensor whose local shard is an
+empty tensor on the mesh's device (fake, and so never allocated, under
+``FakeTensorMode``: the dry run, ``launch/dryrun.py``).  ``place`` lays
+real full tensors out by the same specs (a run on a real mesh).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
+
+from repro_torch.sharding.specs import P, is_spec
 
 
 def value_and_grad(model, params: Dict[str, torch.Tensor], batch,
@@ -43,3 +60,128 @@ def build_train_step(model, opt):
         new_params, new_opt_state, gn = opt.update(grads, opt_state, params)
         return new_params, new_opt_state, {"loss": loss, "grad_norm": gn}
     return train_step
+
+
+# -----------------------------------------------------------------------------
+# Cells
+# -----------------------------------------------------------------------------
+class Cell(NamedTuple):
+    step: Callable
+    args: tuple          # DTensor stand-ins, one tree a step argument
+    model: Any
+    kind: str
+    specs: tuple         # the spec trees of ``args``
+
+
+def opt_state_pspecs(opt_name: str, pspecs, params_shape, groups=None):
+    """Optimizer-state specs mirroring the weights' (``pspecs``, a flat
+    dict), in ``optim.optimizers``' layouts: ``m`` (and ``v``) for sgdm
+    and adamw; adafactor's ``v`` keyed by the JAX leaf (``groups``:
+    ``Model.param_groups``), a stacked leaf's spec with its leading
+    ``None``, its factored ``vr`` the spec without the last dim and
+    ``vc`` without the one before."""
+    if opt_name in ("adamw", "sgdm"):
+        st = {"m": dict(pspecs), "step": P()}
+        if opt_name == "adamw":
+            st["v"] = dict(pspecs)
+        return st
+    if opt_name == "adafactor":
+        from repro_torch.optim.optimizers import (OptimizerSpec, _factored,
+                                                  _members)
+        v = {}
+        for leaf, (stacked, keys) in _members(groups, params_shape).items():
+            spec = tuple(pspecs[keys[0]])
+            shape = tuple(params_shape[keys[0]].shape)
+            if stacked:
+                spec, shape = (None,) + spec, (len(keys),) + shape
+            spec = spec + (None,) * (len(shape) - len(spec))
+            if _factored(shape, OptimizerSpec().factored_min):
+                v[leaf] = {"vr": P(*spec[:-1]),
+                           "vc": P(*(spec[:-2] + spec[-1:]))}
+            else:
+                v[leaf] = {"v": P(*spec)}
+        return {"v": v, "step": P()}
+    raise ValueError(opt_name)
+
+
+def _tree_map(fn, spec_tree, tree):
+    if is_spec(spec_tree):
+        return fn(spec_tree, tree)
+    return {k: _tree_map(fn, s, tree[k]) for k, s in spec_tree.items()}
+
+
+def stand_in(ctx, shape_tree, spec_tree, device):
+    """A DTensor a leaf of ``shape_tree`` (tensors, e.g. on ``meta``),
+    laid out by ``spec_tree`` (sanitized for each shape), its local shard
+    an empty tensor on ``device``; non-tensor leaves (a decode step's
+    ``pos``) as they are."""
+    def one(spec, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        return ctx.distribute(
+            lambda local: torch.empty(local, dtype=leaf.dtype, device=device),
+            tuple(leaf.shape), spec)
+    return _tree_map(one, spec_tree, shape_tree)
+
+
+def place(ctx, tree, spec_tree):
+    """Full tensors (on the mesh's device) laid out as DTensors by
+    ``spec_tree`` (sanitized for each shape); non-tensor leaves as they
+    are."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def one(spec, t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        return distribute_tensor(t, ctx.mesh, ctx.placements(spec, t.shape))
+    return _tree_map(one, spec_tree, tree)
+
+
+def build_cell(cfg, shape, mesh, *, device=None,
+               stand_ins: bool = True) -> Cell:
+    """The cell's step and stand-ins on ``mesh`` (``device``: the
+    stand-ins' device, default the mesh's).  ``stand_ins=False`` leaves
+    ``args`` None, for a run that places real tensors (``place``)."""
+    from repro_torch.launch.mesh import mesh_device
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import make_optimizer, spec_for_config
+    dev = torch.device(device) if device is not None else mesh_device(mesh)
+    model = build_model(cfg, dev, mesh=mesh)
+    ctx = model.ctx
+    pshape = model.params_shape()
+    pspecs = model.params_pspecs(pshape)
+    batch_shape = model.input_specs(shape)
+    bspecs = model.input_pspecs(shape)
+
+    if shape.kind == "train":
+        groups = model.param_groups(pshape)
+        opt = make_optimizer(spec_for_config(cfg), groups=groups)
+        oshape = opt.init(pshape)
+        ospecs = opt_state_pspecs(cfg.optimizer, pspecs, pshape, groups)
+        specs = (pspecs, ospecs, bspecs)
+        args = tuple(stand_in(ctx, t, s, dev)
+                     for t, s in zip((pshape, oshape, batch_shape), specs)) \
+            if stand_ins else None
+        return Cell(build_train_step(model, opt), args, model, "train",
+                    specs)
+
+    if shape.kind == "prefill":
+        def step(params, batch):
+            return model.prefill(params, batch)
+        specs = (pspecs, bspecs)
+        args = tuple(stand_in(ctx, t, s, dev)
+                     for t, s in zip((pshape, batch_shape), specs)) \
+            if stand_ins else None
+        return Cell(step, args, model, "prefill", specs)
+
+    # decode: one token against a seq_len-deep cache
+    sshape = model.decode_state_shape(shape.global_batch, shape.seq_len)
+    sspecs = model.decode_state_pspecs(shape.global_batch, shape.seq_len)
+
+    def step(params, state, batch):
+        return model.decode(params, state, batch)
+    specs = (pspecs, sspecs, bspecs)
+    args = tuple(stand_in(ctx, t, s, dev)
+                 for t, s in zip((pshape, sshape, batch_shape), specs)) \
+        if stand_ins else None
+    return Cell(step, args, model, "decode", specs)

@@ -2,14 +2,21 @@
 with checkpointing, resume-latest, straggler deadlines and reputation
 updates, as ``src/repro/launch/train.py`` runs them.
 
-    python -m repro_torch.launch.train                    # qwen2-0.5b, the card
-    python -m repro_torch.launch.train --reduced --device cpu
-    python -m repro_torch.launch.train --ckpt-dir /tmp/ck --rounds 4 --resume
-    python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b --layers 4
+    python -m repro_torch.launch.train --host-mesh        # qwen2-0.5b, one card
+    python -m repro_torch.launch.train --host-mesh --reduced --device cpu
+    python -m repro_torch.launch.train --host-mesh --ckpt-dir /tmp/ck --resume
+    python -m repro_torch.launch.train --host-mesh --arch moonshot-v1-16b-a3b \
+        --layers 4
 
-The port trains on one card: the mesh is 1 x 1 (``launch/mesh.py``), so a
-round runs T = 1 trainer, and ``--multi-pod`` raises (ROADMAP.md queue 1
-item 10(f)).  ``--host-mesh`` is accepted and gives the same mesh.  Full
+The mesh comes from ``launch/mesh.py``: ``--host-mesh`` is the 1 x 1 mesh
+of one card, a round of T = 1 trainer (T = data x pod, as the JAX
+launcher takes it).  Without ``--host-mesh`` the launcher asks for the
+production mesh (16 x 16, or 2 x 16 x 16 with ``--multi-pod``) over the
+default process group: outside a group of that size it raises, naming the
+world size it found, and inside one it refuses too, because the round on
+that mesh (``fl.round.build_fl_round_cell``, one trainer a data group,
+what the dry run traces) is not wired into this launcher, whose round
+(``build_fl_round``) runs the T trainers in turn on one card.  Full
 configs take their own optimizer (``spec_for_config``: adamw for
 qwen2-0.5b); ``--reduced`` takes sgdm at lr 0.05.  The initial weights
 come from a ``torch.Generator`` seeded 0 on the device, not from the JAX
@@ -38,7 +45,8 @@ from repro_torch.configs.registry import REGISTRY, get_config, reduced_config
 from repro_torch.core.reputation import (ReputationParams, TrainerBook,
                                          end_of_task_update, init_book)
 from repro_torch.fl.round import FLRoundSpec, build_fl_round, replicate
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
+                                     mesh_device, mesh_shape)
 from repro_torch.models.model import build_model
 from repro_torch.optim.optimizers import (OptimizerSpec, make_optimizer,
                                           spec_for_config)
@@ -94,14 +102,21 @@ def main(argv=None) -> list:
     mesh = make_host_mesh(args.device) if args.host_mesh \
         else make_production_mesh(multi_pod=args.multi_pod,
                                   device=args.device)
-    dev = mesh.devices[0]
+    sizes = mesh_shape(mesh)
+    if not args.host_mesh:
+        raise NotImplementedError(
+            f"the {sizes} mesh's round is fl.round.build_fl_round_cell, "
+            f"which this launcher does not drive: its build_fl_round would "
+            f"hold every trainer's weights and repeat their steps on each "
+            f"rank (ROADMAP.md §3); --host-mesh runs the one-card round")
+    dev = mesh_device(mesh)
     model = build_model(cfg, dev)
     params = model.train_params(model.init_params(0))
     opt = make_optimizer(
         spec_for_config(cfg) if not args.reduced
         else OptimizerSpec(name="sgdm", lr=0.05),
         groups=model.param_groups(params))
-    T = mesh.shape["data"]
+    T = sizes["data"] * sizes.get("pod", 1)
     spec = FLRoundSpec(n_trainers=T, h_local_steps=args.local_steps,
                        local_batch=args.local_batch)
     fl_round = build_fl_round(model, opt, spec)

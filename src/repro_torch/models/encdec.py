@@ -42,6 +42,13 @@ dh)}``.  ``init_decode_state`` zeroes all four, as the JAX package does,
 and the prefill (``models.model.Model.prefill``) returns no state, so a
 caller fills ``ek`` / ``ev`` from ``encode`` and
 ``attention.encode_cross_kv`` before decoding.
+
+``init_params_shape`` builds the module on the ``meta`` device (no
+draw).  The passes take a ``ctx`` (``sharding.specs.MeshCtx``, default
+``NO_MESH``): under a mesh the encoder's input and every layer's output
+are ``act_btd``-constrained, as in the JAX package, and the attention,
+embedding and cross entropy run on each rank's shards
+(``models/attention.py``, ``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -57,10 +64,12 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_norm, dense_init
-from repro_torch.models.transformer import (_block_tree, _from_host,
-                                            _host, _maybe_remat, _stack,
-                                            _torch_dtype, cross_entropy,
-                                            train_params)
+from repro_torch.models.transformer import (_block_tree, _delta,
+                                            _from_host, _host, _maybe_remat,
+                                            _stack, _torch_dtype,
+                                            cross_entropy, decode_logits,
+                                            embed, gathered, train_params)
+from repro_torch.sharding.specs import NO_MESH
 
 State = Dict[str, torch.Tensor]
 DEC_POSITIONS = 32_768               # rows of dec_pos, as in the JAX package
@@ -144,6 +153,12 @@ class EncDecLM(nn.Module):
 def init_params(cfg, generator: torch.Generator, dtype=None,
                 device=None) -> EncDecLM:
     return EncDecLM(cfg, dtype, device, generator)
+
+
+def init_params_shape(cfg, dtype=None) -> EncDecLM:
+    """The module on the ``meta`` device: shapes and dtypes, no draw."""
+    with torch.device("meta"):
+        return EncDecLM(cfg, dtype, "meta")
 
 
 # ---------------------------------------------------------------------------
@@ -244,59 +259,67 @@ def params_view(cfg, flat: Dict[str, torch.Tensor]):
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
-def encode(cfg, params: EncDecLM, audio_embeds: torch.Tensor) -> torch.Tensor:
+def encode(cfg, params: EncDecLM, audio_embeds: torch.Tensor,
+           ctx=NO_MESH) -> torch.Tensor:
     """The encoder over frame embeddings (B, enc_seq, d) in the model's
     dtype -> (B, enc_seq, d)."""
     if audio_embeds.dtype != params.enc_pos.dtype:
         raise TypeError(f"audio_embeds are {audio_embeds.dtype}, the "
                         f"model's weights {params.enc_pos.dtype}: cast the "
                         f"frames to the model's dtype")
-    x = audio_embeds + params.enc_pos[None]
+    x = ctx.act_btd(audio_embeds + params.enc_pos[None])
     for bp in params.enc_blocks:
+        bp = gathered(ctx, bp)
         h = apply_norm(cfg, x, bp.ln)
-        x = x + attn.bidir_attention_block(cfg, bp.attn, h)
-        x = x + _ffn(bp, apply_norm(cfg, x, bp.ln2))
+        x = x + _delta(ctx, attn.bidir_attention_block(cfg, bp.attn, h, ctx))
+        x = ctx.act_btd(x + _delta(ctx, _ffn(bp, apply_norm(cfg, x,
+                                                           bp.ln2))))
     return apply_norm(cfg, x, params.enc_final_norm)
 
 
 def _dec_block(cfg, bp, x: torch.Tensor, positions: torch.Tensor,
-               enc_out: torch.Tensor) -> torch.Tensor:
+               enc_out: torch.Tensor, ctx=NO_MESH) -> torch.Tensor:
+    bp = gathered(ctx, bp)
     h = apply_norm(cfg, x, bp.ln)
-    x = x + attn.attention_block(cfg, bp.attn, h, positions)
+    x = x + _delta(ctx, attn.attention_block(cfg, bp.attn, h, positions,
+                                             ctx=ctx))
     h = apply_norm(cfg, x, bp.ln_x)
-    ek, ev = attn.encode_cross_kv(cfg, bp.xattn, enc_out)
-    x = x + attn.cross_attention_block(cfg, bp.xattn, h, ek, ev)
-    return x + _ffn(bp, apply_norm(cfg, x, bp.ln2))
+    ek, ev = attn.encode_cross_kv(cfg, bp.xattn, enc_out, ctx)
+    x = x + _delta(ctx, attn.cross_attention_block(cfg, bp.xattn, h, ek, ev,
+                                                   ctx))
+    return ctx.act_btd(x + _delta(ctx, _ffn(bp, apply_norm(cfg, x, bp.ln2))))
 
 
-def _embed(params, tokens: torch.Tensor, pos: int = 0) -> torch.Tensor:
+def _embed(params, tokens: torch.Tensor, pos: int = 0,
+           ctx=NO_MESH) -> torch.Tensor:
     """Token embeddings plus the learned positions pos .. pos + S - 1."""
     rows = params.dec_pos[pos:pos + tokens.shape[1]]
-    return F.embedding(tokens, params.embed) + rows[None]
+    return embed(ctx, params.embed, tokens) + rows[None]
 
 
-def forward(cfg, params: EncDecLM, batch, remat=None) -> torch.Tensor:
+def forward(cfg, params: EncDecLM, batch, remat=None,
+            ctx=NO_MESH) -> torch.Tensor:
     """The training forward: ``audio_embeds`` and ``tokens`` -> logits (B,
     S, V); each decoder layer checkpointed by ``remat`` (default
     ``cfg.sharding.remat``) where autograd records."""
     policy = remat if remat is not None else cfg.sharding.remat
-    enc_out = encode(cfg, params, batch["audio_embeds"])
+    enc_out = encode(cfg, params, batch["audio_embeds"], ctx)
     tokens = batch["tokens"]
-    x = _embed(params, tokens)
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device)[None].expand(B, S)
+    x = ctx.act_btd(_embed(params, tokens, ctx=ctx))
     for bp in params.blocks:
-        x = _maybe_remat(functools.partial(_dec_block, cfg, bp),
-                         policy)(x, positions, enc_out)
+        # learned positions, no RoPE: the attention takes no positions
+        x = _maybe_remat(functools.partial(_dec_block, cfg, bp, ctx=ctx),
+                         policy)(x, None, enc_out)
     x = apply_norm(cfg, x, params.final_norm)
-    return x @ params.head_w
+    return x @ ctx.unshard_fsdp(params.head_w)
 
 
-def loss_fn(cfg, params: EncDecLM, batch, remat=None) -> torch.Tensor:
+def loss_fn(cfg, params: EncDecLM, batch, remat=None,
+            ctx=NO_MESH) -> torch.Tensor:
     """``transformer.cross_entropy`` of the forward's logits and
     ``batch["labels"]``."""
-    return cross_entropy(forward(cfg, params, batch, remat), batch["labels"])
+    return cross_entropy(forward(cfg, params, batch, remat, ctx),
+                         batch["labels"], ctx)
 
 
 def init_decode_state(cfg, batch: int, max_len: int, dtype=None,
@@ -313,22 +336,24 @@ def init_decode_state(cfg, batch: int, max_len: int, dtype=None,
                             ("ek", cfg.enc_seq), ("ev", cfg.enc_seq))}
 
 
-def decode_step(cfg, params: EncDecLM, state: State, batch):
+def decode_step(cfg, params: EncDecLM, state: State, batch, ctx=NO_MESH):
     """One-token decode against the self-attention caches and the cached
     cross K / V.  batch: ``{"tokens": (B, 1), "pos": int}`` (the write
     index).  Returns (logits (B, V), state), the caches written in
     place."""
     pos = int(batch["pos"])
-    x = _embed(params, batch["tokens"], pos)
+    x = _embed(params, batch["tokens"], pos, ctx)
     for layer, bp in enumerate(params.blocks):
+        bp = gathered(ctx, bp)
         h = apply_norm(cfg, x, bp.ln)
         x = x + attn.decode_attention_block(cfg, bp.attn, h,
                                             state["k"][layer],
-                                            state["v"][layer], pos)
+                                            state["v"][layer], pos, ctx)
         h = apply_norm(cfg, x, bp.ln_x)
         x = x + attn.cross_attention_block(cfg, bp.xattn, h,
                                            state["ek"][layer],
-                                           state["ev"][layer])
+                                           state["ev"][layer], ctx)
         x = x + _ffn(bp, apply_norm(cfg, x, bp.ln2))
     x = apply_norm(cfg, x, params.final_norm)
-    return (x @ params.head_w)[:, 0], state
+    return decode_logits(ctx, (x @ ctx.unshard_fsdp(params.head_w))[:, 0]), \
+        state

@@ -3,7 +3,10 @@ rotary embeddings, with the JAX package's layouts and casts.
 
 Norms, RoPE and M-RoPE (qwen2-vl's three position streams) compute in
 float32 and cast back to the input's dtype; matrices are stored ``(in,
-out)``, so a projection is ``x @ w``.
+out)``, so a projection is ``x @ w``.  Under a mesh (``ctx``, a
+``sharding.specs.MeshCtx``) the norms and products take DTensors as they
+come; RoPE runs inside the callers' ``ctx.local`` regions, on local
+shards.
 """
 from __future__ import annotations
 
@@ -12,6 +15,9 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels._build import is_fake
+from repro_torch.sharding.specs import NO_MESH
 
 
 def truncated_normal_init(shape, scale: float, dtype: torch.dtype,
@@ -64,8 +70,10 @@ def apply_norm(cfg, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 # -- SwiGLU MLP ----------------------------------------------------------------
 def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-           wd: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ wg) * (x @ wu)) @ wd
+           wd: torch.Tensor, ctx=NO_MESH) -> torch.Tensor:
+    """``(silu(x @ wg) * (x @ wu)) @ wd``; under a mesh the hidden
+    ``ctx.act_ffn``-constrained (TP on ff), as in the JAX package."""
+    return ctx.act_ffn(F.silu(x @ wg) * (x @ wu)) @ wd
 
 
 # -- rotary embeddings -----------------------------------------------------------
@@ -75,10 +83,18 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=32)
-def _rope_inv(head_dim: int, theta: float, device: torch.device):
-    """``rope_freqs`` on ``device``, copied there once: a copy from host
-    memory waits for the device, and RoPE runs twice in every layer."""
+def _rope_inv_cached(head_dim: int, theta: float, device: torch.device):
     return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+
+
+def _rope_inv(head_dim: int, theta: float, device: torch.device,
+              like: torch.Tensor = None):
+    """``rope_freqs`` on ``device``, copied there once: a copy from host
+    memory waits for the device, and RoPE runs twice in every layer.  For
+    a fake tensor (the dry run) a fresh table of the active fake mode."""
+    if like is not None and is_fake(like):
+        return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+    return _rope_inv_cached(head_dim, theta, device)
 
 
 def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
@@ -94,7 +110,7 @@ def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, S, H, dh); positions: (B, S) int."""
-    inv = _rope_inv(x.shape[-1], theta, x.device)
+    inv = _rope_inv(x.shape[-1], theta, x.device, x)
     return _rotate(x, positions.to(torch.float32)[..., None] * inv)
 
 
@@ -109,12 +125,22 @@ def mrope_sections(head_dim: int, sections=(16, 24, 24)) -> list:
     return sec
 
 
-@functools.lru_cache(maxsize=32)
-def _mrope_streams(head_dim: int, device: torch.device) -> torch.Tensor:
-    """(dh/2,) int64: the position stream that drives each band."""
+def _streams(head_dim: int, device) -> torch.Tensor:
     return torch.cat([torch.full((n,), i, dtype=torch.int64)
                       for i, n in enumerate(mrope_sections(head_dim))]
                      ).to(device)
+
+
+_streams_cached = functools.lru_cache(maxsize=32)(_streams)
+
+
+def _mrope_streams(head_dim: int, device: torch.device,
+                   like: torch.Tensor = None) -> torch.Tensor:
+    """(dh/2,) int64: the position stream that drives each band (fresh,
+    not cached, for a fake tensor)."""
+    if like is not None and is_fake(like):
+        return _streams(head_dim, device)
+    return _streams_cached(head_dim, device)
 
 
 def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
@@ -122,8 +148,8 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
     """M-RoPE (qwen2-vl): x (B, S, H, dh); positions3 (3, B, S) int, the
     temporal, height and width streams, each driving its
     ``mrope_sections`` of the frequencies."""
-    inv = _rope_inv(x.shape[-1], theta, x.device)
-    stream = _mrope_streams(x.shape[-1], x.device)
+    inv = _rope_inv(x.shape[-1], theta, x.device, x)
+    stream = _mrope_streams(x.shape[-1], x.device, x)
     pos = positions3.to(torch.float32)[stream].movedim(0, -1)  # (B, S, dh/2)
     return _rotate(x, pos * inv)
 

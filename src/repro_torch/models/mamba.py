@@ -17,6 +17,13 @@ package.  A block returns its residual delta (the caller adds x) and,
 given a state ``{"conv": (B, k - 1, di) in the model's dtype, "ssm": (B,
 di, ds) float32}``, the new state; with ``state=None`` (forward, prefill)
 it starts from zeros and returns ``None``.
+
+The conv and the ``ssm_scan`` kernel each run in a ``ctx.local`` region
+(``sharding.specs.MeshCtx``; with the default ``NO_MESH``, on the whole
+tensors).  Under a mesh the products are DTensor ops, the stream is
+constrained to channels over ``model`` (the JAX package's constraint),
+and each region takes the rank's batch rows and channels (its
+``A_log``, ``D``, ``dt_bias`` and conv rows; ``Bm`` and ``Cm`` whole).
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.factory import get_kernel
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.specs import NO_MESH, P
 
 Params = Mapping[str, torch.Tensor]
 
@@ -92,28 +100,56 @@ def _causal_conv(p: Params, x: torch.Tensor,
 
 
 def mamba_mix(cfg, p: Params, xz: torch.Tensor,
-              state: Optional[torch.Tensor] = None):
+              state: Optional[torch.Tensor] = None, ctx=NO_MESH):
     """The selective SSM on the post-conv stream xz (B, S, di): returns (y
     (B, S, di) in xz's dtype, the last state (B, di, ds) float32)."""
     x32 = xz.to(torch.float32)
-    dt_pre = (x32 @ p["x_dt"].to(torch.float32)) \
-        @ p["dt_proj"].to(torch.float32)
-    Bm = x32 @ p["x_B"].to(torch.float32)
-    Cm = x32 @ p["x_C"].to(torch.float32)
-    return get_kernel("ssm_scan")(xz, dt_pre, p["dt_bias"], Bm, Cm,
-                                  p["A_log"], p["D"], state)
+    f32 = {k: p[k].to(torch.float32)
+           for k in ("x_dt", "dt_proj", "x_B", "x_C")}
+    B, S, di = xz.shape
+    rows, ch = _specs(ctx, B, di)
+    # the products over the channels are partial sums over "model":
+    # reduced (and their gradients taken) whole, then dt_pre split again
+    whole = P(rows, None, None)
+    dt_pre = ctx.constrain(ctx.constrain(x32 @ f32["x_dt"], whole)
+                           @ f32["dt_proj"], P(rows, None, ch))
+    Bm = ctx.constrain(x32 @ f32["x_B"], whole)
+    Cm = ctx.constrain(x32 @ f32["x_C"], whole)
+    args = (xz, dt_pre, p["dt_bias"], Bm, Cm, p["A_log"], p["D"], state)
+    return ctx.local(
+        lambda *a: get_kernel("ssm_scan")(*a),
+        (P(rows, None, ch), P(rows, None, ch), P(ch), P(rows, None, None),
+         P(rows, None, None), P(ch, None), P(ch), P(rows, ch, None)),
+        (P(rows, None, ch), P(rows, ch, None)))(*args)
+
+
+def _specs(ctx, B: int, di: int):
+    """(the batch rows' entry, the channels' entry) of a rank's shard."""
+    s = ctx.fit(P(ctx.dp_axes or None, ctx.tp_axis), (B, di))
+    return s[0], s[1]
+
+
+def _conv(ctx, p: Params, xs, conv_state):
+    B, _, di = xs.shape
+    rows, ch = _specs(ctx, B, di)
+    act = P(rows, None, ch)
+    return ctx.local(
+        lambda x, w, b, st: _causal_conv({"conv_w": w, "conv_b": b}, x, st),
+        (act, P(ch, None), P(ch), act), (act, act))(
+        xs, p["conv_w"], p["conv_b"], conv_state)
 
 
 def mamba_block(cfg, p: Params, x: torch.Tensor,
-                state: Optional[Dict[str, torch.Tensor]] = None):
+                state: Optional[Dict[str, torch.Tensor]] = None,
+                ctx=NO_MESH):
     """The whole Mamba block, x (B, S, d) -> (delta (B, S, d), new state or
     None)."""
-    xz = x @ p["in_proj"]
-    xs, z = xz.chunk(2, dim=-1)
-    xs, new_conv = _causal_conv(p, xs, None if state is None
-                                else state["conv"])
+    xs, z = ctx.split_product(x, p["in_proj"], 2)
+    xs = ctx.constrain(xs, P(ctx.dp_axes or None, None, ctx.tp_axis))
+    xs, new_conv = _conv(ctx, p, xs, None if state is None
+                         else state["conv"])
     y, new_ssm = mamba_mix(cfg, p, xs, None if state is None
-                           else state["ssm"])
+                           else state["ssm"], ctx)
     y = y * F.silu(z)
     out = y @ p["out_proj"]
     if state is None:

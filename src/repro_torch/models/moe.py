@@ -17,8 +17,16 @@ the card), in the JAX package's layouts and casts.
     scatter-add over the (expert, slot) table meets them.  No atomics, so
     the card gives one answer every run.
 
-One card, no mesh: the JAX functions' ``ctx`` (expert-parallel sharding
-constraints) is the ``None`` branch here.
+The whole FFN is one ``ctx.local`` region (``sharding.specs.MeshCtx``;
+with the default ``NO_MESH``, every row and expert).  Under a mesh it is
+the JAX package's expert parallelism: each rank routes its batch rows over
+every expert (the router replicated), gathers and multiplies only the
+slots of its own experts (``moe_wg``, ``moe_wu``, ``moe_wo`` over the EP
+axis, ``model``), and combines them into a partial sum over that axis,
+which the residual's constraint reduces (one reduction a layer, in the
+model dtype, as the JAX package keeps the payload).  The decode step's
+form (``moe_ffn_single``) routes the whole decode batch as one row, as
+the JAX package does, so its region takes every row.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.factory import get_kernel
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.specs import NO_MESH, P
 
 
 def init_moe_params(cfg, dtype: torch.dtype,
@@ -126,30 +135,64 @@ def combine(table: torch.Tensor, pair_row: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def moe_ffn(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d)."""
+def _experts(cfg, p, x: torch.Tensor, e0: int = 0) -> torch.Tensor:
+    """The FFN on x (B, S, d) with the experts ``e0 .. e0 + E_l - 1`` that
+    ``p``'s expert weights hold (E_l of them: every expert where e0 = 0
+    and E_l = E): the routing over every expert, the products and the
+    combine over those; a token's other slots add nothing."""
     m = cfg.moe
     B, S, d = x.shape
     E, cap = m.n_experts, capacity(cfg, S)
+    El = p["moe_wg"].shape[0]
     logits = x.to(torch.float32) @ p["router"]
     w, idx = route_topk(logits, m.top_k)                        # (B, S, k)
     slot_token, slot_w, pair_row = _dispatch(idx, w, E, cap)    # (B, E, C)
 
-    # rows of x in (E, B, C) order: xe is (E, B·C, d) with no permute
+    # rows of x in (E, B, C) order: xe is (E_l, B·C, d) with no permute
     rows = (slot_token + torch.arange(B, device=x.device)[:, None, None] * S
-            ).transpose(0, 1).reshape(-1)
-    xe = x.reshape(B * S, d).index_select(0, rows).reshape(E, B * cap, d)
+            ).transpose(0, 1)[e0:e0 + El].reshape(-1)
+    xe = x.reshape(B * S, d).index_select(0, rows).reshape(El, B * cap, d)
     gmm = get_kernel("gmm")
     h = F.silu(gmm(xe, p["moe_wg"])) * gmm(xe, p["moe_wu"])
-    ye = gmm(h, p["moe_wo"])                                    # (E, B·C, d)
-    ye = ye * slot_w.transpose(0, 1).reshape(E, B * cap, 1).to(ye.dtype)
+    ye = gmm(h, p["moe_wo"])                                    # (E_l, B·C, d)
+    ye = ye * slot_w.transpose(0, 1)[e0:e0 + El].reshape(
+        El, B * cap, 1).to(ye.dtype)
+    if El != E:         # the other experts' slots: the zero row, last
+        n = El * B * cap
+        pair_row = pair_row - e0 * B * cap
+        pair_row = torch.where((pair_row >= 0) & (pair_row < n), pair_row, n)
     # the weighted slot rows, and a zero row for the dropped pairs
     return combine(torch.cat([ye.reshape(-1, d), ye.new_zeros(1, d)]),
                    pair_row)
 
 
-def moe_ffn_single(cfg, p, x: torch.Tensor) -> torch.Tensor:
+def _expert_shards(cfg, ctx, p, x: torch.Tensor, rows_spec: P):
+    """``_experts`` over each rank's rows (``rows_spec``, (B, S, d)) and
+    experts (over the EP axis where E divides evenly): partial sums over
+    that axis."""
+    ep = ctx.fit(P(ctx.ep_axis), (cfg.moe.n_experts,))[0]
+    w = P(ep, None, None)
+
+    def fn(x, router, wg, wu, wo):
+        e0 = ctx.rank(ep) * wg.shape[0] if ep is not None else 0
+        return _experts(cfg, {"router": router, "moe_wg": wg, "moe_wu": wu,
+                              "moe_wo": wo}, x, e0)
+
+    return ctx.local(fn, (rows_spec, P(None, None), w, w, w), rows_spec,
+                     out_partial=(ep,) if ep is not None else ())(
+        x, p["router"], p["moe_wg"], p["moe_wu"], p["moe_wo"])
+
+
+def moe_ffn(cfg, p, x: torch.Tensor, ctx=NO_MESH) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d)."""
+    B, S, _ = x.shape
+    rows = ctx.fit(P(ctx.dp_axes or None, None, None), (B, S, 1))
+    return ctx.act_btd(_expert_shards(cfg, ctx, p, x, rows))
+
+
+def moe_ffn_single(cfg, p, x: torch.Tensor, ctx=NO_MESH) -> torch.Tensor:
     """Decode-time MoE for (B, 1, d): the batch is the token row, (1, B,
     d), so the weights are read once for the whole decode batch."""
     B = x.shape[0]
-    return moe_ffn(cfg, p, x.reshape(1, B, -1)).reshape(B, 1, -1)
+    y = _expert_shards(cfg, ctx, p, x.reshape(1, B, -1), P(None, None, None))
+    return y.reshape(B, 1, -1)

@@ -46,6 +46,19 @@ JAX leaf for adafactor.
 
 The encoder-decoder (whisper, audio inputs) is ``models/encdec.py``'s
 ``EncDecLM``, which ``models.model.Model`` builds for it.
+
+``init_params_shape`` builds the module on the ``meta`` device, with no
+draw: the weights' shapes and dtypes for the dry run.  ``forward``,
+``loss_fn``, ``prefill`` and ``decode_step`` take a ``ctx`` (a
+``sharding.specs.MeshCtx``; the default ``NO_MESH`` is one device, where
+every constraint is a no-op and every ``ctx.local`` region calls its
+function on the whole tensors).  Under a mesh the weights, batch and
+state are DTensors, the residual stream is constrained where the JAX
+package constrains it (``act_btd`` after the embedding, each mixer and each
+FFN; the logits over the vocab), and the embedding, the cross entropy
+and the mixers' kernels run in ``ctx.local`` regions (vocab-parallel
+where the table and logits split over ``model``: each rank's rows, the
+partial sums reduced over ``model``).
 """
 from __future__ import annotations
 
@@ -68,6 +81,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (apply_norm, dense_init, positions_for,
                                        swiglu)
+from repro_torch.sharding.specs import NO_MESH, P
 
 State = Dict[str, Dict[str, torch.Tensor]]
 
@@ -196,6 +210,13 @@ class TransformerLM(nn.Module):
 def init_params(cfg, generator: torch.Generator, dtype=None,
                 device=None) -> TransformerLM:
     return TransformerLM(cfg, dtype, device, generator)
+
+
+def init_params_shape(cfg, dtype=None) -> TransformerLM:
+    """The module on the ``meta`` device: every weight's shape and dtype,
+    nothing allocated and nothing drawn."""
+    with torch.device("meta"):
+        return TransformerLM(cfg, dtype, "meta")
 
 
 # ---------------------------------------------------------------------------
@@ -345,8 +366,32 @@ def params_view(cfg, flat: Dict[str, torch.Tensor]):
 # ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
-def _apply_ffn(cfg, bp: Block, x: torch.Tensor,
-               single: bool = False) -> torch.Tensor:
+def gathered(ctx, bp):
+    """A layer's weights (a ``params_view`` block) whole over the FSDP
+    axis, gathered where the layer runs (inside its checkpoint, so a
+    recomputation gathers again); the block itself with no FSDP axis (no
+    mesh)."""
+    if ctx.fsdp_axis is None:
+        return bp
+
+    def one(v):
+        if isinstance(v, dict):
+            return {k: one(t) for k, t in v.items()}
+        return ctx.unshard_fsdp(v) if isinstance(v, torch.Tensor) else v
+    return types.SimpleNamespace(**{k: one(v) for k, v in vars(bp).items()})
+
+
+def _delta(ctx, x):
+    """A mixer's or FFN's output (partial over ``model``) in the residual
+    stream's layout.  Where that is seq-sharded (SP), by way of the whole
+    sequence: an all-reduce, then each rank's rows, so that the gradient
+    reaches the output projection whole (an all-gather) and not as a
+    strided seq shard, which DTensor's matmul rules do not take."""
+    return ctx.act_btd(ctx.full_seq(x))
+
+
+def _apply_ffn(cfg, bp: Block, x: torch.Tensor, single: bool = False,
+               ctx=NO_MESH) -> torch.Tensor:
     ffn = bp.spec[1]
     if ffn == "none":
         return x
@@ -355,29 +400,40 @@ def _apply_ffn(cfg, bp: Block, x: torch.Tensor,
         p = {"router": bp.router, "moe_wg": bp.moe_wg, "moe_wu": bp.moe_wu,
              "moe_wo": bp.moe_wo}
         fn = moe_mod.moe_ffn_single if single else moe_mod.moe_ffn
-        return x + fn(cfg, p, h)
-    return x + swiglu(h, bp.wi_gate, bp.wi_up, bp.w_down)
+        delta = fn(cfg, p, h, ctx)
+    else:
+        delta = swiglu(ctx.full_seq(h), bp.wi_gate, bp.wi_up, bp.w_down, ctx)
+    # the TP-partial output in the SP layout before the residual add: a
+    # reduce-scatter, not an all-reduce and a slice
+    return ctx.act_btd(x + _delta(ctx, delta))
 
 
 def apply_block_train(cfg, bp: Block, x: torch.Tensor,
-                      positions: torch.Tensor, return_cache: bool = False):
+                      positions: torch.Tensor, return_cache: bool = False,
+                      ctx=NO_MESH):
     """One layer over the whole sequence; with ``return_cache`` also the
     attention's K/V (``None`` for a recurrent mixer)."""
+    bp = gathered(ctx, bp)
     mixer = bp.spec[0]
     cache = None
     if mixer == ATTN:
         h = apply_norm(cfg, x, bp.ln)
-        delta, (k, v) = attn.attention_block(cfg, bp.attn, h, positions,
-                                             return_cache=True)
-        cache = {"k": k, "v": v}
+        delta = attn.attention_block(cfg, bp.attn, h, positions,
+                                     return_cache=return_cache, ctx=ctx)
+        if return_cache:
+            delta, (k, v) = delta
+            cache = {"k": k, "v": v}
+        delta = _delta(ctx, delta)
     elif mixer == MAMBA:
         delta, _ = mamba_mod.mamba_block(cfg, bp.mamba,
-                                         apply_norm(cfg, x, bp.ln))
+                                         apply_norm(cfg, x, bp.ln), None, ctx)
     elif mixer == MLSTM:
-        delta, _ = xlstm_mod.mlstm_block(cfg, bp.mlstm, x)
+        delta, _ = xlstm_mod.mlstm_block(cfg, bp.mlstm, x, None, ctx)
     else:
-        delta, _ = xlstm_mod.slstm_block(cfg, bp.slstm, x)
-    x = _apply_ffn(cfg, bp, x + delta)
+        delta, _ = xlstm_mod.slstm_block(cfg, bp.slstm, x, None, ctx)
+    if mixer != ATTN:
+        delta = _delta(ctx, delta)
+    x = _apply_ffn(cfg, bp, ctx.act_btd(x + delta), ctx=ctx)
     if return_cache:
         return x, cache
     return x
@@ -385,42 +441,79 @@ def apply_block_train(cfg, bp: Block, x: torch.Tensor,
 
 def apply_block_decode(cfg, bp: Block, x: torch.Tensor,
                        state: Dict[str, torch.Tensor],
-                       pos: int) -> torch.Tensor:
+                       pos: int, ctx=NO_MESH) -> torch.Tensor:
     """One layer on one token; ``state`` is the layer's slice of the decode
     state (views), written in place."""
+    bp = gathered(ctx, bp)
     mixer = bp.spec[0]
     if mixer == ATTN:
         h = apply_norm(cfg, x, bp.ln)
         delta = attn.decode_attention_block(cfg, bp.attn, h, state["k"],
-                                            state["v"], pos)
+                                            state["v"], pos, ctx)
     else:
         if mixer == MAMBA:
             delta, new = mamba_mod.mamba_block(
-                cfg, bp.mamba, apply_norm(cfg, x, bp.ln), state)
+                cfg, bp.mamba, apply_norm(cfg, x, bp.ln), state, ctx)
         else:
             block = xlstm_mod.mlstm_block if mixer == MLSTM \
                 else xlstm_mod.slstm_block
-            delta, new = block(cfg, getattr(bp, mixer), x, state)
+            delta, new = block(cfg, getattr(bp, mixer), x, state, ctx)
         for name, t in new.items():
             state[name].copy_(t)
-    return _apply_ffn(cfg, bp, x + delta, single=True)
+    return _apply_ffn(cfg, bp, x + delta, single=True, ctx=ctx)
 
 
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
-def embed_inputs(cfg, params: TransformerLM, batch):
+def embed(ctx, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, table)``; under a mesh vocab-parallel where
+    the table's rows split over ``model``: each rank looks up the tokens
+    in its rows (zeros elsewhere), a partial sum over ``model``."""
+    B, S = tokens.shape
+    rows = ctx.fit(P(ctx.dp_axes or None, None), (B, S))[0]
+    vocab = ctx.fit(P(ctx.tp_axis), (table.shape[0],))[0]
+
+    def fn(tab, tok):
+        if vocab is None:
+            return F.embedding(tok, tab)
+        n = tab.shape[0]
+        local = tok - ctx.rank(vocab) * n
+        hit = (local >= 0) & (local < n)
+        out = F.embedding(local.clamp(0, n - 1), tab)
+        return out * hit[..., None].to(out.dtype)
+
+    return ctx.local(fn, (P(vocab, None), P(rows, None)),
+                     P(rows, None, None),
+                     out_partial=(vocab,) if vocab is not None else ())(
+        table, tokens)
+
+
+def _positions(cfg, ctx, B: int, S: int, device):
+    """``positions_for`` (B, S) (or (3, B, S)); under a mesh a DTensor
+    with the batch over the DP axes, each rank's rows made on the rank."""
+    rows = ctx.fit(P(ctx.dp_axes or None), (B,))[0]
+    spec = P(None, rows, None) if cfg.rope_variant == "mrope" \
+        else P(rows, None)
+    shape = (3, B, S) if cfg.rope_variant == "mrope" else (B, S)
+    return ctx.distribute(lambda local: positions_for(
+        cfg, local[-2], local[-1], device=device).contiguous(), shape, spec)
+
+
+def embed_inputs(cfg, params: TransformerLM, batch, ctx=NO_MESH):
     """(x (B, S, d), positions): the embeddings of ``batch["tokens"]`` and
     their positions 0 .. S - 1; for an ``embeds`` config
     ``batch["embeds"]`` (in the model's dtype) and ``batch["positions"]``
     as they come."""
     if cfg.input_mode == "embeds":
-        return batch["embeds"].to(params.head_w.dtype), batch["positions"]
-    tokens = batch["tokens"]
-    x = F.embedding(tokens, params.embed)
-    positions = positions_for(cfg, tokens.shape[0], tokens.shape[1],
-                              device=x.device)
-    return x, positions
+        x, positions = batch["embeds"].to(params.head_w.dtype), \
+            batch["positions"]
+    else:
+        tokens = batch["tokens"]
+        x = embed(ctx, params.embed, tokens)
+        positions = _positions(cfg, ctx, tokens.shape[0], tokens.shape[1],
+                               x.device)
+    return ctx.act_btd(x), positions
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -446,31 +539,78 @@ def _maybe_remat(fn, policy: str):
     return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
-def forward(cfg, params: TransformerLM, batch, remat=None) -> torch.Tensor:
+def forward(cfg, params: TransformerLM, batch, remat=None,
+            ctx=NO_MESH) -> torch.Tensor:
     """Forward over the whole sequence -> logits (B, S, V); each layer
     checkpointed by ``remat`` (default ``cfg.sharding.remat``) where
     autograd records."""
     policy = remat if remat is not None else cfg.sharding.remat
-    x, positions = embed_inputs(cfg, params, batch)
+    x, positions = embed_inputs(cfg, params, batch, ctx)
     for bp in params.blocks:
-        x = _maybe_remat(functools.partial(apply_block_train, cfg, bp),
-                         policy)(x, positions)
+        x = _maybe_remat(functools.partial(apply_block_train, cfg, bp,
+                                           ctx=ctx), policy)(x, positions)
     x = apply_norm(cfg, x, params.final_norm)
-    return x @ params.head_w
+    return ctx.logits(ctx.full_seq(x) @ ctx.unshard_fsdp(params.head_w))
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross entropy: float32 logsumexp of the logits
-    minus the label's logit."""
+def _token_losses(logits: torch.Tensor, labels: torch.Tensor):
+    """float32 logsumexp of each position's logits minus its label's."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
-    return torch.mean(lse - ll)
+    return lse - ll
 
 
-def loss_fn(cfg, params: TransformerLM, batch, remat=None) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ctx=NO_MESH) -> torch.Tensor:
+    """Mean next-token cross entropy: float32 logsumexp of the logits
+    minus the label's logit.  Under a mesh each rank takes its rows;
+    where the vocab splits over ``model`` the logsumexp and the label's
+    logit are reduced over it (the maximum, then the sums)."""
+    B, S, V = logits.shape
+    spec = ctx.fit(P(ctx.dp_axes or None, None, ctx.tp_axis), (B, S, V))
+    rows, vocab = spec[0], spec[2]
+
+    def fn(lg, lab):
+        if vocab is None:
+            return _token_losses(lg, lab)
+        from torch.distributed import _functional_collectives as funcol
+        group = ctx.group(vocab)
+        lf = lg.to(torch.float32)
+        m = funcol.all_reduce(lf.detach().amax(-1), "max", group)
+        n = lf.shape[-1]
+        local = lab.to(torch.int64) - ctx.rank(vocab) * n
+        hit = (local >= 0) & (local < n)
+        ll = torch.gather(lf, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        both = torch.stack([torch.exp(lf - m[..., None]).sum(-1),
+                            torch.where(hit, ll, 0.0)])
+        both = _SumOver.apply(both, group)
+        return torch.log(both[0]) + m - both[1]
+
+    loss = torch.mean(ctx.local(fn, (spec, P(rows, None)), P(rows, None))(
+        logits, labels))
+    return ctx.constrain(loss, P())
+
+
+class _SumOver(torch.autograd.Function):
+    """A sum over a process group's ranks, whose output every rank holds;
+    its gradient reaches each rank's summand as it is."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        from torch.distributed import _functional_collectives as funcol
+        return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def loss_fn(cfg, params: TransformerLM, batch, remat=None,
+            ctx=NO_MESH) -> torch.Tensor:
     """``cross_entropy`` of the forward's logits and ``batch["labels"]``."""
-    return cross_entropy(forward(cfg, params, batch, remat), batch["labels"])
+    return cross_entropy(forward(cfg, params, batch, remat, ctx),
+                         batch["labels"], ctx)
 
 
 def _stacked(state: Dict[str, torch.Tensor], n: int):
@@ -501,7 +641,14 @@ def init_decode_state(cfg, batch: int, max_len: int, dtype=None,
             for i, (mixer, _) in enumerate(block_specs(cfg))}
 
 
-def decode_step(cfg, params: TransformerLM, state: State, batch):
+def decode_logits(ctx, logits: torch.Tensor) -> torch.Tensor:
+    """(B, V) decode logits: batch over DP, vocab over ``model`` under a
+    mesh (the JAX package's constraint)."""
+    return ctx.constrain(logits, P(ctx.dp_axes or None, ctx.tp_axis))
+
+
+def decode_step(cfg, params: TransformerLM, state: State, batch,
+                ctx=NO_MESH):
     """One-token decode.  batch: ``{"tokens": (B, 1), "pos": int}`` (the
     write index), or ``{"embeds": (B, 1, d), "pos": int}`` for an
     ``embeds`` config.  Returns (logits (B, V), state), the state written
@@ -511,31 +658,39 @@ def decode_step(cfg, params: TransformerLM, state: State, batch):
     if cfg.input_mode == "embeds":
         x = batch["embeds"].to(params.head_w.dtype)
     else:
-        x = F.embedding(batch["tokens"], params.embed)
+        x = embed(ctx, params.embed, batch["tokens"])
     for layer, j, i in _layer_items(cfg):
         layer_state = {k: v[j] for k, v in state[f"b{i}"].items()}
         x = apply_block_decode(cfg, params.blocks[layer], x, layer_state,
-                               pos)
+                               pos, ctx)
     x = apply_norm(cfg, x, params.final_norm)
-    return (x @ params.head_w)[:, 0], state
+    return decode_logits(ctx, (x @ ctx.unshard_fsdp(params.head_w))[:, 0]), \
+        state
 
 
-def prefill(cfg, params: TransformerLM, batch):
+def prefill(cfg, params: TransformerLM, batch, ctx=NO_MESH):
     """Forward over the prompt, keeping the attention blocks' K/V: returns
     (the last position's logits (B, V), ``{"b{i}": {"k", "v"}}`` for the
     attention positions of the pattern, in the decode state's layout with
-    S_max = S; empty for a recurrent-only stack)."""
-    x, positions = embed_inputs(cfg, params, batch)
+    S_max = S; empty for a recurrent-only stack).  Under a mesh the caches
+    lie as the decode state does (``ctx.kv_cache_spec``)."""
+    x, positions = embed_inputs(cfg, params, batch, ctx)
     B, S = x.shape[:2]
-    caches = {f"b{i}": attn.init_kv_cache(cfg, B, S, cfg.n_periods, x.dtype,
-                                          x.device)
-              for i, (mixer, _) in enumerate(block_specs(cfg))
-              if mixer == ATTN}
+    shape = (cfg.n_periods, B, S, cfg.n_kv_heads, cfg.head_dim)
+    spec = P(None, *ctx.kv_cache_spec())
+
+    def cache():
+        return {k: ctx.distribute(
+            lambda local: torch.zeros(local, dtype=x.dtype, device=x.device),
+            shape, spec) for k in ("k", "v")}
+    caches = {f"b{i}": cache() for i, (mixer, _) in
+              enumerate(block_specs(cfg)) if mixer == ATTN}
     for layer, j, i in _layer_items(cfg):
         x, kv = apply_block_train(cfg, params.blocks[layer], x, positions,
-                                  return_cache=True)
+                                  return_cache=True, ctx=ctx)
         if kv is not None:
-            caches[f"b{i}"]["k"][j] = kv["k"]
-            caches[f"b{i}"]["v"][j] = kv["v"]
-    x = apply_norm(cfg, x[:, -1:], params.final_norm)
-    return (x @ params.head_w)[:, 0], caches
+            for name in ("k", "v"):
+                caches[f"b{i}"][name][j] = ctx.constrain(
+                    kv[name], ctx.kv_cache_spec())
+    x = apply_norm(cfg, ctx.full_seq(x)[:, -1:], params.final_norm)
+    return (x @ ctx.unshard_fsdp(params.head_w))[:, 0], caches

@@ -19,6 +19,13 @@ casts.
 Each block returns a residual delta (the caller adds x) and, given a
 state, the new state; with ``state=None`` (forward, prefill) it starts
 from the initial state and returns ``None``.
+
+The mLSTM's mix and the ``slstm_scan`` kernel each run in a
+``ctx.local`` region (``sharding.specs.MeshCtx``; with the default
+``NO_MESH``, on the whole tensors).  Under a mesh the projections and
+norms are DTensor ops, and each region takes the rank's batch rows and
+heads (the heads over ``model`` where they divide evenly, else every
+head on every rank of it).
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.factory import get_kernel
 from repro_torch.models.layers import dense_init, layer_norm
+from repro_torch.sharding.specs import NO_MESH, P
 
 NEG_INIT = -1e30
 Params = Mapping[str, torch.Tensor]
@@ -153,20 +161,58 @@ def _mlstm_step(q, k, v, ig, fg, state):
             {"C": C, "n": n, "m": m_new})
 
 
+def _heads(ctx, B: int, nh: int):
+    """(the batch rows' entry, the heads' entry) of a rank's shard."""
+    s = ctx.fit(P(ctx.dp_axes or None, ctx.tp_axis), (B, nh))
+    return s[0], s[1]
+
+
+_MIX = ("m_wq", "m_wk", "m_wv", "w_ig", "w_fg", "b_ig", "b_fg")
+
+
+def _mlstm_shards(cfg, ctx, p: Params, h, u, state):
+    """``mlstm_mix`` on each rank's rows and heads, from the initial state
+    where ``state`` is None."""
+    B, _, di = u.shape
+    nh = cfg.n_heads
+    rows, hd = _heads(ctx, B, nh)
+    w = P(hd, None, None)
+    st = {"C": P(rows, hd, None, None), "n": P(rows, hd, None),
+          "m": P(rows, hd)}
+
+    def fn(h, u, wq, wk, wv, wig, wfg, big, bfg, C, n, m):
+        pl = dict(zip(_MIX, (wq, wk, wv, wig, wfg, big, bfg)))
+        if C is None:
+            full = init_mlstm_state(cfg, h.shape[0], h.device)
+            k = wq.shape[0]
+            C, n, m = (full[name][:, :k] for name in ("C", "n", "m"))
+        return mlstm_mix(pl, h, u, {"C": C, "n": n, "m": m})
+
+    ins = (P(rows, None, None), P(rows, None, hd), w, w, w, P(None, hd),
+           P(None, hd), P(hd), P(hd), st["C"], st["n"], st["m"])
+    s = state or {}
+    return ctx.local(fn, ins, (P(rows, None, hd), st))(
+        h, u, *(p[k] for k in _MIX), s.get("C"), s.get("n"), s.get("m"))
+
+
 def mlstm_block(cfg, p: Params, x: torch.Tensor,
-                state: Optional[Dict[str, torch.Tensor]] = None):
+                state: Optional[Dict[str, torch.Tensor]] = None,
+                ctx=NO_MESH):
     """The mLSTM residual block: x (B, S, d) -> (delta, new state or
     None)."""
     B, S, d = x.shape
     di = int(d * cfg.mlstm_proj_factor)
     nh = cfg.n_heads
     h = layer_norm(x, p["ln"])
-    u, z = (h @ p["up_proj"]).chunk(2, dim=-1)
-    st = state if state is not None else init_mlstm_state(cfg, B, x.device)
-    y, new_state = mlstm_mix(p, h, u, st)
+    u, z = ctx.split_product(h, p["up_proj"], 2)
+    y, new_state = _mlstm_shards(cfg, ctx, p, h, u, state)
     # per-head group norm, then the output gate
     y = layer_norm(y.reshape(B, S, nh, di // nh),
                    p["gn"].reshape(nh, di // nh)).reshape(B, S, di)
+    if nh % ctx.size(ctx.tp_axis):
+        # the gradient reaches the heads' reshape whole (a shard would cut
+        # a head)
+        y = ctx.constrain(y, P(_heads(ctx, B, nh)[0], None, None))
     og = torch.sigmoid(h @ p["w_og"])
     y = y * og * F.silu(z)
     return y @ p["down_proj"], (new_state if state is not None else None)
@@ -202,18 +248,54 @@ def init_slstm_state(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
             "mm": torch.full((batch, d), NEG_INIT, **f32)}
 
 
+def _slstm_shards(cfg, ctx, wx, r_gates, state):
+    """The ``slstm_scan`` kernel on each rank's rows and heads (over
+    ``model`` where nh divides evenly): the rank's columns of each of
+    wx's four gates and its heads of ``r_gates``."""
+    B, _, d4 = wx.shape
+    nh = cfg.n_heads
+    rows, hd = _heads(ctx, B, nh)
+    d = d4 // 4
+
+    def fn(wx, r, h, c, n, m):
+        if hd is not None:
+            k = ctx.rank(hd)
+            nl = r.shape[0] // ctx.size(hd)
+            r = r[k * nl:(k + 1) * nl]
+            cols = nl * r.shape[1]
+            wx = wx.reshape(*wx.shape[:2], 4, d)[..., k * cols:(k + 1) * cols]
+            wx = wx.reshape(*wx.shape[:2], 4 * cols)
+        if h is None:
+            st = init_slstm_state(cfg, wx.shape[0], wx.device)
+            cols = wx.shape[-1] // 4
+            h, c, n, m = (st[k][:, :cols] for k in ("h", "c", "nn", "mm"))
+        y, carry = get_kernel("slstm_scan")(wx, r, h, c, n, m)
+        return y, tuple(carry)
+
+    sv = P(rows, hd)
+    s = state or {}
+    return ctx.local(
+        fn, (P(rows, None, None), P(None, None, None), sv, sv, sv, sv),
+        (P(rows, None, hd), (sv, sv, sv, sv)))(
+        wx, r_gates, s.get("h"), s.get("c"), s.get("nn"), s.get("mm"))
+
+
 def slstm_block(cfg, p: Params, x: torch.Tensor,
-                state: Optional[Dict[str, torch.Tensor]] = None):
+                state: Optional[Dict[str, torch.Tensor]] = None,
+                ctx=NO_MESH):
     """The sLSTM residual block: x (B, S, d) -> (delta, new state or
     None); delta = y + ffn(ln2(x + y))."""
     B = x.shape[0]
+    rows = P(_heads(ctx, B, cfg.n_heads)[0], None, None)
     h = layer_norm(x, p["ln"])
     wx = h @ p["w_gates"] + p["b_gates"]
-    st = state if state is not None else init_slstm_state(cfg, B, x.device)
-    y, (hN, cN, nN, mN) = get_kernel("slstm_scan")(
-        wx, p["r_gates"], st["h"], st["c"], st["nn"], st["mm"])
-    y = y.to(x.dtype)
+    y, (hN, cN, nN, mN) = _slstm_shards(cfg, ctx, wx, p["r_gates"], state)
+    # every head's output on each rank of "model"
+    y = ctx.constrain(y.to(x.dtype), rows)
     hf = layer_norm(x + y, p["ln2"])
-    delta = y + F.gelu(hf @ p["ff_up"], approximate="tanh") @ p["ff_down"]
+    # the FFN's partial sums reduced
+    ff = ctx.constrain(
+        F.gelu(hf @ p["ff_up"], approximate="tanh") @ p["ff_down"], rows)
+    delta = y + ff
     new_state = {"h": hN, "c": cN, "nn": nN, "mm": mN}
     return delta, (new_state if state is not None else None)

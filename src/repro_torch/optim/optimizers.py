@@ -142,8 +142,21 @@ def _members(groups, params) -> Dict[str, list]:
     return out
 
 
-def _gather(tree, stacked: bool, keys: list) -> torch.Tensor:
-    return torch.stack([tree[k] for k in keys]) if stacked else tree[keys[0]]
+def _like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t`` laid out as ``ref`` where both are DTensors (a gradient as its
+    weight lies, a new second moment as the old): a stacked leaf keeps
+    its weights' layout, and a partial statistic is reduced while it is
+    small, before it meets the leaf."""
+    placements = getattr(ref, "placements", None)
+    if placements is None or tuple(t.placements) == tuple(placements):
+        return t
+    return t.redistribute(ref.device_mesh, placements)
+
+
+def _gather(tree, stacked: bool, keys: list, like=None) -> torch.Tensor:
+    ts = [tree[k] if like is None else _like(tree[k], like[k])
+          for k in keys]
+    return torch.stack(ts) if stacked else ts[0]
 
 
 def _adafactor(spec: OptimizerSpec, groups=None) -> Optimizer:
@@ -173,20 +186,23 @@ def _adafactor(spec: OptimizerSpec, groups=None) -> Optimizer:
         new_p, new_v = {}, {}
         for leaf, (stacked, keys) in _members(groups, params).items():
             p = _gather(params, stacked, keys)
-            g32 = _gather(grads, stacked, keys).to(torch.float32)
+            g32 = _gather(grads, stacked, keys, params).to(torch.float32)
             g2 = torch.square(g32) + 1e-30
             v = state["v"][leaf]
             if "vr" in v:
-                vr = decay * v["vr"] + (1 - decay) * g2.mean(-1)
-                vc = decay * v["vc"] + (1 - decay) * g2.mean(-2)
+                vr = _like(decay * v["vr"] + (1 - decay) * g2.mean(-1),
+                           v["vr"])
+                vc = _like(decay * v["vc"] + (1 - decay) * g2.mean(-2),
+                           v["vc"])
                 denom = (vr[..., None] * vc[..., None, :]
                          / torch.clamp(vr.mean(-1, keepdim=True)[..., None],
                                        min=1e-30))
                 new_v[leaf] = {"vr": vr, "vc": vc}
             else:
-                new_v[leaf] = {"v": decay * v["v"] + (1 - decay) * g2}
+                new_v[leaf] = {"v": _like(decay * v["v"] + (1 - decay) * g2,
+                                          v["v"])}
                 denom = new_v[leaf]["v"]
-            delta = g32 * torch.rsqrt(denom + 1e-30)
+            delta = _like(g32 * torch.rsqrt(denom + 1e-30), p)
             # update clipping (adafactor rms-1 rule), over the whole leaf
             rms = torch.sqrt(torch.mean(torch.square(delta)) + 1e-30)
             delta = delta / torch.clamp(rms, min=1.0)

@@ -1754,3 +1754,50 @@ def test_whisper_on_card_matches_cpu(cuda, remat):
     (chip_smoke.whisper_agree)."""
     chip_smoke.whisper_agree(cuda, remat)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "moonshot-v1-16b-a3b"])
+def test_sharded_steps_on_a_one_rank_mesh_equal_the_unsharded(cuda, arch):
+    """chip_smoke phase 23 (a) at a reduced size: ``build_cell``'s train
+    step (3 steps) and yi-6b's prefill and a decode step on a one-rank
+    nccl mesh (1 x 1) against the unsharded steps on the same weights,
+    bit-equal (the local ops are the unsharded ones), the kernels launched
+    from the local regions (flash_attention forward and backward; gmm for
+    the MoE)."""
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.kernels import gmm as gm
+    cfg = reduced_config(get_config(arch))
+    gm.gmm.launches = 0
+    with chip_smoke.one_rank_group("nccl"):
+        train = chip_smoke.mesh_train_agree(cuda, cfg, 2, 64, 3)
+        serve = chip_smoke.mesh_serve_agree(
+            cuda, reduced_config(get_config("yi-6b")), 2, 64, 72)
+    assert train["equal"] and serve["equal"], (train["max_abs_err"],
+                                               serve["max_abs_err"])
+    assert train["launches"]["flash_attention"] > 0
+    assert train["launches"]["flash_attention_bwd"] > 0
+    assert serve["prefill_launches"] == 2
+    if cfg.moe is not None:
+        assert gm.gmm.launches > 0
+    assert train["peak_bytes"] > 0
+
+
+@pytest.mark.gpu
+def test_mesh_seconds_times_each_step_both_ways(cuda):
+    """chip_smoke phase 23 (a)'s timing at a reduced size: the train step,
+    the prefill and the decode step each timed sharded and unsharded, the
+    median of the asked count of positive samples."""
+    from repro_torch.configs.registry import get_config, reduced_config
+    timed = {"train": 2, "prefill": 2, "decode": 3}
+    with chip_smoke.one_rank_group("nccl"):
+        secs = chip_smoke.mesh_seconds(
+            cuda, reduced_config(get_config("qwen2-0.5b")), 2, 64,
+            reduced_config(get_config("yi-6b")), 2, 64, 72, timed=timed)
+    assert set(secs) == {f"{kind}_{way}" for kind in timed
+                         for way in ("sharded", "unsharded")}
+    for name, rec in secs.items():
+        n = timed[name.split("_")[0]]
+        assert len(rec["samples_s"]) == n and min(rec["samples_s"]) > 0
+        assert min(rec["samples_s"]) <= rec["median_s"] \
+            <= max(rec["samples_s"])

@@ -284,8 +284,8 @@ for name in ("adamw", "adafactor", "sgdm"):
              next(token_batches(cfg.vocab_size, 2, 8)).items()}
     p, s, m = step(params, opt.init(params), batch)
     assert np.isfinite(float(m["loss"]))
-lines = train.main(["--reduced", "--device", "cpu", "--rounds", "2",
-                    "--ckpt-dir", tempfile.mkdtemp()])
+lines = train.main(["--reduced", "--device", "cpu", "--host-mesh",
+                    "--rounds", "2", "--ckpt-dir", tempfile.mkdtemp()])
 assert len(lines) == 2
 assert spec_for_config(cfg).name == "adamw"
 bad = sorted(m for m in sys.modules

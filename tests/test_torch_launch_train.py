@@ -23,11 +23,13 @@ def test_reduced_rounds_run_and_learn():
 
 
 def test_resume_equals_an_uninterrupted_run(tmp_path):
-    full = train.main(["--reduced", "--device", "cpu", "--rounds", "4"])
-    first = train.main(["--reduced", "--device", "cpu", "--rounds", "2",
-                        "--ckpt-dir", str(tmp_path)])
-    rest = train.main(["--reduced", "--device", "cpu", "--rounds", "4",
-                       "--ckpt-dir", str(tmp_path), "--resume"])
+    # the one-card mesh: the production mesh needs a process group of its
+    # size (test_multi_pod_and_wide_meshes_are_refused)
+    one = ["--reduced", "--device", "cpu", "--host-mesh"]
+    full = train.main(one + ["--rounds", "4"])
+    first = train.main(one + ["--rounds", "2", "--ckpt-dir", str(tmp_path)])
+    rest = train.main(one + ["--rounds", "4", "--ckpt-dir", str(tmp_path),
+                             "--resume"])
     key = [(ln["round"], ln["loss"], ln["digest"], ln["mean_rep"])
            for ln in (first + rest)]
     assert key == [(ln["round"], ln["loss"], ln["digest"], ln["mean_rep"])
@@ -35,12 +37,51 @@ def test_resume_equals_an_uninterrupted_run(tmp_path):
 
 
 def test_multi_pod_and_wide_meshes_are_refused():
-    with pytest.raises(NotImplementedError, match="10\\(f\\)"):
+    # without a process group of their size the production and wide
+    # meshes raise, naming the world size they found; under a faked group
+    # of 256 or 512 ranks they build (the dry run's meshes)
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import fake_world
+    with pytest.raises(RuntimeError, match="found no process group"):
         train.main(["--reduced", "--device", "cpu", "--multi-pod"])
-    with pytest.raises(NotImplementedError, match="10\\(f\\)"):
+    with pytest.raises(RuntimeError, match="found no process group"):
+        train.main(["--reduced", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="found no process group"):
         mesh.make_train_mesh(data=2, device="cpu")
-    m = mesh.make_production_mesh(device="cpu")
+    m = mesh.make_host_mesh(device="cpu")
     assert m.shape == {"data": 1, "model": 1} and m.size == 1
+    try:
+        fake_world(256)
+        with pytest.raises(RuntimeError, match="world size 256"):
+            mesh.make_production_mesh(multi_pod=True, device="cpu")
+        with pytest.raises(RuntimeError, match="world size 256"):
+            mesh.make_train_mesh(data=2, device="cpu")
+        assert mesh.mesh_shape(mesh.make_production_mesh(device="cpu")) \
+            == {"data": 16, "model": 16}
+        fake_world(512)
+        m = mesh.make_production_mesh(multi_pod=True, device="cpu")
+        assert mesh.mesh_shape(m) == {"pod": 2, "data": 16, "model": 16}
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("ranks", [256, 512])
+def test_launcher_refuses_the_production_mesh_it_cannot_shard(ranks):
+    # inside a group of the production mesh's size the launcher refuses,
+    # naming the sharded round it does not drive, before it builds a model
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import fake_world
+    argv = ["--reduced", "--device", "cpu"] + (
+        ["--multi-pod"] if ranks == 512 else [])
+    try:
+        fake_world(ranks)
+        with pytest.raises(NotImplementedError,
+                           match="build_fl_round_cell"):
+            train.main(argv)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_synthetic_data_match_jax():
