@@ -4910,30 +4910,43 @@ def fl_round_main(dev, smi: str) -> None:
         f"{json.dumps(report)}")
 
 
-def launcher_main(smi: str) -> None:
-    """(d) ``python -m repro_torch.launch.train --arch qwen2-0.5b
-    --rounds 2 --seq-len 1024 --host-mesh`` as a process on the card (one
-    card's 1 x 1 mesh), its round lines;
+# the launcher's main as a process, its returned lines printed last as
+# JSON (the printed lines round the loss to 4 places)
+LAUNCH_MAIN = ("import json, sys; from repro_torch.launch.train import main; "
+               "print(json.dumps(main(sys.argv[1:])))")
+
+
+def launcher_main(smi: str) -> list:
+    """(d) the launcher's ``main`` (``python -m repro_torch.launch.train``
+    runs it) with ``--arch qwen2-0.5b --rounds 2 --seq-len 1024
+    --host-mesh`` as a process on the card (one card's 1 x 1 mesh, with
+    no process group: the one-card round), its round lines;
     then the reduced launcher in this process: --rounds 2 with a
     checkpoint directory, continued to 4 with --resume, against an
-    uninterrupted --rounds 4: rounds 2-3 print equal losses and digests."""
+    uninterrupted --rounds 4: rounds 2-3 print equal losses and digests.
+    Returns the process's lines, as ``main`` returns them."""
     import shutil
     from repro_torch.launch import train
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "qwen2-0.5b", "--rounds", "2", "--seq-len", "1024", "--host-mesh"],
+        [sys.executable, "-c", LAUNCH_MAIN, "--arch", "qwen2-0.5b",
+         "--rounds", str(LAUNCH_TRAIN["rounds"]), "--seq-len",
+         str(LAUNCH_TRAIN["seq"]), "--local-batch",
+         str(LAUNCH_TRAIN["batch"]), "--host-mesh"],
         capture_output=True, text=True, timeout=900, env=env, cwd=ROOT)
     wall = time.perf_counter() - t0
     if out.returncode != 0:
         raise AssertionError(f"launch.train exited {out.returncode}: "
                              f"{out.stderr[-2000:]}")
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith("round ")]
-    if len(lines) != 2 or "training complete." not in out.stdout:
+    if len(lines) != LAUNCH_TRAIN["rounds"] or \
+            "training complete." not in out.stdout:
         raise AssertionError(f"launch.train printed {out.stdout[-2000:]}")
-    log(f"launcher: qwen2-0.5b, 2 rounds of T 1, H 2, 2 x 1,024 tokens, as "
-        f"a process on {smi} ({wall:.1f} s with start-up): {lines}")
+    returned = json.loads(out.stdout.splitlines()[-1])
+    log(f"launcher: qwen2-0.5b, {LAUNCH_TRAIN['rounds']} rounds of T 1, H "
+        f"2, {LAUNCH_TRAIN['batch']} x {LAUNCH_TRAIN['seq']:,} tokens, as a "
+        f"process on {smi} ({wall:.1f} s with start-up): {lines}")
     ck = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ck, ignore_errors=True)
     try:
@@ -4949,12 +4962,14 @@ def launcher_main(smi: str) -> None:
         raise AssertionError(f"resumed rounds {key} differ from the "
                              f"uninterrupted run's {full[2:]}")
     log(f"launcher: reduced, resumed at round 2 == uninterrupted: {key}")
+    return returned
 
 
 def train_main(dev, smi: str) -> tuple:
     """Phase 19: (a) the backward kernel, (b) one train step at full size,
     (c) the FL round at full width and the reduced round card == CPU, (d)
-    the launcher.  Returns the backward kernel's row and (b)'s launches."""
+    the launcher.  Returns the backward kernel's row, (b)'s launches and
+    (d)'s round lines."""
     t0 = time.perf_counter()
     row = check_attention_bwd(dev)
     torch.cuda.empty_cache()
@@ -4963,9 +4978,9 @@ def train_main(dev, smi: str) -> tuple:
     fl_round_main(dev, smi)
     torch.cuda.empty_cache()
     round_agree(dev)
-    launcher_main(smi)
+    lines = launcher_main(smi)
     log(f"train: phase 19 in {time.perf_counter() - t0:.1f} s")
-    return row, launches
+    return row, launches, lines
 
 
 # -- phase 20: LeNet's Fig. 3, and MoE / xLSTM training -------------------------
@@ -7396,6 +7411,58 @@ def mesh_seconds(dev, train_cfg, train_batch: int, train_seq: int,
     return out
 
 
+def mesh_launcher(smi: str, want: list) -> dict:
+    """Phase 23 (d): the launcher's ``main`` in this process, inside a
+    one-rank nccl group, with phase 19 (d)'s arguments: ``--host-mesh``
+    is then a ``DeviceMesh``, so the launcher runs the mesh round
+    (``fl.round.build_fl_round_cell``) at qwen2-0.5b's full width, the
+    attention kernels launched from the local regions.  Its lines against
+    ``want``, phase 19 (d)'s one-card lines (no group: ``build_fl_round``)
+    from the same weights and batches: with T 1 the merge returns the
+    bfloat16 weights unchanged and the steps are the unsharded ones, so
+    losses, digests and reputations are equal.  Returns the attention
+    kernels' launches in its rounds."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    with one_rank_group("nccl"):
+        got = train.main(["--arch", "qwen2-0.5b", "--rounds",
+                          str(LAUNCH_TRAIN["rounds"]), "--seq-len",
+                          str(LAUNCH_TRAIN["seq"]), "--local-batch",
+                          str(LAUNCH_TRAIN["batch"]), "--host-mesh"])
+    _sync(torch.device("cuda"))
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "flash_attention_bwd": fa.flash_attention_bwd.launches}
+    # each local step: a forward and its recomputation (remat), a backward
+    steps = LAUNCH_TRAIN["rounds"] * train.parse_args([]).local_steps
+    layers = get_config("qwen2-0.5b").n_layers
+    expect = {"flash_attention": 2 * layers * steps,
+              "flash_attention_bwd": layers * steps}
+
+    def key(lines):
+        return [(ln["round"], ln["loss"], ln["digest"], ln["mean_rep"])
+                for ln in lines]
+    log(f"mesh (d): the launcher on a one-rank nccl mesh (the mesh round, "
+        f"qwen2-0.5b, {LAUNCH_TRAIN['rounds']} rounds of T 1, H 2, "
+        f"{LAUNCH_TRAIN['batch']} x {LAUNCH_TRAIN['seq']:,} tokens; "
+        f"{wall:.1f} s in this process with the build): {key(got)}; round "
+        f"s {[ln['seconds'] for ln in got]} against the one-card round's "
+        f"{[ln['seconds'] for ln in want]} (phase 19 (d), as a process); "
+        f"attention launches {launches}; on {smi}")
+    if key(got) != key(want):
+        raise AssertionError(f"mesh (d): the mesh round's lines {key(got)} "
+                             f"differ from the one-card round's "
+                             f"{key(want)}")
+    if launches != expect:
+        raise AssertionError(f"mesh (d): the mesh round launched "
+                             f"{launches}, not {expect}")
+    return launches
+
+
 def mesh_dryrun_procs() -> list:
     """Start the dry runs of phase 23 (b) and (c), each in a process of
     its own (the fake backend becomes its default group): (name, Popen,
@@ -7417,12 +7484,14 @@ def mesh_dryrun_procs() -> list:
     return procs
 
 
-def mesh_main(dev, smi: str) -> dict:
+def mesh_main(dev, smi: str, launcher_lines: list) -> dict:
     """Phase 23: (a) the sharded steps on a real one-rank mesh against the
     unsharded steps; (b) the dry run of (a)'s train cell against the
-    card; (c) full-size cells no card holds, dry-run on this host.  The
-    dry runs' processes start first and run beside (a)'s checks, which
-    time nothing; (a)'s steps are timed once they have ended."""
+    card; (c) full-size cells no card holds, dry-run on this host; (d)
+    the launcher's mesh round on a one-rank mesh against phase 19 (d)'s
+    ``launcher_lines``.  The dry runs' processes start first and run
+    beside (a)'s checks, which time nothing; (a)'s steps are timed once
+    they have ended, then (d) runs."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.mesh import HBM_BYTES
     t0 = time.perf_counter()
@@ -7479,6 +7548,8 @@ def mesh_main(dev, smi: str) -> dict:
                             MESH_TRAIN["batch"], MESH_TRAIN["seq"],
                             get_config("yi-6b"), MESH_PREFILL["batch"],
                             MESH_PREFILL["seq"], MESH_DECODE_LEN)
+    torch.cuda.empty_cache()
+    launcher = mesh_launcher(smi, launcher_lines)
     torch.cuda.empty_cache()
 
     def pair(kind):
@@ -7547,13 +7618,14 @@ def mesh_main(dev, smi: str) -> dict:
             f"trace_s {rec['trace_s']}")
     wall = time.perf_counter() - t0
     log(f"mesh: phase 23 in {wall:.1f} s (limit {MESH_PHASE_S}): checks "
-        f"and dry runs {dry_s:.1f} s, then the timed steps "
-        f"{wall - dry_s:.1f} s")
+        f"and dry runs {dry_s:.1f} s, then the timed steps and the "
+        f"launcher {wall - dry_s:.1f} s")
     if wall > MESH_PHASE_S:
         raise AssertionError(f"mesh: phase 23 took {wall:.1f} s")
     return {"flash_attention": train["launches"]["flash_attention"]
-            + serve["prefill_launches"],
-            "flash_attention_bwd": train["launches"]["flash_attention_bwd"]}
+            + serve["prefill_launches"] + launcher["flash_attention"],
+            "flash_attention_bwd": train["launches"]["flash_attention_bwd"]
+            + launcher["flash_attention_bwd"]}
 
 
 def main() -> int:
@@ -7747,7 +7819,7 @@ def main() -> int:
     # counts from 0, added to the kernels line); (c) the rollup round at
     # full width, T 4, and the reduced round card == CPU; (d) the launcher
     torch.cuda.empty_cache()
-    bwd_row, train_launches = train_main(dev, smi)
+    bwd_row, train_launches, launcher_lines = train_main(dev, smi)
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
     source_rows.append(bwd_row)
 
@@ -7795,9 +7867,11 @@ def main() -> int:
     # the dry run of the train cell on a faked 1 x 1 mesh against the
     # card's peak and the real step's count; (c) full-size cells no card
     # holds (kimi-k2 train_4k on 512 cards, jamba prefill_32k, qwen2-vl
-    # decode_32k, xlstm long_500k), dry-run
+    # decode_32k, xlstm long_500k), dry-run; (d) the launcher on a
+    # one-rank nccl mesh, its mesh round's lines equal to (19 d)'s
+    # one-card lines (the attention kernels' launches added)
     torch.cuda.empty_cache()
-    mesh_launches = mesh_main(dev, smi)
+    mesh_launches = mesh_main(dev, smi, launcher_lines)
     launches["flash_attention"] += mesh_launches["flash_attention"]
     launches["flash_attention_bwd"] += mesh_launches["flash_attention_bwd"]
 

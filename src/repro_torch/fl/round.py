@@ -42,8 +42,10 @@ shards and summed over ``model``, and the T distances lie over the DP
 axes as the JAX round's ``P(dp)`` output does; the digest is the sum mod
 2^32 of every rank's mixed words (a sum, so the words' positions do not
 matter), summed over ``model``, with the seed added once.  ``stack_shape``
-gives a tree of ``meta`` tensors its trainer axis.  The trainers-in-turn
-``build_fl_round`` above stays the one-card form.
+gives a tree of ``meta`` tensors its trainer axis.  ``init_params_T``
+draws a trainer stack's weights leaf by leaf, each rank keeping only its
+own row's shards.  The trainers-in-turn ``build_fl_round`` above stays
+the one-card form.
 """
 from __future__ import annotations
 
@@ -253,6 +255,45 @@ def stack_shape(tree, n: int):
                        device="meta")
 
 
+def init_params_T(model, pspecs_T, n: int, seed: int = 0) -> Tree:
+    """``model.init_params(seed)``'s weights stacked n times, as DTensors
+    laid out by ``pspecs_T`` (``trainerify_pspecs``), whose local shards
+    are this rank's alone: the constructor draws every leaf whole on the
+    model's device, from the same generator with the same calls as
+    ``init_params``, and each leaf, as it is registered, is cut to this
+    rank's shard (``launch.steps.shard``) and the whole freed.  So the
+    gathered stack's rows equal ``init_params(seed)`` bit for bit, and a
+    rank's peak is its shards plus the leaves one constructor call draws
+    together (one MoE expert stack, ``models.moe.moe_param_draws``).
+    The leaves' registration order is read from a ``meta`` build."""
+    from torch import nn
+    from torch.nn.modules.module import \
+        register_module_parameter_registration_hook as on_register
+
+    from repro_torch.launch.steps import shard
+    seen: list = []
+    handle = on_register(lambda module, name, p: seen.append((module, name)))
+    try:
+        meta = model._mod.init_params_shape(model.cfg)
+    finally:
+        handle.remove()
+    prefix = {m: f"{n}." if n else "" for n, m in meta.named_modules()}
+    order = iter([prefix[m] + name for m, name in seen])
+    out: Tree = {}
+
+    def keep(module, name, p):
+        k = next(order)
+        out[k] = shard(model.ctx, p.detach(), pspecs_T[k], p.device, rows=n)
+        return nn.Parameter(torch.empty(0, dtype=p.dtype, device=p.device),
+                            requires_grad=False)
+    handle = on_register(keep)
+    try:
+        model.init_params(seed)
+    finally:
+        handle.remove()
+    return {k: out[k] for k, _ in meta.named_parameters()}
+
+
 def _shift(p):
     """A placement of a trainer-stacked dim's neighbour, for one row."""
     from torch.distributed.tensor import Shard
@@ -292,11 +333,13 @@ def _map(fn, *trees):
 
 
 def build_fl_round_cell(model, opt, spec: FLRoundSpec, mesh, seq_len: int,
-                        trainer_axes=None, device=None):
+                        trainer_axes=None, device=None,
+                        stand_ins: bool = True):
     """The mesh round's cell: ``Cell(step, args, model, "fl_round",
     specs)`` (``launch/steps.Cell``), its step ``fl_round(params_T, opt_T,
     scores, batches) -> (params_T, opt_T, metrics)`` over DTensors laid
-    out by ``specs`` and ``args`` their stand-ins (``stand_in``).
+    out by ``specs`` and ``args`` their stand-ins (``stand_in``; None with
+    ``stand_ins=False``, for a run that lays out real tensors).
 
     ``model`` gives the config and the weights' specs (a ``Model`` on
     ``mesh``); ``opt`` is made with its ``param_groups``.
@@ -334,7 +377,7 @@ def build_fl_round_cell(model, opt, spec: FLRoundSpec, mesh, seq_len: int,
     args = (stand_in(ctx, stack_shape(pshape, T), pspecs_T, dev),
             stand_in(ctx, stack_shape(oshape, T), ospecs_T, dev),
             stand_in(ctx, torch.empty((T,), device="meta"), P(dp), dev),
-            stand_in(ctx, batches, b_spec, dev))
+            stand_in(ctx, batches, b_spec, dev)) if stand_ins else None
 
     # a trainer's model, on its sub-mesh (the axes the trainers do not
     # take; none in the pure-DP regime): no DP axes and no FSDP

@@ -54,8 +54,8 @@ from repro_torch.analysis.model_flops import model_flops
 from repro_torch.configs.base import SHAPES, cell_is_skipped
 from repro_torch.configs.registry import ASSIGNED, get_config, get_shape
 from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, ICI_BW,
-                                     PEAK_FLOPS_BF16, make_production_mesh,
-                                     make_train_mesh)
+                                     PEAK_FLOPS_BF16, make_mesh,
+                                     make_production_mesh)
 
 #: the production meshes' world sizes, by ``--mesh`` name
 WORLD = {"single": 256, "multi": 512}
@@ -85,11 +85,7 @@ def mesh_for(kind: str, device: str, shape=None):
         for d in shape:
             n *= d
         fake_world(n)
-        if len(shape) == 3:
-            from torch.distributed.device_mesh import init_device_mesh
-            return init_device_mesh(device, tuple(shape),
-                                    mesh_dim_names=("pod", "data", "model"))
-        return make_train_mesh(*shape, device=device)
+        return make_mesh(tuple(shape), device=device)
     fake_world(WORLD[kind])
     return make_production_mesh(multi_pod=(kind == "multi"), device=device)
 

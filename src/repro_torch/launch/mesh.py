@@ -11,7 +11,8 @@
     cards) over a group of that size: the ``fake`` backend in the dry
     run (``launch/dryrun.py``), or the group ``torchrun`` set up.
     ``make_train_mesh(data, model)`` does the same over ``data x model``
-    ranks.  Either raises, naming the world size it found, where the
+    ranks, and ``make_mesh`` over a 2- or 3-axis shape (the launcher's
+    ``--mesh-shape``).  Each raises, naming the world size it found, where the
     group is missing or of another size.  The 1 x 1 meshes need no
     process group: with none initialised they are a :class:`TrainMesh`
     record of one device, as the one-card launcher runs them.
@@ -147,6 +148,18 @@ def make_train_mesh(data: int = 1, model: int = 1, *, device=None):
     if data * model == 1 and not dist.is_initialized():
         return TrainMesh({"data": 1, "model": 1}, (resolve_device(device),))
     return _device_mesh((data, model), ("data", "model"), device)
+
+
+def make_mesh(shape: Tuple[int, ...], *, device=None):
+    """``make_train_mesh(*shape)`` for (data, model), or the ``("pod",
+    "data", "model")`` mesh of (pod, data, model) over the default
+    process group (of world size ``pod x data x model``)."""
+    if len(shape) == 2:
+        return make_train_mesh(*shape, device=device)
+    if len(shape) == 3:
+        return _device_mesh(tuple(shape), PRODUCTION[True][1], device)
+    raise ValueError(f"a mesh of (data, model) or (pod, data, model), not "
+                     f"{tuple(shape)}")
 
 
 def make_host_mesh(device=None):

@@ -21,7 +21,9 @@ package's three kinds:
 ``Cell.args`` are stand-ins: each leaf a DTensor whose local shard is an
 empty tensor on the mesh's device (fake, and so never allocated, under
 ``FakeTensorMode``: the dry run, ``launch/dryrun.py``).  ``place`` lays
-real full tensors out by the same specs (a run on a real mesh).
+real full tensors out by the same specs (a run on a real mesh), scattered
+from rank 0; ``shard`` lays out a tensor every rank holds whole, each
+rank copying out its own shard (the launcher's batches and weights).
 """
 from __future__ import annotations
 
@@ -110,18 +112,58 @@ def _tree_map(fn, spec_tree, tree):
     return {k: _tree_map(fn, s, tree[k]) for k, s in spec_tree.items()}
 
 
-def stand_in(ctx, shape_tree, spec_tree, device):
+def stand_in(ctx, shape_tree, spec_tree, device, make=torch.empty):
     """A DTensor a leaf of ``shape_tree`` (tensors, e.g. on ``meta``),
     laid out by ``spec_tree`` (sanitized for each shape), its local shard
-    an empty tensor on ``device``; non-tensor leaves (a decode step's
-    ``pos``) as they are."""
+    ``make(local_shape)`` on ``device`` (empty; ``torch.zeros`` for
+    zeros); non-tensor leaves (a decode step's ``pos``) as they are."""
     def one(spec, leaf):
         if not isinstance(leaf, torch.Tensor):
             return leaf
         return ctx.distribute(
-            lambda local: torch.empty(local, dtype=leaf.dtype, device=device),
+            lambda local: make(local, dtype=leaf.dtype, device=device),
             tuple(leaf.shape), spec)
     return _tree_map(one, spec_tree, shape_tree)
+
+
+def _local_slices(mesh, placements, shape) -> tuple:
+    """This rank's slice of each dim of a tensor of global ``shape`` laid
+    out by ``placements`` on ``mesh``, in even shards (as ``MeshCtx.fit``
+    leaves them): each mesh dim that shards a tensor dim cuts what the
+    mesh dims before it left of that dim, in mesh-dim order, as DTensor
+    cuts it."""
+    from torch.distributed.tensor import Shard
+    start, size = [0] * len(shape), list(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            size[p.dim] //= mesh.size(i)
+            start[p.dim] += coord[i] * size[p.dim]
+    return tuple(slice(a, a + n) for a, n in zip(start, size))
+
+
+def shard(ctx, full, spec, device=None, *, rows=None):
+    """``full`` (a tensor or a numpy array, whole and the same on every
+    rank) as a DTensor laid out by ``spec`` (fitted to its shape): each
+    rank copies out its own shard, to ``device``, with no collective
+    (``place`` scatters from rank 0 instead).  With ``rows`` = n the
+    tensor is ``full`` stacked n times (a trainer stack of one start),
+    made without the stack."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.specs import _contiguous_strides
+    shape = tuple(full.shape) if rows is None else (rows,) + tuple(full.shape)
+    pl = ctx.placements(spec, shape)
+    idx = _local_slices(ctx.mesh, pl, shape)
+    if rows is None:
+        local = torch.as_tensor(full[idx], device=device).clone()
+    else:
+        part = torch.as_tensor(full[idx[1:]], device=device)
+        local = part.unsqueeze(0).expand(
+            (idx[0].stop - idx[0].start,) + tuple(part.shape)).clone()
+    return DTensor.from_local(local, ctx.mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_strides(shape))
 
 
 def place(ctx, tree, spec_tree):

@@ -40,18 +40,27 @@ from repro_torch.models.layers import dense_init
 from repro_torch.sharding.specs import NO_MESH, P
 
 
+def moe_param_draws(cfg, dtype: torch.dtype,
+                    generator: torch.Generator | None, device):
+    """``init_moe_params``' (name, tensor) pairs, each drawn only when it
+    is asked for: a caller that keeps a shard of each (the launcher's
+    sharded init, ``fl.round.init_params_T``) holds one expert stack
+    whole at a time."""
+    m = cfg.moe
+    d, ff, E = cfg.d_model, m.expert_d_ff, m.n_experts
+    yield "router", dense_init((d, E), torch.float32, generator, device)
+    yield "moe_wg", dense_init((E, d, ff), dtype, generator, device)
+    yield "moe_wu", dense_init((E, d, ff), dtype, generator, device)
+    yield "moe_wo", dense_init((E, ff, d), dtype, generator, device)
+
+
 def init_moe_params(cfg, dtype: torch.dtype,
                     generator: torch.Generator | None,
                     device) -> Dict[str, torch.Tensor]:
     """``router`` (d, E) float32; ``moe_wg``, ``moe_wu`` (E, d, ff) and
     ``moe_wo`` (E, ff, d) in ``dtype`` (uninitialised with no
     generator)."""
-    m = cfg.moe
-    d, ff, E = cfg.d_model, m.expert_d_ff, m.n_experts
-    return {"router": dense_init((d, E), torch.float32, generator, device),
-            "moe_wg": dense_init((E, d, ff), dtype, generator, device),
-            "moe_wu": dense_init((E, d, ff), dtype, generator, device),
-            "moe_wo": dense_init((E, ff, d), dtype, generator, device)}
+    return dict(moe_param_draws(cfg, dtype, generator, device))
 
 
 def capacity(cfg, seq_len: int) -> int:

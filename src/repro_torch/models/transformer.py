@@ -154,9 +154,10 @@ class Block(nn.Module):
             self.w_down = param(dense_init((f, d), dtype, generator, device))
         elif ffn == "moe":
             self.ln2 = param(torch.ones(d, dtype=dtype, device=device))
-            for name, t in moe_mod.init_moe_params(cfg, dtype, generator,
-                                                   device).items():
+            for name, t in moe_mod.moe_param_draws(cfg, dtype, generator,
+                                                   device):
                 setattr(self, name, param(t))
+                del t          # not held whole through the next draw
 
     def tree(self) -> Dict[str, object]:
         """The block's parameters in the JAX package's per-block layout:

@@ -127,3 +127,56 @@ def test_checkpoint_restart_bitexact(tmp_path):
         assert cont_p[k].dtype == r_p[k].dtype
         assert torch.equal(cont_p[k], r_p[k]), k
     assert torch.equal(cont_s["step"], r_s["step"])
+
+
+@pytest.fixture
+def one_rank_mesh(tmp_path):
+    """A (data, model) 1 x 1 ``DeviceMesh`` over a one-rank gloo group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cpu", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_checkpoint_roundtrip_and_refusals(tmp_path, one_rank_mesh):
+    """A tree of DTensors (and a plain leaf) saved as rank 0's shards:
+    one manifest a rank naming each leaf's global shape and placements,
+    restored as the same DTensors on the same mesh; restored with no mesh
+    it raises, and so does a single-process step restored on a mesh,
+    each naming both."""
+    import json
+
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = one_rank_mesh
+    w = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    tree = {"p": {"w": DTensor.from_local(w, mesh, (Shard(0), Replicate()),
+                                          run_check=False)},
+            "b": torch.ones(2, dtype=torch.bfloat16)}
+    ck = Checkpointer(str(tmp_path / "ck"))
+    ck.save_async(4, tree, extra={"round": 4})
+    ck.wait()
+    step_dir = tmp_path / "ck" / "step_000000004"
+    assert sorted(os.listdir(step_dir)) == ["manifest.rank00000.json"]
+    meta = json.loads((step_dir / "manifest.rank00000.json").read_text())
+    assert meta["mesh"] == {"data": 1, "model": 1} and meta["world"] == 1
+    assert meta["leaves"]["p/w"]["global_shape"] == [3, 4]
+    assert meta["leaves"]["p/w"]["placements"] == ["S(0)", "R"]
+    got, extra = ck.restore(mesh=mesh)
+    assert extra == {"round": 4}
+    assert isinstance(got["p"]["w"], DTensor)
+    assert tuple(got["p"]["w"].placements) == (Shard(0), Replicate())
+    assert torch.equal(got["p"]["w"].to_local(), w)
+    assert torch.equal(got["b"], tree["b"])
+    with pytest.raises(ValueError, match="saved on a .*'model': 1.* mesh "
+                       "of world size 1; restoring on no mesh"):
+        ck.restore()
+    plain = Checkpointer(str(tmp_path / "plain"))
+    plain.save(1, {"w": w})
+    with pytest.raises(ValueError, match="saved on no mesh; restoring on "
+                       "a .*'model': 1"):
+        plain.restore(mesh=mesh)

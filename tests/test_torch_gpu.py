@@ -59,7 +59,9 @@ the CPU; and whisper's cross attention: the attention kernels at Sq !=
 Skv in both forms (the forward's logsumexp at Sq, the backward's dk and
 dv at Skv, a causal Sq != Skv refused by the wrappers and the C
 launchers), and the reduced whisper's forward, loss, gradients and a
-decode step on the card against the CPU.
+decode step on the card against the CPU; the sharded steps on a one-rank
+mesh against the unsharded ones, and the training launcher's mesh round
+on a one-rank mesh against its one-card round.
 
 Marked ``gpu``: they skip where no CUDA device is present (the skip is
 decided in the fixture, so every worker collects the same tests).  This
@@ -1801,3 +1803,29 @@ def test_mesh_seconds_times_each_step_both_ways(cuda):
         assert len(rec["samples_s"]) == n and min(rec["samples_s"]) > 0
         assert min(rec["samples_s"]) <= rec["median_s"] \
             <= max(rec["samples_s"])
+
+
+@pytest.mark.gpu
+def test_launcher_mesh_round_on_a_one_rank_mesh_equals_the_one_card_round(
+        cuda):
+    """chip_smoke phase 23 (d) at a reduced size: the launcher's
+    ``--host-mesh`` inside a one-rank nccl group (a ``DeviceMesh``: the
+    mesh round) against the same arguments with no group (the one-card
+    round): with T 1 the merge returns the weights unchanged, so the
+    losses, digests and reputations are equal, and the attention kernels
+    launch from the mesh round's local regions."""
+    from repro_torch.launch import train
+    argv = ["--reduced", "--host-mesh", "--rounds", "2", "--seq-len", "64"]
+
+    def key(lines):
+        return [(ln["round"], ln["loss"], ln["digest"], ln["mean_rep"])
+                for ln in lines]
+    want = train.main(argv)
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    with chip_smoke.one_rank_group("nccl"):
+        got = train.main(argv)
+    torch.cuda.synchronize()
+    assert key(got) == key(want)
+    assert fa.flash_attention.launches > 0
+    assert fa.flash_attention_bwd.launches > 0

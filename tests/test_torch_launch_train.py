@@ -67,21 +67,35 @@ def test_multi_pod_and_wide_meshes_are_refused():
 
 
 @pytest.mark.parametrize("ranks", [256, 512])
-def test_launcher_refuses_the_production_mesh_it_cannot_shard(ranks):
-    # inside a group of the production mesh's size the launcher refuses,
-    # naming the sharded round it does not drive, before it builds a model
+def test_launcher_runs_the_mesh_round_on_the_production_mesh(ranks,
+                                                             monkeypatch):
+    # inside a (faked) group of the production mesh's size the launcher
+    # runs the mesh round, T = data x pod trainers, each rank's stacks one
+    # trainer row; the fake backend's collectives move no data, so the
+    # round's numbers are this rank's alone and only its shapes are held
     import torch.distributed as dist
 
     from repro_torch.launch.dryrun import fake_world
-    argv = ["--reduced", "--device", "cpu"] + (
+    argv = ["--reduced", "--device", "cpu", "--rounds", "1"] + (
         ["--multi-pod"] if ranks == 512 else [])
+    real, seen = train.MeshRound.step, []
+
+    def step(self, params_T, opt_T, scores, toks):
+        seen.append((self.spec.n_trainers, toks.shape[0],
+                     {k: (v.shape[0], v.to_local().shape[0])
+                      for k, v in params_T.items()}, scores.shape[0]))
+        return real(self, params_T, opt_T, scores, toks)
+    monkeypatch.setattr(train.MeshRound, "step", step)
     try:
         fake_world(ranks)
-        with pytest.raises(NotImplementedError,
-                           match="build_fl_round_cell"):
-            train.main(argv)
+        lines = train.main(argv)
     finally:
         dist.destroy_process_group()
+    T = ranks // 16
+    assert [ln["round"] for ln in lines] == [0] and len(seen) == 1
+    n, block, rows, scores = seen[0]
+    assert n == block == scores == T
+    assert set(rows.values()) == {(T, 1)}
 
 
 def test_synthetic_data_match_jax():
