@@ -14,8 +14,9 @@ training it (its first layer, through the ssm_scan_bwd kernel), and
 qwen2-vl's backbone on embeddings with M-RoPE (cut in depth), and
 whisper-medium's encoder-decoder at full size (served and one training
 step, its cross attention through the attention kernels at Sq != Skv),
-and the sharded steps on a one-rank mesh beside the dry run's sizing of
-cells no card holds.
+the sharded steps on a one-rank mesh beside the dry run's sizing of
+cells no card holds, and the serving launcher's mesh route, LeNet under a
+mesh and the twins of ``examples/``.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -417,6 +418,25 @@ Phases, each printing its result on a line of its own:
                qwen2-vl-72b decode_32k and xlstm-1.3b long_500k on 16 x
                16: per-card peak, fits, FLOPs, bytes, collective bytes by
                op, roofline terms, trace seconds; the phase under 150 s.
+ 24. serve mesh — (c) the twins of examples/ (quickstart,
+               serve_demo, serve_quickstart, train_multi_pod), reduced,
+               each in a process of its own on the card, each exiting 0,
+               and the quickstart once more in this process, every
+               kernel's launches in it counted from 0 (its rollup
+               round's weighted_agg and model_distance must launch),
+               beside (b) LeNet-5 built under a one-rank nccl mesh: its
+               logits, loss and accuracy on 256 images bit-equal to the
+               one-device LeNet's; then (a) launch/serve_model.py at its
+               defaults (batch 4, prompt 8, 8 tokens) with --host-mesh in
+               a one-rank nccl group, so its mesh route
+               (generate_on_mesh: weights drawn into the rank's shards,
+               DTensor decode, the argmax over the gathered vocab) for
+               yi-6b, moonshot-v1-16b-a3b and xlstm-1.3b at full width
+               and depth: tokens equal to phases 10, 13 and 14 (d)'s
+               one-card loops, gmm and slstm_scan launched from the
+               MeshCtx.local regions (counted from 0, added to the
+               kernels line); (d) tokens/s and seconds a step against
+               the one-card loops, and the phase under 150 s.
 
 Then one JSON line lists every kernel with its launches on its path, the
 card's name and power limit follow on a line of their own, and the last
@@ -2300,7 +2320,7 @@ def counted_prefill(model, params, tokens, timed_batch: int,
 
 def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
             decode=DECODE, check_dtype=None, count: bool = False,
-            cfg=None) -> dict:
+            cfg=None, loops=None) -> dict:
     """``arch`` at full width and depth, bfloat16, weights drawn on the
     card: a 64-token prompt through prefill and through 64 decode steps
     (held to each other, in ``check_dtype`` if given, with weights of that
@@ -2313,9 +2333,11 @@ def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
     prefill emits none: its decode starts from the initial state, as in
     the JAX package) and ``decode["steps"]`` decode steps; the device
     shares under the profiler; then the serve loop of
-    launch/serve_model.py at its defaults for ``arch`` (for a ``cfg`` cut
-    in depth, its ``generate`` on the cut model, at the same defaults).
-    Returns the launch counts of the prefill."""
+    launch/serve_model.py at its defaults for ``arch`` on one card
+    (``--host-mesh``; for a ``cfg`` cut in depth, its ``generate`` on the
+    cut model, at the same defaults), its record kept in ``loops[arch]``
+    where ``loops`` is given (phase 24 (a)'s reference).  Returns the
+    launch counts of the prefill."""
     import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as fa
@@ -2501,7 +2523,7 @@ def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
 
     # d. the serve loop at its defaults (batch 4, prompt 8, 8 tokens)
     if cfg.n_layers == full.n_layers:
-        served = serve_model.main(["--arch", arch])
+        loop = serve_model.main(["--arch", arch, "--host-mesh"])
     else:
         params = model.init_params(0)
         prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
@@ -2510,13 +2532,15 @@ def lm_main(dev, smi: str, arch: str = "yi-6b", prefill=PREFILL,
         t0 = time.perf_counter()
         ids = serve_model.generate(model, params, prompts, 8)
         seconds = time.perf_counter() - t0
-        served = {"tokens": ids, "seconds": seconds,
-                  "tokens_per_s": 4 * 16 / seconds}
+        loop = {"tokens": ids, "seconds": seconds,
+                "tokens_per_s": 4 * 16 / seconds}
         del params
     torch.cuda.empty_cache()
+    if loops is not None:
+        loops[arch] = loop
     log(f"{tag}: serve_model at its defaults ({arch}, batch 4, prompt 8, 8 "
-        f"tokens): {served['tokens_per_s']} tokens/s over "
-        f"{served['seconds']} s, first row {served['tokens'][0].tolist()}")
+        f"tokens): {loop['tokens_per_s']} tokens/s over "
+        f"{loop['seconds']} s, first row {loop['tokens'][0].tolist()}")
     return {name: n for name, n in launches.items() if expected[name]}
 
 
@@ -7628,6 +7652,216 @@ def mesh_main(dev, smi: str, launcher_lines: list) -> dict:
             + launcher["flash_attention_bwd"]}
 
 
+# -- phase 24: the serving launcher and LeNet on a mesh; the example twins --
+
+# (a) the serving launcher at its defaults (batch 4, prompt 8, 8 tokens) on
+# a one-rank mesh, at full width and depth
+MESH_SERVE_ARCHS = ("yi-6b", "moonshot-v1-16b-a3b", "xlstm-1.3b")
+MESH_SERVE_STEPS = 8 + 8          # the prompt's decode steps and the tokens'
+# (b) LeNet's batch (the Fig. 3 run's validation set's size)
+LENET_MESH_BATCH = 256
+# (c) the twins of examples/, reduced, each in a process of its own
+TWINS = [("quickstart", ["--steps", "3"]),
+         ("serve_demo", []),
+         ("serve_quickstart", []),
+         ("train_multi_pod", ["--host-mesh", "--reduced", "--rounds", "2"])]
+SERVE_PHASE_S = 150
+
+
+def twin_procs() -> list:
+    """Start the four twins of ``examples/`` on the card, each in a process
+    of its own (``python -m repro_torch.examples.<name>``): (name,
+    Popen)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return [(name, subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.examples.{name}", *args],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)) for name, args in TWINS]
+
+
+def twins_wait(procs, deadline: float) -> dict:
+    """Phase 24 (c): each twin's exit code 0 by ``deadline`` (a
+    ``perf_counter`` time), or the phase fails; its last line."""
+    out = {}
+    for name, proc in procs:
+        try:
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"serve mesh (c): {name} ran past the "
+                                 f"phase's limit")
+        if proc.returncode != 0:
+            raise AssertionError(f"serve mesh (c): {name} exited "
+                                 f"{proc.returncode}: {stderr[-2000:]}")
+        lines = stdout.strip().splitlines()
+        out[name] = lines[-1] if lines else ""
+    return out
+
+
+def lenet_mesh(dev, smi: str) -> None:
+    """Phase 24 (b): LeNet built under a one-rank nccl mesh (1 x 1), its
+    weights ``init_params(0)`` laid out by its specs and
+    ``LENET_MESH_BATCH`` images by ``input_pspecs``, against the
+    one-device LeNet on the card: logits, loss and accuracy bit-equal
+    (the one-rank mesh runs the one-device ops).  Needs a process
+    group."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_mnist_like
+    from repro_torch.launch.steps import shard
+    from repro_torch.models.model import build_model
+    B = LENET_MESH_BATCH
+    xs, ys = make_mnist_like(B, seed=5)
+    batch = {"images": torch.from_numpy(xs).to(dev),
+             "labels": torch.from_numpy(ys).to(dev)}
+    one = build_model(get_config("lenet5"), dev)
+    p = one.init_params(0)
+    want = (one.logits(p, batch), one.loss(p, batch),
+            one.accuracy_fn()(p, batch))
+    mesh = init_device_mesh(dev.type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+    model = build_model(get_config("lenet5"), mesh=mesh)
+    specs = model.input_pspecs(ShapeConfig("lenet_mesh", 1, B, "train"))
+    dbatch = {k: shard(model.ctx, v, specs[k], dev) for k, v in batch.items()}
+    params = model.init_params(0)
+    got = (model.logits(params, dbatch).full_tensor(),
+           model.loss(params, dbatch).full_tensor(),
+           model.accuracy_fn()(params, dbatch).full_tensor())
+    _sync(dev)
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"serve mesh (b): LeNet-5 under a one-rank nccl mesh, {B} images: "
+        f"logits {tuple(got[0].shape)}, loss {float(got[1])}, accuracy "
+        f"{float(got[2])}, bit-equal to the one-device LeNet: {equal}; on "
+        f"{smi}")
+    if not equal:
+        raise AssertionError(f"serve mesh (b): LeNet on the mesh gave loss "
+                             f"{float(got[1])} and logits off by "
+                             f"{float((got[0] - want[0]).abs().max())}")
+
+
+def quickstart_launches(smi: str) -> dict:
+    """Phase 24 (c), in this process: the quickstart twin's ``main`` (its
+    printout captured), every kernel wrapper it may reach counted from 0
+    just before it; its rollup round's ``weighted_agg`` and
+    ``model_distance`` must launch.  Returns the counts."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import model_distance as md
+    from repro_torch.kernels import weighted_agg as wa
+    wrappers = dict(serve_wrappers(), weighted_agg=wa.weighted_agg,
+                    model_distance=md.model_distance,
+                    flash_attention=fa.flash_attention,
+                    flash_attention_bwd=fa.flash_attention_bwd)
+    for fn in wrappers.values():
+        fn.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = quickstart.main(dict(TWINS)["quickstart"])
+    _sync(torch.device("cuda"))
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    log(f"serve mesh (c): the quickstart twin in this process (qwen2-0.5b "
+        f"reduced, 3 steps, the rollup round at T 2, H 2; the node API on "
+        f"2 shards): losses {got['losses']}, round digest "
+        f"0x{int(got['round']['digest']):08x}; launches {launches}; on "
+        f"{smi}")
+    if not (launches["weighted_agg"] and launches["model_distance"]):
+        raise AssertionError(f"serve mesh (c): the quickstart's round "
+                             f"launched {launches}")
+    return launches
+
+
+def serve_mesh(smi: str, loops: dict) -> dict:
+    """Phase 24 (a): ``serve_model.main`` at its defaults with
+    ``--host-mesh`` inside a one-rank nccl group (a ``DeviceMesh``: the
+    mesh route, ``generate_on_mesh``, its weights drawn leaf by leaf into
+    the rank's shards) for each of ``MESH_SERVE_ARCHS`` at full width and
+    depth, each one's ``gmm`` and ``slstm_scan`` launches counted from 0
+    just before it: its tokens equal to the one-card serve loop's of
+    phases 10, 13 and 14 (d) (``loops``), its launches those of every
+    step's MoE and sLSTM layers.  Returns the launches of all three."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import slstm_scan as ss
+    from repro_torch.launch import serve_model
+    wrappers = {"gmm": gm.gmm, "slstm_scan": ss.slstm_scan}
+    total = dict.fromkeys(wrappers, 0)
+    with one_rank_group("nccl"):
+        for arch in MESH_SERVE_ARCHS:
+            for fn in wrappers.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got = serve_model.main(["--arch", arch, "--host-mesh"])
+            _sync(torch.device("cuda"))
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in wrappers.items()}
+            per_step = lm_launches_expected(get_config(arch))
+            expect = {k: per_step[k] * MESH_SERVE_STEPS for k in wrappers}
+            want = loops[arch]
+            log(f"serve mesh (a): {arch} served by the launcher on a "
+                f"one-rank nccl mesh (batch 4, prompt 8, 8 tokens): "
+                f"{got['tokens_per_s']} tokens/s over {got['seconds']} s "
+                f"({got['seconds'] / MESH_SERVE_STEPS:.6f} s a step) "
+                f"against the one-card loop's {want['tokens_per_s']} over "
+                f"{want['seconds']} s ({want['seconds'] / MESH_SERVE_STEPS:.6f}"
+                f" s a step); {wall:.3f} s with the sharded draw; peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                f"launches {launches}; first row "
+                f"{got['tokens'][0].tolist()}; on {smi}")
+            if not np.array_equal(got["tokens"], want["tokens"]):
+                raise AssertionError(
+                    f"serve mesh (a): {arch}'s tokens on the mesh "
+                    f"{got['tokens'].tolist()} differ from the one-card "
+                    f"loop's {want['tokens'].tolist()}")
+            if launches != expect:
+                raise AssertionError(f"serve mesh (a): {arch} launched "
+                                     f"{launches}, not {expect}")
+            for k, n in launches.items():
+                total[k] += n
+            del got
+            torch.cuda.empty_cache()
+    return total
+
+
+def serve_mesh_main(dev, smi: str, loops: dict) -> dict:
+    """Phase 24: the twins start in their processes, (b) and the
+    quickstart's count in this process run beside them, (c) waits for
+    them, then (a) runs alone (its tokens/s are the
+    launcher's, with nothing else on the host); the phase under
+    ``SERVE_PHASE_S``.  Returns (a)'s launches."""
+    t0 = time.perf_counter()
+    procs = twin_procs()
+    try:
+        with one_rank_group("nccl"):
+            lenet_mesh(dev, smi)
+        quickstart_launches(smi)
+    finally:
+        twins = twins_wait(procs, t0 + SERVE_PHASE_S)
+    twins_s = time.perf_counter() - t0
+    for name, line in twins.items():
+        cmd = " ".join([f"python -m repro_torch.examples.{name}",
+                        *dict(TWINS)[name]])
+        log(f"serve mesh (c): {cmd} on the card exited 0: {line!r}")
+    torch.cuda.empty_cache()
+    launches = serve_mesh(smi, loops)
+    wall = time.perf_counter() - t0
+    log(f"serve mesh: phase 24 in {wall:.1f} s (limit {SERVE_PHASE_S}): "
+        f"LeNet and the twins {twins_s:.1f} s, the launcher's three runs "
+        f"{wall - twins_s:.1f} s; on {smi}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"serve mesh: the mesh route launched "
+                             f"{launches}")
+    if wall > SERVE_PHASE_S:
+        raise AssertionError(f"serve mesh: phase 24 took {wall:.1f} s")
+    return launches
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -7739,8 +7973,9 @@ def main() -> int:
     lm_agree(dev)
 
     # 10. yi-6b at full width and depth: prefill (launch counts from 0),
-    # decode, the serve loop
-    launches.update(lm_main(dev, smi, count=True))
+    # decode, the serve loop (its tokens kept for phase 24)
+    loops = {}
+    launches.update(lm_main(dev, smi, count=True, loops=loops))
     torch.cuda.empty_cache()
 
     # 11. the MoE and xLSTM kernels against their plain versions and bmm
@@ -7753,12 +7988,13 @@ def main() -> int:
     # 13. moonshot-v1-16b-a3b at full width and depth: prefill (launch
     # counts from 0), decode, the serve loop
     launches["gmm"] = lm_main(dev, smi, "moonshot-v1-16b-a3b", MOE_PREFILL,
-                              MOE_DECODE)["gmm"]
+                              MOE_DECODE, loops=loops)["gmm"]
     torch.cuda.empty_cache()
 
     # 14. xlstm-1.3b at full width and depth: the same
     launches["slstm_scan"] = lm_main(dev, smi, "xlstm-1.3b", XLSTM_PREFILL,
-                                     XLSTM_DECODE, "float32")["slstm_scan"]
+                                     XLSTM_DECODE, "float32",
+                                     loops=loops)["slstm_scan"]
     torch.cuda.empty_cache()
 
     # 15. the object ledger and the agent path: rollup_digest at the object
@@ -7874,6 +8110,18 @@ def main() -> int:
     mesh_launches = mesh_main(dev, smi, launcher_lines)
     launches["flash_attention"] += mesh_launches["flash_attention"]
     launches["flash_attention_bwd"] += mesh_launches["flash_attention_bwd"]
+
+    # 24. the serving launcher and LeNet on a mesh: (c) the four twins of
+    # examples/ in their processes, reduced, each exiting 0, beside (b)
+    # LeNet under a one-rank nccl mesh, bit-equal to the one-device LeNet;
+    # then (a) the launcher's --host-mesh in a one-rank nccl group (the
+    # mesh route) for yi-6b, moonshot and xlstm-1.3b at full size, its
+    # tokens equal to phases 10, 13 and 14 (d)'s, its gmm and slstm_scan
+    # launches (counted from 0) added to the kernels line; (d) its tokens/s
+    # and the phase's wall
+    torch.cuda.empty_cache()
+    for name, k in serve_mesh_main(dev, smi, loops).items():
+        launches[name] += k
 
     replaces = {"rollup_digest": "src/repro/kernels/rollup_digest.py:16",
                 "rollup_chunk_digests":

@@ -55,7 +55,7 @@ import torch
 
 from repro_torch.kernels.factory import get_kernel
 from repro_torch.kernels.rollup_digest import MASK, MIX_SEED, mix_u32
-from repro_torch.launch.steps import value_and_grad
+from repro_torch.launch.steps import init_params_sharded, value_and_grad
 from repro_torch.optim.compression import dequantize_int8, quantize_int8
 from repro_torch.sharding.specs import P, is_spec
 
@@ -258,40 +258,10 @@ def stack_shape(tree, n: int):
 def init_params_T(model, pspecs_T, n: int, seed: int = 0) -> Tree:
     """``model.init_params(seed)``'s weights stacked n times, as DTensors
     laid out by ``pspecs_T`` (``trainerify_pspecs``), whose local shards
-    are this rank's alone: the constructor draws every leaf whole on the
-    model's device, from the same generator with the same calls as
-    ``init_params``, and each leaf, as it is registered, is cut to this
-    rank's shard (``launch.steps.shard``) and the whole freed.  So the
-    gathered stack's rows equal ``init_params(seed)`` bit for bit, and a
-    rank's peak is its shards plus the leaves one constructor call draws
-    together (one MoE expert stack, ``models.moe.moe_param_draws``).
-    The leaves' registration order is read from a ``meta`` build."""
-    from torch import nn
-    from torch.nn.modules.module import \
-        register_module_parameter_registration_hook as on_register
-
-    from repro_torch.launch.steps import shard
-    seen: list = []
-    handle = on_register(lambda module, name, p: seen.append((module, name)))
-    try:
-        meta = model._mod.init_params_shape(model.cfg)
-    finally:
-        handle.remove()
-    prefix = {m: f"{n}." if n else "" for n, m in meta.named_modules()}
-    order = iter([prefix[m] + name for m, name in seen])
-    out: Tree = {}
-
-    def keep(module, name, p):
-        k = next(order)
-        out[k] = shard(model.ctx, p.detach(), pspecs_T[k], p.device, rows=n)
-        return nn.Parameter(torch.empty(0, dtype=p.dtype, device=p.device),
-                            requires_grad=False)
-    handle = on_register(keep)
-    try:
-        model.init_params(seed)
-    finally:
-        handle.remove()
-    return {k: out[k] for k, _ in meta.named_parameters()}
+    are this rank's alone (``launch.steps.init_params_sharded`` with
+    ``rows`` = n): the gathered stack's rows equal ``init_params(seed)``
+    bit for bit."""
+    return init_params_sharded(model, pspecs_T, seed, rows=n)
 
 
 def _shift(p):

@@ -19,11 +19,21 @@
 
 ``mesh_shape`` and ``mesh_device`` read either kind.  Building a mesh
 never touches a card before it is asked for one.
+
+The launchers' side (``launch/train.py``, ``launch/serve_model.py``):
+``add_mesh_args`` gives a parser ``--host-mesh``, ``--mesh-shape DxM|PxDxM``
+and ``--multi-pod`` (one of them at most), ``process_group`` starts
+``torchrun``'s group where its environment names one, and
+``mesh_from_flags`` builds the mesh the flags name: the 1 x 1 mesh, a
+mesh of that shape, or by default the production mesh.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
 import dataclasses
 import functools
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -174,3 +184,72 @@ def make_production_mesh(*, multi_pod: bool = False, device=None):
     group, which must be of that size."""
     shape, names = PRODUCTION[multi_pod]
     return _device_mesh(shape, names, device)
+
+
+# -----------------------------------------------------------------------------
+# The launchers' flags and process group
+# -----------------------------------------------------------------------------
+def _mesh_shape_arg(text: str):
+    try:
+        shape = tuple(int(n) for n in text.split("x"))
+    except ValueError:
+        shape = ()
+    if len(shape) not in (2, 3) or min(shape) < 1:
+        raise argparse.ArgumentTypeError(
+            f"{text!r}: DxM (data x model) or PxDxM (pod x data x model)")
+    return shape
+
+
+def add_mesh_args(ap: argparse.ArgumentParser) -> None:
+    """``--multi-pod``, ``--host-mesh`` and ``--mesh-shape`` on ``ap``."""
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--host-mesh", action="store_true",
+                    help="1x1 mesh (the CPU smoke mesh)")
+    ap.add_argument("--mesh-shape", type=_mesh_shape_arg, default=None,
+                    help="DxM or PxDxM: the production mesh's axes at "
+                         "another size, over the default process group")
+
+
+def check_mesh_args(ap: argparse.ArgumentParser, args) -> None:
+    """``ap.error`` where more than one flag names the mesh."""
+    if sum((args.host_mesh, args.mesh_shape is not None,
+            args.multi_pod)) > 1:
+        ap.error("--host-mesh, --mesh-shape and --multi-pod each name the "
+                 "mesh: give one")
+
+
+def mesh_from_flags(args, device=None):
+    """The mesh ``add_mesh_args``' flags name: ``make_host_mesh`` for
+    ``--host-mesh``, ``make_mesh`` for ``--mesh-shape``, otherwise
+    ``make_production_mesh`` (2 x 16 x 16 with ``--multi-pod``)."""
+    if args.host_mesh:
+        return make_host_mesh(device)
+    if args.mesh_shape is not None:
+        return make_mesh(args.mesh_shape, device=device)
+    return make_production_mesh(multi_pod=args.multi_pod, device=device)
+
+
+def rank0() -> bool:
+    """True outside a process group and on its rank 0."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+@contextlib.contextmanager
+def process_group(device=None):
+    """``torchrun``'s process group, where its environment names one
+    (``WORLD_SIZE``) and none is set up: ``nccl`` on the cards, each rank
+    on its ``LOCAL_RANK``'s, or ``gloo`` on the CPU; destroyed on
+    leaving.  Otherwise nothing: a group the caller set up stays its."""
+    import torch.distributed as dist
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        yield
+        return
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

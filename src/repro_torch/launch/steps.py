@@ -166,6 +166,46 @@ def shard(ctx, full, spec, device=None, *, rows=None):
                               stride=_contiguous_strides(shape))
 
 
+def init_params_sharded(model, pspecs, seed: int = 0, *, rows=None):
+    """``model.init_params(seed)``'s weights as DTensors laid out by
+    ``pspecs`` (``Model.params_pspecs``; with ``rows`` = n each weight
+    stacked n times, laid out by ``fl.round.trainerify_pspecs``' specs),
+    whose local shards are this rank's alone: the constructor draws every
+    leaf whole on the model's device, from the same generator with the
+    same calls as ``init_params``, and each leaf, as it is registered, is
+    cut to this rank's shard (``shard``) and the whole freed.  So the
+    gathered weights (each row of the stack) equal ``init_params(seed)``
+    bit for bit, and a rank's peak is its shards plus the leaves one
+    constructor call draws together (one MoE expert stack,
+    ``models.moe.moe_param_draws``).  The leaves' registration order is
+    read from a ``meta`` build."""
+    from torch import nn
+    from torch.nn.modules.module import \
+        register_module_parameter_registration_hook as on_register
+    seen: list = []
+    handle = on_register(lambda module, name, p: seen.append((module, name)))
+    try:
+        meta = model._mod.init_params_shape(model.cfg)
+    finally:
+        handle.remove()
+    prefix = {m: f"{n}." if n else "" for n, m in meta.named_modules()}
+    order = iter([prefix[m] + name for m, name in seen])
+    out = {}
+
+    def keep(module, name, p):
+        k = next(order)
+        out[k] = shard(model.ctx, p.detach(), pspecs[k], p.device,
+                       rows=rows)
+        return nn.Parameter(torch.empty(0, dtype=p.dtype, device=p.device),
+                            requires_grad=False)
+    handle = on_register(keep)
+    try:
+        model.init_params(seed)
+    finally:
+        handle.remove()
+    return {k: out[k] for k, _ in meta.named_parameters()}
+
+
 def place(ctx, tree, spec_tree):
     """Full tensors (on the mesh's device) laid out as DTensors by
     ``spec_tree`` (sanitized for each shape); non-tensor leaves as they

@@ -59,9 +59,7 @@ not).
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
-import os
 import time
 
 import numpy as np
@@ -71,13 +69,13 @@ from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.registry import REGISTRY, get_config, reduced_config
 from repro_torch.core.reputation import (ReputationParams, TrainerBook,
                                          end_of_task_update, init_book)
-from repro_torch.device import resolve_device
 from repro_torch.fl.round import (FLRoundSpec, build_fl_round,
                                   build_fl_round_cell, init_params_T,
                                   replicate, stack_shape)
-from repro_torch.launch.mesh import (TrainMesh, make_host_mesh, make_mesh,
-                                     make_production_mesh, mesh_device,
-                                     mesh_shape)
+from repro_torch.launch.mesh import (TrainMesh, add_mesh_args,
+                                     check_mesh_args, mesh_device,
+                                     mesh_from_flags, mesh_shape,
+                                     process_group, rank0)
 from repro_torch.launch.steps import shard, stand_in
 from repro_torch.models.model import build_model
 from repro_torch.optim.optimizers import (OptimizerSpec, make_optimizer,
@@ -88,17 +86,6 @@ from repro_torch.runtime.fault_tolerance import (HeartbeatRegistry,
 DATA_SEED = 17
 
 
-def _mesh_shape_arg(text: str):
-    try:
-        shape = tuple(int(n) for n in text.split("x"))
-    except ValueError:
-        shape = ()
-    if len(shape) not in (2, 3) or min(shape) < 1:
-        raise argparse.ArgumentTypeError(
-            f"{text!r}: DxM (data x model) or PxDxM (pod x data x model)")
-    return shape
-
-
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b", choices=sorted(REGISTRY))
@@ -106,12 +93,7 @@ def parse_args(argv=None):
     ap.add_argument("--local-steps", type=int, default=2)
     ap.add_argument("--local-batch", type=int, default=2)
     ap.add_argument("--seq-len", type=int, default=16)
-    ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--host-mesh", action="store_true",
-                    help="1x1 mesh (the CPU smoke mesh)")
-    ap.add_argument("--mesh-shape", type=_mesh_shape_arg, default=None,
-                    help="DxM or PxDxM: the production mesh's axes at "
-                         "another size, over the default process group")
+    add_mesh_args(ap)
     ap.add_argument("--reduced", action="store_true",
                     help="reduced same-family config")
     ap.add_argument("--layers", type=int, default=None,
@@ -122,10 +104,7 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if sum((args.host_mesh, args.mesh_shape is not None,
-            args.multi_pod)) > 1:
-        ap.error("--host-mesh, --mesh-shape and --multi-pod each name the "
-                 "mesh: give one")
+    check_mesh_args(ap, args)
     return args
 
 
@@ -133,31 +112,6 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
-
-
-def _rank0() -> bool:
-    import torch.distributed as dist
-    return not dist.is_initialized() or dist.get_rank() == 0
-
-
-@contextlib.contextmanager
-def process_group(device=None):
-    """``torchrun``'s process group, where its environment names one
-    (``WORLD_SIZE``) and none is set up: ``nccl`` on the cards, each rank
-    on its ``LOCAL_RANK``'s, or ``gloo`` on the CPU; destroyed on
-    leaving.  Otherwise nothing: a group the caller set up stays its."""
-    import torch.distributed as dist
-    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
-        yield
-        return
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
-    try:
-        yield
-    finally:
-        dist.destroy_process_group()
 
 
 class OneCardRound:
@@ -244,7 +198,7 @@ def run_rounds(fl, *, rounds: int, seq_len: int, ck=None,
     rp = ReputationParams()
     registry = HeartbeatRegistry()
     deadline = RoundDeadline()
-    say = print if _rank0() else (lambda *a, **kw: None)
+    say = print if rank0() else (lambda *a, **kw: None)
 
     start_round = 0
     if ck is not None and resume and ck.latest_step() is not None:
@@ -319,13 +273,7 @@ def main(argv=None) -> list:
     cfg = dataclasses.replace(cfg, optimizer=opt_spec.name)
 
     with process_group(args.device):
-        if args.host_mesh:
-            mesh = make_host_mesh(args.device)
-        elif args.mesh_shape is not None:
-            mesh = make_mesh(args.mesh_shape, device=args.device)
-        else:
-            mesh = make_production_mesh(multi_pod=args.multi_pod,
-                                        device=args.device)
+        mesh = mesh_from_flags(args, args.device)
         sizes = mesh_shape(mesh)
         dev = mesh_device(mesh)
         one_card = isinstance(mesh, TrainMesh)

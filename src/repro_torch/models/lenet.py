@@ -18,6 +18,18 @@ leaves, so a draw per sorted key lands on the same leaf in both packages;
 parameters vmap.  ``params_from_numpy`` / ``params_to_numpy`` carry the
 JAX package's nested parameters across as numpy arrays.
 
+``LeNet(cfg, device, mesh=mesh)`` takes a ``DeviceMesh`` (``launch/
+mesh.py``) and carries it in ``self.ctx`` (``sharding.specs.MeshCtx``), as
+``models.model.Model`` does: ``init_params`` then lays the host draw out
+as DTensors by ``params_pspecs`` (the specs' fallback, the JAX package's:
+the 2-D dense weights over (fsdp, tp), which lenet5's policy turns off,
+so every weight lies whole on every rank) and the steps take DTensor
+batches laid out by ``input_pspecs`` (images and labels over the DP
+axes).  The convolutions and pools run in a ``MeshCtx.local`` region on
+each rank's rows; the dense layers, the loss and the accuracy run on the
+DTensors as they are.  With no mesh the region calls its function and
+the same ops run on whole tensors.
+
 The convolutions, pools and dense layers are library calls: the JAX
 package computes them in ``lax.conv_general_dilated`` and jnp, outside any
 Pallas kernel.  cuDNN runs a float32 convolution in TF32 unless told
@@ -34,8 +46,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import truncated_normal_init
+from repro_torch.sharding.specs import MeshCtx, P, params_pspec_tree
 
 Params = Dict[str, torch.Tensor]
 
@@ -83,22 +97,38 @@ def _pool(x: torch.Tensor) -> torch.Tensor:
     return F.avg_pool2d(x, 2)
 
 
-class LeNet(nn.Module):
-    """LeNet-5 on ``device`` (the card unless named)."""
+def _features(images, c1w, c1b, c2w, c2b):
+    """The convolutions and pools: images (B, 32, 32, 1) NHWC -> the
+    pooled map flattened in (H, W, C) order, (B, 400)."""
+    x = images.permute(0, 3, 1, 2)
+    with fp32_convolutions():
+        for w, b in ((c1w, c1b), (c2w, c2b)):
+            y = F.conv2d(x, w.permute(3, 2, 0, 1))
+            x = _pool(torch.tanh(y + b[:, None, None]))
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
-    def __init__(self, cfg=None, device=None):
+
+class LeNet(nn.Module):
+    """LeNet-5 on ``device`` (the card unless named; under a ``mesh``, the
+    mesh's device)."""
+
+    def __init__(self, cfg=None, device=None, *, mesh=None):
         super().__init__()
         if cfg is None:
             from repro_torch.configs.registry import get_config
             cfg = get_config("lenet5")
         self.cfg = cfg
+        if mesh is not None and device is None:
+            from repro_torch.launch.mesh import mesh_device
+            device = mesh_device(mesh)
+        self.ctx = MeshCtx(mesh, cfg.sharding)
         dev = resolve_device(device)
         for name, (w_shape, width) in LAYERS.items():
             layer = nn.Module()
             layer.w = nn.Parameter(torch.zeros(w_shape, device=dev))
             layer.b = nn.Parameter(torch.zeros(width, device=dev))
             self.add_module(name, layer)
-        self.load_params(self.init_params(0))
+        self.load_params(self._draw(0))
 
     @property
     def device(self) -> torch.device:
@@ -106,22 +136,16 @@ class LeNet(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """images (B, 32, 32, 1) NHWC -> logits (B, 10)."""
-        x = images.permute(0, 3, 1, 2)
-        with fp32_convolutions():
-            for conv in (self.conv1, self.conv2):
-                y = F.conv2d(x, conv.w.permute(3, 2, 0, 1))
-                x = _pool(torch.tanh(y + conv.b[:, None, None]))
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        rows = self.ctx.fit(P(self.ctx.dp_axes or None), images.shape[:1])
+        x = self.ctx.local(_features, (P(*rows, None, None, None),)
+                           + (P(),) * 4, P(*rows, None))(
+            images, self.conv1.w, self.conv1.b, self.conv2.w, self.conv2.b)
         x = torch.tanh(x @ self.fc1.w + self.fc1.b)
         x = torch.tanh(x @ self.fc2.w + self.fc2.b)
         return x @ self.fc3.w + self.fc3.b
 
-    def init_params(self, seed: int) -> Params:
-        """The JAX package's init: each weight a standard normal cut at
-        +-2 times fan_in^-1/2 (fan_in its second-to-last axis, as
-        ``dense_init`` takes it), zero biases.  Drawn on the host from a
-        ``torch.Generator`` seeded with ``seed`` and moved to the model's
-        device, so the card and the CPU start from the same values."""
+    def _draw(self, seed: int) -> Params:
+        """``init_params``' weights, whole, on the model's device."""
         g = torch.Generator().manual_seed(int(seed))
         host = {}
         for name, (w_shape, width) in LAYERS.items():
@@ -130,16 +154,54 @@ class LeNet(nn.Module):
                 w_shape, w_shape[-2] ** -0.5, torch.float32, g, "cpu")
         return {k: host[k].to(self.device) for k in sorted(host)}
 
+    def init_params(self, seed: int) -> Params:
+        """The JAX package's init: each weight a standard normal cut at
+        +-2 times fan_in^-1/2 (fan_in its second-to-last axis, as
+        ``dense_init`` takes it), zero biases.  Drawn on the host from a
+        ``torch.Generator`` seeded with ``seed`` and moved to the model's
+        device, so the card and the CPU start from the same values; under
+        a mesh each laid out by ``params_pspecs`` (``launch.steps.
+        shard``: each rank keeps its own shard)."""
+        params = self._draw(seed)
+        if self.ctx.mesh is None:
+            return params
+        from repro_torch.launch.steps import shard
+        specs = self.params_pspecs()
+        return {k: shard(self.ctx, v, specs[k], self.device)
+                for k, v in params.items()}
+
+    def params_shape(self) -> Params:
+        """The weights as ``meta`` tensors, keyed as ``init_params``."""
+        return {f"{name}.{leaf}": torch.empty(
+            shape if leaf == "w" else (width,), device="meta")
+            for name, (shape, width) in sorted(LAYERS.items())
+            for leaf in ("b", "w")}
+
+    def params_pspecs(self) -> dict:
+        """Each weight's partition spec (``sharding.specs.
+        params_pspec_tree``: the JAX specs' fallback)."""
+        return params_pspec_tree(self.ctx, self.params_shape())
+
+    def input_pspecs(self, shape: ShapeConfig) -> dict:
+        """The partition specs of a batch of ``shape`` (the JAX facade's
+        conv branch): images (B, 32, 32, 1) and labels (B,) over the DP
+        axes."""
+        dp = self.ctx.dp_axes or None
+        return {"images": P(dp, None, None, None), "labels": P(dp)}
+
     @torch.no_grad()
     def load_params(self, params: Params) -> None:
+        """Copies whole tensors into the module's own weights."""
         for key, value in params.items():
             self.get_parameter(key).copy_(value)
 
     def logits(self, p: Params, batch) -> torch.Tensor:
         return torch.func.functional_call(self, p, (batch["images"],))
 
-    def loss(self, p: Params, batch) -> torch.Tensor:
-        """Mean cross entropy, in float32 (the JAX package's loss_fn)."""
+    def loss(self, p: Params, batch, remat=None) -> torch.Tensor:
+        """Mean cross entropy, in float32 (the JAX package's loss_fn,
+        which takes and ignores ``remat`` too, so that
+        ``launch.steps.build_train_step`` drives either model)."""
         lo = self.logits(p, batch).to(torch.float32)
         lse = torch.logsumexp(lo, dim=-1)
         ll = torch.gather(lo, -1, batch["labels"].to(torch.int64)[:, None]

@@ -40,7 +40,8 @@ The conv family (``lenet5``, the paper's FL workload) is the JAX facade's
 ``lenet`` branch: ``build_model`` returns a ``models.lenet.LeNet``, which
 has the interface the FL protocol takes (``models.mlp.TinyMLP``'s:
 ``init_params(seed)``, ``loss(params, batch)``, ``accuracy_fn()``, flat
-parameter dicts) rather than this class's.
+parameter dicts) rather than this class's; under a mesh it holds a
+``MeshCtx`` as this class does.
 """
 from __future__ import annotations
 
@@ -211,7 +212,5 @@ def build_model(cfg: ModelConfig, device=None, *, mesh=None):
     ``mesh``, the mesh's device): a ``LeNet`` for the conv family, a
     ``Model`` otherwise."""
     if cfg.family == "conv":
-        if mesh is not None:
-            raise NotImplementedError("the conv family runs on one device")
-        return lenet.LeNet(cfg, device)
+        return lenet.LeNet(cfg, device, mesh=mesh)
     return Model(cfg, device, mesh=mesh)

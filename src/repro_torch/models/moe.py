@@ -43,9 +43,9 @@ from repro_torch.sharding.specs import NO_MESH, P
 def moe_param_draws(cfg, dtype: torch.dtype,
                     generator: torch.Generator | None, device):
     """``init_moe_params``' (name, tensor) pairs, each drawn only when it
-    is asked for: a caller that keeps a shard of each (the launcher's
-    sharded init, ``fl.round.init_params_T``) holds one expert stack
-    whole at a time."""
+    is asked for: a caller that keeps a shard of each (the launchers'
+    sharded init, ``launch.steps.init_params_sharded``) holds one expert
+    stack whole at a time."""
     m = cfg.moe
     d, ff, E = cfg.d_model, m.expert_d_ff, m.n_experts
     yield "router", dense_init((d, E), torch.float32, generator, device)

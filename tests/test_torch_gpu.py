@@ -60,8 +60,10 @@ Skv in both forms (the forward's logsumexp at Sq, the backward's dk and
 dv at Skv, a causal Sq != Skv refused by the wrappers and the C
 launchers), and the reduced whisper's forward, loss, gradients and a
 decode step on the card against the CPU; the sharded steps on a one-rank
-mesh against the unsharded ones, and the training launcher's mesh round
-on a one-rank mesh against its one-card round.
+mesh against the unsharded ones, the training launcher's mesh round
+on a one-rank mesh against its one-card round, the serving launcher's
+mesh route on a one-rank mesh against its one-card ``generate``, and
+LeNet under a one-rank mesh against the one-device LeNet.
 
 Marked ``gpu``: they skip where no CUDA device is present (the skip is
 decided in the fixture, so every worker collects the same tests).  This
@@ -1829,3 +1831,36 @@ def test_launcher_mesh_round_on_a_one_rank_mesh_equals_the_one_card_round(
     assert key(got) == key(want)
     assert fa.flash_attention.launches > 0
     assert fa.flash_attention_bwd.launches > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["yi-6b", "moonshot-v1-16b-a3b",
+                                  "xlstm-1.3b"])
+def test_serve_launcher_on_a_one_rank_mesh_equals_one_card(cuda, arch):
+    """chip_smoke phase 24 (a) at a reduced size: the serving launcher's
+    ``--host-mesh`` inside a one-rank nccl group (a ``DeviceMesh``:
+    ``generate_on_mesh``) against the same arguments with no group (the
+    one-card ``generate``): the one-rank mesh runs the one-card ops, so
+    the tokens are equal; the MoE's ``gmm`` and the sLSTM's
+    ``slstm_scan`` launch from the mesh route's local regions."""
+    from repro_torch.launch import serve_model
+    argv = ["--host-mesh", "--reduced", "--arch", arch]
+    want = serve_model.main(argv)["tokens"]
+    gm.gmm.launches = ss.slstm_scan.launches = 0
+    with chip_smoke.one_rank_group("nccl"):
+        got = serve_model.main(argv)["tokens"]
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, want)
+    if arch.startswith("moonshot"):
+        assert gm.gmm.launches > 0
+    if arch.startswith("xlstm"):
+        assert ss.slstm_scan.launches > 0
+
+
+@pytest.mark.gpu
+def test_lenet_on_a_one_rank_mesh_equals_one_device(cuda):
+    """chip_smoke phase 24 (b): LeNet under a one-rank nccl mesh, its
+    logits, loss and accuracy bit-equal to the one-device LeNet (it
+    raises where they are not)."""
+    with chip_smoke.one_rank_group("nccl"):
+        chip_smoke.lenet_mesh(cuda, torch.cuda.get_device_name(0))

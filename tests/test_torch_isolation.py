@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package (the
 rollup node path, the sharded fabric, the FL protocol path with its object
 stack and agents, the token-LM serving path with whisper's
-encoder-decoder, the node service and the token-LM training path with
-its launcher all run without them), and its
+encoder-decoder, the node service, the token-LM training path with
+its launcher, the twins of ``examples/`` and the serving launcher's and
+LeNet's mesh route all run without them), and its
 entry points run on the CUDA card unless the caller names the CPU.  The
 node service keeps every ledger op on the event loop's
 thread: no file of ``repro_torch/serve`` hands work to a thread."""
@@ -24,6 +25,8 @@ from repro_torch.core.storage import BlobStore
 from repro_torch.configs.registry import get_config, reduced_config
 from repro_torch.core.workloads import make_workload
 from repro_torch.device import resolve_device
+from repro_torch.examples import (quickstart, serve_demo, serve_quickstart,
+                                  train_multi_pod)
 from repro_torch.fl.client import ClientConfig, TrainingAgent
 from repro_torch.fl.cohort import VectorCohort
 from repro_torch.fl.scheduler import Scheduler
@@ -180,7 +183,8 @@ for kv in ("k", "v"):
 logits, state = model.decode(params, state, {"tokens": tokens[:, :1],
                                              "pos": 9})
 assert torch.isfinite(logits).all()
-out = serve_model.main(["--reduced", "--device", "cpu", "--tokens", "3"])
+out = serve_model.main(["--reduced", "--device", "cpu", "--host-mesh",
+                        "--tokens", "3"])
 assert out["tokens"].shape == (4, 3)
 # the MoE and xLSTM stacks: prefill, one decode step, the serve loop
 for arch in ("moonshot-v1-16b-a3b", "xlstm-1.3b"):
@@ -195,7 +199,7 @@ for arch in ("moonshot-v1-16b-a3b", "xlstm-1.3b"):
                                                  "pos": 0})
     assert torch.isfinite(logits).all()
     out = serve_model.main(["--arch", arch, "--reduced", "--device", "cpu",
-                            "--tokens", "3"])
+                            "--host-mesh", "--tokens", "3"])
     assert out["tokens"].shape == (4, 3)
 # whisper's encoder-decoder (the audio family): prefill, the cross K / V
 # filled from the encoder, one decode step, one train step's gradients
@@ -295,6 +299,39 @@ print("FOREIGN", bad)
 """
 
 
+_EXAMPLES = """
+import sys, tempfile
+import torch
+import torch.distributed as dist
+from repro_torch.configs.registry import get_config
+from repro_torch.examples import (quickstart, serve_demo, serve_quickstart,
+                                  train_multi_pod)
+from repro_torch.launch import serve_model
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.model import build_model
+cpu = ["--device", "cpu"]
+assert len(quickstart.main(cpu + ["--steps", "1"])["losses"]) == 1
+assert serve_demo.main(cpu + ["--tokens", "2"]).shape == (4, 2)
+assert serve_quickstart.main(cpu)["metrics"]["admitted"] == 6
+assert len(train_multi_pod.main(cpu + ["--host-mesh", "--reduced",
+                                       "--rounds", "1"])) == 1
+# the mesh route: the serving launcher and LeNet on a one-rank gloo mesh
+with tempfile.TemporaryDirectory() as d:
+    dist.init_process_group("gloo", init_method=f"file://{d}/pg", rank=0,
+                            world_size=1)
+    out = serve_model.main(["--reduced", "--device", "cpu", "--host-mesh",
+                            "--tokens", "2"])
+    assert out["tokens"].shape == (4, 2)
+    lenet = build_model(get_config("lenet5"), mesh=make_host_mesh("cpu"))
+    assert lenet.ctx.mesh is not None and lenet.init_params(0)
+    dist.destroy_process_group()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print("FOREIGN", bad)
+"""
+
+
 def _run_alone(code: str) -> None:
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
            "OMP_NUM_THREADS": "1"}
@@ -322,6 +359,10 @@ def test_node_service_runs_without_jax_or_repro():
 
 def test_training_runs_without_jax_or_repro():
     _run_alone(_TRAIN)
+
+
+def test_examples_and_mesh_route_run_without_jax_or_repro():
+    _run_alone(_EXAMPLES)
 
 
 _THREADS = re.compile(r"to_thread|run_in_executor|threading")
@@ -405,6 +446,10 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
                  lambda: transformer.init_params(cfg, torch.Generator()),
                  lambda: transformer.init_decode_state(cfg, 2, 8),
                  lambda: serve_model.main(["--reduced"]),
+                 lambda: quickstart.main([]),
+                 lambda: serve_demo.main([]),
+                 lambda: serve_quickstart.main([]),
+                 lambda: train_multi_pod.main(["--reduced"]),
                  lambda: train.main(["--reduced"]),
                  lambda: make_production_mesh(),
                  lambda: Prefetcher(iter([]))):

@@ -7,6 +7,12 @@ Tolerance: logits, loss and gradients within rtol 1e-5 / atol 1e-6 of the
 largest value.  Both sides compute in float32, the convolutions' and the
 dense layers' sums in other orders (XLA's ``conv_general_dilated`` against
 ``F.conv2d``), which moves a value by a few float32 steps.
+
+Under a mesh (``build_model(cfg, mesh=...)``): the weights' and the
+batch's specs equal the JAX facade's; on a one-rank gloo mesh the
+logits, loss, gradients and accuracy are bit-equal to the one-device
+LeNet's, and on a 2 x 2 mesh of four gloo ranks within the tolerance
+``test_lenet_under_a_mesh_equals_one_device`` states.
 """
 import jax
 import jax.numpy as jnp
@@ -183,3 +189,138 @@ def test_entry_points_need_a_card_by_default(monkeypatch):
                  lambda: fl_mnist.main(["--tasks", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+# -- under a mesh --------------------------------------------------------------
+def _mesh_rank(rank, world, d, shape, out):
+    """LeNet built under a ``shape`` mesh of ``world`` gloo ranks: its
+    logits, loss, gradients and accuracy on the ``world`` fixture's batch
+    (laid out by ``input_pspecs``), gathered, and its weights' layout."""
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import shard
+    dist.init_process_group("gloo", init_method=f"file://{d}/pg", rank=rank,
+                            world_size=world)
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    model = build_model(get_config("lenet5"), mesh=mesh)
+    params = model.init_params(0)
+    xs, ys = make_mnist_like(24, seed=5)
+    specs = model.input_pspecs(ShapeConfig("lenet", 1, 24, "train"))
+    batch = {k: shard(model.ctx, torch.from_numpy(v), specs[k], "cpu")
+             for k, v in (("images", xs), ("labels", ys))}
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = model.loss(leaves, batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    res = {"logits": model.logits(params, batch).full_tensor(),
+           "loss": loss.detach().full_tensor(),
+           "grads": {k: g.full_tensor() for k, g in zip(leaves, grads)},
+           "accuracy": model.accuracy_fn()(params, batch).full_tensor(),
+           "params": {k: v.full_tensor() for k, v in params.items()},
+           "placements": {k: tuple(v.placements)
+                          for k, v in params.items()},
+           "batch": tuple(batch["images"].placements),
+           "device": model.device, "ctx": model.ctx.mesh is mesh}
+    if rank == 0:
+        torch.save(res, out)
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    """One rank on a 1 x 1 mesh, and four on 2 x 2."""
+    import torch.multiprocessing as mp
+    out = {}
+    for shape in ((1, 1), (2, 2)):
+        d = tmp_path_factory.mktemp("lenet_mesh")
+        world = shape[0] * shape[1]
+        mp.start_processes(_mesh_rank, args=(world, str(d), shape,
+                                             str(d / "r.pt")),
+                           nprocs=world, start_method="spawn")
+        out[shape] = torch.load(d / "r.pt", weights_only=False)
+    return out
+
+
+@pytest.fixture(scope="module")
+def one_device():
+    """The one-device LeNet's logits, loss, gradients and accuracy at
+    ``init_params(0)`` on the mesh runs' batch."""
+    model = build_model(get_config("lenet5"), "cpu")
+    params = model.init_params(0)
+    xs, ys = make_mnist_like(24, seed=5)
+    batch = {"images": torch.from_numpy(xs), "labels": torch.from_numpy(ys)}
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = model.loss(leaves, batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return {"logits": model.logits(params, batch), "loss": loss.detach(),
+            "grads": dict(zip(leaves, grads)),
+            "accuracy": model.accuracy_fn()(params, batch),
+            "params": params}
+
+
+def test_build_model_builds_lenet_under_a_mesh(mesh_runs):
+    """No refusal: a LeNet holding the mesh, on the mesh's device, its
+    weights the one-device draw laid out by the specs' fallback (lenet5's
+    policy turns FSDP and TP off, so all of them lie whole on every rank)
+    and the batch over ``data``."""
+    from torch.distributed.tensor import Replicate, Shard
+    for shape, r in mesh_runs.items():
+        assert r["ctx"] and r["device"] == torch.device("cpu")
+        assert set(r["placements"].values()) == {(Replicate(),
+                                                  Replicate())}
+        assert r["batch"] == ((Shard(0) if shape[0] > 1 else Replicate()),
+                              Replicate())
+
+
+def test_lenet_specs_are_the_jax_specs():
+    """On the production mesh (axis names and sizes: both packages' rules
+    read nothing else) each weight's spec and the batch's equal the JAX
+    facade's."""
+    from repro.configs.base import ShapeConfig as JShape
+    from repro.models.model import Model as JModel
+    from repro_torch.configs.base import ShapeConfig
+
+    class StandInMesh:
+        axis_names = ("data", "model")
+        shape = {"data": 16, "model": 16}
+    model = build_model(get_config("lenet5"), "cpu", mesh=StandInMesh())
+    jm = JModel(jax_config("lenet5"), StandInMesh())
+    want = jm.params_pspecs()
+    got = model.params_pspecs()
+    assert sorted(got) == LEAVES
+    for k, spec in got.items():
+        layer, leaf = k.split(".")
+        assert tuple(spec) == tuple(want[layer][leaf]), k
+    assert {k: tuple(v) for k, v in model.input_pspecs(
+        ShapeConfig("b", 1, 32, "train")).items()} == {
+        k: tuple(v) for k, v in jm.input_pspecs(
+            JShape("b", 1, 32, "train")).items()}
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)], ids=["1x1", "2x2"])
+def test_lenet_under_a_mesh_equals_one_device(mesh_runs, one_device, shape):
+    """One rank: logits, loss, gradients and accuracy bit-equal to the
+    one-device LeNet.  Four (2 x 2): the rows' logits bit-equal (each
+    rank runs the one-device ops on its 12 rows); the loss within rtol
+    1e-6 and the gradients within rtol 1e-5 / atol 1e-5 of the largest
+    value: their sums over the batch (a convolution's over 24 x 28 x 28
+    positions) now run in two shards and an all-reduce (3.5e-6 of the
+    largest value for ``conv1.w``'s, the farthest)."""
+    got, want = mesh_runs[shape], one_device
+    for k, v in want["params"].items():
+        assert torch.equal(got["params"][k], v), k
+    assert torch.equal(got["logits"], want["logits"])
+    assert torch.equal(got["accuracy"], want["accuracy"])
+    if shape == (1, 1):
+        assert torch.equal(got["loss"], want["loss"])
+        for k, g in want["grads"].items():
+            assert torch.equal(got["grads"][k], g), k
+        return
+    torch.testing.assert_close(got["loss"], want["loss"], rtol=1e-6,
+                               atol=0.0)
+    for k, g in want["grads"].items():
+        torch.testing.assert_close(
+            got["grads"][k], g, rtol=1e-5,
+            atol=1e-5 * max(float(g.abs().max()), 1e-30), msg=k)

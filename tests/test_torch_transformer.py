@@ -221,8 +221,9 @@ def test_generate_matches_jax_serve_loop(arch):
 
 
 def test_serve_model_main_on_cpu(capsys):
-    out = serve_model.main(["--reduced", "--device", "cpu", "--batch", "2",
-                            "--prompt-len", "3", "--tokens", "4"])
+    out = serve_model.main(["--reduced", "--device", "cpu", "--host-mesh",
+                            "--batch", "2", "--prompt-len", "3",
+                            "--tokens", "4"])
     assert out["tokens"].shape == (2, 4) and out["tokens_per_s"] > 0
     assert "served 2 x 7 steps" in capsys.readouterr().out
 
